@@ -1,0 +1,10 @@
+"""PyTorch and CUDA port of the GBA reproduction, for NVIDIA Hopper.
+
+A package beside the JAX package ``repro``, with its layout and public
+names.  It imports ``torch``, ``numpy`` and the standard library only;
+every TPU kernel on a ported path is a hand-written CUDA kernel under
+``kernels/csrc/``, built at first launch.  Entry points run on
+``device="cuda"`` unless the caller passes ``device="cpu"``.
+
+Ported so far: the recsys scoring path (``repro_torch.serving``).
+"""

@@ -1,0 +1,79 @@
+"""Package rules of the PyTorch port.
+
+* Importing ``repro_torch`` and its serving, embeddings and kernel modules
+  loads no JAX.
+* No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
+  JAX package ``repro``.
+* Entry points default to ``device="cuda"`` and raise on a machine without
+  a card instead of running on the CPU.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.convert import params_from_jax
+from repro_torch.serving import (RecsysScoringEngine, StaticSource,
+                                 init_scoring_params)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\.|\s|$|,)|from\s+(jax|repro)(\.|\s))",
+    re.MULTILINE)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.serving, "
+            "repro_torch.embeddings, repro_torch.kernels.ops, "
+            "repro_torch.convert, repro_torch.checkpoint; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_port_sources(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports the JAX side: {hits}"
+
+
+def test_forbidden_import_pattern():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                "from repro.kernels import ops", "import repro.serving",
+                "  from repro import serving"):
+        assert FORBIDDEN.search(bad), bad
+    for fine in ("import repro_torch", "from repro_torch.kernels import ops",
+                 "import numpy", "# the JAX package repro.serving"):
+        assert not FORBIDDEN.search(fine), fine
+
+
+@pytest.mark.parametrize("entry", ["init_scoring_params", "engine",
+                                   "from_checkpoint", "params_from_jax"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(
+        entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    gen = torch.Generator().manual_seed(0)
+    params = init_scoring_params(64, 8, generator=gen, device="cpu")
+    calls = {
+        "init_scoring_params": lambda: init_scoring_params(64, 8,
+                                                           generator=gen),
+        "engine": lambda: RecsysScoringEngine(StaticSource(params)),
+        "from_checkpoint": lambda: StaticSource.from_checkpoint(
+            str(tmp_path / "missing.npz")),
+        "params_from_jax": lambda: params_from_jax({"w": [1.0]}),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
