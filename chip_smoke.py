@@ -1,32 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's recsys scoring path on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
-Runs the paper-scale serving configuration of
-``benchmarks/bench_tab52_qps.py`` (an embedding table of 1,000,000 x 64
-f32 rows, a 64 -> 64 -> 32 -> 1 tower, a 4096-row hot-ID cache, Zipf(1.2)
-requests of (8, 16) raw ids over a 512-id hot pool, live sync of 2
-coalesced publishes touching 16 rows each every 8 batches) through
-``repro_torch`` alone, with random weights from a seed:
+Runs, through ``repro_torch`` alone and with random weights from a seed:
+
+* the recsys scoring path at the paper-scale serving configuration of
+  ``benchmarks/bench_tab52_qps.py`` (an embedding table of 1,000,000 x 64
+  f32 rows, a 64 -> 64 -> 32 -> 1 tower, a 4096-row hot-ID cache, Zipf(1.2)
+  requests of (8, 16) raw ids over a 512-id hot pool, live sync of 2
+  coalesced publishes touching 16 rows each every 8 batches);
+* the GBA replay trainer as ``examples/quickstart.py`` runs it, at the full
+  width of ``CRITEO_DEEPFM`` (100,003 x 16 embeddings, 26 fields, MLP
+  416 -> 256 -> 128 -> 64 -> 1; 16 workers at local batch 128, M = 16,
+  iota 4, 256 batches a day, Adam at lr 1e-3, 4 days);
+* the sparse-module smoke of ``repro_torch.launch.train`` at V = 1,000,000,
+  D = 16, batch 4, 5 steps.
+
+Phases:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a and
    print each kernel's registers, shared memory and spills;
-3. each kernel against its plain PyTorch version on the card;
+3. each kernel against its plain PyTorch version on the card
+   (``embedding_bag_grad`` against its plain version on a CPU copy, bit
+   for bit);
 4. serving from a static source: cache hits launch nothing, and a
    cache-less engine gives bit-identical scores through the kernel;
 5. serving from a live source: bit-identical to a fresh engine at every
    sync;
 6. a checkpoint round trip scores bit-identically;
-7. timing: each kernel, its plain version and the PyTorch library call
-   with CUDA events, and the engine's score latency;
-8. one JSON line of the kernels, then the result line.
+7. the replay trainer: the card against the CPU on the quickstart's first
+   4 global steps and on a hand-made stale schedule, then the quickstart's
+   4 days, then a profile of its device idle share;
+8. the sparse smoke, each step's gradient checked against the plain
+   version;
+9. timing: each kernel, its plain version and a PyTorch library call with
+   CUDA events, and the engine's score latency;
+10. one JSON line of the kernels, then the result line.
 
-Every count of kernel launches is set to 0 before phase 4 and read after
-phase 6, so ``launches`` counts the serving path alone.  Any failure raises
-and the script exits non-zero without the result line.  It needs a CUDA
-card and the repository's ``src/`` beside it.
+Every count of kernel launches is set to 0 just before each path (the
+serving phases 4-6, the quickstart's 4 days, the sparse smoke) and read
+just after it, so ``launches`` counts those paths alone.  Any failure
+raises and the script exits non-zero without the result line.  It needs a
+CUDA card and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
@@ -62,6 +79,15 @@ F32_OPS_PER_S = 67e12
 # one bf16 ulp, at most 2**-7 of |x|.  A running sum kept in bf16 misses
 # this on about a quarter of the outputs of the bf16 cases.
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-6
+
+# the training slice: the sparse smoke's table (launch/train.py) and the
+# JAX quickstart's per-day AUC, examples/quickstart.py on the CPU
+SMOKE_V, SMOKE_D, SMOKE_BATCH, SMOKE_STEPS = 1_000_000, 16, 4, 5
+QUICKSTART_DAYS = 4
+JAX_QUICKSTART_AUC = (0.5633, 0.6970, 0.7417, 0.7728)
+HOLD_STEPS = 4                   # quickstart steps held card against CPU
+HOLD_LOSS_RTOL = 1e-4            # Adam: rounding grows to ~lr per step
+STALE_PARAM_RTOL, STALE_PARAM_ATOL = 1e-5, 1e-7   # SGD, f32 sum orders
 
 TIMED_SHAPES = ((128, 1), (4096, 16))   # serving miss pool, bulk pool
 TIMED_ID_SETS = 16     # cycled so the (4096, 16) pools span 268 MB > L2
@@ -122,9 +148,9 @@ def build_phase(runtime) -> None:
         check(False, "runtime.check raises on a CUDA error")
 
 
-def kernel_cases(gen: torch.Generator, big: torch.Tensor) -> list:
-    """(name, ids, table) on the card, at the serving path's shapes and at
-    the edges of the kernel's contract."""
+def kernel_cases(gen: torch.Generator, big: torch.Tensor, hash_ids) -> list:
+    """(name, ids, table) on the card, at the serving path's and the sparse
+    smoke's shapes and at the edges of the kernel's contract."""
     dev = big.device
 
     def ids(b, f, hi):
@@ -149,6 +175,9 @@ def kernel_cases(gen: torch.Generator, big: torch.Tensor) -> list:
         ("serving miss (128, 1) + sentinel", miss, big),
         ("bulk pool (4096, 16)", ids(4096, 16, V), big),
         ("F=1 bulk (4096, 1)", ids(4096, 1, V), big),
+        ("sparse smoke forward (4, 26) hashed, D=16",
+         smoke_ids(hash_ids, torch.Generator().manual_seed(5), SMOKE_BATCH),
+         table(SMOKE_V, SMOKE_D)),
         ("negative, >= V and sentinel ids", odd, big),
         ("duplicates inside a bag", dup, big),
         ("D=80 (not a tile multiple)", ids(256, 16, 50_000),
@@ -173,10 +202,11 @@ def bf16_summed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def kernel_phase(embedding_bag, embedding_bag_ref, big, gen) -> float:
-    phase(3, "kernel vs plain version on the card")
+def kernel_phase(embedding_bag, embedding_bag_ref, big, gen,
+                 hash_ids) -> float:
+    phase(3, "each kernel vs its plain version on the card")
     max_err = 0.0
-    for name, ids, table in kernel_cases(gen, big):
+    for name, ids, table in kernel_cases(gen, big, hash_ids):
         out = embedding_bag(ids, table)
         ref = embedding_bag_ref(ids, table)
         torch.cuda.synchronize()
@@ -213,6 +243,87 @@ def kernel_phase(embedding_bag, embedding_bag_ref, big, gen) -> float:
     return max_err
 
 
+def presence_ids(stream, sched, k: int) -> torch.Tensor:
+    """(1, M * B * F) ids of the quickstart's global step ``k`` of day 0,
+    slot i's ids offset by i * capacity: what the trainer's
+    ``presence_counts`` hands the grad kernel."""
+    cap = stream.cfg.hash_capacity
+    fields = np.stack([stream.batch(0, slot.batch_index)["fields"]
+                       for slot in sched.steps[k]])
+    m = fields.shape[0]
+    ids = fields.reshape(m, -1) + (np.arange(m, dtype=np.int32)
+                                   * cap)[:, None]
+    return torch.from_numpy(ids.reshape(1, -1)).cuda()
+
+
+def smoke_ids(hash_ids, gen: torch.Generator, n: int) -> torch.Tensor:
+    """(n, 26) hashed ids over ``SMOKE_V`` rows, drawn as the sparse smoke
+    draws them."""
+    raw = torch.randint(0, 1 << 30, (n, 26), generator=gen)
+    return hash_ids(raw, SMOKE_V).cuda()
+
+
+def grad_kernel_cases(T: dict, gen: torch.Generator) -> list:
+    """(name, ids, grad_out, capacity) on the card: the training paths'
+    shapes (a) and (b) and the edges of the kernel's contract."""
+    dev = torch.device("cuda")
+    cpu_gen = torch.Generator().manual_seed(7)
+
+    def ids(b, f, hi):
+        return torch.randint(0, hi, (b, f), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def rows(b, d):
+        return torch.randn((b, d), generator=gen, device=dev)
+
+    a = T["presence"][0]
+    cap_a = T["presence_capacity"]
+    odd = ids(64, 16, SMOKE_V)
+    odd[:, ::3] = -1
+    odd[:, 1::5] = SMOKE_V
+    odd[:, 2::7] = SMOKE_V + 12345
+    odd[0] = -7                                  # a bag of no valid id
+    dup = ids(64, 16, 5000)
+    dup[:, 8:] = dup[:, :8]                      # each id twice in its bag
+    dup[1] = dup[1, 0]                           # one id 16 times
+    return [
+        ("(a) presence counts of a quickstart step, D=0 (counts only)", a,
+         torch.zeros((1, 0), device=dev), cap_a),
+        ("(a) ids as 64 bags, random rows, D=1", a.reshape(64, -1),
+         rows(64, 1), cap_a),
+        ("(b) sparse smoke backward (4, 26)", smoke_ids(T["hash_ids"],
+                                                        cpu_gen, 4),
+         rows(4, SMOKE_D), SMOKE_V),
+        ("negative, >= V and sentinel ids", odd, rows(64, 16), SMOKE_V),
+        ("repeated ids inside one bag", dup, rows(64, 16), 5000),
+        ("D=13 (scalar loads)", ids(256, 8, 10_000), rows(256, 13), 10_000),
+        ("empty batch", ids(0, 26, 1000), rows(0, 16), 1000),
+    ]
+
+
+def grad_kernel_check(T: dict, gen: torch.Generator) -> float:
+    """``embedding_bag_grad`` on the card against its plain version on a
+    CPU copy: counts exact, table gradient bit-identical (both sum each
+    row in entry order from 0.0)."""
+    max_err = 0.0
+    for name, ids, grad, cap in grad_kernel_cases(T, gen):
+        gt, cnt = T["embedding_bag_grad"](ids, grad, cap)
+        torch.cuda.synchronize()
+        ref_gt, ref_cnt = T["embedding_bag_grad_ref"](ids.cpu(), grad.cpu(),
+                                                      cap)
+        ok = (gt.shape == ref_gt.shape and torch.equal(cnt.cpu(), ref_cnt)
+              and torch.equal(gt.cpu().view(torch.int32),
+                              ref_gt.view(torch.int32)))
+        err = (gt.cpu() - ref_gt).abs().max().item() if gt.numel() else 0.0
+        print(f"  embedding_bag_grad {name}: ids {tuple(ids.shape)} over "
+              f"V={cap} D={grad.shape[1]}: counts exact and gtable "
+              f"bit-identical: {'ok' if ok else 'FAIL'} (max|err| {err:.3g},"
+              f" {int(ref_cnt.sum())} valid entries)")
+        check(ok, f"embedding_bag_grad vs plain version: {name}")
+        max_err = max(max_err, err)
+    return max_err
+
+
 def serving_static_phase(S, params, hot, counters) -> dict:
     phase(4, "serving, static source")
     cfg = S.ServingConfig(cache_capacity=CACHE)
@@ -222,9 +333,9 @@ def serving_static_phase(S, params, hot, counters) -> dict:
     eng.latencies_us.clear()
     per_call = []
     for _ in range(NUM_BATCHES):
-        l0 = counters()["launches"]
+        l0 = counters()["embedding_bag"]
         out = eng.score(hot_batch(rng, hot))
-        per_call.append(counters()["launches"] - l0)
+        per_call.append(counters()["embedding_bag"] - l0)
         check(out.shape == (B,) and bool(np.isfinite(out).all()),
               "scores finite, shape (B,)")
     probe = hot_batch(rng, hot)
@@ -236,7 +347,7 @@ def serving_static_phase(S, params, hot, counters) -> dict:
                                     config=S.ServingConfig(cache_capacity=0))
     miss_scores = nocache.score(probe)
     after = counters()
-    check(after["launches"] == before["launches"] + 1
+    check(after["embedding_bag"] == before["embedding_bag"] + 1
           and after["calls"] == before["calls"] + 1,
           "a cache-less engine launches the kernel once per score")
     check(np.array_equal(bits(hit_scores), bits(miss_scores)),
@@ -386,8 +497,8 @@ def bound_ms(ids: torch.Tensor, table: torch.Tensor) -> tuple[float, str]:
                                  "operations")
 
 
-def device_busy(eng, batches) -> dict:
-    """Device time of the kernels and copies of ``score`` calls over their
+def device_busy(run) -> dict:
+    """Device time of the kernels and copies that ``run()`` issues over its
     wall time, from a ``torch.profiler`` trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -395,8 +506,7 @@ def device_busy(eng, batches) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for raw in batches:
-            eng.score(raw)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
@@ -411,9 +521,286 @@ def device_busy(eng, batches) -> dict:
             "top_us": {k: v for k, v in top}}
 
 
+def _max_diff(a: dict, b: dict) -> dict:
+    """Largest |a - b| of each leaf of two parameter dicts (b on the CPU)."""
+    out = {}
+    for k, v in a.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{kk}": vv for kk, vv in
+                        _max_diff(v, b[k]).items()})
+        else:
+            out[k] = (v.cpu().double() - b[k].double()).abs().max().item()
+    return out
+
+
+def _stats(st) -> dict:
+    return {"applied_steps": st.applied_steps, "kept_slots": st.kept_slots,
+            "dropped_slots": st.dropped_slots,
+            "history_clamps": st.history_clamps,
+            "embed_rows_rescued": st.embed_rows_rescued}
+
+
+def _hold(name, card, host, loss_rtol) -> None:
+    """The card's replay against the CPU's: ``last_update`` and the slot
+    counts exact, the per-step losses within ``loss_rtol``."""
+    (_, _, lu_c, st_c), (_, _, lu_h, st_h) = card, host
+    check(torch.equal(lu_c.cpu(), lu_h), f"{name}: last_update equal")
+    check(_stats(st_c) == _stats(st_h), f"{name}: ReplayStats equal: "
+          f"{_stats(st_c)} vs {_stats(st_h)}")
+    check(np.allclose(st_c.losses, st_h.losses, rtol=loss_rtol, atol=0),
+          f"{name}: losses within rtol {loss_rtol}: {st_c.losses} vs "
+          f"{st_h.losses}")
+
+
+def replay_phase(T: dict, counters) -> dict:
+    phase(7, "replay trainer: the quickstart at CRITEO_DEEPFM's full width")
+    Q, cfg = T["quickstart"], T["CRITEO_DEEPFM"]
+    host = T["init_recsys"](cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    card = T["tree_to_device"](host, torch.device("cuda"))
+    stream = T["make_clickstream"](cfg, seed=0,
+                                   batch_size=Q.SETUP.local_batch)
+    sched = T["schedule_for_day"](Q.SETUP, Q.SPEC, Q.NUM_BATCHES)
+
+    # the quickstart's first global steps of day 0, card against CPU
+    head = T["Schedule"](sched.mode, sched.local_batch,
+                         sched.steps[:HOLD_STEPS])
+    runs = {}
+    for dev, p in (("cuda", card), ("cpu", host)):
+        tr = Q.make_trainer(cfg)
+        runs[dev] = tr.replay(p, tr.optimizer.init(p), head, stream, 0)
+    _hold("quickstart head", runs["cuda"], runs["cpu"], HOLD_LOSS_RTOL)
+    head_diff = _max_diff(runs["cuda"][0], runs["cpu"][0])
+    print(f"  first {HOLD_STEPS} quickstart steps, card vs CPU (Adam): "
+          f"losses {runs['cuda'][3].losses} vs {runs['cpu'][3].losses}; "
+          f"stats {_stats(runs['cuda'][3])} equal, last_update equal; "
+          f"largest parameter difference {max(head_diff.values())!r} "
+          f"({json.dumps(head_diff)})")
+
+    # repro's tests/test_trainer.py:118-120: the GBA mask and the per-ID
+    # rescue run (the quickstart drops no slot); SGD, iota 1
+    slot = T["Slot"]
+    stale = T["Schedule"]("gba", 32, [
+        [slot(k * 3 + i, max(0, k - i), k, 1.0 if i < 2 else 0.0)
+         for i in range(3)] for k in range(4)])
+    stale_stream = T["make_clickstream"](cfg, seed=0, batches_per_day=16,
+                                         batch_size=32)
+    runs = {}
+    for dev, p in (("cuda", card), ("cpu", host)):
+        opt = T["get_optimizer"]("sgd", 0.05)
+        runs[dev] = T["GBATrainer"](cfg, opt, iota=1).replay(
+            p, opt.init(p), stale, stale_stream, 0)
+    _hold("stale schedule", runs["cuda"], runs["cpu"], 1e-5)
+    check(runs["cuda"][3].embed_rows_rescued > 0
+          and runs["cuda"][3].dropped_slots > 0,
+          "the stale schedule drops slots and rescues rows")
+    stale_diff = _max_diff(runs["cuda"][0], runs["cpu"][0])
+    for k, v in runs["cuda"][0].items():
+        if not isinstance(v, dict):
+            check(torch.allclose(v.cpu(), runs["cpu"][0][k],
+                                 rtol=STALE_PARAM_RTOL,
+                                 atol=STALE_PARAM_ATOL),
+                  f"stale schedule: {k} within rtol {STALE_PARAM_RTOL} "
+                  f"atol {STALE_PARAM_ATOL}")
+    for k, v in runs["cuda"][0]["mlp"].items():
+        check(torch.allclose(v.cpu(), runs["cpu"][0]["mlp"][k],
+                             rtol=STALE_PARAM_RTOL, atol=STALE_PARAM_ATOL),
+              f"stale schedule: mlp/{k} within tolerance")
+    print(f"  stale schedule (4 steps x 3 slots, iota 1, SGD), card vs CPU: "
+          f"stats {_stats(runs['cuda'][3])} equal, last_update equal, "
+          f"parameters within rtol {STALE_PARAM_RTOL} atol "
+          f"{STALE_PARAM_ATOL}; largest difference "
+          f"{max(stale_diff.values())!r}")
+
+    # the quickstart's 4 days: the counted path
+    counters(reset=True)
+    t0 = time.perf_counter()
+    res = Q.run(card, cfg, days=QUICKSTART_DAYS,
+                log=lambda line: print("  " + line))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    steps = sum(r.steps for r in res.rows)
+    days = [{"day": r.day, "auc": r.auc, "qps": r.qps, "drops": r.drops,
+             "steps": r.steps, "seconds": r.seconds,
+             "data_s": r.stats.data_s, "step_s": r.stats.step_s,
+             "eval_and_other_s": r.seconds - r.stats.data_s - r.stats.step_s,
+             "stats": _stats(r.stats),
+             "first_loss": r.stats.losses[0], "last_loss": r.stats.losses[-1]}
+            for r in res.rows]
+    for d in days:
+        print(f"  day {d['day']}: {json.dumps(d)}")
+    auc = res.rows[-1].auc
+    print(f"  quickstart: {steps} global steps in {seconds:.2f} s; "
+          f"launches {json.dumps(launches)}; last-day AUC {auc:.4f} "
+          f"(JAX quickstart on the CPU: {JAX_QUICKSTART_AUC[-1]})")
+    check(steps == 16 * QUICKSTART_DAYS, f"16 global steps a day: {steps}")
+    check(launches["embedding_bag_grad"] == steps,
+          "one embedding_bag_grad launch per global step")
+    check(auc > 0.70, f"last-day AUC above 0.70: {auc}")
+    check(abs(auc - JAX_QUICKSTART_AUC[-1]) <= 0.01,
+          f"last-day AUC within 0.01 of the JAX quickstart's: {auc}")
+
+    # device idle share over the first 4 global steps of the next day
+    tr = Q.make_trainer(cfg)
+    nxt = T["Schedule"](sched.mode, sched.local_batch, sched.steps[:4])
+    busy = device_busy(lambda: tr.replay(
+        res.params, tr.optimizer.init(res.params), nxt, stream,
+        QUICKSTART_DAYS))
+    print(f"  profile of 4 global steps: {json.dumps(busy)}")
+    return {"days": days, "seconds": seconds, "launches": launches,
+            "head_max_param_diff": max(head_diff.values()),
+            "stale_max_param_diff": max(stale_diff.values()),
+            "profile": busy}
+
+
+def smoke_phase(T: dict, counters) -> dict:
+    phase(8, f"sparse-module smoke: V={SMOKE_V} D={SMOKE_D} batch "
+             f"{SMOKE_BATCH}, {SMOKE_STEPS} steps")
+    seen = []
+
+    def on_step(st):
+        seen.append((st, counters()))
+
+    counters(reset=True)
+    losses = T["train"].run_embedding_smoke(
+        SMOKE_V, steps=SMOKE_STEPS, embed_dim=SMOKE_D, batch=SMOKE_BATCH,
+        lr=1e-3, device="cuda", on_step=on_step,
+        log=lambda line: print("  " + line))
+    torch.cuda.synchronize()
+    launches = counters()
+    check(all(np.isfinite(losses)), f"finite losses: {losses}")
+    for i, (_, c) in enumerate(seen):
+        check(c["embedding_bag"] == i + 1 and c["embedding_bag_grad"] == i + 1,
+              f"step {i} launched each kernel once: {c}")
+    # after the path's counts are read: the comparison launches count not
+    grad_kernel = T["embedding_bag_grad"]
+    for st, _ in seen:
+        ref_gt, ref_cnt = T["embedding_bag_grad_ref"](
+            st.ids.cpu(), st.pooled_grad.cpu(), SMOKE_V)
+        gt, cnt = grad_kernel(st.ids, st.pooled_grad, SMOKE_V)
+        zero = torch.zeros((SMOKE_V, SMOKE_D), device="cuda",
+                           requires_grad=True)
+        (auto,) = torch.autograd.grad(
+            T["embedding_bag_ref"](st.ids, zero), zero, st.pooled_grad)
+        torch.cuda.synchronize()
+        check(torch.equal(st.table_grad.cpu().view(torch.int32),
+                          ref_gt.view(torch.int32)),
+              f"step {st.step}: table gradient bit-identical to the plain "
+              f"version on a CPU copy")
+        check(torch.equal(gt, st.table_grad) and torch.equal(cnt.cpu(),
+                                                             ref_cnt),
+              f"step {st.step}: counts exact")
+        check(torch.allclose(st.table_grad, auto, rtol=1e-6, atol=0),
+              f"step {st.step}: within rtol 1e-6 of autograd through "
+              f"embedding_bag_ref")
+        check(torch.allclose(st.pooled, T["embedding_bag_ref"](st.ids,
+                                                               st.table),
+                             rtol=1e-5, atol=1e-6),
+              f"step {st.step}: pooled lookup within rtol 1e-5 atol 1e-6 "
+              f"of embedding_bag_ref")
+    print(f"  losses {losses}; launches {json.dumps(launches)}; each "
+          f"step's pooled lookup within rtol 1e-5 atol 1e-6 of the plain "
+          f"version, its table gradient bit-identical to the plain version, "
+          f"counts exact, within rtol 1e-6 of autograd through the plain "
+          f"lookup")
+    return {"losses": losses, "launches": launches}
+
+
+def grad_bound_ms(ids: torch.Tensor, grad: torch.Tensor,
+                  cap: int) -> tuple[float, str]:
+    """Least time for one ``embedding_bag_grad``: the (V, D) table gradient
+    and the (V,) counts written once, the ids and grad_out read once,
+    against one add per valid entry and element, and one per count."""
+    d = grad.shape[1]
+    valid = int(((ids >= 0) & (ids < cap)).sum())
+    nbytes = cap * d * 4 + cap * 4 + ids.numel() * 4 + grad.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = valid * (d + 1) / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
+    """``embedding_bag_grad`` at the training paths' shapes: (a) the
+    presence counts of a quickstart global step, over the 16 steps of day
+    0; (b) the sparse smoke's backward, over 16 draws."""
+    F_ = torch.nn.functional
+    grad_kernel, ref = T["embedding_bag_grad"], T["embedding_bag_grad_ref"]
+    sort_ids, launch = T["sort_ids"], T["embedding_bag_grad_sorted"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cpu_gen = torch.Generator().manual_seed(11)
+    shapes = [("(a)", T["presence"], torch.zeros((1, 0), device="cuda"),
+               T["presence_capacity"]),
+              ("(b)", [smoke_ids(T["hash_ids"], cpu_gen, SMOKE_BATCH)
+                       for _ in range(TIMED_ID_SETS)],
+               torch.randn((SMOKE_BATCH, SMOKE_D), generator=gen,
+                           device="cuda"), SMOKE_V)]
+    rows = []
+    for label, id_sets, grad, cap in shapes:
+        f = id_sets[0].shape[1]
+        sorted_sets = [sort_ids(i, cap) for i in id_sets]
+        if grad.shape[1] == 0:
+            lib_sets = [i.reshape(-1).long() for i in id_sets]
+
+            def library(i, g, cap=cap):
+                return torch.bincount(i, minlength=cap)
+            want = library(lib_sets[0], grad)
+            check(torch.equal(grad_kernel(id_sets[0], grad, cap)[1],
+                              want.float()), f"{label}: bincount agrees")
+            lib_name = "torch.bincount"
+        else:
+            weight = torch.zeros((cap, grad.shape[1]), device="cuda",
+                                 requires_grad=True)
+            lib_sets = [F_.embedding_bag(i, weight, mode="sum")
+                        for i in id_sets]
+
+            def library(out, g, weight=weight):
+                return torch.autograd.grad(out, weight, g,
+                                           retain_graph=True)
+            check(torch.allclose(library(lib_sets[0], grad)[0],
+                                 grad_kernel(id_sets[0], grad, cap)[0],
+                                 rtol=1e-6, atol=0),
+                  f"{label}: F.embedding_bag backward agrees")
+            lib_name = "F.embedding_bag backward"
+        fns = {
+            "kernel": (lambda s, g, cap=cap, f=f: launch(s[0], s[1], g, cap,
+                                                         f), sorted_sets),
+            "wrapper": (lambda i, g, cap=cap: grad_kernel(i, g, cap),
+                        id_sets),
+            "plain": (lambda i, g, cap=cap: ref(i, g, cap), id_sets),
+            "library": (library, lib_sets),
+        }
+        dev = {k: [] for k in fns}
+        host = {k: [] for k in fns}
+        for _ in range(3):                      # in turns, median of 3
+            for k, (fn, sets) in fns.items():
+                d, h = time_ms(fn, sets, grad, cycles_per_ms)
+                dev[k].append(d)
+                host[k].append(h)
+        med = {k: float(np.median(v)) for k, v in dev.items()}
+        bnd, by = grad_bound_ms(id_sets[0], grad, cap)
+        row = {"shape": [*id_sets[0].shape, cap, grad.shape[1]],
+               "ms": med["kernel"], "wrapper_ms": med["wrapper"],
+               "plain_ms": med["plain"], "library_ms": med["library"],
+               "library": lib_name, "bound_ms": bnd, "bound_by": by,
+               "device_runs_ms": dev,
+               "host_paced_ms": {k: float(np.median(v))
+                                 for k, v in host.items()}}
+        rows.append(row)
+        print(f"  embedding_bag_grad {label} ids {tuple(id_sets[0].shape)} "
+              f"over V={cap} D={grad.shape[1]}, device ms per call: kernel "
+              f"{med['kernel']!r}, wrapper with its sort {med['wrapper']!r},"
+              f" plain {med['plain']!r}, {lib_name} {med['library']!r}, "
+              f"bound {bnd!r} ({by}); host-paced ms per call: "
+              f"{json.dumps(row['host_paced_ms'])}; device runs: "
+              f"{json.dumps(dev)}")
+    return rows
+
+
 def timing_phase(embedding_bag, embedding_bag_ref, big, gen, static, S,
                  params) -> dict:
-    phase(7, "timing")
+    phase(9, "timing")
     lib = torch.nn.functional.embedding_bag
     fns = {"kernel": embedding_bag, "plain": embedding_bag_ref,
            "library": lambda i, t: lib(i, t, mode="sum")}
@@ -469,7 +856,8 @@ def timing_phase(embedding_bag, embedding_bag_ref, big, gen, static, S,
                      "hit_rate": eng.stats()["hit_rate"],
                      "stages_p50_us": dict(zip(
                          ("hash", "lookup", "tower"), stages.tolist())),
-                     "profile": device_busy(eng, batches)}
+                     "profile": device_busy(
+                         lambda: [eng.score(raw) for raw in batches])}
         print(f"  score latency, {name}: {json.dumps(lat[name])}")
     return {"shapes": shapes, "latency": lat}
 
@@ -484,24 +872,63 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch.serving as S
     from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs.recsys import CRITEO_DEEPFM
+    from repro_torch.convert import tree_to_device
+    from repro_torch.core import GBATrainer, schedule_for_day
+    from repro_torch.data import make_clickstream
     from repro_torch.embeddings import hash_ids
     from repro_torch.kernels import ops, runtime
-    from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.ref import embedding_bag_ref
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_grad,
+                                                   embedding_bag_grad_sorted,
+                                                   sort_ids)
+    from repro_torch.kernels.ref import embedding_bag_grad_ref, embedding_bag_ref
+    from repro_torch.launch import quickstart, train
+    from repro_torch.models.recsys import init_recsys
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sim.cluster import Schedule, Slot
 
     t_start = time.perf_counter()
     kind = device_phase()
     build_phase(runtime)
 
+    # the quickstart's stream and day-0 schedule give the presence-count
+    # ids of shape (a): one (1, 16 * 128 * 26) set per global step
+    qs_stream = make_clickstream(CRITEO_DEEPFM, seed=0,
+                                 batch_size=quickstart.SETUP.local_batch)
+    qs_sched = schedule_for_day(quickstart.SETUP, quickstart.SPEC,
+                                quickstart.NUM_BATCHES)
+    T = {"quickstart": quickstart, "train": train,
+         "CRITEO_DEEPFM": CRITEO_DEEPFM, "init_recsys": init_recsys,
+         "tree_to_device": tree_to_device, "make_clickstream":
+         make_clickstream, "schedule_for_day": schedule_for_day,
+         "Schedule": Schedule, "Slot": Slot, "GBATrainer": GBATrainer,
+         "get_optimizer": get_optimizer, "hash_ids": hash_ids,
+         "embedding_bag_grad": embedding_bag_grad,
+         "embedding_bag_grad_sorted": embedding_bag_grad_sorted,
+         "sort_ids": sort_ids, "embedding_bag_grad_ref":
+         embedding_bag_grad_ref, "embedding_bag_ref": embedding_bag_ref,
+         "presence": [presence_ids(qs_stream, qs_sched, k)
+                      for k in range(len(qs_sched.steps))],
+         "presence_capacity": (quickstart.SETUP.buffer_size
+                               * CRITEO_DEEPFM.hash_capacity)}
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
     # level, well inside the stated f32 tolerance
     big = torch.randn((V, DIM), generator=gen, device="cuda") * 0.01
-    max_err = kernel_phase(embedding_bag, embedding_bag_ref, big, gen)
+    max_err = kernel_phase(embedding_bag, embedding_bag_ref, big, gen,
+                           hash_ids)
+    grad_max_err = grad_kernel_check(T, gen)
 
-    def counters():
-        return {"launches": embedding_bag.launches,
-                "calls": ops.kernel_calls["pooled_lookup"]}
+    def counters(reset: bool = False) -> dict:
+        if reset:
+            ops.kernel_calls.clear()
+            embedding_bag.launches = 0
+            embedding_bag_grad.launches = 0
+        return {"calls": ops.kernel_calls["pooled_lookup"],
+                "embedding_bag": embedding_bag.launches,
+                "embedding_bag_grad": embedding_bag_grad.launches}
 
     params = S.init_scoring_params(
         V, DIM, MLP, generator=torch.Generator().manual_seed(0),
@@ -509,8 +936,7 @@ def main() -> int:
     hot = np.arange(HOT, dtype=np.int64)
 
     # the serving path, phases 4-6: every count starts at 0 here
-    ops.kernel_calls.clear()
-    embedding_bag.launches = 0
+    counters(reset=True)
     static = serving_static_phase(S, params, hot, counters)
     want = reference_check(params, static["probe"], hash_ids,
                            embedding_bag_ref)
@@ -519,29 +945,44 @@ def main() -> int:
     live = serving_live_phase(S, params, hot, hash_ids)
     checkpoint_phase(S, save_pytree, params, static)
     torch.cuda.synchronize()
-    path_launches = embedding_bag.launches
-    print(f"serving path: embedding_bag launches {path_launches}, "
-          f"pooled_lookup calls {ops.kernel_calls['pooled_lookup']}")
-    check(path_launches > 0, "the serving path launched embedding_bag")
+    serving = counters()
+    print(f"serving path: embedding_bag launches {serving['embedding_bag']}, "
+          f"embedding_bag_grad launches {serving['embedding_bag_grad']}, "
+          f"pooled_lookup calls {serving['calls']}")
+    check(serving["embedding_bag"] > 0,
+          "the serving path launched embedding_bag")
+
+    replay = replay_phase(T, counters)
+    smoke = smoke_phase(T, counters)
 
     timing = timing_phase(embedding_bag, embedding_bag_ref, big, gen,
                           static, S, params)
+    grad_rows = grad_timing(T, sleep_cycles_per_ms())
 
-    phase(8, "kernels")
-    main_shape = timing["shapes"][0]
+    phase(10, "kernels")
+    fwd_launches = {"serving": serving["embedding_bag"],
+                    "replay": replay["launches"]["embedding_bag"],
+                    "sparse_smoke": smoke["launches"]["embedding_bag"]}
+    bwd_launches = {"serving": serving["embedding_bag_grad"],
+                    "replay": replay["launches"]["embedding_bag_grad"],
+                    "sparse_smoke": smoke["launches"]["embedding_bag_grad"]}
     print(json.dumps({
         "serving": {"static": static["stats"], "live": live["stats"],
                     "live_syncs": live["syncs"],
                     "freshness_lag_steps": live["max_lag"],
                     "launches_per_score_hist": static["launch_hist"],
                     "latency": timing["latency"]},
+        "replay": replay,
+        "sparse_smoke": smoke,
         "seconds": time.perf_counter() - t_start}))
+    main_shape, grad_main = timing["shapes"][0], grad_rows[0]
     print(json.dumps({"kernels": [{
         "name": "embedding_bag",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:297",
-        "launches": path_launches,
+        "launches": sum(fwd_launches.values()),
+        "launches_by_path": fwd_launches,
         "max_abs_err": max_err,
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -550,6 +991,22 @@ def main() -> int:
         "library_ms": main_shape["library_ms"],
         "at": main_shape["shape"],
         "shapes": timing["shapes"],
+        "ok": True,
+    }, {
+        "name": "embedding_bag_grad",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag_grad.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:459",
+        "launches": sum(bwd_launches.values()),
+        "launches_by_path": bwd_launches,
+        "max_abs_err": grad_max_err,
+        "ms": grad_main["ms"],
+        "plain_ms": grad_main["plain_ms"],
+        "bound_ms": grad_main["bound_ms"],
+        "bound_by": grad_main["bound_by"],
+        "library_ms": grad_main["library_ms"],
+        "at": grad_main["shape"],
+        "shapes": grad_rows,
         "ok": True,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
-"""Sum-pooled embedding lookup: a hand-written CUDA kernel for Hopper.
+"""Sum-pooled embedding lookup and its backward: hand-written CUDA kernels
+for Hopper.
 
-Counterpart of the forward of ``repro.kernels.embedding_bag``.  The kernel
-is ``csrc/embedding_bag.cu`` (its header says what it replaces and what
-bounds it), bound with ``ctypes`` and built at first use
-(``repro_torch.kernels.runtime``).
+Counterpart of ``repro.kernels.embedding_bag``.  The kernels are
+``csrc/embedding_bag.cu`` (the forward) and ``csrc/embedding_bag_grad.cu``
+(the sorted segment sum of gradient rows with per-id counts); each
+source's header says what it replaces and what bounds it.  They are bound
+with ``ctypes`` and built at first use (``repro_torch.kernels.runtime``).
 
-:func:`embedding_bag` dispatches on the device of its tensors and on
-nothing else: CPU tensors take :func:`~repro_torch.kernels.ref.embedding_bag_ref`,
-CUDA tensors launch the kernel or raise.  ``embedding_bag.launches`` counts
-the kernel launches of this process.
+:func:`embedding_bag` and :func:`embedding_bag_grad` dispatch on the device
+of their tensors and on nothing else: CPU tensors take the plain versions
+of ``repro_torch.kernels.ref``, CUDA tensors launch the kernel or raise.
+``embedding_bag.launches`` and ``embedding_bag_grad.launches`` count the
+kernel launches of this process.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import functools
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.ref import embedding_bag_ref
+from repro_torch.kernels.ref import (embedding_bag_grad_ref,
+                                     embedding_bag_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -70,3 +74,85 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 embedding_bag.launches = 0
+
+
+@functools.cache
+def _grad():
+    fn = runtime.load_library("embedding_bag_grad").repro_embedding_bag_grad
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sort_ids(ids: torch.Tensor, capacity: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flat ids with every id outside ``[0, capacity)`` mapped to the
+    sentinel ``capacity``, sorted stably: ``(sorted_ids (E,) int32,
+    perm (E,) int64)``, ``sorted_ids = flat[perm]``.  The sort is
+    PyTorch's, outside the kernel, as the JAX package sorts with XLA
+    outside its Pallas kernel."""
+    flat = ids.reshape(-1)
+    keyed = torch.where((flat >= 0) & (flat < capacity), flat, capacity)
+    return torch.sort(keyed, stable=True)
+
+
+def embedding_bag_grad_sorted(sorted_ids: torch.Tensor, perm: torch.Tensor,
+                              grad_out: torch.Tensor, capacity: int,
+                              num_fields: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on ids already sorted by :func:`sort_ids`; every
+    tensor on one CUDA device and contiguous.  ``num_fields`` is F, so
+    entry ``perm[e]`` belongs to batch row ``perm[e] // F``."""
+    d = grad_out.shape[1]
+    gtable = torch.empty((capacity, d), dtype=torch.float32,
+                         device=grad_out.device)
+    counts = torch.empty((capacity,), dtype=torch.float32,
+                         device=grad_out.device)
+    if capacity == 0:
+        return gtable, counts
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _grad()(sorted_ids.data_ptr(), perm.data_ptr(),
+                      grad_out.data_ptr(), gtable.data_ptr(),
+                      counts.data_ptr(), sorted_ids.numel(), num_fields,
+                      capacity, d, stream)
+    runtime.check(err, "embedding_bag_grad kernel launch")
+    embedding_bag_grad.launches += 1
+    return gtable, counts
+
+
+def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
+                       capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ids: (B, F) int32, grad_out: (B, D) float32 -> (gtable (capacity, D),
+    counts (capacity,)), both float32.  Entry ``(b, f)`` adds
+    ``grad_out[b]`` to row ``ids[b, f]`` and 1 to its count; ids outside
+    ``[0, capacity)`` add nothing.  Each row is summed in entry order, so
+    the result is deterministic."""
+    if ids.dim() != 2 or grad_out.dim() != 2 or (
+            ids.shape[0] != grad_out.shape[0]):
+        raise ValueError(f"expected ids (B, F) and grad_out (B, D), got "
+                         f"{tuple(ids.shape)} and {tuple(grad_out.shape)}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if grad_out.dtype != torch.float32:
+        raise TypeError(f"grad_out must be float32, got {grad_out.dtype}")
+    b, f = ids.shape
+    # the sentinel id is ``capacity`` itself, so it too must fit in int32
+    if (not 0 <= capacity <= _INT_MAX
+            or max(b * f, grad_out.shape[1]) > _INT_MAX):
+        raise ValueError(f"shape too large for int32 indexing: ids "
+                         f"{tuple(ids.shape)}, grad_out "
+                         f"{tuple(grad_out.shape)}, capacity {capacity}")
+    if ids.device.type == "cpu" and grad_out.device.type == "cpu":
+        return embedding_bag_grad_ref(ids, grad_out, capacity)
+    if ids.device.type != "cuda" or ids.device != grad_out.device:
+        raise ValueError(f"ids and grad_out must both lie on the CPU or on "
+                         f"one CUDA device, got {ids.device} and "
+                         f"{grad_out.device}")
+    sorted_ids, perm = sort_ids(ids, capacity)
+    return embedding_bag_grad_sorted(sorted_ids, perm,
+                                     grad_out.contiguous(), capacity, f)
+
+
+embedding_bag_grad.launches = 0

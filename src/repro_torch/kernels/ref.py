@@ -21,3 +21,36 @@ def embedding_bag_ref(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     rows = table[torch.where(valid, ids, 0).long()].float()    # (B, F, D)
     rows = torch.where(valid[..., None], rows, 0.0)
     return rows.sum(dim=1, dtype=torch.float32).to(table.dtype)
+
+
+def embedding_bag_grad_ref(ids: torch.Tensor, grad_out: torch.Tensor,
+                           capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, F) int ids, (B, D) grad_out -> (gtable (capacity, D), counts
+    (capacity,)), both float32: entry ``(b, f)`` adds ``grad_out[b]`` to
+    row ``ids[b, f]`` and 1 to its count.
+
+    Follows the kernel's contract: ids outside ``[0, capacity)`` add
+    nothing (``index_add_`` would raise on them, and
+    ``repro.kernels.ref.embedding_bag_grad_ref`` wraps negative ids, so the
+    two agree on in-range ids only).  They are sent to row 0 with a zero
+    row and a zero count instead of being dropped by a boolean mask, which
+    would make the host wait for the device; adding +0.0 leaves every sum
+    as it was.  On a CPU tensor ``index_add_`` adds the entries one after
+    another in entry order, from 0.0, which is the kernel's order: the two
+    agree bit for bit.  On a CUDA tensor it adds with atomics, in no fixed
+    order."""
+    f = ids.shape[1]
+    gtable = torch.zeros((capacity, grad_out.shape[1]), dtype=torch.float32,
+                         device=grad_out.device)
+    counts = torch.zeros((capacity,), dtype=torch.float32,
+                         device=grad_out.device)
+    if capacity == 0:
+        return gtable, counts
+    flat = ids.reshape(-1)
+    valid = (flat >= 0) & (flat < capacity)
+    idx = torch.where(valid, flat, 0).long()
+    rows = torch.where(valid[:, None],
+                       grad_out.float().repeat_interleave(f, dim=0), 0.0)
+    gtable.index_add_(0, idx, rows)
+    counts.index_add_(0, idx, valid.float())
+    return gtable, counts

@@ -38,13 +38,20 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``"cuda"`` (the default of every entry point) or ``"cpu"``; raises
-    ``RuntimeError`` when a CUDA device is asked for and none is present."""
+    ``RuntimeError`` when a CUDA device is asked for and none is present.
+
+    On a CUDA device it also turns TF32 off for matrix products and cuDNN
+    (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32``), so float32 stays float32 and the
+    card agrees with the CPU and the JAX package to float32 rounding."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' was asked for but no CUDA device is available;"
                 " pass device='cpu' to run the plain PyTorch versions")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         return dev
     if dev.type == "cpu":
         return dev

@@ -14,9 +14,9 @@ Per request the host and the device exchange the miss ids (``(n_pad, 1)``
 int32), the fetched rows, the pooled ``(B, D)`` vector and the ``(B,)``
 scores; the row and score copies synchronise.
 
-The tower runs ``x @ w + b`` in full float32: the engine sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) on a
-CUDA device, so TF32 never rounds the scores.
+The tower runs ``x @ w + b`` in full float32: resolving a CUDA device
+sets ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's
+default), so TF32 never rounds the scores.
 """
 from __future__ import annotations
 
@@ -73,8 +73,6 @@ class RecsysScoringEngine:
                  config: ServingConfig | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
         if not isinstance(source, ParamSource):
             source = StaticSource(source)
         self.source = source

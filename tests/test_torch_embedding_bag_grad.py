@@ -1,0 +1,248 @@
+"""The port's embedding_bag_grad, pooled lookup gradient and presence counts
+on the CPU against the JAX package.
+
+The same ids and gradient rows, made with numpy from a seed, go through
+the JAX package's Pallas ``embedding_bag_grad`` in interpret mode (and its
+plain ``embedding_bag_grad_ref``) and through the port's wrapper on CPU
+tensors, which takes its plain PyTorch version.
+
+Tolerances: counts are exact.  Table gradients are held to rtol=1e-6 /
+atol=1e-7 against the Pallas kernel, whose one-hot matmul sums each row in
+another order than an entry-order scatter.  The port's plain version sums
+each row in entry order from 0.0, which is the CUDA kernel's order, so it
+is held bit for bit to a sequential emulation of that kernel.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.embeddings import EmbeddingTable as JaxTable
+from repro.embeddings import pooled_lookup as jax_pooled_lookup
+from repro.embeddings import presence_counts as jax_presence_counts
+from repro.kernels.embedding_bag import (
+    embedding_bag_grad as jax_embedding_bag_grad)
+from repro.kernels.ref import embedding_bag_grad_ref as jax_grad_ref
+from repro_torch.convert import params_from_jax
+from repro_torch.embeddings import (EmbeddingTable, pooled_lookup,
+                                    presence_counts)
+from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_bag import (embedding_bag_grad,
+                                               sort_ids)
+from repro_torch.kernels.ref import embedding_bag_grad_ref
+
+GRAD_RTOL, GRAD_ATOL = 1e-6, 1e-7
+
+# (B, F, V, D, id range): "in" draws from [0, V); "odd" mixes in negative
+# ids, ids >= V and the sentinel V; "dup" repeats ids inside each bag
+CASES = {
+    "presence-d1": (1, 300, 700, 1, "odd"),
+    "smoke-4x26-d16": (4, 26, 1000, 16, "odd"),
+    "dup-d16": (16, 8, 50, 16, "dup"),
+    "scalar-d13": (8, 5, 300, 13, "odd"),
+    "wide-d200": (4, 8, 600, 200, "in"),
+    "in-range-d16": (32, 26, 2048, 16, "in"),
+}
+
+
+def _inputs(b, f, v, d, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, v, size=(b, f)).astype(np.int32)
+    if kind == "odd":
+        mask = rng.random((b, f))
+        ids[mask < 0.2] = -1
+        ids[(mask >= 0.2) & (mask < 0.3)] = v            # sentinel
+        ids[(mask >= 0.3) & (mask < 0.4)] = v + 7
+    elif kind == "dup":
+        ids[:, f // 2:] = ids[:, :f - f // 2]
+        ids[0] = ids[0, 0]
+    grad = rng.standard_normal((b, d)).astype(np.float32)
+    return ids, grad
+
+
+def _port(ids, grad, v):
+    gt, cnt = embedding_bag_grad(torch.from_numpy(ids),
+                                 torch.from_numpy(grad), v)
+    return gt.numpy(), cnt.numpy()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_version_matches_pallas_kernel_in_interpret_mode(case):
+    b, f, v, d, kind = CASES[case]
+    ids, grad = _inputs(b, f, v, d, kind)
+    want_gt, want_cnt = jax_embedding_bag_grad(
+        jnp.asarray(ids), jnp.asarray(grad), v, interpret=True)
+    got_gt, got_cnt = _port(ids, grad, v)
+    assert got_gt.shape == (v, d) and got_cnt.shape == (v,)
+    np.testing.assert_array_equal(got_cnt, np.asarray(want_cnt))
+    np.testing.assert_allclose(got_gt, np.asarray(want_gt), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("case", ["presence-d1", "dup-d16", "in-range-d16"])
+def test_plain_version_matches_jax_plain_version_on_in_range_ids(case):
+    b, f, v, d, _ = CASES[case]
+    kind = "dup" if case == "dup-d16" else "in"
+    ids, grad = _inputs(b, f, v, d, kind, seed=1)
+    want_gt, want_cnt = jax_grad_ref(jnp.asarray(ids), jnp.asarray(grad), v)
+    got_gt, got_cnt = _port(ids, grad, v)
+    np.testing.assert_array_equal(got_cnt, np.asarray(want_cnt))
+    np.testing.assert_allclose(got_gt, np.asarray(want_gt), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+def _kernel_emulation(ids, grad, v):
+    """What the CUDA kernel computes, one row at a time: the entries of row
+    ``r`` in stable sorted order, summed in float32 from 0.0."""
+    f = ids.shape[1]
+    sorted_ids, perm = (t.numpy() for t in sort_ids(torch.from_numpy(ids), v))
+    gt = np.zeros((v, grad.shape[1]), np.float32)
+    cnt = np.zeros((v,), np.float32)
+    for r in range(v):
+        run = np.nonzero(sorted_ids == r)[0]
+        acc = np.zeros(grad.shape[1], np.float32)
+        for e in run:
+            acc = (acc + grad[perm[e] // f]).astype(np.float32)
+        gt[r], cnt[r] = acc, run.size
+    return gt, cnt
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_version_sums_each_row_in_entry_order_bit_for_bit(seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-3, 43, size=(64, 26)).astype(np.int32)
+    # magnitudes spread over 12 decades, so the order of the adds shows
+    grad = (rng.standard_normal((64, 16))
+            * 10.0 ** rng.integers(-6, 6, size=(64, 1))).astype(np.float32)
+    want_gt, want_cnt = _kernel_emulation(ids, grad, 40)
+    got_gt, got_cnt = _port(ids, grad, 40)
+    np.testing.assert_array_equal(got_cnt, want_cnt)
+    np.testing.assert_array_equal(got_gt.view(np.uint32),
+                                  want_gt.view(np.uint32))
+    reversed_gt = _kernel_emulation(ids[::-1].copy(), grad[::-1].copy(), 40)[0]
+    assert not np.array_equal(reversed_gt, want_gt)   # the order matters
+
+
+def test_out_of_range_ids_add_nothing():
+    ids = torch.tensor([[0, -1, 4, 3], [-4, 5, 4, 0]], dtype=torch.int32)
+    grad = torch.tensor([[1.0, 2.0], [10.0, 20.0]])
+    gt, cnt = embedding_bag_grad(ids, grad, 4)
+    torch.testing.assert_close(gt, torch.tensor(
+        [[11.0, 22.0], [0.0, 0.0], [0.0, 0.0], [1.0, 2.0]]))
+    torch.testing.assert_close(cnt, torch.tensor([2.0, 0.0, 0.0, 1.0]))
+
+
+@pytest.mark.parametrize("shape", [(0, 26, 16), (3, 0, 16), (3, 4, 0)])
+def test_empty_batch_and_zero_width(shape):
+    b, f, d = shape
+    ids = torch.zeros((b, f), dtype=torch.int32)
+    gt, cnt = embedding_bag_grad(ids, torch.ones((b, d)), 10)
+    assert gt.shape == (10, d) and cnt.shape == (10,)
+    assert not gt.any()
+    assert cnt.sum() == b * f
+
+
+@pytest.mark.parametrize("d", [0, 1, 16])
+def test_counts_do_not_depend_on_the_gradient_width(d):
+    """``presence_counts`` asks for the counts alone with width-0 gradient
+    rows; they equal the counts that come with rows of any width."""
+    ids, grad = _inputs(8, 26, 300, d, "odd", seed=5)
+    _, want = embedding_bag_grad_ref(torch.from_numpy(ids),
+                                     torch.zeros((8, 1)), 300)
+    gt, got = _port(ids, grad, 300)
+    assert gt.shape == (300, d)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_sort_ids_maps_out_of_range_to_the_sentinel_stably():
+    ids = torch.tensor([[3, -1, 1], [3, 7, 1]], dtype=torch.int32)
+    sorted_ids, perm = sort_ids(ids, 5)
+    assert sorted_ids.dtype == torch.int32 and perm.dtype == torch.int64
+    assert sorted_ids.tolist() == [1, 1, 3, 3, 5, 5]
+    assert perm.tolist() == [2, 5, 0, 3, 1, 4]
+
+
+def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
+    ids, grad = _inputs(4, 8, 100, 8, "odd")
+    ids_t, grad_t = torch.from_numpy(ids), torch.from_numpy(grad)
+    launches = embedding_bag_grad.launches
+    calls = ops.kernel_calls["pooled_lookup_grad"]
+    gt, cnt = ops.pooled_lookup_grad(ids_t, grad_t, 100)
+    want_gt, want_cnt = embedding_bag_grad_ref(ids_t, grad_t, 100)
+    assert torch.equal(gt, want_gt) and torch.equal(cnt, want_cnt)
+    assert embedding_bag_grad.launches == launches          # no CUDA launch
+    assert ops.kernel_calls["pooled_lookup_grad"] == calls + 1
+
+
+@pytest.mark.parametrize("bad", ["ids-int64", "grad-f64", "grad-bf16",
+                                 "ids-1d", "batch-mismatch", "capacity",
+                                 "meta-device"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    grad = torch.zeros((2, 4), dtype=torch.float32)
+    capacity, err = 5, ValueError
+    if bad == "ids-int64":
+        ids, err = ids.long(), TypeError
+    elif bad == "grad-f64":
+        grad, err = grad.double(), TypeError
+    elif bad == "grad-bf16":
+        grad, err = grad.bfloat16(), TypeError
+    elif bad == "ids-1d":
+        ids = ids.reshape(-1)
+    elif bad == "batch-mismatch":
+        grad = torch.zeros((3, 4))
+    elif bad == "capacity":            # the sentinel must fit in int32
+        capacity = 2**31
+    else:                              # neither CPU nor CUDA: no fallback
+        ids, grad = ids.to("meta"), grad.to("meta")
+    with pytest.raises(err):
+        embedding_bag_grad(ids, grad, capacity)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pooled_lookup_gradient_matches_jax_custom_vjp(dtype):
+    rng = np.random.default_rng(3)
+    v, d, b, f = 500, 16, 8, 26
+    table = (rng.standard_normal((v, d)) * 0.01).astype(np.float32)
+    ids = rng.integers(0, v, size=(b, f)).astype(np.int32)
+    ids[:, 13:] = ids[:, :13]                        # repeats inside a bag
+    w = rng.standard_normal((b, d)).astype(np.float32)
+    jtable = jnp.asarray(table).astype(dtype)
+    last = jnp.zeros((v,), jnp.int32)
+
+    def jloss(t):
+        pooled = jax_pooled_lookup(JaxTable(t, last), jnp.asarray(ids))
+        return jnp.sum(pooled.astype(jnp.float32) * w)
+
+    jval, jgrad = jax.value_and_grad(jloss)(jtable)
+    t = params_from_jax(np.asarray(jtable), device="cpu").requires_grad_()
+    pooled = pooled_lookup(EmbeddingTable(t, torch.zeros(v, dtype=torch.int32)),
+                           torch.from_numpy(ids))
+    loss = (pooled.float() * torch.from_numpy(w)).sum()
+    (tgrad,) = torch.autograd.grad(loss, t)
+    assert tgrad.dtype == t.dtype and pooled.dtype == t.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-6)
+        np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    else:         # both sum in f32 and round once to bf16: one bf16 ulp
+        np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5)
+        np.testing.assert_allclose(tgrad.float().numpy(),
+                                   np.asarray(jgrad.astype(jnp.float32)),
+                                   rtol=2.0**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["in", "odd"])
+def test_presence_counts_match_jax_exactly(kind):
+    rng = np.random.default_rng(4)
+    m, cap = 4, 300
+    ids = rng.integers(0, cap, size=(m, 32, 26)).astype(np.int32)
+    if kind == "odd":
+        ids[:, :, 0] = -2
+        ids[:, :, 1] = cap
+    flat = ids.reshape(m, -1) + (np.arange(m, dtype=np.int32) * cap)[:, None]
+    want = jax_presence_counts(jnp.asarray(flat), m * cap)
+    got = presence_counts(torch.from_numpy(flat), m * cap)
+    assert got.dtype == torch.float32 and got.shape == (m * cap,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

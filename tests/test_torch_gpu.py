@@ -9,15 +9,20 @@ without one.  Tolerances: a pool of one id is bit-exact; f32 pools of
 F > 1 allow rtol=1e-5, atol=1e-6 (the plain version sums in another
 order) on tables of ``init_table``'s scale 0.01; bf16 tables are compared
 in f32 within one bf16 ulp (rtol=2**-7, atol=1e-6), since both sides sum
-in f32 and round once.
+in f32 and round once.  ``embedding_bag_grad`` sums each row in entry
+order, as its plain version does on the CPU, so its table gradient is held
+bit for bit to the plain version run on a CPU copy, and its counts
+exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_grad
+from repro_torch.kernels.ref import embedding_bag_grad_ref, embedding_bag_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -102,3 +107,117 @@ def test_engine_on_the_card_matches_the_cpu_engine():
         batch = rng.integers(0, 256, size=(4, 8))
         np.testing.assert_allclose(gpu.score(batch), cpu.score(batch),
                                    rtol=1e-6, atol=1e-7)
+
+
+def _grad_case(kind, seed=0):
+    """(ids, grad_out, capacity) on the card: the training path's shapes
+    and the edges of the kernel's contract."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ids(b, f, hi):
+        return torch.randint(0, hi, (b, f), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def rows(b, d):
+        return torch.randn((b, d), generator=gen, device="cuda")
+
+    if kind == "presence":        # one quickstart global step's counts
+        return ids(1, 16 * 128 * 26, 1_600_048), rows(1, 0), 1_600_048
+    if kind == "presence-d1":     # the same ids with one-wide rows
+        return ids(1, 16 * 128 * 26, 1_600_048), rows(1, 1), 1_600_048
+    if kind == "smoke":           # the sparse smoke's backward
+        return ids(4, 26, 1_000_000), rows(4, 16), 1_000_000
+    if kind == "odd":
+        i = ids(64, 16, 1000)
+        i[:, ::3] = -1
+        i[:, 1::5] = 1000
+        i[:, 2::7] = 5000
+        return i, rows(64, 16), 1000
+    if kind == "dup":
+        i = ids(64, 16, 300)
+        i[:, 8:] = i[:, :8]
+        i[1] = i[1, 0]
+        return i, rows(64, 16), 300
+    if kind == "d13":
+        return ids(32, 8, 500), rows(32, 13), 500
+    if kind == "empty":
+        return ids(0, 26, 10), rows(0, 16), 10
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["presence", "presence-d1", "smoke", "odd",
+                                  "dup", "d13", "empty"])
+def test_grad_kernel_matches_plain_version_bit_for_bit(kind):
+    _need_card()
+    ids, grad, cap = _grad_case(kind)
+    launches = embedding_bag_grad.launches
+    gt, cnt = embedding_bag_grad(ids, grad, cap)
+    torch.cuda.synchronize()
+    assert embedding_bag_grad.launches == launches + 1
+    want_gt, want_cnt = embedding_bag_grad_ref(ids.cpu(), grad.cpu(), cap)
+    assert gt.shape == want_gt.shape and cnt.shape == want_cnt.shape
+    assert torch.equal(cnt.cpu(), want_cnt)
+    assert torch.equal(gt.cpu().view(torch.int32),
+                       want_gt.view(torch.int32))
+
+
+def test_grad_mixed_devices_raise():
+    _need_card()
+    ids, grad, cap = _grad_case("odd")
+    with pytest.raises(ValueError):
+        embedding_bag_grad(ids.cpu(), grad, cap)
+
+
+@pytest.mark.parametrize("kind", ["dup", "smoke"])
+def test_pooled_lookup_autograd_launches_both_kernels(kind):
+    _need_card()
+    from repro_torch.embeddings import EmbeddingTable, pooled_lookup
+    ids, grad, cap = _grad_case(kind)
+    table = (torch.randn((cap, 16), device="cuda") * 0.01).requires_grad_()
+    fwd, bwd = embedding_bag.launches, embedding_bag_grad.launches
+    pooled = pooled_lookup(EmbeddingTable(table, None), ids)
+    (gt,) = torch.autograd.grad(pooled, table, grad)
+    assert (embedding_bag.launches, embedding_bag_grad.launches) == (
+        fwd + 1, bwd + 1)
+    torch.testing.assert_close(pooled.detach(),
+                               embedding_bag_ref(ids, table.detach()),
+                               rtol=1e-5, atol=1e-6)
+    zero = torch.zeros_like(table, requires_grad=True)
+    (want,) = torch.autograd.grad(embedding_bag_ref(ids, zero), zero, grad)
+    torch.testing.assert_close(gt, want, rtol=1e-6, atol=1e-7)
+
+
+def test_replay_on_the_card_matches_the_cpu():
+    _need_card()
+    from repro_torch.configs.recsys import CRITEO_DEEPFM
+    from repro_torch.convert import params_to_numpy, tree_to_device
+    from repro_torch.core import GBATrainer
+    from repro_torch.data import make_clickstream
+    from repro_torch.models.recsys import init_recsys
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sim.cluster import Schedule, Slot
+    cfg = dataclasses.replace(CRITEO_DEEPFM, hash_capacity=2048,
+                              mlp_dims=(32, 16))
+    steps = [[Slot(k * 3 + i, max(0, k - i), max(0, k - i),
+                   1.0 if i < 2 else 0.0) for i in range(3)]
+             for k in range(4)]
+    params = init_recsys(cfg, generator=torch.Generator().manual_seed(2),
+                         device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = get_optimizer("sgd", 0.05)
+        p = tree_to_device(params, torch.device(dev))
+        launches = embedding_bag_grad.launches
+        out[dev] = GBATrainer(cfg, opt, iota=1).replay(
+            p, opt.init(p), Schedule("gba", 32, steps),
+            make_clickstream(cfg, seed=0, batch_size=32), 0)
+        assert embedding_bag_grad.launches == launches + (
+            4 if dev == "cuda" else 0)
+    (pc, _, luc, stc), (pg, _, lug, stg) = out["cpu"], out["cuda"]
+    assert torch.equal(luc, lug.cpu())
+    assert (stc.kept_slots, stc.dropped_slots, stc.embed_rows_rescued) == (
+        stg.kept_slots, stg.dropped_slots, stg.embed_rows_rescued)
+    np.testing.assert_allclose(stg.losses, stc.losses, rtol=1e-5)
+    got, want = params_to_numpy(pg), params_to_numpy(pc)
+    for k in ("embed", "linear", "bias"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7)

@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port.
 
-* Importing ``repro_torch`` and its serving, embeddings and kernel modules
-  loads no JAX.
+* Importing ``repro_torch`` and its serving, training, embeddings and
+  kernel modules loads no JAX.
 * No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
   JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
@@ -16,7 +16,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs.recsys import CRITEO_DEEPFM
 from repro_torch.convert import params_from_jax
+from repro_torch.core import pretrain_sync
+from repro_torch.launch import quickstart, train
+from repro_torch.models.recsys import init_recsys
 from repro_torch.serving import (RecsysScoringEngine, StaticSource,
                                  init_scoring_params)
 
@@ -31,7 +35,11 @@ FORBIDDEN = re.compile(
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.embeddings, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.checkpoint; "
+            "repro_torch.convert, repro_torch.checkpoint, "
+            "repro_torch.configs, repro_torch.data, repro_torch.sim, "
+            "repro_torch.metrics, repro_torch.optim, repro_torch.models.recsys, "
+            "repro_torch.core, repro_torch.launch.quickstart, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -60,7 +68,9 @@ def test_forbidden_import_pattern():
 
 
 @pytest.mark.parametrize("entry", ["init_scoring_params", "engine",
-                                   "from_checkpoint", "params_from_jax"])
+                                   "from_checkpoint", "params_from_jax",
+                                   "init_recsys", "pretrain_sync",
+                                   "quickstart", "train_vocab"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(
         entry, tmp_path):
     if torch.cuda.is_available():
@@ -74,6 +84,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
         "from_checkpoint": lambda: StaticSource.from_checkpoint(
             str(tmp_path / "missing.npz")),
         "params_from_jax": lambda: params_from_jax({"w": [1.0]}),
+        "init_recsys": lambda: init_recsys(CRITEO_DEEPFM, generator=gen),
+        "pretrain_sync": lambda: pretrain_sync(gen, CRITEO_DEEPFM, None, {},
+                                               None, 1),
+        "quickstart": lambda: quickstart.main([]),
+        "train_vocab": lambda: train.main(["--vocab", "1000", "--steps",
+                                           "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
