@@ -15,7 +15,13 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   416 -> 256 -> 128 -> 64 -> 1; 16 workers at local batch 128, M = 16,
   iota 4, 256 batches a day, Adam at lr 1e-3, 4 days);
 * the sparse-module smoke of ``repro_torch.launch.train`` at V = 1,000,000,
-  D = 16, batch 4, 5 steps.
+  D = 16, batch 4, 5 steps;
+* the LM's fused flat-buffer GBA step (``repro_torch.launch.train --arch
+  granite-8b --fused``) at the full width of granite-8b (d_model 4096, 32
+  heads / 8 KV heads, d_ff 14336, vocab 49,152, bf16 weights), depth cut
+  from 36 layers to 2 (at 36 the f32 flat buffer alone would be M * N * 4
+  B = 132 GB), batch 4 x 128 tokens, M = 4, iota 4, lr 1e-3, 8
+  microsteps: 2 global steps, each one ``gba_apply`` launch.
 
 Phases:
 
@@ -24,7 +30,8 @@ Phases:
    print each kernel's registers, shared memory and spills;
 3. each kernel against its plain PyTorch version on the card
    (``embedding_bag_grad`` against its plain version on a CPU copy, bit
-   for bit);
+   for bit; ``gba_apply`` bit for bit at the LM step's apply, M = 4, N =
+   838,881,280, and at four edges of its contract);
 4. serving from a static source: cache hits launch nothing, and a
    cache-less engine gives bit-identical scores through the kernel;
 5. serving from a live source: bit-identical to a fresh engine at every
@@ -35,18 +42,28 @@ Phases:
    4 days, then a profile of its device idle share;
 8. the sparse smoke, each step's gradient checked against the plain
    version;
-9. timing: each kernel, its plain version and a PyTorch library call with
-   CUDA events, and the engine's score latency;
-10. one JSON line of the kernels, then the result line.
+9. the LM's fused step: 8 microsteps, exactly one ``gba_apply`` launch at
+   microsteps 4 and 8 and none at the others, params and accumulator
+   bit-identical across the others, and at each apply the step's flat
+   params and accumulator bit-identical to ``gba_apply_ref`` run on copies
+   of the pre-apply tensors; per-microstep seconds; a profile of a third
+   global step (the apply's device time, the device idle share); then
+   ``granite-8b.reduced()`` in float32 for 2 global steps, card against
+   CPU;
+10. timing: each kernel, its plain version and a PyTorch library call with
+    CUDA events, and the engine's score latency;
+11. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
-serving phases 4-6, the quickstart's 4 days, the sparse smoke) and read
-just after it, so ``launches`` counts those paths alone.  Any failure
+serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
+microsteps) and read just after it, so ``launches`` counts those paths
+alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -88,6 +105,13 @@ JAX_QUICKSTART_AUC = (0.5633, 0.6970, 0.7417, 0.7728)
 HOLD_STEPS = 4                   # quickstart steps held card against CPU
 HOLD_LOSS_RTOL = 1e-4            # Adam: rounding grows to ~lr per step
 STALE_PARAM_RTOL, STALE_PARAM_ATOL = 1e-5, 1e-7   # SGD, f32 sum orders
+
+# the LM slice: granite-8b at full width, depth 36 cut to 2; batch, seq, M,
+# iota and lr are the launcher's defaults (repro.launch.train)
+LM_LAYERS, LM_BATCH, LM_SEQ, LM_M, LM_IOTA, LM_LR = 2, 4, 128, 4, 4, 1e-3
+LM_MICROSTEPS = 8
+APPLY_N = 838_881_280          # flat params of that model: gba_apply's N
+HOLD_LM_RTOL, HOLD_LM_ATOL = 1e-5, 1e-7    # card vs CPU, float32 sum orders
 
 TIMED_SHAPES = ((128, 1), (4096, 16))   # serving miss pool, bulk pool
 TIMED_ID_SETS = 16     # cycled so the (4096, 16) pools span 268 MB > L2
@@ -324,6 +348,74 @@ def grad_kernel_check(T: dict, gen: torch.Generator) -> float:
     return max_err
 
 
+def apply_inputs(m: int, n: int, ages: list[int], param_dtype=torch.float32,
+                 buf_dtype=torch.float32, seed: int = 0) -> tuple:
+    """(param, accum, buffer, tokens, step) on the card: params at the
+    model's init scale, Adagrad accumulators from 0.1 up, gradient-sized
+    buffer rows, and slot j's token ``ages[j]`` steps old."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step = 9
+    param = (torch.randn((n,), generator=gen, device="cuda") * 0.02
+             ).to(param_dtype)
+    accum = 0.1 + torch.rand((n,), generator=gen, device="cuda")
+    buffer = (torch.randn((m, n), generator=gen, device="cuda") * 1e-3
+              ).to(buf_dtype)
+    tokens = torch.tensor([step - a for a in ages], dtype=torch.int32,
+                          device="cuda")
+    return param, accum, buffer, tokens, step
+
+
+def apply_cases() -> list:
+    """(name, m, n, ages, param dtype, buffer dtype): the LM step's apply
+    and the edges of the kernel's contract (iota is ``LM_IOTA``)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("(i) the LM step's apply, all fresh", LM_M, APPLY_N, [0] * LM_M,
+         f32, f32),
+        ("(ii) ragged N, a stale slot, bf16 param", 3, 5000, [0, 5, 1], bf16,
+         f32),
+        ("(iii) every slot stale (odd N, one column a thread)", 4, 4099,
+         [5, 6, 7, 9], f32, f32),
+        ("(iv) bf16 buffer", 4, 8192, [0, 1, 4, 5], f32, bf16),
+        ("(v) bf16 param and buffer, odd N", 8, 10_001, list(range(8)), bf16,
+         bf16),
+    ]
+
+
+def apply_kernel_check(T: dict) -> float:
+    """``gba_apply`` on the card against its plain version on the same
+    tensors: param and accumulator bit for bit.  Returns the largest
+    absolute difference (0.0 when every case is bit-identical)."""
+    max_err = 0.0
+    for name, m, n, ages, p_dt, b_dt in apply_cases():
+        param, accum, buffer, tokens, step = apply_inputs(m, n, ages, p_dt,
+                                                          b_dt)
+        before_p, before_a = param.clone(), accum.clone()
+        want_p, want_a = T["gba_apply_ref"](param, accum, buffer, tokens,
+                                            step, LM_LR, iota=LM_IOTA)
+        T["gba_apply"](param, accum, buffer, tokens, step, LM_LR,
+                       iota=LM_IOTA)
+        torch.cuda.synchronize()
+        bits = torch.int16 if p_dt == torch.bfloat16 else torch.int32
+        ok = (torch.equal(param.view(bits), want_p.view(bits))
+              and torch.equal(accum.view(torch.int32),
+                              want_a.view(torch.int32)))
+        stale = all(a > LM_IOTA for a in ages)
+        moved = not torch.equal(accum, before_a)
+        ok = ok and (torch.equal(param, before_p) and not moved if stale
+                     else moved)
+        print(f"  gba_apply {name}: M={m} N={n} param {str(p_dt)[6:]} buffer "
+              f"{str(b_dt)[6:]} ages {ages}: param and accum bit-identical to "
+              f"the plain version{', both unchanged' if stale else ''}: "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"gba_apply vs plain version: {name}")
+        max_err = max(max_err, (param.float() - want_p.float()).abs().max()
+                      .item(), (accum - want_a).abs().max().item())
+        del param, accum, buffer, before_p, before_a, want_p, want_a
+        torch.cuda.empty_cache()
+    return max_err
+
+
 def serving_static_phase(S, params, hot, counters) -> dict:
     phase(4, "serving, static source")
     cfg = S.ServingConfig(cache_capacity=CACHE)
@@ -497,9 +589,10 @@ def bound_ms(ids: torch.Tensor, table: torch.Tensor) -> tuple[float, str]:
                                  "operations")
 
 
-def device_busy(run) -> dict:
+def device_busy(run, match: str = "") -> dict:
     """Device time of the kernels and copies that ``run()`` issues over its
-    wall time, from a ``torch.profiler`` trace."""
+    wall time, from a ``torch.profiler`` trace; with ``match``, also the
+    device time and count of the kernels whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -510,15 +603,21 @@ def device_busy(run) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
+    matched = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name[:60]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+            if match and match in e.name:
+                matched.append(e.time_range.elapsed_us())
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_us": wall_us, "device_busy_us": busy,
-            "idle_share": (1 - busy / wall_us) if busy else None,
-            "top_us": {k: v for k, v in top}}
+    out = {"wall_us": wall_us, "device_busy_us": busy,
+           "idle_share": (1 - busy / wall_us) if busy else None,
+           "top_us": {k: v for k, v in top}}
+    if match:
+        out[f"{match}_us"] = matched
+    return out
 
 
 def _max_diff(a: dict, b: dict) -> dict:
@@ -707,6 +806,170 @@ def smoke_phase(T: dict, counters) -> dict:
     return {"losses": losses, "launches": launches}
 
 
+def same_params(layout, params: dict, flat: torch.Tensor) -> bool:
+    """Whether every leaf of ``params`` is bit for bit ``flat``'s slice cast
+    to the leaf's dtype, leaf by leaf (no whole copy of ``flat``)."""
+    for leaf, o, n in zip(layout.leaves(params), layout.offsets,
+                          layout.sizes):
+        want = flat[o:o + n].view(leaf.shape).to(leaf.dtype)
+        bits = torch.int16 if leaf.dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(leaf.view(bits), want.view(bits)):
+            return False
+    return True
+
+
+def lm_batches(T: dict, vocab: int, seq: int, batch: int, n: int,
+               device: str) -> list[dict]:
+    stream = T["make_lm_stream"](vocab, seq, batch, seed=0)
+    return [{k: torch.from_numpy(v).to(device)
+             for k, v in stream.batch(i).items()} for i in range(n)]
+
+
+def lm_phase(T: dict, counters) -> dict:
+    phase(9, f"LM fused GBA step: granite-8b at full width, depth "
+             f"{LM_LAYERS} (reduced from 36), {LM_MICROSTEPS} microsteps")
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    t0 = time.perf_counter()
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    progs = T["build_programs"](cfg, gba, params=params, lr=LM_LR)
+    del params
+    layout = progs.layout
+    check(layout.total == APPLY_N, f"flat params {layout.total} == "
+          f"{APPLY_N}, the N of gba_apply case (i)")
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH,
+                         LM_MICROSTEPS + LM_M, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"  {cfg.name} depth {LM_LAYERS}: "
+          f"{T['param_count'](progs.state['params']):,} params "
+          f"(embed, lm_head, {LM_LAYERS} layers, final norm); flat buffer "
+          f"({LM_M}, {layout.total}) f32; set-up {setup_s:.2f} s")
+
+    # the counted path: 8 microsteps with the launcher's tokens i // M
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = progs.state, []
+    counters(reset=True)
+    for i in range(LM_MICROSTEPS):
+        buf = state["buffer"]
+        applies = (buf["fill"] + 1) % LM_M == 0
+        old_step = buf["step"]
+        # what the in-place apply will read, copied before the step
+        flat_before = layout.ravel(state["params"])
+        accum_before = state["accum"].clone()
+        launched = counters()["gba_apply"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, loss = progs.step(state, batches[i], i // LM_M)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = counters()["gba_apply"] - launched
+        if applies:
+            check(launched == 1, f"microstep {i + 1}: one gba_apply launch")
+            want_p, want_a = T["gba_apply_ref"](
+                flat_before, accum_before, new["buffer"]["grads"],
+                new["buffer"]["tokens"], old_step, LM_LR, iota=LM_IOTA)
+            check(same_params(layout, new["params"], want_p),
+                  f"microstep {i + 1}: params bit-identical to gba_apply_ref "
+                  f"on copies of the pre-apply tensors")
+            check(torch.equal(new["accum"].view(torch.int32),
+                              want_a.view(torch.int32)),
+                  f"microstep {i + 1}: accumulator bit-identical to "
+                  f"gba_apply_ref")
+            del want_p, want_a
+        else:
+            check(launched == 0, f"microstep {i + 1}: no gba_apply launch")
+            check(new["params"] is state["params"]
+                  and same_params(layout, new["params"], flat_before)
+                  and torch.equal(new["accum"].view(torch.int32),
+                                  accum_before.view(torch.int32)),
+                  f"microstep {i + 1}: params and accumulator bit-identical")
+        del flat_before, accum_before
+        state = new
+        rows.append({"microstep": i + 1, "loss": loss.item(),
+                     "seconds": seconds, "gba_apply": launched,
+                     "gstep": state["buffer"]["step"]})
+        print(f"  {json.dumps(rows[-1])}")
+    torch.cuda.synchronize()
+    launches = counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in rows]
+    check(launches["gba_apply"] == 2 and [r["microstep"] for r in rows
+                                          if r["gba_apply"]] == [4, 8],
+          f"gba_apply launched at microsteps 4 and 8 alone: {rows}")
+    check(all(np.isfinite(losses)), f"finite losses: {losses}")
+    check(state["buffer"]["step"] == 2, "2 global steps")
+    print(f"  launches {json.dumps(launches)}; peak device memory "
+          f"{peak_gb:.2f} GB (with the checks' copies)")
+
+    # a third global step under the profiler: the apply's device time and
+    # the idle share of one global step
+    def global_step():
+        nonlocal state
+        for i in range(LM_MICROSTEPS, LM_MICROSTEPS + LM_M):
+            state, _ = progs.step(state, batches[i], i // LM_M)
+    torch.cuda.reset_peak_memory_stats()
+    busy = device_busy(global_step, match="gba_apply")
+    path_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  profile of one global step ({LM_M} microsteps): "
+          f"{json.dumps(busy)}; peak device memory of that global step "
+          f"alone {path_peak_gb:.2f} GB")
+    check(len(busy["gba_apply_us"]) == 1, "one gba_apply in the profile")
+    del state, progs, batches
+    torch.cuda.empty_cache()
+    hold = lm_card_vs_cpu(T)
+    return {"config": {"arch": cfg.name, "num_layers": LM_LAYERS,
+                       "reduced": "num_layers 36 -> 2", "d_model": cfg.d_model,
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                       "batch": LM_BATCH, "seq": LM_SEQ, "M": LM_M,
+                       "iota": LM_IOTA, "lr": LM_LR, "N": APPLY_N},
+            "setup_s": setup_s, "microsteps": rows, "launches": launches,
+            "peak_memory_gb": peak_gb, "path_peak_memory_gb": path_peak_gb,
+            "profile": busy,
+            "apply_device_ms": busy["gba_apply_us"][0] / 1e3,
+            "card_vs_cpu": hold}
+
+
+def lm_card_vs_cpu(T: dict) -> dict:
+    """``granite-8b.reduced()`` in float32, 2 global steps from the same
+    initial params on the card and on the CPU, one slot stale."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b").reduced(),
+                              dtype="float32")
+    gba = T["GBAConfig"](local_batch=2, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    host = T["init_model"](cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = [i // LM_M for i in range(2 * LM_M)]
+    tokens[LM_M + 1] = -5                     # 6 steps old at the 2nd apply
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        progs = T["build_programs"](cfg, gba, params=T["tree_to_device"](
+            host, torch.device(dev)), lr=LM_LR)
+        state, losses = progs.state, []
+        for i, b in enumerate(lm_batches(T, cfg.vocab_size, 32, 2,
+                                         len(tokens), dev)):
+            state, loss = progs.step(state, b, tokens[i])
+            losses.append(loss.item())
+        runs[dev] = (losses, progs.layout.ravel(state["params"]).cpu(),
+                     state["accum"].cpu(), state["buffer"]["tokens"].cpu())
+    (lc, pc, ac, tc), (lh, ph, ah, th) = runs["cuda"], runs["cpu"]
+    check(torch.equal(tc, th), "card vs CPU: tokens equal")
+    check(np.allclose(lc, lh, rtol=HOLD_LM_RTOL, atol=0),
+          f"card vs CPU: losses within rtol {HOLD_LM_RTOL}: {lc} vs {lh}")
+    for name, a, b in (("flat params", pc, ph), ("accumulator", ac, ah)):
+        check(torch.allclose(a, b, rtol=HOLD_LM_RTOL, atol=HOLD_LM_ATOL),
+              f"card vs CPU: {name} within rtol {HOLD_LM_RTOL} atol "
+              f"{HOLD_LM_ATOL}")
+    out = {"losses_card": lc, "losses_cpu": lh,
+           "max_param_diff": (pc - ph).abs().max().item(),
+           "max_accum_diff": (ac - ah).abs().max().item()}
+    print(f"  {cfg.name} f32, 2 global steps, card vs CPU: {json.dumps(out)}")
+    return out
+
+
 def grad_bound_ms(ids: torch.Tensor, grad: torch.Tensor,
                   cap: int) -> tuple[float, str]:
     """Least time for one ``embedding_bag_grad``: the (V, D) table gradient
@@ -798,9 +1061,73 @@ def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def apply_bound_ms(m: int, n: int, param_item: int, buf_item: int
+                   ) -> tuple[float, str]:
+    """Least time for one ``gba_apply``: the M buffer rows, the param and
+    the accumulator read once, param and accumulator written once, and the
+    tokens read, against 2M + 7 float32 operations a column (the weighted
+    sum, g * g and its add, lr * g, the root, + eps, the divide, the
+    subtract).  Every slot is read, kept or not: a stale slot's 0 weight
+    times its values is part of the function (0 * inf is NaN)."""
+    nbytes = m * n * buf_item + 2 * n * param_item + 2 * n * 4 + m * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * (2 * m + 7) / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def time_calls(fn, reps: int) -> float:
+    """Device ms per call of ``fn()`` from CUDA events around ``reps``
+    calls, after 2 warm-up calls.  Each call moves gigabytes, far more than
+    the host needs to issue it, so the events see the device's time."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def apply_timing(T: dict) -> dict:
+    """``gba_apply`` at the LM step's apply, case (i): M = 4, N =
+    838,881,280, float32, all slots fresh, against its plain version, in
+    turns, median of 3 runs of 10 calls.  No single PyTorch call computes
+    the decayed aggregate and the Adagrad update, so there is no library
+    time."""
+    param, accum, buffer, tokens, step = apply_inputs(LM_M, APPLY_N,
+                                                      [0] * LM_M)
+    fns = {
+        "kernel": lambda: T["gba_apply"](param, accum, buffer, tokens, step,
+                                         LM_LR, iota=LM_IOTA),
+        "plain": lambda: T["gba_apply_ref"](param, accum, buffer, tokens,
+                                            step, LM_LR, iota=LM_IOTA),
+    }
+    runs = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            runs[k].append(time_calls(fn, 10))
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    bnd, by = apply_bound_ms(LM_M, APPLY_N, 4, 4)
+    row = {"shape": [LM_M, APPLY_N], "dtypes": "f32 param/accum/buffer",
+           "ms": med["kernel"], "plain_ms": med["plain"], "library_ms": None,
+           "library": None, "bound_ms": bnd, "bound_by": by,
+           "device_runs_ms": runs}
+    print(f"  gba_apply (i) M={LM_M} N={APPLY_N} f32, device ms per call: "
+          f"kernel {med['kernel']!r}, plain {med['plain']!r}, library none, "
+          f"bound {bnd!r} ({by}); device runs: {json.dumps(runs)}")
+    del param, accum, buffer
+    torch.cuda.empty_cache()
+    return row
+
+
 def timing_phase(embedding_bag, embedding_bag_ref, big, gen, static, S,
                  params) -> dict:
-    phase(9, "timing")
+    phase(10, "timing")
     lib = torch.nn.functional.embedding_bag
     fns = {"kernel": embedding_bag, "plain": embedding_bag_ref,
            "library": lambda i, t: lib(i, t, mode="sum")}
@@ -872,19 +1199,24 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch.serving as S
     from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs import GBAConfig, get_config
     from repro_torch.configs.recsys import CRITEO_DEEPFM
     from repro_torch.convert import tree_to_device
     from repro_torch.core import GBATrainer, schedule_for_day
-    from repro_torch.data import make_clickstream
+    from repro_torch.data import make_clickstream, make_lm_stream
     from repro_torch.embeddings import hash_ids
     from repro_torch.kernels import ops, runtime
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_grad,
                                                    embedding_bag_grad_sorted,
                                                    sort_ids)
-    from repro_torch.kernels.ref import embedding_bag_grad_ref, embedding_bag_ref
+    from repro_torch.kernels.gba_apply import gba_apply
+    from repro_torch.kernels.ref import (embedding_bag_grad_ref,
+                                         embedding_bag_ref, gba_apply_ref)
     from repro_torch.launch import quickstart, train
+    from repro_torch.launch.programs import build_programs
     from repro_torch.models.recsys import init_recsys
+    from repro_torch.models.transformer import init_model, param_count
     from repro_torch.optim import get_optimizer
     from repro_torch.sim.cluster import Schedule, Slot
 
@@ -911,7 +1243,11 @@ def main() -> int:
          "presence": [presence_ids(qs_stream, qs_sched, k)
                       for k in range(len(qs_sched.steps))],
          "presence_capacity": (quickstart.SETUP.buffer_size
-                               * CRITEO_DEEPFM.hash_capacity)}
+                               * CRITEO_DEEPFM.hash_capacity),
+         "get_config": get_config, "GBAConfig": GBAConfig,
+         "init_model": init_model, "param_count": param_count,
+         "build_programs": build_programs, "make_lm_stream": make_lm_stream,
+         "gba_apply": gba_apply, "gba_apply_ref": gba_apply_ref}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
@@ -920,15 +1256,18 @@ def main() -> int:
     max_err = kernel_phase(embedding_bag, embedding_bag_ref, big, gen,
                            hash_ids)
     grad_max_err = grad_kernel_check(T, gen)
+    apply_max_err = apply_kernel_check(T)
 
     def counters(reset: bool = False) -> dict:
         if reset:
             ops.kernel_calls.clear()
             embedding_bag.launches = 0
             embedding_bag_grad.launches = 0
+            gba_apply.launches = 0
         return {"calls": ops.kernel_calls["pooled_lookup"],
                 "embedding_bag": embedding_bag.launches,
-                "embedding_bag_grad": embedding_bag_grad.launches}
+                "embedding_bag_grad": embedding_bag_grad.launches,
+                "gba_apply": gba_apply.launches}
 
     params = S.init_scoring_params(
         V, DIM, MLP, generator=torch.Generator().manual_seed(0),
@@ -954,12 +1293,15 @@ def main() -> int:
 
     replay = replay_phase(T, counters)
     smoke = smoke_phase(T, counters)
+    torch.cuda.empty_cache()
+    lm = lm_phase(T, counters)
 
     timing = timing_phase(embedding_bag, embedding_bag_ref, big, gen,
                           static, S, params)
     grad_rows = grad_timing(T, sleep_cycles_per_ms())
+    apply_row = apply_timing(T)
 
-    phase(10, "kernels")
+    phase(11, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -974,6 +1316,7 @@ def main() -> int:
                     "latency": timing["latency"]},
         "replay": replay,
         "sparse_smoke": smoke,
+        "lm_fused": lm,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
     print(json.dumps({"kernels": [{
@@ -1007,6 +1350,25 @@ def main() -> int:
         "library_ms": grad_main["library_ms"],
         "at": grad_main["shape"],
         "shapes": grad_rows,
+        "ok": True,
+    }, {
+        "name": "gba_apply",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gba_apply.cu",
+        "replaces": "src/repro/kernels/gba_apply.py:95",
+        "launches": lm["launches"]["gba_apply"],
+        "launches_by_path": {"lm_fused": lm["launches"]["gba_apply"]},
+        "max_abs_err": apply_max_err,
+        "ms": apply_row["ms"],
+        "plain_ms": apply_row["plain_ms"],
+        "bound_ms": apply_row["bound_ms"],
+        "bound_by": apply_row["bound_by"],
+        "library_ms": None,
+        "library": None,
+        "library_note": "no single PyTorch call computes the decayed "
+                        "aggregate and the Adagrad update",
+        "at": apply_row["shape"],
+        "shapes": [apply_row],
         "ok": True,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad)
+from repro_torch.kernels.gba_apply import gba_apply
 
 # Python-level invocation census of the wrappers below, as in the JAX
 # package: a hot-ID cache hit must leave ``kernel_calls["pooled_lookup"]``
@@ -33,3 +34,16 @@ def pooled_lookup_grad(ids: torch.Tensor, grad_out: torch.Tensor,
     ``embedding_bag_grad`` kernel."""
     kernel_calls["pooled_lookup_grad"] += 1
     return embedding_bag_grad(ids, grad_out, capacity)
+
+
+def gba_apply_flat(param_flat: torch.Tensor, accum_flat: torch.Tensor,
+                   buffer: torch.Tensor, tokens: torch.Tensor, step: int,
+                   lr: float, *, iota: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused decay-aggregate + Adagrad over the flat (M, N) buffer, through
+    the ``gba_apply`` kernel: the single-launch PS apply of the whole dense
+    module (see ``repro_torch.core.gba.FlatLayout``).  Updates
+    ``param_flat`` and ``accum_flat`` in place and returns them."""
+    kernel_calls["gba_apply_flat"] += 1
+    return gba_apply(param_flat, accum_flat, buffer, tokens, step, lr,
+                     iota=iota)

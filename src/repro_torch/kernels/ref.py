@@ -8,6 +8,10 @@ from __future__ import annotations
 
 import torch
 
+# Adagrad's epsilon, added after the square root (the reference's default;
+# no ported caller sets another)
+EPS = 1e-10
+
 
 def embedding_bag_ref(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(B, F) int ids, (V, D) table -> (B, D) sum-pool in the table's dtype,
@@ -54,3 +58,38 @@ def embedding_bag_grad_ref(ids: torch.Tensor, grad_out: torch.Tensor,
     gtable.index_add_(0, idx, rows)
     counts.index_add_(0, idx, valid.float())
     return gtable, counts
+
+
+def gba_apply_ref(param: torch.Tensor, accum: torch.Tensor,
+                  buffer: torch.Tensor, tokens: torch.Tensor, step: int,
+                  lr: float, *, iota: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """param (N,) float32 or bfloat16, accum (N,) float32, buffer (M, N),
+    tokens (M,) int32 -> new (param, accum), as new tensors.
+
+    The arithmetic of the TPU kernel (``repro/kernels/gba_apply.py:80``),
+    all in float32: the weights are ``keep / M`` with ``keep = (step -
+    tokens) <= iota``, taken before the sum; ``g`` sums ``buffer[j] *
+    w[j]`` one slot after another from slot 0; then ``a' = accum + g * g``
+    and ``p' = p - (lr * g) / (sqrt(a') + EPS)``, and ``p'`` is cast back
+    to the param's dtype.  (``repro.kernels.ref.gba_apply_ref`` divides
+    the kept sum by M after summing, which rounds differently for an M
+    that is not a power of two; the kernels do not.)  Every step is one
+    correctly rounded float32 operation in a fixed order, on the CPU and
+    on the card alike, so the CUDA kernel is held to this bit for bit.
+
+    The square root is taken in float64 and rounded once to float32:
+    ``torch.sqrt`` of a float32 CPU tensor goes through MKL's vector math,
+    which misses the correctly rounded result on about 0.7 % of inputs,
+    while the float64 root rounded to float32 is the correctly rounded
+    float32 root (a float32 root never lies within a float64 ulp of a
+    float32 rounding boundary) on the CPU and on the card."""
+    m = buffer.shape[0]
+    w = ((step - tokens) <= iota).float() / m
+    g = buffer[0].float() * w[0]
+    for j in range(1, m):
+        g = g + buffer[j].float() * w[j]
+    a = accum + g * g
+    root = torch.sqrt(a.double()).float()
+    p = param.float() - (lr * g) / (root + EPS)
+    return p.to(param.dtype), a

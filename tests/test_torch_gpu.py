@@ -12,7 +12,9 @@ in f32 within one bf16 ulp (rtol=2**-7, atol=1e-6), since both sides sum
 in f32 and round once.  ``embedding_bag_grad`` sums each row in entry
 order, as its plain version does on the CPU, so its table gradient is held
 bit for bit to the plain version run on a CPU copy, and its counts
-exactly.
+exactly.  ``gba_apply`` does every float32 operation of its plain version,
+correctly rounded and in the same order, so its param and accumulator are
+held bit for bit to the plain version on the card and on a CPU copy.
 """
 import dataclasses
 
@@ -22,7 +24,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_grad
-from repro_torch.kernels.ref import embedding_bag_grad_ref, embedding_bag_ref
+from repro_torch.kernels.gba_apply import gba_apply
+from repro_torch.kernels.ref import (embedding_bag_grad_ref,
+                                     embedding_bag_ref, gba_apply_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -221,3 +225,100 @@ def test_replay_on_the_card_matches_the_cpu():
     got, want = params_to_numpy(pg), params_to_numpy(pc)
     for k in ("embed", "linear", "bias"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7)
+
+
+def _apply_case(kind, seed=0):
+    """(param, accum, buffer, tokens, step) on the card: the fused LM
+    step's layout at a small N and the edges of the kernel's contract."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m, n, p_dt, b_dt, ages = {
+        "path": (4, 1 << 20, torch.float32, torch.float32, [0, 0, 0, 0]),
+        "ragged-stale-bf16-param": (3, 5000, torch.bfloat16, torch.float32,
+                                    [0, 5, 1]),
+        "all-stale-scalar": (4, 4099, torch.float32, torch.float32,
+                             [5, 6, 7, 9]),
+        "bf16-buffer": (4, 8192, torch.float32, torch.bfloat16,
+                        [0, 1, 4, 5]),
+        "bf16-both-scalar": (8, 10_001, torch.bfloat16, torch.bfloat16,
+                             [0, 1, 2, 3, 4, 5, 6, 7]),
+    }[kind]
+    step = 9
+    param = torch.randn((n,), generator=gen, device="cuda").to(p_dt)
+    accum = 0.1 + torch.rand((n,), generator=gen, device="cuda")
+    buffer = torch.randn((m, n), generator=gen, device="cuda").to(b_dt)
+    tokens = torch.tensor([step - a for a in ages], dtype=torch.int32,
+                          device="cuda")
+    return param, accum, buffer, tokens, step
+
+
+@pytest.mark.parametrize("kind", ["path", "ragged-stale-bf16-param",
+                                  "all-stale-scalar", "bf16-buffer",
+                                  "bf16-both-scalar"])
+def test_gba_apply_matches_plain_version_bit_for_bit(kind):
+    _need_card()
+    param, accum, buffer, tokens, step = _apply_case(kind)
+    lr, iota = 1e-3, 4
+    want_p, want_a = gba_apply_ref(param, accum, buffer, tokens, step, lr,
+                                   iota=iota)
+    host_p, host_a = gba_apply_ref(param.cpu(), accum.cpu(), buffer.cpu(),
+                                   tokens.cpu(), step, lr, iota=iota)
+    before_p, before_a = param.clone(), accum.clone()
+    launches = gba_apply.launches
+    p, a = gba_apply(param, accum, buffer, tokens, step, lr, iota=iota)
+    torch.cuda.synchronize()
+    assert gba_apply.launches == launches + 1
+    assert p is param and a is accum
+    bits = torch.int16 if param.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(param.view(bits), want_p.view(bits))
+    assert torch.equal(accum.view(torch.int32), want_a.view(torch.int32))
+    assert torch.equal(param.cpu().view(bits), host_p.view(bits))
+    assert torch.equal(accum.cpu().view(torch.int32),
+                       host_a.view(torch.int32))
+    if kind == "all-stale-scalar":
+        assert torch.equal(param, before_p) and torch.equal(accum, before_a)
+    else:
+        assert not torch.equal(accum, before_a)
+
+
+def test_gba_apply_mixed_devices_raise():
+    _need_card()
+    param, accum, buffer, tokens, step = _apply_case("path")
+    with pytest.raises(ValueError):
+        gba_apply(param, accum.cpu(), buffer, tokens, step, 1e-3, iota=4)
+    strided = torch.empty((buffer.shape[1], buffer.shape[0]),
+                          device="cuda").t()             # (M, N), not contiguous
+    with pytest.raises(ValueError):
+        gba_apply(param, accum, strided, tokens, step, 1e-3, iota=4)
+
+
+def test_fused_lm_step_on_the_card_matches_the_cpu():
+    _need_card()
+    import dataclasses as dc
+    from repro_torch.configs import GBAConfig, get_config
+    from repro_torch.convert import tree_to_device
+    from repro_torch.data import make_lm_stream
+    from repro_torch.launch.programs import build_programs
+    from repro_torch.models.transformer import init_model
+    cfg = dc.replace(get_config("granite-8b").reduced(), dtype="float32")
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    gba = GBAConfig(local_batch=2, buffer_size=4, staleness_tolerance=4)
+    stream = make_lm_stream(cfg.vocab_size, 32, 2, seed=0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        progs = build_programs(cfg, gba, params=tree_to_device(
+            host, torch.device(dev)))
+        state, losses = progs.state, []
+        launches = gba_apply.launches
+        for i in range(4):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch(i).items()}
+            state, loss = progs.step(state, b, 0)
+            losses.append(loss.item())
+        assert gba_apply.launches == launches + (dev == "cuda")
+        runs[dev] = (losses, progs.layout.ravel(state["params"]).cpu(),
+                     state["accum"].cpu())
+    (lc, pc, ac), (lg, pg, ag) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    torch.testing.assert_close(pg, pc, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(ag, ac, rtol=1e-5, atol=1e-7)

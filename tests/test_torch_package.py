@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port.
 
-* Importing ``repro_torch`` and its serving, training, embeddings and
-  kernel modules loads no JAX.
+* Importing ``repro_torch`` and its serving, training (the replay trainer
+  and the LM's fused step), embeddings and kernel modules loads no JAX.
 * No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
   JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
@@ -16,11 +16,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.recsys import CRITEO_DEEPFM
 from repro_torch.convert import params_from_jax
 from repro_torch.core import pretrain_sync
 from repro_torch.launch import quickstart, train
 from repro_torch.models.recsys import init_recsys
+from repro_torch.models.transformer import init_model
 from repro_torch.serving import (RecsysScoringEngine, StaticSource,
                                  init_scoring_params)
 
@@ -39,7 +41,9 @@ def test_import_loads_no_jax():
             "repro_torch.configs, repro_torch.data, repro_torch.sim, "
             "repro_torch.metrics, repro_torch.optim, repro_torch.models.recsys, "
             "repro_torch.core, repro_torch.launch.quickstart, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.programs, "
+            "repro_torch.models.transformer, repro_torch.core.gba, "
+            "repro_torch.data.lm, repro_torch.kernels.gba_apply; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -70,7 +74,8 @@ def test_forbidden_import_pattern():
 @pytest.mark.parametrize("entry", ["init_scoring_params", "engine",
                                    "from_checkpoint", "params_from_jax",
                                    "init_recsys", "pretrain_sync",
-                                   "quickstart", "train_vocab"])
+                                   "quickstart", "train_vocab",
+                                   "init_model", "train_arch"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(
         entry, tmp_path):
     if torch.cuda.is_available():
@@ -90,6 +95,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
         "quickstart": lambda: quickstart.main([]),
         "train_vocab": lambda: train.main(["--vocab", "1000", "--steps",
                                            "1"]),
+        "init_model": lambda: init_model(get_config("granite-8b").reduced(),
+                                         generator=gen),
+        "train_arch": lambda: train.main(["--arch", "granite-8b",
+                                          "--reduced", "--fused", "--steps",
+                                          "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -418,7 +418,8 @@ def test_train_main_cli(capsys):
     assert "step    1" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         train.main(["--arch", "granite-8b", "--device", "cpu"])
-    assert "LM stack is not ported yet" in capsys.readouterr().err
+    assert "only the fused flat-buffer Adagrad step" in (
+        capsys.readouterr().err)
 
 
 # ---------------------------------------------------------------------------
