@@ -21,7 +21,14 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   heads / 8 KV heads, d_ff 14336, vocab 49,152, bf16 weights), depth cut
   from 36 layers to 2 (at 36 the f32 flat buffer alone would be M * N * 4
   B = 132 GB), batch 4 x 128 tokens, M = 4, iota 4, lr 1e-3, 8
-  microsteps: 2 global steps, each one ``gba_apply`` launch.
+  microsteps: 2 global steps, each one ``gba_apply`` launch;
+* the worker-parallel wire step of the same model
+  (``repro_torch.launch.train --arch granite-8b --fused --mesh 4x1
+  --compress {none,int8,onebit}``): 4 PS workers, each also a shard, in one
+  process on the card, one sequence of 128 tokens each, 4 layer groups,
+  tile 2048, 2 float32 warmup and 2 compressed global steps per scheme;
+  per compressed global step 16 quantize, 16 dequantize and 4
+  ``gba_apply`` launches.
 
 Phases:
 
@@ -52,12 +59,21 @@ Phases:
    CPU;
 10. timing: each kernel, its plain version and a PyTorch library call with
     CUDA events, and the engine's score latency;
-11. one JSON line of the kernels, then the result line.
+11. the wire step for none, int8 and onebit: the launches of every global
+    step, params and accumulator after the warmup bit-identical to the
+    uncompressed run (residual zero, onebit momentum nonzero), at the first
+    compressed global step every quantize (codes, sidebands, residual),
+    dequantize and per-shard apply held bit for bit to its plain version on
+    clones of its inputs, the path's peak device memory under 70 GB, a
+    profile of the last global step; then ``granite-8b.reduced()`` in
+    float32, card against CPU, with the codes that differ counted; then
+    each wire kernel timed at the path's largest launch;
+12. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
-microsteps) and read just after it, so ``launches`` counts those paths
-alone.  Any failure
+microsteps, each scheme of the wire step) and read just after it, so
+``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
 """
@@ -112,6 +128,22 @@ LM_LAYERS, LM_BATCH, LM_SEQ, LM_M, LM_IOTA, LM_LR = 2, 4, 128, 4, 4, 1e-3
 LM_MICROSTEPS = 8
 APPLY_N = 838_881_280          # flat params of that model: gba_apply's N
 HOLD_LM_RTOL, HOLD_LM_ATOL = 1e-5, 1e-7    # card vs CPU, float32 sum orders
+
+# the wire slice: the same model, W = 4 PS workers and shards in one process
+# (repro.launch.train --mesh 4x1 --compress {none,int8,onebit}), 2 float32
+# warmup and 2 compressed global steps
+WIRE_W, WIRE_STEPS, WIRE_WARMUP = 4, 4, 2
+WIRE_PEAK_GB = 70.0            # the path's peak device memory, of 80 GB
+# card vs CPU: float32 sum orders, as for the LM step; a code that flips at
+# a rounding boundary moves one routed value by one quantization step
+WIRE_HOLD_RTOL = 1e-5
+# at the first compressed step the two sides' payloads differ by float32
+# sum orders only: a code may differ only where the payload lies within
+# this many quantization steps of a rounding boundary (minmax: the scaled
+# offset (x - zero) / scale near a half, the codes one apart; sign: x /
+# scale, the scale being the tile's mean |x|, near 0)
+WIRE_FLIP_NEAR = 0.05
+F64_OPS_PER_S = 34e12          # H100 SXM float64 outside the tensor cores
 
 TIMED_SHAPES = ((128, 1), (4096, 16))   # serving miss pool, bulk pool
 TIMED_ID_SETS = 16     # cycled so the (4096, 16) pools span 268 MB > L2
@@ -593,7 +625,6 @@ def device_busy(run, match: str = "") -> dict:
     """Device time of the kernels and copies that ``run()`` issues over its
     wall time, from a ``torch.profiler`` trace; with ``match``, also the
     device time and count of the kernels whose name contains it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -602,16 +633,26 @@ def device_busy(run, match: str = "") -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return device_times(prof, wall_us, match)
+
+
+def device_times(prof, wall_us: float, match: str = "", top_n: int = 6,
+                 name_len: int = 60) -> dict:
+    """Device time by kernel name (cut to ``name_len``) in a finished
+    ``torch.profiler`` trace, over ``wall_us``: busy time, idle share, the
+    ``top_n`` names, and the times of the kernels whose name contains
+    ``match``."""
+    from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     matched = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = e.name[:60]
+            name = e.name[:name_len]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
             if match and match in e.name:
                 matched.append(e.time_range.elapsed_us())
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     out = {"wall_us": wall_us, "device_busy_us": busy,
            "idle_share": (1 - busy / wall_us) if busy else None,
            "top_us": {k: v for k, v in top}}
@@ -1189,6 +1230,476 @@ def timing_phase(embedding_bag, embedding_bag_ref, big, gen, static, S,
     return {"shapes": shapes, "latency": lat}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the worker-parallel wire step
+# ---------------------------------------------------------------------------
+
+def _bits_of(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+class Holds:
+    """While ``active``, each ``ops.quantize_wire``, ``ops.dequantize_wire``
+    and ``ops.gba_apply_flat`` call of the wire step is held bit for bit
+    against its plain version on the card, run on clones of its inputs
+    taken before the launch; every layout seen is recorded."""
+
+    def __init__(self, T: dict):
+        self.T, self.ops = T, T["ops"]
+        self.real = {k: getattr(self.ops, k) for k in
+                     ("quantize_wire", "dequantize_wire", "gba_apply_flat")}
+        self.active, self.seen, self.max_err = False, [], {}
+
+    def __enter__(self):
+        self.ops.quantize_wire = self.quantize
+        self.ops.dequantize_wire = self.dequantize
+        self.ops.gba_apply_flat = self.apply
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.ops, k, fn)
+
+    def _held(self, name, shape, pairs):
+        err = 0.0
+        for what, got, want in pairs:
+            ok = got.shape == want.shape and torch.equal(_bits_of(got),
+                                                         _bits_of(want))
+            check(ok, f"{name} {tuple(shape)}: {what} bit-identical to the "
+                      f"plain version")
+            err = max(err, _max_abs(got, want))
+        self.max_err[name] = max(self.max_err.get(name, 0.0), err)
+        self.seen.append((name, tuple(shape)))
+
+    def quantize(self, x, *, tile, mode):
+        if not self.active:
+            return self.real["quantize_wire"](x, tile=tile, mode=mode)
+        before = x.clone()
+        out = self.real["quantize_wire"](x, tile=tile, mode=mode)
+        ref = self.T["quantize_minmax_ref" if mode == "minmax" else
+                     "quantize_sign_ref"](before, tile)
+        names = ("codes", "scale", "zero")[:len(out)] + ("residual",)
+        self._held(f"quantize_{mode}", x.shape,
+                   zip(names, (*out, x), ref))
+        return out
+
+    def dequantize(self, q, *sides, tile, mode, out):
+        if not self.active:
+            return self.real["dequantize_wire"](q, *sides, tile=tile,
+                                                mode=mode, out=out)
+        q0, sides0 = q.clone(), [s.clone() for s in sides]
+        self.real["dequantize_wire"](q, *sides, tile=tile, mode=mode,
+                                     out=out)
+        zero = sides0[1] if mode == "minmax" else None
+        ref = self.T["dequantize_ref"](q0, sides0[0], zero, tile, mode)
+        self._held("dequantize", q.shape, [("output", out, ref)])
+        return out
+
+    def apply(self, param, accum, buf, tokens, step, lr, *, iota):
+        if not self.active:
+            return self.real["gba_apply_flat"](param, accum, buf, tokens,
+                                               step, lr, iota=iota)
+        p0, a0, b0 = param.clone(), accum.clone(), buf.clone()
+        self.real["gba_apply_flat"](param, accum, buf, tokens, step, lr,
+                                    iota=iota)
+        want_p, want_a = self.T["gba_apply_ref"](p0, a0, b0, tokens, step,
+                                                 lr, iota=iota)
+        self._held("gba_apply", buf.shape, [("param", param, want_p),
+                                            ("accum", accum, want_a)])
+        return param, accum
+
+
+class StepProfile:
+    """A ``torch.profiler`` trace from ``start()`` to ``stop()``, read as
+    ``device_busy`` reads its own."""
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> dict:
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - self.t0) * 1e6
+        self.prof.__exit__(None, None, None)
+        out = device_times(self.prof, wall_us, top_n=12, name_len=160)
+        # the same device time by the PyTorch operator that launched it
+        ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0),
+                       e.count) for e in self.prof.key_averages()
+                      if e.key.startswith("aten::")), key=lambda t: -t[1])
+        out["aten_self_device_us"] = {k: [t, n] for k, t, n in ops[:12]}
+        return out
+
+
+def wire_run(T: dict, cfg, scheme: str, params: dict, device: str,
+             counters, holds: Holds | None = None, hold_step: int = 0,
+             warm_ref=None, profile: bool = False) -> dict:
+    """One ``run_wire_train`` of ``WIRE_STEPS`` global steps; ``on_step``
+    reads the launches and seconds of each step, snapshots params and
+    accumulator after the warmup, turns ``holds`` on for global step
+    ``hold_step`` and profiles the last one.  The peak device memory of
+    the path is that of the set-up and step 0 and of the steps after the
+    held one, without the holds' copies."""
+    quant = T["quantize_minmax" if scheme == "int8" else "quantize_sign"]
+    rows, marks = [], {}
+    prof = StepProfile() if profile else None
+    on_card = device == "cuda"
+
+    def launches() -> tuple:
+        return (quant.launches if scheme != "none" else 0,
+                T["dequantize"].launches, T["gba_apply"].launches)
+
+    def on_step(i, progs):
+        if on_card:
+            torch.cuda.synchronize()
+        now, n = time.perf_counter(), launches()
+        lay = progs.layout
+        marks["geometry"] = {"shard_size": lay.shard_size,
+                             "groups": list(lay.group_keys),
+                             "bounds": [lay.group_shard_bounds(g) for g in
+                                        range(lay.num_groups)]}
+        rows.append({"step": i, "seconds": now - marks["t"],
+                     "quantize": n[0] - marks["n"][0],
+                     "dequantize": n[1] - marks["n"][1],
+                     "gba_apply": n[2] - marks["n"][2]})
+        if i == 0:
+            marks["first_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                      / 1e9 if on_card else None)
+        if i == WIRE_WARMUP - 1:          # after the float32 warmup
+            st, wire = progs.state, progs.wire_state or {}
+            snap = {k: st[k].to("cpu", copy=True)
+                    for k in ("param_flat", "accum")}
+            if warm_ref is not None:
+                for k, v in snap.items():
+                    check(torch.equal(v.view(torch.int32),
+                                      warm_ref[k].view(torch.int32)),
+                          f"{scheme}: {k} after the warmup bit-identical to "
+                          f"the uncompressed run")
+            if "residual" in wire:
+                check(not wire["residual"].any().item(),
+                      f"{scheme}: residual all zero after the warmup")
+            if "momentum" in wire:
+                check(wire["momentum"].abs().max().item() > 0,
+                      f"{scheme}: momentum nonzero after the warmup")
+            marks["warm"] = snap
+        if holds is not None:
+            holds.active = i + 1 == hold_step
+        if i == hold_step and on_card:
+            torch.cuda.reset_peak_memory_stats()
+        if i == WIRE_STEPS - 2 and prof is not None:
+            prof.start()
+        if i == WIRE_STEPS - 1 and prof is not None:
+            marks["profile"] = prof.stop()
+        if on_card:
+            torch.cuda.synchronize()
+        marks["t"], marks["n"] = time.perf_counter(), launches()
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counters(reset=True)
+    marks["t"], marks["n"] = time.perf_counter(), launches()
+    losses = T["run_wire_train"](
+        cfg, workers=WIRE_W, scheme=scheme, steps=WIRE_STEPS, batch=LM_BATCH,
+        seq=LM_SEQ, iota=LM_IOTA, lr=LM_LR, compress_warmup=WIRE_WARMUP,
+        device=device, params=params, on_step=on_step)
+    if on_card:
+        torch.cuda.synchronize()
+    counts = counters()
+    return {"scheme": scheme, "losses": losses, "steps": rows,
+            "launches": counts, "warm": marks["warm"],
+            "geometry": marks["geometry"],
+            "first_peak_gb": marks.get("first_peak_gb"),
+            "last_peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                             if on_card else None),
+            "profile": marks.get("profile")}
+
+
+def wire_phase(T: dict, counters) -> dict:
+    phase(11, f"worker-parallel wire step: granite-8b at full width, depth "
+              f"{LM_LAYERS}, {WIRE_W} workers, {WIRE_STEPS} global steps "
+              f"({WIRE_WARMUP} float32 warmup) per scheme")
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    runs, launches, warm_ref = {}, {}, None
+    holds = Holds(T)
+    with holds:
+        for scheme in ("none", "int8", "onebit"):
+            # hold an uncompressed step of "none" and the first
+            # compressed step of the lossy schemes
+            run = wire_run(T, cfg, scheme, params, "cuda", counters,
+                           holds=holds, hold_step=(
+                               1 if scheme == "none" else WIRE_WARMUP),
+                           warm_ref=warm_ref, profile=scheme != "none")
+            warm = run.pop("warm")
+            if scheme == "none":
+                warm_ref = warm
+            del warm
+            groups = len(run["geometry"]["groups"])
+            warm_n = (0, 0, WIRE_W)
+            comp_n = ((WIRE_W * groups, WIRE_W * groups, WIRE_W)
+                      if scheme != "none" else warm_n)
+            got = [(r["quantize"], r["dequantize"], r["gba_apply"])
+                   for r in run["steps"]]
+            check(got == [warm_n] * WIRE_WARMUP
+                  + [comp_n] * (WIRE_STEPS - WIRE_WARMUP),
+                  f"{scheme}: launches (quantize, dequantize, gba_apply) per "
+                  f"global step {got}")
+            check(all(np.isfinite(run["losses"])), f"{scheme}: finite losses")
+            run["path_peak_gb"] = max(run["first_peak_gb"],
+                                      run["last_peak_gb"])
+            check(run["path_peak_gb"] < WIRE_PEAK_GB,
+                  f"{scheme}: peak device memory {run['path_peak_gb']:.2f} "
+                  f"GB < {WIRE_PEAK_GB} GB")
+            launches[scheme] = run["launches"]
+            runs[scheme] = run
+            print(f"  {scheme}: {json.dumps(run)}")
+    del warm_ref
+    summary = {k: {"step_s": r["steps"][-1]["seconds"],
+                   "warm_step_s": (r["steps"][WIRE_WARMUP - 1]["seconds"]
+                                   if k != "none" else None),
+                   "path_peak_gb": r["path_peak_gb"],
+                   "idle_share": (r["profile"] or {}).get("idle_share")}
+               for k, r in runs.items()}
+    print(f"  seconds per global step ({WIRE_W} workers' microsteps and the "
+          f"shards' applies), the last step of each scheme and a warmup "
+          f"step: {json.dumps(summary)}")
+    seen = sorted(set(holds.seen))
+    print(f"  held bit for bit (an uncompressed step of none, the first "
+          f"compressed step of int8 and onebit): "
+          f"{json.dumps(seen)}; max abs err {json.dumps(holds.max_err)}")
+    for name in ("quantize_minmax", "quantize_sign", "dequantize",
+                 "gba_apply"):
+        check(any(n == name for n, _ in seen), f"{name} held")
+    del params
+    torch.cuda.empty_cache()
+    hold = wire_card_vs_cpu(T, counters)
+    timing = wire_timing(T, runs["int8"]["geometry"])
+    return {"config": {"arch": cfg.name, "num_layers": LM_LAYERS,
+                       "reduced": "num_layers 36 -> 2", "workers": WIRE_W,
+                       "batch": LM_BATCH, "seq": LM_SEQ, "iota": LM_IOTA,
+                       "lr": LM_LR, "tile": 2048, "steps": WIRE_STEPS,
+                       "warmup": WIRE_WARMUP},
+            "runs": runs, "summary": summary, "launches": launches,
+            "held": seen,
+            "max_abs_err": holds.max_err, "card_vs_cpu": hold,
+            "timing": timing}
+
+
+def _scaled(mode: str, x: torch.Tensor, out: tuple, tile: int
+            ) -> torch.Tensor:
+    """The payload in quantization steps, per element: minmax ``(x -
+    zero) / scale``, whose codes round it; sign ``x / scale``, whose
+    boundary is 0."""
+    scale = out[1].repeat_interleave(tile, dim=1)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    if mode == "minmax":
+        return (x - out[2].repeat_interleave(tile, dim=1)) / scale
+    return x / scale
+
+
+def _flips(card: list, host: list, per_step: int) -> dict:
+    """Codes of each quantize launch, card against CPU.  At the first
+    compressed step every differing code must sit at a rounding boundary
+    (``WIRE_FLIP_NEAR``); later steps carry the first step's differences
+    on in their residuals, so their flips are counted only."""
+    steps, near, apart = [], 0.0, 0
+    for k, (a, b) in enumerate(zip(card, host)):
+        if k % per_step == 0:
+            steps.append(0)
+        diff = (a["out"][0].int() - b["out"][0].int()).abs()
+        flip = diff > 0
+        steps[-1] += int(flip.sum())
+        if k >= per_step or not flip.any():
+            continue
+        mode, tile = a["mode"], a["tile"]
+        ua = _scaled(mode, a["x"], a["out"], tile)[flip]
+        ub = _scaled(mode, b["x"], b["out"], tile)[flip]
+        if mode == "minmax":
+            apart = max(apart, int(diff.max()))
+            gap = (ua - ub).abs()
+        else:
+            gap = torch.maximum(ua.abs(), ub.abs())
+        near = max(near, float(gap.max()))
+    return {"flips_by_step": steps, "first_step_max_code_diff": apart,
+            "first_step_max_steps_from_boundary": near}
+
+
+def wire_card_vs_cpu(T: dict, counters) -> dict:
+    """``granite-8b.reduced()`` in float32, ``WIRE_STEPS`` global steps of
+    each scheme from the same params, card against CPU: every code of
+    every quantize launch compared (``_flips``), losses within
+    ``WIRE_HOLD_RTOL``."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b").reduced(),
+                              dtype="float32")
+    host = T["init_model"](cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    ops, out = T["ops"], {}
+    # what the CPU side's float32 sum orders depend on
+    cpu = {"capability": torch.backends.cpu.get_cpu_capability(),
+           "threads": torch.get_num_threads()}
+    for scheme in ("none", "int8", "onebit"):
+        seen, losses = {}, {}
+        for dev in ("cuda", "cpu"):
+            rec = seen[dev] = []
+            real = ops.quantize_wire
+
+            def tap(x, *, tile, mode, rec=rec, real=real):
+                before = x.to("cpu", copy=True)
+                got = real(x, tile=tile, mode=mode)
+                rec.append({"mode": mode, "tile": tile, "x": before,
+                            "out": [t.cpu() for t in got]})
+                return got
+            ops.quantize_wire = tap
+            try:
+                run = wire_run(T, cfg, scheme, T["tree_to_device"](
+                    host, torch.device(dev)), dev, counters)
+            finally:
+                ops.quantize_wire = real
+            losses[dev] = run["losses"]
+        card, cpu_rec = seen["cuda"], seen["cpu"]
+        check(len(card) == len(cpu_rec),
+              f"{scheme}: as many quantize launches on the card as on the CPU")
+        flips = _flips(card, cpu_rec,
+                       len(card) // (WIRE_STEPS - WIRE_WARMUP) or 1)
+        check(flips["first_step_max_code_diff"] <= 1,
+              f"{scheme}: minmax codes card vs CPU at most one apart at the "
+              f"first compressed step")
+        check(flips["first_step_max_steps_from_boundary"] <= WIRE_FLIP_NEAR,
+              f"{scheme}: every code that differs card vs CPU at the first "
+              f"compressed step lies within {WIRE_FLIP_NEAR} quantization "
+              f"steps of a rounding boundary: {flips}")
+        check(np.allclose(losses["cuda"], losses["cpu"], rtol=WIRE_HOLD_RTOL,
+                          atol=0),
+              f"{scheme}: losses card vs CPU within rtol {WIRE_HOLD_RTOL}: "
+              f"{losses}")
+        out[scheme] = {"losses_card": losses["cuda"],
+                       "losses_cpu": losses["cpu"],
+                       "code_flips": sum(flips["flips_by_step"]), **flips,
+                       "codes": sum(r["out"][0].numel() for r in card),
+                       "cpu": cpu}
+        del seen, card, cpu_rec
+        print(f"  {cfg.name} f32 card vs CPU, {scheme}: "
+              f"{json.dumps(out[scheme])}")
+    return out
+
+
+def wire_bound_ms(kind: str, r: int, c: int, tile: int
+                  ) -> tuple[float, str]:
+    """Least time for one launch on an (r, c) view: the payload read and
+    the codes and residual written once (quantize), or the codes read and
+    the output written once (dequantize), with the per-tile sidebands;
+    against the float operations an element needs (minmax quantize: 2
+    compares, subtract, divide, round, 2 clamps, fma, subtract; sign: abs,
+    a float64 add, compare, multiply, subtract; dequantize: add and fma, or
+    one multiply)."""
+    n, nt = r * c, r * (c // tile)
+    nbytes, f32_ops, f64_ops = {
+        "quantize_minmax": (n * 9 + 2 * nt * 4, 11 * n, 0),
+        "quantize_sign": (n * 9 + nt * 4, 4 * n, n),
+        "dequantize_minmax": (n * 5 + 2 * nt * 4, 3 * n, 0),
+        "dequantize_sign": (n * 5 + nt * 4, n, 0),
+    }[kind]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def wire_timing(T: dict, geometry: dict) -> dict:
+    """Each wire kernel and its plain version at the path's largest launch:
+    group ``blocks.l0``'s (W, group_shard) columns of a worker's residual
+    row (quantize) and of a shard's routed codes into its (M, shard_size)
+    block (dequantize), with CUDA events, in turns, median of 3 runs.  The
+    sign dequantize is one ``torch.mul`` of the codes and the broadcast
+    scale (int8 times float32 promotes to float32, exact as the codes are
+    +-1), timed as its library call; no single PyTorch call computes the
+    quantizers or the minmax dequantize (an FMA after the +128 offset)."""
+    ss, bounds = geometry["shard_size"], geometry["bounds"]
+    g = max(range(len(bounds)), key=lambda k: bounds[k][1] - bounds[k][0])
+    lo, hi = bounds[g]
+    tile, r, c = 2048, WIRE_W, hi - lo
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    res = torch.randn((r, ss), generator=gen, device="cuda") * 1e-3
+    view = res[:, lo:hi]
+    fresh = view.clone()
+    codes = torch.empty((r, ss), dtype=torch.int8, device="cuda")
+    sides = torch.empty((2, r, ss // tile), device="cuda")
+    block = torch.empty((r, ss), device="cuda")
+    rows = {}
+    for mode in ("minmax", "sign"):
+        kernel, ref = T[f"quantize_{mode}"], T[f"quantize_{mode}_ref"]
+        q, *sd = kernel(view.clone(), tile=tile)
+        codes[:, lo:hi] = q
+        for k, s in enumerate(sd):
+            sides[k][:, lo // tile:hi // tile] = s
+        sq = [s[:, lo // tile:hi // tile] for s in sides[:len(sd)]]
+        zero = sq[1] if mode == "minmax" else None
+        out = block[:, lo:hi]
+        cases = {
+            f"quantize_{mode}": {
+                "kernel": lambda kernel=kernel: kernel(view, tile=tile),
+                "plain": lambda ref=ref: ref(view, tile)},
+            f"dequantize_{mode}": {
+                "kernel": lambda zero=zero, sq=sq, mode=mode: T["dequantize"](
+                    codes[:, lo:hi], sq[0], zero, tile=tile, mode=mode,
+                    out=out),
+                "plain": lambda zero=zero, sq=sq, mode=mode:
+                    T["dequantize_ref"](codes[:, lo:hi], sq[0], zero, tile,
+                                        mode)},
+        }
+        if mode == "sign":
+            by_tile = (r, c // tile, tile)
+            lib = cases["dequantize_sign"]["library"] = (
+                lambda sq=sq, by_tile=by_tile, out=out:
+                torch.mul(codes[:, lo:hi].view(by_tile),
+                          sq[0].unsqueeze(-1), out=out.view(by_tile)))
+            cases["dequantize_sign"]["kernel"]()
+            want = out.clone()
+            lib()
+            check(torch.equal(_bits_of(out), _bits_of(want)),
+                  "dequantize_sign: torch.mul bit-identical to the kernel")
+            del want
+        for name, fns in cases.items():
+            runs = {k: [] for k in fns}
+            for _ in range(3):
+                for k, fn in fns.items():
+                    # the quantizer writes its residual into its payload:
+                    # each run starts from the same payload, and 7 calls
+                    # keep the residual of residuals far from subnormals,
+                    # whose divisions take the slow path
+                    view.copy_(fresh)
+                    runs[k].append(time_calls(fn, 3 if k == "plain"
+                                              else 5))
+            med = {k: float(np.median(v)) for k, v in runs.items()}
+            lib_name = "torch.mul" if "library" in fns else None
+            bnd, by = wire_bound_ms(name, r, c, tile)
+            rows[name] = {"shape": [r, c], "group": geometry["groups"][g],
+                          "leading_stride": ss, "ms": med["kernel"],
+                          "plain_ms": med["plain"],
+                          "library_ms": med.get("library"),
+                          "library": lib_name, "bound_ms": bnd,
+                          "bound_by": by, "device_runs_ms": runs}
+            lib_text = (f"{lib_name} {med['library']!r}" if lib_name
+                        else "none")
+            print(f"  {name} ({r}, {c}) at stride {ss}, device ms per call: "
+                  f"kernel {med['kernel']!r}, plain {med['plain']!r}, "
+                  f"library {lib_text}, bound {bnd!r} ({by}); device runs: "
+                  f"{json.dumps(runs)}")
+    del res, fresh, codes, sides, block
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1211,8 +1722,13 @@ def main() -> int:
                                                    embedding_bag_grad_sorted,
                                                    sort_ids)
     from repro_torch.kernels.gba_apply import gba_apply
-    from repro_torch.kernels.ref import (embedding_bag_grad_ref,
-                                         embedding_bag_ref, gba_apply_ref)
+    from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
+                                              quantize_sign)
+    from repro_torch.kernels.ref import (dequantize_ref,
+                                         embedding_bag_grad_ref,
+                                         embedding_bag_ref, gba_apply_ref,
+                                         quantize_minmax_ref,
+                                         quantize_sign_ref)
     from repro_torch.launch import quickstart, train
     from repro_torch.launch.programs import build_programs
     from repro_torch.models.recsys import init_recsys
@@ -1247,7 +1763,12 @@ def main() -> int:
          "get_config": get_config, "GBAConfig": GBAConfig,
          "init_model": init_model, "param_count": param_count,
          "build_programs": build_programs, "make_lm_stream": make_lm_stream,
-         "gba_apply": gba_apply, "gba_apply_ref": gba_apply_ref}
+         "gba_apply": gba_apply, "gba_apply_ref": gba_apply_ref,
+         "ops": ops, "run_wire_train": train.run_wire_train,
+         "quantize_minmax": quantize_minmax, "quantize_sign": quantize_sign,
+         "dequantize": dequantize, "quantize_minmax_ref": quantize_minmax_ref,
+         "quantize_sign_ref": quantize_sign_ref,
+         "dequantize_ref": dequantize_ref}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
@@ -1264,10 +1785,16 @@ def main() -> int:
             embedding_bag.launches = 0
             embedding_bag_grad.launches = 0
             gba_apply.launches = 0
+            quantize_minmax.launches = 0
+            quantize_sign.launches = 0
+            dequantize.launches = 0
         return {"calls": ops.kernel_calls["pooled_lookup"],
                 "embedding_bag": embedding_bag.launches,
                 "embedding_bag_grad": embedding_bag_grad.launches,
-                "gba_apply": gba_apply.launches}
+                "gba_apply": gba_apply.launches,
+                "quantize_minmax": quantize_minmax.launches,
+                "quantize_sign": quantize_sign.launches,
+                "dequantize": dequantize.launches}
 
     params = S.init_scoring_params(
         V, DIM, MLP, generator=torch.Generator().manual_seed(0),
@@ -1300,8 +1827,10 @@ def main() -> int:
                           static, S, params)
     grad_rows = grad_timing(T, sleep_cycles_per_ms())
     apply_row = apply_timing(T)
+    torch.cuda.empty_cache()
+    wire = wire_phase(T, counters)
 
-    phase(11, "kernels")
+    phase(12, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -1317,8 +1846,46 @@ def main() -> int:
         "replay": replay,
         "sparse_smoke": smoke,
         "lm_fused": lm,
+        "wire": wire,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
+    apply_launches = {"lm_fused": lm["launches"]["gba_apply"], **{
+        f"wire_{k}": v["gba_apply"] for k, v in wire["launches"].items()}}
+    wire_rows = []
+    for name, line, runs in (
+            ("quantize_minmax", 173, ("int8",)),
+            ("quantize_sign", 201, ("onebit",)),
+            ("dequantize", 224, ("int8", "onebit"))):
+        row = wire["timing"][{"dequantize": "dequantize_minmax"}.get(
+            name, name)]
+        by_path = {f"wire_{k}": wire["launches"][k][name] for k in runs}
+        # read from the last (compressed) global step of each run
+        per_step = {f"wire_{k}": wire["runs"][k]["steps"][-1][
+            name.split("_")[0]] for k in runs}
+        wire_rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": f"src/repro/kernels/quantize.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_compressed_global_step": per_step,
+            "max_abs_err": wire["max_abs_err"][name],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": row["library"],
+            "library_note": "no single PyTorch call computes it" + (
+                " in minmax mode; sign mode's torch.mul is under shapes"
+                if name == "dequantize" else ""),
+            "at": row["shape"],
+            "shapes": [v for k, v in wire["timing"].items()
+                       if k.startswith(name.split("_")[0])
+                       and (name == "dequantize" or k == name)],
+            "ok": True,
+        })
     print(json.dumps({"kernels": [{
         "name": "embedding_bag",
         "route": "cuda",
@@ -1356,9 +1923,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gba_apply.cu",
         "replaces": "src/repro/kernels/gba_apply.py:95",
-        "launches": lm["launches"]["gba_apply"],
-        "launches_by_path": {"lm_fused": lm["launches"]["gba_apply"]},
-        "max_abs_err": apply_max_err,
+        "launches": sum(apply_launches.values()),
+        "launches_by_path": apply_launches,
+        "max_abs_err": max(apply_max_err, wire["max_abs_err"]["gba_apply"]),
         "ms": apply_row["ms"],
         "plain_ms": apply_row["plain_ms"],
         "bound_ms": apply_row["bound_ms"],
@@ -1370,7 +1937,7 @@ def main() -> int:
         "at": apply_row["shape"],
         "shapes": [apply_row],
         "ok": True,
-    }]}))
+    }, *wire_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,10 @@
-"""GBA's training loop in the port: the schedule-replay trainer and the
-continual-training loop.  The token, staleness and flat-buffer modules
-of ``repro.core`` wait for the slice that ports ``gba_apply``."""
+"""GBA's training core in the port: the schedule-replay trainer and the
+continual-training loop (exported here), the flat buffer of the fused LM
+step (``core.gba``), and the worker-parallel wire step with its sharded
+layout, compression policy and Eq. (1) decay (``core.gba_shard_map``,
+``core.flat_sharded``, ``core.compression``, ``core.staleness``).  The
+token module and the pytree aggregation of ``repro.core`` wait
+(ROADMAP.md)."""
 from repro_torch.core.continual import (ContinualResult, ModeSetup,
                                         default_setups, pretrain_sync,
                                         run_continual, schedule_for_day)

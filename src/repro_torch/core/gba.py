@@ -28,14 +28,38 @@ from repro_torch.kernels import ops
 Params = dict[str, Any]
 
 
-def _paths(tree: Params, prefix: tuple[str, ...] = ()):
+def tree_paths(tree: Params, prefix: tuple[str, ...] = ()):
     """(path, leaf) pairs in ``jax.tree.flatten`` order: dict keys
     sorted, depth first."""
     for k in sorted(tree):
         if isinstance(tree[k], dict):
-            yield from _paths(tree[k], prefix + (k,))
+            yield from tree_paths(tree[k], prefix + (k,))
         else:
             yield prefix + (k,), tree[k]
+
+
+def path_leaves(paths: tuple[tuple[str, ...], ...],
+                tree: Params) -> list[torch.Tensor]:
+    """The leaves of ``tree`` at ``paths``, in that order."""
+    out = []
+    for path in paths:
+        node = tree
+        for k in path:
+            node = node[k]
+        out.append(node)
+    return out
+
+
+def path_unflatten(paths: tuple[tuple[str, ...], ...],
+                   leaves: list[torch.Tensor]) -> Params:
+    """The nested dict that holds ``leaves[j]`` at ``paths[j]``."""
+    tree: Params = {}
+    for path, leaf in zip(paths, leaves, strict=True):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 @dataclass(frozen=True)
@@ -53,7 +77,7 @@ class FlatLayout:
 
     @classmethod
     def from_params(cls, params: Params) -> "FlatLayout":
-        paths, leaves = zip(*_paths(params))
+        paths, leaves = zip(*tree_paths(params))
         shapes = tuple(tuple(x.shape) for x in leaves)
         sizes = tuple(math.prod(s) for s in shapes)
         offsets = tuple(itertools.accumulate(sizes, initial=0))[:-1]
@@ -61,22 +85,10 @@ class FlatLayout:
                    offsets, sum(sizes))
 
     def leaves(self, tree: Params) -> list[torch.Tensor]:
-        out = []
-        for path in self.paths:
-            node = tree
-            for k in path:
-                node = node[k]
-            out.append(node)
-        return out
+        return path_leaves(self.paths, tree)
 
     def unflatten(self, leaves: list[torch.Tensor]) -> Params:
-        tree: Params = {}
-        for path, leaf in zip(self.paths, leaves, strict=True):
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = leaf
-        return tree
+        return path_unflatten(self.paths, leaves)
 
     def ravel(self, tree: Params) -> torch.Tensor:
         """Every leaf cast to float32 and laid end to end: a new (N,)

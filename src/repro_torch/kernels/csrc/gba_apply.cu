@@ -10,14 +10,15 @@
 //
 // Per column c, all in float32:
 //   w[j]  = ((step - tokens[j]) <= iota) / M        (Eq. 1; divisor M)
-//   g     = buf[0][c] * w[0];  g = g + buf[j][c] * w[j]   (j = 1 .. M-1)
-//   a'    = accum[c] + g * g
+//   g     = buf[0][c] * w[0];  g = fma(buf[j][c], w[j], g)   (j = 1 .. M-1)
+//   a'    = fma(g, g, accum[c])
 //   p'    = p[c] - (lr * g) / (sqrt(a') + eps)
 // and p' is written back in the param's dtype, a' as float32, both in
-// place.  Every operation is a correctly rounded float32 `__f*_rn`
-// intrinsic, which nvcc never contracts into an FMA, in the order of the
-// plain version `gba_apply_ref` (kernels/ref.py): the two agree bit for
-// bit.
+// place.  The two fused multiply-adds are what XLA computes for the
+// reference on the CPU.  Every operation is a correctly rounded float32
+// `__f*_rn` intrinsic, which nvcc never contracts or reorders, in the
+// order of the plain version `gba_apply_ref` (kernels/ref.py): the two
+// agree bit for bit.
 //
 // Bound: bytes.  Each column reads M buffer values, the param and the
 // accumulator and writes the param and the accumulator once: (M + 4) * N
@@ -95,13 +96,13 @@ __global__ void gba_apply_kernel(P* __restrict__ param,
           buffer + static_cast<int64_t>(j) * n)[i];
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
-        g[k] = __fadd_rn(g[k], __fmul_rn(to_f32(b.v[k]), w[j]));
+        g[k] = __fmaf_rn(to_f32(b.v[k]), w[j], g[k]);
     }
     PA a = reinterpret_cast<const PA*>(accum)[i];
     PP p = reinterpret_cast<const PP*>(param)[i];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      a.v[k] = __fadd_rn(a.v[k], __fmul_rn(g[k], g[k]));
+      a.v[k] = __fmaf_rn(g[k], g[k], a.v[k]);
       const float den = __fadd_rn(__fsqrt_rn(a.v[k]), eps);
       const float upd = __fdiv_rn(__fmul_rn(lr, g[k]), den);
       p.v[k] = from_f32<P>(__fsub_rn(to_f32(p.v[k]), upd));

@@ -11,6 +11,8 @@ import torch
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad)
 from repro_torch.kernels.gba_apply import gba_apply
+from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
+                                          quantize_sign)
 
 # Python-level invocation census of the wrappers below, as in the JAX
 # package: a hot-ID cache hit must leave ``kernel_calls["pooled_lookup"]``
@@ -47,3 +49,28 @@ def gba_apply_flat(param_flat: torch.Tensor, accum_flat: torch.Tensor,
     kernel_calls["gba_apply_flat"] += 1
     return gba_apply(param_flat, accum_flat, buffer, tokens, step, lr,
                      iota=iota)
+
+
+def quantize_wire(x: torch.Tensor, *, tile: int, mode: str
+                  ) -> tuple[torch.Tensor, ...]:
+    """Quantize one (R, C) float32 routing payload per ``tile`` slice with
+    error feedback, through the ``quantize_minmax`` (``mode="minmax"``:
+    returns ``(q, scale, zero)``) or ``quantize_sign`` (``"sign"``:
+    ``(q, scale)``) kernel.  ``x`` may be a strided view; it then holds the
+    residual, in place."""
+    kernel_calls["quantize_wire"] += 1
+    if mode == "minmax":
+        return quantize_minmax(x, tile=tile)
+    if mode == "sign":
+        return quantize_sign(x, tile=tile)
+    raise ValueError(f"unknown quantize mode {mode!r}")
+
+
+def dequantize_wire(q: torch.Tensor, *sidebands: torch.Tensor, tile: int,
+                    mode: str, out: torch.Tensor) -> torch.Tensor:
+    """Rebuild the float32 payload of routed wire arrays ``(q, scale,
+    zero)`` (minmax) or ``(q, scale)`` (sign) into the (R, C) view ``out``
+    through the ``dequantize`` kernel, and return it."""
+    kernel_calls["dequantize_wire"] += 1
+    zero = sidebands[1] if mode == "minmax" else None
+    return dequantize(q, sidebands[0], zero, tile=tile, mode=mode, out=out)

@@ -6,6 +6,8 @@ the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Adagrad's epsilon, added after the square root (the reference's default;
@@ -67,16 +69,17 @@ def gba_apply_ref(param: torch.Tensor, accum: torch.Tensor,
     """param (N,) float32 or bfloat16, accum (N,) float32, buffer (M, N),
     tokens (M,) int32 -> new (param, accum), as new tensors.
 
-    The arithmetic of the TPU kernel (``repro/kernels/gba_apply.py:80``),
-    all in float32: the weights are ``keep / M`` with ``keep = (step -
-    tokens) <= iota``, taken before the sum; ``g`` sums ``buffer[j] *
-    w[j]`` one slot after another from slot 0; then ``a' = accum + g * g``
-    and ``p' = p - (lr * g) / (sqrt(a') + EPS)``, and ``p'`` is cast back
-    to the param's dtype.  (``repro.kernels.ref.gba_apply_ref`` divides
-    the kept sum by M after summing, which rounds differently for an M
-    that is not a power of two; the kernels do not.)  Every step is one
-    correctly rounded float32 operation in a fixed order, on the CPU and
-    on the card alike, so the CUDA kernel is held to this bit for bit.
+    The arithmetic of the TPU kernel (``repro/kernels/gba_apply.py:80``)
+    as XLA computes it on the CPU, all in float32: the weights are ``keep /
+    M`` with ``keep = (step - tokens) <= iota``, taken before the sum; ``g
+    = buffer[0] * w[0]``, then ``g = fma(buffer[j], w[j], g)`` one slot
+    after another; then ``a' = fma(g, g, accum)`` and ``p' = p - (lr * g)
+    / (sqrt(a') + EPS)``, and ``p'`` is cast back to the param's dtype.
+    (``repro.kernels.ref.gba_apply_ref`` divides the kept sum by M after
+    summing, which rounds differently for an M that is not a power of two;
+    the kernels do not.)  Every step is one correctly rounded operation in
+    a fixed order (:func:`fma_f32` for the fused ones), on the CPU and on
+    the card alike, so the CUDA kernel is held to this bit for bit.
 
     The square root is taken in float64 and rounded once to float32:
     ``torch.sqrt`` of a float32 CPU tensor goes through MKL's vector math,
@@ -88,8 +91,150 @@ def gba_apply_ref(param: torch.Tensor, accum: torch.Tensor,
     w = ((step - tokens) <= iota).float() / m
     g = buffer[0].float() * w[0]
     for j in range(1, m):
-        g = g + buffer[j].float() * w[j]
-    a = accum + g * g
+        g = fma_f32(buffer[j].float(), w[j], g)
+    a = fma_f32(g, g, accum)
     root = torch.sqrt(a.double()).float()
     p = param.float() - (lr * g) / (root + EPS)
     return p.to(param.dtype), a
+
+
+# elements per float64 pass of fma_f32: its temporaries stay near 1 GB on
+# the card at the full-width shapes
+_FMA_CHUNK = 1 << 25
+
+
+def _fma_exact(a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    p = a.double() * b.double()       # exact: two 24-bit significands
+    c = c.double()
+    s = p + c
+    v = s - p                         # TwoSum: s + e == p + c exactly
+    e = (p - (s - v)) + (c - v)
+    # round to odd: an inexact sum takes, of the two float64 values around
+    # p + c, the one whose last bit is 1; rounding that to float32 rounds
+    # p + c once, since float64 keeps more than two bits beyond float32's
+    odd = (s.view(torch.int64) & 1) == 1
+    away = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((e != 0) & ~odd, torch.nextafter(s, away), s)
+    return s.float()
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn`` computes it and
+    as XLA fuses it on the CPU.  The product of two float32 values is
+    exact in float64; the sum is rounded to odd in float64 and then to
+    float32, which is the correctly rounded result (a plain float64 sum
+    rounded twice would miss it where the first rounding lands on a
+    float32 tie).  Broadcasts like ``a * b + c``; computed in chunks of
+    the leading axis."""
+    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    a, b, c = (t.expand(shape) for t in (a, b, c))
+    out = torch.empty(shape, dtype=torch.float32, device=c.device)
+    step = max(1, _FMA_CHUNK // max(1, math.prod(shape[1:])))
+    for i in range(0, shape[0], step):
+        out[i:i + step] = _fma_exact(a[i:i + step], b[i:i + step],
+                                     c[i:i + step])
+    return out
+
+
+# the minmax scale multiplies by the float32 reciprocal of 255, as XLA
+# computes the reference's ``(mx - mn) / 255.0`` on the CPU (a division by
+# a constant becomes a product by its reciprocal): ``(mx - mn) / 255``
+# differs from it by one ulp on some tiles
+INV_255 = torch.tensor(1 / 255, dtype=torch.float32).item()
+# the sign scale's lanes: lane t of a tile sums |x[t]|, |x[t + 256]|, ...
+SIGN_LANES = 256
+
+
+def _tiles(x: torch.Tensor, tile: int) -> torch.Tensor:
+    r, c = x.shape
+    if tile < 1 or c % tile:
+        raise ValueError(f"payload columns {c} not a multiple of tile {tile}")
+    return x.float().reshape(r, c // tile, tile)
+
+
+def _min_signed(x: torch.Tensor) -> torch.Tensor:
+    """min over the last axis with -0.0 below +0.0, as the reference's
+    reduction ranks them (``torch.amin`` may return either zero)."""
+    mn = torch.amin(x, dim=-1)
+    neg_zero = ((x == 0) & torch.signbit(x)).any(dim=-1)
+    return torch.where((mn == 0) & neg_zero, torch.full_like(mn, -0.0), mn)
+
+
+def quantize_minmax_ref(payload: torch.Tensor, tile: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """payload (R, C) float32, C a ``tile`` multiple -> ``(q int8 (R, C),
+    scale (R, C/tile), zero (R, C/tile), residual (R, C))``, as new
+    tensors.
+
+    Per (row, tile) slice x: ``mn = min x`` (-0.0 ranks below +0.0),
+    ``scale = (max x - mn) * INV_255`` (0 for a constant tile), ``code =
+    clamp(round((x - mn) / safe), 0, 255)`` with ``safe = scale`` where
+    ``scale > 0``, else 1, and round half to even; ``q = code - 128``,
+    ``zero = mn``, and ``residual = x - fma(code, scale, mn)``, which is
+    ``x - dequantize_ref(q)`` exactly.  The arithmetic of the TPU kernel
+    (``repro/kernels/quantize.py:131``) as XLA runs it on the CPU."""
+    x = _tiles(payload, tile)
+    mn = _min_signed(x)
+    scale = (torch.amax(x, dim=-1) - mn) * INV_255
+    safe = torch.where(scale > 0, scale, 1.0)
+    code = torch.clamp(torch.round((x - mn[..., None]) / safe[..., None]),
+                       0.0, 255.0)
+    res = x - fma_f32(code, scale[..., None], mn[..., None])
+    return ((code - 128).to(torch.int8).reshape(payload.shape), scale, mn,
+            res.reshape(payload.shape))
+
+
+def _sign_scale(x: torch.Tensor) -> torch.Tensor:
+    """float32 mean |x| over the last axis (length ``tile``), summed in
+    float64 in the kernel's order: lane t of ``SIGN_LANES`` adds |x[t]|,
+    |x[t + 256]|, ... one after another from 0.0, then lane t adds lane
+    t + s for s = 128, 64, ..., 1; the sum is divided by ``tile`` in
+    float64 and rounded once to float32."""
+    tile = x.shape[-1]
+    a = x.abs().double()
+    pad = -tile % SIGN_LANES
+    if pad:                  # lanes past the tile's end add +0.0
+        a = torch.nn.functional.pad(a, (0, pad))
+    a = a.reshape(*x.shape[:-1], -1, SIGN_LANES)
+    lanes = a[..., 0, :]
+    for k in range(1, a.shape[-2]):
+        lanes = lanes + a[..., k, :]
+    s = SIGN_LANES
+    while s > 1:
+        s //= 2
+        lanes = lanes[..., :s] + lanes[..., s:2 * s]
+    return (lanes[..., 0] / tile).float()
+
+
+def quantize_sign_ref(payload: torch.Tensor, tile: int
+                      ) -> tuple[torch.Tensor, ...]:
+    """payload (R, C) float32 -> ``(q int8 (R, C), scale (R, C/tile),
+    residual (R, C))``: ``q = +1`` where ``x >= 0`` (-0.0 included), else
+    -1; ``scale`` the tile's mean |x| (:func:`_sign_scale`); ``residual =
+    x - q * scale``.  The reference (``repro/kernels/quantize.py:149``)
+    takes the mean in XLA's reduction order, which no fixed order here
+    reproduces: its scale is within 2 ulps of this one."""
+    x = _tiles(payload, tile)
+    scale = _sign_scale(x)
+    q = torch.where(x >= 0, 1.0, -1.0)
+    res = x - q * scale[..., None]
+    return (q.to(torch.int8).reshape(payload.shape), scale,
+            res.reshape(payload.shape))
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor,
+                   zero: torch.Tensor | None, tile: int, mode: str
+                   ) -> torch.Tensor:
+    """q (R, C) int8 and its (R, C/tile) sidebands -> (R, C) float32:
+    ``fma(q + 128, scale, zero)`` for ``"minmax"``, ``q * scale`` for
+    ``"sign"`` (``repro/kernels/quantize.py:160`` and ``:167``)."""
+    code = _tiles(q, tile)
+    if mode == "minmax":
+        out = fma_f32(code + 128, scale[..., None], zero[..., None])
+    elif mode == "sign":
+        out = code * scale[..., None]
+    else:
+        raise ValueError(f"unknown dequantize mode {mode!r}")
+    return out.reshape(q.shape)

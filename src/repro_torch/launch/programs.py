@@ -1,18 +1,28 @@
-"""The fused flat-buffer GBA train step of the LM: ``build_programs``.
+"""The LM's GBA training programs: ``build_programs``.
 
-Counterpart of ``repro.launch.programs`` for ``mode="fused"`` on one
-device.  The model's params stay a tree (the forward consumes them); the
-Adagrad accumulator and the M-slot gradient buffer live flat
-(``repro_torch.core.gba``).  Each microstep computes the LM loss and its
-gradient, ravels the gradient into the buffer; on every M-th microstep ONE
-``gba_apply`` launch aggregates the buffer with the token-control weights
-of Eq. (1) and applies Adagrad to the whole flat vector.
+Counterpart of ``repro.launch.programs`` for two of its modes.
 
-The reference also builds the pytree, wire and sync_psum programs and the
-sharded fused path over a mesh; the port has none of them yet (ROADMAP.md)
-and raises for them.  PyTorch runs eagerly, so there is nothing to jit: the
-"program" is the step function, and it updates the buffer and the
-accumulator in place where the reference donates them.
+``fused``
+    One device.  The model's params stay a tree (the forward consumes
+    them); the Adagrad accumulator and the M-slot gradient buffer live
+    flat (``repro_torch.core.gba``).  Each microstep computes the LM loss
+    and its gradient and ravels the gradient into the buffer; on every
+    M-th microstep ONE ``gba_apply`` launch aggregates the buffer with the
+    token-control weights of Eq. (1) and applies Adagrad to the whole flat
+    vector.
+``wire``
+    W PS workers, each also a shard, in one process on one device
+    (``repro_torch.core.gba_shard_map``): per global step every worker
+    takes the gradient of its own slice of the batch, routes it per layer
+    group to the shards, optionally over the quantized wire
+    (``repro_torch.core.compression``), and each shard applies with one
+    ``gba_apply`` launch.  ``(warm_step, compressed_step)`` are two step
+    functions, switched by the launcher at ``compress.warmup_steps``.
+
+The reference's pytree and sync_psum modes and its sharded fused path over
+a mesh are not ported (ROADMAP.md) and raise.  PyTorch runs eagerly, so
+there is nothing to jit: a "program" is the step function, and it updates
+its state in place where the reference donates it.
 """
 from __future__ import annotations
 
@@ -22,7 +32,10 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import GBAConfig, ModelConfig
+from repro_torch.core.compression import CompressionPolicy
+from repro_torch.core.flat_sharded import TILE, ShardedFlatLayout
 from repro_torch.core.gba import FlatLayout, flat_buffer_push, init_flat_buffer
+from repro_torch.core.gba_shard_map import make_gba_fused_psum_step
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
@@ -82,26 +95,90 @@ def make_fused_train_step(cfg: ModelConfig, gba: GBAConfig,
     return train_step
 
 
+def make_wire_psum_steps(cfg: ModelConfig, gba: GBAConfig,
+                         layout: ShardedFlatLayout, workers: int, *,
+                         compress: CompressionPolicy | None = None,
+                         lr: float = 1e-3) -> tuple[Callable, Callable]:
+    """``(warm_step, compressed_step)`` of the worker-parallel
+    layer-grouped step (``core.gba_shard_map``) on the LM loss: with a
+    lossy policy, the float32 warmup step and the quantized one; with
+    ``compress=None`` or scheme ``"none"``, one uncompressed step twice."""
+    def loss_fn(params, batch):
+        return _loss_from_batch(params, cfg, batch)
+
+    def build(warm: bool) -> Callable:
+        return make_gba_fused_psum_step(
+            workers, loss_fn, layout, iota=gba.staleness_tolerance, lr=lr,
+            compress=compress, warm=warm)
+
+    if compress is None or not compress.stateful:
+        step = build(False)
+        return step, step
+    return build(True), build(False)
+
+
+def init_wire_state(layout: ShardedFlatLayout,
+                    compress: CompressionPolicy | None, workers: int,
+                    device: torch.device) -> dict | None:
+    """Zero per-worker wire state (residual, and momentum for onebit) on
+    ``device``: ``(workers, padded_total)`` float32 each; ``None`` for a
+    lossless policy."""
+    if compress is None or not compress.stateful:
+        return None
+    return compress.init_wire_state(layout, workers, device)
+
+
 @dataclass
 class TrainPrograms:
-    """What a launcher needs to run the fused step: the step, its state
-    and the flat layout."""
+    """What a launcher needs to run one mode: the flat layout, the state
+    and the step(s).  ``fused`` fills ``state`` (``params``, ``accum``,
+    ``buffer``) and ``step``; ``wire`` fills ``state`` (``param_flat``,
+    ``accum``), ``warm_step``, ``compressed_step`` and ``wire_state``."""
 
-    layout: FlatLayout
+    layout: Any
     state: dict
-    step: Callable
+    step: Callable | None = None
+    warm_step: Callable | None = None
+    compressed_step: Callable | None = None
+    wire_state: dict | None = None
 
 
 def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
-                   mode: str = "fused", lr: float = 1e-3) -> TrainPrograms:
-    """The fused flat-buffer step and its state, from ``params`` (on the
-    device the step runs on).  The reference's other modes are not ported
-    and raise ``NotImplementedError``."""
-    if mode != "fused":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: the port has the single-device "
-            f"fused flat-buffer step only (see ROADMAP.md)")
+                   mode: str = "fused", lr: float = 1e-3,
+                   workers: int = 1,
+                   compress: CompressionPolicy | None = None,
+                   layer_groups: bool = True) -> TrainPrograms:
+    """The step(s) of ``mode`` and their state, from ``params`` (on the
+    device the steps run on).
+
+    ``wire`` runs ``workers`` PS workers and shards: the layout is a
+    ``ShardedFlatLayout`` over ``TILE``, layer-grouped by
+    ``models.transformer.param_group_key`` unless ``layer_groups`` is
+    False; ``param_flat`` is the raveled params, ``accum`` is filled with
+    ``INITIAL_ACCUM``.  The reference's other modes are not ported and
+    raise ``NotImplementedError``."""
     T.check_supported(cfg)
-    layout, state = init_fused_train_state(params, gba)
-    return TrainPrograms(layout=layout, state=state,
-                         step=make_fused_train_step(cfg, gba, layout, lr=lr))
+    if mode == "fused":
+        layout, state = init_fused_train_state(params, gba)
+        return TrainPrograms(layout=layout, state=state,
+                             step=make_fused_train_step(cfg, gba, layout,
+                                                        lr=lr))
+    if mode == "wire":
+        if workers < 2:
+            raise ValueError(f"wire mode needs 2 or more workers, got "
+                             f"{workers}")
+        layout = ShardedFlatLayout.from_params(
+            params, workers, TILE,
+            group_by=T.param_group_key if layer_groups else None)
+        param_flat = layout.ravel(params)
+        state = {"param_flat": param_flat,
+                 "accum": torch.full_like(param_flat, INITIAL_ACCUM)}
+        warm, comp = make_wire_psum_steps(cfg, gba, layout, workers,
+                                          compress=compress, lr=lr)
+        return TrainPrograms(
+            layout=layout, state=state, warm_step=warm, compressed_step=comp,
+            wire_state=init_wire_state(layout, compress, workers,
+                                       param_flat.device))
+    raise NotImplementedError(
+        f"mode {mode!r} is not ported yet: the port has the fused and wire "
+        f"modes only (see ROADMAP.md)")

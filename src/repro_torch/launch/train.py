@@ -1,9 +1,12 @@
-"""Training launcher of the port: the LM's fused GBA step and the
-sparse-module smoke.
+"""Training launcher of the port: the LM's fused GBA step, its
+worker-parallel wire step, and the sparse-module smoke.
 
     python -m repro_torch.launch.train --arch granite-8b --fused \\
         [--reduced] [--steps 20] [--batch 4] [--seq 128] [--buffer 4] \\
         [--iota 4] [--lr 1e-3] [--device cuda]
+    python -m repro_torch.launch.train --arch granite-8b --fused \\
+        --mesh 4x1 [--compress {none,int8,onebit}] [--compress-warmup 2] \\
+        [--layer-groups {on,off}] [--reduced] [--steps 20] [--batch 4] ...
     python -m repro_torch.launch.train --vocab 1000000 --steps 5 \\
         [--embed-dim 16] [--batch 4] [--lr 1e-3] [--device cuda]
 
@@ -14,8 +17,18 @@ gradient into the (M, N) buffer, and on every M-th microstep one
 Microstep ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
 The port has only this Adagrad path, so ``--arch`` needs ``--fused`` (the
 reference's ``--fused`` forces Adagrad too); ``--reduced`` takes the
-config's smoke variant.  The reference's ``--mesh``, ``--compress``,
-``--autoswitch`` and ``--host-devices`` are not ported.
+config's smoke variant.
+
+``--mesh Wx1`` runs W PS workers, each also a PS shard, in one process on
+the one device (``run_wire_train``): every step is a global step in which
+each worker takes the gradient of its own ``batch / W`` sequences and
+routes it per layer group to the shards, and each shard applies with one
+``gba_apply`` launch.  ``--compress int8`` or ``onebit`` quantizes that
+routing after ``--compress-warmup`` float32 global steps.  A model axis
+above 1 is not ported.  The reference's launcher sends ``--compress none``
+to its sharded fused flat-buffer step, which is not ported; here it runs
+the same worker-parallel schedule without wire state.  The reference's
+``--autoswitch`` and the JAX-only ``--host-devices`` are not ported.
 
 ``--vocab`` is the counterpart of ``run_embedding_smoke`` in
 ``repro.launch.train``: a ``--vocab``-row hashed table trained end to end
@@ -39,11 +52,12 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import GBAConfig, ModelConfig
+from repro_torch.core.compression import CompressionPolicy
 from repro_torch.data.lm import make_lm_stream
 from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.launch.programs import build_programs
+from repro_torch.launch.programs import TrainPrograms, build_programs
 from repro_torch.models import transformer as T
 
 NUM_FIELDS = 26
@@ -143,6 +157,74 @@ def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
     return losses
 
 
+def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
+                   steps: int = 20, batch: int = 4, seq: int = 128,
+                   iota: int = 4, lr: float = 1e-3, compress_warmup: int = 2,
+                   layer_groups: bool = True,
+                   device: str | torch.device = "cuda",
+                   params: dict | None = None,
+                   on_step: Callable[[int, TrainPrograms], None] | None = None
+                   ) -> list[float]:
+    """Train ``cfg`` for ``steps`` global steps of the worker-parallel
+    layer-grouped step, ``workers`` workers and shards on the one device,
+    with the ``scheme`` wire; returns the losses.
+
+    Step ``i`` gives every worker the token ``i`` and is global step
+    ``i``, as in the reference.  The first ``compress_warmup`` steps route
+    float32, the rest the quantized wire.  ``params`` (on ``device``)
+    replace the ones drawn from seed 0; ``on_step(i, programs)``, if
+    given, sees the programs after each step, their state and wire state
+    updated in place.  Raises if a loss is not finite."""
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_model(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    print(f"{cfg.name}: {T.param_count(params) / 1e6:.1f}M params on {dev}")
+    pol = CompressionPolicy(scheme=scheme, warmup_steps=compress_warmup)
+    gba = GBAConfig(local_batch=batch, buffer_size=workers,
+                    staleness_tolerance=iota)
+    progs = build_programs(cfg, gba, params=params, mode="wire", lr=lr,
+                           workers=workers, compress=pol,
+                           layer_groups=layer_groups)
+    del params
+    layout = progs.layout
+    print(f"quantized wire ({scheme}): {workers} workers x "
+          f"{layout.num_groups} groups; route "
+          f"{pol.wire_bytes(layout) / 1e6:.2f}MB/worker/step vs "
+          f"{layout.padded_total * 4 / 1e6:.2f}MB f32 "
+          f"(ratio {pol.compression_ratio(layout):.3f}); warmup "
+          f"{pol.warmup_steps} steps f32, then {pol.wire_dtype()} payload + "
+          f"{pol.sideband_floats_per_tile()} f32 sideband(s)/tile; wire "
+          f"state: {', '.join(pol.state_names())}")
+    stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
+    param_flat, accum = progs.state["param_flat"], progs.state["accum"]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        b = stream.batch(i)
+        tensors = {k: torch.from_numpy(b[k]).to(dev)
+                   for k in ("tokens", "labels")}
+        tokens = torch.full((workers,), i, dtype=torch.int32, device=dev)
+        warm = pol.stateful and i < pol.warmup_steps
+        fn = progs.warm_step if warm else progs.compressed_step
+        if pol.stateful:
+            *_, loss, _ = fn(param_flat, accum, tensors, tokens, i,
+                             progs.wire_state)
+        else:
+            _, _, loss = fn(param_flat, accum, tensors, tokens, i)
+        losses.append(loss.item())
+        if on_step is not None:
+            on_step(i, progs)
+        if i % 5 == 0 or i == steps - 1 or i == pol.warmup_steps:
+            phase = "warmup/f32" if warm else f"{scheme} wire"
+            rate = (i + 1) * batch * seq / (time.perf_counter() - t0)
+            print(f"step {i:4d}  loss {losses[-1]:.4f}  [{phase}]  "
+                  f"{rate:,.0f} tok/s")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"wire training diverged: losses {losses}")
+    return losses
+
+
 def main(argv: list[str] | None = None) -> list[float]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS,
@@ -160,6 +242,20 @@ def main(argv: list[str] | None = None) -> list[float]:
     ap.add_argument("--fused", action="store_true",
                     help="flat-buffer GBA with the fused gba_apply kernel "
                          "(Adagrad); the only LM path of the port")
+    ap.add_argument("--mesh", default="",
+                    help="WORKERSx1: that many PS workers and shards in one "
+                         "process on the device (the worker-parallel wire "
+                         "step), e.g. 4x1")
+    ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
+                    help="layer-grouped flat layout of the wire step: one "
+                         "gather and one route per layer group")
+    ap.add_argument("--compress", choices=("none", "int8", "onebit"),
+                    default="none",
+                    help="quantize the wire step's gradient routing (needs "
+                         "--mesh): int8 = per-tile min-max with error "
+                         "feedback, onebit = sign of momentum")
+    ap.add_argument("--compress-warmup", type=int, default=2,
+                    help="float32 global steps before the quantized wire")
     ap.add_argument("--embed-dim", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -172,7 +268,29 @@ def main(argv: list[str] | None = None) -> list[float]:
             cfg = get_config(args.arch)
         except NotImplementedError as e:
             ap.error(str(e))
-        return run_lm_fused(cfg.reduced() if args.reduced else cfg,
+        if args.reduced:
+            cfg = cfg.reduced()
+        if args.mesh:
+            workers, _, model = args.mesh.partition("x")
+            try:
+                workers, model = int(workers), int(model or 1)
+            except ValueError:
+                ap.error(f"--mesh {args.mesh!r}: expected WORKERSx1")
+            if model != 1:
+                ap.error(f"--mesh {args.mesh}: a model axis above 1 is not "
+                         f"ported (see ROADMAP.md)")
+            if workers < 2 or args.batch % workers:
+                ap.error(f"--mesh {args.mesh}: needs 2 or more workers "
+                         f"that divide --batch {args.batch}")
+            return run_wire_train(
+                cfg, workers=workers, scheme=args.compress, steps=args.steps,
+                batch=args.batch, seq=args.seq, iota=args.iota, lr=args.lr,
+                compress_warmup=args.compress_warmup,
+                layer_groups=args.layer_groups == "on", device=args.device)
+        if args.compress != "none":
+            ap.error("--compress needs --mesh WORKERSx1: the single-device "
+                     "step has no wire to quantize")
+        return run_lm_fused(cfg,
                             steps=args.steps, batch=args.batch,
                             seq=args.seq, buffer=args.buffer,
                             iota=args.iota, lr=args.lr, device=args.device)

@@ -132,3 +132,19 @@ def param_count(params: Params) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
     return params.numel()
+
+
+def param_group_key(path_names: tuple[str, ...]) -> str:
+    """The layer group of a parameter path, for the layer-grouped
+    ``ShardedFlatLayout`` of the worker-parallel step: one group per
+    position ``l{i}`` of the block pattern (its leaves stacked over
+    ``num_repeats``), ``head`` for ``lm_head``, and one group per other
+    top-level module (``embed``, ``final_norm``).  The reference's prefix
+    layers, shared attention and encoder groups come with their
+    architectures."""
+    head = path_names[0]
+    if head == "blocks":
+        return f"blocks.{path_names[1]}"
+    if head == "lm_head":
+        return "head"
+    return head

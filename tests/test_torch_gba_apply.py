@@ -5,12 +5,11 @@ seed, go through the JAX package's Pallas ``gba_apply`` in interpret mode
 and through the port's wrapper on CPU tensors (its plain version,
 ``gba_apply_ref``).
 
-Tolerances: in float32 rtol 1e-6 / atol 1e-7, because XLA may sum the M
-weighted slots in another order than the port's slot-by-slot loop; the
-accumulator is float32 either way.  A bfloat16 param is computed in
-float32 and rounded once, so two float32 results a few ulp apart round
-to bf16 values at most one bf16 ulp apart: rtol 2**-7.  Where every slot
-is stale, both leave param and accumulator bit-identical.
+The two agree bit for bit, the bfloat16 cases included: XLA computes the
+kernel's weighted sum of the M slots one slot after another with a fused
+multiply-add, and the accumulator as ``fma(g, g, accum)``, and the plain
+version rounds each of those once too (``kernels.ref.fma_f32``).  Where
+every slot is stale, both leave param and accumulator bit-identical.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +27,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.gba_apply import gba_apply
 from repro_torch.kernels.ref import gba_apply_ref
 
-BF16_RTOL = 2.0**-7          # one bf16 ulp of |x|
 N = 5000                     # not a multiple of the TPU kernel's 2048 block
 STEP, IOTA, LR = 7, 2, 0.05
 
@@ -73,11 +71,8 @@ def test_matches_the_jax_kernel(m, param_dtype, buf_dtype):
     ins = _inputs(m, N, param_dtype, buf_dtype, "some" if m > 1 else "none",
                   seed=m)
     (jp, ja), (tp, ta) = _jax(*ins), _port(*ins)
-    np.testing.assert_allclose(ta, ja, rtol=1e-6, atol=1e-7)
-    if param_dtype == "bfloat16":
-        np.testing.assert_allclose(tp, jp, rtol=BF16_RTOL, atol=0)
-    else:
-        np.testing.assert_allclose(tp, jp, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(ta.view(np.uint32), ja.view(np.uint32))
+    np.testing.assert_array_equal(tp.view(np.uint32), jp.view(np.uint32))
     # the update happened: kept slots grew the accumulator (g * g may round
     # away against it where g is tiny)
     assert (ta >= ins[1]).all() and (ta > ins[1]).mean() > 0.9
@@ -96,18 +91,34 @@ def test_all_stale_leaves_param_and_accum_bit_identical(param_dtype):
                                       accum.view(np.uint32))
 
 
+def _fma(a, b, c):
+    """float32 ``a * b + c`` rounded once, in numpy: the exact product and
+    the float64 sum rounded to odd (the neighbour with an odd last bit
+    where the sum is inexact), then rounded to float32."""
+    p = a.astype(np.float64) * b
+    c = np.asarray(c, np.float64)
+    s = p + c
+    v = s - p
+    e = (p - (s - v)) + (c - v)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((e != 0) & even, np.nextafter(s, np.where(e > 0, np.inf,
+                                                           -np.inf)), s)
+    return s.astype(np.float32)
+
+
 def _kernel_order(param, accum, buffer, tokens, m):
-    """The TPU kernel's arithmetic in numpy float32, one correctly rounded
-    operation at a time: weights keep / M taken before the sum, slots
-    summed in order from slot 0, the new param rounded once to its
-    dtype."""
+    """The TPU kernel's arithmetic as XLA computes it, in numpy float32,
+    one correctly rounded operation at a time: weights keep / M taken
+    before the sum, slots summed in order from slot 0 with a fused
+    multiply-add, the accumulator ``fma(g, g, accum)``, the new param
+    rounded once to its dtype."""
     f = np.float32
     buffer = np.asarray(buffer).astype(f)
     w = ((STEP - tokens) <= IOTA).astype(f) / f(m)
     g = buffer[0] * w[0]
     for j in range(1, m):
-        g = g + buffer[j] * w[j]
-    a = accum + g * g
+        g = _fma(buffer[j], w[j], g)
+    a = _fma(g, g, accum)
     p = np.asarray(param).astype(f) - (f(LR) * g) / (np.sqrt(a) + f(1e-10))
     return p.astype(np.asarray(param).dtype).astype(f), a
 
@@ -147,8 +158,10 @@ def test_m3_follows_the_kernels_weights_not_the_two_pass_oracle():
         jnp.asarray(tokens), jnp.int32(STEP), LR, iota=IOTA))
     assert (two_a.view(np.uint32) != got_a.view(np.uint32)).sum() > N // 100
     jax_p, jax_a = _jax(param, accum, buffer, tokens)
-    np.testing.assert_allclose(got_a, jax_a, rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(got_p, jax_p, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got_a.view(np.uint32),
+                                  jax_a.view(np.uint32))
+    np.testing.assert_array_equal(got_p.view(np.uint32),
+                                  jax_p.view(np.uint32))
 
 
 def test_updates_in_place_and_counts_the_flat_call():

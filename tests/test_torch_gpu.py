@@ -14,7 +14,10 @@ order, as its plain version does on the CPU, so its table gradient is held
 bit for bit to the plain version run on a CPU copy, and its counts
 exactly.  ``gba_apply`` does every float32 operation of its plain version,
 correctly rounded and in the same order, so its param and accumulator are
-held bit for bit to the plain version on the card and on a CPU copy.
+held bit for bit to the plain version on the card and on a CPU copy.  The
+wire quantizers and the dequantize do so too: codes, sidebands, residual
+and dequantized values are held bit for bit to their plain versions, on
+the strided views the wire step hands them.
 """
 import dataclasses
 
@@ -25,8 +28,11 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_grad
 from repro_torch.kernels.gba_apply import gba_apply
-from repro_torch.kernels.ref import (embedding_bag_grad_ref,
-                                     embedding_bag_ref, gba_apply_ref)
+from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
+                                          quantize_sign)
+from repro_torch.kernels.ref import (dequantize_ref, embedding_bag_grad_ref,
+                                     embedding_bag_ref, gba_apply_ref,
+                                     quantize_minmax_ref, quantize_sign_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -322,3 +328,142 @@ def test_fused_lm_step_on_the_card_matches_the_cpu():
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
     torch.testing.assert_close(pg, pc, rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(ag, ac, rtol=1e-5, atol=1e-7)
+
+
+def _wire_view(r, lead, off, cols, tile, seed):
+    """An (r, cols) float32 view at column ``off`` of an (r, lead) buffer
+    on the card: normal draws scaled by 10**k per tile (k in -20..5), a
+    constant tile, a tile of signed zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn((r, lead), generator=gen, device="cuda")
+    view = buf[:, off:off + cols]
+    scale = 10.0 ** torch.randint(-20, 6, (r, cols // tile, 1),
+                                  generator=gen, device="cuda")
+    view.copy_((view.reshape(r, cols // tile, tile) * scale).reshape(r, cols))
+    view[0, :tile] = 1.5
+    if cols // tile > 1:
+        view[-1, tile:2 * tile] = 0.0
+        view[-1, tile + 1:2 * tile:3] = -0.0
+    return buf, view
+
+
+# (rows, buffer width, column offset, columns, tile): the wire step's
+# layouts at a small width (worker w's residual row of S shards, group g's
+# columns), a ragged tile, and a view whose last bytes lie beyond 2**31
+# bytes of the buffer behind it
+WIRE_CASES = {
+    "group-of-4-shards": (4, 2048 * 12, 2048 * 5, 2048 * 6, 2048),
+    "single-tile-group": (4, 2048 * 3, 2048 * 2, 2048, 2048),
+    "tile-256": (3, 256 * 20, 256 * 7, 256 * 9, 256),
+    "tile-300": (2, 300 * 10, 300, 300 * 8, 300),
+    "beyond-2**31-bytes": (4, 140_000_000, 139_000_000 - 139_000_000 % 2048,
+                           2048 * 64, 2048),
+}
+
+
+@pytest.mark.parametrize("mode", ["minmax", "sign"])
+@pytest.mark.parametrize("case", list(WIRE_CASES))
+def test_quantize_matches_plain_version_bit_for_bit(case, mode):
+    _need_card()
+    r, lead, off, cols, tile = WIRE_CASES[case]
+    buf, view = _wire_view(r, lead, off, cols, tile, seed=len(case))
+    before = buf.clone()
+    want = (quantize_minmax_ref if mode == "minmax" else
+            quantize_sign_ref)(view.clone(), tile)
+    host = (quantize_minmax_ref if mode == "minmax" else
+            quantize_sign_ref)(view.cpu(), tile)
+    kernel = quantize_minmax if mode == "minmax" else quantize_sign
+    launches = kernel.launches
+    got = kernel(view, tile=tile)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    for name, g, w, h in zip(("q", "scale", "zero", "residual"),
+                             (*got, view), want, host):
+        bits = torch.int8 if g.dtype == torch.int8 else torch.int32
+        assert torch.equal(g.view(bits), w.view(bits)), name
+        assert torch.equal(g.cpu().view(bits), h.view(bits)), name
+    # nothing outside the view was written
+    assert torch.equal(buf[:, :off], before[:, :off])
+    assert torch.equal(buf[:, off + cols:], before[:, off + cols:])
+
+
+@pytest.mark.parametrize("mode", ["minmax", "sign"])
+@pytest.mark.parametrize("case", list(WIRE_CASES))
+def test_dequantize_matches_plain_version_bit_for_bit(case, mode):
+    """Codes, sidebands and output as strided views, the way a shard
+    reads group g's columns of its routed buffers and writes them into
+    its (M, shard_size) block."""
+    _need_card()
+    r, lead, off, cols, tile = WIRE_CASES[case]
+    _, view = _wire_view(r, lead, off, cols, tile, seed=7)
+    kernel = quantize_minmax if mode == "minmax" else quantize_sign
+    q0, *sides0 = kernel(view.clone(), tile=tile)
+    codes = torch.zeros((r, lead), dtype=torch.int8, device="cuda")
+    codes[:, off:off + cols] = q0
+    t0, nt = off // tile, cols // tile
+    sides = []
+    for s0 in sides0:
+        s = torch.zeros((r, lead // tile + 1), device="cuda")
+        s[:, t0:t0 + nt] = s0
+        sides.append(s[:, t0:t0 + nt])
+    zero = sides[1] if mode == "minmax" else None
+    out_buf = torch.full((r, lead), 7.0, device="cuda")
+    out = out_buf[:, off:off + cols]
+    q = codes[:, off:off + cols]
+    want = dequantize_ref(q, sides[0], zero, tile, mode)
+    launches = dequantize.launches
+    dequantize(q, sides[0], zero, tile=tile, mode=mode, out=out)
+    torch.cuda.synchronize()
+    assert dequantize.launches == launches + 1
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert (out_buf[:, :off] == 7).all() and (out_buf[:, off + cols:] == 7
+                                              ).all()
+
+
+def test_quantize_mixed_devices_raise():
+    _need_card()
+    x = torch.zeros((2, 512), device="cuda")
+    q, s = quantize_sign(x.clone(), tile=256)
+    with pytest.raises(ValueError):
+        dequantize(q, s.cpu(), None, tile=256, mode="sign", out=x)
+    with pytest.raises(ValueError):
+        quantize_minmax(x.t().contiguous().t(), tile=256)
+
+
+def test_wire_step_on_the_card_matches_the_cpu():
+    """granite-8b.reduced() in float32, 4 workers, int8 and onebit, 2 warm
+    and 2 compressed global steps, card against CPU from the same params:
+    launch counts per step, losses within 1e-5 (float32 sum orders; a code
+    that flips at a rounding boundary moves one routed value by one
+    quantization step)."""
+    _need_card()
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_to_device
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    cfg = dc.replace(get_config("granite-8b").reduced(), dtype="float32")
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    for scheme in ("int8", "onebit"):
+        quant = quantize_minmax if scheme == "int8" else quantize_sign
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            counts = []
+
+            def on_step(i, progs, counts=counts):
+                counts.append((quant.launches, dequantize.launches,
+                               gba_apply.launches))
+            before = (quant.launches, dequantize.launches,
+                      gba_apply.launches)
+            losses = train.run_wire_train(
+                cfg, workers=4, scheme=scheme, steps=4, compress_warmup=2,
+                device=dev, params=tree_to_device(host, torch.device(dev)),
+                on_step=on_step)
+            steps = [tuple(b - a for a, b in zip(x, y))
+                     for x, y in zip([before] + counts, counts)]
+            on_card = dev == "cuda"
+            assert steps == [(0, 0, 4 * on_card)] * 2 + [
+                (16 * on_card, 16 * on_card, 4 * on_card)] * 2
+            runs[dev] = losses
+        np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5)

@@ -346,7 +346,7 @@ def test_noop_microsteps_leave_params_and_accum_untouched():
     assert applied_at == [4, 8]
 
 
-@pytest.mark.parametrize("mode", ["pytree", "wire", "sync_psum"])
+@pytest.mark.parametrize("mode", ["pytree", "sync_psum"])
 def test_other_modes_are_not_ported(mode):
     _, cfg = _cfgs("float32")
     params = T.init_model(cfg, generator=torch.Generator().manual_seed(0),

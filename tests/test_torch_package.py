@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port.
 
-* Importing ``repro_torch`` and its serving, training (the replay trainer
-  and the LM's fused step), embeddings and kernel modules loads no JAX.
+* Importing ``repro_torch`` and its serving, training (the replay trainer,
+  the LM's fused step and its worker-parallel wire step), embeddings and
+  kernel modules loads no JAX.
 * No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
   JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
@@ -43,7 +44,11 @@ def test_import_loads_no_jax():
             "repro_torch.core, repro_torch.launch.quickstart, "
             "repro_torch.launch.train, repro_torch.launch.programs, "
             "repro_torch.models.transformer, repro_torch.core.gba, "
-            "repro_torch.data.lm, repro_torch.kernels.gba_apply; "
+            "repro_torch.data.lm, repro_torch.kernels.gba_apply, "
+            "repro_torch.kernels.quantize, repro_torch.core.staleness, "
+            "repro_torch.core.compression, repro_torch.core.flat_sharded, "
+            "repro_torch.core.gba_shard_map, "
+            "repro_torch.distributed.inprocess; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -75,7 +80,8 @@ def test_forbidden_import_pattern():
                                    "from_checkpoint", "params_from_jax",
                                    "init_recsys", "pretrain_sync",
                                    "quickstart", "train_vocab",
-                                   "init_model", "train_arch"])
+                                   "init_model", "train_arch",
+                                   "train_wire"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(
         entry, tmp_path):
     if torch.cuda.is_available():
@@ -100,6 +106,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
         "train_arch": lambda: train.main(["--arch", "granite-8b",
                                           "--reduced", "--fused", "--steps",
                                           "1"]),
+        "train_wire": lambda: train.main(["--arch", "granite-8b",
+                                          "--reduced", "--fused", "--mesh",
+                                          "4x1", "--compress", "int8",
+                                          "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
