@@ -28,7 +28,17 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   process on the card, one sequence of 128 tokens each, 4 layer groups,
   tile 2048, 2 float32 warmup and 2 compressed global steps per scheme;
   per compressed global step 16 quantize, 16 dequantize and 4
-  ``gba_apply`` launches.
+  ``gba_apply`` launches;
+* the LM's pytree GBA step, the reference launcher's default
+  (``repro_torch.launch.train --arch granite-8b``: ``run_lm_pytree``, Adam
+  at lr 1e-3, a float32 accumulator), at the same width and depth, batch
+  4 x 128 tokens, M = 4, iota 4, 8 microsteps; then the pytree buffer
+  (``init_buffer``, ``buffer_push_and_maybe_apply``) with 4 full-width
+  gradient trees, one slot stale, whose apply runs the kernel-backed tree
+  ops: one ``gba_aggregate`` and one ``fused_adagrad`` launch a leaf, 12
+  leaves; and ``embedding_bag_grad_resident``, the JAX package's oracle of
+  the streamed backward, at the oracle test's, the sparse smoke's and the
+  replay's shapes.
 
 Phases:
 
@@ -68,12 +78,25 @@ Phases:
     profile of the last global step; then ``granite-8b.reduced()`` in
     float32, card against CPU, with the codes that differ counted; then
     each wire kernel timed at the path's largest launch;
-12. one JSON line of the kernels, then the result line.
+12. the pytree step: ``gstep`` advances at microsteps 4 and 8 alone, the
+    params bit-identical across the others and the accumulator all zero
+    after each apply, seconds per microstep, peak memory and a profile of
+    one more global step; the tree ops at the buffer's apply, each leaf's
+    aggregate and update bit-identical to the plain versions on copies
+    of their inputs, the aggregate bit-identical to ``aggregate_dense``
+    and the update within rounding of ``optim.adagrad``, 12 launches of
+    each kernel; ``granite-8b.reduced()`` in float32 card against CPU;
+    the streamed ``embedding_bag_grad`` bit-identical to the resident
+    kernel and the resident kernel to its plain version; each of the
+    three kernels timed against its plain version, its bound and a
+    library call;
+13. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
-microsteps, each scheme of the wire step) and read just after it, so
-``launches`` counts those paths alone.  Any failure
+microsteps, each scheme of the wire step, the pytree step, its tree ops,
+the resident oracle) and read just after it, so ``launches`` counts those
+paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
 """
@@ -1029,9 +1052,6 @@ def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
     """``embedding_bag_grad`` at the training paths' shapes: (a) the
     presence counts of a quickstart global step, over the 16 steps of day
     0; (b) the sparse smoke's backward, over 16 draws."""
-    F_ = torch.nn.functional
-    grad_kernel, ref = T["embedding_bag_grad"], T["embedding_bag_grad_ref"]
-    sort_ids, launch = T["sort_ids"], T["embedding_bag_grad_sorted"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     cpu_gen = torch.Generator().manual_seed(11)
     shapes = [("(a)", T["presence"], torch.zeros((1, 0), device="cuda"),
@@ -1040,6 +1060,22 @@ def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
                        for _ in range(TIMED_ID_SETS)],
                torch.randn((SMOKE_BATCH, SMOKE_D), generator=gen,
                            device="cuda"), SMOKE_V)]
+    return segment_sum_timing(T, "embedding_bag_grad", shapes, cycles_per_ms)
+
+
+def segment_sum_timing(T: dict, name: str, shapes: list,
+                       cycles_per_ms: float,
+                       lib_atol: float = 0.0) -> list[dict]:
+    """Kernel ``name`` (``embedding_bag_grad`` or
+    ``embedding_bag_grad_resident``) at each ``(label, id_sets, grad_out,
+    capacity)`` of ``shapes``: the launch on sorted ids, the wrapper with
+    its sort, the plain version and a library call (``torch.bincount`` for
+    D = 0, else ``F.embedding_bag``'s backward into a dense weight, held
+    to the kernel within rtol 1e-6 and ``lib_atol``), with device-held
+    CUDA events, in turns, median of 3 runs."""
+    F_ = torch.nn.functional
+    grad_kernel, ref = T[name], T["embedding_bag_grad_ref"]
+    sort_ids, launch = T["sort_ids"], T[f"{name}_sorted"]
     rows = []
     for label, id_sets, grad, cap in shapes:
         f = id_sets[0].shape[1]
@@ -1064,7 +1100,7 @@ def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
                                            retain_graph=True)
             check(torch.allclose(library(lib_sets[0], grad)[0],
                                  grad_kernel(id_sets[0], grad, cap)[0],
-                                 rtol=1e-6, atol=0),
+                                 rtol=1e-6, atol=lib_atol),
                   f"{label}: F.embedding_bag backward agrees")
             lib_name = "F.embedding_bag backward"
         fns = {
@@ -1092,7 +1128,7 @@ def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
                "host_paced_ms": {k: float(np.median(v))
                                  for k, v in host.items()}}
         rows.append(row)
-        print(f"  embedding_bag_grad {label} ids {tuple(id_sets[0].shape)} "
+        print(f"  {name} {label} ids {tuple(id_sets[0].shape)} "
               f"over V={cap} D={grad.shape[1]}, device ms per call: kernel "
               f"{med['kernel']!r}, wrapper with its sort {med['wrapper']!r},"
               f" plain {med['plain']!r}, {lib_name} {med['library']!r}, "
@@ -1235,6 +1271,8 @@ def timing_phase(embedding_bag, embedding_bag_ref, big, gen, static, S,
 # ---------------------------------------------------------------------------
 
 def _bits_of(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -1700,6 +1738,509 @@ def wire_timing(T: dict, geometry: dict) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the pytree GBA step and the pytree buffer's kernel-backed tree ops
+# ---------------------------------------------------------------------------
+
+PYTREE_LEAVES = 12             # granite-8b at depth 2: the leaves of its tree
+PYTREE_STALE = [0, 0, -5, 0]   # buffer tokens; slot 2 is 5 > iota steps old
+# card vs CPU, Adam: an element moves by about lr whatever the size of its
+# gradient, so where a gradient is near Adam's epsilon the two sides' last
+# bits move it by up to lr an apply
+PYTREE_HOLD_LOSS_RTOL, PYTREE_HOLD_PARAM_ATOL = 1e-4, 2 * LM_LR
+# the kernels' shapes of the pytree path and of the JAX package's kernel
+# bench (benchmarks/bench_kernels.py:247,270)
+AGG_SHAPES = ((16, 65_536), (LM_M, 201_326_592))
+ADAGRAD_SHAPES = ((262_144, torch.float32, torch.float32),
+                  (201_326_592, torch.bfloat16, torch.bfloat16))
+# the JAX package's oracle test (tests/test_embedding_stream.py:126)
+RESIDENT_SHAPES = ((10, 5, 50, 8), (64, 26, 500, 16), (33, 3, 613, 7))
+
+
+def _tree_bits_equal(a: list, b: list) -> bool:
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and torch.equal(_bits_of(x), _bits_of(y))
+               for x, y in zip(a, b, strict=True))
+
+
+def pytree_phase(T: dict, counters) -> dict:
+    phase(12, f"pytree GBA step (Adam) and the pytree buffer's tree ops: "
+              f"granite-8b at full width, depth {LM_LAYERS} (reduced from "
+              f"36), {LM_MICROSTEPS} microsteps")
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    leaves = T["leaves"]
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    n = sum(x.numel() for x in leaves(params))
+    check(len(leaves(params)) == PYTREE_LEAVES and n == APPLY_N,
+          f"{len(leaves(params))} leaves, N = {n}")
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH,
+                         LM_MICROSTEPS + LM_M, "cuda")
+
+    # (a) the counted path: run_lm_pytree, 8 microsteps, tokens i // M
+    rows, marks = [], {"prev": [x.clone() for x in leaves(params)],
+                       "prev_obj": params, "gstep": 0}
+
+    def on_step(i, progs, seconds):
+        st = progs.state
+        applies = (i + 1) % LM_M == 0
+        p = leaves(st["params"])
+        check(st["gstep"] == (i + 1) // LM_M,
+              f"microstep {i + 1}: gstep {st['gstep']}")
+        acc_zero = not any(bool(a.any()) for a in leaves(st["acc"]))
+        if applies:
+            check(st["params"] is not marks["prev_obj"] and acc_zero,
+                  f"microstep {i + 1}: Adam applied, accumulator all zero")
+        else:
+            check(st["params"] is marks["prev_obj"]
+                  and _tree_bits_equal(p, marks["prev"]) and not acc_zero,
+                  f"microstep {i + 1}: params bit-identical, accumulator "
+                  f"nonzero")
+        # what the next microstep must leave as it is, if it does not apply
+        marks["prev"] = ([x.clone() for x in p] if (i + 2) % LM_M else None)
+        marks["prev_obj"], marks["progs"] = st["params"], progs
+        rows.append({"microstep": i + 1, "loss": None, "seconds": seconds,
+                     "gstep": st["gstep"], "applied": applies})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters(reset=True)
+    losses = T["run_lm_pytree"](
+        cfg, optimizer="adam", steps=LM_MICROSTEPS, batch=LM_BATCH,
+        seq=LM_SEQ, buffer=LM_M, iota=LM_IOTA, lr=LM_LR, device="cuda",
+        params=params, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = counters()
+    del params
+    for r, loss in zip(rows, losses):
+        r["loss"] = loss
+        print(f"  {json.dumps(r)}")
+    check(all(np.isfinite(losses)), f"finite losses: {losses}")
+    check([r["microstep"] for r in rows if r["applied"]] == [4, 8],
+          "Adam applied at microsteps 4 and 8 alone")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches {json.dumps(launches)} (Adam and the accumulator are "
+          f"PyTorch operators; the path launches no kernel of the port); "
+          f"peak device memory {peak_gb:.2f} GB (with the checks' copies)")
+
+    # one more global step under the profiler: the path's own peak memory,
+    # the device idle share and the top operators
+    marks["prev"] = None
+    progs = marks.pop("progs")
+    state = progs.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = StepProfile()
+    prof.start()
+    for i in range(LM_MICROSTEPS, LM_MICROSTEPS + LM_M):
+        state, _ = progs.step(state, batches[i], i // LM_M)
+    profile = prof.stop()
+    path_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(state["gstep"] == 3, "a third global step")
+    print(f"  profile of one global step ({LM_M} microsteps): "
+          f"{json.dumps(profile)}; peak device memory of that global step "
+          f"alone {path_peak_gb:.2f} GB")
+    params = state["params"]
+    del state, progs, marks
+    torch.cuda.empty_cache()
+
+    tree_ops = tree_ops_check(T, cfg, params, batches, counters)
+    del params
+    torch.cuda.empty_cache()
+    hold = pytree_card_vs_cpu(T)
+    return {"config": {"arch": cfg.name, "num_layers": LM_LAYERS,
+                       "reduced": "num_layers 36 -> 2", "optimizer": "adam",
+                       "batch": LM_BATCH, "seq": LM_SEQ, "M": LM_M,
+                       "iota": LM_IOTA, "lr": LM_LR, "N": APPLY_N,
+                       "leaves": PYTREE_LEAVES},
+            "microsteps": rows, "launches": launches,
+            "peak_memory_gb": peak_gb, "path_peak_memory_gb": path_peak_gb,
+            "profile": profile, "tree_ops": tree_ops, "card_vs_cpu": hold}
+
+
+def tree_ops_check(T: dict, cfg, params: dict, batches: list,
+                   counters) -> dict:
+    """(c) 4 full-width gradient trees pushed through the pytree buffer,
+    slot 2 stale beyond iota; at the apply ``ops.gba_aggregate_tree`` and
+    ``ops.adagrad_apply_tree`` (the path, its launches counted), then each
+    held to its plain version leaf by leaf, the aggregate to
+    ``aggregate_dense`` and the update to ``optim.adagrad``."""
+    leaves, tree_map = T["leaves"], T["tree_map"]
+    buf = T["init_buffer"](params, LM_M)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    got = {}
+
+    def apply_fn(agg_dense):
+        # the buffer and inputs as the tree ops found them
+        got["buffer"] = [g.clone() for g in leaves(buf["grads"])]
+        got["tokens"] = buf["tokens"].clone()
+        got["params"] = [p.clone() for p in leaves(params)]
+        got["dense"] = agg_dense
+        got["agg"] = T["ops"].gba_aggregate_tree(
+            buf["grads"], buf["tokens"], buf["step"], iota=LM_IOTA)
+        # an accumulator of squared gradients of the aggregate's size, as
+        # after some steps of training, kept above 1e-12 (no subnormal
+        # squares): a' = fma(g, g, a) then rounds both terms, and each
+        # element with a gradient well above 1e-6 moves by about lr / 2
+        # (from Adagrad's initial 0.1 nothing would move: g * g is below
+        # half an ulp of 0.1 and lr * g below half a bfloat16 ulp of the
+        # params)
+        got["accum_tree"] = tree_map(
+            lambda g: g.float().square() * (0.5 + 1.5 * torch.rand(
+                g.shape, generator=gen, device=g.device)) + 1e-12,
+            got["agg"])
+        got["accum"] = [a.clone() for a in leaves(got["accum_tree"])]
+        got["new"] = T["ops"].adagrad_apply_tree(
+            params, got["agg"], got["accum_tree"], LM_LR)
+        return True
+
+    torch.cuda.synchronize()
+    counters(reset=True)
+    for j, token in enumerate(PYTREE_STALE):
+        out, buf = T["buffer_push_and_maybe_apply"](
+            buf, T["loss_and_grads"](cfg, params, batches[j])[1], token,
+            LM_IOTA,
+            apply_fn, lambda: False)
+        check(out == (j == LM_M - 1), f"push {j + 1}: applied {out}")
+    torch.cuda.synchronize()
+    launches = counters()
+    check(launches["gba_aggregate"] == PYTREE_LEAVES
+          and launches["fused_adagrad"] == PYTREE_LEAVES,
+          f"one launch of each a leaf: {launches}")
+    check((buf["fill"], buf["step"]) == (LM_M, 1), "one global step")
+    check(torch.equal(got["tokens"].cpu(), torch.tensor(
+        PYTREE_STALE, dtype=torch.int32)), "buffer tokens")
+
+    agg, (new_p, new_a) = leaves(got["agg"]), got["new"]
+    new_p, new_a = leaves(new_p), leaves(new_a)
+    accum = got["accum_tree"]
+    opt_p, opt_s = T["get_optimizer"]("adagrad", LM_LR).update(
+        params, got["agg"], {"accum": accum})
+    opt_p, opt_a = leaves(opt_p), leaves(opt_s["accum"])
+    check(_tree_bits_equal(leaves(params), got["params"])
+          and _tree_bits_equal(leaves(accum), got["accum"]),
+          "adagrad_apply_tree leaves the caller's params and accumulators "
+          "as they were")
+    dense_diff = p_diff = 0
+    p_max_rel = a_max_rel = agg_err = ada_err = 0.0
+    f32_excess = -1.0
+    for j, (g, dense, buf_j) in enumerate(zip(agg, leaves(got["dense"]),
+                                              got["buffer"])):
+        want = T["gba_aggregate_ref"](buf_j.reshape(LM_M, -1),
+                                      got["tokens"], 0, iota=LM_IOTA)
+        check(torch.equal(_bits_of(g.reshape(-1)), _bits_of(want)),
+              f"leaf {j}: gba_aggregate bit-identical to its plain version")
+        agg_err = max(agg_err, _max_abs(g.reshape(-1), want))
+        dense_diff += int((_bits_of(g) != _bits_of(dense)).sum())
+        want_p, want_a = T["fused_adagrad_ref"](
+            got["params"][j].reshape(-1), g.reshape(-1),
+            got["accum"][j].reshape(-1), LM_LR)
+        check(torch.equal(_bits_of(new_p[j].reshape(-1)), _bits_of(want_p))
+              and torch.equal(_bits_of(new_a[j].reshape(-1)),
+                              _bits_of(want_a)),
+              f"leaf {j}: fused_adagrad bit-identical to its plain version")
+        ada_err = max(ada_err, _max_abs(new_p[j].reshape(-1), want_p),
+                      _max_abs(new_a[j].reshape(-1), want_a))
+        del want, want_p, want_a
+        a_rel = ((new_a[j] - opt_a[j]).abs()
+                 / opt_a[j].abs().clamp(min=1e-38)).max().item()
+        a_max_rel = max(a_max_rel, a_rel)
+        p_abs = (new_p[j].float() - opt_p[j].float()).abs()
+        if new_p[j].dtype == torch.bfloat16:
+            p_max_rel = max(p_max_rel, (p_abs / opt_p[j].float().abs()
+                                        .clamp(min=1e-30)).max().item())
+        else:
+            # p - upd cancels where the two are close: the float32
+            # rounding of the update counts against the update's size
+            f32_excess = max(f32_excess, (p_abs - 1e-6 * opt_p[j].abs())
+                             .max().item())
+        p_diff += int((_bits_of(new_p[j]) != _bits_of(opt_p[j])).sum())
+    moved = sum(int((_bits_of(a) != _bits_of(b)).sum())
+                for a, b in zip(new_p, got["params"]))
+    with_grad = sum(int(g.count_nonzero()) for g in agg)
+    out = {"launches": launches,
+           "max_abs_err": {"gba_aggregate": agg_err,
+                           "fused_adagrad": ada_err},
+           "aggregate_dense_differing": dense_diff,
+           "params_moved": moved, "elements_with_gradient": with_grad,
+           "optim_adagrad_accum_max_rel": a_max_rel,
+           "optim_adagrad_bf16_param_max_rel": p_max_rel,
+           "optim_adagrad_f32_param_beyond_rtol_1e-6": f32_excess,
+           "optim_adagrad_params_differing": p_diff}
+    print(f"  tree ops at the apply (4 pushes, slot 2 dropped): "
+          f"{json.dumps(out)}")
+    check(dense_diff == 0, f"gba_aggregate_tree bit-identical to "
+          f"aggregate_dense at M = {LM_M}: {dense_diff} elements differ")
+    check(a_max_rel <= 1e-6, f"accumulators within rtol 1e-6 of "
+          f"optim.adagrad: {a_max_rel}")
+    # a bfloat16 param may round the other way where its float32 value lies
+    # at a rounding boundary: one bf16 ulp; float32 params within rtol 1e-6
+    # and atol 1e-6 * lr (updates are at most about lr)
+    check(p_max_rel <= 2.0**-7, f"bfloat16 params within one bfloat16 ulp "
+          f"of optim.adagrad: {p_max_rel}")
+    check(f32_excess <= 1e-6 * LM_LR, f"float32 params within rtol 1e-6 and "
+          f"atol {1e-6 * LM_LR} of optim.adagrad: {f32_excess}")
+    check(moved > with_grad // 2, f"the update moved the params: {moved} "
+          f"of the {with_grad} elements with a gradient")
+    del got, agg, new_p, new_a, opt_p, opt_a, buf, accum
+    torch.cuda.empty_cache()
+    return out
+
+
+def pytree_card_vs_cpu(T: dict) -> dict:
+    """(b) ``granite-8b.reduced()`` in float32, 2 global steps of
+    ``run_lm_pytree`` (Adam) from the same initial params on the card and
+    on the CPU."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b").reduced(),
+                              dtype="float32")
+    host = T["init_model"](cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        final = {}
+
+        def on_step(i, progs, seconds, final=final):
+            final["state"] = progs.state
+        losses = T["run_lm_pytree"](
+            cfg, optimizer="adam", steps=2 * LM_M, batch=LM_BATCH,
+            seq=LM_SEQ, buffer=LM_M, iota=LM_IOTA, lr=LM_LR, device=dev,
+            params=T["tree_to_device"](host, torch.device(dev)),
+            on_step=on_step)
+        st = final["state"]
+        check(st["gstep"] == 2, f"{dev}: 2 global steps")
+        runs[dev] = (losses, torch.cat([x.reshape(-1).cpu() for x in
+                                        T["leaves"](st["params"])]))
+    (lc, pc), (lh, ph) = runs["cuda"], runs["cpu"]
+    diff = (pc - ph).abs()
+    out = {"losses_card": lc, "losses_cpu": lh,
+           "max_param_diff": diff.max().item(),
+           "params_beyond_rtol_1e-5": int((diff > 1e-5 * ph.abs()).sum()),
+           "params": ph.numel()}
+    print(f"  {cfg.name} f32, Adam, 2 global steps, card vs CPU: "
+          f"{json.dumps(out)}")
+    check(np.allclose(lc, lh, rtol=PYTREE_HOLD_LOSS_RTOL, atol=0),
+          f"card vs CPU: losses within rtol {PYTREE_HOLD_LOSS_RTOL}")
+    check(out["max_param_diff"] <= PYTREE_HOLD_PARAM_ATOL,
+          f"card vs CPU: params within atol {PYTREE_HOLD_PARAM_ATOL}")
+    return out
+
+
+def resident_phase(T: dict, counters) -> dict:
+    """(d) the resident oracle: the streamed ``embedding_bag_grad`` against
+    ``embedding_bag_grad_resident``, and the resident kernel against its
+    plain version on a CPU copy, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [(f"stream test ({b}, {f}, {v}, {d})",
+              torch.randint(0, v, (b, f), generator=gen, device="cuda",
+                            dtype=torch.int32),
+              torch.randn((b, d), generator=gen, device="cuda"), v)
+             for b, f, v, d in RESIDENT_SHAPES]
+    cases += [
+        ("sparse smoke (4, 26) over 1,000,000 x 16",
+         smoke_ids(T["hash_ids"], torch.Generator().manual_seed(9), 4),
+         torch.randn((4, SMOKE_D), generator=gen, device="cuda"), SMOKE_V),
+        ("replay presence counts (1, 53,248) over 1,600,048, D = 0",
+         T["presence"][0], torch.zeros((1, 0), device="cuda"),
+         T["presence_capacity"])]
+    torch.cuda.synchronize()
+    counters(reset=True)
+    outs = [(T["embedding_bag_grad"](ids, g, cap),
+             T["embedding_bag_grad_resident"](ids, g, cap))
+            for _, ids, g, cap in cases]
+    torch.cuda.synchronize()
+    launches = counters()
+    check(launches["embedding_bag_grad_resident"] == len(cases)
+          and launches["embedding_bag_grad"] == len(cases),
+          f"one launch of each a shape: {launches}")
+    max_err = 0.0
+    for (name, ids, g, cap), ((s_gt, s_cnt), (r_gt, r_cnt)) in zip(cases,
+                                                                   outs):
+        want_gt, want_cnt = T["embedding_bag_grad_ref"](ids.cpu(), g.cpu(),
+                                                        cap)
+        ok = (torch.equal(_bits_of(s_gt), _bits_of(r_gt))
+              and torch.equal(s_cnt, r_cnt)
+              and torch.equal(_bits_of(r_gt.cpu()), _bits_of(want_gt))
+              and torch.equal(r_cnt.cpu(), want_cnt))
+        err = (r_gt.cpu() - want_gt).abs().max().item() if r_gt.numel() \
+            else 0.0
+        max_err = max(max_err, err)
+        print(f"  {name}: streamed == resident == plain, bit for bit: "
+              f"{'ok' if ok else 'FAIL'} ({int(want_cnt.sum())} valid "
+              f"entries)")
+        check(ok, f"resident oracle: {name}")
+    return {"launches": launches, "shapes": [n for n, *_ in cases],
+            "max_abs_err": max_err}
+
+
+def _timed(fns: dict, small: bool, cycles_per_ms: float,
+           plain_reps: int = 2) -> tuple[dict, dict]:
+    """Device ms per call of each of ``fns`` in turns, median of 3 runs:
+    a launch-bound call (``small``) with the device held by a sleep kernel
+    until 100 calls are queued, a large one from events around 10 calls
+    (``plain_reps`` for the plain version)."""
+    runs = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            if small:
+                runs[k].append(time_ms(lambda _i, _t, fn=fn: fn(), [None],
+                                       None, cycles_per_ms)[0])
+            else:
+                runs[k].append(time_calls(fn, plain_reps if k == "plain"
+                                          else 10))
+    return {k: float(np.median(v)) for k, v in runs.items()}, runs
+
+
+def _bound(nbytes: float, f32_ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def pytree_timing(T: dict, cycles_per_ms: float) -> dict:
+    """(e) ``gba_aggregate``, ``fused_adagrad`` and
+    ``embedding_bag_grad_resident`` against their plain versions, their
+    bounds and a library call."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {"gba_aggregate": [], "fused_adagrad": []}
+    for m, d in AGG_SHAPES:
+        grads = torch.randn((m, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * 1e-3
+        tokens = torch.tensor([9] * (m - 1) + [3], dtype=torch.int32,
+                              device="cuda")          # the last slot drops
+        w = ((9 - tokens) <= LM_IOTA).float() / m
+        lib = torch.matmul(w.to(grads.dtype), grads)
+        got = T["gba_aggregate"](grads, tokens, 9, iota=LM_IOTA)
+        lib_diff = (lib.float() - got.float()).abs().max().item()
+        med, runs = _timed({
+            "kernel": lambda: T["gba_aggregate"](grads, tokens, 9,
+                                                 iota=LM_IOTA),
+            "plain": lambda: T["gba_aggregate_ref"](grads, tokens, 9,
+                                                    iota=LM_IOTA),
+            "library": lambda: torch.matmul(w.to(grads.dtype), grads)},
+            d < 1 << 20, cycles_per_ms)
+        bnd, by = _bound((m + 1) * d * 2 + m * 4, 2 * m * d)
+        row = {"shape": [m, d], "dtype": "bf16", "ms": med["kernel"],
+               "plain_ms": med["plain"], "library_ms": med["library"],
+               "library": "torch.matmul(w.to(G.dtype), G)",
+               "library_max_abs_diff": lib_diff, "bound_ms": bnd,
+               "bound_by": by, "device_runs_ms": runs}
+        out["gba_aggregate"].append(row)
+        print(f"  gba_aggregate ({m}, {d}) bf16, device ms per call: kernel "
+              f"{med['kernel']!r}, plain {med['plain']!r}, torch.matmul "
+              f"{med['library']!r} (max |diff| {lib_diff!r}), bound "
+              f"{bnd!r} ({by}); device runs: {json.dumps(runs)}")
+        del grads, lib, got
+        torch.cuda.empty_cache()
+    for n, p_dt, g_dt in ADAGRAD_SHAPES:
+        param = (torch.randn((n,), generator=gen, device="cuda")
+                 * 0.02).to(p_dt)
+        grad = (torch.randn((n,), generator=gen, device="cuda")
+                * 1e-3).to(g_dt)
+        accum = torch.full((n,), 0.1, device="cuda")
+        step_t = torch.zeros((), device="cuda")
+        fns = {"kernel": lambda: T["fused_adagrad"](param, grad, accum,
+                                                    LM_LR),
+               "plain": lambda: T["fused_adagrad_ref"](param, grad, accum,
+                                                       LM_LR)}
+        lib_note = None
+        try:                      # PyTorch's fused Adagrad, if it runs here
+            torch._fused_adagrad_([param.clone()], [grad], [accum.clone()],
+                                  [step_t.clone()], lr=LM_LR, lr_decay=0.0,
+                                  weight_decay=0.0, eps=1e-10,
+                                  maximize=False)
+            torch.cuda.synchronize()
+            fns["library"] = lambda: torch._fused_adagrad_(
+                [param], [grad], [accum], [step_t], lr=LM_LR, lr_decay=0.0,
+                weight_decay=0.0, eps=1e-10, maximize=False)
+        except (RuntimeError, NotImplementedError, TypeError,
+                AttributeError) as e:
+            lib_note = f"torch._fused_adagrad_ does not run here: {e}"[:300]
+        med, runs = _timed(fns, n < 1 << 20, cycles_per_ms)
+        p_item, g_item = param.element_size(), grad.element_size()
+        bnd, by = _bound(n * (2 * p_item + g_item + 2 * 4), 7 * n)
+        row = {"shape": [n], "dtypes": f"param {str(p_dt)[6:]}, grad "
+               f"{str(g_dt)[6:]}, accum float32", "ms": med["kernel"],
+               "plain_ms": med["plain"], "library_ms": med.get("library"),
+               "library": ("torch._fused_adagrad_" if "library" in med
+                           else None), "library_note": lib_note,
+               "bound_ms": bnd, "bound_by": by, "device_runs_ms": runs}
+        out["fused_adagrad"].append(row)
+        print(f"  fused_adagrad ({n},) {row['dtypes']}, device ms per call: "
+              f"kernel {med['kernel']!r}, plain {med['plain']!r}, library "
+              f"{med.get('library')!r} ({lib_note or 'torch._fused_adagrad_'}"
+              f"), bound {bnd!r} ({by}); device runs: {json.dumps(runs)}")
+        del param, grad, accum
+        torch.cuda.empty_cache()
+    cpu_gen = torch.Generator().manual_seed(12)
+    out["embedding_bag_grad_resident"] = segment_sum_timing(
+        T, "embedding_bag_grad_resident", [
+            ("(64, 26, 500, 16)",
+             [torch.randint(0, 500, (64, 26), generator=gen, device="cuda",
+                            dtype=torch.int32)
+              for _ in range(TIMED_ID_SETS)],
+             torch.randn((64, 16), generator=gen, device="cuda"), 500),
+            ("(b)", [smoke_ids(T["hash_ids"], cpu_gen, SMOKE_BATCH)
+                     for _ in range(TIMED_ID_SETS)],
+             torch.randn((SMOKE_BATCH, SMOKE_D), generator=gen,
+                         device="cuda"), SMOKE_V)], cycles_per_ms,
+        # a row of (64, 26, 500) sums about 3 normal draws, in another
+        # order in the library, where a sum that cancels to near 0 differs
+        # by more than its rtol
+        lib_atol=1e-6)
+    return out
+
+
+def pytree_rows(pytree: dict, resident: dict, times: dict) -> list[dict]:
+    """The kernels line's rows of the three kernels of phase 12, timed at
+    the path's largest launch (``at``), every timed shape under
+    ``shapes``."""
+    tree_launches = pytree["tree_ops"]["launches"]
+    rows = []
+    for name, line, source, by_path, err, timed, note in (
+            ("gba_aggregate", "src/repro/kernels/gba_aggregate.py:76",
+             "gba_aggregate.cu",
+             {"pytree_tree_ops": tree_launches["gba_aggregate"]},
+             pytree["tree_ops"]["max_abs_err"]["gba_aggregate"],
+             times["gba_aggregate"], "a GEMV of the weights and the "
+             "buffer: the same decayed mean, summed in another order"),
+            ("fused_adagrad", "src/repro/kernels/fused_adagrad.py:75",
+             "fused_adagrad.cu",
+             {"pytree_tree_ops": tree_launches["fused_adagrad"]},
+             pytree["tree_ops"]["max_abs_err"]["fused_adagrad"],
+             times["fused_adagrad"], None),
+            ("embedding_bag_grad_resident",
+             "src/repro/kernels/embedding_bag.py:553",
+             "embedding_bag_grad_resident.cu",
+             {"resident_oracle":
+              resident["launches"]["embedding_bag_grad_resident"]},
+             resident["max_abs_err"], times["embedding_bag_grad_resident"],
+             None)):
+        at = timed[-1] if name != "embedding_bag_grad_resident" else \
+            timed[0]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": line,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": err,
+            "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "library": at["library"],
+            "library_note": note or at.get("library_note"),
+            "at": at["shape"],
+            "shapes": timed,
+            "ok": True,
+        })
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1717,23 +2258,28 @@ def main() -> int:
     from repro_torch.data import make_clickstream, make_lm_stream
     from repro_torch.embeddings import hash_ids
     from repro_torch.kernels import ops, runtime
-    from repro_torch.kernels.embedding_bag import (embedding_bag,
-                                                   embedding_bag_grad,
-                                                   embedding_bag_grad_sorted,
-                                                   sort_ids)
+    from repro_torch.core.gba import (buffer_push_and_maybe_apply,
+                                      init_buffer, tree_paths)
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag, embedding_bag_grad, embedding_bag_grad_resident,
+        embedding_bag_grad_resident_sorted, embedding_bag_grad_sorted,
+        sort_ids)
+    from repro_torch.kernels.fused_adagrad import fused_adagrad
+    from repro_torch.kernels.gba_aggregate import gba_aggregate
     from repro_torch.kernels.gba_apply import gba_apply
     from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
                                               quantize_sign)
     from repro_torch.kernels.ref import (dequantize_ref,
                                          embedding_bag_grad_ref,
-                                         embedding_bag_ref, gba_apply_ref,
+                                         embedding_bag_ref, fused_adagrad_ref,
+                                         gba_aggregate_ref, gba_apply_ref,
                                          quantize_minmax_ref,
                                          quantize_sign_ref)
     from repro_torch.launch import quickstart, train
-    from repro_torch.launch.programs import build_programs
+    from repro_torch.launch.programs import build_programs, loss_and_grads
     from repro_torch.models.recsys import init_recsys
     from repro_torch.models.transformer import init_model, param_count
-    from repro_torch.optim import get_optimizer
+    from repro_torch.optim import get_optimizer, tree_map
     from repro_torch.sim.cluster import Schedule, Slot
 
     t_start = time.perf_counter()
@@ -1768,7 +2314,19 @@ def main() -> int:
          "quantize_minmax": quantize_minmax, "quantize_sign": quantize_sign,
          "dequantize": dequantize, "quantize_minmax_ref": quantize_minmax_ref,
          "quantize_sign_ref": quantize_sign_ref,
-         "dequantize_ref": dequantize_ref}
+         "dequantize_ref": dequantize_ref,
+         "run_lm_pytree": train.run_lm_pytree,
+         "loss_and_grads": loss_and_grads,
+         "leaves": lambda tree: [x for _, x in tree_paths(tree)],
+         "tree_map": tree_map, "init_buffer": init_buffer,
+         "buffer_push_and_maybe_apply": buffer_push_and_maybe_apply,
+         "gba_aggregate": gba_aggregate,
+         "gba_aggregate_ref": gba_aggregate_ref,
+         "fused_adagrad": fused_adagrad,
+         "fused_adagrad_ref": fused_adagrad_ref,
+         "embedding_bag_grad_resident": embedding_bag_grad_resident,
+         "embedding_bag_grad_resident_sorted":
+         embedding_bag_grad_resident_sorted}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
@@ -1788,13 +2346,20 @@ def main() -> int:
             quantize_minmax.launches = 0
             quantize_sign.launches = 0
             dequantize.launches = 0
+            gba_aggregate.launches = 0
+            fused_adagrad.launches = 0
+            embedding_bag_grad_resident.launches = 0
         return {"calls": ops.kernel_calls["pooled_lookup"],
                 "embedding_bag": embedding_bag.launches,
                 "embedding_bag_grad": embedding_bag_grad.launches,
                 "gba_apply": gba_apply.launches,
                 "quantize_minmax": quantize_minmax.launches,
                 "quantize_sign": quantize_sign.launches,
-                "dequantize": dequantize.launches}
+                "dequantize": dequantize.launches,
+                "gba_aggregate": gba_aggregate.launches,
+                "fused_adagrad": fused_adagrad.launches,
+                "embedding_bag_grad_resident":
+                embedding_bag_grad_resident.launches}
 
     params = S.init_scoring_params(
         V, DIM, MLP, generator=torch.Generator().manual_seed(0),
@@ -1829,14 +2394,20 @@ def main() -> int:
     apply_row = apply_timing(T)
     torch.cuda.empty_cache()
     wire = wire_phase(T, counters)
+    torch.cuda.empty_cache()
+    pytree = pytree_phase(T, counters)
+    resident = resident_phase(T, counters)
+    pytree_times = pytree_timing(T, sleep_cycles_per_ms())
 
-    phase(12, "kernels")
+    phase(13, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
     bwd_launches = {"serving": serving["embedding_bag_grad"],
                     "replay": replay["launches"]["embedding_bag_grad"],
-                    "sparse_smoke": smoke["launches"]["embedding_bag_grad"]}
+                    "sparse_smoke": smoke["launches"]["embedding_bag_grad"],
+                    "resident_oracle":
+                    resident["launches"]["embedding_bag_grad"]}
     print(json.dumps({
         "serving": {"static": static["stats"], "live": live["stats"],
                     "live_syncs": live["syncs"],
@@ -1847,6 +2418,9 @@ def main() -> int:
         "sparse_smoke": smoke,
         "lm_fused": lm,
         "wire": wire,
+        "pytree": pytree,
+        "resident_oracle": resident,
+        "pytree_timing": pytree_times,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
     apply_launches = {"lm_fused": lm["launches"]["gba_apply"], **{
@@ -1937,7 +2511,7 @@ def main() -> int:
         "at": apply_row["shape"],
         "shapes": [apply_row],
         "ok": True,
-    }, *wire_rows]}))
+    }, *wire_rows, *pytree_rows(pytree, resident, pytree_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,7 @@
 //
 // Per column c, all in float32:
 //   w[j]  = ((step - tokens[j]) <= iota) / M        (Eq. 1; divisor M)
-//   g     = buf[0][c] * w[0];  g = fma(buf[j][c], w[j], g)   (j = 1 .. M-1)
+//   g     = +0 (-0 at M = 1);  g = fma(buf[j][c], w[j], g)   (j = 0 .. M-1)
 //   a'    = fma(g, g, accum[c])
 //   p'    = p[c] - (lr * g) / (sqrt(a') + eps)
 // and p' is written back in the param's dtype, a' as float32, both in
@@ -75,6 +75,9 @@ __global__ void gba_apply_kernel(P* __restrict__ param,
     w[j] = age <= iota ? inv_m : 0.0f;
   }
   __syncthreads();
+  // the sum starts from +0.0, as XLA's reduction does; at M = 1 XLA keeps
+  // the product itself, and fma(b, w, -0.0) == b * w, signed zeros too
+  const float zero = m == 1 ? -0.0f : 0.0f;
 
   using PP = Pack<P, VEC>;
   using PB = Pack<B, VEC>;
@@ -88,7 +91,8 @@ __global__ void gba_apply_kernel(P* __restrict__ param,
     {
       const PB b = reinterpret_cast<const PB*>(buffer)[i];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) g[k] = __fmul_rn(to_f32(b.v[k]), w[0]);
+      for (int k = 0; k < VEC; ++k)
+        g[k] = __fmaf_rn(to_f32(b.v[k]), w[0], zero);
     }
 #pragma unroll 4
     for (int j = 1; j < m; ++j) {

@@ -2,16 +2,19 @@
 for Hopper.
 
 Counterpart of ``repro.kernels.embedding_bag``.  The kernels are
-``csrc/embedding_bag.cu`` (the forward) and ``csrc/embedding_bag_grad.cu``
-(the sorted segment sum of gradient rows with per-id counts); each
-source's header says what it replaces and what bounds it.  They are bound
-with ``ctypes`` and built at first use (``repro_torch.kernels.runtime``).
+``csrc/embedding_bag.cu`` (the forward), ``csrc/embedding_bag_grad.cu``
+(the sorted segment sum of gradient rows with per-id counts) and
+``csrc/embedding_bag_grad_resident.cu`` (the same sum with each vocab
+block's accumulator resident in shared memory: the JAX package's first
+backward, kept as the oracle of the streamed one); each source's header
+says what it replaces and what bounds it.  They are bound with ``ctypes``
+and built at first use (``repro_torch.kernels.runtime``).
 
-:func:`embedding_bag` and :func:`embedding_bag_grad` dispatch on the device
-of their tensors and on nothing else: CPU tensors take the plain versions
-of ``repro_torch.kernels.ref``, CUDA tensors launch the kernel or raise.
-``embedding_bag.launches`` and ``embedding_bag_grad.launches`` count the
-kernel launches of this process.
+:func:`embedding_bag`, :func:`embedding_bag_grad` and
+:func:`embedding_bag_grad_resident` dispatch on the device of their
+tensors and on nothing else: CPU tensors take the plain versions of
+``repro_torch.kernels.ref``, CUDA tensors launch the kernel or raise.
+Each wrapper's ``.launches`` counts its kernel launches of this process.
 """
 from __future__ import annotations
 
@@ -122,13 +125,8 @@ def embedding_bag_grad_sorted(sorted_ids: torch.Tensor, perm: torch.Tensor,
     return gtable, counts
 
 
-def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
-                       capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """ids: (B, F) int32, grad_out: (B, D) float32 -> (gtable (capacity, D),
-    counts (capacity,)), both float32.  Entry ``(b, f)`` adds
-    ``grad_out[b]`` to row ``ids[b, f]`` and 1 to its count; ids outside
-    ``[0, capacity)`` add nothing.  Each row is summed in entry order, so
-    the result is deterministic."""
+def _check_grad_args(ids: torch.Tensor, grad_out: torch.Tensor,
+                     capacity: int) -> None:
     if ids.dim() != 2 or grad_out.dim() != 2 or (
             ids.shape[0] != grad_out.shape[0]):
         raise ValueError(f"expected ids (B, F) and grad_out (B, D), got "
@@ -144,15 +142,96 @@ def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
         raise ValueError(f"shape too large for int32 indexing: ids "
                          f"{tuple(ids.shape)}, grad_out "
                          f"{tuple(grad_out.shape)}, capacity {capacity}")
-    if ids.device.type == "cpu" and grad_out.device.type == "cpu":
-        return embedding_bag_grad_ref(ids, grad_out, capacity)
-    if ids.device.type != "cuda" or ids.device != grad_out.device:
+    if not (ids.device.type == grad_out.device.type == "cpu") and (
+            ids.device.type != "cuda" or ids.device != grad_out.device):
         raise ValueError(f"ids and grad_out must both lie on the CPU or on "
                          f"one CUDA device, got {ids.device} and "
                          f"{grad_out.device}")
+
+
+def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
+                       capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ids: (B, F) int32, grad_out: (B, D) float32 -> (gtable (capacity, D),
+    counts (capacity,)), both float32.  Entry ``(b, f)`` adds
+    ``grad_out[b]`` to row ``ids[b, f]`` and 1 to its count; ids outside
+    ``[0, capacity)`` add nothing.  Each row is summed in entry order, so
+    the result is deterministic."""
+    _check_grad_args(ids, grad_out, capacity)
+    if ids.device.type == "cpu":
+        return embedding_bag_grad_ref(ids, grad_out, capacity)
     sorted_ids, perm = sort_ids(ids, capacity)
     return embedding_bag_grad_sorted(sorted_ids, perm,
-                                     grad_out.contiguous(), capacity, f)
+                                     grad_out.contiguous(), capacity,
+                                     ids.shape[1])
 
 
 embedding_bag_grad.launches = 0
+
+
+@functools.cache
+def _resident():
+    lib = runtime.load_library("embedding_bag_grad_resident")
+    fn = lib.repro_embedding_bag_grad_resident
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.repro_embedding_bag_grad_resident_max_d.restype = ctypes.c_int
+    return fn, lib.repro_embedding_bag_grad_resident_max_d
+
+
+def resident_max_d() -> int:
+    """The widest D whose (512, D) float32 accumulator fits the shared
+    memory a block of the current CUDA device may use (111 on an H100)."""
+    return _resident()[1]()
+
+
+def embedding_bag_grad_resident_sorted(sorted_ids: torch.Tensor,
+                                       perm: torch.Tensor,
+                                       grad_out: torch.Tensor, capacity: int,
+                                       num_fields: int
+                                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the resident kernel on ids already sorted by
+    :func:`sort_ids`; every tensor on one CUDA device and contiguous, as
+    :func:`embedding_bag_grad_sorted`.  Raises ``ValueError`` for a D above
+    :func:`resident_max_d`."""
+    d = grad_out.shape[1]
+    with torch.cuda.device(grad_out.device):
+        max_d = resident_max_d()
+    if d > max_d:
+        raise ValueError(f"D = {d}: the resident accumulator (512, D) "
+                         f"float32 fits shared memory up to D = {max_d}; "
+                         f"use embedding_bag_grad")
+    gtable = torch.empty((capacity, d), dtype=torch.float32,
+                         device=grad_out.device)
+    counts = torch.empty((capacity,), dtype=torch.float32,
+                         device=grad_out.device)
+    if capacity == 0:
+        return gtable, counts
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _resident()[0](sorted_ids.data_ptr(), perm.data_ptr(),
+                             grad_out.data_ptr(), gtable.data_ptr(),
+                             counts.data_ptr(), sorted_ids.numel(),
+                             num_fields, capacity, d, stream)
+    runtime.check(err, "embedding_bag_grad_resident kernel launch")
+    embedding_bag_grad_resident.launches += 1
+    return gtable, counts
+
+
+def embedding_bag_grad_resident(ids: torch.Tensor, grad_out: torch.Tensor,
+                                capacity: int
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The contract of :func:`embedding_bag_grad`, through the kernel that
+    keeps each 512-row vocab block's accumulator resident in shared memory;
+    the same sums in the same order, so the two agree bit for bit.  A CUDA
+    call refuses a D above :func:`resident_max_d` with ``ValueError``; a
+    CPU call takes the plain version at any D."""
+    _check_grad_args(ids, grad_out, capacity)
+    if ids.device.type == "cpu":
+        return embedding_bag_grad_ref(ids, grad_out, capacity)
+    sorted_ids, perm = sort_ids(ids, capacity)
+    return embedding_bag_grad_resident_sorted(
+        sorted_ids, perm, grad_out.contiguous(), capacity, ids.shape[1])
+
+
+embedding_bag_grad_resident.launches = 0

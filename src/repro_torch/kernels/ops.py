@@ -1,18 +1,24 @@
-"""Public wrappers over the kernels, with the wrapper census.
+"""Public wrappers over the kernels, with the wrapper census, and the
+tree-level helpers that apply a kernel across a parameter tree (nested
+dicts of tensors), one launch a leaf.
 
 Counterpart of ``repro.kernels.ops`` for the kernels ported so far.
 """
 from __future__ import annotations
 
 import collections
+from typing import Any
 
 import torch
 
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad)
+from repro_torch.kernels.fused_adagrad import fused_adagrad
+from repro_torch.kernels.gba_aggregate import gba_aggregate
 from repro_torch.kernels.gba_apply import gba_apply
 from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
                                           quantize_sign)
+from repro_torch.optim.optimizers import tree_map
 
 # Python-level invocation census of the wrappers below, as in the JAX
 # package: a hot-ID cache hit must leave ``kernel_calls["pooled_lookup"]``
@@ -36,6 +42,37 @@ def pooled_lookup_grad(ids: torch.Tensor, grad_out: torch.Tensor,
     ``embedding_bag_grad`` kernel."""
     kernel_calls["pooled_lookup_grad"] += 1
     return embedding_bag_grad(ids, grad_out, capacity)
+
+
+def gba_aggregate_tree(grads_stacked: Any, tokens: torch.Tensor, step: int,
+                       *, iota: int) -> Any:
+    """Kernel-backed version of ``repro_torch.core.gba.aggregate_dense``
+    (threshold decay): each (M, ...) leaf is flattened to (M, -1), reduced
+    by one ``gba_aggregate`` launch and given back its shape, in its
+    dtype."""
+    def per_leaf(g):
+        flat = g.reshape(g.shape[0], -1)
+        return gba_aggregate(flat, tokens, step, iota=iota).reshape(
+            g.shape[1:])
+
+    return tree_map(per_leaf, grads_stacked)
+
+
+def adagrad_apply_tree(params: Any, grads: Any, accums: Any, lr: float
+                       ) -> tuple[Any, Any]:
+    """Adagrad over a tree, one ``fused_adagrad`` launch a leaf (flattened
+    to 1-D).  Returns new ``(params, accums)`` trees and leaves the
+    caller's tensors as they were, as the reference's functional helper
+    does: the kernel updates clones in place."""
+    new_p = tree_map(lambda p: p.clone(memory_format=torch.contiguous_format),
+                     params)
+    new_a = tree_map(lambda a: a.clone(memory_format=torch.contiguous_format),
+                     accums)
+    tree_map(lambda p, g, a: fused_adagrad(p.view(-1),
+                                           g.contiguous().view(-1),
+                                           a.view(-1), lr),
+             new_p, grads, new_a)
+    return new_p, new_a
 
 
 def gba_apply_flat(param_flat: torch.Tensor, accum_flat: torch.Tensor,

@@ -62,6 +62,61 @@ def embedding_bag_grad_ref(ids: torch.Tensor, grad_out: torch.Tensor,
     return gtable, counts
 
 
+def gba_aggregate_ref(buffer: torch.Tensor, tokens: torch.Tensor,
+                      step: int, *, iota: int,
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
+    """buffer (M, D) float32 or bfloat16, tokens (M,) int32 -> the Eq. (1)
+    decayed mean (D,) in ``dtype`` (default: the buffer's), as a new
+    tensor.
+
+    The arithmetic of the TPU kernel (``repro/kernels/gba_aggregate.py:63``)
+    as XLA computes it on the CPU, in float32: the weights are ``keep / M``
+    with ``keep = (step - tokens) <= iota``, taken before the sum (the
+    divisor is M, not the count of kept slots); from ``g = +0.0``, ``g =
+    fma(buffer[j], w[j], g)`` one slot after another (so a column whose
+    products are all -0.0 sums to +0.0, as XLA's reduction does); ``g`` is
+    rounded once to ``dtype``.  At M = 1 XLA drops the reduction and
+    returns the product, whose zero keeps its sign: the sum then starts
+    from -0.0, which ``fma(b, w, -0.0)`` leaves equal to ``b * w``.  (``repro.kernels.ref.gba_aggregate_ref`` divides
+    the kept sum by M after summing, which rounds differently for an M
+    that is not a power of two; the kernels do not.)  The same sum with
+    the products rounded separately differs from the kernel.  Bit for bit
+    the Pallas kernel's up to M = 16; at M = 100 XLA adds the slots in
+    another order."""
+    m = buffer.shape[0]
+    w = ((step - tokens) <= iota).float() / m
+    g = torch.full(buffer.shape[1:], -0.0 if m == 1 else 0.0,
+                   dtype=torch.float32, device=buffer.device)
+    for j in range(m):
+        g = fma_f32(buffer[j].float(), w[j], g)
+    return g.to(dtype or buffer.dtype)
+
+
+def fused_adagrad_ref(param: torch.Tensor, grad: torch.Tensor,
+                      accum: torch.Tensor, lr: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """param (N,) float32 or bfloat16, grad (N,) float32 or bfloat16, accum
+    (N,) float32 -> new (param, accum), as new tensors.
+
+    The TPU kernel's update (``repro/kernels/fused_adagrad.py:64``) as XLA
+    computes it on the CPU, in float32: ``a' = fma(g, g, accum)`` (XLA
+    fuses ``accum + g * g``) and ``p' = p - (lr * g) / (sqrt(a') + EPS)``,
+    ``p'`` cast back to the param's dtype.  Every step is one correctly
+    rounded operation in a fixed order, on the CPU and on the card alike.
+
+    The square root is taken in float64 and rounded once to float32:
+    ``torch.sqrt`` of a float32 CPU tensor goes through MKL's vector math,
+    which misses the correctly rounded result on about 0.7 % of inputs,
+    while the float64 root rounded to float32 is the correctly rounded
+    float32 root (a float32 root never lies within a float64 ulp of a
+    float32 rounding boundary) on the CPU and on the card."""
+    g = grad.float()
+    a = fma_f32(g, g, accum)
+    root = torch.sqrt(a.double()).float()
+    p = param.float() - (lr * g) / (root + EPS)
+    return p.to(param.dtype), a
+
+
 def gba_apply_ref(param: torch.Tensor, accum: torch.Tensor,
                   buffer: torch.Tensor, tokens: torch.Tensor, step: int,
                   lr: float, *, iota: int
@@ -70,32 +125,14 @@ def gba_apply_ref(param: torch.Tensor, accum: torch.Tensor,
     tokens (M,) int32 -> new (param, accum), as new tensors.
 
     The arithmetic of the TPU kernel (``repro/kernels/gba_apply.py:80``)
-    as XLA computes it on the CPU, all in float32: the weights are ``keep /
-    M`` with ``keep = (step - tokens) <= iota``, taken before the sum; ``g
-    = buffer[0] * w[0]``, then ``g = fma(buffer[j], w[j], g)`` one slot
-    after another; then ``a' = fma(g, g, accum)`` and ``p' = p - (lr * g)
-    / (sqrt(a') + EPS)``, and ``p'`` is cast back to the param's dtype.
+    as XLA computes it on the CPU: :func:`gba_aggregate_ref`'s decayed sum
+    ``g`` kept in float32, then :func:`fused_adagrad_ref`'s update with it.
     (``repro.kernels.ref.gba_apply_ref`` divides the kept sum by M after
     summing, which rounds differently for an M that is not a power of two;
-    the kernels do not.)  Every step is one correctly rounded operation in
-    a fixed order (:func:`fma_f32` for the fused ones), on the CPU and on
-    the card alike, so the CUDA kernel is held to this bit for bit.
-
-    The square root is taken in float64 and rounded once to float32:
-    ``torch.sqrt`` of a float32 CPU tensor goes through MKL's vector math,
-    which misses the correctly rounded result on about 0.7 % of inputs,
-    while the float64 root rounded to float32 is the correctly rounded
-    float32 root (a float32 root never lies within a float64 ulp of a
-    float32 rounding boundary) on the CPU and on the card."""
-    m = buffer.shape[0]
-    w = ((step - tokens) <= iota).float() / m
-    g = buffer[0].float() * w[0]
-    for j in range(1, m):
-        g = fma_f32(buffer[j].float(), w[j], g)
-    a = fma_f32(g, g, accum)
-    root = torch.sqrt(a.double()).float()
-    p = param.float() - (lr * g) / (root + EPS)
-    return p.to(param.dtype), a
+    the kernels do not.)  The CUDA kernel is held to this bit for bit."""
+    g = gba_aggregate_ref(buffer, tokens, step, iota=iota,
+                          dtype=torch.float32)
+    return fused_adagrad_ref(param, g, accum, lr)
 
 
 # elements per float64 pass of fma_f32: its temporaries stay near 1 GB on

@@ -1,7 +1,8 @@
-"""Training launcher of the port: the LM's fused GBA step, its
-worker-parallel wire step, and the sparse-module smoke.
+"""Training launcher of the port: the LM's pytree GBA step, its fused
+flat-buffer step, its worker-parallel wire step, and the sparse-module
+smoke.
 
-    python -m repro_torch.launch.train --arch granite-8b --fused \\
+    python -m repro_torch.launch.train --arch granite-8b [--fused] \\
         [--reduced] [--steps 20] [--batch 4] [--seq 128] [--buffer 4] \\
         [--iota 4] [--lr 1e-3] [--device cuda]
     python -m repro_torch.launch.train --arch granite-8b --fused \\
@@ -10,16 +11,19 @@ worker-parallel wire step, and the sparse-module smoke.
     python -m repro_torch.launch.train --vocab 1000000 --steps 5 \\
         [--embed-dim 16] [--batch 4] [--lr 1e-3] [--device cuda]
 
-``--arch`` trains the LM with the fused flat-buffer GBA step
-(``repro_torch.launch.programs``): per microstep the LM loss and its
-gradient into the (M, N) buffer, and on every M-th microstep one
-``gba_apply`` launch (Eq. (1) weights and Adagrad) over the flat params.
-Microstep ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
-The port has only this Adagrad path, so ``--arch`` needs ``--fused`` (the
-reference's ``--fused`` forces Adagrad too); ``--reduced`` takes the
-config's smoke variant.
+``--arch`` trains the LM with the pytree GBA step, the reference
+launcher's default (``repro_torch.launch.programs``, ``mode="pytree"``):
+per microstep the LM loss and its gradient, added into a per-leaf
+accumulator with its Eq. (1) weight over M, and on every M-th microstep
+the arch's optimizer (``ARCH_OPTIMIZER``: Adam for granite-8b) applies
+it.  With ``--fused`` it trains with the fused flat-buffer step instead:
+per microstep the gradient into the (M, N) buffer, and on every M-th
+microstep one ``gba_apply`` launch (Eq. (1) weights and Adagrad) over the
+flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
+``i`` carries the token ``i // M``, as in ``repro.launch.train``.
+``--reduced`` takes the config's smoke variant.
 
-``--mesh Wx1`` runs W PS workers, each also a PS shard, in one process on
+``--fused --mesh Wx1`` runs W PS workers, each also a PS shard, in one process on
 the one device (``run_wire_train``): every step is a global step in which
 each worker takes the gradient of its own ``batch / W`` sequences and
 routes it per layer group to the shards, and each shard applies with one
@@ -57,8 +61,10 @@ from repro_torch.data.lm import make_lm_stream
 from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.launch.programs import TrainPrograms, build_programs
+from repro_torch.launch.programs import (ARCH_OPTIMIZER, TrainPrograms,
+                                         build_programs)
 from repro_torch.models import transformer as T
+from repro_torch.optim import get_optimizer
 
 NUM_FIELDS = 26
 
@@ -118,6 +124,57 @@ def run_embedding_smoke(vocab: int, *, steps: int = 20, embed_dim: int = 16,
         log(f"step {i:4d}  loss {losses[-1]:.4f}  {rate:,.0f} lookups/s")
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"embedding smoke diverged: losses {losses}")
+    return losses
+
+
+def run_lm_pytree(cfg: ModelConfig, *, optimizer: str = "adam",
+                  steps: int = 20, batch: int = 4, seq: int = 128,
+                  buffer: int = 4, iota: int = 4, lr: float = 1e-3,
+                  device: str | torch.device = "cuda",
+                  params: dict | None = None,
+                  on_step: Callable[[int, TrainPrograms, float], None]
+                  | None = None) -> list[float]:
+    """Train ``cfg`` for ``steps`` microsteps of the pytree GBA step with
+    ``optimizer`` (a name of ``repro_torch.optim``) at ``lr`` on the LM
+    stream (seed 0); returns the losses.  Parameters are drawn from seed 0
+    on the device unless ``params`` (on ``device``) are given;
+    ``on_step(i, programs, seconds)``, if given, sees the programs after
+    each microstep, ``programs.state`` the state the step returned, and
+    the microstep's seconds on the host clock up to its loss on the host
+    (which waits for the step's device work).  Raises if a loss is not
+    finite."""
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_model(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    gba = GBAConfig(local_batch=batch, buffer_size=buffer,
+                    staleness_tolerance=iota)
+    progs = build_programs(cfg, gba, params=params, mode="pytree", lr=lr,
+                           optimizer=get_optimizer(optimizer, lr))
+    del params
+    stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
+    print(f"{cfg.name}: {T.param_count(progs.state['params']) / 1e6:.1f}M "
+          f"params on {dev}")
+    print(f"pytree GBA path ({optimizer}): M={buffer}, iota={iota}, "
+          f"float32 accumulator")
+    state, losses = progs.state, []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        b = stream.batch(i)
+        tensors = {k: torch.from_numpy(b[k]).to(dev)
+                   for k in ("tokens", "labels")}
+        t = time.perf_counter()
+        state, loss = progs.step(state, tensors, i // buffer)
+        losses.append(loss.item())
+        progs.state = state
+        if on_step is not None:
+            on_step(i, progs, time.perf_counter() - t)
+        if i % 5 == 0 or i == steps - 1:
+            rate = (i + 1) * batch * seq / (time.perf_counter() - t0)
+            print(f"step {i:4d}  loss {losses[-1]:.4f}  gstep "
+                  f"{state['gstep']}  {rate:,.0f} tok/s")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"LM training diverged: losses {losses}")
     return losses
 
 
@@ -241,11 +298,12 @@ def main(argv: list[str] | None = None) -> list[float]:
                     help="the config's smoke variant")
     ap.add_argument("--fused", action="store_true",
                     help="flat-buffer GBA with the fused gba_apply kernel "
-                         "(Adagrad); the only LM path of the port")
+                         "(forces Adagrad); default: the pytree step with "
+                         "the arch's optimizer")
     ap.add_argument("--mesh", default="",
-                    help="WORKERSx1: that many PS workers and shards in one "
-                         "process on the device (the worker-parallel wire "
-                         "step), e.g. 4x1")
+                    help="WORKERSx1 (needs --fused): that many PS workers "
+                         "and shards in one process on the device (the "
+                         "worker-parallel wire step), e.g. 4x1")
     ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
                     help="layer-grouped flat layout of the wire step: one "
                          "gather and one route per layer group")
@@ -261,15 +319,28 @@ def main(argv: list[str] | None = None) -> list[float]:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.arch:
-        if not args.fused:
-            ap.error("--arch: the port has only the fused flat-buffer "
-                     "Adagrad step; pass --fused")
         try:
             cfg = get_config(args.arch)
         except NotImplementedError as e:
             ap.error(str(e))
+        # the optimizer comes from the arch's own name, before .reduced()
+        # renames the config, as in the reference
+        opt_name = ARCH_OPTIMIZER.get(cfg.name, "adam")
         if args.reduced:
             cfg = cfg.reduced()
+        if not args.fused:
+            if args.mesh:
+                ap.error("--mesh: the pytree step over PS workers is not "
+                         "ported; pass --fused for the wire step")
+            if args.compress != "none":
+                ap.error("--compress needs --fused --mesh WORKERSx1: the "
+                         "single-device step has no wire to quantize")
+            return run_lm_pytree(cfg, optimizer=opt_name, steps=args.steps,
+                                 batch=args.batch, seq=args.seq,
+                                 buffer=args.buffer, iota=args.iota,
+                                 lr=args.lr, device=args.device)
+        if opt_name != "adagrad":
+            print(f"--fused forces Adagrad (arch default was {opt_name})")
         if args.mesh:
             workers, _, model = args.mesh.partition("x")
             try:

@@ -6,9 +6,13 @@ the JAX package's Pallas ``embedding_bag_grad`` in interpret mode (and its
 plain ``embedding_bag_grad_ref``) and through the port's wrapper on CPU
 tensors, which takes its plain PyTorch version.
 
+The resident backward (the JAX package's first, kept as the oracle of the
+streamed one) is held the same way at the shapes of the JAX package's own
+oracle test; on the CPU its wrapper takes the same plain version.
+
 Tolerances: counts are exact.  Table gradients are held to rtol=1e-6 /
-atol=1e-7 against the Pallas kernel, whose one-hot matmul sums each row in
-another order than an entry-order scatter.  The port's plain version sums
+atol=1e-7 against the Pallas kernels, whose one-hot matmul sums each row
+in another order than an entry-order scatter.  The port's plain version sums
 each row in entry order from 0.0, which is the CUDA kernel's order, so it
 is held bit for bit to a sequential emulation of that kernel.
 """
@@ -23,12 +27,15 @@ from repro.embeddings import pooled_lookup as jax_pooled_lookup
 from repro.embeddings import presence_counts as jax_presence_counts
 from repro.kernels.embedding_bag import (
     embedding_bag_grad as jax_embedding_bag_grad)
+from repro.kernels.embedding_bag import (
+    embedding_bag_grad_resident as jax_embedding_bag_grad_resident)
 from repro.kernels.ref import embedding_bag_grad_ref as jax_grad_ref
 from repro_torch.convert import params_from_jax
 from repro_torch.embeddings import (EmbeddingTable, pooled_lookup,
                                     presence_counts)
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import (embedding_bag_grad,
+                                               embedding_bag_grad_resident,
                                                sort_ids)
 from repro_torch.kernels.ref import embedding_bag_grad_ref
 

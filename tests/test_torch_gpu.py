@@ -17,7 +17,11 @@ correctly rounded and in the same order, so its param and accumulator are
 held bit for bit to the plain version on the card and on a CPU copy.  The
 wire quantizers and the dequantize do so too: codes, sidebands, residual
 and dequantized values are held bit for bit to their plain versions, on
-the strided views the wire step hands them.
+the strided views the wire step hands them.  ``gba_aggregate`` and
+``fused_adagrad`` do the float32 operations of their plain versions in the
+same order and are held bit for bit to them; ``embedding_bag_grad_resident``
+sums each row in entry order and is held bit for bit to its plain version
+and to the streamed ``embedding_bag_grad``.
 """
 import dataclasses
 
@@ -26,12 +30,18 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_grad
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_grad,
+                                               embedding_bag_grad_resident,
+                                               resident_max_d)
+from repro_torch.kernels.fused_adagrad import fused_adagrad
+from repro_torch.kernels.gba_aggregate import gba_aggregate
 from repro_torch.kernels.gba_apply import gba_apply
 from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
                                           quantize_sign)
 from repro_torch.kernels.ref import (dequantize_ref, embedding_bag_grad_ref,
-                                     embedding_bag_ref, gba_apply_ref,
+                                     embedding_bag_ref, fused_adagrad_ref,
+                                     gba_aggregate_ref, gba_apply_ref,
                                      quantize_minmax_ref, quantize_sign_ref)
 
 pytestmark = pytest.mark.gpu
@@ -467,3 +477,208 @@ def test_wire_step_on_the_card_matches_the_cpu():
                 (16 * on_card, 16 * on_card, 4 * on_card)] * 2
             runs[dev] = losses
         np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+AGGREGATE_CASES = {   # M, D, dtype, slot ages against iota 4
+    "path-leaf-bf16": (4, 1 << 20, torch.bfloat16, [0, 0, 0, 0]),
+    "ragged-stale": (3, 5001, torch.float32, [0, 5, 1]),
+    "m1": (1, 4099, torch.float32, [0]),
+    "m1-dropped": (1, 4099, torch.float32, [7]),
+    "all-dropped": (4, 8192, torch.float32, [5, 6, 7, 9]),
+    "bf16-odd": (8, 10_001, torch.bfloat16, list(range(8))),
+}
+
+
+@pytest.mark.parametrize("kind", list(AGGREGATE_CASES))
+def test_gba_aggregate_matches_plain_version_bit_for_bit(kind):
+    _need_card()
+    m, d, dt, ages = AGGREGATE_CASES[kind]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grads = torch.randn((m, d), generator=gen, device="cuda").to(dt)
+    step = 9
+    tokens = torch.tensor([step - a for a in ages], dtype=torch.int32,
+                          device="cuda")
+    launches = gba_aggregate.launches
+    out = gba_aggregate(grads, tokens, step, iota=4)
+    torch.cuda.synchronize()
+    assert gba_aggregate.launches == launches + 1
+    want = gba_aggregate_ref(grads, tokens, step, iota=4)
+    host = gba_aggregate_ref(grads.cpu(), tokens.cpu(), step, iota=4)
+    assert out.dtype == dt and out.shape == (d,)
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(_bits(out.cpu()), _bits(host))
+    if all(a > 4 for a in ages):
+        # +0.0 from the sum, as XLA's; at M = 1 the product's signed zero
+        assert not out.any()
+        assert bool(torch.signbit(out).any()) == (m == 1)
+
+
+def test_gba_aggregate_offsets_beyond_2_31_elements():
+    """M * D > 2**31: the last slot starts past int32's reach.  Columns are
+    independent, so the plain version runs on the first and last columns
+    alone."""
+    _need_card()
+    m, d = 4, (1 << 29) + 12
+    grads = torch.empty((m, d), dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for j in range(m):
+        grads[j].normal_(generator=gen)
+    tokens = torch.tensor([9, 9, 3, 9], dtype=torch.int32, device="cuda")
+    out = gba_aggregate(grads, tokens, 9, iota=4)
+    torch.cuda.synchronize()
+    for cols in (slice(0, 1 << 20), slice(d - (1 << 20), d)):
+        want = gba_aggregate_ref(grads[:, cols].contiguous(), tokens, 9,
+                                 iota=4)
+        assert torch.equal(_bits(out[cols]), _bits(want))
+
+
+ADAGRAD_CASES = {   # N, param dtype, grad dtype
+    "path-leaf": (1 << 20, torch.bfloat16, torch.bfloat16),
+    "f32-ragged-scalar": (5001, torch.float32, torch.float32),
+    "bf16-param-f32-grad": (8192, torch.bfloat16, torch.float32),
+    "f32-param-bf16-grad-odd": (4099, torch.float32, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("kind", list(ADAGRAD_CASES))
+def test_fused_adagrad_matches_plain_version_bit_for_bit(kind):
+    _need_card()
+    n, p_dt, g_dt = ADAGRAD_CASES[kind]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    param = (torch.randn((n,), generator=gen, device="cuda") * 0.02).to(p_dt)
+    grad = (torch.randn((n,), generator=gen, device="cuda") * 1e-3).to(g_dt)
+    accum = 0.1 + torch.rand((n,), generator=gen, device="cuda")
+    want_p, want_a = fused_adagrad_ref(param, grad, accum, 1e-3)
+    host_p, host_a = fused_adagrad_ref(param.cpu(), grad.cpu(), accum.cpu(),
+                                       1e-3)
+    launches = fused_adagrad.launches
+    p, a = fused_adagrad(param, grad, accum, 1e-3)
+    torch.cuda.synchronize()
+    assert fused_adagrad.launches == launches + 1
+    assert p is param and a is accum          # in place, as the TPU aliases
+    assert torch.equal(_bits(param), _bits(want_p))
+    assert torch.equal(_bits(accum), _bits(want_a))
+    assert torch.equal(_bits(param.cpu()), _bits(host_p))
+    assert torch.equal(_bits(accum.cpu()), _bits(host_a))
+
+
+def test_tree_ops_on_the_card_launch_once_a_leaf_and_alias_nothing():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = {"w": torch.randn((33, 7), generator=gen, device="cuda"),
+              "b": {"c": torch.randn((129,), generator=gen,
+                                     device="cuda").bfloat16()}}
+    stacked = {"w": torch.randn((4, 33, 7), generator=gen, device="cuda"),
+               "b": {"c": torch.randn((4, 129), generator=gen,
+                                      device="cuda").bfloat16()}}
+    accums = {"w": torch.full((33, 7), 0.1, device="cuda"),
+              "b": {"c": torch.full((129,), 0.1, device="cuda")}}
+    tokens = torch.tensor([5, 0, 4, 5], dtype=torch.int32, device="cuda")
+    n_agg, n_ada = gba_aggregate.launches, fused_adagrad.launches
+    agg = ops.gba_aggregate_tree(stacked, tokens, 5, iota=2)
+    before = {"w": params["w"].clone(), "c": params["b"]["c"].clone(),
+              "a": accums["w"].clone()}
+    new_p, new_a = ops.adagrad_apply_tree(params, agg, accums, 1e-3)
+    torch.cuda.synchronize()
+    assert (gba_aggregate.launches, fused_adagrad.launches) == (n_agg + 2,
+                                                                n_ada + 2)
+    assert torch.equal(params["w"], before["w"])
+    assert torch.equal(_bits(params["b"]["c"]), _bits(before["c"]))
+    assert torch.equal(accums["w"], before["a"])
+    want_p, want_a = fused_adagrad_ref(
+        params["w"].reshape(-1), gba_aggregate_ref(
+            stacked["w"].reshape(4, -1), tokens, 5, iota=2),
+        accums["w"].reshape(-1), 1e-3)
+    assert torch.equal(new_p["w"].reshape(-1), want_p)
+    assert torch.equal(new_a["w"].reshape(-1), want_a)
+    assert new_p["b"]["c"].dtype == torch.bfloat16
+
+
+RESIDENT_CASES = {   # B, F, V, D
+    "stream-test-a": (10, 5, 50, 8),
+    "stream-test-b": (64, 26, 500, 16),
+    "stream-test-c": (33, 3, 613, 7),
+    "smoke": (4, 26, 1_000_000, 16),
+    "presence-counts": (1, 16 * 128 * 26, 1_600_048, 0),
+    "odd-ids-d13": (64, 16, 1000, 13),
+}
+
+
+@pytest.mark.parametrize("kind", list(RESIDENT_CASES))
+def test_resident_grad_matches_plain_and_streamed_bit_for_bit(kind):
+    _need_card()
+    b, f, v, d = RESIDENT_CASES[kind]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(0, v, (b, f), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if kind.startswith("odd"):
+        ids[:, ::3] = -1
+        ids[:, 1::5] = v
+        ids[:, 2::7] = v + 77
+    grad = torch.randn((b, d), generator=gen, device="cuda")
+    launches = embedding_bag_grad_resident.launches
+    gt, cnt = embedding_bag_grad_resident(ids, grad, v)
+    torch.cuda.synchronize()
+    assert embedding_bag_grad_resident.launches == launches + 1
+    want_gt, want_cnt = embedding_bag_grad_ref(ids.cpu(), grad.cpu(), v)
+    s_gt, s_cnt = embedding_bag_grad(ids, grad, v)
+    assert torch.equal(cnt.cpu(), want_cnt) and torch.equal(cnt, s_cnt)
+    assert torch.equal(gt.cpu().view(torch.int32), want_gt.view(torch.int32))
+    assert torch.equal(gt.view(torch.int32), s_gt.view(torch.int32))
+
+
+def test_resident_grad_takes_d_up_to_shared_memory_and_refuses_one_more():
+    _need_card()
+    d = resident_max_d()
+    assert d >= 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ids = torch.randint(0, 2000, (256, 8), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    grad = torch.randn((256, d), generator=gen, device="cuda")
+    gt, cnt = embedding_bag_grad_resident(ids, grad, 2000)
+    torch.cuda.synchronize()
+    want_gt, want_cnt = embedding_bag_grad_ref(ids.cpu(), grad.cpu(), 2000)
+    assert torch.equal(gt.cpu().view(torch.int32), want_gt.view(torch.int32))
+    assert torch.equal(cnt.cpu(), want_cnt)
+    launches = embedding_bag_grad_resident.launches
+    wide = torch.randn((256, d + 1), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        embedding_bag_grad_resident(ids, wide, 2000)
+    assert embedding_bag_grad_resident.launches == launches
+
+
+def test_pytree_lm_step_on_the_card_matches_the_cpu():
+    """granite-8b.reduced() in float32, Adam, 2 global steps at M = 4 from
+    the same params, card against CPU: losses within rtol 1e-4 and params
+    within atol 2e-3 (twice lr: Adam moves an element by about lr whatever
+    the size of its gradient)."""
+    _need_card()
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_to_device
+    from repro_torch.core.gba import FlatLayout
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    cfg = dc.replace(get_config("granite-8b").reduced(), dtype="float32")
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    layout = FlatLayout.from_params(host)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        final = {}
+
+        def on_step(i, progs, seconds, final=final):
+            final["params"] = progs.state["params"]
+            final["gstep"] = progs.state["gstep"]
+        losses = train.run_lm_pytree(
+            cfg, steps=8, batch=2, seq=32, device=dev,
+            params=tree_to_device(host, torch.device(dev)), on_step=on_step)
+        assert final["gstep"] == 2
+        runs[dev] = (losses, layout.ravel(final["params"]).cpu())
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    torch.testing.assert_close(pg, pc, rtol=0, atol=2e-3)

@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port.
 
 * Importing ``repro_torch`` and its serving, training (the replay trainer,
-  the LM's fused step and its worker-parallel wire step), embeddings and
-  kernel modules loads no JAX.
+  the LM's pytree and fused steps and its worker-parallel wire step, the
+  token list), embeddings and kernel modules loads no JAX.
 * No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
   JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
@@ -48,7 +48,9 @@ def test_import_loads_no_jax():
             "repro_torch.kernels.quantize, repro_torch.core.staleness, "
             "repro_torch.core.compression, repro_torch.core.flat_sharded, "
             "repro_torch.core.gba_shard_map, "
-            "repro_torch.distributed.inprocess; "
+            "repro_torch.distributed.inprocess, repro_torch.core.tokens, "
+            "repro_torch.kernels.gba_aggregate, "
+            "repro_torch.kernels.fused_adagrad; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -81,7 +83,7 @@ def test_forbidden_import_pattern():
                                    "init_recsys", "pretrain_sync",
                                    "quickstart", "train_vocab",
                                    "init_model", "train_arch",
-                                   "train_wire"])
+                                   "train_wire", "train_pytree"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(
         entry, tmp_path):
     if torch.cuda.is_available():
@@ -106,6 +108,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
         "train_arch": lambda: train.main(["--arch", "granite-8b",
                                           "--reduced", "--fused", "--steps",
                                           "1"]),
+        "train_pytree": lambda: train.main(["--arch", "granite-8b",
+                                            "--reduced", "--steps", "1"]),
         "train_wire": lambda: train.main(["--arch", "granite-8b",
                                           "--reduced", "--fused", "--mesh",
                                           "4x1", "--compress", "int8",

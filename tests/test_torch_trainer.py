@@ -417,8 +417,9 @@ def test_train_main_cli(capsys):
                            "--device", "cpu"])) == 2
     assert "step    1" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        train.main(["--arch", "granite-8b", "--device", "cpu"])
-    assert "only the fused flat-buffer Adagrad step" in (
+        train.main(["--arch", "granite-8b", "--mesh", "4x1", "--device",
+                    "cpu"])
+    assert "pytree step over PS workers is not ported" in (
         capsys.readouterr().err)
 
 
