@@ -90,13 +90,29 @@ Phases:
     kernel and the resident kernel to its plain version; each of the
     three kernels timed against its plain version, its bound and a
     library call;
-13. one JSON line of the kernels, then the result line.
+13. LM serving: (a) the fixed-batch loop through ``launch.serve``'s
+    functions, exactly 36 x 31 ``flash_decode`` launches, prefill ms,
+    decode ms a step, tok/s and peak memory; the same decode with the
+    plain version swapped in, both fed the loop's tokens, greedy tokens
+    equal and logits within 2**-6 of the largest; a profile of one step;
+    (b) decode at 32,768 positions, ms a step and a profile of one step
+    (``flash_decode``'s, the head's, the MLP's and the projections'
+    device time, the idle share); (c) the engine, every request complete
+    and held to the offline greedy decode on the card (the first token
+    equal; the bf16 tokens that agree counted); (d)
+    ``granite-8b.reduced()`` in float32, card against CPU (logits within
+    1e-5 of the largest, tokens equal) and its engine against the offline
+    decode, every token; (e) the kernel against its plain version at the
+    serve loop's and the decode_32k shapes, a ragged L, G = 1, float32 and
+    head dim 64, at the first, a middle and the last position, then timed
+    against the plain version, its bound and SDPA;
+14. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
 microsteps, each scheme of the wire step, the pytree step, its tree ops,
-the resident oracle) and read just after it, so ``launches`` counts those
-paths alone.  Any failure
+the resident oracle, the serve loop, the 32k decode, the engine) and read
+just after it, so ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
 """
@@ -2241,6 +2257,432 @@ def pytree_rows(pytree: dict, resident: dict, times: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM serving, granite-8b at full width and full depth
+
+# the fixed-batch loop (launch.serve): B prompts of P tokens, G generated
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
+# decode at the decode_32k shape: a random cache of L positions at pos
+LONG_L, LONG_POS, LONG_STEPS = 32_768, 32_000, 5
+# the engine (launch.serve --engine): requests of 4 to P tokens, 4 slots
+ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
+# the kernel route against the plain route, both fed the same tokens:
+# bfloat16 attention outputs may round one bf16 ulp apart, which moves the
+# logits by a few bf16 ulps of their scale; float32 agrees to its rounding
+SERVE_LOGIT_FRAC = {"bfloat16": 2.0**-6, "float32": 1e-5}
+# card against CPU at granite-8b.reduced() in float32: logits within this
+# fraction of their largest magnitude, tokens equal
+SERVE_HOLD_FRAC = 1e-5
+# the kernel against its plain version: (label, B, L, KV, G, hd, dtype,
+# positions)
+FLASH_CHECKS = (
+    ("serve loop", 4, 160, 8, 4, 128, torch.bfloat16, (0, 1000, 159)),
+    ("decode_32k", 4, 32_768, 8, 4, 128, torch.bfloat16, (0, 1000, 32_767)),
+    ("ragged L = 544", 4, 544, 8, 4, 128, torch.bfloat16, (0, 300, 543)),
+    ("G = 1", 4, 544, 8, 1, 128, torch.bfloat16, (0, 543)),
+    ("f32", 4, 4096, 8, 4, 128, torch.float32, (0, 1000, 4095)),
+    ("reduced granite, hd 64, G 1", 4, 25, 4, 1, 64, torch.float32, (0, 24)),
+)
+# the timed shapes: the serve loop's last step and decode_32k
+FLASH_TIMED = ((4, 160, 8, 4, 128, 159), (4, 32_768, 8, 4, 128, LONG_POS))
+
+
+class plain_flash:
+    """Within the block, ``ops.flash_decode`` is the plain version."""
+
+    def __init__(self, T: dict):
+        self.ops, self.ref = T["ops"], T["flash_decode_ref"]
+
+    def __enter__(self):
+        self.saved = self.ops.flash_decode
+        self.ops.flash_decode = self.ref
+
+    def __exit__(self, *exc):
+        self.ops.flash_decode = self.saved
+
+
+def _forced(T: dict, params, cfg, prompts, tokens, cache_len: int):
+    """Prefill, then decode fed ``tokens`` (B, n): the logits (B, n, V) of
+    the prefill and of each of the n - 1 steps, and the cache after."""
+    Tm = T["transformer"]
+    logits, cache = Tm.prefill(params, cfg, prompts, cache_len=cache_len)
+    out = [logits[:, None]]
+    for i in range(tokens.shape[1] - 1):
+        lg, cache = Tm.decode_step(params, cfg, tokens[:, i:i + 1], cache)
+        out.append(lg)
+    return torch.cat(out, dim=1), cache
+
+
+def _offline_greedy(T: dict, params, cfg, prompt, n_new: int) -> list:
+    """``tests/test_serving.py:_offline_greedy`` on the port: one request,
+    a cache of len(prompt) + n_new + 1, decode at a scalar position."""
+    Tm = T["transformer"]
+    dev = params["embed"].device
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
+    logits, cache = Tm.prefill(params, cfg, toks,
+                               cache_len=len(prompt) + n_new + 1)
+    out = [int(torch.argmax(logits[0]))]
+    for _ in range(n_new - 1):
+        lg, cache = Tm.decode_step(
+            params, cfg, torch.tensor([[out[-1]]], device=dev), cache)
+        out.append(int(torch.argmax(lg[0, 0])))
+    return out
+
+
+def decode_profile(T: dict, params, cfg, token, cache) -> dict:
+    """One decode step under ``torch.profiler``: device time by kernel
+    name, the idle share, and the device time of ``flash_decode``, of the
+    head (operators with the vocabulary in an input shape: the float32
+    casts and GEMM), of the MLP (d_ff in a shape), of the attention
+    projections (the other matrix products) and of the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T["transformer"].decode_step(params, cfg, token, cache)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_times(prof, wall_us, "flash_decode", top_n=10,
+                       name_len=120)
+    parts = {"flash_decode_us": sum(out["flash_decode_us"]), "head_us": 0.0,
+             "mlp_us": 0.0, "attn_proj_us": 0.0}
+    by_op = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        t = getattr(e, "self_device_time_total", 0.0)
+        if not t or not e.key.startswith("aten::"):
+            continue
+        shapes = str(e.input_shapes)
+        by_op.append((t, f"{e.key} {shapes[:100]}", e.count))
+        if str(cfg.vocab_size) in shapes:
+            parts["head_us"] += t
+        elif str(cfg.d_ff) in shapes:
+            parts["mlp_us"] += t
+        elif e.key in ("aten::mm", "aten::bmm", "aten::addmm"):
+            parts["attn_proj_us"] += t
+    parts["other_us"] = out["device_busy_us"] - sum(parts.values())
+    out["flash_decode_launches"] = len(out.pop("flash_decode_us")) // 2
+    out["aten_self_device_us"] = {k: [t, n] for t, k, n in
+                                  sorted(by_op, reverse=True)[:8]}
+    out.update(parts)
+    out["shares"] = {k[:-3]: v / out["device_busy_us"]
+                     for k, v in parts.items()}
+    return out
+
+
+def serve_fixed_phase(T: dict, cfg, params, counters) -> dict:
+    """(a) the fixed-batch loop of ``launch.serve``, counted; then the same
+    decode with the plain version swapped in, teacher-forced with the
+    kernel run's tokens; a profile of one more step."""
+    serve = T["serve"]
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator("cuda").manual_seed(1),
+                            device="cuda")
+    # a short warm-up run: cuBLAS's handles and the kernels' first loads
+    serve.run_fixed_batch(params, cfg, prompts, 2, log=lambda _: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters(reset=True)
+    res = serve.run_fixed_batch(params, cfg, prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.num_layers * (SERVE_GEN - 1)
+    print(f"  launches: {json.dumps(launches)}")
+    check(launches["flash_decode"] == want,
+          f"{cfg.num_layers} flash_decode launches a decode step: "
+          f"{launches['flash_decode']} != {want}")
+    check(sum(v for k, v in launches.items()
+              if k not in ("flash_decode", "calls")) == 0,
+          "the serve loop launches no other kernel")
+    steps = res["decode_steps"]
+    step_ms = res["decode_s"] / steps * 1e3
+    tok_s = SERVE_BATCH * steps / res["decode_s"]
+    tokens = res["tokens"]
+    check(tokens.shape == (SERVE_BATCH, SERVE_GEN), "tokens (B, gen)")
+    print(f"  fixed batch {SERVE_BATCH}x{SERVE_PROMPT}, gen {SERVE_GEN}: "
+          f"prefill {res['prefill_s'] * 1e3!r} ms, decode {step_ms!r} ms a "
+          f"step, {tok_s!r} tok/s, peak {peak_gb!r} GB")
+    cache_len = SERVE_PROMPT + SERVE_GEN
+    kern, cache = _forced(T, params, cfg, prompts, tokens, cache_len)
+    with plain_flash(T):
+        plain, _ = _forced(T, params, cfg, prompts, tokens, cache_len)
+    check(bool(torch.isfinite(kern).all()), "finite logits")
+    check(torch.equal(kern.argmax(-1), tokens),
+          "the forced kernel run repeats the loop's greedy tokens")
+    err = (kern - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    agree = plain.argmax(-1) == tokens
+    print(f"  kernel vs plain flash_decode, teacher-forced: max |logit diff|"
+          f" {err!r} of max |logit| {scale!r}; greedy tokens equal at "
+          f"{int(agree.sum())} of {agree.numel()}")
+    check(err <= SERVE_LOGIT_FRAC[cfg.dtype] * scale,
+          f"logits within {SERVE_LOGIT_FRAC[cfg.dtype]} of the largest")
+    check(bool(agree.all()), "greedy tokens equal with the plain version")
+    token = kern[:, -1].argmax(-1)[:, None].to(torch.int32)
+    prof = decode_profile(T, params, cfg, token, cache)
+    print(f"  profile of a step at pos {SERVE_PROMPT + SERVE_GEN - 1}: "
+          f"{json.dumps(prof)}")
+    return {"prefill_ms": res["prefill_s"] * 1e3, "decode_step_ms": step_ms,
+            "tokens_per_s": tok_s, "peak_gb": peak_gb,
+            "launches": launches, "logit_max_abs_diff": err,
+            "logit_max_abs": scale, "profile": prof}
+
+
+def serve_long_phase(T: dict, cfg, params, counters) -> dict:
+    """(b) decode at the decode_32k shape: a cache of 32,768 positions of
+    random bf16 k and v, every sequence at pos 32,000."""
+    Tm, serve = T["transformer"], T["serve"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(2)
+    cache = Tm.init_cache(cfg, SERVE_BATCH, LONG_L, "cuda")
+    for leaf in T["leaves"](cache["blocks"]):
+        leaf.normal_(generator=gen)
+    cache["pos"] = torch.full((), LONG_POS, dtype=torch.int32, device="cuda")
+    decode = serve.make_decode_step(cfg)
+    token = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    token, _, cache = decode(params, token, cache)             # warm-up
+    torch.cuda.synchronize()
+    counters(reset=True)
+    t0 = time.perf_counter()
+    for _ in range(LONG_STEPS):
+        token, logits, cache = decode(params, token, cache)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["flash_decode"] == cfg.num_layers * LONG_STEPS,
+          f"flash_decode launches at 32k: {launches['flash_decode']}")
+    check(bool(torch.isfinite(logits).all()), "finite logits at 32k")
+    check(int(cache["pos"]) == LONG_POS + 1 + LONG_STEPS, "pos advanced")
+    step_ms = dt / LONG_STEPS * 1e3
+    print(f"  decode at {LONG_L} positions (pos {LONG_POS}), B "
+          f"{SERVE_BATCH}: {step_ms!r} ms a step, peak {peak_gb!r} GB")
+    prof = decode_profile(T, params, cfg, token, cache)
+    print(f"  profile of a step: {json.dumps(prof)}")
+    del cache
+    torch.cuda.empty_cache()
+    return {"decode_step_ms": step_ms, "peak_gb": peak_gb,
+            "launches": launches, "profile": prof}
+
+
+def serve_engine_phase(T: dict, cfg, params, counters,
+                       prompt_len: int = SERVE_PROMPT,
+                       gen: int = SERVE_GEN, require_all: bool = False
+                       ) -> dict:
+    """(c) the engine of ``launch.serve --engine``: requests of 4 to
+    ``prompt_len`` tokens into 4 slots, each held to the offline greedy
+    decode on the card (the kernel route).  The first token comes from the
+    same prefill on both sides and must agree; the rest agree in full only
+    when ``require_all`` (float32)."""
+    S = T["S"]
+    eng = S.ServingEngine(S.StaticSource(params), cfg,
+                          num_slots=ENGINE_SLOTS, max_len=prompt_len + gen)
+    rng = np.random.default_rng(0)
+    for uid in range(ENGINE_REQUESTS):
+        plen = int(rng.integers(4, prompt_len + 1))
+        eng.submit(S.Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, plen, dtype=np.int64).astype(np.int32),
+            max_new_tokens=gen))
+    torch.cuda.synchronize()
+    counters(reset=True)
+    stats = eng.run()
+    torch.cuda.synchronize()
+    launches = counters()
+    print(f"  engine: {json.dumps(stats)}")
+    check(stats["completed"] == ENGINE_REQUESTS, "every request completed")
+    check(launches["flash_decode"] == 0,
+          "the engine's per-slot positions take the masked route")
+    agree = total = identical = 0
+    for req in eng.completed:
+        off = _offline_greedy(T, params, cfg, req.prompt, gen)
+        check(off[0] == req.output[0],
+              f"request {req.uid}: the prefill's token agrees")
+        same = sum(a == b for a, b in zip(off, req.output))
+        agree, total = agree + same, total + len(off)
+        identical += off == req.output
+    print(f"  engine vs offline greedy on the card ({cfg.dtype}): {agree} of "
+          f"{total} tokens agree, {identical} of {ENGINE_REQUESTS} requests "
+          f"identical")
+    if require_all:
+        check(identical == ENGINE_REQUESTS, "engine == offline greedy")
+    return {"stats": stats, "launches": launches, "tokens_agree": agree,
+            "tokens": total, "requests_identical": identical}
+
+
+def serve_card_vs_cpu(T: dict, counters) -> dict:
+    """(d) ``granite-8b.reduced()`` in float32: prefill and 8 decode steps
+    on the card (the kernel) and on the CPU (the plain version) from the
+    same weights, teacher-forced with the card's greedy tokens; then the
+    engine on the card against the offline greedy decode, all tokens."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b").reduced(),
+                              dtype="float32")
+    host = T["transformer"].init_model(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = T["tree_to_device"](host, torch.device("cuda"))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, 16),
+                            generator=torch.Generator().manual_seed(1))
+    res = T["serve"].run_fixed_batch(card, cfg, prompts.cuda(), 9,
+                                     log=lambda _: None)
+    tokens = res["tokens"]
+    on_card, _ = _forced(T, card, cfg, prompts.cuda(), tokens, 25)
+    on_host, _ = _forced(T, host, cfg, prompts, tokens.cpu(), 25)
+    err = (on_card.cpu() - on_host).abs().max().item()
+    scale = on_host.abs().max().item()
+    same = bool(torch.equal(on_host.argmax(-1), tokens.cpu()))
+    print(f"  reduced f32 card vs CPU, prefill + 8 steps: max |logit diff| "
+          f"{err!r} of {scale!r}; greedy tokens equal: {same}")
+    check(err <= SERVE_HOLD_FRAC * scale, "card vs CPU logits")
+    check(same, "card vs CPU greedy tokens")
+    engine = serve_engine_phase(T, cfg, card, counters, prompt_len=16,
+                                gen=8, require_all=True)
+    return {"logit_max_abs_diff": err, "logit_max_abs": scale,
+            "engine": engine}
+
+
+def flash_bound_ms(b: int, length: int, kv: int, g: int, hd: int, pos: int,
+                   item: int) -> tuple[float, str]:
+    """Least time for one call: q read and the output written once, and
+    the k and v rows up to ``pos`` read once, against 4 * hd float32
+    operations a (query row, position) pair (q . k and p * v)."""
+    n = min(pos + 1, length)
+    nbytes = 2 * b * n * kv * hd * item + 2 * b * kv * g * hd * item
+    return _bound(nbytes, b * kv * g * n * 4 * hd)
+
+
+def flash_phase(T: dict, cycles_per_ms: float) -> dict:
+    """(e) the kernel against its plain version at every listed shape and
+    position, then timed against it, its bound and SDPA."""
+    fd, ref = T["flash_decode"], T["flash_decode_ref"]
+    gen = torch.Generator("cuda").manual_seed(3)
+    max_err = 0.0
+    for label, b, length, kv, g, hd, dt, positions in FLASH_CHECKS:
+        q = torch.randn((b, kv, g, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                        dtype=dt)
+        v = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                        dtype=dt)
+        for pos in positions:
+            got = fd(q, k, v, torch.tensor(pos, dtype=torch.int32,
+                                           device="cuda"))
+            want = ref(q, k, v, pos)
+            torch.cuda.synchronize()
+            if dt == torch.bfloat16:
+                ok = torch.allclose(got.float(), want.float(),
+                                    rtol=BF16_RTOL, atol=BF16_ATOL)
+            else:
+                ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+            err = (got.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            print(f"  flash_decode {label} ({b}, {length}, {kv}, {g}, {hd}) "
+                  f"{str(dt)[6:]}, pos {pos}: max |err| {err!r} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_decode {label} pos {pos}")
+        del q, k, v
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for b, length, kv, g, hd, pos in FLASH_TIMED:
+        q = torch.randn((b, kv, g, hd), generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        v = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(length, device="cuda") <= pos)[None, None,
+                                                            None, :]
+
+        def library(q=q, k=k, v=v, mask=mask, b=b, kv=kv, g=g, hd=hd):
+            return sdpa(q.reshape(b, kv * g, 1, hd), k.transpose(1, 2),
+                        v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+        got = fd(q, k, v, p)
+        lib_diff = (library().reshape(got.shape).float()
+                    - got.float()).abs().max().item()
+        check(lib_diff <= 2.0**-6 * got.float().abs().max().item(),
+              f"SDPA agrees with the kernel: {lib_diff}")
+        med, runs = _timed({
+            "kernel": lambda q=q, k=k, v=v, p=p: fd(q, k, v, p),
+            "plain": lambda q=q, k=k, v=v, pos=pos: ref(q, k, v, pos),
+            "library": library}, length < 4096, cycles_per_ms)
+        bnd, by = flash_bound_ms(b, length, kv, g, hd, pos, 2)
+        row = {"shape": [b, length, kv, g, hd], "pos": pos, "dtype": "bf16",
+               "ms": med["kernel"], "plain_ms": med["plain"],
+               "library_ms": med["library"],
+               "library": "F.scaled_dot_product_attention(enable_gqa=True,"
+                          " boolean mask)",
+               "library_max_abs_diff": lib_diff, "bound_ms": bnd,
+               "bound_by": by, "device_runs_ms": runs}
+        rows.append(row)
+        print(f"  flash_decode ({b}, {length}, {kv}, {g}, {hd}) bf16 pos "
+              f"{pos}, device ms per call: kernel {med['kernel']!r}, plain "
+              f"{med['plain']!r}, SDPA {med['library']!r} (max |diff| "
+              f"{lib_diff!r}), bound {bnd!r} ({by}); device runs: "
+              f"{json.dumps(runs)}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "timed": rows}
+
+
+def serve_phase(T: dict, counters) -> dict:
+    phase(13, "LM serving: granite-8b at full width and full depth, bf16")
+    Tm = T["transformer"]
+    cfg = T["get_config"]("granite-8b")
+    check(cfg.num_layers == 36 and cfg.dtype == "bfloat16",
+          "granite-8b: 36 layers, bf16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Tm.init_model(cfg,
+                           generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    out = {"params": T["param_count"](params),
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"  granite-8b, {cfg.num_layers} layers: {out['params']:,} "
+          f"parameters, init {out['init_s']:.1f} s, init peak "
+          f"{out['init_peak_gb']!r} GB")
+    torch.cuda.empty_cache()
+    out["fixed_batch"] = serve_fixed_phase(T, cfg, params, counters)
+    out["decode_32k"] = serve_long_phase(T, cfg, params, counters)
+    out["engine"] = serve_engine_phase(T, cfg, params, counters)
+    del params
+    torch.cuda.empty_cache()
+    out["reduced_f32"] = serve_card_vs_cpu(T, counters)
+    out["flash_decode"] = flash_phase(T, sleep_cycles_per_ms())
+    return out
+
+
+def serve_row(serve: dict) -> dict:
+    """The kernels line's row of ``flash_decode``, timed at decode_32k."""
+    by_path = {
+        "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
+        "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
+        "serve_engine": serve["engine"]["launches"]["flash_decode"]}
+    timed = serve["flash_decode"]["timed"]
+    at = timed[-1]
+    return {
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:116",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": serve["flash_decode"]["max_abs_err"],
+        "ms": at["ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"],
+        "library": at["library"],
+        "at": at["shape"],
+        "shapes": timed,
+        "ok": True,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2264,6 +2706,7 @@ def main() -> int:
         embedding_bag, embedding_bag_grad, embedding_bag_grad_resident,
         embedding_bag_grad_resident_sorted, embedding_bag_grad_sorted,
         sort_ids)
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.fused_adagrad import fused_adagrad
     from repro_torch.kernels.gba_aggregate import gba_aggregate
     from repro_torch.kernels.gba_apply import gba_apply
@@ -2271,13 +2714,15 @@ def main() -> int:
                                               quantize_sign)
     from repro_torch.kernels.ref import (dequantize_ref,
                                          embedding_bag_grad_ref,
-                                         embedding_bag_ref, fused_adagrad_ref,
+                                         embedding_bag_ref, flash_decode_ref,
+                                         fused_adagrad_ref,
                                          gba_aggregate_ref, gba_apply_ref,
                                          quantize_minmax_ref,
                                          quantize_sign_ref)
-    from repro_torch.launch import quickstart, train
+    from repro_torch.launch import quickstart, serve, train
     from repro_torch.launch.programs import build_programs, loss_and_grads
     from repro_torch.models.recsys import init_recsys
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import init_model, param_count
     from repro_torch.optim import get_optimizer, tree_map
     from repro_torch.sim.cluster import Schedule, Slot
@@ -2326,7 +2771,9 @@ def main() -> int:
          "fused_adagrad_ref": fused_adagrad_ref,
          "embedding_bag_grad_resident": embedding_bag_grad_resident,
          "embedding_bag_grad_resident_sorted":
-         embedding_bag_grad_resident_sorted}
+         embedding_bag_grad_resident_sorted,
+         "transformer": transformer, "serve": serve, "S": S,
+         "flash_decode": flash_decode, "flash_decode_ref": flash_decode_ref}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
@@ -2349,6 +2796,7 @@ def main() -> int:
             gba_aggregate.launches = 0
             fused_adagrad.launches = 0
             embedding_bag_grad_resident.launches = 0
+            flash_decode.launches = 0
         return {"calls": ops.kernel_calls["pooled_lookup"],
                 "embedding_bag": embedding_bag.launches,
                 "embedding_bag_grad": embedding_bag_grad.launches,
@@ -2359,7 +2807,8 @@ def main() -> int:
                 "gba_aggregate": gba_aggregate.launches,
                 "fused_adagrad": fused_adagrad.launches,
                 "embedding_bag_grad_resident":
-                embedding_bag_grad_resident.launches}
+                embedding_bag_grad_resident.launches,
+                "flash_decode": flash_decode.launches}
 
     params = S.init_scoring_params(
         V, DIM, MLP, generator=torch.Generator().manual_seed(0),
@@ -2398,8 +2847,10 @@ def main() -> int:
     pytree = pytree_phase(T, counters)
     resident = resident_phase(T, counters)
     pytree_times = pytree_timing(T, sleep_cycles_per_ms())
+    torch.cuda.empty_cache()
+    served = serve_phase(T, counters)
 
-    phase(13, "kernels")
+    phase(14, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -2421,6 +2872,7 @@ def main() -> int:
         "pytree": pytree,
         "resident_oracle": resident,
         "pytree_timing": pytree_times,
+        "lm_serving": served,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
     apply_launches = {"lm_fused": lm["launches"]["gba_apply"], **{
@@ -2511,7 +2963,8 @@ def main() -> int:
         "at": apply_row["shape"],
         "shapes": [apply_row],
         "ok": True,
-    }, *wire_rows, *pytree_rows(pytree, resident, pytree_times)]}))
+    }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
+        serve_row(served)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

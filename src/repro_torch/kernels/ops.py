@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad)
+from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
 from repro_torch.kernels.fused_adagrad import fused_adagrad
 from repro_torch.kernels.gba_aggregate import gba_aggregate
 from repro_torch.kernels.gba_apply import gba_apply
@@ -111,3 +112,13 @@ def dequantize_wire(q: torch.Tensor, *sidebands: torch.Tensor, tile: int,
     kernel_calls["dequantize_wire"] += 1
     zero = sidebands[1] if mode == "minmax" else None
     return dequantize(q, sidebands[0], zero, tile=tile, mode=mode, out=out)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: int | torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention of q (B, KV, G, hd) over the KV cache k, v
+    (B, L, KV, hd) up to the scalar position ``pos``, through the
+    ``flash_decode`` kernel: the attention of every layer of the LM's
+    decode step when the batch shares one position."""
+    kernel_calls["flash_decode"] += 1
+    return _flash_decode(q, k, v, pos)

@@ -275,3 +275,55 @@ def dequantize_ref(q: torch.Tensor, scale: torch.Tensor,
     else:
         raise ValueError(f"unknown dequantize mode {mode!r}")
     return out.reshape(q.shape)
+
+
+# cache positions per online-softmax block of the TPU kernel
+# (``repro/kernels/flash_decode.py``: BLOCK_L)
+FLASH_BLOCK_L = 512
+# the TPU kernel's mask value and the online softmax's starting maximum
+FLASH_MASK = -1e30
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: int | torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over a KV cache: q (B, KV, G, hd), k and v
+    (B, L, KV, hd), ``pos`` the last valid cache index (an int or a 0-d
+    integer tensor) -> (B, KV, G, hd) in q's dtype.
+
+    The TPU kernel's body (``repro/kernels/flash_decode.py:81-113``) block
+    by block, in float32: blocks of ``FLASH_BLOCK_L`` positions (one block
+    of L when L is smaller; a last partial block where L is not a multiple
+    of it, which the TPU kernel refuses), scores ``(q . k) / sqrt(hd)``
+    (a true division by ``sqrt(hd)`` rounded to float32), every position
+    ``idx > pos`` set to ``FLASH_MASK`` (-1e30, not -inf), and the online
+    softmax from ``m = FLASH_MASK``, ``l = 0``, ``acc = 0``: ``m' =
+    max(m, max(s))``, ``alpha = exp(m - m')``, ``p = exp(s - m')``, ``l =
+    l * alpha + sum(p)``, ``acc = acc * alpha + p @ v``.  The output is
+    ``acc / l``, cast once.  A ``pos`` below 0 masks every position: all
+    scores are equal and the output is the mean of v, as in the TPU
+    kernel."""
+    b, kv, g, hd = q.shape
+    length = k.shape[1]
+    blk = min(FLASH_BLOCK_L, length)
+    qf = q.float()
+    # a 0-d tensor divisor: a true division on the card too, where dividing
+    # by a Python float multiplies by its reciprocal
+    scale = torch.full((), math.sqrt(hd), dtype=torch.float32,
+                       device=q.device)
+    m = torch.full((b, kv, g), FLASH_MASK, dtype=torch.float32,
+                   device=q.device)
+    denom = torch.zeros((b, kv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, g, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, length, blk):
+        kb = k[:, start:start + blk].float()
+        vb = v[:, start:start + blk].float()
+        s = torch.einsum("bngh,blnh->bngl", qf, kb) / scale
+        idx = start + torch.arange(kb.shape[1], device=q.device)
+        s = torch.where(idx <= pos, s, FLASH_MASK)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        denom = denom * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bngl,blnh->bngh", p, vb)
+        m = m_new
+    return (acc / denom[..., None]).to(q.dtype)

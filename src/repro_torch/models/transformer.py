@@ -1,5 +1,6 @@
 """The dense decoder-only transformer: embedding -> stacked blocks ->
-norm -> logits, and its language-model loss.
+norm -> logits, its language-model loss, and serving's prefill and
+one-token decode against a KV cache.
 
 Counterpart of ``repro.models.transformer`` for the dense architectures
 (``granite-8b``): parameter names, the stacked ``blocks`` (a leading
@@ -7,6 +8,15 @@ Counterpart of ``repro.models.transformer`` for the dense architectures
 pattern) and the arithmetic are the reference's.  The reference scans the
 repeat axis with ``lax.scan``; here it is a Python loop over that axis, and
 autograd gives each stacked leaf its stacked gradient.
+
+The decode cache is the reference's tree, ``{"pos", "blocks": {"l{i}":
+{"attn": {"k", "v"}}}}`` with each k and v stacked to ``(num_repeats, B,
+cache_len, KV, hd)``.  ``cache["pos"]`` is an int32 tensor on the cache's
+device: a scalar after :func:`prefill`, ``pos + 1`` after each
+:func:`decode_step`, or the engine's (B,) vector of slot positions.
+:func:`decode_step` writes the new keys and values into the cache in
+place (a functional update would copy the whole cache every step) and
+returns a new top-level dict that shares them.
 
 :func:`check_supported` raises for anything else a ``ModelConfig`` can ask
 for (MoE, Mamba, cross-attention, prefix layers, tied embeddings, softcaps,
@@ -66,6 +76,30 @@ def _layer_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return x + L.mlp_fwd(p["mlp"], L.norm_fwd(p["ln2"], x))
 
 
+def _layer_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                 device: torch.device) -> Params:
+    return {"attn": L.init_attn_cache(cfg, batch, cache_len, device)}
+
+
+def _layer_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, seq_len: int, cache_len: int
+                   ) -> tuple[torch.Tensor, Params]:
+    h, (k, v) = L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
+                                positions, return_kv=True)
+    cache = {"attn": L.kv_to_cache(cfg, k, v, seq_len, cache_len)}
+    x = x + h
+    return x + L.mlp_fwd(p["mlp"], L.norm_fwd(p["ln2"], x)), cache
+
+
+def _layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Params, pos: torch.Tensor
+                  ) -> tuple[torch.Tensor, Params]:
+    h, attn = L.attention_decode(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
+                                 cache["attn"], pos)
+    x = x + h
+    return x + L.mlp_fwd(p["mlp"], L.norm_fwd(p["ln2"], x)), {"attn": attn}
+
+
 def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -112,8 +146,70 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
         block = _map(params["blocks"], lambda t: t[r])
         for i in range(len(cfg.block_pattern)):
             x = _layer_fwd(block[f"l{i}"], cfg, x, positions)
-    x = L.norm_fwd(params["final_norm"], x)
+    return _logits(params, L.norm_fwd(params["final_norm"], x))
+
+
+def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The untied head in float32: (B, S, D) -> (B, S, V)."""
     return torch.einsum("bsd,dv->bsv", x.float(), params["lm_head"].float())
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: int | None = None) -> tuple[torch.Tensor, Params]:
+    """Score the prompt and build the decode cache.  tokens: (B, S) int ->
+    (last-position logits (B, V) float32, a cache of ``cache_len``
+    positions (default S) ready for :func:`decode_step` at ``pos = S``)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    x = params["embed"][tokens.long()].to(L.dtype_of(cfg))
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    blocks = []
+    for r in range(cfg.num_repeats):
+        block = _map(params["blocks"], lambda t: t[r])
+        block_c = {}
+        for i in range(len(cfg.block_pattern)):
+            x, block_c[f"l{i}"] = _layer_prefill(block[f"l{i}"], cfg, x,
+                                                 positions, S, cache_len)
+        blocks.append(block_c)
+    cache = {"pos": torch.full((), S, dtype=torch.int32,
+                               device=tokens.device),
+             "blocks": _stack(blocks)}
+    x = L.norm_fwd(params["final_norm"], x[:, -1:, :])
+    return _logits(params, x)[:, 0], cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: str | torch.device = "cuda") -> Params:
+    """An empty cache at ``pos = 0``, each leaf allocated once at its
+    stacked ``(num_repeats, ...)`` shape."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    one = _layer_cache(cfg, batch, cache_len, torch.device("meta"))
+    blocks = {f"l{i}": _map(one, lambda t: torch.zeros(
+        (cfg.num_repeats, *t.shape), dtype=t.dtype, device=dev))
+        for i in range(len(cfg.block_pattern))}
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "blocks": blocks}
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params) -> tuple[torch.Tensor, Params]:
+    """token: (B, 1) int -> (logits (B, 1, V) float32, the cache at
+    ``pos + 1``).  The cache's k and v are written in place; every layer's
+    attention goes through ``flash_decode`` when ``cache["pos"]`` is a
+    scalar (see ``layers.attention_decode``)."""
+    check_supported(cfg)
+    pos = cache["pos"]
+    x = params["embed"][token.long()].to(L.dtype_of(cfg))
+    for r in range(cfg.num_repeats):
+        block = _map(params["blocks"], lambda t: t[r])
+        block_c = _map(cache["blocks"], lambda t: t[r])
+        for i in range(len(cfg.block_pattern)):
+            x, _ = _layer_decode(block[f"l{i}"], cfg, x, block_c[f"l{i}"],
+                                 pos)
+    x = L.norm_fwd(params["final_norm"], x)
+    return _logits(params, x), {**cache, "pos": pos + 1}
 
 
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -12,8 +12,8 @@ from dataclasses import dataclass
 class ServingConfig:
     """Knobs shared by the serving engines.
 
-    ``num_slots`` / ``max_len`` shape the LM engine's decode batch (not
-    ported yet); ``sync_interval`` is the LiveSource sync thread's period in
+    ``num_slots`` / ``max_len`` shape the LM engine's decode batch
+    (``serving.engine``); ``sync_interval`` is the LiveSource sync thread's period in
     seconds; ``cache_capacity`` sizes the hot-ID embedding cache in resident
     rows (0 disables it: every lookup goes to the kernel)."""
     num_slots: int = 4

@@ -77,16 +77,22 @@ class StaticSource(ParamSource):
         self._snap = Snapshot(version=1, step=int(step), params=params)
 
     @classmethod
-    def from_checkpoint(cls, path: str, step: int = 0, *,
+    def from_checkpoint(cls, path: str, step: int = 0,
+                        select: str | None = None, *,
                         device: str | torch.device = "cuda"
                         ) -> "StaticSource":
         """Restore from an npz checkpoint file, or from a checkpoint
         directory (the newest ``ckpt_<step>.npz`` wins and stamps the
-        snapshot's ``step``), onto ``device``."""
+        snapshot's ``step``), onto ``device``.  ``select`` picks one
+        subtree of the stored state, e.g. ``"params"`` when the checkpoint
+        holds a full train state."""
         dev = resolve_device(device)
         if os.path.isdir(path):
             step, path = CheckpointManager(path).latest_path()
-        return cls(tree_to_device(load_pytree(path), dev), step=step)
+        tree = load_pytree(path)
+        if select is not None:
+            tree = tree[select]
+        return cls(tree_to_device(tree, dev), step=step)
 
     def snapshot(self) -> Snapshot:
         return self._snap

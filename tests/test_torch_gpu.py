@@ -21,7 +21,10 @@ the strided views the wire step hands them.  ``gba_aggregate`` and
 ``fused_adagrad`` do the float32 operations of their plain versions in the
 same order and are held bit for bit to them; ``embedding_bag_grad_resident``
 sums each row in entry order and is held bit for bit to its plain version
-and to the streamed ``embedding_bag_grad``.
+and to the streamed ``embedding_bag_grad``.  ``flash_decode`` splits the
+cache across blocks and sums in another order than its plain version's
+512-position blocks: bf16 outputs within one bf16 ulp (rtol 2**-7, atol
+1e-6), f32 outputs within rtol 1e-5, atol 1e-6.
 """
 import dataclasses
 
@@ -34,13 +37,15 @@ from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad,
                                                embedding_bag_grad_resident,
                                                resident_max_d)
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.fused_adagrad import fused_adagrad
 from repro_torch.kernels.gba_aggregate import gba_aggregate
 from repro_torch.kernels.gba_apply import gba_apply
 from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
                                           quantize_sign)
 from repro_torch.kernels.ref import (dequantize_ref, embedding_bag_grad_ref,
-                                     embedding_bag_ref, fused_adagrad_ref,
+                                     embedding_bag_ref, flash_decode_ref,
+                                     fused_adagrad_ref,
                                      gba_aggregate_ref, gba_apply_ref,
                                      quantize_minmax_ref, quantize_sign_ref)
 
@@ -682,3 +687,148 @@ def test_pytree_lm_step_on_the_card_matches_the_cpu():
     (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     torch.testing.assert_close(pg, pc, rtol=0, atol=2e-3)
+
+
+# (B, L, KV, G, hd, dtype): chip_smoke.py phase 13(e)'s shapes and edges
+FLASH_CASES = {
+    "serve loop (4, 160, 8, 4, 128) bf16": (4, 160, 8, 4, 128,
+                                            torch.bfloat16),
+    "decode_32k (4, 32768, 8, 4, 128) bf16": (4, 32_768, 8, 4, 128,
+                                              torch.bfloat16),
+    "ragged L = 544 bf16": (4, 544, 8, 4, 128, torch.bfloat16),
+    "G = 1": (2, 544, 8, 1, 128, torch.bfloat16),
+    "f32 (4, 4096, 8, 4, 128)": (4, 4096, 8, 4, 128, torch.float32),
+    "reduced granite, hd 64, G 1, f32": (4, 25, 4, 1, 64, torch.float32),
+    "hd 256, G 8": (1, 700, 2, 8, 256, torch.bfloat16),
+    "G = 3, run as 4": (2, 300, 2, 3, 128, torch.bfloat16),
+}
+
+
+def _flash_inputs(b, length, kv, g, hd, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, kv, g, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                    dtype=dtype)
+    v = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                    dtype=dtype)
+    return q, k, v
+
+
+def _flash_close(got, want):
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7,
+                                   atol=1e-6)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("where", ["0", "1000", "L - 1"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_decode_matches_plain_version(case, where):
+    _need_card()
+    b, length, kv, g, hd, dtype = FLASH_CASES[case]
+    q, k, v = _flash_inputs(b, length, kv, g, hd, dtype)
+    pos = {"0": 0, "1000": 1000, "L - 1": length - 1}[where]
+    launches = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(pos, dtype=torch.int32,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == launches + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _flash_close(got, flash_decode_ref(q, k, v, pos))
+
+
+def test_flash_decode_masks_everything_below_zero_as_the_tpu_kernel():
+    """pos < 0 masks every position: all scores are -1e30 and the output
+    is the mean of v, as in the TPU kernel and the plain version."""
+    _need_card()
+    q, k, v = _flash_inputs(2, 300, 2, 4, 64, torch.float32)
+    got = flash_decode(q, k, v, -1)
+    _flash_close(got, flash_decode_ref(q, k, v, -1))
+    mean = v.mean(dim=1)[:, :, None, :].expand_as(got)
+    torch.testing.assert_close(got, mean, rtol=1e-5, atol=1e-6)
+
+
+def test_flash_decode_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    q, k, v = _flash_inputs(2, 256, 2, 4, 128, torch.bfloat16)
+    launches = flash_decode.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 3)
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        flash_decode(q, k.cpu(), v, 3)
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        flash_decode(q, k, v, torch.tensor(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")
+        flash_decode(q, flat[1:].view(k.shape), v, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                     v[..., :32].contiguous(), 3)
+    assert flash_decode.launches == launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fixed_batch_decode_through_the_kernel_matches_the_plain_version(
+        dtype, monkeypatch):
+    """granite-8b.reduced() at depth 2 on the card: prefill and 8 decode
+    steps at a scalar position, once through the kernel and once with
+    ``ops.flash_decode`` swapped for the plain version, both fed the
+    kernel run's tokens.  float32: logits within 1e-5 of the largest and
+    the greedy tokens equal; bfloat16: logits within 2**-6 of the
+    largest (the attention outputs may round one bf16 ulp apart)."""
+    _need_card()
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dc.replace(get_config("granite-8b").reduced(), dtype=dtype,
+                     num_layers=2)
+    params = T.init_model(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                          device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+
+    def run(tokens=None):
+        logits, cache = T.prefill(params, cfg, prompts, cache_len=24)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        out, seen = [tok], []
+        for i in range(8):
+            lg, cache = T.decode_step(params, cfg, tok if tokens is None
+                                      else tokens[:, i:i + 1], cache)
+            seen.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+        return torch.cat(out, 1), torch.cat(seen, 1)
+
+    launches = flash_decode.launches
+    tokens, logits = run()
+    assert flash_decode.launches == launches + 2 * 8
+    monkeypatch.setattr(ops, "flash_decode", flash_decode_ref)
+    plain_tokens, plain_logits = run(tokens)
+    assert flash_decode.launches == launches + 2 * 8
+    frac = 1e-5 if dtype == "float32" else 2.0**-6
+    err = (logits - plain_logits).abs().max().item()
+    assert err <= frac * plain_logits.abs().max().item(), err
+    if dtype == "float32":
+        assert torch.equal(tokens, plain_tokens)
+
+
+def test_serve_decode_on_the_card_matches_the_cpu():
+    """granite-8b.reduced() in float32, the fixed-batch loop: the card
+    (kernel) against the CPU (plain version), tokens equal."""
+    _need_card()
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_to_device
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = dc.replace(get_config("granite-8b").reduced(), dtype="float32")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16),
+                            generator=torch.Generator().manual_seed(1))
+    runs = {dev: serve.run_fixed_batch(
+        tree_to_device(host, torch.device(dev)), cfg,
+        prompts.to(dev), 9, log=lambda _: None)["tokens"].cpu()
+        for dev in ("cpu", "cuda")}
+    assert torch.equal(runs["cpu"], runs["cuda"])

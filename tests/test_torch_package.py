@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port.
 
-* Importing ``repro_torch`` and its serving, training (the replay trainer,
-  the LM's pytree and fused steps and its worker-parallel wire step, the
-  token list), embeddings and kernel modules loads no JAX.
+* Importing ``repro_torch`` and its serving (the recsys engine, the LM
+  engine and launcher), training (the replay trainer, the LM's pytree and
+  fused steps and its worker-parallel wire step, the token list),
+  embeddings and kernel modules loads no JAX.
 * No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
   JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
@@ -50,7 +51,9 @@ def test_import_loads_no_jax():
             "repro_torch.core.gba_shard_map, "
             "repro_torch.distributed.inprocess, repro_torch.core.tokens, "
             "repro_torch.kernels.gba_aggregate, "
-            "repro_torch.kernels.fused_adagrad; "
+            "repro_torch.kernels.fused_adagrad, "
+            "repro_torch.kernels.flash_decode, repro_torch.serving.engine, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
