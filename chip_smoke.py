@@ -89,7 +89,9 @@ Phases:
     the streamed ``embedding_bag_grad`` bit-identical to the resident
     kernel and the resident kernel to its plain version; each of the
     three kernels timed against its plain version, its bound and a
-    library call;
+    library call (the resident kernel beside its earlier design's time,
+    saying so where the sleep that holds the queue did not outlast the
+    host's issuing);
 13. LM serving: (a) the fixed-batch loop through ``launch.serve``'s
     functions, exactly 36 x 31 ``flash_decode`` launches, prefill ms,
     decode ms a step, tok/s and peak memory; the same decode with the
@@ -105,7 +107,8 @@ Phases:
     decode, every token; (e) the kernel against its plain version at the
     serve loop's and the decode_32k shapes, a ragged L, G = 1, float32 and
     head dim 64, at the first, a middle and the last position, then timed
-    against the plain version, its bound and SDPA;
+    against the plain version, its bound and SDPA, with its launch plan
+    (stages, splits) and beside its earlier design's time;
 14. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
@@ -184,9 +187,35 @@ WIRE_HOLD_RTOL = 1e-5
 WIRE_FLIP_NEAR = 0.05
 F64_OPS_PER_S = 34e12          # H100 SXM float64 outside the tensor cores
 
+# the two kernels' earlier designs (the resident kernel's serial chunk
+# scan; flash_decode's CUDA-core split pass and combine pass), as an
+# earlier version of this script read them on an H100 80GB HBM3 at 700 W:
+# printed beside the new times for orientation only, never in the kernels
+# line.  They were timed another way (the resident kernel over 100 held
+# calls, flash_decode at 32k over 10 calls with no sleep); the same-method
+# comparison of both designs is scripts/kernel_ab.py.
+EARLIER_MS = {
+    ("embedding_bag_grad_resident", "(64, 26, 500, 16)"): {
+        "ms": 0.1955146, "wrapper_ms": 0.2339386, "method": "100 held calls",
+        "design": "one thread group a row scanning every chunk entry"},
+    ("embedding_bag_grad_resident", "(b)"): {
+        "ms": 0.0267350, "wrapper_ms": 0.0528515, "method": "100 held calls",
+        "design": "one thread group a row scanning every chunk entry"},
+    ("flash_decode", (4, 160, 8, 4, 128)): {
+        "ms": 0.0084611, "method": "100 held calls",
+        "design": "CUDA-core split pass and combine pass"},
+    ("flash_decode", (4, 32_768, 8, 4, 128)): {
+        "ms": 0.2140864, "method": "10 calls, not held",
+        "design": "CUDA-core split pass and combine pass"},
+}
+
 TIMED_SHAPES = ((128, 1), (4096, 16))   # serving miss pool, bulk pool
 TIMED_ID_SETS = 16     # cycled so the (4096, 16) pools span 268 MB > L2
 TIMED_REPS = 100
+# the segment sums' wrapper, plain version and library call launch several
+# kernels a call: 20 calls fit the launch queue while a sleep holds the
+# device, 100 fill it and the host waits
+SEGMENT_REPS = 20
 
 
 def check(cond: bool, what: str) -> None:
@@ -607,13 +636,16 @@ def reference_check(params, probe, hash_ids,
     return torch.sigmoid(x[:, 0]).numpy()
 
 
-def time_ms(fn, id_sets, table, cycles_per_ms) -> tuple[float, float]:
-    """(device ms, host-paced ms) per call, from CUDA events around
-    ``TIMED_REPS`` calls.  Host-paced: the calls are issued as fast as the
+def time_ms(fn, id_sets, table, cycles_per_ms, reps: int = TIMED_REPS
+            ) -> tuple[float, float, bool]:
+    """(device ms, host-paced ms, held) per call, from CUDA events around
+    ``reps`` calls.  Host-paced: the calls are issued as fast as the
     host can, so a call the host issues slower than the device runs it
     reads as the host's time.  Device: a sleep kernel first holds the
     device for twice the host-paced loop, so every call is queued before
-    the first one runs and the events see the device's time alone."""
+    the first one runs and the events see the device's time alone.
+    ``held`` says whether the sleep outlasted the host's issuing of the
+    held calls (if not, the events saw the host too)."""
     for i in range(10):
         fn(id_sets[i % len(id_sets)], table)
     torch.cuda.synchronize()
@@ -622,15 +654,17 @@ def time_ms(fn, id_sets, table, cycles_per_ms) -> tuple[float, float]:
     out = []
     for hold_ms in (0.0, None):
         if hold_ms is None:
-            hold_ms = 2 * out[0] * TIMED_REPS + 1.0
+            hold_ms = 2 * out[0] * reps + 1.0
             torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        issued = time.perf_counter()
         start.record()
-        for i in range(TIMED_REPS):
+        for i in range(reps):
             fn(id_sets[i % len(id_sets)], table)
         end.record()
+        issued = (time.perf_counter() - issued) * 1e3
         end.synchronize()
-        out.append(start.elapsed_time(end) / TIMED_REPS)
-    return out[1], out[0]
+        out.append(start.elapsed_time(end) / reps)
+    return out[1], out[0], issued < hold_ms
 
 
 def sleep_cycles_per_ms() -> float:
@@ -1088,7 +1122,8 @@ def segment_sum_timing(T: dict, name: str, shapes: list,
     its sort, the plain version and a library call (``torch.bincount`` for
     D = 0, else ``F.embedding_bag``'s backward into a dense weight, held
     to the kernel within rtol 1e-6 and ``lib_atol``), with device-held
-    CUDA events, in turns, median of 3 runs."""
+    CUDA events around ``SEGMENT_REPS`` calls, in turns, median of 3
+    runs."""
     F_ = torch.nn.functional
     grad_kernel, ref = T[name], T["embedding_bag_grad_ref"]
     sort_ids, launch = T["sort_ids"], T[f"{name}_sorted"]
@@ -1129,18 +1164,21 @@ def segment_sum_timing(T: dict, name: str, shapes: list,
         }
         dev = {k: [] for k in fns}
         host = {k: [] for k in fns}
+        sleep_held = {k: True for k in fns}
         for _ in range(3):                      # in turns, median of 3
             for k, (fn, sets) in fns.items():
-                d, h = time_ms(fn, sets, grad, cycles_per_ms)
+                d, h, ok = time_ms(fn, sets, grad, cycles_per_ms,
+                                   SEGMENT_REPS)
                 dev[k].append(d)
                 host[k].append(h)
+                sleep_held[k] = sleep_held[k] and ok
         med = {k: float(np.median(v)) for k, v in dev.items()}
         bnd, by = grad_bound_ms(id_sets[0], grad, cap)
         row = {"shape": [*id_sets[0].shape, cap, grad.shape[1]],
                "ms": med["kernel"], "wrapper_ms": med["wrapper"],
                "plain_ms": med["plain"], "library_ms": med["library"],
                "library": lib_name, "bound_ms": bnd, "bound_by": by,
-               "device_runs_ms": dev,
+               "device_runs_ms": dev, "sleep_held": sleep_held,
                "host_paced_ms": {k: float(np.median(v))
                                  for k, v in host.items()}}
         rows.append(row)
@@ -1151,6 +1189,14 @@ def segment_sum_timing(T: dict, name: str, shapes: list,
               f"bound {bnd!r} ({by}); host-paced ms per call: "
               f"{json.dumps(row['host_paced_ms'])}; device runs: "
               f"{json.dumps(dev)}")
+        earlier = EARLIER_MS.get((name, label))
+        if earlier:
+            print(f"    earlier design: {json.dumps(earlier)}")
+        for k, ok in sleep_held.items():
+            if not ok:
+                print(f"    {k}: the sleep did not outlast the host's issuing"
+                      f" of the held calls, so its device ms include the "
+                      f"host's pace")
     return rows
 
 
@@ -1169,21 +1215,36 @@ def apply_bound_ms(m: int, n: int, param_item: int, buf_item: int
                                  "operations")
 
 
-def time_calls(fn, reps: int) -> float:
-    """Device ms per call of ``fn()`` from CUDA events around ``reps``
-    calls, after 2 warm-up calls.  Each call moves gigabytes, far more than
-    the host needs to issue it, so the events see the device's time."""
+def time_calls(fn, reps: int, cycles_per_ms: float | None = None
+               ) -> tuple[float, bool]:
+    """(device ms per call of ``fn()``, held) from CUDA events around
+    ``reps`` calls, after 2 warm-up calls.  Each call moves gigabytes, far
+    more than the host needs to issue it, so the events see the device's
+    time.  With ``cycles_per_ms``, a sleep kernel first holds the device
+    for twice the host's time to issue the calls, so that a call the host
+    issues nearly as slowly as the device runs it is still timed alone;
+    ``held`` says whether a sleep outlasted the issuing (False without
+    one)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    hold_ms = 0.0
+    if cycles_per_ms is not None:
+        t0 = time.perf_counter()
+        fn()
+        hold_ms = 2 * reps * (time.perf_counter() - t0) * 1e3 + 1.0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+    issued = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    issued = (time.perf_counter() - issued) * 1e3
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, issued < hold_ms
 
 
 def apply_timing(T: dict) -> dict:
@@ -1203,7 +1264,7 @@ def apply_timing(T: dict) -> dict:
     runs = {k: [] for k in fns}
     for _ in range(3):
         for k, fn in fns.items():
-            runs[k].append(time_calls(fn, 10))
+            runs[k].append(time_calls(fn, 10)[0])
     med = {k: float(np.median(v)) for k, v in runs.items()}
     bnd, by = apply_bound_ms(LM_M, APPLY_N, 4, 4)
     row = {"shape": [LM_M, APPLY_N], "dtypes": "f32 param/accum/buffer",
@@ -1237,7 +1298,7 @@ def timing_phase(embedding_bag, embedding_bag_ref, big, gen, static, S,
         host = {k: [] for k in fns}
         for _ in range(3):                      # in turns, median of 3
             for k, fn in fns.items():
-                d, h = time_ms(fn, id_sets, big, cycles_per_ms)
+                d, h, _ = time_ms(fn, id_sets, big, cycles_per_ms)
                 dev[k].append(d)
                 host[k].append(h)
         med = {k: float(np.median(v)) for k, v in dev.items()}
@@ -1733,7 +1794,7 @@ def wire_timing(T: dict, geometry: dict) -> dict:
                     # whose divisions take the slow path
                     view.copy_(fresh)
                     runs[k].append(time_calls(fn, 3 if k == "plain"
-                                              else 5))
+                                              else 5)[0])
             med = {k: float(np.median(v)) for k, v in runs.items()}
             lib_name = "torch.mul" if "library" in fns else None
             bnd, by = wire_bound_ms(name, r, c, tile)
@@ -2090,21 +2151,25 @@ def resident_phase(T: dict, counters) -> dict:
 
 
 def _timed(fns: dict, small: bool, cycles_per_ms: float,
-           plain_reps: int = 2) -> tuple[dict, dict]:
-    """Device ms per call of each of ``fns`` in turns, median of 3 runs:
-    a launch-bound call (``small``) with the device held by a sleep kernel
-    until 100 calls are queued, a large one from events around 10 calls
-    (``plain_reps`` for the plain version)."""
+           plain_reps: int = 2) -> tuple[dict, dict, dict]:
+    """(median, runs, held): device ms per call of each of ``fns`` in
+    turns, median of 3 runs, with the device held by a sleep kernel until
+    the calls are queued: 100 of a launch-bound call (``small``), 10 of a
+    large one (``plain_reps`` of the plain version).  ``held`` says, for
+    each of ``fns``, whether every sleep outlasted the host's issuing."""
     runs = {k: [] for k in fns}
+    held = {k: True for k in fns}
     for _ in range(3):
         for k, fn in fns.items():
             if small:
-                runs[k].append(time_ms(lambda _i, _t, fn=fn: fn(), [None],
-                                       None, cycles_per_ms)[0])
+                ms, _, ok = time_ms(lambda _i, _t, fn=fn: fn(), [None],
+                                    None, cycles_per_ms)
             else:
-                runs[k].append(time_calls(fn, plain_reps if k == "plain"
-                                          else 10))
-    return {k: float(np.median(v)) for k, v in runs.items()}, runs
+                ms, ok = time_calls(fn, plain_reps if k == "plain" else 10,
+                                    cycles_per_ms)
+            runs[k].append(ms)
+            held[k] = held[k] and ok
+    return {k: float(np.median(v)) for k, v in runs.items()}, runs, held
 
 
 def _bound(nbytes: float, f32_ops: float) -> tuple[float, str]:
@@ -2129,7 +2194,7 @@ def pytree_timing(T: dict, cycles_per_ms: float) -> dict:
         lib = torch.matmul(w.to(grads.dtype), grads)
         got = T["gba_aggregate"](grads, tokens, 9, iota=LM_IOTA)
         lib_diff = (lib.float() - got.float()).abs().max().item()
-        med, runs = _timed({
+        med, runs, _ = _timed({
             "kernel": lambda: T["gba_aggregate"](grads, tokens, 9,
                                                  iota=LM_IOTA),
             "plain": lambda: T["gba_aggregate_ref"](grads, tokens, 9,
@@ -2173,7 +2238,7 @@ def pytree_timing(T: dict, cycles_per_ms: float) -> dict:
         except (RuntimeError, NotImplementedError, TypeError,
                 AttributeError) as e:
             lib_note = f"torch._fused_adagrad_ does not run here: {e}"[:300]
-        med, runs = _timed(fns, n < 1 << 20, cycles_per_ms)
+        med, runs, _ = _timed(fns, n < 1 << 20, cycles_per_ms)
         p_item, g_item = param.element_size(), grad.element_size()
         bnd, by = _bound(n * (2 * p_item + g_item + 2 * 4), 7 * n)
         row = {"shape": [n], "dtypes": f"param {str(p_dt)[6:]}, grad "
@@ -2602,24 +2667,34 @@ def flash_phase(T: dict, cycles_per_ms: float) -> dict:
                     - got.float()).abs().max().item()
         check(lib_diff <= 2.0**-6 * got.float().abs().max().item(),
               f"SDPA agrees with the kernel: {lib_diff}")
-        med, runs = _timed({
+        med, runs, held = _timed({
             "kernel": lambda q=q, k=k, v=v, p=p: fd(q, k, v, p),
             "plain": lambda q=q, k=k, v=v, pos=pos: ref(q, k, v, pos),
             "library": library}, length < 4096, cycles_per_ms)
         bnd, by = flash_bound_ms(b, length, kv, g, hd, pos, 2)
+        plan = T["flash_launch_plan"](q, k)
         row = {"shape": [b, length, kv, g, hd], "pos": pos, "dtype": "bf16",
                "ms": med["kernel"], "plain_ms": med["plain"],
                "library_ms": med["library"],
                "library": "F.scaled_dot_product_attention(enable_gqa=True,"
                           " boolean mask)",
                "library_max_abs_diff": lib_diff, "bound_ms": bnd,
-               "bound_by": by, "device_runs_ms": runs}
+               "bound_by": by, "plan": plan, "sleep_held": held,
+               "device_runs_ms": runs}
+        earlier = EARLIER_MS[("flash_decode", (b, length, kv, g, hd))]
         rows.append(row)
         print(f"  flash_decode ({b}, {length}, {kv}, {g}, {hd}) bf16 pos "
-              f"{pos}, device ms per call: kernel {med['kernel']!r}, plain "
-              f"{med['plain']!r}, SDPA {med['library']!r} (max |diff| "
+              f"{pos}: {plan['stages']} stages, {plan['nsplit']} splits of "
+              f"{plan['chunk']} positions, {plan['blocks_per_sm']} blocks "
+              f"an SM; device ms per call: kernel {med['kernel']!r} "
+              f"(earlier design {earlier['ms']!r}, {earlier['method']}), "
+              f"plain {med['plain']!r}, SDPA {med['library']!r} (max |diff| "
               f"{lib_diff!r}), bound {bnd!r} ({by}); device runs: "
               f"{json.dumps(runs)}")
+        for name, ok in held.items():
+            if not ok:
+                print(f"    {name}: the sleep did not outlast the host's "
+                      f"issuing, so its device ms include the host's pace")
         del q, k, v
         torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "timed": rows}
@@ -2677,6 +2752,7 @@ def serve_row(serve: dict) -> dict:
         "bound_by": at["bound_by"],
         "library_ms": at["library_ms"],
         "library": at["library"],
+        "plan": at["plan"],
         "at": at["shape"],
         "shapes": timed,
         "ok": True,
@@ -2706,7 +2782,7 @@ def main() -> int:
         embedding_bag, embedding_bag_grad, embedding_bag_grad_resident,
         embedding_bag_grad_resident_sorted, embedding_bag_grad_sorted,
         sort_ids)
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import flash_decode, launch_plan
     from repro_torch.kernels.fused_adagrad import fused_adagrad
     from repro_torch.kernels.gba_aggregate import gba_aggregate
     from repro_torch.kernels.gba_apply import gba_apply
@@ -2773,7 +2849,8 @@ def main() -> int:
          "embedding_bag_grad_resident_sorted":
          embedding_bag_grad_resident_sorted,
          "transformer": transformer, "serve": serve, "S": S,
-         "flash_decode": flash_decode, "flash_decode_ref": flash_decode_ref}
+         "flash_decode": flash_decode, "flash_decode_ref": flash_decode_ref,
+         "flash_launch_plan": launch_plan}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8

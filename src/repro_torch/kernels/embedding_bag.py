@@ -168,21 +168,79 @@ def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
 embedding_bag_grad.launches = 0
 
 
+RESIDENT_BLOCK_V = 512      # vocab rows a block of the resident kernel owns
+RESIDENT_MIN_CHUNK = 256    # entries a chunk holds at least (the TPU's)
+RESIDENT_FEW_THREADS = 256  # threads a block when the blocks fill the card
+RESIDENT_MAX_THREADS = 1024  # threads a block when they do not
+
+
+def resident_smem_bytes(d: int, chunk: int) -> int:
+    """Shared memory of a resident launch: the (512, D) float32
+    accumulator, 512 int counts, 8 bytes a chunk entry (batch row, local
+    row, run start), and 36 ints of warp totals and scalars.  The kernel's
+    own sum is ``repro_embedding_bag_grad_resident_smem_bytes``; a card
+    test holds the two equal."""
+    return RESIDENT_BLOCK_V * d * 4 + RESIDENT_BLOCK_V * 4 + chunk * 8 + 36 * 4
+
+
+def resident_max_d_for(smem_limit: int) -> int:
+    """The widest D whose accumulator leaves room for a chunk of
+    ``RESIDENT_MIN_CHUNK`` entries in ``smem_limit`` bytes."""
+    return (smem_limit - resident_smem_bytes(0, RESIDENT_MIN_CHUNK)) // (
+        RESIDENT_BLOCK_V * 4)
+
+
+def resident_plan(capacity: int, d: int, smem_limit: int, sms: int
+                  ) -> tuple[int, int, int]:
+    """``(threads, chunk, smem bytes)`` of a resident launch over
+    ``capacity`` rows of width ``d`` on a card of ``sms`` SMs whose blocks
+    may use ``smem_limit`` bytes of shared memory.  Few vocab blocks (at
+    most one an SM) get ``RESIDENT_MAX_THREADS`` threads each, so the
+    one-block case spreads its runs over 32 warps; more get
+    ``RESIDENT_FEW_THREADS``, so more blocks are resident at once.  The
+    chunk (one entry a thread) is as many entries as the threads and the
+    shared memory left by the accumulator allow, a multiple of 32."""
+    if not 0 <= d <= resident_max_d_for(smem_limit):
+        raise ValueError(f"D = {d}: the resident accumulator (512, D) "
+                         f"float32 fits shared memory up to D = "
+                         f"{resident_max_d_for(smem_limit)}; use "
+                         f"embedding_bag_grad")
+    blocks = -(-capacity // RESIDENT_BLOCK_V)
+    threads = (RESIDENT_MAX_THREADS if blocks <= sms else
+               RESIDENT_FEW_THREADS)
+    room = (smem_limit - resident_smem_bytes(d, 0)) // 8 // 32 * 32
+    chunk = min(threads, room)
+    return threads, chunk, resident_smem_bytes(d, chunk)
+
+
 @functools.cache
 def _resident():
     lib = runtime.load_library("embedding_bag_grad_resident")
     fn = lib.repro_embedding_bag_grad_resident
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.repro_embedding_bag_grad_resident_max_d.restype = ctypes.c_int
-    return fn, lib.repro_embedding_bag_grad_resident_max_d
+    lib.repro_embedding_bag_grad_resident_smem_limit.restype = ctypes.c_int
+    return fn, lib.repro_embedding_bag_grad_resident_smem_limit
+
+
+@functools.cache
+def _resident_device(index: int) -> tuple[int, int]:
+    """(shared memory limit, SMs) of CUDA device ``index``, read once."""
+    with torch.cuda.device(index):
+        limit = _resident()[1]()
+    if limit <= 0:
+        raise RuntimeError(f"reading the shared memory limit of CUDA device "
+                           f"{index} failed")
+    return limit, torch.cuda.get_device_properties(
+        index).multi_processor_count
 
 
 def resident_max_d() -> int:
     """The widest D whose (512, D) float32 accumulator fits the shared
     memory a block of the current CUDA device may use (111 on an H100)."""
-    return _resident()[1]()
+    return resident_max_d_for(
+        _resident_device(torch.cuda.current_device())[0])
 
 
 def embedding_bag_grad_resident_sorted(sorted_ids: torch.Tensor,
@@ -195,12 +253,8 @@ def embedding_bag_grad_resident_sorted(sorted_ids: torch.Tensor,
     :func:`embedding_bag_grad_sorted`.  Raises ``ValueError`` for a D above
     :func:`resident_max_d`."""
     d = grad_out.shape[1]
-    with torch.cuda.device(grad_out.device):
-        max_d = resident_max_d()
-    if d > max_d:
-        raise ValueError(f"D = {d}: the resident accumulator (512, D) "
-                         f"float32 fits shared memory up to D = {max_d}; "
-                         f"use embedding_bag_grad")
+    limit, sms = _resident_device(grad_out.device.index)
+    threads, chunk, _ = resident_plan(capacity, d, limit, sms)
     gtable = torch.empty((capacity, d), dtype=torch.float32,
                          device=grad_out.device)
     counts = torch.empty((capacity,), dtype=torch.float32,
@@ -212,7 +266,7 @@ def embedding_bag_grad_resident_sorted(sorted_ids: torch.Tensor,
         err = _resident()[0](sorted_ids.data_ptr(), perm.data_ptr(),
                              grad_out.data_ptr(), gtable.data_ptr(),
                              counts.data_ptr(), sorted_ids.numel(),
-                             num_fields, capacity, d, stream)
+                             num_fields, capacity, d, threads, chunk, stream)
     runtime.check(err, "embedding_bag_grad_resident kernel launch")
     embedding_bag_grad_resident.launches += 1
     return gtable, counts

@@ -13,7 +13,13 @@ attention_decode``; the fixed-batch loop of ``launch.serve``).
 nothing else: CPU tensors take the plain version ``repro_torch.kernels.
 ref.flash_decode_ref``, CUDA tensors launch the kernel or raise.
 ``flash_decode.launches`` counts the kernel launches of this process (one
-a call: the split pass and the combine pass together).
+a call: bfloat16 combines the splits in the same launch, float32 in a
+second pass that is counted with it).
+
+bfloat16 runs the ring of :func:`ring_plan` (stages of ``TILE`` positions
+filled by a producer warp, ``CONSUMER_WARPS`` warps scoring on the tensor
+cores); float32 runs the CUDA-core path of :func:`split_plan` with
+``STAGE_BYTES`` tiles.
 """
 from __future__ import annotations
 
@@ -29,39 +35,136 @@ from repro_torch.kernels.ref import flash_decode_ref
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)   # the head dims the kernel is built for
 MAX_GROUP = 8                # query heads per KV head a block holds
-STAGE_BYTES = 16384          # of K (and of V) a block stages per tile
-# split blocks resident on an SM at once: 64 KB of stages each, of 227 KB
+STAGE_BYTES = 16384          # of K (and of V) a float32 block stages per tile
+# float32 split blocks resident on an SM at once: 64 KB of stages each
 BLOCKS_PER_SM = 3
+# the bfloat16 ring: 4 consumer warps of 16 positions each a stage
+CONSUMER_WARPS = 4
+TILE = 16 * CONSUMER_WARPS
+MIN_STAGES, MAX_STAGES = 3, 4
+MAX_SPLITS = 256             # partials the last block of a row weighs
 
 
 @functools.cache
 def _decode():
-    fn = runtime.load_library("flash_decode").repro_flash_decode
+    lib = runtime.load_library("flash_decode")
+    fn = lib.repro_flash_decode
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+                   ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.repro_flash_decode_smem.argtypes = [ctypes.c_void_p] * 3
+    lib.repro_flash_decode_smem.restype = ctypes.c_int
+    return fn, lib.repro_flash_decode_smem
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _device(index: int) -> tuple[int, tuple[int, int, int]]:
+    """(SMs, (shared memory a block may use, an SM holds, CUDA keeps
+    back a block)) of CUDA device ``index``, read once."""
+    smem = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(index):
+        runtime.check(_decode()[1](*(ctypes.byref(x) for x in smem)),
+                      "reading the shared memory of the device")
+    return (torch.cuda.get_device_properties(index).multi_processor_count,
+            tuple(x.value for x in smem))
 
 
-def split_plan(length: int, rows: int, sms: int, tile: int
-               ) -> tuple[int, int]:
+@functools.cache
+def _tickets(index: int, stream: int, rows: int) -> torch.Tensor:
+    """The bfloat16 kernel's per-row tickets for launches on CUDA stream
+    ``stream`` of device ``index``: zeros, left at zero by every launch.
+    Launches on one stream run one after another, so they share one buffer
+    of at most ``rows`` rows; a launch on another stream may run at the
+    same time, so it counts on tickets of its own."""
+    return torch.zeros((rows,), dtype=torch.int32,
+                       device=torch.device("cuda", index))
+
+
+def _ticket_buffer(index: int, stream: int, rows: int) -> torch.Tensor:
+    size = 1 << max(rows - 1, 0).bit_length()   # a few sizes, not one a call
+    return _tickets(index, stream, size)
+
+
+def split_plan(length: int, rows: int, sms: int, tile: int,
+               blocks_per_sm: int = BLOCKS_PER_SM,
+               max_splits: int | None = None) -> tuple[int, int]:
     """``(chunk, nsplit)``: the cache positions each block walks (a multiple
     of the kernel's ``tile`` of positions) and the blocks per (b, kv) row.
     The ``rows`` (B * KV) rows get as many splits as fit one wave of
-    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs (at least one), so
-    that every resident block walks an equal share."""
-    want = max(1, BLOCKS_PER_SM * sms // rows)
+    ``blocks_per_sm`` blocks on each of ``sms`` SMs (at least one, at most
+    ``max_splits``), so that every resident block walks an equal share."""
+    want = max(1, blocks_per_sm * sms // rows)
+    if max_splits is not None:
+        want = min(want, max_splits)
     chunk = -(-length // want)
     chunk = -(-chunk // tile) * tile
     return chunk, -(-length // chunk)
+
+
+def ring_stage_bytes(hd: int) -> int:
+    """A bfloat16 stage: ``TILE`` rows of K and of V, in hd / 64 boxes of
+    ``TILE`` x 128 bytes each (the tensor map's 128-byte swizzle)."""
+    return 2 * TILE * hd * 2
+
+
+def ring_smem_bytes(hd: int, stages: int) -> int:
+    """The bfloat16 launch's shared memory: 1024 bytes to align the ring,
+    the stages and their two barriers each, the consumers' 16 x 8 float32
+    p tiles, and a flag.  The kernel's own sum is
+    ``repro_flash_decode_ring_smem_bytes``; a card test holds the two
+    equal."""
+    return 1024 + stages * (ring_stage_bytes(hd) + 16) \
+        + CONSUMER_WARPS * 16 * 8 * 4 + 16
+
+
+def ring_plan(length: int, rows: int, sms: int, hd: int,
+              smem: tuple[int, int, int]) -> tuple[int, int, int, int]:
+    """``(chunk, nsplit, stages, blocks_per_sm)`` of a bfloat16 launch over
+    ``rows`` (B * KV) rows of ``length`` positions, on ``sms`` SMs with
+    ``smem`` = (bytes a block may use, bytes an SM holds, bytes kept back
+    a block).  Two blocks an SM where each fits ``MIN_STAGES`` stages (hd
+    64 and 128), else one (hd 256); as many stages as fit, up to
+    ``MAX_STAGES``.  A row whose tiles all fit the ring at once is one
+    split: its block asks for every tile in one round trip, and a split
+    would add only the combine.  Longer rows take the splits of
+    :func:`split_plan` for that many blocks, at most ``MAX_SPLITS``, in
+    chunks of whole ``TILE`` s."""
+    per_block, per_sm, reserved = smem
+    for blocks_per_sm in (2, 1):
+        room = min(per_block, per_sm // blocks_per_sm - reserved)
+        stages = min(MAX_STAGES, (room - ring_smem_bytes(hd, 0))
+                     // (ring_stage_bytes(hd) + 16))
+        if stages >= MIN_STAGES:
+            break
+    else:
+        raise ValueError(f"head dim {hd}: {MIN_STAGES} stages do not fit "
+                         f"{per_block} bytes of shared memory")
+    tiles = -(-length // TILE)
+    if tiles <= stages:
+        return tiles * TILE, 1, stages, blocks_per_sm
+    chunk, nsplit = split_plan(length, rows, sms, TILE, blocks_per_sm,
+                               MAX_SPLITS)
+    return chunk, nsplit, stages, blocks_per_sm
+
+
+def launch_plan(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """How a call on CUDA tensors of these shapes and dtype launches:
+    ``path`` ("ring" for bfloat16, "cuda cores" for float32), the
+    ``chunk`` of positions a block walks, ``nsplit`` blocks a (b, kv) row,
+    the ``stages`` a block keeps in flight and ``blocks_per_sm``."""
+    b, kv, _, hd = q.shape
+    length = k.shape[1]
+    sms, smem = _device(q.device.index)
+    if q.dtype == torch.bfloat16:
+        chunk, nsplit, stages, per_sm = ring_plan(length, b * kv, sms, hd,
+                                                  smem)
+        return {"path": "ring", "chunk": chunk, "nsplit": nsplit,
+                "stages": stages, "blocks_per_sm": per_sm}
+    chunk, nsplit = split_plan(length, b * kv, sms,
+                               STAGE_BYTES // (hd * q.element_size()))
+    return {"path": "cuda cores", "chunk": chunk, "nsplit": nsplit,
+            "stages": 2, "blocks_per_sm": BLOCKS_PER_SM}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -127,21 +230,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     pos_t = (pos.to(torch.int32) if isinstance(pos, torch.Tensor) else
              torch.full((), pos, dtype=torch.int32, device=dev))
-    tile = STAGE_BYTES // (hd * q.element_size())
-    chunk, nsplit = split_plan(length, b * kv, _sm_count(dev.index or 0),
-                               tile)
+    plan = launch_plan(q, k)
+    chunk, nsplit, stages = plan["chunk"], plan["nsplit"], plan["stages"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = (_ticket_buffer(dev.index, stream, b * kv)
+               if plan["path"] == "ring" else None)
     part_m = torch.empty((b, kv, nsplit, g), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, kv, nsplit, g, hd), dtype=torch.float32,
                            device=dev)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _decode()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        _DTYPE_CODE[q.dtype], pos_t.data_ptr(),
-                        part_m.data_ptr(), part_l.data_ptr(),
-                        part_acc.data_ptr(), out.data_ptr(), b, length, kv,
-                        g, hd, chunk, nsplit, stream)
+        err = _decode()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           _DTYPE_CODE[q.dtype], pos_t.data_ptr(),
+                           part_m.data_ptr(), part_l.data_ptr(),
+                           part_acc.data_ptr(),
+                           None if tickets is None else tickets.data_ptr(),
+                           out.data_ptr(), b, length, kv, g, hd, chunk,
+                           nsplit, stages, stream)
     runtime.check(err, "flash_decode kernel launch")
     flash_decode.launches += 1
     return out

@@ -34,9 +34,15 @@ from repro_torch.convert import params_from_jax
 from repro_torch.embeddings import (EmbeddingTable, pooled_lookup,
                                     presence_counts)
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import (embedding_bag_grad,
+from repro_torch.kernels.embedding_bag import (RESIDENT_BLOCK_V,
+                                               RESIDENT_FEW_THREADS,
+                                               RESIDENT_MAX_THREADS,
+                                               RESIDENT_MIN_CHUNK,
+                                               embedding_bag_grad,
                                                embedding_bag_grad_resident,
-                                               sort_ids)
+                                               resident_max_d_for,
+                                               resident_plan,
+                                               resident_smem_bytes, sort_ids)
 from repro_torch.kernels.ref import embedding_bag_grad_ref
 
 GRAD_RTOL, GRAD_ATOL = 1e-6, 1e-7
@@ -253,3 +259,96 @@ def test_presence_counts_match_jax_exactly(kind):
     got = presence_counts(torch.from_numpy(flat), m * cap)
     assert got.dtype == torch.float32 and got.shape == (m * cap,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("b,f,v,d", [(10, 5, 50, 8), (64, 26, 500, 16),
+                                     (33, 3, 613, 7)])
+def test_resident_plain_version_matches_pallas_resident_kernel(b, f, v, d):
+    """The shapes of the JAX package's own oracle test
+    (``tests/test_embedding_stream.py``): the port's resident wrapper on
+    the CPU against the Pallas resident kernel in interpret mode."""
+    rng = np.random.default_rng(b + 7)
+    ids = rng.integers(0, v, size=(b, f)).astype(np.int32)
+    grad = rng.standard_normal((b, d)).astype(np.float32)
+    want_gt, want_cnt = jax_embedding_bag_grad_resident(
+        jnp.asarray(ids), jnp.asarray(grad), v, interpret=True)
+    gt, cnt = embedding_bag_grad_resident(torch.from_numpy(ids),
+                                          torch.from_numpy(grad), v)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+    np.testing.assert_allclose(gt.numpy(), np.asarray(want_gt),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+H100_SMEM_PER_BLOCK = 232_448
+
+
+@pytest.mark.parametrize("d", range(0, 112))
+def test_resident_plan_fits_shared_memory_at_every_width(d):
+    for capacity, sms in ((500, 132), (1_000_000, 132), (1, 1)):
+        threads, chunk, smem = resident_plan(capacity, d,
+                                             H100_SMEM_PER_BLOCK, sms)
+        blocks = -(-capacity // RESIDENT_BLOCK_V)
+        assert threads == (RESIDENT_MAX_THREADS if blocks <= sms
+                           else RESIDENT_FEW_THREADS)
+        assert chunk % 32 == 0 and RESIDENT_MIN_CHUNK <= chunk <= threads
+        assert smem == resident_smem_bytes(d, chunk) <= H100_SMEM_PER_BLOCK
+        # local rows and chunk offsets are kept as uint16
+        assert RESIDENT_BLOCK_V <= 1 << 16 and chunk <= 1 << 16
+
+
+def test_resident_plan_refuses_a_width_past_shared_memory():
+    assert resident_max_d_for(H100_SMEM_PER_BLOCK) == 111
+    with pytest.raises(ValueError, match="shared memory"):
+        resident_plan(500, 112, H100_SMEM_PER_BLOCK, 132)
+    assert resident_plan(500, 16, H100_SMEM_PER_BLOCK, 132) == (
+        1024, 1024, 43_152)
+
+
+def _resident_emulation(ids, grad, v, chunk):
+    """The resident kernel's walk, one vocab block at a time: chunks of
+    ``chunk`` sorted entries, each cut into runs of equal ids where an id
+    differs from the entry before it, each run added in entry order onto
+    its row's running float32 sum; counts from the runs' lengths."""
+    f = ids.shape[1]
+    sorted_ids, perm = (t.numpy() for t in sort_ids(torch.from_numpy(ids), v))
+    gt = np.zeros((v, grad.shape[1]), np.float32)
+    cnt = np.zeros((v,), np.int64)
+    for v0 in range(0, v, RESIDENT_BLOCK_V):
+        lo, hi = np.searchsorted(sorted_ids, [v0, min(v0 + 512, v)])
+        for c0 in range(lo, hi, chunk):
+            n = min(chunk, hi - c0)
+            marks = [k for k in range(n)
+                     if k == 0 or sorted_ids[c0 + k] != sorted_ids[c0 + k - 1]]
+            for j, s in enumerate(marks):
+                e = marks[j + 1] if j + 1 < len(marks) else n
+                r = sorted_ids[c0 + s]
+                cnt[r] += e - s
+                for k in range(s, e):
+                    gt[r] = (gt[r] + grad[perm[c0 + k] // f]).astype(
+                        np.float32)
+    return gt, cnt.astype(np.float32)
+
+
+@pytest.mark.parametrize("chunk", [32, 256, 1024])
+@pytest.mark.parametrize("kind", ["uniform", "one-row", "skewed"])
+def test_resident_runs_across_chunks_keep_entry_order_bit_for_bit(chunk,
+                                                                  kind):
+    """Cutting each chunk into runs, a run that straddles two chunks
+    included, gives the entry-order sums of the plain version bit for
+    bit."""
+    rng = np.random.default_rng(chunk)
+    ids = rng.integers(-3, 1100, size=(64, 26)).astype(np.int32)
+    if kind == "one-row":
+        ids[:] = 517
+    elif kind == "skewed":
+        ids[:, :20] = 600                   # a run of 1280 entries
+    grad = (rng.standard_normal((64, 8))
+            * 10.0 ** rng.integers(-6, 6, size=(64, 1))).astype(np.float32)
+    want_gt, want_cnt = _kernel_emulation(ids, grad, 1100)
+    got_gt, got_cnt = _resident_emulation(ids, grad, 1100, chunk)
+    np.testing.assert_array_equal(got_cnt, want_cnt)
+    np.testing.assert_array_equal(got_gt.view(np.uint32),
+                                  want_gt.view(np.uint32))
+    plain_gt, _ = _port(ids, grad, 1100)
+    np.testing.assert_array_equal(plain_gt.view(np.uint32),
+                                  want_gt.view(np.uint32))

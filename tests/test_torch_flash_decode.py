@@ -30,8 +30,12 @@ import torch
 
 from repro.kernels.flash_decode import flash_decode as pallas_flash_decode
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_GROUP,
-                                              flash_decode, split_plan)
+from repro_torch.kernels.flash_decode import (CONSUMER_WARPS, HEAD_DIMS,
+                                              MAX_GROUP, MAX_SPLITS,
+                                              MAX_STAGES, MIN_STAGES, TILE,
+                                              flash_decode, ring_plan,
+                                              ring_smem_bytes,
+                                              ring_stage_bytes, split_plan)
 from repro_torch.kernels.ref import flash_decode_ref
 
 PALLAS_CASES = [(2, 2, 4, 64, 1024, 1000), (1, 4, 1, 32, 512, 511),
@@ -172,3 +176,78 @@ def test_split_plan_covers_the_cache_in_tiles(length, rows, sms, tile, want):
     assert (chunk, nsplit) == want
     assert chunk % tile == 0
     assert chunk * nsplit >= length > chunk * (nsplit - 1)
+
+
+# an H100's shared memory: a block may use, an SM holds, kept back a block
+H100_SMEM = (232_448, 233_472, 1_024)
+
+
+@pytest.mark.parametrize("length,rows,hd,want", [
+    (32_768, 32, 128, (4096, 8, 3, 2)),   # decode_32k: 256 blocks, one wave
+    (160, 32, 128, (192, 1, 3, 2)),       # the serve loop: one round trip
+    (25, 4, 64, (64, 1, 4, 2)),           # granite-8b.reduced()
+    (544, 32, 128, (128, 5, 3, 2)),
+    (700, 2, 256, (64, 11, 3, 1)),
+    (1 << 20, 1, 128, (4096, 256, 3, 2)),  # one row: MAX_SPLITS splits
+])
+def test_ring_plan_at_the_paths_shapes(length, rows, hd, want):
+    assert ring_plan(length, rows, 132, hd, H100_SMEM) == want
+
+
+def _positions_read(length, pos, chunk, nsplit):
+    """The positions the bfloat16 kernel reads, split by split, tile by
+    tile, consumer warp by warp, as its index arithmetic walks them."""
+    seen = []
+    for split in range(nsplit):
+        start = split * chunk
+        end = min(start + chunk, length)
+        last = pos + 1 if 0 <= pos < end else end
+        ntiles = -(-(last - start) // TILE) if last > start else 0
+        for j in range(ntiles):
+            for w in range(CONSUMER_WARPS):
+                t0 = start + j * TILE + w * 16
+                seen += range(t0, t0 + max(0, min(16, last - t0)))
+    return seen
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("rows", [1, 3, 32, 64, 500])
+@pytest.mark.parametrize("length", [1, 40, 64, 65, 160, 1000, 4097])
+def test_ring_plan_reads_every_position_once_and_fits(length, rows, hd):
+    chunk, nsplit, stages, per_sm = ring_plan(length, rows, 132, hd,
+                                              H100_SMEM)
+    assert chunk % TILE == 0 and 1 <= nsplit <= MAX_SPLITS
+    assert chunk * nsplit >= length > chunk * (nsplit - 1)
+    assert MIN_STAGES <= stages <= MAX_STAGES and per_sm in (1, 2)
+    per_block, per_sm_bytes, reserved = H100_SMEM
+    smem = ring_smem_bytes(hd, stages)
+    assert smem <= per_block and per_sm * (smem + reserved) <= per_sm_bytes
+    # the end of the launch reuses the ring: the warps' states, then the
+    # weights of MAX_SPLITS partials
+    ring = stages * ring_stage_bytes(hd)
+    assert CONSUMER_WARPS * (16 + MAX_GROUP * hd) * 4 <= ring
+    assert (MAX_SPLITS + 1) * 8 * 4 <= ring
+    for pos in {-1, 0, length // 2, length - 1, length + 5}:
+        seen = _positions_read(length, pos, chunk, nsplit)
+        want = range(min(pos, length - 1) + 1) if pos >= 0 else range(length)
+        assert sorted(seen) == list(want) and len(set(seen)) == len(seen)
+
+
+def test_ring_swizzle_spreads_each_read_over_the_banks():
+    """A stage's boxes are 64 rows of 128 bytes under the 128-byte swizzle
+    (piece c of row r at piece c ^ (r % 8)), each on a 1024-byte boundary.
+    The 8 rows an ldmatrix reads, one piece each, land on 8 distinct
+    pieces, and a warp's p . v read of one row of v (hd / 32 values a
+    lane) touches every piece of each box row once."""
+    for hd in HEAD_DIMS:
+        assert ring_stage_bytes(hd) % 1024 == 0
+        for c in range(8):
+            assert len({c ^ r for r in range(8)}) == 8
+        vpl = hd // 32
+        for i in range(16):
+            pieces = {}
+            for lane in range(32):
+                e = lane * vpl
+                assert e // 8 == (e + vpl - 1) // 8      # one 16-byte piece
+                pieces.setdefault(e // 64, set()).add(((e % 64) // 8) ^ (i % 8))
+            assert all(p == set(range(8)) for p in pieces.values())

@@ -656,6 +656,70 @@ def test_resident_grad_takes_d_up_to_shared_memory_and_refuses_one_more():
     assert embedding_bag_grad_resident.launches == launches
 
 
+def _resident_held(ids, grad, v):
+    """The resident kernel against its plain version on a CPU copy and the
+    streamed kernel, bit for bit, with one launch."""
+    launches = embedding_bag_grad_resident.launches
+    gt, cnt = embedding_bag_grad_resident(ids, grad, v)
+    torch.cuda.synchronize()
+    assert embedding_bag_grad_resident.launches == launches + 1
+    assert gt.shape == (v, grad.shape[1]) and cnt.shape == (v,)
+    want_gt, want_cnt = embedding_bag_grad_ref(ids.cpu(), grad.cpu(), v)
+    s_gt, s_cnt = embedding_bag_grad(ids, grad, v)
+    assert torch.equal(cnt.cpu(), want_cnt) and torch.equal(cnt, s_cnt)
+    assert torch.equal(gt.cpu().view(torch.int32), want_gt.view(torch.int32))
+    assert torch.equal(gt.view(torch.int32), s_gt.view(torch.int32))
+    return gt, cnt
+
+
+def _resident_edge(kind):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d = {"d0": 0, "d1": 1, "max-d": resident_max_d(), "e0": 16}.get(kind, 16)
+    b, f, v = 64, 26, 500
+    if kind.startswith("straddle"):
+        # one row's run covers entries 1000 .. 1279 of the sorted order:
+        # across the 1024-entry chunk of a one-block launch, or across the
+        # 256-entry chunks of a many-block one
+        v = 500 if kind == "straddle-one-block" else 100_000
+        ids = torch.arange(b * f, device="cuda", dtype=torch.int32) // 10
+        ids[1000:1280] = 100
+        ids = ids.reshape(b, f)[torch.randperm(b, generator=gen,
+                                               device="cuda")]
+    elif kind == "one-row":
+        ids = torch.full((b, f), 7, device="cuda", dtype=torch.int32)
+    elif kind == "empty-block":                 # rows 512 .. 1023 get none
+        v = 2000
+        ids = torch.randint(0, 1488, (b, f), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ids = torch.where(ids >= 512, ids + 512, ids)
+    elif kind == "v-1025":
+        v = 1025
+        ids = torch.randint(0, v, (b, f), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    elif kind == "e0":
+        b, f = 3, 0
+        ids = torch.zeros((b, f), device="cuda", dtype=torch.int32)
+    else:
+        ids = torch.randint(-2, v + 2, (b, f), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return ids, torch.randn((b, d), generator=gen, device="cuda"), v
+
+
+@pytest.mark.parametrize("kind", ["straddle-one-block", "straddle-many",
+                                  "one-row", "empty-block", "d0", "d1",
+                                  "max-d", "v-1025", "e0"])
+def test_resident_grad_edges_match_plain_and_streamed_bit_for_bit(kind):
+    _need_card()
+    ids, grad, v = _resident_edge(kind)
+    gt, cnt = _resident_held(ids, grad, v)
+    if kind == "empty-block":
+        assert not gt[512:1024].any() and not cnt[512:1024].any()
+    if kind == "one-row":
+        assert cnt[7] == ids.numel() and cnt.sum() == ids.numel()
+    if kind == "e0":
+        assert not gt.any() and not cnt.any()
+
+
 def test_pytree_lm_step_on_the_card_matches_the_cpu():
     """granite-8b.reduced() in float32, Adam, 2 global steps at M = 4 from
     the same params, card against CPU: losses within rtol 1e-4 and params
@@ -701,6 +765,9 @@ FLASH_CASES = {
     "reduced granite, hd 64, G 1, f32": (4, 25, 4, 1, 64, torch.float32),
     "hd 256, G 8": (1, 700, 2, 8, 256, torch.bfloat16),
     "G = 3, run as 4": (2, 300, 2, 3, 128, torch.bfloat16),
+    "G = 5, run as 8": (2, 300, 2, 5, 128, torch.bfloat16),
+    "hd 64 bf16": (2, 700, 4, 4, 64, torch.bfloat16),
+    "L = 40, less than one stage": (3, 40, 2, 4, 128, torch.bfloat16),
 }
 
 
@@ -832,3 +899,98 @@ def test_serve_decode_on_the_card_matches_the_cpu():
         prompts.to(dev), 9, log=lambda _: None)["tokens"].cpu()
         for dev in ("cpu", "cuda")}
     assert torch.equal(runs["cpu"], runs["cuda"])
+
+
+def _ring_chunk(b, length, kv, hd):
+    from repro_torch.kernels.flash_decode import _device, ring_plan
+    sms, smem = _device(torch.cuda.current_device())
+    return ring_plan(length, b * kv, sms, hd, smem)
+
+
+@pytest.mark.parametrize("where", ["tile - 1", "tile", "split - 1", "split",
+                                   "split + tile + 1", "last split only"])
+def test_flash_decode_bf16_at_tile_and_split_boundaries(where):
+    """Positions at the edges of the ring's 64-position stages and of the
+    splits of the plan, held to the plain version."""
+    _need_card()
+    b, length, kv, g, hd = 4, 8192, 8, 4, 128
+    chunk, nsplit, _, _ = _ring_chunk(b, length, kv, hd)
+    assert nsplit > 2 and chunk > 64
+    pos = {"tile - 1": 63, "tile": 64, "split - 1": chunk - 1,
+           "split": chunk, "split + tile + 1": chunk + 65,
+           "last split only": (nsplit - 1) * chunk + 17}[where]
+    q, k, v = _flash_inputs(b, length, kv, g, hd, torch.bfloat16, seed=4)
+    got = flash_decode(q, k, v, torch.tensor(pos, dtype=torch.int32,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    _flash_close(got, flash_decode_ref(q, k, v, pos))
+
+
+def test_flash_decode_bf16_calls_in_a_row_reset_their_tickets():
+    """The last block of each row resets its ticket: back-to-back calls of
+    one shape, then of a shape with more rows, then the first again, all
+    hold to the plain version."""
+    _need_card()
+    shapes = [(4, 1000, 8, 4, 128), (8, 300, 8, 2, 128), (4, 1000, 8, 4, 128)]
+    for i, (b, length, kv, g, hd) in enumerate(shapes):
+        q, k, v = _flash_inputs(b, length, kv, g, hd, torch.bfloat16, seed=i)
+        outs = [flash_decode(q, k, v, torch.tensor(p, dtype=torch.int32,
+                                                   device="cuda"))
+                for p in (length - 1, length // 3, length - 1)]
+        torch.cuda.synchronize()
+        _flash_close(outs[0], flash_decode_ref(q, k, v, length - 1))
+        _flash_close(outs[1], flash_decode_ref(q, k, v, length // 3))
+        assert torch.equal(outs[0], outs[2])
+
+
+def test_flash_decode_bf16_on_two_streams_at_once():
+    """Calls queued on two streams, released together so that they run at
+    the same time, each take their own tickets: every output holds to the
+    plain version.  Calls whose later splits end at once (a small pos)
+    alternate with calls that read every split."""
+    _need_card()
+    b, length, kv, g, hd = 4, 8192, 8, 4, 128
+    assert _ring_chunk(b, length, kv, hd)[1] > 2
+    q, k, v = _flash_inputs(b, length, kv, g, hd, torch.bfloat16, seed=7)
+    positions = [length - 1, 100, length // 2, 1000] * 4
+    pos_t = [torch.tensor(p, dtype=torch.int32, device="cuda")
+             for p in positions]
+    torch.cuda.synchronize()
+    gate, streams = torch.cuda.Stream(), [torch.cuda.Stream()
+                                          for _ in range(2)]
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(50_000_000)         # until every call is queued
+    released = gate.record_event()
+    for s in streams:
+        s.wait_event(released)
+    outs = []
+    for i, p in enumerate(pos_t):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(flash_decode(q, k, v, p))
+    torch.cuda.synchronize()
+    for pos, got in zip(positions, outs):
+        _flash_close(got, flash_decode_ref(q, k, v, pos))
+
+
+@pytest.mark.parametrize("kernel", ["embedding_bag_grad_resident",
+                                    "flash_decode"])
+def test_planned_shared_memory_is_the_kernels(kernel):
+    """The wrappers plan with Python copies of the kernels' shared-memory
+    sums; the kernels' own sums agree at every size a launch can ask."""
+    _need_card()
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_decode as fd
+    lib = runtime.load_library(kernel)
+    if kernel == "flash_decode":
+        own = lib.repro_flash_decode_ring_smem_bytes
+        cases = [((hd, stages), fd.ring_smem_bytes(hd, stages))
+                 for hd in fd.HEAD_DIMS
+                 for stages in range(fd.MAX_STAGES + 1)]
+    else:
+        own = lib.repro_embedding_bag_grad_resident_smem_bytes
+        cases = [((d, chunk), eb.resident_smem_bytes(d, chunk))
+                 for d in range(eb.resident_max_d() + 1)
+                 for chunk in (0, 32, eb.RESIDENT_MIN_CHUNK,
+                               eb.RESIDENT_MAX_THREADS)]
+    assert [own(*args) for args, _ in cases] == [n for _, n in cases]
