@@ -47,7 +47,8 @@ Phases:
    print each kernel's registers, shared memory and spills;
 3. each kernel against its plain PyTorch version on the card
    (``embedding_bag_grad`` against its plain version on a CPU copy, bit
-   for bit; ``gba_apply`` bit for bit at the LM step's apply, M = 4, N =
+   for bit, the sort-free counts kernel at D = 0; ``gba_apply`` bit for bit at
+   the LM step's apply, M = 4, N =
    838,881,280, and at four edges of its contract);
 4. serving from a static source: cache hits launch nothing, and a
    cache-less engine gives bit-identical scores through the kernel;
@@ -67,8 +68,10 @@ Phases:
    global step (the apply's device time, the device idle share); then
    ``granite-8b.reduced()`` in float32 for 2 global steps, card against
    CPU;
-10. timing: each kernel, its plain version and a PyTorch library call with
-    CUDA events, and the engine's score latency;
+10. timing: the per-call floor of a held queue, each kernel, its plain
+    version and a PyTorch library call with CUDA events
+    (``embedding_bag_grad`` at D = 0 on the raw ids, no sort), and the
+    engine's score latency;
 11. the wire step for none, int8 and onebit: the launches of every global
     step, params and accumulator after the warmup bit-identical to the
     uncompressed run (residual zero, onebit momentum nonzero), at the first
@@ -410,9 +413,18 @@ def grad_kernel_cases(T: dict, gen: torch.Generator) -> list:
     dup = ids(64, 16, 5000)
     dup[:, 8:] = dup[:, :8]                      # each id twice in its bag
     dup[1] = dup[1, 0]                           # one id 16 times
+    edge = ids(64, 26, 24) + 245                 # rows 245 .. 268 and
+    edge[:, 13:] += 256                          # 501 .. 524: D = 16 tiles
+    edge[::2, :20] = 255                         # hold 256 rows; a run of
+    no_rows = torch.zeros((1, 0), device=dev)    # 640 entries at row 255
     return [
         ("(a) presence counts of a quickstart step, D=0 (counts only)", a,
-         torch.zeros((1, 0), device=dev), cap_a),
+         no_rows, cap_a),
+        ("(a) one id 53,248 times, D=0", torch.full_like(a, 1_234_567),
+         no_rows, cap_a),
+        ("negative, >= V and INT_MAX ids, D=0",
+         torch.where(odd == SMOKE_V + 12345, 2**31 - 1, odd).reshape(1, -1),
+         no_rows, SMOKE_V),
         ("(a) ids as 64 bags, random rows, D=1", a.reshape(64, -1),
          rows(64, 1), cap_a),
         ("(b) sparse smoke backward (4, 26)", smoke_ids(T["hash_ids"],
@@ -421,6 +433,7 @@ def grad_kernel_cases(T: dict, gen: torch.Generator) -> list:
         ("negative, >= V and sentinel ids", odd, rows(64, 16), SMOKE_V),
         ("repeated ids inside one bag", dup, rows(64, 16), 5000),
         ("D=13 (scalar loads)", ids(256, 8, 10_000), rows(256, 13), 10_000),
+        ("runs across D=16 tile edges", edge, rows(64, 16), 600),
         ("empty batch", ids(0, 26, 1000), rows(0, 16), 1000),
     ]
 
@@ -432,6 +445,8 @@ def grad_kernel_check(T: dict, gen: torch.Generator) -> float:
     max_err = 0.0
     for name, ids, grad, cap in grad_kernel_cases(T, gen):
         gt, cnt = T["embedding_bag_grad"](ids, grad, cap)
+        design = T["device_grad_plan"](torch.cuda.current_device(), cap,
+                                       grad.shape[1])[0]
         torch.cuda.synchronize()
         ref_gt, ref_cnt = T["embedding_bag_grad_ref"](ids.cpu(), grad.cpu(),
                                                       cap)
@@ -440,9 +455,9 @@ def grad_kernel_check(T: dict, gen: torch.Generator) -> float:
                               ref_gt.view(torch.int32)))
         err = (gt.cpu() - ref_gt).abs().max().item() if gt.numel() else 0.0
         print(f"  embedding_bag_grad {name}: ids {tuple(ids.shape)} over "
-              f"V={cap} D={grad.shape[1]}: counts exact and gtable "
-              f"bit-identical: {'ok' if ok else 'FAIL'} (max|err| {err:.3g},"
-              f" {int(ref_cnt.sum())} valid entries)")
+              f"V={cap} D={grad.shape[1]}, {design} design: counts "
+              f"exact and gtable bit-identical: {'ok' if ok else 'FAIL'} "
+              f"(max|err| {err:.3g}, {int(ref_cnt.sum())} valid entries)")
         check(ok, f"embedding_bag_grad vs plain version: {name}")
         max_err = max(max_err, err)
     return max_err
@@ -1098,6 +1113,21 @@ def grad_bound_ms(ids: torch.Tensor, grad: torch.Tensor,
                                  "operations")
 
 
+def launch_floor(cycles_per_ms: float) -> dict:
+    """The per-call floor of a held queue: ``TIMED_REPS`` held calls of
+    ``torch.cuda._sleep(0)``, which does nothing, under :func:`time_ms`,
+    median of 3 runs."""
+    runs = [time_ms(lambda _i, _t: torch.cuda._sleep(0), [None], None,
+                    cycles_per_ms) for _ in range(3)]
+    row = {"ms": float(np.median([r[0] for r in runs])),
+           "device_runs_ms": [r[0] for r in runs],
+           "held": all(r[2] for r in runs)}
+    print(f"  launch floor of a held queue ({TIMED_REPS} held calls of "
+          f"torch.cuda._sleep(0)): {row['ms']!r} ms per call; runs "
+          f"{json.dumps(row['device_runs_ms'])}, held {row['held']}")
+    return row
+
+
 def grad_timing(T: dict, cycles_per_ms: float) -> list[dict]:
     """``embedding_bag_grad`` at the training paths' shapes: (a) the
     presence counts of a quickstart global step, over the 16 steps of day
@@ -1118,19 +1148,31 @@ def segment_sum_timing(T: dict, name: str, shapes: list,
                        lib_atol: float = 0.0) -> list[dict]:
     """Kernel ``name`` (``embedding_bag_grad`` or
     ``embedding_bag_grad_resident``) at each ``(label, id_sets, grad_out,
-    capacity)`` of ``shapes``: the launch on sorted ids, the wrapper with
-    its sort, the plain version and a library call (``torch.bincount`` for
-    D = 0, else ``F.embedding_bag``'s backward into a dense weight, held
-    to the kernel within rtol 1e-6 and ``lib_atol``), with device-held
-    CUDA events around ``SEGMENT_REPS`` calls, in turns, median of 3
-    runs."""
+    capacity)`` of ``shapes``: the kernel's launch (on sorted ids; for
+    ``embedding_bag_grad`` at D = 0 the sort-free counts launch on the raw
+    ids), the
+    whole call (the wrapper, with its sort where it sorts), the plain
+    version and a library call (``torch.bincount`` for D = 0, else
+    ``F.embedding_bag``'s backward into a dense weight, held to the kernel
+    within rtol 1e-6 and ``lib_atol``), with device-held CUDA events
+    around ``SEGMENT_REPS`` calls, in turns, median of 3 runs."""
     F_ = torch.nn.functional
     grad_kernel, ref = T[name], T["embedding_bag_grad_ref"]
     sort_ids, launch = T["sort_ids"], T[f"{name}_sorted"]
     rows = []
     for label, id_sets, grad, cap in shapes:
         f = id_sets[0].shape[1]
-        sorted_sets = [sort_ids(i, cap) for i in id_sets]
+        design = None
+        if name == "embedding_bag_grad":
+            design = T["device_grad_plan"](torch.cuda.current_device(), cap,
+                                           grad.shape[1])[0]
+        if design == "counts":
+            counts = T["embedding_bag_grad_counts"]
+            kernel = (lambda i, g, cap=cap: counts(i, cap), id_sets)
+        else:
+            sorted_sets = [sort_ids(i, cap) for i in id_sets]
+            kernel = (lambda s, g, cap=cap, f=f: launch(s[0], s[1], g, cap,
+                                                        f), sorted_sets)
         if grad.shape[1] == 0:
             lib_sets = [i.reshape(-1).long() for i in id_sets]
 
@@ -1155,8 +1197,7 @@ def segment_sum_timing(T: dict, name: str, shapes: list,
                   f"{label}: F.embedding_bag backward agrees")
             lib_name = "F.embedding_bag backward"
         fns = {
-            "kernel": (lambda s, g, cap=cap, f=f: launch(s[0], s[1], g, cap,
-                                                         f), sorted_sets),
+            "kernel": kernel,
             "wrapper": (lambda i, g, cap=cap: grad_kernel(i, g, cap),
                         id_sets),
             "plain": (lambda i, g, cap=cap: ref(i, g, cap), id_sets),
@@ -1181,14 +1222,18 @@ def segment_sum_timing(T: dict, name: str, shapes: list,
                "device_runs_ms": dev, "sleep_held": sleep_held,
                "host_paced_ms": {k: float(np.median(v))
                                  for k, v in host.items()}}
+        if design:
+            row["design"] = design
         rows.append(row)
+        kernel_label = ("kernel (counts, raw ids, no sort)"
+                        if design == "counts" else "kernel (sorted ids)")
         print(f"  {name} {label} ids {tuple(id_sets[0].shape)} "
-              f"over V={cap} D={grad.shape[1]}, device ms per call: kernel "
-              f"{med['kernel']!r}, wrapper with its sort {med['wrapper']!r},"
-              f" plain {med['plain']!r}, {lib_name} {med['library']!r}, "
-              f"bound {bnd!r} ({by}); host-paced ms per call: "
-              f"{json.dumps(row['host_paced_ms'])}; device runs: "
-              f"{json.dumps(dev)}")
+              f"over V={cap} D={grad.shape[1]}, device ms per call: "
+              f"{kernel_label} {med['kernel']!r}"
+              f", whole call {med['wrapper']!r}, plain {med['plain']!r}, "
+              f"{lib_name} {med['library']!r}, bound {bnd!r} ({by}); "
+              f"host-paced ms per call: {json.dumps(row['host_paced_ms'])}; "
+              f"device runs: {json.dumps(dev)}")
         earlier = EARLIER_MS.get((name, label))
         if earlier:
             print(f"    earlier design: {json.dumps(earlier)}")
@@ -2779,7 +2824,8 @@ def main() -> int:
     from repro_torch.core.gba import (buffer_push_and_maybe_apply,
                                       init_buffer, tree_paths)
     from repro_torch.kernels.embedding_bag import (
-        embedding_bag, embedding_bag_grad, embedding_bag_grad_resident,
+        device_grad_plan, embedding_bag, embedding_bag_grad,
+        embedding_bag_grad_counts, embedding_bag_grad_resident,
         embedding_bag_grad_resident_sorted, embedding_bag_grad_sorted,
         sort_ids)
     from repro_torch.kernels.flash_decode import flash_decode, launch_plan
@@ -2821,6 +2867,8 @@ def main() -> int:
          "get_optimizer": get_optimizer, "hash_ids": hash_ids,
          "embedding_bag_grad": embedding_bag_grad,
          "embedding_bag_grad_sorted": embedding_bag_grad_sorted,
+         "embedding_bag_grad_counts": embedding_bag_grad_counts,
+         "device_grad_plan": device_grad_plan,
          "sort_ids": sort_ids, "embedding_bag_grad_ref":
          embedding_bag_grad_ref, "embedding_bag_ref": embedding_bag_ref,
          "presence": [presence_ids(qs_stream, qs_sched, k)
@@ -2916,7 +2964,9 @@ def main() -> int:
 
     timing = timing_phase(embedding_bag, embedding_bag_ref, big, gen,
                           static, S, params)
-    grad_rows = grad_timing(T, sleep_cycles_per_ms())
+    cycles_per_ms = sleep_cycles_per_ms()
+    floor = launch_floor(cycles_per_ms)
+    grad_rows = grad_timing(T, cycles_per_ms)
     apply_row = apply_timing(T)
     torch.cuda.empty_cache()
     wire = wire_phase(T, counters)
@@ -2950,6 +3000,7 @@ def main() -> int:
         "resident_oracle": resident,
         "pytree_timing": pytree_times,
         "lm_serving": served,
+        "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
     apply_launches = {"lm_fused": lm["launches"]["gba_apply"], **{
@@ -3018,6 +3069,8 @@ def main() -> int:
         "bound_ms": grad_main["bound_ms"],
         "bound_by": grad_main["bound_by"],
         "library_ms": grad_main["library_ms"],
+        "design": {"counts, D = 0": grad_rows[0]["design"],
+                   "D > 0": grad_rows[1]["design"]},
         "at": grad_main["shape"],
         "shapes": grad_rows,
         "ok": True,

@@ -1,5 +1,6 @@
-"""Time the ``flash_decode`` and ``embedding_bag_grad_resident`` kernels of
-two checkouts of this repository on one CUDA card, under one method.
+"""Time the ``flash_decode``, ``embedding_bag_grad_resident`` and
+``embedding_bag_grad`` kernels of two checkouts of this repository on one
+CUDA card, under one method.
 
     python3 scripts/kernel_ab.py OTHER
 
@@ -18,7 +19,15 @@ timing functions of this checkout's ``chip_smoke.py``:
   held calls, median of 3;
 * ``embedding_bag_grad_resident``'s launch on sorted ids at (64, 26) ids
   over V = 500 and at (4, 26) over V = 1,000,000, D = 16 both: 20 held
-  calls (what ``chip_smoke.py`` reads) and 100 held calls, median of 3.
+  calls (what ``chip_smoke.py`` reads) and 100 held calls, median of 3;
+* ``embedding_bag_grad`` at (a), the replay's presence counts (the 16
+  global steps of the quickstart's day 0, (1, 53,248) ids over V =
+  1,600,048, D = 0), and at (b), the sparse smoke's backward ((4, 26) ids
+  over V = 1,000,000, D = 16): the whole call (the wrapper) and the
+  kernel alone, 20 held calls, median of 3.  The kernel alone is the
+  launch on sorted ids, except at (a) in a checkout whose wrapper counts
+  the raw ids (``embedding_bag_grad_counts``): then it is that launch,
+  with no sort.  Each such timing names its launch (``launch``).
 
 A held timing also says whether every sleep outlasted the host's issuing
 (``held``, one flag a turn, null where nothing was held); where it did
@@ -46,10 +55,15 @@ def measure(tree: Path) -> dict:
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import chip_smoke as cs
     import repro_torch
+    from repro_torch.configs.recsys import CRITEO_DEEPFM
+    from repro_torch.core import schedule_for_day
+    from repro_torch.data import make_clickstream
     from repro_torch.embeddings import hash_ids
+    from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels.embedding_bag import (
         embedding_bag_grad_resident_sorted, sort_ids)
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import quickstart
     src = Path(repro_torch.__file__).resolve()
     if not src.is_relative_to((tree / "src").resolve()):
         raise RuntimeError(f"imported {src}, not {tree}'s repro_torch")
@@ -102,6 +116,38 @@ def measure(tree: Path) -> dict:
                 "ms": float(np.median([r[0] for r in runs])),
                 "runs": [r[0] for r in runs],
                 "held": all(r[2] for r in runs)}
+    stream = make_clickstream(CRITEO_DEEPFM, seed=0,
+                              batch_size=quickstart.SETUP.local_batch)
+    sched = schedule_for_day(quickstart.SETUP, quickstart.SPEC,
+                             quickstart.NUM_BATCHES)
+    grads = {
+        "(a)": ([cs.presence_ids(stream, sched, k)
+                 for k in range(len(sched.steps))],
+                torch.zeros((1, 0), device="cuda"),
+                quickstart.SETUP.buffer_size * CRITEO_DEEPFM.hash_capacity),
+        "(b)": shapes["(4, 26) over V=1000000, D=16"]}
+    for label, (id_sets, grad, cap) in grads.items():
+        fns = {"whole call": (
+            lambda i, g, cap=cap: eb.embedding_bag_grad(i, g, cap), id_sets,
+            "the wrapper")}
+        if grad.shape[1] == 0 and hasattr(eb, "embedding_bag_grad_counts"):
+            fns["kernel"] = (
+                lambda i, g, cap=cap: eb.embedding_bag_grad_counts(i, cap),
+                id_sets, "embedding_bag_grad_counts on the raw ids")
+        else:
+            fns["kernel"] = (
+                lambda s, g, cap=cap, f=id_sets[0].shape[1]:
+                eb.embedding_bag_grad_sorted(s[0], s[1], g, cap, f),
+                [sort_ids(i, cap) for i in id_sets],
+                "embedding_bag_grad_sorted on sorted ids")
+        for what, (fn, sets, launch) in fns.items():
+            runs = [cs.time_ms(fn, sets, grad, cycles_per_ms,
+                               cs.SEGMENT_REPS) for _ in range(3)]
+            out[f"embedding_bag_grad {label} {what}, "
+                f"{cs.SEGMENT_REPS} held calls"] = {
+                "ms": float(np.median([r[0] for r in runs])),
+                "runs": [r[0] for r in runs],
+                "held": all(r[2] for r in runs), "launch": launch}
     return out
 
 

@@ -13,8 +13,9 @@ gradients in one ``torch.func.vmap`` of ``grad_and_value`` (over stacked
 parameter versions, or over the batches alone when every slot was
 dispatched at the same version).  The per-slot contributor counts of the
 sparse module (Alg. 2 line 23) come from ``presence_counts``, which is
-the ``embedding_bag_grad`` kernel's counts output: slot i's ids are offset
-by ``i * capacity``, so one launch per global step counts all M slots.
+the ``embedding_bag_grad`` kernel's counts output, taken from the raw ids
+with no sort: slot i's ids are offset by ``i * capacity``, so one launch
+per global step counts all M slots.
 The JAX trainer takes that route when ``embed_stream`` is set, and its
 tests show it equals its one-hot default; the port has no other route.
 The kernel is launched outside the ``vmap``: a ctypes launch cannot run

@@ -98,9 +98,10 @@ def pooled_lookup(tbl: EmbeddingTable, hashed_ids: torch.Tensor
 def presence_counts(hashed_ids: torch.Tensor, capacity: int) -> torch.Tensor:
     """Per-id occurrence counts of a batch of hashed ids: (...,) int32 ->
     (capacity,) float32, the ``embedding_bag_grad`` kernel's counts output
-    for the ids as one bag.  The gradient row has width 0, so the kernel
-    writes the counts alone.  Ids outside ``[0, capacity)`` are not
-    counted."""
+    for the ids as one bag.  The gradient row has width 0, so on a CUDA
+    device the wrapper launches a counts kernel on the raw ids, with no
+    sort (counts are integers, the same in any order).  Ids outside ``[0,
+    capacity)`` are not counted."""
     ids2d = hashed_ids.reshape(1, -1)
     no_rows = torch.zeros((1, 0), dtype=torch.float32,
                           device=hashed_ids.device)

@@ -3,7 +3,8 @@ for Hopper.
 
 Counterpart of ``repro.kernels.embedding_bag``.  The kernels are
 ``csrc/embedding_bag.cu`` (the forward), ``csrc/embedding_bag_grad.cu``
-(the sorted segment sum of gradient rows with per-id counts) and
+(the segment sum of gradient rows with per-id counts: a tiled sum over
+sorted ids for D > 0, and for D = 0 a sort-free counts kernel) and
 ``csrc/embedding_bag_grad_resident.cu`` (the same sum with each vocab
 block's accumulator resident in shared memory: the JAX package's first
 backward, kept as the oracle of the streamed one); each source's header
@@ -79,13 +80,61 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 embedding_bag.launches = 0
 
 
+SEGMENT_THREADS = 256          # threads a block of the D > 0 kernel
+SEGMENT_TILE_BYTES = 16 * 1024  # table-gradient bytes a D > 0 block owns
+COUNTS_THREADS = 256           # threads a block of the D = 0 kernel, one an SM
+COUNTS_MAX_IDS = 1 << 24       # float32 sums of whole numbers exact up to it
+
+
+def _cover(capacity: int, tile_rows: int) -> int:
+    return -(-capacity // tile_rows)
+
+
+def _round4(n: int) -> int:
+    return max(4, -(-n // 4) * 4)
+
+
 @functools.cache
 def _grad():
-    fn = runtime.load_library("embedding_bag_grad").repro_embedding_bag_grad
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = runtime.load_library("embedding_bag_grad")
+    lib.repro_embedding_bag_grad.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.repro_embedding_bag_grad_counts.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for fn in (lib.repro_embedding_bag_grad,
+               lib.repro_embedding_bag_grad_counts):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def grad_plan(capacity: int, d: int, sms: int
+              ) -> tuple[str, int, int, int]:
+    """``(design, threads, tile_rows, blocks)`` of one ``embedding_bag_grad``
+    launch over ``capacity`` rows of width ``d`` on a card of ``sms`` SMs.
+    Block ``b`` owns rows ``[b * tile_rows, (b + 1) * tile_rows)`` of ``[0,
+    capacity)``; ``tile_rows`` is a multiple of 4 and no block is empty.
+
+    D > 0 takes "segment": tiles of about ``SEGMENT_TILE_BYTES`` of table
+    gradient.  D = 0 takes "counts", a cooperative launch of one block of
+    ``COUNTS_THREADS`` threads an SM (fewer where there are fewer than 4
+    rows an SM), each zeroing and then converting its own slice."""
+    if d > 0:
+        design, threads = "segment", SEGMENT_THREADS
+        tile = max(4, SEGMENT_TILE_BYTES // (4 * d) // 4 * 4)
+    else:
+        design, threads = "counts", COUNTS_THREADS
+        tile = _round4(_cover(capacity, max(1, min(sms,
+                                                   _cover(capacity, 4)))))
+    return design, threads, tile, _cover(capacity, tile)
+
+
+@functools.lru_cache(maxsize=256)
+def device_grad_plan(index: int, capacity: int, d: int
+                     ) -> tuple[str, int, int, int]:
+    """:func:`grad_plan` on CUDA device ``index``, with its SMs."""
+    return grad_plan(capacity, d,
+                     torch.cuda.get_device_properties(
+                         index).multi_processor_count)
 
 
 def sort_ids(ids: torch.Tensor, capacity: int
@@ -94,7 +143,9 @@ def sort_ids(ids: torch.Tensor, capacity: int
     sentinel ``capacity``, sorted stably: ``(sorted_ids (E,) int32,
     perm (E,) int64)``, ``sorted_ids = flat[perm]``.  The sort is
     PyTorch's, outside the kernel, as the JAX package sorts with XLA
-    outside its Pallas kernel."""
+    outside its Pallas kernel.  Only a gradient of width D > 0 needs it
+    (its rows are summed in entry order); the counts alone (D = 0) are
+    taken from the raw ids."""
     flat = ids.reshape(-1)
     keyed = torch.where((flat >= 0) & (flat < capacity), flat, capacity)
     return torch.sort(keyed, stable=True)
@@ -104,25 +155,63 @@ def embedding_bag_grad_sorted(sorted_ids: torch.Tensor, perm: torch.Tensor,
                               grad_out: torch.Tensor, capacity: int,
                               num_fields: int
                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on ids already sorted by :func:`sort_ids`; every
-    tensor on one CUDA device and contiguous.  ``num_fields`` is F, so
-    entry ``perm[e]`` belongs to batch row ``perm[e] // F``."""
+    """Launch the D > 0 kernel on ids already sorted by :func:`sort_ids`;
+    every tensor on one CUDA device and contiguous.  ``num_fields`` is F,
+    so entry ``perm[e]`` belongs to batch row ``perm[e] // F``."""
     d = grad_out.shape[1]
+    if d == 0:
+        raise ValueError("grad_out of width 0: the counts alone come from "
+                         "embedding_bag_grad_counts, on the raw ids")
     gtable = torch.empty((capacity, d), dtype=torch.float32,
                          device=grad_out.device)
     counts = torch.empty((capacity,), dtype=torch.float32,
                          device=grad_out.device)
     if capacity == 0:
         return gtable, counts
+    e = sorted_ids.numel()
+    _, threads, tile, blocks = device_grad_plan(grad_out.device.index,
+                                                capacity, d)
     with torch.cuda.device(grad_out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _grad()(sorted_ids.data_ptr(), perm.data_ptr(),
-                      grad_out.data_ptr(), gtable.data_ptr(),
-                      counts.data_ptr(), sorted_ids.numel(), num_fields,
-                      capacity, d, stream)
+        err = _grad().repro_embedding_bag_grad(
+            sorted_ids.data_ptr(), perm.data_ptr(), grad_out.data_ptr(),
+            gtable.data_ptr(), counts.data_ptr(), e, num_fields, capacity, d,
+            threads, tile, blocks, stream)
     runtime.check(err, "embedding_bag_grad kernel launch")
     embedding_bag_grad.launches += 1
     return gtable, counts
+
+
+def embedding_bag_grad_counts(ids: torch.Tensor, capacity: int
+                              ) -> torch.Tensor:
+    """Launch the D = 0 kernel on raw ids (any shape, int32, contiguous, on
+    a CUDA device): ``(capacity,)`` float32 counts of the ids in ``[0,
+    capacity)``, with no sort.  At most ``COUNTS_MAX_IDS`` ids a call, so
+    that every count is exact."""
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if not ids.is_contiguous():
+        raise ValueError("ids must be contiguous")
+    if not 0 <= capacity <= _INT_MAX:
+        raise ValueError(f"capacity {capacity} too large for int32 indexing")
+    if ids.numel() > COUNTS_MAX_IDS:
+        raise ValueError(f"{ids.numel()} ids: the counts kernel adds float32 "
+                         f"ones, exact for up to {COUNTS_MAX_IDS} ids a call")
+    if ids.device.type != "cuda":
+        raise ValueError(f"ids must lie on a CUDA device, got {ids.device}")
+    counts = torch.empty((capacity,), dtype=torch.float32, device=ids.device)
+    if capacity == 0:
+        return counts
+    _, threads, tile, blocks = device_grad_plan(ids.device.index, capacity,
+                                                0)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _grad().repro_embedding_bag_grad_counts(
+            ids.data_ptr(), counts.data_ptr(), ids.numel(), capacity,
+            threads, tile, blocks, stream)
+    runtime.check(err, "embedding_bag_grad (counts) kernel launch")
+    embedding_bag_grad.launches += 1
+    return counts
 
 
 def _check_grad_args(ids: torch.Tensor, grad_out: torch.Tensor,
@@ -155,10 +244,18 @@ def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
     counts (capacity,)), both float32.  Entry ``(b, f)`` adds
     ``grad_out[b]`` to row ``ids[b, f]`` and 1 to its count; ids outside
     ``[0, capacity)`` add nothing.  Each row is summed in entry order, so
-    the result is deterministic."""
+    the result is deterministic.  On a CUDA device a width D > 0 sorts the
+    ids (:func:`sort_ids`) and launches the segment kernel; D = 0 asks for
+    the counts alone and launches a counts kernel on the raw ids
+    (:func:`embedding_bag_grad_counts`, at most ``COUNTS_MAX_IDS`` ids),
+    with no sort: one launch either way."""
     _check_grad_args(ids, grad_out, capacity)
     if ids.device.type == "cpu":
         return embedding_bag_grad_ref(ids, grad_out, capacity)
+    if grad_out.shape[1] == 0:
+        counts = embedding_bag_grad_counts(ids.contiguous(), capacity)
+        return torch.empty((capacity, 0), dtype=torch.float32,
+                           device=ids.device), counts
     sorted_ids, perm = sort_ids(ids, capacity)
     return embedding_bag_grad_sorted(sorted_ids, perm,
                                      grad_out.contiguous(), capacity,

@@ -38,9 +38,9 @@ def pooled_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def pooled_lookup_grad(ids: torch.Tensor, grad_out: torch.Tensor,
                        capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sorted scatter of (B, D) gradient rows into a (capacity, D) table
-    gradient with per-id contributor counts, through the
-    ``embedding_bag_grad`` kernel."""
+    """Scatter of (B, D) gradient rows into a (capacity, D) table gradient
+    with per-id contributor counts, through the ``embedding_bag_grad``
+    kernel (on sorted ids for D > 0, on the raw ids for D = 0)."""
     kernel_calls["pooled_lookup_grad"] += 1
     return embedding_bag_grad(ids, grad_out, capacity)
 

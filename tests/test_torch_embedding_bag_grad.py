@@ -34,12 +34,16 @@ from repro_torch.convert import params_from_jax
 from repro_torch.embeddings import (EmbeddingTable, pooled_lookup,
                                     presence_counts)
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import (RESIDENT_BLOCK_V,
+from repro_torch.kernels.embedding_bag import (COUNTS_MAX_IDS,
+                                               COUNTS_THREADS,
+                                               RESIDENT_BLOCK_V,
                                                RESIDENT_FEW_THREADS,
                                                RESIDENT_MAX_THREADS,
                                                RESIDENT_MIN_CHUNK,
                                                embedding_bag_grad,
+                                               embedding_bag_grad_counts,
                                                embedding_bag_grad_resident,
+                                               grad_plan,
                                                resident_max_d_for,
                                                resident_plan,
                                                resident_smem_bytes, sort_ids)
@@ -213,6 +217,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         embedding_bag_grad(ids, grad, capacity)
 
 
+@pytest.mark.parametrize("bad", ["ids-int64", "strided", "capacity", "cpu",
+                                 "too-many-ids"])
+def test_counts_launch_rejects_what_the_kernel_does_not_take(bad):
+    """The sort-free counts launch takes contiguous int32 ids on a CUDA
+    device, at most 2**24 of them (its float32 sums stay exact); it has no
+    plain path to fall back to."""
+    ids, capacity, err = torch.zeros((2, 6), dtype=torch.int32), 5, ValueError
+    if bad == "ids-int64":
+        ids, err = ids.long(), TypeError
+    elif bad == "strided":
+        ids = ids[:, ::2]
+    elif bad == "capacity":
+        capacity = 2**31
+    elif bad == "too-many-ids":
+        assert COUNTS_MAX_IDS == 2**24
+        ids = torch.empty((1, COUNTS_MAX_IDS + 1), dtype=torch.int32)
+    with pytest.raises(err):
+        embedding_bag_grad_counts(ids, capacity)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_pooled_lookup_gradient_matches_jax_custom_vjp(dtype):
     rng = np.random.default_rng(3)
@@ -246,19 +270,38 @@ def test_pooled_lookup_gradient_matches_jax_custom_vjp(dtype):
                                    rtol=2.0**-7, atol=1e-6)
 
 
-@pytest.mark.parametrize("kind", ["in", "odd"])
+@pytest.mark.parametrize("kind", ["in", "odd", "wild", "repeated", "zipf"])
 def test_presence_counts_match_jax_exactly(kind):
+    """The trainer's presence counts against the JAX package's (its Pallas
+    kernel in interpret mode) and the plain version: in-range ids; slot
+    ids of -2 and capacity; negative, sentinel and INT_MAX ids after the
+    slot offsets, which count nothing; one id repeated over a whole slot;
+    Zipf(1.2)-skewed ids, which put hundreds of entries on a few rows."""
     rng = np.random.default_rng(4)
     m, cap = 4, 300
     ids = rng.integers(0, cap, size=(m, 32, 26)).astype(np.int32)
     if kind == "odd":
         ids[:, :, 0] = -2
         ids[:, :, 1] = cap
+    elif kind == "repeated":
+        ids[1] = 17
+    elif kind == "zipf":
+        ids = np.minimum(rng.zipf(1.2, size=(m, 32, 26)) - 1,
+                         cap - 1).astype(np.int32)
     flat = ids.reshape(m, -1) + (np.arange(m, dtype=np.int32) * cap)[:, None]
+    if kind == "wild":
+        flat[:, ::5] = -7
+        flat[:, 1::7] = m * cap
+        flat[:, 2::11] = 2**31 - 1
     want = jax_presence_counts(jnp.asarray(flat), m * cap)
     got = presence_counts(torch.from_numpy(flat), m * cap)
     assert got.dtype == torch.float32 and got.shape == (m * cap,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _, plain = embedding_bag_grad_ref(torch.from_numpy(flat).reshape(1, -1),
+                                      torch.zeros((1, 0)), m * cap)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    if kind == "repeated":
+        assert got[cap + 17] == 32 * 26
 
 
 @pytest.mark.parametrize("b,f,v,d", [(10, 5, 50, 8), (64, 26, 500, 16),
@@ -352,3 +395,122 @@ def test_resident_runs_across_chunks_keep_entry_order_bit_for_bit(chunk,
     plain_gt, _ = _port(ids, grad, 1100)
     np.testing.assert_array_equal(plain_gt.view(np.uint32),
                                   want_gt.view(np.uint32))
+
+
+H100_SMS = 132
+REPLAY_E, REPLAY_V = 53_248, 1_600_048     # shape (a): the replay's counts
+
+# (d, SMs): the replay's counts on an H100 SXM, on a card of 114 SMs and
+# on one SM; the sparse smoke's D = 16, one-wide and wide gradients
+PLAN_KINDS = {
+    "counts-132-sms": (0, H100_SMS),
+    "counts-114-sms": (0, 114),
+    "counts-1-sm": (0, 1),
+    "segment-d16": (16, H100_SMS),
+    "segment-d1": (1, H100_SMS),
+    "segment-d200": (200, H100_SMS),
+}
+
+
+@pytest.mark.parametrize("edge", ["0", "1", "tile-1", "tile", "tile+1",
+                                  "replay", "int-max"])
+@pytest.mark.parametrize("kind", list(PLAN_KINDS))
+def test_grad_plan_covers_every_row_once(kind, edge):
+    """Block b owns rows [b * tile_rows, (b + 1) * tile_rows): the blocks
+    cover [0, capacity) exactly once with no empty block, at the edges of
+    the tile that the plan takes at the replay's capacity, within the
+    H100's thread limits; the cooperative counts launch asks for at most
+    one block an SM, so its blocks are all resident at once."""
+    d, sms = PLAN_KINDS[kind]
+    tile_at_replay = grad_plan(REPLAY_V, d, sms)[2]
+    capacity = {"0": 0, "1": 1, "tile-1": tile_at_replay - 1,
+                "tile": tile_at_replay, "tile+1": tile_at_replay + 1,
+                "replay": REPLAY_V, "int-max": 2**31 - 1}[edge]
+    got, threads, tile, blocks = grad_plan(capacity, d, sms)
+    assert got == ("segment" if d > 0 else "counts")
+    assert tile >= 4 and tile % 4 == 0
+    assert blocks * tile >= capacity and (blocks - 1) * tile < capacity
+    assert (blocks == 0) == (capacity == 0) and blocks <= 2**31 - 1
+    assert 32 <= threads <= 1024 and threads % 32 == 0
+    if got == "counts":
+        assert blocks <= sms and threads == COUNTS_THREADS <= 2048
+
+
+def test_grad_plan_picks_by_shape_deterministically():
+    """The same shape gives the same plan; the replay's counts take one
+    block an SM, each zeroing and converting a slice of about 48 KB; a
+    capacity of fewer than 4 rows an SM takes fewer blocks; D > 0 takes
+    16 KB tiles of table gradient."""
+    for d, sms in PLAN_KINDS.values():
+        assert grad_plan(REPLAY_V, d, sms) == grad_plan(REPLAY_V, d, sms)
+    assert grad_plan(REPLAY_V, 0, H100_SMS) == ("counts", 256, 12_124, 132)
+    assert grad_plan(10, 0, H100_SMS) == ("counts", 256, 4, 3)
+    assert grad_plan(1_000_000, 16, H100_SMS) == ("segment", 256, 256, 3907)
+    assert grad_plan(1_000_000, 200, H100_SMS)[2] == 20
+
+
+def _segment_emulation(ids, grad, v, tile_rows, threads):
+    """The D > 0 kernel's walk, one tile of rows at a time: the tile's span
+    of sorted entries in chunks of ``threads`` entries, each chunk starting
+    on a run's first entry; a run starts where an id differs from the one
+    before it, the chunk's last run ends where its id does, and the next
+    chunk starts at the later of the chunk's end and that run's end.  Each
+    run is summed in entry order from 0.0 and written once."""
+    f = ids.shape[1]
+    sorted_ids, perm = (t.numpy() for t in sort_ids(torch.from_numpy(ids), v))
+    gt = np.zeros((v, grad.shape[1]), np.float32)
+    cnt = np.zeros((v,), np.float32)
+    written = set()
+    for v0 in range(0, v, tile_rows):
+        lo, hi = np.searchsorted(sorted_ids, [v0, min(v0 + tile_rows, v)])
+        c0 = lo
+        while c0 < hi:
+            n = min(threads, hi - c0)
+            starts = [c0 + t for t in range(n)
+                      if t == 0 or sorted_ids[c0 + t - 1] != sorted_ids[c0 + t]]
+            last = starts[-1]
+            end = last + int(np.searchsorted(sorted_ids[last:hi],
+                                             sorted_ids[last] + 1))
+            for s, e in zip(starts, starts[1:] + [end]):
+                r = int(sorted_ids[s])
+                assert r not in written            # each run summed once
+                written.add(r)
+                acc = np.zeros(grad.shape[1], np.float32)
+                for k in range(s, e):
+                    acc = (acc + grad[perm[k] // f]).astype(np.float32)
+                gt[r], cnt[r] = acc, e - s
+            c0 = max(c0 + threads, end)
+    return gt, cnt
+
+
+@pytest.mark.parametrize("tile_rows,threads", [(4, 32), (64, 32),
+                                               (512, 256)])
+@pytest.mark.parametrize("kind", ["uniform", "one-row", "skewed", "odd"])
+def test_segment_runs_across_chunks_and_tiles_keep_entry_order(
+        kind, tile_rows, threads):
+    """Walking each tile's span in chunks, a run longer than a chunk and
+    runs at tile edges included, gives the entry-order sums of the plain
+    version bit for bit, each row once."""
+    rng = np.random.default_rng(threads + tile_rows)
+    v = 1100
+    ids = rng.integers(0, v, size=(64, 26)).astype(np.int32)
+    if kind == "one-row":
+        ids[:] = 517
+    elif kind == "skewed":
+        ids[:, :20] = 600                   # a run of 1280 entries
+        ids[:, 20:] = np.minimum(rng.zipf(1.2, size=(64, 6)) - 1, v - 1)
+    elif kind == "odd":
+        ids[:, ::3] = -1
+        ids[:, 1::5] = v
+        ids[:, 2::7] = v + 9
+    grad = (rng.standard_normal((64, 8))
+            * 10.0 ** rng.integers(-6, 6, size=(64, 1))).astype(np.float32)
+    want_gt, want_cnt = _kernel_emulation(ids, grad, v)
+    got_gt, got_cnt = _segment_emulation(ids, grad, v, tile_rows, threads)
+    np.testing.assert_array_equal(got_cnt, want_cnt)
+    np.testing.assert_array_equal(got_gt.view(np.uint32),
+                                  want_gt.view(np.uint32))
+    plain_gt, plain_cnt = _port(ids, grad, v)
+    np.testing.assert_array_equal(plain_gt.view(np.uint32),
+                                  want_gt.view(np.uint32))
+    np.testing.assert_array_equal(plain_cnt, want_cnt)

@@ -167,12 +167,28 @@ def _grad_case(kind, seed=0):
         return ids(32, 8, 500), rows(32, 13), 500
     if kind == "empty":
         return ids(0, 26, 10), rows(0, 16), 10
+    if kind == "tile-boundary":
+        # D = 16 tiles hold 256 rows: runs on both sides of rows 512 and
+        # 1024, one of 640 entries across three 256-entry chunks
+        i = ids(64, 26, 24) + 500
+        i[:, 13:] += 512
+        i[::2, :20] = 511
+        return i, rows(64, 16), 1100
+    if kind == "odd-d0":
+        i = ids(64, 16, 1000)
+        i[:, ::3] = -1
+        i[:, 1::5] = 1000
+        i[:, 2::7] = 2**31 - 1
+        return i, rows(64, 0), 1000
     raise ValueError(kind)
 
 
 @pytest.mark.parametrize("kind", ["presence", "presence-d1", "smoke", "odd",
-                                  "dup", "d13", "empty"])
+                                  "dup", "d13", "empty", "tile-boundary",
+                                  "odd-d0"])
 def test_grad_kernel_matches_plain_version_bit_for_bit(kind):
+    """One launch; counts exact and the table gradient bit-identical to the
+    plain version on a CPU copy and to the resident kernel."""
     _need_card()
     ids, grad, cap = _grad_case(kind)
     launches = embedding_bag_grad.launches
@@ -184,6 +200,140 @@ def test_grad_kernel_matches_plain_version_bit_for_bit(kind):
     assert torch.equal(cnt.cpu(), want_cnt)
     assert torch.equal(gt.cpu().view(torch.int32),
                        want_gt.view(torch.int32))
+    r_gt, r_cnt = embedding_bag_grad_resident(ids, grad, cap)
+    assert torch.equal(r_cnt, cnt)
+    assert torch.equal(r_gt.view(torch.int32), gt.view(torch.int32))
+
+
+def test_grad_counts_call_no_sort(monkeypatch):
+    """At D = 0 the wrapper launches the counts kernel on the raw ids: one
+    launch and no sort."""
+    _need_card()
+    from repro_torch.kernels import embedding_bag as eb
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a sort at D = 0")
+    monkeypatch.setattr(eb, "sort_ids", refuse)
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "argsort", refuse)
+    ids, grad, cap = _grad_case("presence")
+    launches = embedding_bag_grad.launches
+    gt, cnt = embedding_bag_grad(ids, grad, cap)
+    torch.cuda.synchronize()
+    assert embedding_bag_grad.launches == launches + 1
+    assert gt.shape == (cap, 0)
+    monkeypatch.undo()
+    assert torch.equal(cnt.cpu(), embedding_bag_grad_ref(
+        ids.cpu(), grad.cpu(), cap)[1])
+
+
+def _counts_case(kind):
+    """(ids, capacity) for the counts kernel: the plan's tile edges at the
+    replay's (1, 53,248) ids, the replay's capacity, one id repeated
+    53,248 times and 2**24 times (the most a call takes), ids that start
+    off a 16-byte boundary, few ids."""
+    from repro_torch.kernels import embedding_bag as eb
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    e, replay = 16 * 128 * 26, 1_600_048
+    tile = eb.device_grad_plan(torch.cuda.current_device(), replay, 0)[2]
+    cap = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(
+        kind, replay)
+    ids = torch.randint(-3, cap + 3, (1, e), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if kind == "one-id":
+        ids[:] = 1_234_567
+    elif kind == "one-id-2**24":
+        ids = torch.full((1, 2**24), 1_234_567, dtype=torch.int32,
+                         device="cuda")
+    elif kind == "misaligned":              # 4 bytes past a 16-byte boundary
+        ids = torch.randint(0, cap, (e + 1,), generator=gen, device="cuda",
+                            dtype=torch.int32)[1:].reshape(1, e)
+    elif kind == "few-ids":
+        ids = ids[:, :7].contiguous()
+    return ids, cap
+
+
+@pytest.mark.parametrize("kind", ["1", "tile-1", "tile", "tile+1", "replay",
+                                  "one-id", "one-id-2**24", "misaligned",
+                                  "few-ids"])
+def test_grad_counts_kernel_is_exact(kind):
+    """The counts kernel equals the plain version exactly at the edges of
+    the plan's tiles and on skewed and unaligned ids and on one id
+    repeated 2**24 times, one launch each."""
+    _need_card()
+    from repro_torch.kernels.embedding_bag import embedding_bag_grad_counts
+    ids, cap = _counts_case(kind)
+    launches = embedding_bag_grad.launches
+    got = embedding_bag_grad_counts(ids, cap)
+    torch.cuda.synchronize()
+    assert embedding_bag_grad.launches == launches + 1
+    want = embedding_bag_grad_ref(ids.cpu(), torch.zeros((1, 0)), cap)[1]
+    assert torch.equal(got.cpu(), want)
+    if kind.startswith("one-id"):
+        assert got[1_234_567].item() == ids.numel()
+        assert got.sum().item() == ids.numel()
+
+
+def test_grad_calls_on_two_streams_at_once():
+    """Counts calls and D > 0 calls, queued on two streams and released
+    together so that they run at the same time, each stay equal to the
+    plain version."""
+    _need_card()
+    from repro_torch.kernels.embedding_bag import embedding_bag_grad_counts
+    ids, cap = _counts_case("replay")
+    s_ids, s_grad, s_cap = _grad_case("smoke")
+    want = embedding_bag_grad_ref(ids.cpu(), torch.zeros((1, 0)), cap)[1]
+    s_want = embedding_bag_grad_ref(s_ids.cpu(), s_grad.cpu(), s_cap)
+    torch.cuda.synchronize()
+    gate, streams = torch.cuda.Stream(), [torch.cuda.Stream()
+                                          for _ in range(2)]
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(50_000_000)         # until every call is queued
+    released = gate.record_event()
+    for s in streams:
+        s.wait_event(released)
+    counts, grads = [], []
+    for i in range(12):
+        with torch.cuda.stream(streams[i % 2]):
+            counts.append(embedding_bag_grad_counts(ids, cap))
+            grads.append(embedding_bag_grad(s_ids, s_grad, s_cap))
+    torch.cuda.synchronize()
+    for got in counts:
+        assert torch.equal(got.cpu(), want)
+    for gt, cnt in grads:
+        assert torch.equal(cnt.cpu(), s_want[1])
+        assert torch.equal(gt.cpu().view(torch.int32),
+                           s_want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("cap", [12_123, 12_124, 12_125, 1_600_048,
+                                 2**31 - 1])
+def test_grad_plan_launch_fits_the_card(cap):
+    """The plan's launches run on the card up to the largest capacity:
+    the cooperative counts launch (all its blocks resident) and, where
+    the table gradient fits, the D = 16 launch; the rows of every valid
+    id hold its count and the counts sum to the valid ids."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    ids = torch.randint(-3, min(cap + 3, 2**31 - 1), (4, 26), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    ids[0, :4] = torch.tensor([0, cap - 1, cap - 1, 2**31 - 1])
+    valid = ids[(ids >= 0) & (ids < cap)]
+    rows, times = torch.unique(valid, return_counts=True)
+    grads = [torch.zeros((4, 0), device="cuda")]
+    if cap * 16 * 4 < 2**31:
+        grads.append(torch.randn((4, 16), generator=gen, device="cuda"))
+    for grad in grads:
+        gt, cnt = embedding_bag_grad(ids, grad, cap)
+        torch.cuda.synchronize()
+        assert cnt.shape == (cap,) and gt.shape == (cap, grad.shape[1])
+        assert torch.equal(cnt[rows.long()], times.float())
+        assert cnt.sum().item() == valid.numel()
+        if grad.shape[1]:
+            want = embedding_bag_grad_ref(ids.cpu(), grad.cpu(), cap)[0]
+            assert torch.equal(gt.cpu().view(torch.int32),
+                               want.view(torch.int32))
+        del gt, cnt
 
 
 def test_grad_mixed_devices_raise():

@@ -4,8 +4,8 @@
   engine and launcher), training (the replay trainer, the LM's pytree and
   fused steps and its worker-parallel wire step, the token list),
   embeddings and kernel modules loads no JAX.
-* No file of the port, and not ``chip_smoke.py``, imports ``jax`` or the
-  JAX package ``repro``.
+* No file of the port, and neither ``chip_smoke.py`` nor the card scripts
+  of ``scripts/``, imports ``jax`` or the JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
   a card instead of running on the CPU.
 """
@@ -30,7 +30,7 @@ from repro_torch.serving import (RecsysScoringEngine, StaticSource,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)(\.|\s|$|,)|from\s+(jax|repro)(\.|\s))",
     re.MULTILINE)
