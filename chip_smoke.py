@@ -38,7 +38,17 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   ops: one ``gba_aggregate`` and one ``fused_adagrad`` launch a leaf, 12
   leaves; and ``embedding_bag_grad_resident``, the JAX package's oracle of
   the streamed backward, at the oracle test's, the sparse smoke's and the
-  replay's shapes.
+  replay's shapes;
+* tuning-free switching (``repro_torch.launch.train --arch granite-8b
+  --mesh 4x1 --autoswitch --plan strained``): the switching harness on the
+  same model, depth 2, 4 workers, local batch 4 x 128 tokens a slot, iota
+  4, lr 1e-3, 120 local batches, its sync mode the pytree all-reduce step
+  with Adagrad (no kernel) and its async mode the worker-parallel step (4
+  ``gba_apply`` launches a global step); the reference's 8-step swap
+  schedule and its int8 re-entry case at the same width; the demo CLI
+  (``repro_torch.launch.switch_driver``) and the paper's Fig. 6 and
+  autoswitch benches (``repro_torch.benchmarks``) at the reference's
+  defaults.
 
 Phases:
 
@@ -112,13 +122,33 @@ Phases:
     head dim 64, at the first, a middle and the last position, then timed
     against the plain version, its bound and SDPA, with its launch plan
     (stages, splits) and beside its earlier design's time;
-14. one JSON line of the kernels, then the result line.
+14. tuning-free switching: (a) ``run_autoswitch`` at full width, then
+    its forced-sync leg, every simulated-clock field equal to the same
+    runs on the CPU at ``granite-8b.reduced()``, a switch and a verified
+    swap, 4 ``gba_apply`` launches at every async global step and none at
+    a sync one, peak device memory under 70 GB, seconds per global step
+    of each mode and per swap, a profile of one step of each mode; (b)
+    the 8-step swap schedule with the shared flat state: switched,
+    all-async and all-sync replays bit-identical (params, accumulator,
+    losses), then with the pytree sync step: 2 swaps verified, its
+    deviation from the fused run printed, and held within 1e-5 at
+    ``granite-8b.reduced()`` in float32 and on the demo model; (c) int8
+    re-entry over 48 batches: 4 warm steps, 16 ``quantize_minmax``, 16
+    ``dequantize`` and 4 ``gba_apply`` launches per compressed global
+    step, the first compressed step of the second entry held bit for bit
+    to the plain versions; (d) the demo CLI on the card, both plans: every
+    simulated field equal to the CPU's and the reference's numbers, its
+    breaker and scrape-dropout cases card against CPU; (e) the switching
+    rows, the Fig. 6 continual protocol with its seconds and a replay
+    day's idle share, and the autoswitch bench;
+15. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
 microsteps, each scheme of the wire step, the pytree step, its tree ops,
-the resident oracle, the serve loop, the 32k decode, the engine) and read
-just after it, so ``launches`` counts those paths alone.  Any failure
+the resident oracle, the serve loop, the 32k decode, the engine, the
+autoswitch run, the int8 re-entry run) and read just after it, so
+``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
 """
@@ -126,6 +156,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2804,6 +2835,455 @@ def serve_row(serve: dict) -> dict:
     }
 
 
+# the switching slice: the LM launcher's --autoswitch (W = 4, the launcher's
+# 120 local batches on the strained plan), the reference's 8-step swap
+# schedule, its int8 re-entry case over 48 batches, the demo CLI (240
+# batches) and the benches
+SWITCH_W, SWITCH_BATCHES, SWITCH_CHAOS_BATCHES = 4, 120, 48
+SWITCH_PEAK_GB = 70.0
+SWITCH_HOLD_ATOL = 1e-5    # psum against fused in float32: sum orders
+# the reference's CLI on the CPU (repro.launch.switch_driver --host-devices
+# 4 --workers 4 --batches 240 --plan strained --mode auto --compare-sync
+# --json, jax 0.9.0)
+REF_STRAINED = {"wall_time": 3.0, "num_global_steps": 60, "switch_count": 1,
+                "time_to_first_switch_steps": 4,
+                "mode_steps": {"sync": 4, "gba": 56}, "crashes": 1,
+                "rejoins": 1, "lost_batches": 1, "tombstones": 1,
+                "swaps_verified": 1, "sync_timeouts": 1, "sync_rejoins": 1,
+                "speedup_vs_sync": 2.5005865516398864}
+REF_STRAINED_LOSS = 0.7912495732307434
+SIM_FIELDS = ("wall_time", "samples", "num_global_steps", "switch_count",
+              "time_to_first_switch_steps", "mode_timeline", "mode_steps",
+              "mode_time", "crashes", "rejoins", "timeouts", "lost_batches",
+              "dropped_batches", "tombstones", "drained", "stalled_barriers",
+              "apply_failures", "breaker_trips", "dropped_scrapes",
+              "swaps_verified", "warm_steps", "controller_summary", "qps")
+
+
+def sim_fields(out) -> str:
+    """A result's simulated-clock and fault fields as one string."""
+    out = out if isinstance(out, dict) else out.to_json()
+    return json.dumps({k: out[k] for k in SIM_FIELDS if k in out},
+                      sort_keys=True)
+
+
+def swap_schedule(T: dict, iota: int) -> list:
+    """The reference's 8-step replay (``tests/test_switch_driver.py``):
+    step 5 holds one Eq. (1)-decayed slot and one tombstone."""
+    steps, b = [], 0
+    for k in range(8):
+        toks, bats = [k] * 4, list(range(b, b + 4))
+        b += 4
+        if k == 5:
+            toks[1], toks[2], bats[2] = 0, k - iota - 1, -1
+        steps.append(T["SD"].GlobalStep(tuple(toks), tuple(bats)))
+    return steps
+
+
+SWITCHED = ["sync"] * 3 + ["gba"] * 3 + ["sync"] * 2
+
+
+class SwitchProbe:
+    """While entered, every global step and every swap of every
+    ``SwitchDriver`` runs between two synchronisations: each step's host
+    seconds and kernel launches and each swap's seconds are recorded, the
+    ``profile`` steps ((mode, index in that mode) pairs) are profiled, and
+    ``holds`` is active for global step ``hold_gstep`` alone."""
+
+    def __init__(self, T: dict, counters, profile=(), holds=None,
+                 hold_gstep=None):
+        self.D, self.counters = T["SD"].SwitchDriver, counters
+        self.profile, self.holds, self.hold_gstep = profile, holds, hold_gstep
+        self.steps, self.swaps, self.profiles = [], [], {}
+
+    def take(self) -> tuple[list, list]:
+        out = self.steps, self.swaps
+        self.steps, self.swaps = [], []
+        return out
+
+    def _n(self) -> tuple:
+        c = self.counters()
+        return c["quantize_minmax"], c["dequantize"], c["gba_apply"]
+
+    def __enter__(self):
+        probe = self
+        self.real = self.D._exec, self.D._swap
+        real_exec, real_swap = self.real
+
+        def _exec(drv, st, tokens, slot_batches):
+            comp = drv.compress
+            warm = (comp is not None and st.mode == "gba"
+                    and st.warm_count < comp.warmup_steps)
+            kind = st.mode if st.mode == "sync" or comp is None else (
+                "gba/warm" if warm else "gba/int8")
+            index = sum(1 for s in probe.steps if s["mode"] == st.mode)
+            prof = (StepProfile() if (st.mode, index) in probe.profile
+                    else None)
+            if probe.holds is not None:
+                probe.holds.active = st.gstep == probe.hold_gstep
+            torch.cuda.synchronize()
+            n0, t0 = probe._n(), time.perf_counter()
+            if prof is not None:
+                prof.start()
+            loss = real_exec(drv, st, tokens, slot_batches)
+            if prof is not None:
+                probe.profiles[f"{st.mode} step {index}"] = prof.stop()
+            torch.cuda.synchronize()
+            n1 = probe._n()
+            probe.steps.append({
+                "mode": st.mode, "kind": kind, "gstep": st.gstep,
+                "seconds": time.perf_counter() - t0, "loss": loss,
+                **dict(zip(("quantize_minmax", "dequantize", "gba_apply"),
+                           (b - a for a, b in zip(n0, n1))))})
+            if probe.holds is not None:
+                probe.holds.active = False
+            return loss
+
+        def _swap(drv, st, new_mode, controller=None):
+            old = st.mode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_swap(drv, st, new_mode, controller)
+            torch.cuda.synchronize()
+            if new_mode != old:
+                probe.swaps.append({"swap": f"{old}->{new_mode}",
+                                    "gstep": st.gstep,
+                                    "seconds": time.perf_counter() - t0})
+
+        self.D._exec, self.D._swap = _exec, _swap
+        return self
+
+    def __exit__(self, *exc):
+        self.D._exec, self.D._swap = self.real
+
+
+def _per_mode(steps: list) -> dict:
+    out = {}
+    for s in steps:
+        out.setdefault(s["kind"], []).append(s["seconds"])
+    return {k: {"steps": len(v), "median_s": float(np.median(v)),
+                "max_s": max(v)} for k, v in out.items()}
+
+
+def switch_launcher(T: dict, counters, cfg, params) -> dict:
+    """(a) ``run_autoswitch`` as ``launch.train --arch granite-8b --mesh
+    4x1 --autoswitch --plan strained`` runs it, then its forced-sync leg;
+    each against the same runs on the CPU at ``granite-8b.reduced()``."""
+    kw = dict(workers=SWITCH_W, plan="strained", batches=SWITCH_BATCHES,
+              batch=LM_BATCH, seq=LM_SEQ, iota=LM_IOTA, lr=LM_LR)
+    probe = SwitchProbe(T, counters, profile=(("sync", 1), ("gba", 12)))
+    with probe:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters(reset=True)
+        t0 = time.perf_counter()
+        auto = T["train"].run_autoswitch(cfg, device="cuda", params=params,
+                                         **kw)
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t0
+        launches = counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        auto_steps, auto_swaps = probe.take()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sync = T["train"].run_autoswitch(cfg, device="cuda", params=params,
+                                         mode="sync", **kw)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        sync_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        sync_steps, _ = probe.take()
+    small = T["get_config"]("granite-8b").reduced()
+    host = {m: T["train"].run_autoswitch(small, device="cpu", mode=m, **kw)
+            for m in ("auto", "sync")}
+    for name, card in (("auto", auto), ("sync", sync)):
+        check(sim_fields(card) == sim_fields(host[name]),
+              f"(a) {name}: every simulated field equal to the CPU run at "
+              f"granite-8b.reduced(): {sim_fields(card)} vs "
+              f"{sim_fields(host[name])}")
+    check(auto.switch_count >= 1 and auto.swaps_verified >= 1,
+          f"(a) a switch and a verified swap: {auto.switch_count}, "
+          f"{auto.swaps_verified}")
+    for s in auto_steps + sync_steps:
+        want = SWITCH_W if s["mode"] == "gba" else 0
+        check(s["gba_apply"] == want and s["quantize_minmax"] == 0
+              and s["dequantize"] == 0,
+              f"(a) {want} gba_apply launches at a {s['mode']} step: {s}")
+    check(launches["gba_apply"] == SWITCH_W * auto.mode_steps.get("gba", 0),
+          f"(a) gba_apply launches {launches['gba_apply']} == W x async "
+          f"global steps")
+    check(max(peak_gb, sync_peak_gb) < SWITCH_PEAK_GB,
+          f"(a) peak device memory {peak_gb:.2f} / {sync_peak_gb:.2f} GB < "
+          f"{SWITCH_PEAK_GB} GB")
+    idle = {k: v.get("idle_share") for k, v in probe.profiles.items()}
+    out = {"auto": auto.to_json(), "sync": sync.to_json(),
+           "auto_s": auto_s, "sync_s": sync_s, "launches": launches,
+           "peak_gb": peak_gb, "sync_peak_gb": sync_peak_gb,
+           "step_s": _per_mode(auto_steps), "sync_leg_step_s":
+           _per_mode(sync_steps), "swaps": auto_swaps,
+           "profiles": probe.profiles, "idle_share": idle,
+           "cpu_reduced": {m: r.to_json() for m, r in host.items()}}
+    shown = ("auto_s", "sync_s", "launches", "peak_gb", "sync_peak_gb",
+             "step_s", "sync_leg_step_s", "swaps", "idle_share")
+    print(f"  (a) {json.dumps({k: out[k] for k in shown})}")
+    return out
+
+
+def _lm_driver(T: dict, cfg, params, impl: str, compress=None, spec=None):
+    stream = T["make_lm_stream"](cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0)
+    SD = T["SD"]
+    return SD.SwitchDriver(
+        SWITCH_W, T["make_loss_fn"](cfg), params,
+        spec=spec or SD.demo_spec(SWITCH_W),
+        plan=T["FaultPlan"].quiet(SWITCH_W),
+        cfg=SD.SwitchConfig(local_batch=LM_BATCH, iota=LM_IOTA, lr=LM_LR,
+                            sync_impl=impl),
+        batch_fn=stream.batch,
+        group_by=T["param_group_key"], compress=compress)
+
+
+def _flat_bits_equal(a, b) -> bool:
+    return all(np.array_equal(x.view(np.int32), y.view(np.int32))
+               for x, y in ((a.param_flat, b.param_flat),
+                            (a.accum_flat, b.accum_flat)))
+
+
+def switch_parity(T: dict, counters, cfg, params) -> dict:
+    """(b) the reference's 8-step schedule at full width: the fused
+    replays bit for bit, the psum replay's swaps verified; then psum
+    against fused within ``SWITCH_HOLD_ATOL`` at ``granite-8b.reduced()``
+    in float32 and on the demo model, on the card."""
+    steps = swap_schedule(T, LM_IOTA)
+    probe = SwitchProbe(T, counters)
+    seconds = {}
+    with probe:
+        fused = _lm_driver(T, cfg, params, "fused")
+        t0 = time.perf_counter()
+        sw = fused.run_schedule(steps, SWITCHED)
+        seconds["fused switched"] = time.perf_counter() - t0
+        _, swaps = probe.take()
+        for name, modes in (("gba", ["gba"] * 8), ("sync", ["sync"] * 8)):
+            t0 = time.perf_counter()
+            un = fused.run_schedule(steps, modes)
+            seconds[f"fused {name}"] = time.perf_counter() - t0
+            check(_flat_bits_equal(sw, un) and np.array_equal(
+                np.float32(sw.losses).view(np.int32),
+                np.float32(un.losses).view(np.int32)),
+                  f"(b) switched fused replay bit-identical to the all-{name} "
+                  f"replay: params, accumulator, every loss")
+            del un
+        del fused
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ps = _lm_driver(T, cfg, params, "psum").run_schedule(steps,
+                                                            SWITCHED)
+        seconds["psum switched"] = time.perf_counter() - t0
+        psum_peak = torch.cuda.max_memory_allocated() / 1e9
+        _, psum_swaps = probe.take()
+    check(sw.switch_count == 2 and sw.dropped_batches == 1
+          and sw.tombstones == 1, "(b) 2 swaps, 1 decayed slot, 1 tombstone")
+    check(ps.swaps_verified == 2, f"(b) psum swaps verified "
+          f"{ps.swaps_verified} == 2")
+    dev = {"param": float(np.abs(ps.param_flat - sw.param_flat).max()),
+           "accum": float(np.abs(ps.accum_flat - sw.accum_flat).max())}
+    del sw, ps
+    held = {}
+    small = dataclasses.replace(T["get_config"]("granite-8b").reduced(),
+                                dtype="float32")
+    sp = T["init_model"](small, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    f = _lm_driver(T, small, sp, "fused").run_schedule(steps, SWITCHED)
+    p = _lm_driver(T, small, sp, "psum").run_schedule(steps, SWITCHED)
+    held["granite-8b.reduced() f32"] = (f, p)
+    SD = T["SD"]
+    dp, loss_fn, group_by = SD.demo_model(device="cuda")
+    demo = {impl: SD.SwitchDriver(
+        SWITCH_W, loss_fn, dp, spec=SD.demo_spec(SWITCH_W),
+        plan=T["FaultPlan"].quiet(SWITCH_W),
+        cfg=SD.SwitchConfig(local_batch=8, iota=4, sync_impl=impl),
+        batch_fn=SD.demo_batch_fn(8), group_by=group_by).run_schedule(
+            steps, SWITCHED) for impl in ("fused", "psum")}
+    held["demo"] = (demo["fused"], demo["psum"])
+    small_dev = {}
+    for name, (f, p) in held.items():
+        d = max(float(np.abs(p.param_flat - f.param_flat).max()),
+                float(np.abs(p.accum_flat - f.accum_flat).max()))
+        check(p.swaps_verified == 2 and d <= SWITCH_HOLD_ATOL,
+              f"(b) {name}: psum within {SWITCH_HOLD_ATOL} of fused "
+              f"({d:.3g}), 2 swaps verified")
+        small_dev[name] = d
+    out = {"seconds": seconds, "fused_swaps": swaps, "psum_swaps": psum_swaps,
+           "psum_vs_fused_full_width_bf16": dev, "psum_peak_gb": psum_peak,
+           "psum_vs_fused_small": small_dev}
+    print(f"  (b) {json.dumps(out)}")
+    return out
+
+
+def switch_reentry(T: dict, counters, cfg, params) -> dict:
+    """(c) the reference's chaos case (c) at full width: int8 with 2
+    warmup steps, sync for g < 2 and 6 <= g < 8, gba otherwise, over 48
+    batches; the first compressed step of the second async entry held bit
+    for bit."""
+    pol = T["CompressionPolicy"](scheme="int8", warmup_steps=2)
+    drv = _lm_driver(T, cfg, params, "fused", compress=pol,
+                     spec=T["ClusterSpec"](num_workers=SWITCH_W, jitter=0.05,
+                                           seed=0))
+    groups = drv.layout.num_groups
+    holds = Holds(T)
+    probe = SwitchProbe(T, counters, holds=holds, hold_gstep=10)
+    with holds, probe:
+        torch.cuda.reset_peak_memory_stats()
+        counters(reset=True)
+        res = drv.run(SWITCH_CHAOS_BATCHES, seed=0, mode_schedule=lambda g:
+                      "sync" if g < 2 or 6 <= g < 8 else "gba")
+        torch.cuda.synchronize()
+        launches = counters()
+        steps, swaps = probe.take()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del drv
+    check(res.warm_steps == 4 and res.switch_count == 3,
+          f"(c) warm steps {res.warm_steps} == 4, swaps {res.switch_count} "
+          f"== 3")
+    # sync here is the shared flat state's step with fresh tokens
+    want = {"sync": (0, 0, SWITCH_W), "gba/warm": (0, 0, SWITCH_W),
+            "gba/int8": (SWITCH_W * groups, SWITCH_W * groups, SWITCH_W)}
+    for s in steps:
+        got = (s["quantize_minmax"], s["dequantize"], s["gba_apply"])
+        check(got == want[s["kind"]], f"(c) {s['kind']} step {s['gstep']}: "
+              f"(quantize_minmax, dequantize, gba_apply) {got} == "
+              f"{want[s['kind']]}")
+    check([s["gstep"] for s in steps if s["kind"] == "gba/int8"]
+          == [4, 5, 10, 11], f"(c) compressed steps {steps}")
+    seen = sorted(set(holds.seen))
+    for name in ("quantize_minmax", "dequantize", "gba_apply"):
+        check(any(n == name for n, _ in seen),
+              f"(c) {name} held bit for bit at gstep 10")
+    check(all(np.isfinite(res.losses)), f"(c) finite losses {res.losses}")
+    out = {"result": res.to_json(), "launches": launches, "held": seen,
+           "max_abs_err": holds.max_err, "step_s": _per_mode(steps),
+           "swaps": swaps, "peak_gb_with_holds": peak, "groups": groups}
+    print(f"  (c) {json.dumps(out)}")
+    return out
+
+
+def switch_cli(T: dict) -> dict:
+    """(d) the demo CLI on the card (both plans, through the Fig. 6
+    bench's spawn) against the same CLI on the CPU and the reference's
+    numbers; the breaker and scrape-dropout chaos cases card against
+    CPU."""
+    t0 = time.perf_counter()
+    results = T["fig6"].switching_results("cuda")
+    cli_s = time.perf_counter() - t0
+    card = results["strained"][0]
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.switch_driver",
+         "--workers", "4", "--batches", "240", "--plan", "strained",
+         "--mode", "auto", "--compare-sync", "--json", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env)
+    check(proc.returncode == 0, f"(d) the CPU CLI ran: {proc.stderr[-2000:]}")
+    host = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(sim_fields(card) == sim_fields(host),
+          f"(d) card CLI's simulated fields equal the CPU's")
+    for k, v in REF_STRAINED.items():
+        check(card[k] == v, f"(d) {k} {card[k]} == the reference's {v}")
+    check(abs(card["final_loss"] / REF_STRAINED_LOSS - 1) <= 1e-5,
+          f"(d) final loss {card['final_loss']} within 1e-5 of the "
+          f"reference's {REF_STRAINED_LOSS}")
+    SD, FP = T["SD"], T["FaultPlan"]
+    spec = T["ClusterSpec"](num_workers=4, jitter=0.05, seed=0)
+    chaos = {}
+    for name in ("breaker", "dropout"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            dp, loss_fn, group_by = SD.demo_model(device=dev)
+            plan = (FP(4, apply_failures=(0, 1, 2)) if name == "breaker" else
+                    FP(4, stragglers=(T["StragglerWindow"](0, 4.0),),
+                       dropouts=(T["ScrapeDropout"](0.0, float("inf")),)))
+            drv = SD.SwitchDriver(4, loss_fn, dp, spec=spec, plan=plan,
+                                  cfg=SD.SwitchConfig(local_batch=8,
+                                                      sync_impl="fused"),
+                                  batch_fn=SD.demo_batch_fn(8),
+                                  group_by=group_by)
+            runs[dev] = drv.run(48, mode="gba" if name == "breaker" else
+                                "auto", seed=0)
+        check(sim_fields(runs["cuda"]) == sim_fields(runs["cpu"]),
+              f"(d) {name}: card equal to the CPU")
+        chaos[name] = runs["cuda"].to_json()
+    b, d = chaos["breaker"], chaos["dropout"]
+    check(b["breaker_trips"] == 1 and b["apply_failures"] == 3
+          and b["mode_steps"] == {"sync": 9} and b["num_global_steps"] == 9
+          and b["drained"] == 4, f"(d) breaker as the reference's: {b}")
+    check(d["switch_count"] == 0 and d["dropped_scrapes"] > 0,
+          f"(d) dropout holds the mode as the reference's: {d}")
+    out = {"card": card, "cpu": host, "cli_s": cli_s, "chaos": chaos,
+           "results": results}
+    print(f"  (d) strained on the card: {json.dumps(card)}; both plans' "
+          f"subprocesses {cli_s:.1f} s")
+    return out
+
+
+def switch_benches(T: dict, results: dict) -> dict:
+    """(e) the Fig. 6 bench (its continual protocol at the reference's
+    defaults, and the switching rows) and the autoswitch bench."""
+    rows = T["fig6"].switching_rows(results)
+    strained = results["strained"][0]
+    check(strained["speedup_vs_sync"] >= 2.0,
+          f"(e) strained speedup_vs_sync {strained['speedup_vs_sync']} >= 2")
+    t0 = time.perf_counter()
+    fig6 = T["fig6"].run(device="cuda")
+    torch.cuda.synchronize()
+    fig6_s = time.perf_counter() - t0
+    # the replay's idle share: one GBA day of the protocol's setup
+    cfg = T["CRITEO_DEEPFM"]
+    stream = T["make_clickstream"](cfg, seed=0, batches_per_day=48,
+                                   batch_size=256, num_days=2)
+    base = T["init_recsys"](cfg, generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+    setups = T["default_setups"](base_global=2048)
+    spec = T["ClusterSpec"](num_workers=16, straggler_frac=0.25,
+                            straggler_slowdown=5.0, jitter=0.2, seed=0)
+    busy = device_busy(lambda: T["run_continual"](
+        base, cfg, stream, ["gba"], setups, spec, eval_batches=16))
+    t0 = time.perf_counter()
+    auto_rows = T["bench_autoswitch"].run()
+    auto_s = time.perf_counter() - t0
+    for r in rows + fig6 + auto_rows:
+        print(f"  {r}")
+    print(f"  (e) fig6 continual protocol {fig6_s:.1f} s, one GBA day's "
+          f"profile {json.dumps(busy)}; autoswitch bench {auto_s:.1f} s")
+    return {"switching_rows": rows, "fig6_rows": fig6, "fig6_s": fig6_s,
+            "replay_day_profile": busy, "autoswitch_rows": auto_rows,
+            "autoswitch_s": auto_s}
+
+
+def switch_phase(T: dict, counters) -> dict:
+    phase(14, f"tuning-free switching: granite-8b at full width, depth "
+              f"{LM_LAYERS}, {SWITCH_W} workers; the swap schedule, the int8 "
+              f"re-entry, the demo CLI and the benches")
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    t_phase = time.perf_counter()
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    out = {"config": {"arch": cfg.name, "num_layers": LM_LAYERS,
+                      "reduced": "num_layers 36 -> 2", "workers": SWITCH_W,
+                      "batch": LM_BATCH, "seq": LM_SEQ, "iota": LM_IOTA,
+                      "lr": LM_LR, "batches": SWITCH_BATCHES,
+                      "plan": "strained"}}
+    out["launcher"] = switch_launcher(T, counters, cfg, params)
+    torch.cuda.empty_cache()
+    out["parity"] = switch_parity(T, counters, cfg, params)
+    torch.cuda.empty_cache()
+    out["reentry"] = switch_reentry(T, counters, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    out["cli"] = switch_cli(T)
+    out["benches"] = switch_benches(T, out["cli"].pop("results"))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2847,7 +3327,15 @@ def main() -> int:
     from repro_torch.models import transformer
     from repro_torch.models.transformer import init_model, param_count
     from repro_torch.optim import get_optimizer, tree_map
-    from repro_torch.sim.cluster import Schedule, Slot
+    from repro_torch.sim.cluster import ClusterSpec, Schedule, Slot
+    from repro_torch.sim.faults import (FaultPlan, ScrapeDropout,
+                                        StragglerWindow)
+    from repro_torch.benchmarks import autoswitch as bench_autoswitch
+    from repro_torch.benchmarks import fig6_switching
+    from repro_torch.core import default_setups, run_continual
+    from repro_torch.core.compression import CompressionPolicy
+    from repro_torch.launch import switch_driver
+    from repro_torch.launch.programs import make_loss_fn
 
     t_start = time.perf_counter()
     kind = device_phase()
@@ -2898,7 +3386,14 @@ def main() -> int:
          embedding_bag_grad_resident_sorted,
          "transformer": transformer, "serve": serve, "S": S,
          "flash_decode": flash_decode, "flash_decode_ref": flash_decode_ref,
-         "flash_launch_plan": launch_plan}
+         "flash_launch_plan": launch_plan, "SD": switch_driver,
+         "fig6": fig6_switching, "bench_autoswitch": bench_autoswitch,
+         "FaultPlan": FaultPlan, "ScrapeDropout": ScrapeDropout,
+         "StragglerWindow": StragglerWindow, "ClusterSpec": ClusterSpec,
+         "CompressionPolicy": CompressionPolicy,
+         "make_loss_fn": make_loss_fn,
+         "param_group_key": transformer.param_group_key,
+         "default_setups": default_setups, "run_continual": run_continual}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
@@ -2976,8 +3471,10 @@ def main() -> int:
     pytree_times = pytree_timing(T, sleep_cycles_per_ms())
     torch.cuda.empty_cache()
     served = serve_phase(T, counters)
+    torch.cuda.empty_cache()
+    switching = switch_phase(T, counters)
 
-    phase(14, "kernels")
+    phase(15, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -3000,11 +3497,15 @@ def main() -> int:
         "resident_oracle": resident,
         "pytree_timing": pytree_times,
         "lm_serving": served,
+        "switching": switching,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
     apply_launches = {"lm_fused": lm["launches"]["gba_apply"], **{
-        f"wire_{k}": v["gba_apply"] for k, v in wire["launches"].items()}}
+        f"wire_{k}": v["gba_apply"] for k, v in wire["launches"].items()},
+        "switch_autoswitch": switching["launcher"]["launches"]["gba_apply"],
+        "switch_int8_reentry":
+        switching["reentry"]["launches"]["gba_apply"]}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -3013,6 +3514,9 @@ def main() -> int:
         row = wire["timing"][{"dequantize": "dequantize_minmax"}.get(
             name, name)]
         by_path = {f"wire_{k}": wire["launches"][k][name] for k in runs}
+        if name != "quantize_sign":
+            by_path["switch_int8_reentry"] = \
+                switching["reentry"]["launches"][name]
         # read from the last (compressed) global step of each run
         per_step = {f"wire_{k}": wire["runs"][k]["steps"][-1][
             name.split("_")[0]] for k in runs}

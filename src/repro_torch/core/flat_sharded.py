@@ -134,41 +134,47 @@ class ShardedFlatLayout:
         """Leaf indices of group ``g``, in layout order."""
         return tuple(j for j, lg in enumerate(self.leaf_group) if lg == g)
 
-    def ravel_group(self, g: int, leaves: list) -> torch.Tensor:
+    def ravel_group(self, g: int, leaves: list, pad: float = 0.0
+                    ) -> torch.Tensor:
         """Group ``g``'s leaves (``leaves`` in layout order; the others
         are not read and may be ``None``) -> a new contiguous
-        ``(group_sizes[g],)`` float32 on their device.  Padding is zero,
-        so padding columns never carry gradient."""
+        ``(group_sizes[g],)`` float32 on their device.  Padding is ``pad``,
+        zero by default, so padding columns never carry gradient."""
         members = self.group_leaves(g)
-        flat = torch.zeros((self.group_sizes[g],), dtype=torch.float32,
-                           device=leaves[members[0]].device)
+        flat = torch.full((self.group_sizes[g],), pad, dtype=torch.float32,
+                          device=leaves[members[0]].device)
         for j in members:
             o, n = self.offsets[j], self.sizes[j]
             flat[o:o + n].copy_(leaves[j].reshape(-1))
         return flat
 
-    def unravel_group(self, g: int, group_flat: torch.Tensor) -> list:
-        """Contiguous group flat -> that group's leaves, each cast to its
-        own dtype into storage of its own."""
+    def unravel_group(self, g: int, group_flat: torch.Tensor,
+                      dtype: torch.dtype | None = None) -> list:
+        """Contiguous group flat -> that group's leaves, each cast to
+        ``dtype`` or, by default, to its own dtype, into storage of its
+        own."""
         return [group_flat[self.offsets[j]:self.offsets[j] + self.sizes[j]]
-                .reshape(self.shapes[j]).to(self.dtypes[j], copy=True)
+                .reshape(self.shapes[j]).to(dtype or self.dtypes[j],
+                                            copy=True)
                 for j in self.group_leaves(g)]
 
-    def unravel_groups(self, group_flats: Iterable[torch.Tensor]) -> Params:
-        """Per-group contiguous flats, in group order -> the whole tree.
-        A generator is consumed one group at a time, so only one group's
-        flat need be alive."""
+    def unravel_groups(self, group_flats: Iterable[torch.Tensor],
+                       dtype: torch.dtype | None = None) -> Params:
+        """Per-group contiguous flats, in group order -> the whole tree,
+        each leaf cast as :meth:`unravel_group` casts it.  A generator is
+        consumed one group at a time, so only one group's flat need be
+        alive."""
         leaves: list = [None] * len(self.sizes)
         for g, gflat in enumerate(group_flats):
             for j, leaf in zip(self.group_leaves(g),
-                               self.unravel_group(g, gflat)):
+                               self.unravel_group(g, gflat, dtype)):
                 leaves[j] = leaf
         return self.unflatten(leaves)
 
-    def ravel(self, tree: Params) -> torch.Tensor:
+    def ravel(self, tree: Params, pad: float = 0.0) -> torch.Tensor:
         """Tree -> a new (padded_total,) float32 in shard-major group
         order: shard ``s``'s slice is the concatenation of every group's
-        ``s``-th sub-slice."""
+        ``s``-th sub-slice.  Padding is ``pad``, zero by default."""
         leaves = self.leaves(tree)
         flat = torch.empty((self.padded_total,), dtype=torch.float32,
                            device=leaves[0].device)
@@ -176,19 +182,22 @@ class ShardedFlatLayout:
         for g in range(self.num_groups):
             lo, hi = self.group_shard_bounds(g)
             rows[:, lo:hi].copy_(
-                self.ravel_group(g, leaves).view(self.num_shards, -1))
+                self.ravel_group(g, leaves, pad).view(self.num_shards, -1))
         return flat
 
-    def unravel(self, flat: torch.Tensor) -> Params:
+    def unravel(self, flat: torch.Tensor,
+                dtype: torch.dtype | None = None) -> Params:
         """The tree of a shard-major ``(padded_total,)`` vector, each leaf
-        in its own dtype and storage.  Group ``g``'s contiguous flat is
-        column slice ``g`` of every shard's row, which is what a tiled
-        ``all_gather`` of the shards' sub-slices gives."""
+        in storage of its own, cast to ``dtype`` or, by default, to its
+        own dtype (the reference's ``unravel(flat, dtype)``: an Adagrad
+        accumulator stays float32 for a bfloat16 model).  Group ``g``'s
+        contiguous flat is column slice ``g`` of every shard's row, which
+        is what a tiled ``all_gather`` of the shards' sub-slices gives."""
         rows = flat.view(self.num_shards, self.shard_size)
         return self.unravel_groups(
-            rows[:, lo:hi].reshape(-1)
-            for lo, hi in map(self.group_shard_bounds,
-                              range(self.num_groups)))
+            (rows[:, lo:hi].reshape(-1)
+             for lo, hi in map(self.group_shard_bounds,
+                               range(self.num_groups))), dtype)
 
     def shard_bounds(self, s: int) -> tuple[int, int]:
         """[start, stop) of shard ``s``'s flat slice."""

@@ -132,7 +132,13 @@ def aggregate_embedding(ids_stacked: torch.Tensor, rows_stacked: torch.Tensor,
     updated after the slot's token was issued (``last_update[id] <=
     token``: the row's data is unchanged, Insight 2).  Kept rows are summed
     per ID in entry order and divided by ``max(counts, 1)``, the number of
-    kept entries of the ID."""
+    kept entries of the ID.
+
+    The sums and counts are one ``embedding_bag_grad`` call over the
+    ``M * n`` entries as bags of one id, the entries not kept sent to the
+    sentinel id ``capacity``: on a card its kernel sums each id's rows in
+    entry order, so the result is deterministic, and on the CPU its plain
+    version does the same."""
     d = rows_stacked.shape[-1]
     in_range = (ids_stacked >= 0) & (ids_stacked < capacity)
     if valid is not None:
@@ -142,15 +148,10 @@ def aggregate_embedding(ids_stacked: torch.Tensor, rows_stacked: torch.Tensor,
     id_fresh = last_update[safe_ids] <= tokens[:, None]          # (M, n)
     keep = (slot_ok[:, None] | id_fresh) & in_range
 
-    flat_ids = safe_ids.reshape(-1)
-    flat_keep = keep.reshape(-1).float()
-    flat_rows = rows_stacked.reshape(-1, d).float() * flat_keep[:, None]
-    dense = torch.zeros((capacity, d), dtype=torch.float32,
-                        device=rows_stacked.device)
-    dense.index_add_(0, flat_ids, flat_rows)
-    counts = torch.zeros((capacity,), dtype=torch.float32,
-                         device=rows_stacked.device)
-    counts.index_add_(0, flat_ids, flat_keep)
+    kept_ids = torch.where(keep, safe_ids, capacity).to(torch.int32)
+    dense, counts = ops.pooled_lookup_grad(
+        kept_ids.reshape(-1, 1), rows_stacked.reshape(-1, d).float(),
+        capacity)
     return dense / torch.clamp(counts, min=1.0)[:, None], counts
 
 

@@ -7,20 +7,93 @@ its own batch shard and its own token, and also one PS shard that owns a
 contiguous tile-aligned slice of the flat parameter vector
 (``ShardedFlatLayout``).  Here the W workers and W shards run in one
 process on one device, the worker axis written out as a loop, and the
-collectives are ``repro_torch.distributed.inprocess``'s.  The reference's
-pytree sync step (``make_gba_psum_step``) is not ported (ROADMAP.md).
+collectives are ``repro_torch.distributed.inprocess``'s.
+
+:func:`make_gba_psum_step` is the reference's pytree all-reduce step, the
+switching harness's sync mode (``repro_torch.launch.switch_driver``):
+each worker's gradient is scaled by its Eq. (1) weight over M and the
+workers are summed in worker order, as ``lax.psum`` adds them; the
+optimizer then updates the tree.  It launches no kernel.
 """
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.core.compression import MOMENTUM, CompressionPolicy
 from repro_torch.core.flat_sharded import ShardedFlatLayout, make_sharded_apply
+from repro_torch.core.gba import path_unflatten, tree_paths
 from repro_torch.core.staleness import threshold_decay
 from repro_torch.distributed import inprocess as world
 from repro_torch.kernels import ops
+from repro_torch.optim import Optimizer
+
+
+def _split_batch(batch: dict, m: int) -> int:
+    """The rows of the batch each of ``m`` workers takes."""
+    sizes = {v.shape[0] for v in batch.values()}
+    if len(sizes) != 1 or next(iter(sizes)) % m:
+        raise ValueError(f"the batch's leading axes {sorted(sizes)} must "
+                         f"be one size divisible by {m} workers")
+    return next(iter(sizes)) // m
+
+
+def _weighted_loss(losses: list, weights: torch.Tensor) -> torch.Tensor:
+    """``psum(loss_w * w_w) / M``: the workers' weighted losses added in
+    worker order from +0.0, as ``lax.psum`` adds the devices."""
+    loss = torch.zeros((), dtype=losses[0].dtype, device=losses[0].device)
+    for w, loss_w in enumerate(losses):
+        loss = loss + loss_w * weights[w]
+    return loss / len(losses)
+
+
+def make_gba_psum_step(workers: int, loss_fn: Callable,
+                       optimizer: Optimizer, iota: int) -> Callable:
+    """``step(params, opt_state, batch, tokens, gstep) -> (params,
+    opt_state, loss)``: the pytree all-reduce GBA step of ``workers`` = M
+    workers on one device.
+
+    ``batch`` is a dict of tensors whose leading axis splits evenly over
+    the workers (worker ``w`` takes the ``w``-th chunk); ``tokens`` is
+    (M,) int32, one per worker, and ``gstep`` the global step.  Worker
+    after worker: its loss and gradient at ``params`` on its chunk, each
+    leaf scaled by ``(w / M)`` cast to the leaf's dtype, ``w`` the Eq. (1)
+    weight of its token; the scaled gradients are added in worker order
+    from +0.0 (Alg. 2 l.22), the loss is ``sum(loss_w * w) / M``, and
+    ``optimizer.update`` gives the new params and state.  The optimizer
+    returns new tensors, so ``params`` and ``opt_state`` are left as they
+    were and a caller may discard the result."""
+    m = workers
+
+    def step(params: Any, opt_state: Any, batch: dict,
+             tokens: torch.Tensor, gstep: int) -> tuple[Any, Any,
+                                                        torch.Tensor]:
+        if tuple(tokens.shape) != (m,):
+            raise ValueError(f"tokens must be ({m},), got "
+                             f"{tuple(tokens.shape)}")
+        b = _split_batch(batch, m)
+        paths, leaves = zip(*tree_paths(params))
+        weights = threshold_decay(tokens, gstep, iota)
+        agg = [torch.zeros_like(x) for x in leaves]
+        losses = []
+        for w in range(m):
+            live = [x.detach().requires_grad_() for x in leaves]
+            chunk = {k: v[w * b:(w + 1) * b] for k, v in batch.items()}
+            with torch.enable_grad():
+                loss_w = loss_fn(path_unflatten(paths, live), chunk)
+                grads = torch.autograd.grad(loss_w, live)
+            scale = weights[w] / m
+            for a, g in zip(agg, grads):
+                a.add_(g * scale.to(g.dtype))
+            del grads, live
+            losses.append(loss_w.detach())
+        params, opt_state = optimizer.update(
+            params, path_unflatten(paths, agg), opt_state)
+        return params, opt_state, _weighted_loss(losses, weights)
+
+    return step
 
 
 def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
@@ -64,13 +137,20 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
        block, reused shard after shard;
     6. apply: one ``gba_apply`` launch per shard on its contiguous slice,
        weighing worker ``w`` by Eq. (1) with its token;
-    7. the loss: the sum over workers, in worker order as ``psum`` adds
-       them, of ``loss_w * decay(token_w)``, divided by M.
+    7. the loss: the sum over workers, in worker order from +0.0 as
+       ``psum`` adds them, of ``loss_w * decay(token_w)``, divided by M
+       (computed before step 6, which it gates).
 
     ``warm=True`` builds the warmup step of a lossy policy: float32
     routing as ``"none"``, the residual untouched, the onebit momentum
     already accumulating.  The reference's EMA is one fused multiply-add
-    under XLA on the CPU; here it is a product and a sum, each rounded."""
+    under XLA on the CPU; here it is a product and a sum, each rounded.
+
+    The loss is read on the host before step 6, and where it is not
+    finite the apply is skipped: params and accumulator stay as they were,
+    as the reference's switching harness keeps its old state after such a
+    step.  The wire state has by then taken the step's update (step 3
+    writes it in place)."""
     m = workers
     if layout.num_shards != m:
         raise ValueError(f"layout has {layout.num_shards} shards but there "
@@ -118,11 +198,7 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                 for k in compress.state_names()):
             raise ValueError(f"wire state {compress.state_names()} must be "
                              f"({m}, {layout.padded_total}) each")
-        sizes = {v.shape[0] for v in batch.values()}
-        if len(sizes) != 1 or next(iter(sizes)) % m:
-            raise ValueError(f"the batch's leading axes {sorted(sizes)} must "
-                             f"be one size divisible by {m} workers")
-        b = next(iter(sizes)) // m
+        b = _split_batch(batch, m)
         dev = param_flat.device
         leaves = layout.leaves(world.all_gather(layout, param_flat))
         routed = torch.empty((m, m, ss), device=dev, dtype=(
@@ -156,14 +232,11 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                     world.route(dst, w, lo // tile, hi // tile, src)
             del grads
         del leaves
-        apply_shards(param_flat, accum_flat,
-                     dequantized(routed, sides) if quantized else routed,
-                     tokens, gstep, lr)
-        weights = threshold_decay(tokens, gstep, iota)
-        loss = losses[0] * weights[0]
-        for w in range(1, m):
-            loss = loss + losses[w] * weights[w]
-        loss = loss / m
+        loss = _weighted_loss(losses, threshold_decay(tokens, gstep, iota))
+        if math.isfinite(loss.item()):
+            apply_shards(param_flat, accum_flat,
+                         dequantized(routed, sides) if quantized else routed,
+                         tokens, gstep, lr)
         if scheme == "none":
             return param_flat, accum_flat, loss
         return param_flat, accum_flat, loss, wire

@@ -86,6 +86,14 @@ COUNTS_THREADS = 256           # threads a block of the D = 0 kernel, one an SM
 COUNTS_MAX_IDS = 1 << 24       # float32 sums of whole numbers exact up to it
 
 
+def _check_counts(num_ids: int) -> None:
+    """The counts contract on every device: at most ``COUNTS_MAX_IDS`` ids
+    a call."""
+    if num_ids > COUNTS_MAX_IDS:
+        raise ValueError(f"{num_ids} ids: the counts kernel adds float32 "
+                         f"ones, exact for up to {COUNTS_MAX_IDS} ids a call")
+
+
 def _cover(capacity: int, tile_rows: int) -> int:
     return -(-capacity // tile_rows)
 
@@ -194,9 +202,7 @@ def embedding_bag_grad_counts(ids: torch.Tensor, capacity: int
         raise ValueError("ids must be contiguous")
     if not 0 <= capacity <= _INT_MAX:
         raise ValueError(f"capacity {capacity} too large for int32 indexing")
-    if ids.numel() > COUNTS_MAX_IDS:
-        raise ValueError(f"{ids.numel()} ids: the counts kernel adds float32 "
-                         f"ones, exact for up to {COUNTS_MAX_IDS} ids a call")
+    _check_counts(ids.numel())
     if ids.device.type != "cuda":
         raise ValueError(f"ids must lie on a CUDA device, got {ids.device}")
     counts = torch.empty((capacity,), dtype=torch.float32, device=ids.device)
@@ -247,9 +253,12 @@ def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
     the result is deterministic.  On a CUDA device a width D > 0 sorts the
     ids (:func:`sort_ids`) and launches the segment kernel; D = 0 asks for
     the counts alone and launches a counts kernel on the raw ids
-    (:func:`embedding_bag_grad_counts`, at most ``COUNTS_MAX_IDS`` ids),
-    with no sort: one launch either way."""
+    (:func:`embedding_bag_grad_counts`), with no sort: one launch either
+    way.  D = 0 takes at most ``COUNTS_MAX_IDS`` ids a call on every
+    device."""
     _check_grad_args(ids, grad_out, capacity)
+    if grad_out.shape[1] == 0:
+        _check_counts(ids.numel())
     if ids.device.type == "cpu":
         return embedding_bag_grad_ref(ids, grad_out, capacity)
     if grad_out.shape[1] == 0:

@@ -1,6 +1,6 @@
 """The LM's GBA training programs: ``build_programs``.
 
-Counterpart of ``repro.launch.programs`` for three of its modes.
+Counterpart of ``repro.launch.programs`` for its four modes.
 
 ``pytree``
     One device, any optimizer: the reference launcher's default LM path
@@ -25,11 +25,19 @@ Counterpart of ``repro.launch.programs`` for three of its modes.
     (``repro_torch.core.compression``), and each shard applies with one
     ``gba_apply`` launch.  ``(warm_step, compressed_step)`` are two step
     functions, switched by the launcher at ``compress.warmup_steps``.
+``sync_psum``
+    W workers in one process on one device
+    (``core.gba_shard_map.make_gba_psum_step``): per global step every
+    worker's gradient of its own slice of the batch, scaled by its Eq. (1)
+    weight over W, summed over the workers in order, then Adagrad (PyTorch
+    operators, as in the reference) on the tree.  The switching harness's
+    sync mode.
 
-The reference's sync_psum mode and its sharded fused path over a mesh are
-not ported (ROADMAP.md) and raise.  PyTorch runs eagerly, so there is
-nothing to jit: a "program" is the step function, and it updates its state
-in place where the reference donates it.
+The reference's sharded fused path over a mesh is not ported
+(ROADMAP.md).  PyTorch runs eagerly, so there is nothing to jit: a "program"
+is the step function, and it updates its state in place where the
+reference donates it (the sync_psum step returns new tensors, as its
+optimizer does).
 """
 from __future__ import annotations
 
@@ -44,11 +52,12 @@ from repro_torch.core.flat_sharded import TILE, ShardedFlatLayout
 from repro_torch.core.gba import (FlatLayout, flat_buffer_push,
                                   init_flat_buffer, path_unflatten,
                                   tree_paths)
-from repro_torch.core.gba_shard_map import make_gba_fused_psum_step
+from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
+                                            make_gba_psum_step)
 from repro_torch.core.staleness import threshold_decay
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.optim import Optimizer, get_optimizer, tree_map
+from repro_torch.optim import Optimizer, adagrad, get_optimizer, tree_map
 
 # the paper's GBA mode runs Adam (Tab. 5.1, "Others"); the 1T MoE cannot hold
 # Adam's two f32 moments at 512 chips, so it trains with Adagrad, the
@@ -59,6 +68,14 @@ ARCH_ACC_DTYPE = {"kimi-k2-1t-a32b": torch.bfloat16}
 
 def _loss_from_batch(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return T.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    """``loss_fn(params, batch) -> scalar``, the LM loss of ``cfg``: the
+    signature of the worker-parallel steps and the switching harness."""
+    def loss_fn(params, batch):
+        return _loss_from_batch(params, cfg, batch)
+    return loss_fn
 
 
 def loss_and_grads(cfg: ModelConfig, params: Any, batch: dict
@@ -182,13 +199,11 @@ def make_wire_psum_steps(cfg: ModelConfig, gba: GBAConfig,
     layer-grouped step (``core.gba_shard_map``) on the LM loss: with a
     lossy policy, the float32 warmup step and the quantized one; with
     ``compress=None`` or scheme ``"none"``, one uncompressed step twice."""
-    def loss_fn(params, batch):
-        return _loss_from_batch(params, cfg, batch)
-
     def build(warm: bool) -> Callable:
         return make_gba_fused_psum_step(
-            workers, loss_fn, layout, iota=gba.staleness_tolerance, lr=lr,
-            compress=compress, warm=warm)
+            workers, make_loss_fn(cfg), layout,
+            iota=gba.staleness_tolerance, lr=lr, compress=compress,
+            warm=warm)
 
     if compress is None or not compress.stateful:
         step = build(False)
@@ -215,7 +230,8 @@ class TrainPrograms:
     ``optimizer``; ``fused`` fills ``layout``, ``state`` (``params``,
     ``accum``, ``buffer``) and ``step``; ``wire`` fills ``layout``,
     ``state`` (``param_flat``, ``accum``), ``warm_step``,
-    ``compressed_step`` and ``wire_state``."""
+    ``compressed_step`` and ``wire_state``; ``sync_psum`` fills ``state``
+    (``params``, ``opt``), ``step`` and ``optimizer``."""
 
     layout: Any
     state: dict
@@ -244,8 +260,11 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     ``ShardedFlatLayout`` over ``TILE``, layer-grouped by
     ``models.transformer.param_group_key`` unless ``layer_groups`` is
     False; ``param_flat`` is the raveled params, ``accum`` is filled with
-    ``INITIAL_ACCUM``.  The reference's other modes are not ported and
-    raise ``NotImplementedError``."""
+    ``INITIAL_ACCUM``.
+
+    ``sync_psum`` runs ``workers`` workers with ``optimizer`` or, by
+    default, Adagrad at ``lr`` with ``INITIAL_ACCUM``, as the reference's
+    ``build_programs(mode="sync_psum")``."""
     T.check_supported(cfg)
     if mode == "pytree":
         opt = optimizer or get_optimizer(
@@ -276,6 +295,15 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
             layout=layout, state=state, warm_step=warm, compressed_step=comp,
             wire_state=init_wire_state(layout, compress, workers,
                                        param_flat.device))
-    raise NotImplementedError(
-        f"mode {mode!r} is not ported yet: the port has the pytree, fused "
-        f"and wire modes only (see ROADMAP.md)")
+    if mode == "sync_psum":
+        if workers < 1:
+            raise ValueError(f"sync_psum mode needs 1 or more workers, got "
+                             f"{workers}")
+        opt = optimizer or adagrad(lr, initial_accum=INITIAL_ACCUM)
+        return TrainPrograms(
+            layout=None, state={"params": params, "opt": opt.init(params)},
+            step=make_gba_psum_step(workers, make_loss_fn(cfg), opt,
+                                    gba.staleness_tolerance),
+            optimizer=opt)
+    raise ValueError(f"unknown mode {mode!r}: expected "
+                     f"pytree|fused|wire|sync_psum")

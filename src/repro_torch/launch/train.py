@@ -8,6 +8,8 @@ smoke.
     python -m repro_torch.launch.train --arch granite-8b --fused \\
         --mesh 4x1 [--compress {none,int8,onebit}] [--compress-warmup 2] \\
         [--layer-groups {on,off}] [--reduced] [--steps 20] [--batch 4] ...
+    python -m repro_torch.launch.train --arch granite-8b --mesh 4x1 \\
+        --autoswitch [--plan {quiet,strained}] [--batches 120] [--reduced]
     python -m repro_torch.launch.train --vocab 1000000 --steps 5 \\
         [--embed-dim 16] [--batch 4] [--lr 1e-3] [--device cuda]
 
@@ -31,8 +33,16 @@ routes it per layer group to the shards, and each shard applies with one
 routing after ``--compress-warmup`` float32 global steps.  A model axis
 above 1 is not ported.  The reference's launcher sends ``--compress none``
 to its sharded fused flat-buffer step, which is not ported; here it runs
-the same worker-parallel schedule without wire state.  The reference's
-``--autoswitch`` and the JAX-only ``--host-devices`` are not ported.
+the same worker-parallel schedule without wire state.
+
+``--mesh Wx1 --autoswitch`` runs the switching harness
+(``repro_torch.launch.switch_driver``) on the arch's steps
+(``run_autoswitch``): the pytree sync step with Adagrad and the
+token-controlled worker-parallel async step, W workers with ``--batch``
+sequences each, under the ``--plan`` fault plan, switching on live
+telemetry over ``--batches`` local batches.  It needs no ``--fused`` and 2
+or more workers.  The reference's JAX-only ``--host-devices`` is not
+ported.
 
 ``--vocab`` is the counterpart of ``run_embedding_smoke`` in
 ``repro.launch.train``: a ``--vocab``-row hashed table trained end to end
@@ -62,7 +72,7 @@ from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.programs import (ARCH_OPTIMIZER, TrainPrograms,
-                                         build_programs)
+                                         build_programs, make_loss_fn)
 from repro_torch.models import transformer as T
 from repro_torch.optim import get_optimizer
 
@@ -282,7 +292,49 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
     return losses
 
 
-def main(argv: list[str] | None = None) -> list[float]:
+def run_autoswitch(cfg: ModelConfig, *, workers: int,
+                   plan: str = "strained", batches: int = 120,
+                   batch: int = 4, seq: int = 128, iota: int = 4,
+                   lr: float = 1e-3, mode: str = "auto",
+                   device: str | torch.device = "cuda",
+                   params: dict | None = None):
+    """Run ``cfg``'s sync and async steps under the switching harness:
+    ``workers`` workers, each taking local batch ``i`` of the LM stream
+    (seed 0, ``batch`` sequences of ``seq`` tokens) as its slot, on the
+    ``plan`` fault plan of ``switch_driver.demo_plan`` over ``batches``
+    local batches, in ``mode`` (``"auto"``: the controller decides).  The
+    layout is the layer-grouped one of the wire step.  Parameters are
+    drawn from seed 0 on the device unless ``params`` (on ``device``) are
+    given.  Prints the reference launcher's summary line and returns the
+    ``SwitchResult``."""
+    from repro_torch.launch.switch_driver import (SwitchConfig, SwitchDriver,
+                                                  demo_plan, demo_spec)
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_model(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    print(f"{cfg.name}: {T.param_count(params) / 1e6:.1f}M params on {dev}")
+    stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
+    swcfg = SwitchConfig(local_batch=batch, iota=iota, lr=lr)
+    driver = SwitchDriver(workers, make_loss_fn(cfg), params,
+                          spec=demo_spec(workers),
+                          plan=demo_plan(plan, workers), cfg=swcfg,
+                          batch_fn=stream.batch, group_by=T.param_group_key)
+    del params
+    res = driver.run(batches, mode=mode)
+    print(f"autoswitch ({plan}): {res.num_global_steps} global "
+          f"steps, {res.switch_count} switch(es), mode steps "
+          f"{res.mode_steps}, first switch at gstep "
+          f"{res.time_to_first_switch_steps}, sim qps {res.qps:,.0f}, "
+          f"crashes {res.crashes} rejoins {res.rejoins} timeouts "
+          f"{res.timeouts}, swaps verified {res.swaps_verified}, "
+          f"final loss {res.losses[-1] if res.losses else float('nan'):.4f}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise RuntimeError(f"autoswitch run diverged: losses {res.losses}")
+    return res
+
+
+def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS,
                     help="LM architecture (granite-8b is ported)")
@@ -301,9 +353,9 @@ def main(argv: list[str] | None = None) -> list[float]:
                          "(forces Adagrad); default: the pytree step with "
                          "the arch's optimizer")
     ap.add_argument("--mesh", default="",
-                    help="WORKERSx1 (needs --fused): that many PS workers "
-                         "and shards in one process on the device (the "
-                         "worker-parallel wire step), e.g. 4x1")
+                    help="WORKERSx1 (needs --fused or --autoswitch): that "
+                         "many PS workers and shards in one process on the "
+                         "device (the worker-parallel wire step), e.g. 4x1")
     ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
                     help="layer-grouped flat layout of the wire step: one "
                          "gather and one route per layer group")
@@ -314,6 +366,17 @@ def main(argv: list[str] | None = None) -> list[float]:
                          "feedback, onebit = sign of momentum")
     ap.add_argument("--compress-warmup", type=int, default=2,
                     help="float32 global steps before the quantized wire")
+    ap.add_argument("--autoswitch", action="store_true",
+                    help="the switching harness on the arch's sync and "
+                         "async steps under --plan (needs --mesh "
+                         "WORKERSx1 with 2 or more workers)")
+    ap.add_argument("--plan", choices=("quiet", "strained"),
+                    default="strained",
+                    help="fault plan of --autoswitch: quiet (a vacant "
+                         "cluster) or strained (25%% stragglers at 4x and "
+                         "one transient crash)")
+    ap.add_argument("--batches", type=int, default=120,
+                    help="local batches --autoswitch streams")
     ap.add_argument("--embed-dim", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -328,6 +391,16 @@ def main(argv: list[str] | None = None) -> list[float]:
         opt_name = ARCH_OPTIMIZER.get(cfg.name, "adam")
         if args.reduced:
             cfg = cfg.reduced()
+        if args.autoswitch:
+            workers, _, model = args.mesh.partition("x")
+            if not (workers.isdigit() and int(workers) >= 2
+                    and model in ("", "1")):
+                ap.error(f"--autoswitch needs --mesh WORKERSx1 with 2 or "
+                         f"more workers, got --mesh {args.mesh!r}")
+            return run_autoswitch(
+                cfg, workers=int(workers), plan=args.plan,
+                batches=args.batches, batch=args.batch, seq=args.seq,
+                iota=args.iota, lr=args.lr, device=args.device)
         if not args.fused:
             if args.mesh:
                 ap.error("--mesh: the pytree step over PS workers is not "

@@ -514,3 +514,23 @@ def test_segment_runs_across_chunks_and_tiles_keep_entry_order(
     np.testing.assert_array_equal(plain_gt.view(np.uint32),
                                   want_gt.view(np.uint32))
     np.testing.assert_array_equal(plain_cnt, want_cnt)
+
+
+@pytest.mark.parametrize("path", ["presence_counts", "embedding_bag_grad"])
+def test_counts_refuse_more_ids_than_the_kernel_on_the_cpu_too(path):
+    """One counts contract on every device: more than ``COUNTS_MAX_IDS``
+    ids a call are refused by the plain version too, with the message of
+    the counts launch."""
+    ids = torch.zeros((COUNTS_MAX_IDS + 1,), dtype=torch.int32)
+    with pytest.raises(ValueError) as launch:
+        embedding_bag_grad_counts(ids, 5)
+    with pytest.raises(ValueError) as plain:
+        if path == "presence_counts":
+            presence_counts(ids, 5)
+        else:
+            embedding_bag_grad(ids.reshape(1, -1), torch.zeros((1, 0)), 5)
+    assert str(plain.value) == str(launch.value)
+    assert "exact for up to 16777216 ids" in str(plain.value)
+    # at the limit the plain version counts, exactly
+    counts = presence_counts(ids[:COUNTS_MAX_IDS], 5)
+    assert counts.tolist() == [float(COUNTS_MAX_IDS), 0.0, 0.0, 0.0, 0.0]

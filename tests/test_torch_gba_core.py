@@ -19,6 +19,7 @@ from repro.core import gba as jgba
 from repro.core import staleness as jstaleness
 from repro.core import tokens as jtokens
 from repro_torch.core import gba, staleness, tokens
+from repro_torch.kernels import ops
 
 
 def test_token_list_construction():
@@ -179,6 +180,35 @@ def test_aggregate_embedding_matches_jax_on_random_slots(seed):
     np.testing.assert_allclose(dense, jdense, rtol=1e-6, atol=1e-7)
     assert counts.sum() > 0 and (counts < ((ids >= 0) & (ids < cap)
                                            ).sum()).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_aggregate_embedding_is_one_pooled_lookup_grad(seed):
+    """The aggregate goes through ``embedding_bag_grad`` (one call, the
+    entries not kept sent to the sentinel id), and on the CPU it gives
+    what ``index_add_`` of the kept rows, in entry order, gives."""
+    rng = np.random.default_rng(seed)
+    m, n, d, cap = 4, 64, 8, 50
+    ids = torch.from_numpy(rng.integers(-3, cap + 3, (m, n)).astype(np.int32))
+    rows = torch.from_numpy(rng.standard_normal((m, n, d)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, 10, m).astype(np.int32))
+    last = torch.from_numpy(rng.integers(0, 10, cap).astype(np.int32))
+    valid = torch.from_numpy(rng.random((m, n)) > 0.1)
+    calls = ops.kernel_calls["pooled_lookup_grad"]
+    dense, counts = gba.aggregate_embedding(ids, rows, toks, last, 9, 2, cap,
+                                            valid=valid)
+    assert ops.kernel_calls["pooled_lookup_grad"] == calls + 1
+    keep = (((9 - toks) <= 2)[:, None]
+            | (last[torch.where((ids >= 0) & (ids < cap), ids, 0).long()]
+               <= toks[:, None])) & (ids >= 0) & (ids < cap) & valid
+    flat = torch.where(keep, ids, 0).reshape(-1).long()
+    want = torch.zeros((cap, d)).index_add_(
+        0, flat, rows.reshape(-1, d) * keep.reshape(-1, 1).float())
+    want_counts = torch.zeros(cap).index_add_(0, flat,
+                                              keep.reshape(-1).float())
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(dense.view(torch.int32), (
+        want / torch.clamp(want_counts, min=1.0)[:, None]).view(torch.int32))
 
 
 @pytest.mark.parametrize("m", [3, 4])

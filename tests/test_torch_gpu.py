@@ -1144,3 +1144,72 @@ def test_planned_shared_memory_is_the_kernels(kernel):
                  for chunk in (0, 32, eb.RESIDENT_MIN_CHUNK,
                                eb.RESIDENT_MAX_THREADS)]
     assert [own(*args) for args, _ in cases] == [n for _, n in cases]
+
+
+def test_aggregate_embedding_on_the_card_is_deterministic():
+    """``aggregate_embedding`` runs through ``embedding_bag_grad``: one
+    launch a call, sums in entry order, so two calls agree bit for bit and
+    equal the plain version on a CPU copy."""
+    _need_card()
+    from repro_torch.core.gba import aggregate_embedding
+    gen = torch.Generator().manual_seed(21)
+    m, n, d, cap = 16, 512, 16, 300
+    args = (torch.randint(-3, cap + 3, (m, n), generator=gen,
+                          dtype=torch.int32),
+            torch.randn((m, n, d), generator=gen),
+            torch.randint(0, 10, (m,), generator=gen, dtype=torch.int32),
+            torch.randint(0, 10, (cap,), generator=gen, dtype=torch.int32))
+    valid = torch.rand((m, n), generator=gen) > 0.1
+    want = aggregate_embedding(*args, 9, 2, cap, valid=valid)
+    card = [a.cuda() for a in args]
+    launches = embedding_bag_grad.launches
+    first = aggregate_embedding(*card, 9, 2, cap, valid=valid.cuda())
+    second = aggregate_embedding(*card, 9, 2, cap, valid=valid.cuda())
+    torch.cuda.synchronize()
+    assert embedding_bag_grad.launches == launches + 2
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.cpu().view(torch.int32), w.view(torch.int32))
+
+
+def test_switch_driver_on_the_card_matches_the_cpu():
+    """The demo driver on the card: every simulated field of the strained
+    run equal to the CPU run's, one ``gba_apply`` launch per shard and
+    async global step, and the fused replays of a switched schedule bit
+    for bit equal to the unswitched ones."""
+    _need_card()
+    import json
+    from repro_torch.launch import switch_driver as SD
+
+    def driver(device, impl="psum"):
+        params, loss_fn, group_by = SD.demo_model(device=device)
+        return SD.SwitchDriver(
+            4, loss_fn, params, spec=SD.demo_spec(4),
+            plan=SD.demo_plan("strained", 4),
+            cfg=SD.SwitchConfig(local_batch=64, sync_impl=impl),
+            batch_fn=SD.demo_batch_fn(64), group_by=group_by)
+
+    def fields(r):
+        out = r.to_json()
+        out.pop("final_loss")
+        return json.dumps(out, sort_keys=True)
+
+    launches = gba_apply.launches
+    card = driver("cuda").run(96, mode="auto")
+    torch.cuda.synchronize()
+    host = driver("cpu").run(96, mode="auto")
+    assert fields(card) == fields(host) and card.swaps_verified >= 1
+    assert gba_apply.launches - launches == 4 * card.mode_steps["gba"]
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-5)
+    steps = [SD.GlobalStep((k,) * 4, tuple(range(4 * k, 4 * k + 4)))
+             for k in range(8)]
+    drv = driver("cuda", "fused")
+    runs = [drv.run_schedule(steps, modes) for modes in (
+        ["sync"] * 3 + ["gba"] * 3 + ["sync"] * 2, ["gba"] * 8,
+        ["sync"] * 8)]
+    for r in runs[1:]:
+        assert np.array_equal(r.param_flat.view(np.int32),
+                              runs[0].param_flat.view(np.int32))
+        assert np.array_equal(r.accum_flat.view(np.int32),
+                              runs[0].accum_flat.view(np.int32))
+        assert r.losses == runs[0].losses

@@ -442,15 +442,6 @@ def test_pytree_step_applies_on_every_mth_microstep_alone():
     assert applied_at == [4, 8] and state["micro"] == 8
 
 
-@pytest.mark.parametrize("mode", ["sync_psum"])
-def test_other_modes_are_not_ported(mode):
-    _, cfg = _cfgs("float32")
-    params = T.init_model(cfg, generator=torch.Generator().manual_seed(0),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_programs(cfg, GBAConfig(), params=params, mode=mode)
-
-
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------

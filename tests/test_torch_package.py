@@ -22,7 +22,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.recsys import CRITEO_DEEPFM
 from repro_torch.convert import params_from_jax
 from repro_torch.core import pretrain_sync
-from repro_torch.launch import quickstart, train
+from repro_torch.benchmarks import fig6_switching
+from repro_torch.launch import quickstart, switch_driver, train
 from repro_torch.models.recsys import init_recsys
 from repro_torch.models.transformer import init_model
 from repro_torch.serving import (RecsysScoringEngine, StaticSource,
@@ -53,7 +54,10 @@ def test_import_loads_no_jax():
             "repro_torch.kernels.gba_aggregate, "
             "repro_torch.kernels.fused_adagrad, "
             "repro_torch.kernels.flash_decode, repro_torch.serving.engine, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.sim.faults, "
+            "repro_torch.core.autoswitch, repro_torch.launch.switch_driver, "
+            "repro_torch.benchmarks.fig6_switching, "
+            "repro_torch.benchmarks.autoswitch; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -86,7 +90,9 @@ def test_forbidden_import_pattern():
                                    "init_recsys", "pretrain_sync",
                                    "quickstart", "train_vocab",
                                    "init_model", "train_arch",
-                                   "train_wire", "train_pytree"])
+                                   "train_wire", "train_pytree",
+                                   "train_autoswitch", "switch_driver",
+                                   "fig6_run"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(
         entry, tmp_path):
     if torch.cuda.is_available():
@@ -117,6 +123,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
                                           "--reduced", "--fused", "--mesh",
                                           "4x1", "--compress", "int8",
                                           "--steps", "1"]),
+        "train_autoswitch": lambda: train.main(["--arch", "granite-8b",
+                                                "--reduced", "--mesh", "4x1",
+                                                "--autoswitch"]),
+        "switch_driver": lambda: switch_driver.main(["--batches", "8"]),
+        "fig6_run": lambda: fig6_switching.run(1, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
