@@ -48,7 +48,16 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   schedule and its int8 re-entry case at the same width; the demo CLI
   (``repro_torch.launch.switch_driver``) and the paper's Fig. 6 and
   autoswitch benches (``repro_torch.benchmarks``) at the reference's
-  defaults.
+  defaults;
+* the paper's other two tasks, DIEN (``ALIMAMA_DIEN``: 50,021 x 19
+  embeddings, 8 fields, a GRU over 16 behaviour ids, target attention,
+  MLP 190 -> 128 -> 64 -> 1) and YouTubeDNN (``PRIVATE_YOUTUBEDNN``:
+  100,003 x 24, 12 fields, 32 behaviour ids, MLP 336 -> 256 -> 128 -> 64
+  -> 1), each from the reference's draw of ``jax.random.PRNGKey(0)``
+  reproduced in numpy, on the replay trainer: a GBA day of 16 workers at
+  local batch 256, M = 16, iota 4, Adam at lr 1e-3, 256 batches; and the
+  paper's remaining benches at the reference's defaults (multitask, decay
+  ablation, Fig. 3, Figs. 7/8, Theorems 1/2, Tab. 5.2).
 
 Phases:
 
@@ -141,13 +150,24 @@ Phases:
     breaker and scrape-dropout cases card against CPU; (e) the switching
     rows, the Fig. 6 continual protocol with its seconds and a replay
     day's idle share, and the autoswitch bench;
-15. one JSON line of the kernels, then the result line.
+15. the paper's three tasks: (a) for DIEN and YouTubeDNN, the first 4
+    GBA global steps card against CPU (``last_update`` and the slot
+    counts exact, losses within rtol 1e-4) and the stale schedule under
+    SGD (parameters within rtol 1e-5 / atol 1e-7, slots dropped and rows
+    rescued), then a counted GBA day (one ``embedding_bag_grad`` launch a
+    global step), its seconds split into data and steps, its next-day AUC
+    and a profile; (b) the six benches on the card: ``tab52_qps`` and
+    ``convergence`` rows equal to the JAX benches', ``multitask``'s AUCs
+    within 0.01 of the JAX bench's with both ``tuning_free=PASS``; the
+    decay ablation, Fig. 3 and Figs. 7/8 rows printed with their seconds;
+16. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
 microsteps, each scheme of the wire step, the pytree step, its tree ops,
 the resident oracle, the serve loop, the 32k decode, the engine, the
-autoswitch run, the int8 re-entry run) and read just after it, so
+autoswitch run, the int8 re-entry run, each model's GBA day of phase 15
+and the six benches) and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
@@ -197,6 +217,73 @@ JAX_QUICKSTART_AUC = (0.5633, 0.6970, 0.7417, 0.7728)
 HOLD_STEPS = 4                   # quickstart steps held card against CPU
 HOLD_LOSS_RTOL = 1e-4            # Adam: rounding grows to ~lr per step
 STALE_PARAM_RTOL, STALE_PARAM_ATOL = 1e-5, 1e-7   # SGD, f32 sum orders
+
+# the paper's three tasks (phase 15): DIEN and YouTubeDNN replayed from the
+# reference's draw of PRNGKey(0), a GBA day of 16 workers x 256 (M = 16,
+# iota 4, Adam 1e-3, the quickstart's cluster: 25 % stragglers at 5x), 256
+# batches a day (16 global steps), its first steps held card against CPU
+TASK_LOCAL_BATCH, TASK_BATCHES, TASK_LR = 256, 256, 1e-3
+# the JAX package's benches on the CPU (jax 0.9.0, their defaults), "name,
+# derived" without us_per_call: benchmarks/bench_convergence.py and
+# bench_tab52_qps.py's run are numpy, so the port's rows must equal these
+REF_CONVERGENCE_ROWS = (
+    "thm.sync_floor.G64,floor=3.249e-03",
+    "thm.sync_floor.G128,floor=1.625e-03",
+    "thm.sync_floor.G256,floor=8.123e-04",
+    "thm.sync_floor.G512,floor=4.061e-04",
+    "thm.floor_scales_inverse_G,ratios=0.50|0.50|0.50;expected=0.50;pass=True",
+    "thm.gba_floor.stale0,floor=7.988e-04;vs_sync=0.98",
+    "thm.gba_floor.stale2,floor=8.948e-04;vs_sync=1.10",
+    "thm.gba_floor.stale4,floor=9.859e-04;vs_sync=1.21",
+)
+REF_TAB52_ROWS = (
+    "tab52.qps.vacant.sync,qps=53542;std=1;avg_stale=0.00;max_stale=0;drops=0",
+    "tab52.qps.vacant.async,qps=114779;std=115;avg_stale=14.94;max_stale=23;"
+    "drops=0",
+    "tab52.qps.vacant.hop_bs,qps=114779;std=115;avg_stale=0.00;max_stale=0;"
+    "drops=0",
+    "tab52.qps.vacant.bsp,qps=114779;std=115;avg_stale=0.93;max_stale=1;"
+    "drops=0",
+    "tab52.qps.vacant.hop_bw,qps=85602;std=46;avg_stale=0.00;max_stale=0;"
+    "drops=480",
+    "tab52.qps.vacant.gba,qps=114779;std=115;avg_stale=0.00;max_stale=0;"
+    "drops=0",
+    "tab52.qps.moderate.sync,qps=23533;std=3661;avg_stale=0.00;max_stale=0;"
+    "drops=0",
+    "tab52.qps.moderate.async,qps=78299;std=340;avg_stale=14.94;max_stale=69;"
+    "drops=0",
+    "tab52.qps.moderate.hop_bs,qps=31387;std=7866;avg_stale=0.14;max_stale=2;"
+    "drops=0",
+    "tab52.qps.moderate.bsp,qps=78299;std=340;avg_stale=0.93;max_stale=4;"
+    "drops=0",
+    "tab52.qps.moderate.hop_bw,qps=45982;std=686;avg_stale=0.00;max_stale=0;"
+    "drops=480",
+    "tab52.qps.moderate.gba,qps=78299;std=340;avg_stale=0.14;max_stale=3;"
+    "drops=0",
+    "tab52.qps.strained.sync,qps=13243;std=2654;avg_stale=0.00;max_stale=0;"
+    "drops=0",
+    "tab52.qps.strained.async,qps=67714;std=2084;avg_stale=14.94;"
+    "max_stale=144;drops=0",
+    "tab52.qps.strained.hop_bs,qps=16959;std=4869;avg_stale=0.19;max_stale=2;"
+    "drops=0",
+    "tab52.qps.strained.bsp,qps=67714;std=2084;avg_stale=0.93;max_stale=9;"
+    "drops=0",
+    "tab52.qps.strained.hop_bw,qps=38345;std=1614;avg_stale=0.00;max_stale=0;"
+    "drops=480",
+    "tab52.qps.strained.gba,qps=67714;std=2084;avg_stale=0.17;max_stale=4;"
+    "drops=13",
+    "tab52.claims,gba_vs_async_qps=1.000;gba_vs_sync_speedup=5.11x;"
+    "claim_2.4x=PASS;hopbw_drops=480;gba_drops=13;gba_stale=0.17;"
+    "hopbs_stale=0.19",
+)
+# benchmarks/bench_multitask.py: the port's AUCs within MULTITASK_ATOL
+REF_MULTITASK = {
+    "alimama-dien": {"base_auc": 0.7587, "sync_first": 0.7553,
+                     "gba_first": 0.7554},
+    "private-youtubednn": {"base_auc": 0.7259, "sync_first": 0.7367,
+                           "gba_first": 0.7361},
+}
+MULTITASK_ATOL = 0.01
 
 # the LM slice: granite-8b at full width, depth 36 cut to 2; batch, seq, M,
 # iota and lr are the launcher's defaults (repro.launch.train)
@@ -3284,6 +3371,165 @@ def switch_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's three tasks
+# ---------------------------------------------------------------------------
+
+def _tree_close(card: dict, host: dict, rtol: float, atol: float,
+                prefix: str = "") -> list[str]:
+    """The leaves of a card parameter tree not within tolerance of the
+    CPU tree's."""
+    bad = []
+    for k, v in card.items():
+        if isinstance(v, dict):
+            bad += _tree_close(v, host[k], rtol, atol, f"{prefix}{k}/")
+        elif not torch.allclose(v.cpu(), host[k], rtol=rtol, atol=atol):
+            bad.append(prefix + k)
+    return bad
+
+
+def _strip_us(row: str) -> str:
+    name, _, derived = row.split(",", 2)
+    return f"{name},{derived}"
+
+
+def _derived(row: str) -> dict:
+    return dict(kv.split("=", 1) for kv in row.split(",", 2)[2].split(";"))
+
+
+def task_replay(T: dict, counters, cfg) -> dict:
+    """(a) one model: the first GBA global steps and the stale schedule
+    card against CPU, then a counted GBA day and its profile."""
+    host = T["jax_init_recsys"](cfg, 0, device="cpu")
+    card = T["tree_to_device"](host, torch.device("cuda"))
+    setup = T["ModeSetup"]("gba", 16, TASK_LOCAL_BATCH, buffer_size=16,
+                           iota=4)
+    stream = T["make_clickstream"](cfg, seed=0, batch_size=TASK_LOCAL_BATCH)
+    sched = T["schedule_for_day"](setup, T["quickstart"].SPEC, TASK_BATCHES)
+
+    def trainer():
+        return T["GBATrainer"](cfg, T["get_optimizer"]("adam", TASK_LR),
+                               iota=setup.iota)
+
+    head = T["Schedule"](sched.mode, sched.local_batch,
+                         sched.steps[:HOLD_STEPS])
+    runs = {}
+    for dev, p in (("cuda", card), ("cpu", host)):
+        tr = trainer()
+        runs[dev] = tr.replay(p, tr.optimizer.init(p), head, stream, 0)
+    _hold(f"{cfg.name} GBA head", runs["cuda"], runs["cpu"], HOLD_LOSS_RTOL)
+    head_diff = _max_diff(runs["cuda"][0], runs["cpu"][0])
+
+    slot = T["Slot"]
+    stale = T["Schedule"]("gba", 32, [
+        [slot(k * 3 + i, max(0, k - i), k, 1.0 if i < 2 else 0.0)
+         for i in range(3)] for k in range(4)])
+    stale_stream = T["make_clickstream"](cfg, seed=0, batches_per_day=16,
+                                         batch_size=32)
+    runs = {}
+    for dev, p in (("cuda", card), ("cpu", host)):
+        opt = T["get_optimizer"]("sgd", 0.05)
+        runs[dev] = T["GBATrainer"](cfg, opt, iota=1).replay(
+            p, opt.init(p), stale, stale_stream, 0)
+    _hold(f"{cfg.name} stale schedule", runs["cuda"], runs["cpu"], 1e-5)
+    check(runs["cuda"][3].embed_rows_rescued > 0
+          and runs["cuda"][3].dropped_slots > 0,
+          f"{cfg.name}: the stale schedule drops slots and rescues rows")
+    bad = _tree_close(runs["cuda"][0], runs["cpu"][0], STALE_PARAM_RTOL,
+                      STALE_PARAM_ATOL)
+    check(not bad, f"{cfg.name} stale schedule: parameters within rtol "
+                   f"{STALE_PARAM_RTOL} atol {STALE_PARAM_ATOL}: {bad}")
+    stale_diff = _max_diff(runs["cuda"][0], runs["cpu"][0])
+
+    # the counted GBA day
+    counters(reset=True)
+    tr = trainer()
+    t0 = time.perf_counter()
+    params, _, _, st = tr.replay(card, tr.optimizer.init(card), sched,
+                                 stream, 0)
+    torch.cuda.synchronize()
+    day_s = time.perf_counter() - t0
+    launches = counters()
+    steps = len(sched.steps)
+    check(st.applied_steps == steps, f"{cfg.name}: {steps} global steps")
+    check(launches["embedding_bag_grad"] == steps,
+          f"{cfg.name}: one embedding_bag_grad launch per global step: "
+          f"{launches['embedding_bag_grad']} for {steps}")
+    ids = (setup.buffer_size * TASK_LOCAL_BATCH
+           * (cfg.num_fields + cfg.behavior_len + 1))
+    auc = T["evaluate"](params, cfg, stream, 1, 12)
+    tr = trainer()
+    busy = device_busy(lambda: tr.replay(card, tr.optimizer.init(card),
+                                         sched, stream, 0))
+    out = {"model": cfg.name, "steps": steps, "day_s": day_s,
+           "data_s": st.data_s, "step_s": st.step_s,
+           "other_s": day_s - st.data_s - st.step_s, "launches": launches,
+           "ids_per_launch": ids, "stats": _stats(st),
+           "first_loss": st.losses[0], "last_loss": st.losses[-1],
+           "next_day_auc": auc, "head_max_param_diff": max(head_diff.values()),
+           "stale_max_param_diff": max(stale_diff.values()),
+           "profile": busy}
+    print(f"  (a) {cfg.name}: first {HOLD_STEPS} GBA steps and the stale "
+          f"schedule card vs CPU held (stats, last_update exact; largest "
+          f"parameter difference {out['head_max_param_diff']!r} / "
+          f"{out['stale_max_param_diff']!r}); a GBA day of {steps} global "
+          f"steps {day_s:.3f} s (data {st.data_s:.3f}, steps "
+          f"{st.step_s:.3f}), {launches['embedding_bag_grad']} "
+          f"embedding_bag_grad launches of {ids} ids, next-day AUC "
+          f"{auc:.4f}; profile {json.dumps(busy)}")
+    return out
+
+
+def task_benches(T: dict, counters) -> dict:
+    """(b) the six benches at the reference's defaults on the card."""
+    benches = T["benches"]
+    out, seconds = {}, {}
+    counters(reset=True)
+    for name in ("tab52_qps", "convergence", "multitask", "decay_ablation",
+                 "fig3_grad_distribution", "fig78_batch_ablation"):
+        fn = benches[name].run
+        t0 = time.perf_counter()
+        rows = (fn() if name in ("tab52_qps", "convergence")
+                else fn(device="cuda"))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        out[name] = rows
+        for r in rows:
+            print(f"  {r}")
+        print(f"  (b) {name}: {seconds[name]:.1f} s")
+    launches = counters()
+    check([_strip_us(r) for r in out["convergence"][:-1]]
+          == list(REF_CONVERGENCE_ROWS)
+          and out["convergence"][-1].startswith("thm.done,"),
+          "(b) convergence rows equal the reference's")
+    check([_strip_us(r) for r in out["tab52_qps"]] == list(REF_TAB52_ROWS),
+          "(b) tab52_qps rows equal the reference's")
+    for row in out["multitask"][:-1]:
+        name = row.split(",")[0].split(".", 1)[1]
+        got = _derived(row)
+        for k, want in REF_MULTITASK[name].items():
+            check(abs(float(got[k]) - want) <= MULTITASK_ATOL,
+                  f"(b) multitask {name} {k} {got[k]} within "
+                  f"{MULTITASK_ATOL} of the JAX bench's {want}")
+        check(got["tuning_free"] == "PASS",
+              f"(b) multitask {name}: tuning_free={got['tuning_free']}")
+    check(launches["embedding_bag_grad"] > 0,
+          "(b) the benches' replays launched embedding_bag_grad")
+    return {"rows": out, "seconds": seconds, "launches": launches}
+
+
+def tasks_phase(T: dict, counters) -> dict:
+    phase(15, "the paper's three tasks: DIEN and YouTubeDNN replay at full "
+              "width from the reference's draw; the six benches")
+    t_phase = time.perf_counter()
+    out = {"replay": {cfg.name: task_replay(T, counters, cfg)
+                      for cfg in T["task_configs"]}}
+    out["benches"] = task_benches(T, counters)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3331,7 +3577,13 @@ def main() -> int:
     from repro_torch.sim.faults import (FaultPlan, ScrapeDropout,
                                         StragglerWindow)
     from repro_torch.benchmarks import autoswitch as bench_autoswitch
-    from repro_torch.benchmarks import fig6_switching
+    from repro_torch.benchmarks import (convergence, decay_ablation,
+                                        fig3_grad_distribution,
+                                        fig6_switching, fig78_batch_ablation,
+                                        multitask, tab52_qps)
+    from repro_torch.configs.recsys import ALIMAMA_DIEN, PRIVATE_YOUTUBEDNN
+    from repro_torch.convert import jax_init_recsys
+    from repro_torch.core import ModeSetup, evaluate
     from repro_torch.core import default_setups, run_continual
     from repro_torch.core.compression import CompressionPolicy
     from repro_torch.launch import switch_driver
@@ -3393,7 +3645,14 @@ def main() -> int:
          "CompressionPolicy": CompressionPolicy,
          "make_loss_fn": make_loss_fn,
          "param_group_key": transformer.param_group_key,
-         "default_setups": default_setups, "run_continual": run_continual}
+         "default_setups": default_setups, "run_continual": run_continual,
+         "task_configs": (ALIMAMA_DIEN, PRIVATE_YOUTUBEDNN),
+         "jax_init_recsys": jax_init_recsys, "ModeSetup": ModeSetup,
+         "evaluate": evaluate, "benches": {
+             "tab52_qps": tab52_qps, "convergence": convergence,
+             "multitask": multitask, "decay_ablation": decay_ablation,
+             "fig3_grad_distribution": fig3_grad_distribution,
+             "fig78_batch_ablation": fig78_batch_ablation}}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     # init_table's scale: pooled sums of F rows then round at the 1e-8
@@ -3473,8 +3732,10 @@ def main() -> int:
     served = serve_phase(T, counters)
     torch.cuda.empty_cache()
     switching = switch_phase(T, counters)
+    torch.cuda.empty_cache()
+    tasks = tasks_phase(T, counters)
 
-    phase(15, "kernels")
+    phase(16, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -3482,7 +3743,11 @@ def main() -> int:
                     "replay": replay["launches"]["embedding_bag_grad"],
                     "sparse_smoke": smoke["launches"]["embedding_bag_grad"],
                     "resident_oracle":
-                    resident["launches"]["embedding_bag_grad"]}
+                    resident["launches"]["embedding_bag_grad"],
+                    **{f"tasks_{name}": r["launches"]["embedding_bag_grad"]
+                       for name, r in tasks["replay"].items()},
+                    "tasks_benches":
+                    tasks["benches"]["launches"]["embedding_bag_grad"]}
     print(json.dumps({
         "serving": {"static": static["stats"], "live": live["stats"],
                     "live_syncs": live["syncs"],
@@ -3498,6 +3763,7 @@ def main() -> int:
         "pytree_timing": pytree_times,
         "lm_serving": served,
         "switching": switching,
+        "tasks": tasks,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]

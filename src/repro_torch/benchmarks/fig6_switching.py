@@ -36,10 +36,10 @@ import torch
 
 from repro_torch.benchmarks import csv_row
 from repro_torch.configs.recsys import CRITEO_DEEPFM
+from repro_torch.convert import jax_init_recsys
 from repro_torch.core import default_setups, run_continual
 from repro_torch.data import make_clickstream
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.recsys import init_recsys
 from repro_torch.sim.cluster import ClusterSpec
 
 CFG = CRITEO_DEEPFM
@@ -107,9 +107,9 @@ def run_switching(device: str = "cuda") -> list[str]:
 def run(base_days: int = 8, eval_days: int = 3, *,
         device: str | torch.device = "cuda", params: Any = None
         ) -> list[str]:
-    """The continual protocol's rows.  The base model is drawn from seed 0
-    (on the CPU, as ``init_recsys`` draws) and runs on ``device``, unless
-    ``params`` (on ``device``) are given."""
+    """The continual protocol's rows.  The base model is the reference's
+    draw of ``jax.random.PRNGKey(0)`` (``jax_init_recsys``) on ``device``,
+    unless ``params`` (on ``device``) are given."""
     dev = resolve_device(device)
     stream = make_clickstream(CFG, seed=0, batches_per_day=48,
                               batch_size=256,
@@ -119,8 +119,8 @@ def run(base_days: int = 8, eval_days: int = 3, *,
                        straggler_slowdown=5.0, jitter=0.2, seed=0)
     t0 = time.perf_counter()
 
-    base = params if params is not None else init_recsys(
-        CFG, generator=torch.Generator().manual_seed(0), device=dev)
+    base = params if params is not None else jax_init_recsys(CFG, 0,
+                                                             device=dev)
     base, res0 = run_continual(base, CFG, stream, ["sync"] * base_days,
                                setups, spec, eval_batches=16)
     sync_auc = res0.auc_per_day[-1]

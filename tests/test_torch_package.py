@@ -3,7 +3,8 @@
 * Importing ``repro_torch`` and its serving (the recsys engine, the LM
   engine and launcher), training (the replay trainer, the LM's pytree and
   fused steps and its worker-parallel wire step, the token list),
-  embeddings and kernel modules loads no JAX.
+  embeddings, kernel and bench modules and its numpy copy of the
+  reference's random draws loads no JAX.
 * No file of the port, and neither ``chip_smoke.py`` nor the card scripts
   of ``scripts/``, imports ``jax`` or the JAX package ``repro``.
 * Entry points default to ``device="cuda"`` and raise on a machine without
@@ -20,9 +21,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.recsys import CRITEO_DEEPFM
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import jax_init_recsys, params_from_jax
 from repro_torch.core import pretrain_sync
-from repro_torch.benchmarks import fig6_switching
+from repro_torch.benchmarks import (decay_ablation, fig3_grad_distribution,
+                                    fig6_switching, fig78_batch_ablation,
+                                    multitask)
 from repro_torch.launch import quickstart, switch_driver, train
 from repro_torch.models.recsys import init_recsys
 from repro_torch.models.transformer import init_model
@@ -57,7 +60,13 @@ def test_import_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.sim.faults, "
             "repro_torch.core.autoswitch, repro_torch.launch.switch_driver, "
             "repro_torch.benchmarks.fig6_switching, "
-            "repro_torch.benchmarks.autoswitch; "
+            "repro_torch.benchmarks.autoswitch, repro_torch.jax_random, "
+            "repro_torch.benchmarks.multitask, "
+            "repro_torch.benchmarks.decay_ablation, "
+            "repro_torch.benchmarks.fig3_grad_distribution, "
+            "repro_torch.benchmarks.fig78_batch_ablation, "
+            "repro_torch.benchmarks.convergence, "
+            "repro_torch.benchmarks.tab52_qps; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -92,7 +101,9 @@ def test_forbidden_import_pattern():
                                    "init_model", "train_arch",
                                    "train_wire", "train_pytree",
                                    "train_autoswitch", "switch_driver",
-                                   "fig6_run"])
+                                   "fig6_run", "jax_init_recsys",
+                                   "multitask_run", "decay_ablation_run",
+                                   "fig3_run", "fig78_run"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(
         entry, tmp_path):
     if torch.cuda.is_available():
@@ -128,6 +139,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
                                                 "--autoswitch"]),
         "switch_driver": lambda: switch_driver.main(["--batches", "8"]),
         "fig6_run": lambda: fig6_switching.run(1, 1),
+        "jax_init_recsys": lambda: jax_init_recsys(CRITEO_DEEPFM),
+        "multitask_run": lambda: multitask.run(1, 1),
+        "decay_ablation_run": lambda: decay_ablation.run(1),
+        "fig3_run": lambda: fig3_grad_distribution.run(1),
+        "fig78_run": lambda: fig78_batch_ablation.run(1, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

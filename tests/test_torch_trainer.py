@@ -13,7 +13,10 @@ Tolerances:
 * a replay of the stale GBA schedule under SGD gives parameters within
   rtol 1e-5 / atol 1e-7, with ``last_update`` and ``ReplayStats`` exact;
   under Adam, whose first steps amplify rounding to about +-lr wherever
-  |g| >> eps, only the per-step losses are held, to rtol 1e-4.
+  |g| >> eps, only the per-step losses are held, to rtol 1e-4; the same
+  holds for DIEN and YouTubeDNN at the tiny table and tower;
+* ``run_continual`` (one sync day, one GBA day): modes and qps exact,
+  stats exact, AUC atol 1e-3, losses rtol 1e-4, for all three models.
 """
 import dataclasses
 
@@ -25,6 +28,7 @@ import torch
 
 from repro.configs.recsys import ALIMAMA_DIEN as JAX_DIEN
 from repro.configs.recsys import CRITEO_DEEPFM as JAX_DEEPFM
+from repro.configs.recsys import PRIVATE_YOUTUBEDNN as JAX_YOUTUBEDNN
 from repro.core import GBATrainer as JaxTrainer
 from repro.core import default_setups as jax_default_setups
 from repro.core import run_continual as jax_run_continual
@@ -40,7 +44,8 @@ from repro.sim.cluster import Slot as JaxSlot
 from repro.sim.cluster import simulate as jax_simulate
 from repro_torch.configs.recsys import (ALIMAMA_DIEN, CRITEO_DEEPFM,
                                         PRIVATE_YOUTUBEDNN)
-from repro_torch.convert import params_from_jax, params_to_numpy
+from repro_torch.convert import (jax_init_recsys, params_from_jax,
+                                 params_to_numpy)
 from repro_torch.core import (GBATrainer, default_setups, pretrain_sync,
                               run_continual)
 from repro_torch.data import make_clickstream
@@ -59,6 +64,25 @@ JCFG = dataclasses.replace(JAX_DEEPFM, name="criteo-deepfm-tiny",
                            hash_capacity=2048, mlp_dims=(32, 16))
 CFG = dataclasses.replace(CRITEO_DEEPFM, name="criteo-deepfm-tiny",
                           hash_capacity=2048, mlp_dims=(32, 16))
+# the behaviour-sequence models at the same tiny table and tower
+TINY = {model: tuple(dataclasses.replace(c, name=f"{c.name}-tiny",
+                                         hash_capacity=2048,
+                                         mlp_dims=(32, 16))
+                     for c in pair)
+        for model, pair in (("dien", (JAX_DIEN, ALIMAMA_DIEN)),
+                            ("youtubednn", (JAX_YOUTUBEDNN,
+                                            PRIVATE_YOUTUBEDNN)))}
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The behaviour models' replays run thousands of tiny operators: one
+    intra-op thread keeps them from contending with the suite's other
+    workers (an oversubscribed thread pool slowed them 100-fold)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _jax_params(seed=2, cfg=JCFG):
@@ -155,13 +179,6 @@ def test_deepfm_logit_bce_loss_and_gradient_match_jax():
     _assert_tree_close(grad, jgrad, rtol=1e-5, atol=1e-8)
 
 
-@pytest.mark.parametrize("model", ["youtubednn", "dien"])
-def test_unported_models_raise_and_name_the_slice(model):
-    cfg = PRIVATE_YOUTUBEDNN if model == "youtubednn" else ALIMAMA_DIEN
-    with pytest.raises(NotImplementedError, match="later slice"):
-        R.init_recsys(cfg, generator=torch.Generator(), device="cpu")
-
-
 def test_init_recsys_draws_the_reference_tree():
     params = R.init_recsys(CFG, generator=torch.Generator().manual_seed(0),
                            device="cpu")
@@ -230,19 +247,19 @@ def _stale_steps(slot, lagged=False):
             for k in range(4)]
 
 
-def _replay_both(optimizer, lr, steps_fn, iota=1):
-    jparams = _jax_params()
+def _replay_both(optimizer, lr, steps_fn, iota=1, jcfg=JCFG, cfg=CFG):
+    jparams = _jax_params(cfg=jcfg)
     jopt = jax_get_optimizer(optimizer, lr)
-    jtrainer = JaxTrainer(JCFG, jopt, iota=iota, embed_stream=StreamConfig())
+    jtrainer = JaxTrainer(jcfg, jopt, iota=iota, embed_stream=StreamConfig())
     jout = jtrainer.replay(
         jparams, jopt.init(jparams), JaxSchedule("gba", 32, steps_fn(JaxSlot)),
-        jax_make_clickstream(JCFG, seed=0, batches_per_day=16,
+        jax_make_clickstream(jcfg, seed=0, batches_per_day=16,
                              batch_size=32), day=0)
     opt = get_optimizer(optimizer, lr)
     params = params_from_jax(_numpy(jparams), device="cpu")
-    out = GBATrainer(CFG, opt, iota=iota).replay(
+    out = GBATrainer(cfg, opt, iota=iota).replay(
         params, opt.init(params), Schedule("gba", 32, steps_fn(Slot)),
-        make_clickstream(CFG, seed=0, batches_per_day=16, batch_size=32),
+        make_clickstream(cfg, seed=0, batches_per_day=16, batch_size=32),
         day=0)
     return out, jout
 
@@ -268,6 +285,34 @@ def test_stale_schedule_replay_matches_jax_under_sgd(lagged):
 def test_stale_schedule_replay_matches_jax_under_adam(lagged):
     (_, state, lu, st), (_, jstate, jlu, jst) = _replay_both(
         "adam", 1e-3, lambda s: _stale_steps(s, lagged))
+    np.testing.assert_array_equal(lu.numpy(), np.asarray(jlu))
+    _assert_same_stats(st, jst, loss_rtol=1e-4)
+    assert int(state["count"]) == int(jstate["count"]) == 4
+
+
+@pytest.mark.parametrize("model", sorted(TINY))
+def test_stale_schedule_replay_of_behaviour_models_matches_jax_under_sgd(
+        model, one_torch_thread):
+    """DIEN and YouTubeDNN on the lagged stale schedule: the per-slot
+    gradients of stacked parameter versions, the behaviour and target ids
+    in the presence counts and the per-ID rescue."""
+    jcfg, cfg = TINY[model]
+    (p, _, lu, st), (jp, _, jlu, jst) = _replay_both(
+        "sgd", 0.05, lambda s: _stale_steps(s, lagged=True), jcfg=jcfg,
+        cfg=cfg)
+    assert jst.embed_rows_rescued > 0
+    np.testing.assert_array_equal(lu.numpy(), np.asarray(jlu))
+    _assert_same_stats(st, jst, loss_rtol=1e-5)
+    _assert_tree_close(p, jp, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("model", sorted(TINY))
+def test_stale_schedule_replay_of_behaviour_models_matches_jax_under_adam(
+        model, one_torch_thread):
+    jcfg, cfg = TINY[model]
+    (_, state, lu, st), (_, jstate, jlu, jst) = _replay_both(
+        "adam", 1e-3, lambda s: _stale_steps(s, lagged=True), jcfg=jcfg,
+        cfg=cfg)
     np.testing.assert_array_equal(lu.numpy(), np.asarray(jlu))
     _assert_same_stats(st, jst, loss_rtol=1e-4)
     assert int(state["count"]) == int(jstate["count"]) == 4
@@ -349,6 +394,31 @@ def test_run_continual_matches_jax():
     assert res.qps_per_day == jres.qps_per_day
     np.testing.assert_allclose(res.auc_per_day, jres.auc_per_day, atol=1e-3)
     _assert_same_stats(res.stats, jres.stats, loss_rtol=1e-4)
+
+
+@pytest.mark.parametrize("model", sorted(TINY))
+def test_run_continual_of_behaviour_models_matches_jax(model,
+                                                      one_torch_thread):
+    """One sync day, then one GBA day, of DIEN and YouTubeDNN at the tiny
+    stream, from the reference's draw."""
+    jcfg, cfg = TINY[model]
+    kw = dict(num_workers=16, straggler_frac=0.25, seed=0)
+    jstream = jax_make_clickstream(jcfg, seed=0, batches_per_day=8,
+                                   batch_size=64)
+    stream = make_clickstream(cfg, seed=0, batches_per_day=8, batch_size=64)
+    jparams = _jax_params(seed=0, cfg=jcfg)
+    params = jax_init_recsys(cfg, 0, device="cpu")
+    jp, jres = jax_run_continual(jparams, jcfg, jstream, ["sync", "gba"],
+                                 jax_default_setups(256),
+                                 JaxClusterSpec(**kw), eval_batches=2)
+    p, res = run_continual(params, cfg, stream, ["sync", "gba"],
+                           default_setups(256), ClusterSpec(**kw),
+                           eval_batches=2)
+    assert res.mode_per_day == jres.mode_per_day
+    assert res.qps_per_day == jres.qps_per_day
+    np.testing.assert_allclose(res.auc_per_day, jres.auc_per_day, atol=1e-3)
+    _assert_same_stats(res.stats, jres.stats, loss_rtol=1e-4)
+    assert res.stats.applied_steps == 4
 
 
 def test_pretrain_sync_runs_on_the_cpu():
