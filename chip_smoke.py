@@ -57,7 +57,14 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   reproduced in numpy, on the replay trainer: a GBA day of 16 workers at
   local batch 256, M = 16, iota 4, Adam at lr 1e-3, 256 batches; and the
   paper's remaining benches at the reference's defaults (multitask, decay
-  ablation, Fig. 3, Figs. 7/8, Theorems 1/2, Tab. 5.2).
+  ablation, Fig. 3, Figs. 7/8, Theorems 1/2, Tab. 5.2);
+* the sharded PS at the LM slice's size (granite-8b at full width, depth
+  2, batch 4 x 128, M = 4, iota 4, Adagrad): the sharded fused step
+  (``repro_torch.launch.train --arch granite-8b --fused --mesh 4x1
+  --compress none``: the flat buffer and accumulator split into 4
+  layer-grouped PS shards, 4 ``gba_apply`` launches a global step), and
+  the wire step with int8 over ``torch.distributed``'s NCCL backend, one
+  rank holding the 4 workers (the card cannot hold two NCCL ranks).
 
 Phases:
 
@@ -160,14 +167,26 @@ Phases:
     ``convergence`` rows equal to the JAX benches', ``multitask``'s AUCs
     within 0.01 of the JAX bench's with both ``tuning_free=PASS``; the
     decay ablation, Fig. 3 and Figs. 7/8 rows printed with their seconds;
-16. one JSON line of the kernels, then the result line.
+16. the sharded PS: (a) 8 microsteps of the sharded fused step over 4
+    shards from the params and batches of phase 9's step, whose state
+    after each apply is kept on the card: 4 ``gba_apply`` launches at
+    microsteps 4 and 8 and none at the others, params and accumulator
+    bit-identical to that step's at each apply; seconds per microstep and
+    global step, peak memory and a profile of a third global step beside
+    phase 9's; (b) the wire step with int8, 2 warm and 1 compressed global
+    step, in process (its results kept on the host) and then over a
+    one-rank NCCL world: params, accumulator, residual and losses
+    bit-identical, 16 quantize, 16 dequantize and 4 ``gba_apply``
+    launches in the compressed step; the process group destroyed;
+17. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
 microsteps, each scheme of the wire step, the pytree step, its tree ops,
 the resident oracle, the serve loop, the 32k decode, the engine, the
-autoswitch run, the int8 re-entry run, each model's GBA day of phase 15
-and the six benches) and read just after it, so
+autoswitch run, the int8 re-entry run, each model's GBA day of phase 15,
+the six benches, the sharded fused step and each wire run of phase 16)
+and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
 CUDA card and the repository's ``src/`` beside it.
@@ -180,6 +199,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3530,6 +3550,251 @@ def tasks_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharded PS: the sharded fused step and the NCCL backend
+# ---------------------------------------------------------------------------
+
+SHARD_W = 4                    # PS shards of the sharded fused step
+NCCL_STEPS, NCCL_WARMUP = 3, 2  # the NCCL wire run: 2 warm, 1 compressed
+HOST_CHUNK = 1 << 28           # elements a host comparison moves at a time
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` (either on the card or the host) hold the
+    same bits, compared on ``a``'s device a chunk at a time."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = _bits_of(a).reshape(-1), _bits_of(b).reshape(-1)
+    return all(torch.equal(x, y.to(x.device))
+               for x, y in zip(a.split(HOST_CHUNK), b.split(HOST_CHUNK)))
+
+
+def _accum_leaves(layout, accum: torch.Tensor) -> list:
+    """The accumulator's float32 leaves, as views where the layout keeps
+    a leaf in one run (a ``FlatLayout``) and copies where it does not."""
+    if hasattr(layout, "num_shards"):
+        return layout.leaves(layout.unravel(accum, torch.float32))
+    return [accum[o:o + n].view(s) for o, n, s in
+            zip(layout.offsets, layout.sizes, layout.shapes)]
+
+
+def sharded_fused_phase(T: dict, counters, lm: dict) -> dict:
+    """(a) ``build_programs(mode="fused", workers=4)`` at phase 9's size:
+    the single-``FlatLayout`` step's params and accumulator after each
+    apply kept on the card, then the sharded step from the same params
+    and batches held to them bit for bit, 4 ``gba_apply`` launches at each
+    apply and none at the fill microsteps; seconds, peak memory and a
+    profile of a third global step."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH,
+                         LM_MICROSTEPS + LM_M, "cuda")
+    # the oracle: phase 9's step, its state after each apply kept
+    progs = T["build_programs"](cfg, gba, params=params, lr=LM_LR)
+    state, want = progs.state, []
+    for i in range(LM_MICROSTEPS):
+        state, _ = progs.step(state, batches[i], i // LM_M)
+        if (i + 1) % LM_M == 0:
+            want.append((state["params"], state["accum"].clone()))
+    flat_layout = progs.layout
+    del progs, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    progs = T["build_programs"](cfg, gba, params=params, lr=LM_LR,
+                                workers=SHARD_W)
+    del params
+    layout = progs.layout
+    check(layout.num_shards == SHARD_W and layout.num_groups > 1,
+          f"{SHARD_W} layer-grouped shards")
+    print(f"  sharded fused: flat buffer ({LM_M}, {layout.padded_total}) "
+          f"over {SHARD_W} shards of {layout.shard_size} (tile "
+          f"{layout.tile}, {layout.num_groups} groups, "
+          f"{len(layout.sizes)} leaves); peak_gather "
+          f"{layout.peak_gather_bytes / 1e9:.3f} GB vs full_gather "
+          f"{layout.full_gather_bytes / 1e9:.3f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = progs.state, []
+    counters(reset=True)
+    for i in range(LM_MICROSTEPS):
+        launched = counters()["gba_apply"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, loss = progs.step(state, batches[i], i // LM_M)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = counters()["gba_apply"] - launched
+        if (i + 1) % LM_M == 0:
+            check(launched == SHARD_W,
+                  f"microstep {i + 1}: {SHARD_W} gba_apply launches")
+            p_want, a_want = want[(i + 1) // LM_M - 1]
+            check(all(_same_bits(a, b) for a, b in zip(
+                layout.leaves(new["params"]), flat_layout.leaves(p_want))),
+                  f"microstep {i + 1}: params bit-identical to the "
+                  f"single-FlatLayout step")
+            check(all(_same_bits(a, b) for a, b in zip(
+                _accum_leaves(layout, new["accum"]),
+                _accum_leaves(flat_layout, a_want))),
+                  f"microstep {i + 1}: accumulator bit-identical to the "
+                  f"single-FlatLayout step")
+        else:
+            check(launched == 0 and new["params"] is state["params"],
+                  f"microstep {i + 1}: no gba_apply launch, params kept")
+        state = new
+        rows.append({"microstep": i + 1, "loss": loss.item(),
+                     "seconds": seconds, "gba_apply": launched})
+    launches = counters()
+    counted_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["gba_apply"] == 2 * SHARD_W,
+          f"{2 * SHARD_W} gba_apply launches in 2 global steps")
+    check(state["buffer"]["step"] == 2, "2 global steps")
+    del want, p_want, a_want
+    torch.cuda.empty_cache()
+
+    def global_step():
+        nonlocal state
+        for i in range(LM_MICROSTEPS, LM_MICROSTEPS + LM_M):
+            state, _ = progs.step(state, batches[i], i // LM_M)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    busy = device_busy(global_step, match="gba_apply")
+    path_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(busy["gba_apply_us"]) == SHARD_W,
+          f"{SHARD_W} gba_apply in the profile")
+    apply_ms = sum(busy["gba_apply_us"]) / 1e3
+    global_s = [sum(r["seconds"] for r in rows[k:k + LM_M])
+                for k in range(0, LM_MICROSTEPS, LM_M)]
+    lm_global_s = [sum(r["seconds"] for r in lm["microsteps"][k:k + LM_M])
+                   for k in range(0, LM_MICROSTEPS, LM_M)]
+    out = {"layout": {"padded_total": layout.padded_total,
+                      "shard_size": layout.shard_size,
+                      "groups": list(layout.group_keys),
+                      "leaves": len(layout.sizes)},
+           "microsteps": rows, "launches": launches,
+           "global_step_s": global_s, "phase9_global_step_s": lm_global_s,
+           "fill_microstep_s": [r["seconds"] for r in rows
+                                if not r["gba_apply"]],
+           "apply_microstep_s": [r["seconds"] for r in rows
+                                 if r["gba_apply"]],
+           "counted_peak_gb": counted_peak_gb,
+           "path_peak_gb": path_peak_gb,
+           "phase9_path_peak_gb": lm["path_peak_memory_gb"],
+           "apply_device_ms_4_launches": apply_ms,
+           "phase9_apply_device_ms": lm["apply_device_ms"],
+           "profile": busy, "idle_share": busy["idle_share"]}
+    print(f"  (a) sharded fused step: {json.dumps(out)}")
+    del state, progs, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_phase(T: dict, counters) -> dict:
+    """(b) the wire step at the same size, int8, 2 warm and 1 compressed
+    global step: in process (its results kept on the host), then over a
+    one-rank NCCL world holding all 4 workers, held bit for bit (params,
+    accumulator, residual, losses), with the launches of each step."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    pg = T["process_group"]
+
+    def run(device, world) -> dict:
+        rows, got = [], {}
+        marks = {}
+
+        def launches() -> tuple:
+            return (T["quantize_minmax"].launches, T["dequantize"].launches,
+                    T["gba_apply"].launches)
+
+        def on_step(i, progs):
+            torch.cuda.synchronize()
+            now, n = time.perf_counter(), launches()
+            rows.append({"step": i, "seconds": now - marks["t"],
+                         "quantize": n[0] - marks["n"][0],
+                         "dequantize": n[1] - marks["n"][1],
+                         "gba_apply": n[2] - marks["n"][2]})
+            if i == NCCL_STEPS - 1:
+                got.update(param_flat=progs.state["param_flat"],
+                           accum=progs.state["accum"],
+                           residual=progs.wire_state["residual"])
+            torch.cuda.synchronize()
+            marks["t"], marks["n"] = time.perf_counter(), launches()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters(reset=True)
+        marks["t"], marks["n"] = time.perf_counter(), launches()
+        losses = T["run_wire_train"](
+            cfg, workers=WIRE_W, scheme="int8", steps=NCCL_STEPS,
+            batch=LM_BATCH, seq=LM_SEQ, iota=LM_IOTA, lr=LM_LR,
+            compress_warmup=NCCL_WARMUP, device=device, params=params,
+            on_step=on_step, world=world)
+        torch.cuda.synchronize()
+        return {"losses": losses, "steps": rows, "launches": counters(),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "state": got}
+
+    local = run("cuda", T["inprocess"])
+    host = {k: v.to("cpu") for k, v in local.pop("state").items()}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        world, dev = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                             "cuda", timeout=300.0)
+        try:
+            check(world.backend == "nccl" and list(world.workers(WIRE_W))
+                  == list(range(WIRE_W)), "one NCCL rank holding 4 workers")
+            nccl = run(dev, world)
+        finally:
+            pg.leave()
+    live = nccl.pop("state")
+    for name, v in host.items():
+        check(_same_bits(live[name], v),
+              f"NCCL: {name} bit-identical to the in-process run")
+    check(nccl["losses"] == local["losses"],
+          f"NCCL: losses equal the in-process run's: {nccl['losses']} vs "
+          f"{local['losses']}")
+    per_step = [(r["quantize"], r["dequantize"], r["gba_apply"])
+                for r in nccl["steps"]]
+    groups = len(T["ShardedFlatLayout"].from_params(
+        params, WIRE_W, group_by=T["param_group_key"]).group_keys)
+    want = ([(0, 0, WIRE_W)] * NCCL_WARMUP
+            + [(WIRE_W * groups, WIRE_W * groups, WIRE_W)]
+            * (NCCL_STEPS - NCCL_WARMUP))
+    check(per_step == want, f"NCCL: launches (quantize, dequantize, "
+                            f"gba_apply) per global step {per_step}")
+    check(per_step == [(r["quantize"], r["dequantize"], r["gba_apply"])
+                       for r in local["steps"]],
+          "NCCL: the in-process run's launches")
+    del live, host, params
+    torch.cuda.empty_cache()
+    out = {"in_process": local, "nccl": nccl,
+           "compressed_step_s": {"in_process": local["steps"][-1]["seconds"],
+                                 "nccl": nccl["steps"][-1]["seconds"]},
+           "warm_step_s": {"in_process": local["steps"][1]["seconds"],
+                           "nccl": nccl["steps"][1]["seconds"]}}
+    print(f"  (b) NCCL wire step, one rank x {WIRE_W} workers: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def sharded_ps_phase(T: dict, counters, lm: dict) -> dict:
+    phase(16, f"the sharded PS: granite-8b at full width, depth {LM_LAYERS}: "
+              f"(a) the sharded fused step over {SHARD_W} shards, (b) the "
+              f"wire step over one NCCL rank")
+    t_phase = time.perf_counter()
+    out = {"sharded_fused": sharded_fused_phase(T, counters, lm),
+           "nccl": nccl_phase(T, counters)}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3588,6 +3853,8 @@ def main() -> int:
     from repro_torch.core.compression import CompressionPolicy
     from repro_torch.launch import switch_driver
     from repro_torch.launch.programs import make_loss_fn
+    from repro_torch.core.flat_sharded import ShardedFlatLayout
+    from repro_torch.distributed import inprocess, process_group
 
     t_start = time.perf_counter()
     kind = device_phase()
@@ -3648,7 +3915,9 @@ def main() -> int:
          "default_setups": default_setups, "run_continual": run_continual,
          "task_configs": (ALIMAMA_DIEN, PRIVATE_YOUTUBEDNN),
          "jax_init_recsys": jax_init_recsys, "ModeSetup": ModeSetup,
-         "evaluate": evaluate, "benches": {
+         "evaluate": evaluate, "ShardedFlatLayout": ShardedFlatLayout,
+         "inprocess": inprocess, "process_group": process_group,
+         "benches": {
              "tab52_qps": tab52_qps, "convergence": convergence,
              "multitask": multitask, "decay_ablation": decay_ablation,
              "fig3_grad_distribution": fig3_grad_distribution,
@@ -3734,8 +4003,10 @@ def main() -> int:
     switching = switch_phase(T, counters)
     torch.cuda.empty_cache()
     tasks = tasks_phase(T, counters)
+    torch.cuda.empty_cache()
+    sharded = sharded_ps_phase(T, counters, lm)
 
-    phase(16, "kernels")
+    phase(17, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -3764,6 +4035,7 @@ def main() -> int:
         "lm_serving": served,
         "switching": switching,
         "tasks": tasks,
+        "sharded_ps": sharded,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -3771,7 +4043,9 @@ def main() -> int:
         f"wire_{k}": v["gba_apply"] for k, v in wire["launches"].items()},
         "switch_autoswitch": switching["launcher"]["launches"]["gba_apply"],
         "switch_int8_reentry":
-        switching["reentry"]["launches"]["gba_apply"]}
+        switching["reentry"]["launches"]["gba_apply"],
+        "sharded_fused": sharded["sharded_fused"]["launches"]["gba_apply"],
+        "nccl_int8": sharded["nccl"]["nccl"]["launches"]["gba_apply"]}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -3783,6 +4057,7 @@ def main() -> int:
         if name != "quantize_sign":
             by_path["switch_int8_reentry"] = \
                 switching["reentry"]["launches"][name]
+            by_path["nccl_int8"] = sharded["nccl"]["nccl"]["launches"][name]
         # read from the last (compressed) global step of each run
         per_step = {f"wire_{k}": wire["runs"][k]["steps"][-1][
             name.split("_")[0]] for k in runs}

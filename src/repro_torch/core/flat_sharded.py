@@ -17,10 +17,16 @@ shard's slice stays one contiguous run for its apply.  ``group_by=None``
 is one group, ``"all"``, covering everything.
 
 :func:`make_sharded_apply` runs ``gba_apply`` on each shard's contiguous
-``(M, shard_size)`` buffer, one launch per shard.  The reference's sharded
-buffer push (``sharded_flat_push_and_maybe_apply``,
-``init_sharded_flat_buffer``) and its per-leaf oracle are not ported
-(ROADMAP.md).
+``(M, shard_size)`` buffer, one launch per shard.
+:func:`init_sharded_flat_buffer` and
+:func:`sharded_flat_push_and_maybe_apply` are the sharded counterparts of
+``repro_torch.core.gba``'s flat buffer: the M-slot buffer is stored
+shard-major, ``(num_shards, M, shard_size)``, so each shard's ``(M,
+shard_size)`` block is one contiguous run for its launch, and is handed
+out as its ``(M, num_shards, shard_size)`` transpose, so slot ``j`` is
+``grads[j]`` as in the reference's ``(M, padded_total)`` buffer.
+:func:`per_leaf_kernel_apply` is the per-leaf launch chain the sharded
+apply replaces, its bit-exactness oracle.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ from typing import Callable, Iterable
 
 import torch
 
-from repro_torch.core.gba import (Params, path_leaves, path_unflatten,
-                                  tree_paths)
+from repro_torch.core.gba import (Params, flat_buffer_push, path_leaves,
+                                  path_unflatten, tree_paths)
 from repro_torch.kernels import ops
 
 # the tile every leaf and shard is aligned to: the reference's ``BLOCK_N``,
@@ -116,6 +122,46 @@ class ShardedFlatLayout:
     def num_groups(self) -> int:
         return len(self.group_keys)
 
+    @property
+    def peak_gather_bytes(self) -> int:
+        """Peak live gathered bytes a worker holds under the layer-grouped
+        schedule: the largest group's float32 extent."""
+        return max(self.group_sizes) * 4
+
+    @property
+    def full_gather_bytes(self) -> int:
+        """Gathered bytes of the ungrouped schedule: the whole vector."""
+        return self.padded_total * 4
+
+    def group_table(self, compress=None) -> list[dict]:
+        """One row per group, for logs: ``key``, ``elements``, ``bytes``
+        (float32), ``leaves``, and the group's routed ``wire_bytes`` and
+        ``wire_dtype`` under the ``CompressionPolicy`` ``compress``, or
+        the float32 routing without one."""
+        rows = []
+        for g, k in enumerate(self.group_keys):
+            row = {"key": k, "elements": self.group_sizes[g],
+                   "bytes": self.group_sizes[g] * 4,
+                   "leaves": len(self.group_leaves(g))}
+            if compress is None:
+                row["wire_bytes"], row["wire_dtype"] = row["bytes"], "float32"
+            else:
+                row["wire_bytes"] = compress.route_bytes(self.group_sizes[g],
+                                                         self.tile)
+                row["wire_dtype"] = compress.wire_dtype()
+            rows.append(row)
+        return rows
+
+    def wire_state_shapes(self, m: int, scheme: str) -> dict:
+        """Shapes of the per-worker wire state of ``scheme``: one ``(m,
+        padded_total)`` float32 row per worker for the residual (int8,
+        onebit) and the momentum (onebit)."""
+        names = {"none": (), "int8": ("residual",),
+                 "onebit": ("residual", "momentum")}
+        if scheme not in names:
+            raise ValueError(f"unknown compression scheme {scheme!r}")
+        return {name: (m, self.padded_total) for name in names[scheme]}
+
     def leaves(self, tree: Params) -> list[torch.Tensor]:
         return path_leaves(self.paths, tree)
 
@@ -148,41 +194,40 @@ class ShardedFlatLayout:
             flat[o:o + n].copy_(leaves[j].reshape(-1))
         return flat
 
-    def unravel_group(self, g: int, group_flat: torch.Tensor,
-                      dtype: torch.dtype | None = None) -> list:
-        """Contiguous group flat -> that group's leaves, each cast to
-        ``dtype`` or, by default, to its own dtype, into storage of its
-        own."""
-        return [group_flat[self.offsets[j]:self.offsets[j] + self.sizes[j]]
-                .reshape(self.shapes[j]).to(dtype or self.dtypes[j],
-                                            copy=True)
-                for j in self.group_leaves(g)]
-
-    def unravel_groups(self, group_flats: Iterable[torch.Tensor],
-                       dtype: torch.dtype | None = None) -> Params:
-        """Per-group contiguous flats, in group order -> the whole tree,
-        each leaf cast as :meth:`unravel_group` casts it.  A generator is
-        consumed one group at a time, so only one group's flat need be
-        alive."""
-        leaves: list = [None] * len(self.sizes)
-        for g, gflat in enumerate(group_flats):
-            for j, leaf in zip(self.group_leaves(g),
-                               self.unravel_group(g, gflat, dtype)):
-                leaves[j] = leaf
-        return self.unflatten(leaves)
+    def _runs(self, g: int, start: int, stop: int):
+        """``(shard, col, stop_col, first)`` for each shard's piece of
+        ``[start, stop)`` of group ``g``'s flat: that shard's row holds
+        group elements ``first ... first + stop_col - col - 1`` at columns
+        ``col:stop_col``."""
+        lo, hi = self.group_shard_bounds(g)
+        gsn = hi - lo
+        while start < stop:
+            s, end = start // gsn, min(stop, (start // gsn + 1) * gsn)
+            yield s, lo + start - s * gsn, lo + end - s * gsn, start
+            start = end
 
     def ravel(self, tree: Params, pad: float = 0.0) -> torch.Tensor:
         """Tree -> a new (padded_total,) float32 in shard-major group
         order: shard ``s``'s slice is the concatenation of every group's
-        ``s``-th sub-slice.  Padding is ``pad``, zero by default."""
+        ``s``-th sub-slice.  Padding is ``pad``, zero by default.  Each
+        leaf is copied straight into its shards' columns."""
         leaves = self.leaves(tree)
         flat = torch.empty((self.padded_total,), dtype=torch.float32,
                            device=leaves[0].device)
         rows = flat.view(self.num_shards, self.shard_size)
-        for g in range(self.num_groups):
-            lo, hi = self.group_shard_bounds(g)
-            rows[:, lo:hi].copy_(
-                self.ravel_group(g, leaves, pad).view(self.num_shards, -1))
+        ends = [0] * self.num_groups
+        for j, leaf in enumerate(leaves):
+            g, o, n = self.leaf_group[j], self.offsets[j], self.sizes[j]
+            src = leaf.reshape(-1)
+            for s, c0, c1, a in self._runs(g, o, o + n):
+                rows[s, c0:c1].copy_(src[a - o:a - o + c1 - c0])
+            for s, c0, c1, _ in self._runs(g, o + n,
+                                           o + self.padded_sizes[j]):
+                rows[s, c0:c1].fill_(pad)
+            ends[g] = o + self.padded_sizes[j]
+        for g, end in enumerate(ends):
+            for s, c0, c1, _ in self._runs(g, end, self.group_sizes[g]):
+                rows[s, c0:c1].fill_(pad)
         return flat
 
     def unravel(self, flat: torch.Tensor,
@@ -190,14 +235,20 @@ class ShardedFlatLayout:
         """The tree of a shard-major ``(padded_total,)`` vector, each leaf
         in storage of its own, cast to ``dtype`` or, by default, to its
         own dtype (the reference's ``unravel(flat, dtype)``: an Adagrad
-        accumulator stays float32 for a bfloat16 model).  Group ``g``'s
-        contiguous flat is column slice ``g`` of every shard's row, which
-        is what a tiled ``all_gather`` of the shards' sub-slices gives."""
+        accumulator stays float32 for a bfloat16 model).  Each leaf is
+        copied straight out of its shards' columns: what a tiled
+        ``all_gather`` of the shards' slices holds."""
         rows = flat.view(self.num_shards, self.shard_size)
-        return self.unravel_groups(
-            (rows[:, lo:hi].reshape(-1)
-             for lo, hi in map(self.group_shard_bounds,
-                               range(self.num_groups))), dtype)
+        leaves = []
+        for j, shape in enumerate(self.shapes):
+            g, o = self.leaf_group[j], self.offsets[j]
+            leaf = torch.empty(shape, dtype=dtype or self.dtypes[j],
+                               device=flat.device)
+            dst = leaf.view(-1)
+            for s, c0, c1, a in self._runs(g, o, o + self.sizes[j]):
+                dst[a - o:a - o + c1 - c0].copy_(rows[s, c0:c1])
+            leaves.append(leaf)
+        return self.unflatten(leaves)
 
     def shard_bounds(self, s: int) -> tuple[int, int]:
         """[start, stop) of shard ``s``'s flat slice."""
@@ -205,30 +256,129 @@ class ShardedFlatLayout:
             raise IndexError(s)
         return s * self.shard_size, (s + 1) * self.shard_size
 
+    def leaves_in_shard(self, s: int) -> tuple[int, ...]:
+        """Leaf indices whose padded extent overlaps shard ``s``: what a
+        per-leaf chain would launch on that shard."""
+        self.shard_bounds(s)
+        out = []
+        for j, (off, n) in enumerate(zip(self.offsets, self.padded_sizes)):
+            gsn = self.group_shard_sizes[self.leaf_group[j]]
+            # leaf j spans [off, off + n) of its group's flat, of which
+            # shard s owns [s * gsn, (s + 1) * gsn)
+            if off < (s + 1) * gsn and off + n > s * gsn:
+                out.append(j)
+        return tuple(out)
+
+
+def init_sharded_flat_buffer(params: Params, buffer_size: int,
+                             num_shards: int, tile: int = TILE,
+                             group_by: GroupBy | None = None
+                             ) -> tuple[ShardedFlatLayout, dict]:
+    """The sharded M-slot gradient buffer on the params' device: ``grads``
+    the ``(M, num_shards, shard_size)`` view of a shard-major ``(num_shards,
+    M, shard_size)`` float32 zeros (slot ``j`` is ``grads[j]``, shard
+    ``s``'s contiguous block ``grads[:, s]``), ``tokens`` (M,) int32 zeros,
+    ``fill`` and ``step`` 0.  ``group_by`` makes the layout layer-grouped.
+    Returns (layout, buffer)."""
+    layout = ShardedFlatLayout.from_params(params, num_shards, tile,
+                                           group_by=group_by)
+    dev = layout.leaves(params)[0].device
+    grads = torch.zeros((num_shards, buffer_size, layout.shard_size),
+                        dtype=torch.float32, device=dev)
+    return layout, {
+        "grads": grads.transpose(0, 1),
+        "tokens": torch.zeros((buffer_size,), dtype=torch.int32, device=dev),
+        "fill": 0,
+        "step": 0,
+    }
+
+
+def sharded_flat_push(layout: ShardedFlatLayout, buffer: dict,
+                      flat_grad: torch.Tensor, token: int
+                      ) -> tuple[dict, bool]:
+    """``flat_buffer_push`` of a shard-major ``(padded_total,)`` gradient
+    into the sharded buffer of :func:`init_sharded_flat_buffer`: row ``s``
+    of the slot goes to shard ``s``'s block."""
+    return flat_buffer_push(
+        buffer, flat_grad.view(layout.num_shards, layout.shard_size), token)
+
+
+def sharded_flat_push_and_maybe_apply(
+        buffer: dict, flat_grad: torch.Tensor, token: int,
+        param_flat: torch.Tensor, accum_flat: torch.Tensor, lr: float, *,
+        layout: ShardedFlatLayout, iota: int):
+    """Sharded counterpart of ``core.gba.flat_buffer_push_and_maybe_apply``:
+    push one shard-major raveled gradient; when the push fills the buffer,
+    one ``gba_apply`` launch per shard updates that shard's slice of
+    ``param_flat`` and ``accum_flat`` in place from its contiguous ``(M,
+    shard_size)`` block, weighing each slot against the step before the
+    push.  Returns ``(param_flat, accum_flat, applied, new_buffer)``; a
+    push that does not fill the buffer leaves params and accumulator
+    untouched."""
+    new_buffer, is_full = sharded_flat_push(layout, buffer, flat_grad, token)
+    if is_full:
+        make_sharded_apply(layout, iota=iota)(
+            param_flat, accum_flat, new_buffer["grads"].unbind(1),
+            new_buffer["tokens"], buffer["step"], lr)
+    return param_flat, accum_flat, is_full, new_buffer
+
+
+def per_leaf_kernel_apply(layout: ShardedFlatLayout,
+                          param_flat: torch.Tensor, accum_flat: torch.Tensor,
+                          grads: torch.Tensor, tokens: torch.Tensor,
+                          step: int, lr: float, *, iota: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-leaf launch chain the sharded apply replaces: one
+    ``gba_apply`` launch per leaf (``len(layout.sizes)`` launches against
+    one per shard), in place on each leaf's slice of ``param_flat`` and
+    ``accum_flat``, from its ``(M, size)`` columns of ``grads`` ((M,
+    padded_total) or the sharded buffer), copied contiguous.  The same
+    arithmetic per element, so it is the sharded apply's bit-exactness
+    oracle.  Single-group layouts only: a layer-grouped layout interleaves
+    the leaves shard-major, so no leaf is one contiguous run."""
+    if layout.num_groups > 1:
+        raise ValueError(
+            "per_leaf_kernel_apply requires a single-group layout; "
+            f"got {layout.num_groups} groups {layout.group_keys}")
+    grads = grads.reshape(grads.shape[0], layout.padded_total)
+    for off, size in zip(layout.offsets, layout.sizes):
+        ops.gba_apply_flat(param_flat[off:off + size],
+                           accum_flat[off:off + size],
+                           grads[:, off:off + size].contiguous(), tokens,
+                           step, lr, iota=iota)
+    return param_flat, accum_flat
+
 
 def make_sharded_apply(layout: ShardedFlatLayout, *, iota: int) -> Callable:
     """The per-shard single-launch apply: ``apply(param_flat, accum_flat,
     shard_buffers, tokens, step, lr)`` runs ``gba_apply`` (token-decay
-    aggregate and Adagrad) on shard ``s``'s contiguous ``param_flat`` and
-    ``accum_flat`` slices with the ``s``-th ``(M, shard_size)`` buffer of
-    ``shard_buffers``, one launch per shard, in place, and returns
-    ``(param_flat, accum_flat)``.  ``shard_buffers`` may be a generator
-    that fills one buffer shard after shard; every shard sees the same
-    ``tokens`` (M,) int32 and ``step``."""
+    aggregate and Adagrad) on the ``s``-th contiguous ``shard_size`` slice
+    of ``param_flat`` and ``accum_flat`` with the ``s``-th ``(M,
+    shard_size)`` buffer of ``shard_buffers``, one launch per shard, in
+    place, and returns ``(param_flat, accum_flat)``.  The vectors hold
+    every shard (``(padded_total,)``) or a run of consecutive shards, the
+    ones a process holds.  ``shard_buffers`` may be a generator that fills
+    one buffer shard after shard; every shard sees the same ``tokens``
+    (M,) int32 and ``step``."""
+    ss = layout.shard_size
 
     def apply_shards(param_flat: torch.Tensor, accum_flat: torch.Tensor,
                      shard_buffers: Iterable[torch.Tensor],
                      tokens: torch.Tensor, step: int, lr: float
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        applied = 0
+        shards, applied = param_flat.shape[0] // ss, 0
+        if shards * ss != param_flat.shape[0]:
+            raise ValueError(f"a {param_flat.shape[0]}-element vector is no "
+                             f"whole number of {ss}-element shards")
         for s, buf in enumerate(shard_buffers):
-            lo, hi = layout.shard_bounds(s)
-            ops.gba_apply_flat(param_flat[lo:hi], accum_flat[lo:hi], buf,
+            if s == shards:
+                raise ValueError(f"more shard buffers than {shards} shards")
+            ops.gba_apply_flat(param_flat[s * ss:(s + 1) * ss],
+                               accum_flat[s * ss:(s + 1) * ss], buf,
                                tokens, step, lr, iota=iota)
             applied += 1
-        if applied != layout.num_shards:
-            raise ValueError(f"{applied} shard buffers for "
-                             f"{layout.num_shards} shards")
+        if applied != shards:
+            raise ValueError(f"{applied} shard buffers for {shards} shards")
         return param_flat, accum_flat
 
     return apply_shards

@@ -5,9 +5,12 @@ Counterpart of ``make_gba_fused_psum_step`` in ``repro.core.gba_shard_map``.
 There every device along the mesh's ``data`` axis is one GBA worker with
 its own batch shard and its own token, and also one PS shard that owns a
 contiguous tile-aligned slice of the flat parameter vector
-(``ShardedFlatLayout``).  Here the W workers and W shards run in one
-process on one device, the worker axis written out as a loop, and the
-collectives are ``repro_torch.distributed.inprocess``'s.
+(``ShardedFlatLayout``).  Here the worker axis is written out as a loop
+over the workers a process holds, and the collectives are a backend's:
+``repro_torch.distributed.inprocess`` (the default: all W workers and
+shards in one process on one device) or
+``repro_torch.distributed.process_group`` (W / R of them on each of R
+``torch.distributed`` ranks).
 
 :func:`make_gba_psum_step` is the reference's pytree all-reduce step, the
 switching harness's sync mode (``repro_torch.launch.switch_driver``):
@@ -26,7 +29,7 @@ from repro_torch.core.compression import MOMENTUM, CompressionPolicy
 from repro_torch.core.flat_sharded import ShardedFlatLayout, make_sharded_apply
 from repro_torch.core.gba import path_unflatten, tree_paths
 from repro_torch.core.staleness import threshold_decay
-from repro_torch.distributed import inprocess as world
+from repro_torch.distributed import inprocess
 from repro_torch.kernels import ops
 from repro_torch.optim import Optimizer
 
@@ -100,29 +103,35 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                              layout: ShardedFlatLayout, *, iota: int,
                              lr: float,
                              compress: CompressionPolicy | None = None,
-                             warm: bool = False) -> Callable:
+                             warm: bool = False,
+                             world=inprocess) -> Callable:
     """The layer-grouped fused PS step of ``workers`` = M workers and M
-    shards (Adagrad), with an optional quantized wire.
+    shards (Adagrad), with an optional quantized wire, over the
+    collectives of ``world`` (``repro_torch.distributed.inprocess`` or a
+    ``process_group.ProcessGroupBackend``), of which this process holds
+    the k workers and shards ``world.workers(M)``.
 
     Without compression (``compress=None`` or scheme ``"none"``) returns
     ``step(param_flat, accum_flat, batch, tokens, gstep) -> (param_flat,
     accum_flat, loss)``.  With a lossy policy it returns ``step(param_flat,
     accum_flat, batch, tokens, gstep, wire) -> (param_flat, accum_flat,
-    loss, wire)``, ``wire`` holding ``(M, padded_total)`` float32 rows
-    (``residual``; ``momentum`` for onebit), row ``w`` worker ``w``'s.
-    ``param_flat`` and ``accum_flat`` are the layout's ``(padded_total,)``
-    float32 vectors; ``batch`` is a dict of tensors whose leading axis
-    splits evenly over the workers (worker ``w`` takes the ``w``-th chunk,
-    as ``shard_map`` splits it); ``tokens`` is (M,) int32, one per worker,
-    and ``gstep`` the global step.  The reference returns new arrays; this
+    loss, wire)``, ``wire`` holding ``(k, padded_total)`` float32 rows
+    (``residual``; ``momentum`` for onebit), row ``i`` that of the
+    ``i``-th worker held here.  ``param_flat`` and ``accum_flat`` are the
+    ``(k * shard_size,)`` float32 run of the layout's shard-major vector
+    that the shards held here own (the whole ``(padded_total,)`` vector
+    in process); ``batch`` is the whole batch, a dict of tensors whose
+    leading axis splits evenly over the M workers (worker ``w`` takes the
+    ``w``-th chunk, as ``shard_map`` splits it); ``tokens`` is (M,) int32,
+    one per worker, and ``gstep`` the global step.  The reference returns new arrays; this
     step updates ``param_flat``, ``accum_flat`` and the wire state in place
     and returns them.
 
     Per global step, with G = ``layout.num_groups`` layer groups:
 
-    1. gather the params (``inprocess.all_gather``);
-    2. one worker after another: the worker's loss and gradient on its
-       batch chunk; each group's gradient is raveled into its
+    1. gather the params (``world.all_gather``);
+    2. one worker held here after another: the worker's loss and
+       gradient on its batch chunk; each group's gradient is raveled into its
        ``(M, group_shard)`` block, row ``s`` bound for shard ``s``;
     3. compress (a lossy scheme past warmup): the payload is ``grad +
        residual`` (int8) or ``momentum + residual`` after the onebit EMA
@@ -130,16 +139,18 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
        worker's residual row in place; one quantize launch per worker and
        group turns it into int8 codes and per-tile sidebands and leaves
        the next residual in that row;
-    4. route each block worker -> shard (``inprocess.route``): float32 in
+    4. route each block worker -> shard (``world.route``): float32 in
        warmup and ``"none"``, codes and sidebands otherwise;
-    5. dequantize: one launch per shard and group rebuilds the shard's
+    5. dequantize: one launch per shard held here and group rebuilds the
+       shard's
        ``(M, group_shard)`` float32 columns in one ``(M, shard_size)``
        block, reused shard after shard;
-    6. apply: one ``gba_apply`` launch per shard on its contiguous slice,
-       weighing worker ``w`` by Eq. (1) with its token;
-    7. the loss: the sum over workers, in worker order from +0.0 as
-       ``psum`` adds them, of ``loss_w * decay(token_w)``, divided by M
-       (computed before step 6, which it gates).
+    6. apply: one ``gba_apply`` launch per shard held here on its
+       contiguous slice, weighing worker ``w`` by Eq. (1) with its token;
+    7. the loss: the M workers' losses (``world.all_losses``) summed, in
+       worker order from +0.0 as ``psum`` adds them, each times
+       ``decay(token_w)``, divided by M (computed before step 6, which it
+       gates).
 
     ``warm=True`` builds the warmup step of a lossy policy: float32
     routing as ``"none"``, the residual untouched, the onebit momentum
@@ -155,6 +166,8 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
     if layout.num_shards != m:
         raise ValueError(f"layout has {layout.num_shards} shards but there "
                          f"are {m} workers")
+    mine = world.workers(m)
+    k = len(mine)
     scheme = compress.scheme if compress is not None else "none"
     quantized = scheme != "none" and not warm
     mode = "minmax" if scheme == "int8" else "sign"
@@ -170,12 +183,12 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
         return loss.detach(), grads
 
     def dequantized(codes, sides):
-        """Each shard's (M, shard_size) float32 block in turn, one
+        """Each held shard's (M, shard_size) float32 block in turn, one
         dequantize launch per group; one block, overwritten shard after
         shard."""
         block = torch.empty((m, ss), dtype=torch.float32,
                             device=codes.device)
-        for s in range(m):
+        for s in range(k):
             for g in range(layout.num_groups):
                 lo, hi = layout.group_shard_bounds(g)
                 ops.dequantize_wire(
@@ -185,31 +198,32 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
             yield block
 
     def step(param_flat, accum_flat, batch, tokens, gstep, wire=None):
-        if param_flat.shape != (layout.padded_total,) or \
+        if param_flat.shape != (k * ss,) or \
                 accum_flat.shape != param_flat.shape:
             raise ValueError(
-                f"param_flat and accum_flat must be ({layout.padded_total},)"
-                f", got {tuple(param_flat.shape)}, {tuple(accum_flat.shape)}")
+                f"param_flat and accum_flat must be ({k * ss},), got "
+                f"{tuple(param_flat.shape)}, {tuple(accum_flat.shape)}")
         if tuple(tokens.shape) != (m,):
             raise ValueError(f"tokens must be ({m},), got "
                              f"{tuple(tokens.shape)}")
         if scheme != "none" and any(
-                tuple(wire[k].shape) != (m, layout.padded_total)
-                for k in compress.state_names()):
+                tuple(wire[name].shape) != (k, layout.padded_total)
+                for name in compress.state_names()):
             raise ValueError(f"wire state {compress.state_names()} must be "
-                             f"({m}, {layout.padded_total}) each")
+                             f"({k}, {layout.padded_total}) each")
         b = _split_batch(batch, m)
         dev = param_flat.device
         leaves = layout.leaves(world.all_gather(layout, param_flat))
-        routed = torch.empty((m, m, ss), device=dev, dtype=(
+        routed = torch.empty((k, m, ss), device=dev, dtype=(
             torch.int8 if quantized else torch.float32))
-        sides = [torch.empty((m, m, ss // tile), dtype=torch.float32,
+        sides = [torch.empty((k, m, ss // tile), dtype=torch.float32,
                              device=dev)
                  for _ in range(sidebands if quantized else 0)]
         losses = []
-        for w in range(m):
+        for row, w in enumerate(mine):
             loss_w, grads = worker_grads(
-                leaves, {k: v[w * b:(w + 1) * b] for k, v in batch.items()})
+                leaves, {key: v[w * b:(w + 1) * b]
+                         for key, v in batch.items()})
             losses.append(loss_w)
             for g in range(layout.num_groups):
                 lo, hi = layout.group_shard_bounds(g)
@@ -217,12 +231,12 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                 for j in layout.group_leaves(g):
                     grads[j] = None
                 if scheme == "onebit":
-                    mom = wire["momentum"][w].view(m, ss)[:, lo:hi]
+                    mom = wire["momentum"][row].view(m, ss)[:, lo:hi]
                     mom.mul_(MOMENTUM).add_(gm * (1.0 - MOMENTUM))
                 if not quantized:
                     world.route(routed, w, lo, hi, gm)
                     continue
-                payload = wire["residual"][w].view(m, ss)[:, lo:hi]
+                payload = wire["residual"][row].view(m, ss)[:, lo:hi]
                 payload.add_(mom if scheme == "onebit" else gm)
                 del gm
                 codes, *side = ops.quantize_wire(payload, tile=tile,
@@ -232,7 +246,8 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                     world.route(dst, w, lo // tile, hi // tile, src)
             del grads
         del leaves
-        loss = _weighted_loss(losses, threshold_decay(tokens, gstep, iota))
+        loss = _weighted_loss(world.all_losses(losses),
+                              threshold_decay(tokens, gstep, iota))
         if math.isfinite(loss.item()):
             apply_shards(param_flat, accum_flat,
                          dequantized(routed, sides) if quantized else routed,

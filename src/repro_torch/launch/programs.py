@@ -16,10 +16,15 @@ Counterpart of ``repro.launch.programs`` for its four modes.
     and its gradient and ravels the gradient into the buffer; on every
     M-th microstep ONE ``gba_apply`` launch aggregates the buffer with the
     token-control weights of Eq. (1) and applies Adagrad to the whole flat
-    vector.
+    vector.  With ``workers`` W > 1 the flat vectors are W PS shards'
+    slices (``repro_torch.core.flat_sharded``, layer-grouped by default)
+    and the apply is one ``gba_apply`` launch per shard, W per global
+    step: the reference's sharded fused step, its microsteps on the one
+    device.
 ``wire``
-    W PS workers, each also a shard, in one process on one device
-    (``repro_torch.core.gba_shard_map``): per global step every worker
+    W PS workers, each also a shard (``repro_torch.core.gba_shard_map``),
+    in one process on one device or spread over ``torch.distributed``
+    ranks (``world``): per global step every worker
     takes the gradient of its own slice of the batch, routes it per layer
     group to the shards, optionally over the quantized wire
     (``repro_torch.core.compression``), and each shard applies with one
@@ -33,8 +38,7 @@ Counterpart of ``repro.launch.programs`` for its four modes.
     operators, as in the reference) on the tree.  The switching harness's
     sync mode.
 
-The reference's sharded fused path over a mesh is not ported
-(ROADMAP.md).  PyTorch runs eagerly, so there is nothing to jit: a "program"
+PyTorch runs eagerly, so there is nothing to jit: a "program"
 is the step function, and it updates its state in place where the
 reference donates it (the sync_psum step returns new tensors, as its
 optimizer does).
@@ -48,13 +52,17 @@ import torch
 
 from repro_torch.configs.base import GBAConfig, ModelConfig
 from repro_torch.core.compression import CompressionPolicy
-from repro_torch.core.flat_sharded import TILE, ShardedFlatLayout
+from repro_torch.core.flat_sharded import (TILE, ShardedFlatLayout,
+                                           init_sharded_flat_buffer,
+                                           make_sharded_apply,
+                                           sharded_flat_push)
 from repro_torch.core.gba import (FlatLayout, flat_buffer_push,
                                   init_flat_buffer, path_unflatten,
                                   tree_paths)
 from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
                                             make_gba_psum_step)
 from repro_torch.core.staleness import threshold_decay
+from repro_torch.distributed import inprocess
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.optim import Optimizer, adagrad, get_optimizer, tree_map
@@ -149,41 +157,69 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     return train_step
 
 
-def init_fused_train_state(params: Any, gba: GBAConfig
-                           ) -> tuple[FlatLayout, dict]:
+def init_fused_train_state(params: Any, gba: GBAConfig, workers: int = 1,
+                           layer_groups: bool = True
+                           ) -> tuple[FlatLayout | ShardedFlatLayout, dict]:
     """State of the fused step on the params' device: ``params`` (the
-    tree), ``accum`` (N,) float32 filled with ``INITIAL_ACCUM``, and the
-    flat ``buffer``.  Returns (layout, state)."""
-    layout, buffer = init_flat_buffer(params, gba.buffer_size)
-    accum = torch.full((layout.total,), INITIAL_ACCUM, dtype=torch.float32,
+    tree), ``accum`` filled with ``INITIAL_ACCUM``, and the flat
+    ``buffer``.  One worker: the ``FlatLayout``, ``accum`` (N,) float32.
+    ``workers`` W > 1: the ``ShardedFlatLayout`` of W shards over
+    ``TILE``, layer-grouped by ``models.transformer.param_group_key``
+    unless ``layer_groups`` is False, ``accum`` (padded_total,) and the
+    sharded buffer of ``init_sharded_flat_buffer``.  Returns (layout,
+    state)."""
+    if workers > 1:
+        layout, buffer = init_sharded_flat_buffer(
+            params, gba.buffer_size, workers, TILE,
+            group_by=T.param_group_key if layer_groups else None)
+        total = layout.padded_total
+    else:
+        layout, buffer = init_flat_buffer(params, gba.buffer_size)
+        total = layout.total
+    accum = torch.full((total,), INITIAL_ACCUM, dtype=torch.float32,
                        device=buffer["grads"].device)
     return layout, {"params": params, "accum": accum, "buffer": buffer}
 
 
 def make_fused_train_step(cfg: ModelConfig, gba: GBAConfig,
-                          layout: FlatLayout, lr: float = 1e-3) -> Callable:
+                          layout: FlatLayout | ShardedFlatLayout,
+                          lr: float = 1e-3) -> Callable:
     """``train_step(state, batch, token) -> (state, loss)``: push the
     raveled gradient; when the push fills the buffer, ONE ``gba_apply``
-    launch weighs each slot against the step *before* the push and updates
-    the flat params and the accumulator.  The params are raveled and
-    unraveled only on that microstep; on the others ``params`` and
-    ``accum`` come back as the very tensors that went in.  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S) on the params' device."""
+    launch (a ``FlatLayout``), or one per shard (a ``ShardedFlatLayout``,
+    each on its contiguous ``(M, shard_size)`` block), weighs each slot
+    against the step *before* the push and updates the flat params and
+    the accumulator.  The params are raveled and unraveled only on that
+    microstep; on the others ``params`` and ``accum`` come back as the
+    very tensors that went in.  ``batch`` holds ``tokens`` and ``labels``
+    (B, S) on the params' device."""
     iota = gba.staleness_tolerance
+    if isinstance(layout, ShardedFlatLayout):
+        apply_shards = make_sharded_apply(layout, iota=iota)
+
+        def push(buffer, flat_grad, token):
+            return sharded_flat_push(layout, buffer, flat_grad, token)
+
+        def apply(flat_p, accum, buffer, step):
+            apply_shards(flat_p, accum, buffer["grads"].unbind(1),
+                         buffer["tokens"], step, lr)
+    else:
+        push = flat_buffer_push
+
+        def apply(flat_p, accum, buffer, step):
+            ops.gba_apply_flat(flat_p, accum, buffer["grads"],
+                               buffer["tokens"], step, lr, iota=iota)
 
     def train_step(state: dict, batch: dict, token: int
                    ) -> tuple[dict, torch.Tensor]:
         params, accum, buffer = state["params"], state["accum"], \
             state["buffer"]
         loss, grads = loss_and_grads(cfg, params, batch)
-        new_buffer, is_full = flat_buffer_push(buffer, layout.ravel(grads),
-                                               token)
+        new_buffer, is_full = push(buffer, layout.ravel(grads), token)
         del grads
         if is_full:
             flat_p = layout.ravel(params)
-            ops.gba_apply_flat(flat_p, accum, new_buffer["grads"],
-                               new_buffer["tokens"], buffer["step"], lr,
-                               iota=iota)
+            apply(flat_p, accum, new_buffer, buffer["step"])
             params = layout.unravel(flat_p)
         return {"params": params, "accum": accum,
                 "buffer": new_buffer}, loss
@@ -194,16 +230,18 @@ def make_fused_train_step(cfg: ModelConfig, gba: GBAConfig,
 def make_wire_psum_steps(cfg: ModelConfig, gba: GBAConfig,
                          layout: ShardedFlatLayout, workers: int, *,
                          compress: CompressionPolicy | None = None,
-                         lr: float = 1e-3) -> tuple[Callable, Callable]:
+                         lr: float = 1e-3, world=inprocess
+                         ) -> tuple[Callable, Callable]:
     """``(warm_step, compressed_step)`` of the worker-parallel
-    layer-grouped step (``core.gba_shard_map``) on the LM loss: with a
-    lossy policy, the float32 warmup step and the quantized one; with
-    ``compress=None`` or scheme ``"none"``, one uncompressed step twice."""
+    layer-grouped step (``core.gba_shard_map``) on the LM loss over the
+    collectives of ``world``: with a lossy policy, the float32 warmup step
+    and the quantized one; with ``compress=None`` or scheme ``"none"``,
+    one uncompressed step twice."""
     def build(warm: bool) -> Callable:
         return make_gba_fused_psum_step(
             workers, make_loss_fn(cfg), layout,
             iota=gba.staleness_tolerance, lr=lr, compress=compress,
-            warm=warm)
+            warm=warm, world=world)
 
     if compress is None or not compress.stateful:
         step = build(False)
@@ -230,8 +268,8 @@ class TrainPrograms:
     ``optimizer``; ``fused`` fills ``layout``, ``state`` (``params``,
     ``accum``, ``buffer``) and ``step``; ``wire`` fills ``layout``,
     ``state`` (``param_flat``, ``accum``), ``warm_step``,
-    ``compressed_step`` and ``wire_state``; ``sync_psum`` fills ``state``
-    (``params``, ``opt``), ``step`` and ``optimizer``."""
+    ``compressed_step``, ``wire_state`` and ``compress``; ``sync_psum``
+    fills ``state`` (``params``, ``opt``), ``step`` and ``optimizer``."""
 
     layout: Any
     state: dict
@@ -240,6 +278,18 @@ class TrainPrograms:
     warm_step: Callable | None = None
     compressed_step: Callable | None = None
     wire_state: dict | None = None
+    compress: CompressionPolicy | None = None
+
+    def wire_step_for(self, async_steps_taken: int) -> Callable:
+        """The wire step for a global step after ``async_steps_taken``
+        async global steps: the warmup step until
+        ``compress.warmup_steps``, the compressed step after (one step for
+        a lossless policy)."""
+        if self.compress is None or not self.compress.stateful:
+            return self.warm_step
+        return (self.warm_step
+                if async_steps_taken < self.compress.warmup_steps
+                else self.compressed_step)
 
 
 def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
@@ -248,7 +298,8 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
                    acc_dtype: torch.dtype | None = None,
                    workers: int = 1,
                    compress: CompressionPolicy | None = None,
-                   layer_groups: bool = True) -> TrainPrograms:
+                   layer_groups: bool = True,
+                   world=inprocess) -> TrainPrograms:
     """The step(s) of ``mode`` and their state, from ``params`` (on the
     device the steps run on).
 
@@ -256,11 +307,19 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     (``ARCH_OPTIMIZER``, else Adam at ``lr``), and an accumulator in
     ``acc_dtype`` or the arch's (``ARCH_ACC_DTYPE``, else float32).
 
-    ``wire`` runs ``workers`` PS workers and shards: the layout is a
+    ``fused`` with ``workers`` > 1 splits the flat vectors into that many
+    PS shards, layer-grouped unless ``layer_groups`` is False
+    (``init_fused_train_state``).
+
+    ``wire`` runs ``workers`` PS workers and shards over the collectives
+    of ``world`` (``distributed.inprocess``, or a
+    ``distributed.process_group.ProcessGroupBackend``): the layout is a
     ``ShardedFlatLayout`` over ``TILE``, layer-grouped by
     ``models.transformer.param_group_key`` unless ``layer_groups`` is
-    False; ``param_flat`` is the raveled params, ``accum`` is filled with
-    ``INITIAL_ACCUM``.
+    False; ``param_flat`` is the run of the raveled params that the
+    shards held here own (all of it in process), ``accum`` is filled
+    with ``INITIAL_ACCUM``, and the wire state has a row per worker held
+    here.
 
     ``sync_psum`` runs ``workers`` workers with ``optimizer`` or, by
     default, Adagrad at ``lr`` with ``INITIAL_ACCUM``, as the reference's
@@ -275,7 +334,11 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
                              step=make_train_step(cfg, opt, gba),
                              optimizer=opt)
     if mode == "fused":
-        layout, state = init_fused_train_state(params, gba)
+        if workers < 1:
+            raise ValueError(f"fused mode needs 1 or more workers, got "
+                             f"{workers}")
+        layout, state = init_fused_train_state(params, gba, workers,
+                                               layer_groups)
         return TrainPrograms(layout=layout, state=state,
                              step=make_fused_train_step(cfg, gba, layout,
                                                         lr=lr))
@@ -286,15 +349,21 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
         layout = ShardedFlatLayout.from_params(
             params, workers, TILE,
             group_by=T.param_group_key if layer_groups else None)
+        mine = world.workers(workers)
         param_flat = layout.ravel(params)
+        if len(mine) < workers:
+            ss = layout.shard_size
+            param_flat = param_flat[mine[0] * ss:(mine[-1] + 1) * ss].clone()
         state = {"param_flat": param_flat,
                  "accum": torch.full_like(param_flat, INITIAL_ACCUM)}
         warm, comp = make_wire_psum_steps(cfg, gba, layout, workers,
-                                          compress=compress, lr=lr)
+                                          compress=compress, lr=lr,
+                                          world=world)
         return TrainPrograms(
             layout=layout, state=state, warm_step=warm, compressed_step=comp,
-            wire_state=init_wire_state(layout, compress, workers,
-                                       param_flat.device))
+            wire_state=init_wire_state(layout, compress, len(mine),
+                                       param_flat.device),
+            compress=compress)
     if mode == "sync_psum":
         if workers < 1:
             raise ValueError(f"sync_psum mode needs 1 or more workers, got "

@@ -7,7 +7,7 @@ smoke.
         [--iota 4] [--lr 1e-3] [--device cuda]
     python -m repro_torch.launch.train --arch granite-8b --fused \\
         --mesh 4x1 [--compress {none,int8,onebit}] [--compress-warmup 2] \\
-        [--layer-groups {on,off}] [--reduced] [--steps 20] [--batch 4] ...
+        [--layer-groups {on,off}] [--ranks R] [--reduced] [--steps 20] ...
     python -m repro_torch.launch.train --arch granite-8b --mesh 4x1 \\
         --autoswitch [--plan {quiet,strained}] [--batches 120] [--reduced]
     python -m repro_torch.launch.train --vocab 1000000 --steps 5 \\
@@ -25,15 +25,22 @@ flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
 ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
 ``--reduced`` takes the config's smoke variant.
 
-``--fused --mesh Wx1`` runs W PS workers, each also a PS shard, in one process on
-the one device (``run_wire_train``): every step is a global step in which
-each worker takes the gradient of its own ``batch / W`` sequences and
-routes it per layer group to the shards, and each shard applies with one
-``gba_apply`` launch.  ``--compress int8`` or ``onebit`` quantizes that
-routing after ``--compress-warmup`` float32 global steps.  A model axis
-above 1 is not ported.  The reference's launcher sends ``--compress none``
-to its sharded fused flat-buffer step, which is not ported; here it runs
-the same worker-parallel schedule without wire state.
+``--fused --mesh Wx1`` (``--compress none``, the default) runs the
+reference's sharded fused step (``run_lm_fused`` with W workers): the
+microsteps of ``--fused``, with the flat buffer and the Adagrad
+accumulator split into W tile-aligned PS shards, layer-grouped unless
+``--layer-groups off``, and on every M-th microstep one ``gba_apply``
+launch per shard.  ``--compress int8`` or ``onebit`` runs the
+worker-parallel wire step instead (``run_wire_train``), W PS workers, each
+also a PS shard, in one process on the one device: every step is a
+global step in which each worker takes the gradient of its own ``batch /
+W`` sequences and routes it per layer group to the shards, quantized
+after ``--compress-warmup`` float32 global steps, and each shard applies
+with one ``gba_apply`` launch.  ``--ranks R`` runs the wire step, for
+every ``--compress``, on R ``torch.distributed`` ranks of W / R workers
+each (``repro_torch.distributed.process_group``): gloo with ``--device
+cpu``, NCCL on R cards with ``cuda``.  A model axis above 1 is not
+ported.
 
 ``--mesh Wx1 --autoswitch`` runs the switching harness
 (``repro_torch.launch.switch_driver``) on the arch's steps
@@ -67,7 +74,9 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import GBAConfig, ModelConfig
 from repro_torch.core.compression import CompressionPolicy
+from repro_torch.core.flat_sharded import ShardedFlatLayout
 from repro_torch.data.lm import make_lm_stream
+from repro_torch.distributed import inprocess, process_group
 from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
 from repro_torch.kernels.runtime import resolve_device
@@ -190,23 +199,41 @@ def run_lm_pytree(cfg: ModelConfig, *, optimizer: str = "adam",
 
 def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
                  seq: int = 128, buffer: int = 4, iota: int = 4,
-                 lr: float = 1e-3, device: str | torch.device = "cuda"
-                 ) -> list[float]:
+                 lr: float = 1e-3, workers: int = 1,
+                 layer_groups: bool = True,
+                 device: str | torch.device = "cuda") -> list[float]:
     """Train ``cfg`` for ``steps`` microsteps of the fused GBA step on the
-    LM stream (seed 0); returns the losses.  Parameters are drawn from
-    seed 0 on the device.  Raises if a loss is not finite."""
+    LM stream (seed 0), its flat state split into ``workers`` PS shards
+    when there are 2 or more (layer-grouped unless ``layer_groups`` is
+    False); returns the losses.  Parameters are drawn from seed 0 on the
+    device.  Raises if a loss is not finite."""
     dev = resolve_device(device)
     params = T.init_model(cfg, generator=torch.Generator(dev).manual_seed(0),
                           device=dev)
     gba = GBAConfig(local_batch=batch, buffer_size=buffer,
                     staleness_tolerance=iota)
-    progs = build_programs(cfg, gba, params=params, mode="fused", lr=lr)
+    progs = build_programs(cfg, gba, params=params, mode="fused", lr=lr,
+                           workers=workers, layer_groups=layer_groups)
     del params
     stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
     print(f"{cfg.name}: {T.param_count(progs.state['params']) / 1e6:.1f}M "
           f"params on {dev}")
-    print(f"fused gba_apply path (Adagrad): flat buffer ({buffer}, "
-          f"{progs.layout.total})")
+    layout = progs.layout
+    if isinstance(layout, ShardedFlatLayout):
+        print(f"sharded fused gba_apply path (Adagrad): flat buffer "
+              f"({buffer}, {layout.padded_total}) sliced over "
+              f"data={layout.num_shards} (shard_size={layout.shard_size}, "
+              f"tile={layout.tile}; 1 apply launch/shard vs "
+              f"{len(layout.sizes)} per-leaf)")
+        if layout.num_groups > 1:
+            table = ", ".join(f"{r['key']}={r['bytes'] / 1e6:.2f}MB"
+                              for r in layout.group_table())
+            print(f"layer groups ({layout.num_groups}): {table}; "
+                  f"peak_gather={layout.peak_gather_bytes / 1e6:.2f}MB vs "
+                  f"full_gather={layout.full_gather_bytes / 1e6:.2f}MB")
+    else:
+        print(f"fused gba_apply path (Adagrad): flat buffer ({buffer}, "
+              f"{layout.total})")
     state, losses = progs.state, []
     t0 = time.perf_counter()
     for i in range(steps):
@@ -230,11 +257,13 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
                    layer_groups: bool = True,
                    device: str | torch.device = "cuda",
                    params: dict | None = None,
-                   on_step: Callable[[int, TrainPrograms], None] | None = None
-                   ) -> list[float]:
+                   on_step: Callable[[int, TrainPrograms], None] | None = None,
+                   world=inprocess) -> list[float]:
     """Train ``cfg`` for ``steps`` global steps of the worker-parallel
-    layer-grouped step, ``workers`` workers and shards on the one device,
-    with the ``scheme`` wire; returns the losses.
+    layer-grouped step, ``workers`` workers and shards over the
+    collectives of ``world`` (all on the one device by default, or this
+    rank's share under a ``process_group.ProcessGroupBackend``), with the
+    ``scheme`` wire; returns the losses.
 
     Step ``i`` gives every worker the token ``i`` and is global step
     ``i``, as in the reference.  The first ``compress_warmup`` steps route
@@ -252,9 +281,12 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
                     staleness_tolerance=iota)
     progs = build_programs(cfg, gba, params=params, mode="wire", lr=lr,
                            workers=workers, compress=pol,
-                           layer_groups=layer_groups)
+                           layer_groups=layer_groups, world=world)
     del params
     layout = progs.layout
+    if world is not inprocess:
+        print(f"process group: {world.backend}, {world.size} ranks x "
+              f"{workers // world.size} workers")
     print(f"quantized wire ({scheme}): {workers} workers x "
           f"{layout.num_groups} groups; route "
           f"{pol.wire_bytes(layout) / 1e6:.2f}MB/worker/step vs "
@@ -273,7 +305,7 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
                    for k in ("tokens", "labels")}
         tokens = torch.full((workers,), i, dtype=torch.int32, device=dev)
         warm = pol.stateful and i < pol.warmup_steps
-        fn = progs.warm_step if warm else progs.compressed_step
+        fn = progs.wire_step_for(i)
         if pol.stateful:
             *_, loss, _ = fn(param_flat, accum, tensors, tokens, i,
                              progs.wire_state)
@@ -290,6 +322,13 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"wire training diverged: losses {losses}")
     return losses
+
+
+def _wire_rank(world, device: torch.device, cfg: ModelConfig,
+               kwargs: dict) -> None:
+    """One rank of ``--ranks``: ``run_wire_train`` on ``device`` over the
+    rank's ``world``."""
+    run_wire_train(cfg, device=device, world=world, **kwargs)
 
 
 def run_autoswitch(cfg: ModelConfig, *, workers: int,
@@ -354,11 +393,13 @@ def main(argv: list[str] | None = None):
                          "the arch's optimizer")
     ap.add_argument("--mesh", default="",
                     help="WORKERSx1 (needs --fused or --autoswitch): that "
-                         "many PS workers and shards in one process on the "
-                         "device (the worker-parallel wire step), e.g. 4x1")
+                         "many PS shards (the sharded fused step) or, with "
+                         "--compress int8|onebit or --ranks, PS workers and "
+                         "shards (the worker-parallel wire step), e.g. 4x1")
     ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
-                    help="layer-grouped flat layout of the wire step: one "
-                         "gather and one route per layer group")
+                    help="layer-grouped flat layout of the sharded fused "
+                         "and wire steps: one gather and one route per "
+                         "layer group")
     ap.add_argument("--compress", choices=("none", "int8", "onebit"),
                     default="none",
                     help="quantize the wire step's gradient routing (needs "
@@ -366,6 +407,11 @@ def main(argv: list[str] | None = None):
                          "feedback, onebit = sign of momentum")
     ap.add_argument("--compress-warmup", type=int, default=2,
                     help="float32 global steps before the quantized wire")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run the wire step (any --compress) on that many "
+                         "torch.distributed ranks of WORKERS / RANKS "
+                         "workers each: gloo on the CPU, NCCL one rank per "
+                         "card (needs --fused --mesh WORKERSx1)")
     ap.add_argument("--autoswitch", action="store_true",
                     help="the switching harness on the arch's sync and "
                          "async steps under --plan (needs --mesh "
@@ -392,6 +438,9 @@ def main(argv: list[str] | None = None):
         if args.reduced:
             cfg = cfg.reduced()
         if args.autoswitch:
+            if args.ranks:
+                ap.error("--ranks: the switching harness on the process-"
+                         "group backend is not ported")
             workers, _, model = args.mesh.partition("x")
             if not (workers.isdigit() and int(workers) >= 2
                     and model in ("", "1")):
@@ -405,9 +454,9 @@ def main(argv: list[str] | None = None):
             if args.mesh:
                 ap.error("--mesh: the pytree step over PS workers is not "
                          "ported; pass --fused for the wire step")
-            if args.compress != "none":
-                ap.error("--compress needs --fused --mesh WORKERSx1: the "
-                         "single-device step has no wire to quantize")
+            if args.compress != "none" or args.ranks:
+                ap.error("--compress or --ranks needs --fused --mesh "
+                         "WORKERSx1: the single-device step has no wire")
             return run_lm_pytree(cfg, optimizer=opt_name, steps=args.steps,
                                  batch=args.batch, seq=args.seq,
                                  buffer=args.buffer, iota=args.iota,
@@ -423,17 +472,30 @@ def main(argv: list[str] | None = None):
             if model != 1:
                 ap.error(f"--mesh {args.mesh}: a model axis above 1 is not "
                          f"ported (see ROADMAP.md)")
-            if workers < 2 or args.batch % workers:
-                ap.error(f"--mesh {args.mesh}: needs 2 or more workers "
+            if workers < 2:
+                ap.error(f"--mesh {args.mesh}: needs 2 or more workers")
+            if args.compress == "none" and not args.ranks:
+                return run_lm_fused(
+                    cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                    buffer=args.buffer, iota=args.iota, lr=args.lr,
+                    workers=workers, layer_groups=args.layer_groups == "on",
+                    device=args.device)
+            if args.batch % workers:
+                ap.error(f"--mesh {args.mesh}: the wire step needs workers "
                          f"that divide --batch {args.batch}")
-            return run_wire_train(
-                cfg, workers=workers, scheme=args.compress, steps=args.steps,
-                batch=args.batch, seq=args.seq, iota=args.iota, lr=args.lr,
-                compress_warmup=args.compress_warmup,
-                layer_groups=args.layer_groups == "on", device=args.device)
-        if args.compress != "none":
-            ap.error("--compress needs --mesh WORKERSx1: the single-device "
-                     "step has no wire to quantize")
+            kwargs = dict(workers=workers, scheme=args.compress,
+                          steps=args.steps, batch=args.batch, seq=args.seq,
+                          iota=args.iota, lr=args.lr,
+                          compress_warmup=args.compress_warmup,
+                          layer_groups=args.layer_groups == "on")
+            if not args.ranks:
+                return run_wire_train(cfg, device=args.device, **kwargs)
+            process_group.check_world(args.ranks, workers, args.device)
+            return process_group.spawn(_wire_rank, args.ranks, cfg, kwargs,
+                                       device=args.device)
+        if args.compress != "none" or args.ranks:
+            ap.error("--compress or --ranks needs --mesh WORKERSx1: the "
+                     "single-device step has no wire")
         return run_lm_fused(cfg,
                             steps=args.steps, batch=args.batch,
                             seq=args.seq, buffer=args.buffer,

@@ -1213,3 +1213,74 @@ def test_switch_driver_on_the_card_matches_the_cpu():
         assert np.array_equal(r.accum_flat.view(np.int32),
                               runs[0].accum_flat.view(np.int32))
         assert r.losses == runs[0].losses
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "flat"])
+def test_sharded_apply_matches_one_whole_buffer_launch(grouped):
+    """The sharded buffer's apply, one ``gba_apply`` launch per each of 4
+    shards on its contiguous block, bit-identical to one launch over the
+    whole ``(M, padded_total)`` buffer on the card and to the plain
+    version on the CPU; the 4 shards are leaves that are not tile
+    multiples, so padding columns are in the run."""
+    _need_card()
+    from repro_torch.core.flat_sharded import (init_sharded_flat_buffer,
+                                               sharded_flat_push_and_maybe_apply)
+    from repro_torch.convert import tree_to_device
+    from repro_torch.distributed import selfcheck
+    params = tree_to_device(selfcheck.problem(4)[0], torch.device("cuda"))
+    lay, buf = init_sharded_flat_buffer(
+        params, 4, 4, tile=256, group_by=(lambda p: p[0]) if grouped
+        else None)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    whole = torch.randn((4, lay.padded_total), generator=gen, device="cuda")
+    p0 = lay.ravel(params)
+    a0 = torch.rand(lay.padded_total, generator=gen, device="cuda") + 0.05
+    tokens = [3, 3, 0, 3]
+    buf["step"] = 3
+    p, a = p0.clone(), a0.clone()
+    launches = gba_apply.launches
+    for j in range(4):
+        p, a, applied, buf = sharded_flat_push_and_maybe_apply(
+            buf, whole[j], tokens[j], p, a, 0.05, layout=lay, iota=2)
+    torch.cuda.synchronize()
+    assert applied and gba_apply.launches == launches + 4
+    wp, wa = p0.clone(), a0.clone()
+    toks = torch.tensor(tokens, dtype=torch.int32, device="cuda")
+    gba_apply(wp, wa, whole, toks, 3, 0.05, iota=2)
+    hp, ha = gba_apply_ref(p0.cpu(), a0.cpu(), whole.cpu(), toks.cpu(), 3,
+                           0.05, iota=2)
+    for got, want in ((p, wp), (a, wa), (p.cpu(), hp), (a.cpu(), ha)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_one_rank_nccl_world_is_bit_identical_to_in_process(tmp_path):
+    """A small wire step (none, int8, onebit) over a one-rank NCCL world
+    holding all 4 workers, bit-identical to the in-process backend on the
+    card; the world is destroyed after."""
+    _need_card()
+    import os
+    import torch.distributed as dist
+    from repro_torch.distributed import inprocess, process_group, selfcheck
+    for d in ("nccl", "in"):
+        os.mkdir(tmp_path / d)
+    world, dev = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                    "cuda", timeout=120.0)
+    try:
+        assert world.backend == "nccl"
+        launches = gba_apply.launches
+        selfcheck.run(world, dev, 4, ("none", "int8", "onebit"),
+                      str(tmp_path / "nccl"))
+        torch.cuda.synchronize()
+        assert gba_apply.launches - launches == 3 * selfcheck.STEPS * 4
+    finally:
+        process_group.leave()
+    assert not dist.is_initialized()
+    selfcheck.run(inprocess, torch.device("cuda"), 4,
+                  ("none", "int8", "onebit"), str(tmp_path / "in"))
+    got = torch.load(tmp_path / "nccl" / "part0.pt")
+    want = torch.load(tmp_path / "in" / "part0.pt")
+    for scheme, held in want.items():
+        assert set(got[scheme]) == set(held)
+        for k, v in held.items():
+            assert torch.equal(got[scheme][k].view(torch.int32),
+                               v.view(torch.int32)), (scheme, k)

@@ -2,7 +2,8 @@
 
 * Importing ``repro_torch`` and its serving (the recsys engine, the LM
   engine and launcher), training (the replay trainer, the LM's pytree and
-  fused steps and its worker-parallel wire step, the token list),
+  fused steps, its worker-parallel wire step and that step's process-group
+  backend, the token list),
   embeddings, kernel and bench modules and its numpy copy of the
   reference's random draws loads no JAX.
 * No file of the port, and neither ``chip_smoke.py`` nor the card scripts
@@ -23,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.recsys import CRITEO_DEEPFM
 from repro_torch.convert import jax_init_recsys, params_from_jax
 from repro_torch.core import pretrain_sync
+from repro_torch.distributed import selfcheck
 from repro_torch.benchmarks import (decay_ablation, fig3_grad_distribution,
                                     fig6_switching, fig78_batch_ablation,
                                     multitask)
@@ -54,6 +56,8 @@ def test_import_loads_no_jax():
             "repro_torch.core.compression, repro_torch.core.flat_sharded, "
             "repro_torch.core.gba_shard_map, "
             "repro_torch.distributed.inprocess, repro_torch.core.tokens, "
+            "repro_torch.distributed.process_group, "
+            "repro_torch.distributed.selfcheck, "
             "repro_torch.kernels.gba_aggregate, "
             "repro_torch.kernels.fused_adagrad, "
             "repro_torch.kernels.flash_decode, repro_torch.serving.engine, "
@@ -100,6 +104,8 @@ def test_forbidden_import_pattern():
                                    "quickstart", "train_vocab",
                                    "init_model", "train_arch",
                                    "train_wire", "train_pytree",
+                                   "train_sharded", "train_ranks",
+                                   "dist_selfcheck",
                                    "train_autoswitch", "switch_driver",
                                    "fig6_run", "jax_init_recsys",
                                    "multitask_run", "decay_ablation_run",
@@ -134,6 +140,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
                                           "--reduced", "--fused", "--mesh",
                                           "4x1", "--compress", "int8",
                                           "--steps", "1"]),
+        "train_sharded": lambda: train.main(["--arch", "granite-8b",
+                                             "--reduced", "--fused",
+                                             "--mesh", "4x1", "--steps",
+                                             "1"]),
+        "train_ranks": lambda: train.main(["--arch", "granite-8b",
+                                           "--reduced", "--fused", "--mesh",
+                                           "4x1", "--ranks", "2", "--steps",
+                                           "1"]),
+        "dist_selfcheck": lambda: selfcheck.main([]),
         "train_autoswitch": lambda: train.main(["--arch", "granite-8b",
                                                 "--reduced", "--mesh", "4x1",
                                                 "--autoswitch"]),

@@ -518,11 +518,16 @@ def test_run_wire_train_matches_the_jax_program(train_run, dtype, scheme):
     ("none", "on", "1.000"), ("int8", "on", "0.251"),
     ("onebit", "on", "0.250"), ("int8", "off", "0.251")])
 def test_train_cli_runs_the_wire_step_on_the_cpu(scheme, groups, ratio):
+    """``--compress none`` alone runs the sharded fused step
+    (``tests/test_torch_sharded_fused.py``), as the reference's launcher
+    does; the wire step without compression is the ``--ranks`` route, here
+    one gloo rank holding the 4 workers."""
+    ranks = ["--ranks", "1"] if scheme == "none" else []
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "granite-8b", "--reduced", "--fused", "--mesh", "4x1", "--compress",
          scheme, "--compress-warmup", "2", "--layer-groups", groups,
-         "--steps", "4", "--device", "cpu"],
+         "--steps", "4", "--device", "cpu", *ranks],
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -536,7 +541,7 @@ def test_train_cli_runs_the_wire_step_on_the_cpu(scheme, groups, ratio):
 
 @pytest.mark.parametrize("args,says", [
     (("--mesh", "2x2"), "model axis"),
-    (("--mesh", "3x1"), "divide --batch"),
+    (("--mesh", "3x1", "--compress", "int8"), "divide --batch"),
     (("--mesh", "1x1"), "2 or more workers"),
     (("--compress", "int8"), "needs --mesh"),
 ])
