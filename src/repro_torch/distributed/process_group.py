@@ -49,10 +49,6 @@ from repro_torch.kernels.runtime import resolve_device
 # the backend of each device type, and the device type of each backend
 BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
 DEVICES = {v: k for k, v in BACKENDS.items()}
-# the tiled all-gather: ``all_gather_single`` where torch has it, else the
-# older name, which newer releases keep with a deprecation warning
-_all_gather_tiled = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 
 
 def check_world(ranks: int, workers: int, device: str | torch.device
@@ -109,7 +105,7 @@ class ProcessGroupBackend:
             raise ValueError(f"{self.size} runs of {param_flat.shape[0]} "
                              f"elements do not make {layout.padded_total}")
         whole = param_flat.new_empty((layout.padded_total,))
-        _all_gather_tiled(whole, param_flat.contiguous())
+        dist.all_gather_into_tensor(whole, param_flat.contiguous())
         return layout.unravel(whole)
 
     def route(self, dst: torch.Tensor, worker: int, lo: int, hi: int,
@@ -139,29 +135,32 @@ class ProcessGroupBackend:
         mine = torch.stack(losses)
         self._check(mine)
         every = mine.new_empty((self.size * mine.shape[0],))
-        _all_gather_tiled(every, mine)
+        dist.all_gather_into_tensor(every, mine)
         return list(every.unbind())
 
 
 def join(rank: int, ranks: int, init_method: str,
-         device: str | torch.device, timeout: float = 600.0
+         device: str | torch.device, timeout: float | None = None
          ) -> tuple[ProcessGroupBackend, torch.device]:
     """Join the ``ranks``-rank world at ``init_method`` as ``rank``: gloo
     for ``device="cpu"`` (one thread, since R ranks share the host's
-    cores), NCCL on ``cuda:rank`` for ``"cuda"``.  Returns the backend and
-    the rank's device."""
+    cores), NCCL on ``cuda:rank`` for ``"cuda"``.  ``timeout`` bounds each
+    collective (torch's default where None).  Returns the backend and the
+    rank's device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
-        # the ranks meet through a local file, so they share one host:
-        # NCCL bootstraps over loopback unless the caller chose otherwise
-        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        if init_method.startswith("file://"):
+            # ranks that meet through a local file share one host: NCCL
+            # bootstraps over loopback unless the caller chose otherwise
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     else:
         torch.set_num_threads(1)
+    kwargs = ({} if timeout is None
+              else {"timeout": datetime.timedelta(seconds=timeout)})
     dist.init_process_group(BACKENDS[dev.type], init_method=init_method,
-                            world_size=ranks, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout))
+                            world_size=ranks, rank=rank, **kwargs)
     return ProcessGroupBackend(), dev
 
 
@@ -172,7 +171,7 @@ def leave() -> None:
 
 
 def _entry(rank: int, ranks: int, init_method: str, device: str,
-           timeout: float, fn: Callable, args: tuple) -> None:
+           timeout: float | None, fn: Callable, args: tuple) -> None:
     world, dev = join(rank, ranks, init_method, device, timeout)
     try:
         if rank:
@@ -186,14 +185,15 @@ def _entry(rank: int, ranks: int, init_method: str, device: str,
 
 
 def spawn(fn: Callable, ranks: int, *args, device: str = "cpu",
-          timeout: float = 600.0) -> None:
+          timeout: float | None = None) -> None:
     """Run ``fn(world, device, *args)`` on ``ranks`` new processes, each
     one rank of a fresh world (``world`` its :class:`ProcessGroupBackend`,
     ``device`` its device); only rank 0's standard output is kept.
     ``fn`` and ``args`` must pickle: ``fn`` a function of an importable
-    module.  Raises when a rank raises, or when the ranks have not all
-    ended within ``timeout`` seconds; either way no rank is left
-    running."""
+    module.  Raises when a rank raises, or, given a ``timeout``, when the
+    ranks have not all ended within that many seconds; either way no rank
+    is left running.  Without one it waits for the ranks however long
+    they run."""
     dev = torch.device(device)
     if dev.type == "cuda":
         check_world(ranks, ranks, dev)
@@ -202,10 +202,10 @@ def spawn(fn: Callable, ranks: int, *args, device: str = "cpu",
         ctx = torch.multiprocessing.start_processes(
             _entry, args=(ranks, init, dev.type, timeout, fn, args),
             nprocs=ranks, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
+        deadline = None if timeout is None else time.monotonic() + timeout
         try:
             while not ctx.join(timeout=1.0):
-                if time.monotonic() > deadline:
+                if deadline is not None and time.monotonic() > deadline:
                     raise TimeoutError(f"{ranks} ranks ran past {timeout} s")
         finally:
             for p in ctx.processes:

@@ -1,16 +1,15 @@
 """Hold the process-group backend of the wire step to the in-process one,
 bit for bit.
 
-    python -m repro_torch.distributed.selfcheck --ranks 2 [--workers 4] \\
-        [--device cuda]
-
-Runs the worker-parallel wire step (``repro_torch.core.gba_shard_map``)
-for each scheme (``none``, ``int8``, ``onebit``), ``STEPS`` global steps
-with ``WARMUP`` float32 warmup step, first on ``--ranks`` ranks
-(``process_group.spawn``: gloo with ``--device cpu``, NCCL one rank per
-card with ``cuda``), each rank saving its run of the params and the
-accumulator, its wire rows and the losses, then with every worker in this
-process (``inprocess``); and counts the elements whose bits differ.
+:func:`compare` runs the worker-parallel wire step
+(``repro_torch.core.gba_shard_map``) for each scheme (``none``, ``int8``,
+``onebit``), ``STEPS`` global steps with ``WARMUP`` float32 warmup step,
+first on R ranks (``process_group.spawn``: gloo on the CPU, NCCL one rank
+per card on ``cuda``), each rank running :func:`run`, which saves its run
+of the params and the accumulator, its wire rows and the losses, then
+with every worker in this process (``inprocess``); and counts the
+elements whose bits differ.  :func:`run` is the ranks' entry function,
+here because a spawned process cannot import a test module.
 
 The problem makes every gradient exact, so the comparison does not hang
 on the order of a library's sums: leaves that are not tile multiples in 3
@@ -20,10 +19,7 @@ element; worker 2 is three steps stale, which Eq. (1) drops at iota 2.
 """
 from __future__ import annotations
 
-import argparse
-import json
 import os
-import sys
 import tempfile
 
 import numpy as np
@@ -149,24 +145,3 @@ def compare(ranks: int, workers: int = 4, schemes: tuple = SCHEMES,
                 if g.shape == v.shape else v.numel() for g in got)
     return report
 
-
-def main(argv: list[str] | None = None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--workers", type=int, default=4)
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    report = compare(args.ranks, args.workers, device=args.device)
-    print(json.dumps(report))
-    bad = {s: r for s, r in report.items() if any(r.values())}
-    print(f"{args.ranks} {process_group.BACKENDS[torch.device(args.device).type]}"
-          f" ranks x {args.workers // args.ranks} workers: "
-          + (f"bits differ in {bad}" if bad else
-             "bit-identical to the in-process run"))
-    if bad:
-        sys.exit(1)
-    return report
-
-
-if __name__ == "__main__":
-    main()

@@ -36,11 +36,12 @@ also a PS shard, in one process on the one device: every step is a
 global step in which each worker takes the gradient of its own ``batch /
 W`` sequences and routes it per layer group to the shards, quantized
 after ``--compress-warmup`` float32 global steps, and each shard applies
-with one ``gba_apply`` launch.  ``--ranks R`` runs the wire step, for
-every ``--compress``, on R ``torch.distributed`` ranks of W / R workers
-each (``repro_torch.distributed.process_group``): gloo with ``--device
-cpu``, NCCL on R cards with ``cuda``.  A model axis above 1 is not
-ported.
+with one ``gba_apply`` launch.  ``--ranks R`` runs that wire step on R
+``torch.distributed`` ranks of W / R workers each
+(``repro_torch.distributed.process_group``): gloo with ``--device cpu``,
+NCCL on R cards with ``cuda``; with ``--compress none`` it is refused,
+since the sharded fused step over ranks is not ported.  A model axis
+above 1 is not ported.
 
 ``--mesh Wx1 --autoswitch`` runs the switching harness
 (``repro_torch.launch.switch_driver``) on the arch's steps
@@ -394,8 +395,8 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--mesh", default="",
                     help="WORKERSx1 (needs --fused or --autoswitch): that "
                          "many PS shards (the sharded fused step) or, with "
-                         "--compress int8|onebit or --ranks, PS workers and "
-                         "shards (the worker-parallel wire step), e.g. 4x1")
+                         "--compress int8|onebit, PS workers and shards "
+                         "(the worker-parallel wire step), e.g. 4x1")
     ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
                     help="layer-grouped flat layout of the sharded fused "
                          "and wire steps: one gather and one route per "
@@ -408,10 +409,11 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--compress-warmup", type=int, default=2,
                     help="float32 global steps before the quantized wire")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="run the wire step (any --compress) on that many "
+                    help="run the wire step on that many "
                          "torch.distributed ranks of WORKERS / RANKS "
                          "workers each: gloo on the CPU, NCCL one rank per "
-                         "card (needs --fused --mesh WORKERSx1)")
+                         "card (needs --fused --mesh WORKERSx1 --compress "
+                         "int8|onebit)")
     ap.add_argument("--autoswitch", action="store_true",
                     help="the switching harness on the arch's sync and "
                          "async steps under --plan (needs --mesh "
@@ -474,7 +476,11 @@ def main(argv: list[str] | None = None):
                          f"ported (see ROADMAP.md)")
             if workers < 2:
                 ap.error(f"--mesh {args.mesh}: needs 2 or more workers")
-            if args.compress == "none" and not args.ranks:
+            if args.compress == "none":
+                if args.ranks:
+                    ap.error("--ranks with --compress none: the sharded "
+                             "fused step over ranks is not ported; --ranks "
+                             "runs the wire step of --compress int8|onebit")
                 return run_lm_fused(
                     cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                     buffer=args.buffer, iota=args.iota, lr=args.lr,

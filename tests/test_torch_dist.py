@@ -91,10 +91,21 @@ def test_ranks_must_divide_workers():
         process_group.check_world(3, 4, "cpu")
     with pytest.raises(ValueError, match="3 ranks must divide 4 workers"):
         train.main(["--arch", "granite-8b", "--reduced", "--fused", "--mesh",
-                    "4x1", "--ranks", "3", "--device", "cpu"])
+                    "4x1", "--compress", "int8", "--ranks", "3", "--device",
+                    "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--arch", "granite-8b", "--reduced", "--fused",
                     "--ranks", "2", "--device", "cpu"])
+
+
+def test_ranks_with_compress_none_is_refused(capsys):
+    """``--compress none`` runs the sharded fused step, which is not
+    ported over ranks: ``--ranks`` does not swap in the wire step."""
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "granite-8b", "--reduced", "--fused", "--mesh",
+                    "4x1", "--ranks", "2", "--device", "cpu"])
+    assert "--ranks with --compress none" in capsys.readouterr().err
+    assert not dist.is_initialized()
 
 
 def test_more_nccl_ranks_than_cards_is_refused(monkeypatch):

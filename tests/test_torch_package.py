@@ -24,7 +24,6 @@ from repro_torch.configs import get_config
 from repro_torch.configs.recsys import CRITEO_DEEPFM
 from repro_torch.convert import jax_init_recsys, params_from_jax
 from repro_torch.core import pretrain_sync
-from repro_torch.distributed import selfcheck
 from repro_torch.benchmarks import (decay_ablation, fig3_grad_distribution,
                                     fig6_switching, fig78_batch_ablation,
                                     multitask)
@@ -105,7 +104,6 @@ def test_forbidden_import_pattern():
                                    "init_model", "train_arch",
                                    "train_wire", "train_pytree",
                                    "train_sharded", "train_ranks",
-                                   "dist_selfcheck",
                                    "train_autoswitch", "switch_driver",
                                    "fig6_run", "jax_init_recsys",
                                    "multitask_run", "decay_ablation_run",
@@ -146,9 +144,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
                                              "1"]),
         "train_ranks": lambda: train.main(["--arch", "granite-8b",
                                            "--reduced", "--fused", "--mesh",
-                                           "4x1", "--ranks", "2", "--steps",
-                                           "1"]),
-        "dist_selfcheck": lambda: selfcheck.main([]),
+                                           "4x1", "--compress", "int8",
+                                           "--ranks", "2", "--steps", "1"]),
         "train_autoswitch": lambda: train.main(["--arch", "granite-8b",
                                                 "--reduced", "--mesh", "4x1",
                                                 "--autoswitch"]),

@@ -517,26 +517,32 @@ def test_run_wire_train_matches_the_jax_program(train_run, dtype, scheme):
 @pytest.mark.parametrize("scheme,groups,ratio", [
     ("none", "on", "1.000"), ("int8", "on", "0.251"),
     ("onebit", "on", "0.250"), ("int8", "off", "0.251")])
-def test_train_cli_runs_the_wire_step_on_the_cpu(scheme, groups, ratio):
-    """``--compress none`` alone runs the sharded fused step
-    (``tests/test_torch_sharded_fused.py``), as the reference's launcher
-    does; the wire step without compression is the ``--ranks`` route, here
-    one gloo rank holding the 4 workers."""
-    ranks = ["--ranks", "1"] if scheme == "none" else []
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "granite-8b", "--reduced", "--fused", "--mesh", "4x1", "--compress",
-         scheme, "--compress-warmup", "2", "--layer-groups", groups,
-         "--steps", "4", "--device", "cpu", *ranks],
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
-        capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+def test_train_cli_runs_the_wire_step_on_the_cpu(scheme, groups, ratio,
+                                                 capsys):
+    """The launcher's wire step.  ``--compress none`` runs the sharded
+    fused step instead (``tests/test_torch_sharded_fused.py``), as the
+    reference's launcher does, so the uncompressed wire step is driven
+    through ``run_wire_train`` with the command's other settings."""
+    if scheme == "none":
+        train.run_wire_train(get_config("granite-8b").reduced(), workers=M,
+                             scheme=scheme, steps=4, compress_warmup=2,
+                             layer_groups=groups == "on", device="cpu")
+        out = capsys.readouterr().out
+    else:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "granite-8b", "--reduced", "--fused", "--mesh", "4x1",
+             "--compress", scheme, "--compress-warmup", "2",
+             "--layer-groups", groups, "--steps", "4", "--device", "cpu"],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        out = proc.stdout
     n = 4 if groups == "on" else 1
-    assert f"quantized wire ({scheme}): 4 workers x {n} groups" in \
-        proc.stdout
-    assert f"(ratio {ratio})" in proc.stdout
-    last = proc.stdout.strip().splitlines()[-1]
-    assert last.startswith("step    3"), proc.stdout
+    assert f"quantized wire ({scheme}): 4 workers x {n} groups" in out
+    assert f"(ratio {ratio})" in out
+    last = out.strip().splitlines()[-1]
+    assert last.startswith("step    3"), out
 
 
 @pytest.mark.parametrize("args,says", [
