@@ -62,9 +62,13 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   2, batch 4 x 128, M = 4, iota 4, Adagrad): the sharded fused step
   (``repro_torch.launch.train --arch granite-8b --fused --mesh 4x1
   --compress none``: the flat buffer and accumulator split into 4
-  layer-grouped PS shards, 4 ``gba_apply`` launches a global step), and
-  the wire step with int8 over ``torch.distributed``'s NCCL backend, one
-  rank holding the 4 workers (the card cannot hold two NCCL ranks).
+  layer-grouped PS shards, 4 ``gba_apply`` launches a global step), and,
+  over ``torch.distributed``'s NCCL backend with one rank holding the 4
+  workers and shards (the card cannot hold two NCCL ranks), the wire step
+  with int8, the switching harness (``launch.train --autoswitch --ranks``:
+  its psum sync step's worker-order sum and the swaps' gathers through
+  NCCL) and the sharded fused step (``--compress none --ranks``: the
+  gradient reduce-scattered, the params gathered).
 
 Phases:
 
@@ -177,7 +181,19 @@ Phases:
     step, in process (its results kept on the host) and then over a
     one-rank NCCL world: params, accumulator, residual and losses
     bit-identical, 16 quantize, 16 dequantize and 4 ``gba_apply``
-    launches in the compressed step; the process group destroyed;
+    launches in the compressed step; (c) the switching harness over the
+    same NCCL world beside the same runs in process: the strained plan
+    over 40 batches with the int8 wire after 2 warm async steps, and the
+    8-step swap schedule, both with the psum sync step: every simulated
+    field, the final flat params and accumulator and every loss
+    bit-identical, a swap each way, 4 ``gba_apply`` launches an async
+    global step (and 16 quantize and 16 dequantize a compressed one),
+    none a sync one, peak under 70 GB, seconds a step of each kind and a
+    swap; (d) the sharded fused step of (a) over the NCCL world from the
+    same params and batches: params and accumulator bit-identical to
+    (a)'s at each apply (host copies), every loss equal, 4 ``gba_apply``
+    launches an apply, seconds a global step beside (a)'s; the process
+    group destroyed;
 17. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
@@ -185,7 +201,8 @@ serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
 microsteps, each scheme of the wire step, the pytree step, its tree ops,
 the resident oracle, the serve loop, the 32k decode, the engine, the
 autoswitch run, the int8 re-entry run, each model's GBA day of phase 15,
-the six benches, the sharded fused step and each wire run of phase 16)
+the six benches, the sharded fused step, each wire run of phase 16 and
+each of its NCCL switching runs and its NCCL sharded fused step)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -3135,17 +3152,19 @@ def switch_launcher(T: dict, counters, cfg, params) -> dict:
     return out
 
 
-def _lm_driver(T: dict, cfg, params, impl: str, compress=None, spec=None):
+def _lm_driver(T: dict, cfg, params, impl: str, compress=None, spec=None,
+               plan=None, world=None):
     stream = T["make_lm_stream"](cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0)
     SD = T["SD"]
     return SD.SwitchDriver(
         SWITCH_W, T["make_loss_fn"](cfg), params,
         spec=spec or SD.demo_spec(SWITCH_W),
-        plan=T["FaultPlan"].quiet(SWITCH_W),
+        plan=plan or T["FaultPlan"].quiet(SWITCH_W),
         cfg=SD.SwitchConfig(local_batch=LM_BATCH, iota=LM_IOTA, lr=LM_LR,
                             sync_impl=impl),
         batch_fn=stream.batch,
-        group_by=T["param_group_key"], compress=compress)
+        group_by=T["param_group_key"], compress=compress,
+        world=world or T["inprocess"])
 
 
 def _flat_bits_equal(a, b) -> bool:
@@ -3578,13 +3597,15 @@ def _accum_leaves(layout, accum: torch.Tensor) -> list:
             zip(layout.offsets, layout.sizes, layout.shapes)]
 
 
-def sharded_fused_phase(T: dict, counters, lm: dict) -> dict:
+def sharded_fused_phase(T: dict, counters, lm: dict, kept: list) -> dict:
     """(a) ``build_programs(mode="fused", workers=4)`` at phase 9's size:
     the single-``FlatLayout`` step's params and accumulator after each
     apply kept on the card, then the sharded step from the same params
     and batches held to them bit for bit, 4 ``gba_apply`` launches at each
     apply and none at the fill microsteps; seconds, peak memory and a
-    profile of a third global step."""
+    profile of a third global step.  Host copies of the sharded step's
+    params (leaves) and accumulator after each apply go to ``kept``, for
+    (d)."""
     cfg = dataclasses.replace(T["get_config"]("granite-8b"),
                               num_layers=LM_LAYERS)
     gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
@@ -3642,6 +3663,9 @@ def sharded_fused_phase(T: dict, counters, lm: dict) -> dict:
                 _accum_leaves(flat_layout, a_want))),
                   f"microstep {i + 1}: accumulator bit-identical to the "
                   f"single-FlatLayout step")
+            kept.append(([x.to("cpu", copy=True)
+                          for x in layout.leaves(new["params"])],
+                         new["accum"].to("cpu", copy=True)))
         else:
             check(launched == 0 and new["params"] is state["params"],
                   f"microstep {i + 1}: no gba_apply launch, params kept")
@@ -3693,16 +3717,16 @@ def sharded_fused_phase(T: dict, counters, lm: dict) -> dict:
     return out
 
 
-def nccl_phase(T: dict, counters) -> dict:
+def nccl_phase(T: dict, counters, world, dev) -> dict:
     """(b) the wire step at the same size, int8, 2 warm and 1 compressed
-    global step: in process (its results kept on the host), then over a
-    one-rank NCCL world holding all 4 workers, held bit for bit (params,
-    accumulator, residual, losses), with the launches of each step."""
+    global step: in process (its results kept on the host), then over the
+    one-rank NCCL world ``world`` holding all 4 workers, held bit for bit
+    (params, accumulator, residual, losses), with the launches of each
+    step."""
     cfg = dataclasses.replace(T["get_config"]("granite-8b"),
                               num_layers=LM_LAYERS)
     params = T["init_model"](cfg, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
-    pg = T["process_group"]
 
     def run(device, world) -> dict:
         rows, got = [], {}
@@ -3743,15 +3767,7 @@ def nccl_phase(T: dict, counters) -> dict:
     local = run("cuda", T["inprocess"])
     host = {k: v.to("cpu") for k, v in local.pop("state").items()}
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        world, dev = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
-                             "cuda", timeout=300.0)
-        try:
-            check(world.backend == "nccl" and list(world.workers(WIRE_W))
-                  == list(range(WIRE_W)), "one NCCL rank holding 4 workers")
-            nccl = run(dev, world)
-        finally:
-            pg.leave()
+    nccl = run(dev, world)
     live = nccl.pop("state")
     for name, v in host.items():
         check(_same_bits(live[name], v),
@@ -3783,13 +3799,203 @@ def nccl_phase(T: dict, counters) -> dict:
     return out
 
 
+# (c): the strained plan's local batches: 4 sync global steps, the swap to
+# async, then 2 float32 warmup and int8 global steps
+NCCL_SWITCH_BATCHES = 40
+
+
+def _kinds(steps: list) -> list:
+    return [(s["kind"], s["quantize_minmax"], s["dequantize"],
+             s["gba_apply"]) for s in steps]
+
+
+def switch_nccl_phase(T: dict, counters, world) -> dict:
+    """(c) the switching harness at phase 14's size over the one-rank NCCL
+    world ``world``, each run beside the same run in process: the
+    strained plan (``run(mode="auto")``, ``NCCL_SWITCH_BATCHES`` batches,
+    the int8 wire after 2 warm async steps) and the 8-step swap schedule
+    (``run_schedule``), both with the psum sync step; every simulated
+    field, the final flat params and accumulator and every loss equal, the
+    launches of every step (4 ``gba_apply`` an async global step, 16
+    quantize and 16 dequantize a compressed one, none a sync one) as in
+    process, a swap each way, peak memory under 70 GB."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    SD = T["SD"]
+    cases = {
+        "strained": (dict(plan=SD.demo_plan("strained", SWITCH_W),
+                          compress=T["CompressionPolicy"](
+                              scheme="int8", warmup_steps=2)),
+                     lambda d: d.run(NCCL_SWITCH_BATCHES, mode="auto")),
+        "schedule": ({}, lambda d: d.run_schedule(swap_schedule(T, LM_IOTA),
+                                                  SWITCHED))}
+    out, nccl_launches, directions = {}, {}, set()
+    for name, (kw, go) in cases.items():
+        runs = {}
+        for side, w in (("in_process", T["inprocess"]), ("nccl", world)):
+            drv = _lm_driver(T, cfg, params, "psum", world=w, **kw)
+            groups = drv.layout.num_groups
+            probe = SwitchProbe(T, counters)
+            with probe:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                counters(reset=True)
+                t0 = time.perf_counter()
+                res = go(drv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = counters()
+                steps, swaps = probe.take()
+            runs[side] = {"result": res, "seconds": seconds,
+                          "launches": launches, "steps": steps,
+                          "swaps": swaps, "peak_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}
+            del drv
+            torch.cuda.empty_cache()
+        loc, nc = runs["in_process"], runs["nccl"]
+        check(sim_fields(nc["result"]) == sim_fields(loc["result"]),
+              f"(c) {name}: every simulated field of the NCCL run equal to "
+              f"the in-process run's: {sim_fields(nc['result'])}")
+        check(_flat_bits_equal(nc["result"], loc["result"]) and np.array_equal(
+            np.float32(nc["result"].losses).view(np.int32),
+            np.float32(loc["result"].losses).view(np.int32)),
+              f"(c) {name}: final flat params, accumulator and every loss "
+              f"bit-identical to the in-process run")
+        want = {"sync": (0, 0, 0), "gba": (0, 0, SWITCH_W),
+                "gba/warm": (0, 0, SWITCH_W),
+                "gba/int8": (SWITCH_W * groups, SWITCH_W * groups,
+                             SWITCH_W)}
+        for kind, *got in _kinds(nc["steps"]):
+            check(tuple(got) == want[kind], f"(c) {name}: a {kind} step's "
+                  f"(quantize_minmax, dequantize, gba_apply) {tuple(got)} "
+                  f"== {want[kind]}")
+        check(_kinds(nc["steps"]) == _kinds(loc["steps"]),
+              f"(c) {name}: every step's launches as in process")
+        check(nc["peak_gb"] < SWITCH_PEAK_GB,
+              f"(c) {name}: NCCL peak {nc['peak_gb']:.2f} GB < "
+              f"{SWITCH_PEAK_GB} GB")
+        res = nc["result"]
+        if name == "strained":
+            check(res.switch_count >= 1 and any(
+                s["kind"] == "gba/int8" for s in nc["steps"]),
+                  f"(c) strained: a switch and a compressed step: "
+                  f"{res.switch_count} switch(es)")
+        else:
+            check(res.switch_count == 2 and res.swaps_verified == 2,
+                  f"(c) schedule: 2 swaps verified, {res.swaps_verified}")
+        directions |= {s["swap"] for s in nc["swaps"]}
+        for k, v in nc["launches"].items():
+            nccl_launches[k] = nccl_launches.get(k, 0) + v
+        out[name] = {side: {
+            "seconds": r["seconds"], "step_s": _per_mode(r["steps"]),
+            "swaps": r["swaps"], "peak_gb": r["peak_gb"],
+            "launches": {k: r["launches"][k] for k in (
+                "gba_apply", "quantize_minmax", "dequantize")}}
+            for side, r in runs.items()}
+        out[name]["result"] = res.to_json()
+        del runs, loc, nc, res
+    check({"sync->gba", "gba->sync"} <= directions,
+          f"(c) a swap each way over NCCL: {sorted(directions)}")
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = nccl_launches
+    print(f"  (c) switching over one NCCL rank: {json.dumps(out)}")
+    return out
+
+
+def sharded_fused_nccl_phase(T: dict, counters, world, dev, kept: list,
+                             fused: dict) -> dict:
+    """(d) the sharded fused step of (a) over the one-rank NCCL world
+    ``world`` (all 4 shards and the whole batch, its gradient
+    reduce-scattered and its params gathered through NCCL), from the same
+    params and batches: params and accumulator bit-identical to (a)'s at
+    each apply (``kept``), every loss equal, 4 ``gba_apply`` launches at
+    each apply and none at the fill microsteps; seconds per global step
+    beside (a)'s."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH, LM_MICROSTEPS,
+                         "cuda")
+    progs = T["build_programs"](cfg, gba, params=params, lr=LM_LR,
+                                workers=SHARD_W, world=world)
+    del params
+    layout = progs.layout
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = progs.state, []
+    counters(reset=True)
+    for i in range(LM_MICROSTEPS):
+        launched = counters()["gba_apply"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, loss = progs.step(state, batches[i], i // LM_M)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = counters()["gba_apply"] - launched
+        if (i + 1) % LM_M == 0:
+            check(launched == SHARD_W,
+                  f"(d) microstep {i + 1}: {SHARD_W} gba_apply launches")
+            p_host, a_host = kept[(i + 1) // LM_M - 1]
+            check(all(_same_bits(a, b) for a, b in zip(
+                layout.leaves(new["params"]), p_host)),
+                  f"(d) microstep {i + 1}: params bit-identical to (a)'s")
+            check(_same_bits(new["accum"], a_host),
+                  f"(d) microstep {i + 1}: accumulator bit-identical to "
+                  f"(a)'s")
+        else:
+            check(launched == 0 and new["params"] is state["params"],
+                  f"(d) microstep {i + 1}: no gba_apply launch, params kept")
+        state = new
+        rows.append({"microstep": i + 1, "loss": loss.item(),
+                     "seconds": seconds, "gba_apply": launched})
+    launches = counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["gba_apply"] == 2 * SHARD_W,
+          f"(d) {2 * SHARD_W} gba_apply launches in 2 global steps")
+    check([r["loss"] for r in rows]
+          == [r["loss"] for r in fused["microsteps"]],
+          "(d) every loss equal to (a)'s")
+    global_s = [sum(r["seconds"] for r in rows[k:k + LM_M])
+                for k in range(0, LM_MICROSTEPS, LM_M)]
+    out = {"microsteps": rows, "launches": launches,
+           "global_step_s": global_s,
+           "in_process_global_step_s": fused["global_step_s"],
+           "peak_gb": peak_gb,
+           "in_process_counted_peak_gb": fused["counted_peak_gb"]}
+    print(f"  (d) sharded fused step over one NCCL rank: {json.dumps(out)}")
+    del state, new, progs, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def sharded_ps_phase(T: dict, counters, lm: dict) -> dict:
     phase(16, f"the sharded PS: granite-8b at full width, depth {LM_LAYERS}: "
               f"(a) the sharded fused step over {SHARD_W} shards, (b) the "
-              f"wire step over one NCCL rank")
+              f"wire step, (c) switching and (d) the sharded fused step "
+              f"over one NCCL rank")
     t_phase = time.perf_counter()
-    out = {"sharded_fused": sharded_fused_phase(T, counters, lm),
-           "nccl": nccl_phase(T, counters)}
+    kept = []
+    out = {"sharded_fused": sharded_fused_phase(T, counters, lm, kept)}
+    pg = T["process_group"]
+    with tempfile.TemporaryDirectory() as tmp:
+        world, dev = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                             "cuda", timeout=300.0)
+        try:
+            check(world.backend == "nccl" and list(world.workers(WIRE_W))
+                  == list(range(WIRE_W)), "one NCCL rank holding 4 workers")
+            out["nccl"] = nccl_phase(T, counters, world, dev)
+            out["switch_nccl"] = switch_nccl_phase(T, counters, world)
+            out["sharded_fused_nccl"] = sharded_fused_nccl_phase(
+                T, counters, world, dev, kept, out["sharded_fused"])
+        finally:
+            pg.leave()
+    del kept
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 16: {out['seconds']:.1f} s")
     return out
@@ -4045,7 +4251,10 @@ def main() -> int:
         "switch_int8_reentry":
         switching["reentry"]["launches"]["gba_apply"],
         "sharded_fused": sharded["sharded_fused"]["launches"]["gba_apply"],
-        "nccl_int8": sharded["nccl"]["nccl"]["launches"]["gba_apply"]}
+        "nccl_int8": sharded["nccl"]["nccl"]["launches"]["gba_apply"],
+        "switch_nccl": sharded["switch_nccl"]["launches"]["gba_apply"],
+        "sharded_fused_nccl":
+        sharded["sharded_fused_nccl"]["launches"]["gba_apply"]}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -4058,6 +4267,8 @@ def main() -> int:
             by_path["switch_int8_reentry"] = \
                 switching["reentry"]["launches"][name]
             by_path["nccl_int8"] = sharded["nccl"]["nccl"]["launches"][name]
+            by_path["switch_nccl_int8"] = \
+                sharded["switch_nccl"]["launches"][name]
         # read from the last (compressed) global step of each run
         per_step = {f"wire_{k}": wire["runs"][k]["steps"][-1][
             name.split("_")[0]] for k in runs}

@@ -21,10 +21,13 @@ is one group, ``"all"``, covering everything.
 :func:`init_sharded_flat_buffer` and
 :func:`sharded_flat_push_and_maybe_apply` are the sharded counterparts of
 ``repro_torch.core.gba``'s flat buffer: the M-slot buffer is stored
-shard-major, ``(num_shards, M, shard_size)``, so each shard's ``(M,
+shard-major, ``(shards, M, shard_size)``, so each shard's ``(M,
 shard_size)`` block is one contiguous run for its launch, and is handed
-out as its ``(M, num_shards, shard_size)`` transpose, so slot ``j`` is
-``grads[j]`` as in the reference's ``(M, padded_total)`` buffer.
+out as its ``(M, shards, shard_size)`` transpose, so slot ``j`` is
+``grads[j]`` as in the reference's ``(M, padded_total)`` buffer.  A
+process may hold a run of consecutive shards rather than all of them (a
+``torch.distributed`` rank holds k of W): its buffer has those k shards'
+blocks, and its pushes and applies take its ``(k * shard_size,)`` run.
 :func:`per_leaf_kernel_apply` is the per-leaf launch chain the sharded
 apply replaces, its bit-exactness oracle.
 """
@@ -272,18 +275,25 @@ class ShardedFlatLayout:
 
 def init_sharded_flat_buffer(params: Params, buffer_size: int,
                              num_shards: int, tile: int = TILE,
-                             group_by: GroupBy | None = None
+                             group_by: GroupBy | None = None,
+                             held: int | None = None
                              ) -> tuple[ShardedFlatLayout, dict]:
-    """The sharded M-slot gradient buffer on the params' device: ``grads``
-    the ``(M, num_shards, shard_size)`` view of a shard-major ``(num_shards,
-    M, shard_size)`` float32 zeros (slot ``j`` is ``grads[j]``, shard
-    ``s``'s contiguous block ``grads[:, s]``), ``tokens`` (M,) int32 zeros,
-    ``fill`` and ``step`` 0.  ``group_by`` makes the layout layer-grouped.
-    Returns (layout, buffer)."""
+    """The sharded M-slot gradient buffer on the params' device for the
+    ``held`` consecutive shards a process holds (all ``num_shards`` by
+    default): ``grads`` the ``(M, held, shard_size)`` view of a
+    shard-major ``(held, M, shard_size)`` float32 zeros (slot ``j`` is
+    ``grads[j]``, the ``s``-th held shard's contiguous block
+    ``grads[:, s]``), ``tokens`` (M,) int32 zeros, ``fill`` and ``step``
+    0.  ``group_by`` makes the layout layer-grouped.  Returns (layout,
+    buffer); the layout is the whole one, of every shard."""
     layout = ShardedFlatLayout.from_params(params, num_shards, tile,
                                            group_by=group_by)
+    held = num_shards if held is None else held
+    if not 1 <= held <= num_shards:
+        raise ValueError(f"a process holds 1 to {num_shards} shards, not "
+                         f"{held}")
     dev = layout.leaves(params)[0].device
-    grads = torch.zeros((num_shards, buffer_size, layout.shard_size),
+    grads = torch.zeros((held, buffer_size, layout.shard_size),
                         dtype=torch.float32, device=dev)
     return layout, {
         "grads": grads.transpose(0, 1),
@@ -296,11 +306,18 @@ def init_sharded_flat_buffer(params: Params, buffer_size: int,
 def sharded_flat_push(layout: ShardedFlatLayout, buffer: dict,
                       flat_grad: torch.Tensor, token: int
                       ) -> tuple[dict, bool]:
-    """``flat_buffer_push`` of a shard-major ``(padded_total,)`` gradient
-    into the sharded buffer of :func:`init_sharded_flat_buffer`: row ``s``
-    of the slot goes to shard ``s``'s block."""
+    """``flat_buffer_push`` of a shard-major gradient into the sharded
+    buffer of :func:`init_sharded_flat_buffer`: ``flat_grad`` is the run
+    of the shards the buffer holds (``(padded_total,)`` for all of them),
+    and its ``s``-th ``shard_size`` row goes to the ``s``-th held shard's
+    block."""
+    rows = buffer["grads"].shape[1]
+    if flat_grad.shape != (rows * layout.shard_size,):
+        raise ValueError(f"a buffer of {rows} shards takes a "
+                         f"({rows * layout.shard_size},) gradient, got "
+                         f"{tuple(flat_grad.shape)}")
     return flat_buffer_push(
-        buffer, flat_grad.view(layout.num_shards, layout.shard_size), token)
+        buffer, flat_grad.view(rows, layout.shard_size), token)
 
 
 def sharded_flat_push_and_maybe_apply(
@@ -308,13 +325,13 @@ def sharded_flat_push_and_maybe_apply(
         param_flat: torch.Tensor, accum_flat: torch.Tensor, lr: float, *,
         layout: ShardedFlatLayout, iota: int):
     """Sharded counterpart of ``core.gba.flat_buffer_push_and_maybe_apply``:
-    push one shard-major raveled gradient; when the push fills the buffer,
-    one ``gba_apply`` launch per shard updates that shard's slice of
-    ``param_flat`` and ``accum_flat`` in place from its contiguous ``(M,
-    shard_size)`` block, weighing each slot against the step before the
-    push.  Returns ``(param_flat, accum_flat, applied, new_buffer)``; a
-    push that does not fill the buffer leaves params and accumulator
-    untouched."""
+    push one shard-major raveled gradient (the held shards' run); when the
+    push fills the buffer, one ``gba_apply`` launch per held shard updates
+    that shard's slice of ``param_flat`` and ``accum_flat`` (the same run)
+    in place from its contiguous ``(M, shard_size)`` block, weighing each
+    slot against the step before the push.  Returns ``(param_flat,
+    accum_flat, applied, new_buffer)``; a push that does not fill the
+    buffer leaves params and accumulator untouched."""
     new_buffer, is_full = sharded_flat_push(layout, buffer, flat_grad, token)
     if is_full:
         make_sharded_apply(layout, iota=iota)(

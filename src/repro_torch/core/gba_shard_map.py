@@ -15,8 +15,13 @@ shards in one process on one device) or
 :func:`make_gba_psum_step` is the reference's pytree all-reduce step, the
 switching harness's sync mode (``repro_torch.launch.switch_driver``):
 each worker's gradient is scaled by its Eq. (1) weight over M and the
-workers are summed in worker order, as ``lax.psum`` adds them; the
-optimizer then updates the tree.  It launches no kernel.
+workers are summed in worker order, as ``lax.psum`` adds them, over the
+same backends (``world.worker_sum``); the optimizer then updates the
+replicated tree.  It launches no kernel.
+
+Both steps take the rows of the workers held here: worker ``mine[j]``'s
+chunk is the ``j``-th, as ``shard_map`` hands each device its own rows
+of the global batch.  In process that is the whole batch.
 """
 from __future__ import annotations
 
@@ -53,22 +58,31 @@ def _weighted_loss(losses: list, weights: torch.Tensor) -> torch.Tensor:
 
 
 def make_gba_psum_step(workers: int, loss_fn: Callable,
-                       optimizer: Optimizer, iota: int) -> Callable:
+                       optimizer: Optimizer, iota: int,
+                       world=inprocess) -> Callable:
     """``step(params, opt_state, batch, tokens, gstep) -> (params,
     opt_state, loss)``: the pytree all-reduce GBA step of ``workers`` = M
-    workers on one device.
+    workers over the collectives of ``world``
+    (``repro_torch.distributed.inprocess``, all M in this process, or a
+    ``process_group.ProcessGroupBackend``, the k workers
+    ``world.workers(M)`` on each rank), ``params`` and ``opt_state``
+    replicated on every rank as the reference's ``P()`` specs keep them.
 
     ``batch`` is a dict of tensors whose leading axis splits evenly over
-    the workers (worker ``w`` takes the ``w``-th chunk); ``tokens`` is
-    (M,) int32, one per worker, and ``gstep`` the global step.  Worker
-    after worker: its loss and gradient at ``params`` on its chunk, each
-    leaf scaled by ``(w / M)`` cast to the leaf's dtype, ``w`` the Eq. (1)
-    weight of its token; the scaled gradients are added in worker order
-    from +0.0 (Alg. 2 l.22), the loss is ``sum(loss_w * w) / M``, and
-    ``optimizer.update`` gives the new params and state.  The optimizer
-    returns new tensors, so ``params`` and ``opt_state`` are left as they
-    were and a caller may discard the result."""
+    the held workers (the ``j``-th of them takes the ``j``-th chunk);
+    ``tokens`` is (M,) int32, one per worker, and ``gstep`` the global
+    step.  Worker after worker held here: its loss and gradient at
+    ``params`` on its chunk, each leaf scaled by ``(w / M)`` cast to the
+    leaf's dtype, ``w`` the Eq. (1) weight of its token; the scaled
+    gradients of all M workers are added in worker order from +0.0 (Alg.
+    2 l.22, ``world.worker_sum``), the loss is ``sum(loss_w * w) / M``
+    over every worker's loss (``world.all_losses``), and
+    ``optimizer.update`` gives the new params and state, the same bits on
+    every rank.  The optimizer returns new tensors, so ``params`` and
+    ``opt_state`` are left as they were and a caller may discard the
+    result."""
     m = workers
+    mine = world.workers(m)
 
     def step(params: Any, opt_state: Any, batch: dict,
              tokens: torch.Tensor, gstep: int) -> tuple[Any, Any,
@@ -76,25 +90,29 @@ def make_gba_psum_step(workers: int, loss_fn: Callable,
         if tuple(tokens.shape) != (m,):
             raise ValueError(f"tokens must be ({m},), got "
                              f"{tuple(tokens.shape)}")
-        b = _split_batch(batch, m)
+        b = _split_batch(batch, len(mine))
         paths, leaves = zip(*tree_paths(params))
         weights = threshold_decay(tokens, gstep, iota)
-        agg = [torch.zeros_like(x) for x in leaves]
         losses = []
-        for w in range(m):
-            live = [x.detach().requires_grad_() for x in leaves]
-            chunk = {k: v[w * b:(w + 1) * b] for k, v in batch.items()}
-            with torch.enable_grad():
-                loss_w = loss_fn(path_unflatten(paths, live), chunk)
-                grads = torch.autograd.grad(loss_w, live)
-            scale = weights[w] / m
-            for a, g in zip(agg, grads):
-                a.add_(g * scale.to(g.dtype))
-            del grads, live
-            losses.append(loss_w.detach())
+
+        def terms():
+            for row, w in enumerate(mine):
+                live = [x.detach().requires_grad_() for x in leaves]
+                chunk = {k: v[row * b:(row + 1) * b]
+                         for k, v in batch.items()}
+                with torch.enable_grad():
+                    loss_w = loss_fn(path_unflatten(paths, live), chunk)
+                    grads = torch.autograd.grad(loss_w, live)
+                del live
+                losses.append(loss_w.detach())
+                yield list(grads), weights[w] / m
+                del grads
+
+        agg = world.worker_sum(terms(), leaves)
         params, opt_state = optimizer.update(
             params, path_unflatten(paths, agg), opt_state)
-        return params, opt_state, _weighted_loss(losses, weights)
+        return params, opt_state, _weighted_loss(world.all_losses(losses),
+                                                 weights)
 
     return step
 
@@ -120,12 +138,13 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
     ``i``-th worker held here.  ``param_flat`` and ``accum_flat`` are the
     ``(k * shard_size,)`` float32 run of the layout's shard-major vector
     that the shards held here own (the whole ``(padded_total,)`` vector
-    in process); ``batch`` is the whole batch, a dict of tensors whose
-    leading axis splits evenly over the M workers (worker ``w`` takes the
-    ``w``-th chunk, as ``shard_map`` splits it); ``tokens`` is (M,) int32,
-    one per worker, and ``gstep`` the global step.  The reference returns new arrays; this
-    step updates ``param_flat``, ``accum_flat`` and the wire state in place
-    and returns them.
+    in process); ``batch`` is the held workers' rows, a dict of tensors
+    whose leading axis splits evenly over the k workers (the ``j``-th of
+    them takes the ``j``-th chunk, as ``shard_map`` hands each device its
+    rows; in process the whole batch); ``tokens`` is (M,) int32, one per
+    worker, and ``gstep`` the global step.  The reference returns new
+    arrays; this step updates ``param_flat``, ``accum_flat`` and the wire
+    state in place and returns them.
 
     Per global step, with G = ``layout.num_groups`` layer groups:
 
@@ -211,7 +230,7 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                 for name in compress.state_names()):
             raise ValueError(f"wire state {compress.state_names()} must be "
                              f"({k}, {layout.padded_total}) each")
-        b = _split_batch(batch, m)
+        b = _split_batch(batch, k)
         dev = param_flat.device
         leaves = layout.leaves(world.all_gather(layout, param_flat))
         routed = torch.empty((k, m, ss), device=dev, dtype=(
@@ -222,7 +241,7 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
         losses = []
         for row, w in enumerate(mine):
             loss_w, grads = worker_grads(
-                leaves, {key: v[w * b:(w + 1) * b]
+                leaves, {key: v[row * b:(row + 1) * b]
                          for key, v in batch.items()})
             losses.append(loss_w)
             for g in range(layout.num_groups):

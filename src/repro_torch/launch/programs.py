@@ -20,7 +20,8 @@ Counterpart of ``repro.launch.programs`` for its four modes.
     slices (``repro_torch.core.flat_sharded``, layer-grouped by default)
     and the apply is one ``gba_apply`` launch per shard, W per global
     step: the reference's sharded fused step, its microsteps on the one
-    device.
+    device or, over ``torch.distributed`` ranks (``world``), each
+    microstep's batch split over R ranks that hold W / R shards each.
 ``wire``
     W PS workers, each also a shard (``repro_torch.core.gba_shard_map``),
     in one process on one device or spread over ``torch.distributed``
@@ -31,12 +32,12 @@ Counterpart of ``repro.launch.programs`` for its four modes.
     ``gba_apply`` launch.  ``(warm_step, compressed_step)`` are two step
     functions, switched by the launcher at ``compress.warmup_steps``.
 ``sync_psum``
-    W workers in one process on one device
+    W workers in one process on one device, or over ranks
     (``core.gba_shard_map.make_gba_psum_step``): per global step every
     worker's gradient of its own slice of the batch, scaled by its Eq. (1)
     weight over W, summed over the workers in order, then Adagrad (PyTorch
-    operators, as in the reference) on the tree.  The switching harness's
-    sync mode.
+    operators, as in the reference) on the replicated tree.  The switching
+    harness's sync mode.
 
 PyTorch runs eagerly, so there is nothing to jit: a "program"
 is the step function, and it updates its state in place where the
@@ -91,10 +92,16 @@ def loss_and_grads(cfg: ModelConfig, params: Any, batch: dict
     """The LM loss at ``params`` (detached) and its gradient tree, each
     leaf in its param's dtype, with autograd; ``params`` are left as they
     were."""
+    return _grads_of(make_loss_fn(cfg), params, batch)
+
+
+def _grads_of(loss_fn: Callable, params: Any, batch: dict
+              ) -> tuple[torch.Tensor, Any]:
+    """``loss_fn(params, batch)`` (detached) and its gradient tree."""
     paths, leaves = zip(*tree_paths(params))
     live = [x.detach().requires_grad_() for x in leaves]
     with torch.enable_grad():
-        loss = _loss_from_batch(path_unflatten(paths, live), cfg, batch)
+        loss = loss_fn(path_unflatten(paths, live), batch)
         grads = torch.autograd.grad(loss, live)
     return loss.detach(), path_unflatten(paths, list(grads))
 
@@ -158,21 +165,24 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
 
 def init_fused_train_state(params: Any, gba: GBAConfig, workers: int = 1,
-                           layer_groups: bool = True
+                           layer_groups: bool = True, tile: int = TILE,
+                           world=inprocess
                            ) -> tuple[FlatLayout | ShardedFlatLayout, dict]:
     """State of the fused step on the params' device: ``params`` (the
     tree), ``accum`` filled with ``INITIAL_ACCUM``, and the flat
     ``buffer``.  One worker: the ``FlatLayout``, ``accum`` (N,) float32.
     ``workers`` W > 1: the ``ShardedFlatLayout`` of W shards over
-    ``TILE``, layer-grouped by ``models.transformer.param_group_key``
-    unless ``layer_groups`` is False, ``accum`` (padded_total,) and the
-    sharded buffer of ``init_sharded_flat_buffer``.  Returns (layout,
-    state)."""
+    ``tile``, layer-grouped by ``models.transformer.param_group_key``
+    unless ``layer_groups`` is False, and the shards ``world`` holds here
+    (all W in process, W / R on each of R ranks): ``accum`` their
+    ``(k * shard_size,)`` run and the buffer of their k blocks
+    (``init_sharded_flat_buffer``).  Returns (layout, state)."""
     if workers > 1:
         layout, buffer = init_sharded_flat_buffer(
-            params, gba.buffer_size, workers, TILE,
-            group_by=T.param_group_key if layer_groups else None)
-        total = layout.padded_total
+            params, gba.buffer_size, workers, tile,
+            group_by=T.param_group_key if layer_groups else None,
+            held=len(world.workers(workers)))
+        total = buffer["grads"].shape[1] * layout.shard_size
     else:
         layout, buffer = init_flat_buffer(params, gba.buffer_size)
         total = layout.total
@@ -183,44 +193,77 @@ def init_fused_train_state(params: Any, gba: GBAConfig, workers: int = 1,
 
 def make_fused_train_step(cfg: ModelConfig, gba: GBAConfig,
                           layout: FlatLayout | ShardedFlatLayout,
-                          lr: float = 1e-3) -> Callable:
+                          lr: float = 1e-3, world=inprocess,
+                          loss_fn: Callable | None = None) -> Callable:
     """``train_step(state, batch, token) -> (state, loss)``: push the
     raveled gradient; when the push fills the buffer, ONE ``gba_apply``
-    launch (a ``FlatLayout``), or one per shard (a ``ShardedFlatLayout``,
-    each on its contiguous ``(M, shard_size)`` block), weighs each slot
-    against the step *before* the push and updates the flat params and
-    the accumulator.  The params are raveled and unraveled only on that
-    microstep; on the others ``params`` and ``accum`` come back as the
-    very tensors that went in.  ``batch`` holds ``tokens`` and ``labels``
-    (B, S) on the params' device."""
+    launch (a ``FlatLayout``), or one per shard held here (a
+    ``ShardedFlatLayout``, each on its contiguous ``(M, shard_size)``
+    block), weighs each slot against the step *before* the push and
+    updates the flat params and the accumulator.  The params are raveled
+    and unraveled only on that microstep; on the others ``params`` and
+    ``accum`` come back as the very tensors that went in.  ``batch`` holds
+    ``tokens`` and ``labels`` (B, S) on the params' device; ``loss_fn``
+    replaces the LM loss of ``cfg``.
+
+    Over R > 1 ranks (``world`` a ``process_group.ProcessGroupBackend``
+    and a sharded layout) ``batch`` is this rank's rows, an R-th of the
+    microstep's, and the rank holds its k = W / R shards' run of
+    ``accum`` and buffer: its loss is its rows' share of the whole
+    batch's mean (its own mean over R), whose gradient, raveled
+    shard-major, is reduce-scattered into the shards' columns
+    (``world.reduce_scatter``) and pushed; the apply updates the rank's
+    run of the params, which are then gathered tiled
+    (``world.all_gather``) for the next forward.  The loss returned is the
+    sum of the ranks' shares in rank order, the same on every rank.  With
+    one process this is the step above, bit for bit."""
     iota = gba.staleness_tolerance
+    loss_fn = loss_fn or make_loss_fn(cfg)
+    ranks = world.size
     if isinstance(layout, ShardedFlatLayout):
         apply_shards = make_sharded_apply(layout, iota=iota)
+        mine = world.workers(layout.num_shards)
+        ss = layout.shard_size
+        lo, hi = mine[0] * ss, (mine[-1] + 1) * ss
 
         def push(buffer, flat_grad, token):
-            return sharded_flat_push(layout, buffer, flat_grad, token)
+            return sharded_flat_push(layout, buffer,
+                                     world.reduce_scatter(flat_grad), token)
 
-        def apply(flat_p, accum, buffer, step):
+        def apply(params, accum, buffer, step):
+            flat_p = layout.ravel(params)[lo:hi]
             apply_shards(flat_p, accum, buffer["grads"].unbind(1),
                          buffer["tokens"], step, lr)
+            return world.all_gather(layout, flat_p)
     else:
+        if ranks > 1:
+            raise ValueError(f"the single-FlatLayout step does not split "
+                             f"over {ranks} ranks")
         push = flat_buffer_push
 
-        def apply(flat_p, accum, buffer, step):
+        def apply(params, accum, buffer, step):
+            flat_p = layout.ravel(params)
             ops.gba_apply_flat(flat_p, accum, buffer["grads"],
                                buffer["tokens"], step, lr, iota=iota)
+            return layout.unravel(flat_p)
+
+    share = loss_fn if ranks == 1 else (
+        lambda params, batch: loss_fn(params, batch) / ranks)
 
     def train_step(state: dict, batch: dict, token: int
                    ) -> tuple[dict, torch.Tensor]:
         params, accum, buffer = state["params"], state["accum"], \
             state["buffer"]
-        loss, grads = loss_and_grads(cfg, params, batch)
+        loss, grads = _grads_of(share, params, batch)
         new_buffer, is_full = push(buffer, layout.ravel(grads), token)
         del grads
         if is_full:
-            flat_p = layout.ravel(params)
-            apply(flat_p, accum, new_buffer, buffer["step"])
-            params = layout.unravel(flat_p)
+            params = apply(params, accum, new_buffer, buffer["step"])
+        if ranks > 1:
+            total = torch.zeros((), dtype=loss.dtype, device=loss.device)
+            for part in world.all_losses([loss]):
+                total = total + part
+            loss = total
         return {"params": params, "accum": accum,
                 "buffer": new_buffer}, loss
 
@@ -309,7 +352,9 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
 
     ``fused`` with ``workers`` > 1 splits the flat vectors into that many
     PS shards, layer-grouped unless ``layer_groups`` is False
-    (``init_fused_train_state``).
+    (``init_fused_train_state``), of which this process holds
+    ``world.workers(workers)``: all of them in process, W / R on each of
+    R ranks, whose steps take their R-th of each microstep's batch.
 
     ``wire`` runs ``workers`` PS workers and shards over the collectives
     of ``world`` (``distributed.inprocess``, or a
@@ -321,9 +366,14 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     with ``INITIAL_ACCUM``, and the wire state has a row per worker held
     here.
 
-    ``sync_psum`` runs ``workers`` workers with ``optimizer`` or, by
-    default, Adagrad at ``lr`` with ``INITIAL_ACCUM``, as the reference's
-    ``build_programs(mode="sync_psum")``."""
+    ``sync_psum`` runs ``workers`` workers over the collectives of
+    ``world``, the params and the optimizer state replicated, with
+    ``optimizer`` or, by default, Adagrad at ``lr`` with
+    ``INITIAL_ACCUM``, as the reference's
+    ``build_programs(mode="sync_psum")``.
+
+    The worker-parallel steps (``wire``, ``sync_psum``) take the rows of
+    the workers held here (the whole batch in process)."""
     T.check_supported(cfg)
     if mode == "pytree":
         opt = optimizer or get_optimizer(
@@ -338,10 +388,10 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
             raise ValueError(f"fused mode needs 1 or more workers, got "
                              f"{workers}")
         layout, state = init_fused_train_state(params, gba, workers,
-                                               layer_groups)
+                                               layer_groups, world=world)
         return TrainPrograms(layout=layout, state=state,
                              step=make_fused_train_step(cfg, gba, layout,
-                                                        lr=lr))
+                                                        lr=lr, world=world))
     if mode == "wire":
         if workers < 2:
             raise ValueError(f"wire mode needs 2 or more workers, got "
@@ -372,7 +422,7 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
         return TrainPrograms(
             layout=None, state={"params": params, "opt": opt.init(params)},
             step=make_gba_psum_step(workers, make_loss_fn(cfg), opt,
-                                    gba.staleness_tolerance),
+                                    gba.staleness_tolerance, world=world),
             optimizer=opt)
     raise ValueError(f"unknown mode {mode!r}: expected "
                      f"pytree|fused|wire|sync_psum")

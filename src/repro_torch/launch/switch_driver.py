@@ -25,8 +25,17 @@ that *does* it:
   to an :class:`~repro_torch.core.autoswitch.AutoSwitchController`.
 
 The W workers and W shards run in one process on one device
-(``repro_torch.distributed.inprocess``): the driver takes ``workers=W``
-where the reference takes a mesh.
+(``repro_torch.distributed.inprocess``, the default) or over R
+``torch.distributed`` ranks (a ``process_group.ProcessGroupBackend``,
+``world=``), W / R workers and shards on each: the driver takes
+``workers=W`` and ``world`` where the reference takes a mesh.  Over
+ranks, async mode keeps each rank's run of the flat state and its
+workers' wire rows, psum sync mode the whole tree and Adagrad state on
+every rank (the reference's ``P()``); a rank uploads its own workers'
+slots alone.  Everything the simulated clock, the fault injector, the
+controller and the breaker read is the same on every rank (the plan, the
+seed, the losses every rank gathers), so every rank takes the same
+branches and returns the same :class:`SwitchResult`.
 
 Switch protocol:
 
@@ -38,10 +47,12 @@ Switch protocol:
    ``sync_impl="psum"`` converts pytree params and Adagrad accumulator to
    and from flat vectors with :func:`tree_to_flat` and
    :func:`flat_to_tree` (padding positions carry param 0 and accumulator
-   ``initial_accum``, as in a run that never switched).  With
-   ``verify_swap`` every swap round-trips the conversion into storage of
-   its own and raises on any bit difference.  Exactly one representation
-   is live at a time: the other is freed at the swap;
+   ``initial_accum``, as in a run that never switched); over ranks the
+   flat -> tree direction first gathers the ranks' runs, and tree -> flat
+   keeps the rank's own run.  With ``verify_swap`` every swap (on every
+   rank) round-trips the conversion into storage of its own and raises on
+   any bit difference.  Exactly one representation is live at a time: the
+   other is freed at the swap;
 3. **token reissue**: sync mode stamps every participating slot with the
    current global step; async dispatches stamp the pull-time step.  A
    worker excluded from the sync barrier (dead, or timed out past the
@@ -65,7 +76,12 @@ driver zeroes the wire state and re-enters the warmup, where the
 reference keeps the previous wire state.
 
     python -m repro_torch.launch.switch_driver --workers 4 --batches 240 \\
-        --plan strained --compare-sync --json [--device cuda]
+        --plan strained --compare-sync --json [--ranks R] [--device cuda]
+
+``--ranks R`` runs the demo on R ``torch.distributed`` ranks of W / R
+workers each (gloo with ``--device cpu``, each rank running this
+process's intra-op threads, NCCL one rank a card with ``cuda``); each
+rank builds the demo model itself, and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -85,6 +101,7 @@ from repro_torch.core.flat_sharded import TILE, ShardedFlatLayout
 from repro_torch.core.gba import tree_paths
 from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
                                             make_gba_psum_step)
+from repro_torch.distributed import inprocess, process_group
 from repro_torch.kernels.ref import EPS
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.optim import adagrad, tree_map
@@ -282,7 +299,10 @@ class SwitchDriver:
     ``params`` (a dict tree on the device the steps run on) and
     ``loss_fn(params, batch) -> scalar`` define the model; ``batch_fn(i)``
     gives local batch ``i`` as a dict of numpy arrays with leading axis
-    ``cfg.local_batch``."""
+    ``cfg.local_batch``.  ``world`` holds the collectives
+    (``distributed.inprocess``, or this rank's
+    ``process_group.ProcessGroupBackend``, every rank constructing its
+    driver from the same arguments)."""
 
     def __init__(self, workers: int, loss_fn: Callable, params: Any, *,
                  spec: ClusterSpec, plan: FaultPlan,
@@ -290,9 +310,11 @@ class SwitchDriver:
                  batch_fn: Callable[[int], dict],
                  compress: CompressionPolicy | None = None,
                  layout: ShardedFlatLayout | None = None,
-                 group_by=None, tile: int | None = None):
+                 group_by=None, tile: int | None = None, world=inprocess):
         self.cfg = cfg
         self.m = workers
+        self.world = world
+        self.mine = world.workers(workers)
         if spec.num_workers != self.m or plan.num_workers != self.m:
             raise ValueError(
                 f"{self.m} workers; spec has {spec.num_workers} workers, "
@@ -322,7 +344,7 @@ class SwitchDriver:
         def wire_step(compress, warm):
             return make_gba_fused_psum_step(
                 self.m, loss_fn, layout, iota=cfg.iota, lr=cfg.lr,
-                compress=compress, warm=warm)
+                compress=compress, warm=warm, world=world)
 
         self._fused_plain = wire_step(None, False)
         if self.compress is not None:
@@ -332,7 +354,7 @@ class SwitchDriver:
             self._opt = adagrad(cfg.lr, eps=EPS,
                                 initial_accum=cfg.initial_accum)
             self._sync_step = make_gba_psum_step(self.m, loss_fn, self._opt,
-                                                 cfg.iota)
+                                                 cfg.iota, world=world)
         # zero batch of tombstone slots (its weight is exactly 0, so its
         # content never reaches the params; zeros keep losses finite)
         tmpl = {k: np.asarray(v) for k, v in batch_fn(0).items()}
@@ -353,11 +375,20 @@ class SwitchDriver:
             st.params = tree_map(torch.clone, self._params0)
             st.opt = self._opt.init(self._params0)
         else:
-            st.pf = self.layout.ravel(self._params0)
+            st.pf = self._own_run(self.layout.ravel(self._params0))
             st.af = torch.full_like(st.pf, self.cfg.initial_accum)
             if mode == "gba":
                 self._reset_wire(st)
         return st
+
+    def _own_run(self, flat: torch.Tensor) -> torch.Tensor:
+        """This process's run of a whole shard-major vector: ``flat``
+        itself where it holds every shard, else a copy of its shards'
+        columns, so the whole vector can be freed."""
+        if len(self.mine) == self.m:
+            return flat
+        ss = self.layout.shard_size
+        return flat[self.mine[0] * ss:(self.mine[-1] + 1) * ss].clone()
 
     def _reset_wire(self, st: _RunState) -> None:
         """Compression warmup re-entry: zero wire state, restart the
@@ -365,8 +396,8 @@ class SwitchDriver:
         st.warm_count = 0
         st.wire = None
         if self.compress is not None:
-            st.wire = self.compress.init_wire_state(self.layout, self.m,
-                                                    self.device)
+            st.wire = self.compress.init_wire_state(
+                self.layout, len(self.mine), self.device)
 
     def _swap(self, st: _RunState, new_mode: str, controller=None) -> None:
         """The switch protocol: drain in-flight work, convert the state
@@ -396,10 +427,14 @@ class SwitchDriver:
                     self._check_equal(st.opt["accum"], o2["accum"], "accum")
                     del p2, o2
                     r.swaps_verified += 1
-                st.pf, st.af = pf, af
+                st.pf, st.af = self._own_run(pf), self._own_run(af)
+                del pf, af
                 st.params = st.opt = None
             else:                       # flat -> tree
-                params, opt = flat_to_tree(self.layout, st.pf, st.af)
+                pf = self.world.gather_flat(st.pf)
+                af = self.world.gather_flat(st.af)
+                st.pf = st.af = None
+                params, opt = flat_to_tree(self.layout, pf, af)
                 if self.cfg.verify_swap:
                     # tree -> flat must give the source vectors.  The
                     # accumulator is exact always; a bfloat16 model's
@@ -408,13 +443,13 @@ class SwitchDriver:
                     # to a float32 model only.
                     pf2, af2 = tree_to_flat(self.layout, params,
                                             opt["accum"], initial_accum=ia)
-                    self._check_equal(st.af, af2, "accum")
+                    self._check_equal(af, af2, "accum")
                     if all(d == torch.float32 for d in self.layout.dtypes):
-                        self._check_equal(st.pf, pf2, "params")
+                        self._check_equal(pf, pf2, "params")
                     del pf2, af2
                     r.swaps_verified += 1
+                del pf, af
                 st.params, st.opt = params, opt
-                st.pf = st.af = None
         # sync_impl="fused": the flat state is shared, nothing to convert
         if new_mode == "gba":
             self._reset_wire(st)
@@ -445,9 +480,11 @@ class SwitchDriver:
 
     def _canonical_flat(self, st: _RunState
                         ) -> tuple[np.ndarray, np.ndarray]:
-        """Host copies of the run's final flat (param, accum)."""
+        """Host copies of the run's final flat (param, accum), the whole
+        vectors on every rank."""
         if st.pf is not None:
-            pf, af = st.pf, st.af
+            pf = self.world.gather_flat(st.pf)
+            af = self.world.gather_flat(st.af)
         else:
             pf, af = tree_to_flat(self.layout, st.params, st.opt["accum"],
                                   initial_accum=self.cfg.initial_accum)
@@ -456,9 +493,12 @@ class SwitchDriver:
 
     # -- step execution -----------------------------------------------------
     def _put_batch(self, slot_batches: list) -> dict:
+        """The slots of the workers held here, on the device, one after
+        another: the rows the steps take."""
+        held = [slot_batches[w] for w in self.mine]
         return {k: torch.from_numpy(np.concatenate(
-            [np.asarray(b[k]) for b in slot_batches], axis=0)).to(self.device)
-            for k in slot_batches[0]}
+            [np.asarray(b[k]) for b in held], axis=0)).to(self.device)
+            for k in held[0]}
 
     def _exec(self, st: _RunState, tokens: np.ndarray,
               slot_batches: list) -> float:
@@ -816,7 +856,7 @@ class SwitchDriver:
 # demo model and CLI (the Fig. 6 switching bench drives this)
 # ---------------------------------------------------------------------------
 
-def demo_model(seed: int = 0, device: str | torch.device = "cpu"):
+def demo_model(seed: int = 0, device: str | torch.device = "cuda"):
     """A small MLP regression with leaves that are not tile multiples
     (1221-, 33- and 792-element leaves against a 2048 tile) across three
     layer groups, which exercises the padded carryover.  Its weights are
@@ -878,9 +918,8 @@ def demo_spec(workers: int, seed: int = 0) -> ClusterSpec:
                        ps_roundtrip=0.001, seed=seed)
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None) -> dict | None:
     import argparse
-    import json
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--batches", type=int, default=240)
@@ -899,13 +938,28 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--json", action="store_true",
                     help="print the result as one JSON line (the last "
                          "line of stdout)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run on that many torch.distributed ranks of "
+                         "WORKERS / RANKS workers each: gloo on the CPU, "
+                         "NCCL one rank per card")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.workers < 1:
         ap.error(f"--workers {args.workers}: needs 1 or more")
 
-    dev = resolve_device(args.device)
+    if args.ranks:
+        process_group.check_world(args.ranks, args.workers, args.device)
+        return process_group.spawn(_demo, args.ranks, args,
+                                   device=args.device,
+                                   threads=torch.get_num_threads())
+    return _demo(inprocess, resolve_device(args.device), args)
+
+
+def _demo(world, dev: torch.device, args) -> dict:
+    """The CLI's run of the demo over ``world`` (this rank's, under
+    ``--ranks``) on ``dev``; prints the result and returns it."""
+    import json
     params, loss_fn, group_by = demo_model(device=dev)
     cfg = SwitchConfig(local_batch=args.local_batch,
                        decide_every=args.decide_every,
@@ -914,7 +968,7 @@ def main(argv: list[str] | None = None) -> dict:
                           spec=demo_spec(args.workers, args.seed),
                           plan=demo_plan(args.plan, args.workers), cfg=cfg,
                           batch_fn=demo_batch_fn(args.local_batch),
-                          group_by=group_by)
+                          group_by=group_by, world=world)
     res = driver.run(args.batches, mode=args.mode, seed=args.seed)
     out = res.to_json()
     out["plan"] = args.plan

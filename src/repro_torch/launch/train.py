@@ -9,7 +9,8 @@ smoke.
         --mesh 4x1 [--compress {none,int8,onebit}] [--compress-warmup 2] \\
         [--layer-groups {on,off}] [--ranks R] [--reduced] [--steps 20] ...
     python -m repro_torch.launch.train --arch granite-8b --mesh 4x1 \\
-        --autoswitch [--plan {quiet,strained}] [--batches 120] [--reduced]
+        --autoswitch [--plan {quiet,strained}] [--batches 120] [--ranks R] \\
+        [--reduced]
     python -m repro_torch.launch.train --vocab 1000000 --steps 5 \\
         [--embed-dim 16] [--batch 4] [--lr 1e-3] [--device cuda]
 
@@ -36,12 +37,16 @@ also a PS shard, in one process on the one device: every step is a
 global step in which each worker takes the gradient of its own ``batch /
 W`` sequences and routes it per layer group to the shards, quantized
 after ``--compress-warmup`` float32 global steps, and each shard applies
-with one ``gba_apply`` launch.  ``--ranks R`` runs that wire step on R
-``torch.distributed`` ranks of W / R workers each
-(``repro_torch.distributed.process_group``): gloo with ``--device cpu``,
-NCCL on R cards with ``cuda``; with ``--compress none`` it is refused,
-since the sharded fused step over ranks is not ported.  A model axis
-above 1 is not ported.
+with one ``gba_apply`` launch.  ``--ranks R`` runs either step on R
+``torch.distributed`` ranks (``repro_torch.distributed.process_group``):
+gloo with ``--device cpu``, NCCL on R cards with ``cuda``.  The wire step
+puts W / R workers on each rank; the sharded fused step splits each
+microstep's ``--batch`` over the ranks, reduce-scatters the gradient
+into the W / R shards each rank owns and gathers the params after each
+apply.  A gloo rank runs as many intra-op threads as the launching
+process, so a worker's CPU matmuls round as they do without ``--ranks``
+(the ranks then share the cores R times over).  A model axis above 1 is
+not ported.
 
 ``--mesh Wx1 --autoswitch`` runs the switching harness
 (``repro_torch.launch.switch_driver``) on the arch's steps
@@ -49,8 +54,8 @@ above 1 is not ported.
 token-controlled worker-parallel async step, W workers with ``--batch``
 sequences each, under the ``--plan`` fault plan, switching on live
 telemetry over ``--batches`` local batches.  It needs no ``--fused`` and 2
-or more workers.  The reference's JAX-only ``--host-devices`` is not
-ported.
+or more workers; ``--ranks R`` runs it on R ranks of W / R workers each.
+The reference's JAX-only ``--host-devices`` is not ported.
 
 ``--vocab`` is the counterpart of ``run_embedding_smoke`` in
 ``repro.launch.train``: a ``--vocab``-row hashed table trained end to end
@@ -202,23 +207,34 @@ def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
                  seq: int = 128, buffer: int = 4, iota: int = 4,
                  lr: float = 1e-3, workers: int = 1,
                  layer_groups: bool = True,
-                 device: str | torch.device = "cuda") -> list[float]:
+                 device: str | torch.device = "cuda",
+                 world=inprocess) -> list[float]:
     """Train ``cfg`` for ``steps`` microsteps of the fused GBA step on the
     LM stream (seed 0), its flat state split into ``workers`` PS shards
     when there are 2 or more (layer-grouped unless ``layer_groups`` is
-    False); returns the losses.  Parameters are drawn from seed 0 on the
-    device.  Raises if a loss is not finite."""
+    False), the shards and each microstep's ``batch`` sequences spread
+    over the ranks of ``world`` (all here by default); returns the
+    losses.  Parameters are drawn from seed 0 on the device.  Raises if a
+    loss is not finite."""
     dev = resolve_device(device)
+    if batch % world.size:
+        raise ValueError(f"{world.size} ranks must divide --batch {batch}")
     params = T.init_model(cfg, generator=torch.Generator(dev).manual_seed(0),
                           device=dev)
     gba = GBAConfig(local_batch=batch, buffer_size=buffer,
                     staleness_tolerance=iota)
     progs = build_programs(cfg, gba, params=params, mode="fused", lr=lr,
-                           workers=workers, layer_groups=layer_groups)
+                           workers=workers, layer_groups=layer_groups,
+                           world=world)
     del params
     stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
     print(f"{cfg.name}: {T.param_count(progs.state['params']) / 1e6:.1f}M "
           f"params on {dev}")
+    rows, mine = batch // world.size, world.workers(max(workers, 1))
+    if world is not inprocess:
+        print(f"process group: {world.backend}, {world.size} ranks x "
+              f"{len(mine)} shards, {rows} sequences a rank a microstep")
+    first = mine[0] // len(mine) * rows
     layout = progs.layout
     if isinstance(layout, ShardedFlatLayout):
         print(f"sharded fused gba_apply path (Adagrad): flat buffer "
@@ -239,7 +255,7 @@ def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
     t0 = time.perf_counter()
     for i in range(steps):
         b = stream.batch(i)
-        tensors = {k: torch.from_numpy(b[k]).to(dev)
+        tensors = {k: torch.from_numpy(b[k][first:first + rows]).to(dev)
                    for k in ("tokens", "labels")}
         state, loss = progs.step(state, tensors, i // buffer)
         losses.append(loss.item())
@@ -298,11 +314,13 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
           f"state: {', '.join(pol.state_names())}")
     stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
     param_flat, accum = progs.state["param_flat"], progs.state["accum"]
+    mine, per = world.workers(workers), batch // workers
+    held = slice(mine[0] * per, (mine[-1] + 1) * per)
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
         b = stream.batch(i)
-        tensors = {k: torch.from_numpy(b[k]).to(dev)
+        tensors = {k: torch.from_numpy(b[k][held]).to(dev)
                    for k in ("tokens", "labels")}
         tokens = torch.full((workers,), i, dtype=torch.int32, device=dev)
         warm = pol.stateful and i < pol.warmup_steps
@@ -325,11 +343,22 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
     return losses
 
 
-def _wire_rank(world, device: torch.device, cfg: ModelConfig,
-               kwargs: dict) -> None:
-    """One rank of ``--ranks``: ``run_wire_train`` on ``device`` over the
-    rank's ``world``."""
-    run_wire_train(cfg, device=device, world=world, **kwargs)
+def on_rank(world, device: torch.device, run: Callable, cfg: ModelConfig,
+            kwargs: dict) -> None:
+    """One rank of ``--ranks``: ``run(cfg, **kwargs)`` (``run_wire_train``,
+    ``run_lm_fused`` or ``run_autoswitch``) on ``device`` over the rank's
+    ``world``."""
+    run(cfg, device=device, world=world, **kwargs)
+
+
+def _on_ranks(ranks: int, workers: int, device: str, run: Callable,
+              cfg: ModelConfig, kwargs: dict) -> None:
+    """``run`` on ``ranks`` spawned ranks of ``workers / ranks`` workers
+    each, every gloo rank running this process's intra-op threads, so
+    that its CPU matmuls round as they would here."""
+    process_group.check_world(ranks, workers, device)
+    process_group.spawn(on_rank, ranks, run, cfg, kwargs, device=device,
+                        threads=torch.get_num_threads())
 
 
 def run_autoswitch(cfg: ModelConfig, *, workers: int,
@@ -337,16 +366,17 @@ def run_autoswitch(cfg: ModelConfig, *, workers: int,
                    batch: int = 4, seq: int = 128, iota: int = 4,
                    lr: float = 1e-3, mode: str = "auto",
                    device: str | torch.device = "cuda",
-                   params: dict | None = None):
+                   params: dict | None = None, world=inprocess):
     """Run ``cfg``'s sync and async steps under the switching harness:
     ``workers`` workers, each taking local batch ``i`` of the LM stream
     (seed 0, ``batch`` sequences of ``seq`` tokens) as its slot, on the
     ``plan`` fault plan of ``switch_driver.demo_plan`` over ``batches``
-    local batches, in ``mode`` (``"auto"``: the controller decides).  The
-    layout is the layer-grouped one of the wire step.  Parameters are
-    drawn from seed 0 on the device unless ``params`` (on ``device``) are
-    given.  Prints the reference launcher's summary line and returns the
-    ``SwitchResult``."""
+    local batches, in ``mode`` (``"auto"``: the controller decides), over
+    the collectives of ``world`` (all workers here by default, or this
+    rank's share).  The layout is the layer-grouped one of the wire step.
+    Parameters are drawn from seed 0 on the device unless ``params`` (on
+    ``device``) are given.  Prints the reference launcher's summary line
+    and returns the ``SwitchResult``."""
     from repro_torch.launch.switch_driver import (SwitchConfig, SwitchDriver,
                                                   demo_plan, demo_spec)
     dev = resolve_device(device)
@@ -354,12 +384,16 @@ def run_autoswitch(cfg: ModelConfig, *, workers: int,
         params = T.init_model(
             cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
     print(f"{cfg.name}: {T.param_count(params) / 1e6:.1f}M params on {dev}")
+    if world is not inprocess:
+        print(f"process group: {world.backend}, {world.size} ranks x "
+              f"{workers // world.size} workers")
     stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
     swcfg = SwitchConfig(local_batch=batch, iota=iota, lr=lr)
     driver = SwitchDriver(workers, make_loss_fn(cfg), params,
                           spec=demo_spec(workers),
                           plan=demo_plan(plan, workers), cfg=swcfg,
-                          batch_fn=stream.batch, group_by=T.param_group_key)
+                          batch_fn=stream.batch, group_by=T.param_group_key,
+                          world=world)
     del params
     res = driver.run(batches, mode=mode)
     print(f"autoswitch ({plan}): {res.num_global_steps} global "
@@ -409,11 +443,11 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--compress-warmup", type=int, default=2,
                     help="float32 global steps before the quantized wire")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="run the wire step on that many "
+                    help="run the worker-parallel step on that many "
                          "torch.distributed ranks of WORKERS / RANKS "
-                         "workers each: gloo on the CPU, NCCL one rank per "
-                         "card (needs --fused --mesh WORKERSx1 --compress "
-                         "int8|onebit)")
+                         "workers or shards each: gloo on the CPU, NCCL "
+                         "one rank per card (needs --mesh WORKERSx1 with "
+                         "--fused or --autoswitch)")
     ap.add_argument("--autoswitch", action="store_true",
                     help="the switching harness on the arch's sync and "
                          "async steps under --plan (needs --mesh "
@@ -440,18 +474,18 @@ def main(argv: list[str] | None = None):
         if args.reduced:
             cfg = cfg.reduced()
         if args.autoswitch:
-            if args.ranks:
-                ap.error("--ranks: the switching harness on the process-"
-                         "group backend is not ported")
             workers, _, model = args.mesh.partition("x")
             if not (workers.isdigit() and int(workers) >= 2
                     and model in ("", "1")):
                 ap.error(f"--autoswitch needs --mesh WORKERSx1 with 2 or "
                          f"more workers, got --mesh {args.mesh!r}")
-            return run_autoswitch(
-                cfg, workers=int(workers), plan=args.plan,
-                batches=args.batches, batch=args.batch, seq=args.seq,
-                iota=args.iota, lr=args.lr, device=args.device)
+            kwargs = dict(workers=int(workers), plan=args.plan,
+                          batches=args.batches, batch=args.batch,
+                          seq=args.seq, iota=args.iota, lr=args.lr)
+            if not args.ranks:
+                return run_autoswitch(cfg, device=args.device, **kwargs)
+            return _on_ranks(args.ranks, int(workers), args.device,
+                             run_autoswitch, cfg, kwargs)
         if not args.fused:
             if args.mesh:
                 ap.error("--mesh: the pytree step over PS workers is not "
@@ -477,15 +511,17 @@ def main(argv: list[str] | None = None):
             if workers < 2:
                 ap.error(f"--mesh {args.mesh}: needs 2 or more workers")
             if args.compress == "none":
-                if args.ranks:
-                    ap.error("--ranks with --compress none: the sharded "
-                             "fused step over ranks is not ported; --ranks "
-                             "runs the wire step of --compress int8|onebit")
-                return run_lm_fused(
-                    cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                    buffer=args.buffer, iota=args.iota, lr=args.lr,
-                    workers=workers, layer_groups=args.layer_groups == "on",
-                    device=args.device)
+                kwargs = dict(steps=args.steps, batch=args.batch,
+                              seq=args.seq, buffer=args.buffer,
+                              iota=args.iota, lr=args.lr, workers=workers,
+                              layer_groups=args.layer_groups == "on")
+                if not args.ranks:
+                    return run_lm_fused(cfg, device=args.device, **kwargs)
+                if args.batch % args.ranks:
+                    ap.error(f"--ranks {args.ranks}: the sharded fused step "
+                             f"splits --batch {args.batch} over the ranks")
+                return _on_ranks(args.ranks, workers, args.device,
+                                 run_lm_fused, cfg, kwargs)
             if args.batch % workers:
                 ap.error(f"--mesh {args.mesh}: the wire step needs workers "
                          f"that divide --batch {args.batch}")
@@ -496,9 +532,8 @@ def main(argv: list[str] | None = None):
                           layer_groups=args.layer_groups == "on")
             if not args.ranks:
                 return run_wire_train(cfg, device=args.device, **kwargs)
-            process_group.check_world(args.ranks, workers, args.device)
-            return process_group.spawn(_wire_rank, args.ranks, cfg, kwargs,
-                                       device=args.device)
+            return _on_ranks(args.ranks, workers, args.device,
+                             run_wire_train, cfg, kwargs)
         if args.compress != "none" or args.ranks:
             ap.error("--compress or --ranks needs --mesh WORKERSx1: the "
                      "single-device step has no wire")

@@ -1284,3 +1284,36 @@ def test_one_rank_nccl_world_is_bit_identical_to_in_process(tmp_path):
         for k, v in held.items():
             assert torch.equal(got[scheme][k].view(torch.int32),
                                v.view(torch.int32)), (scheme, k)
+
+
+@pytest.mark.parametrize("case", ["psum", "switched", "fused", "demo_auto",
+                                  "demo_schedule", "demo_nan"])
+def test_one_rank_nccl_world_switches_and_shards_as_in_process(tmp_path,
+                                                               case):
+    """The psum sync step, a switched schedule, the sharded fused step
+    and the demo driver's runs over a one-rank NCCL world holding all 4
+    workers and shards, bit-identical to the in-process backend on the
+    card (the fused losses too: one rank's share is the whole batch's
+    mean); a NaN batch commits nothing."""
+    _need_card()
+    import os
+    import torch.distributed as dist
+    from repro_torch.distributed import inprocess, process_group, selfcheck
+    for d in ("nccl", "in"):
+        os.mkdir(tmp_path / d)
+    world, dev = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                    "cuda", timeout=120.0)
+    try:
+        selfcheck.run(world, dev, 4, (case,), str(tmp_path / "nccl"))
+    finally:
+        process_group.leave()
+    assert not dist.is_initialized()
+    selfcheck.run(inprocess, torch.device("cuda"), 4, (case,),
+                  str(tmp_path / "in"))
+    got = torch.load(tmp_path / "nccl" / "part0.pt")[case]
+    want = torch.load(tmp_path / "in" / "part0.pt")[case]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert selfcheck.differing(got[k], v) == 0, k
+    if case == "demo_nan":
+        assert all(v.item() == 0 for v in want.values())

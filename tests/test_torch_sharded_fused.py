@@ -45,6 +45,7 @@ from repro_torch.core.compression import CompressionPolicy
 from repro_torch.core.flat_sharded import (ShardedFlatLayout,
                                            init_sharded_flat_buffer,
                                            per_leaf_kernel_apply,
+                                           sharded_flat_push,
                                            sharded_flat_push_and_maybe_apply)
 from repro_torch.data import make_lm_stream
 from repro_torch.distributed import selfcheck
@@ -209,6 +210,77 @@ def test_sharded_buffer_is_shard_major_with_slot_views(shards):
     assert not p.any() and bool((a == 1).all())
     assert torch.equal(buf["grads"][0].reshape(-1), g)
     assert (buf["fill"], buf["step"], int(buf["tokens"][0])) == (1, 0, 7)
+
+
+def test_a_run_of_held_shards_applies_as_the_whole_buffer():
+    """A process holding shards 2 and 3 of 4 (``held=2``): its buffer has
+    their two blocks, and its push and apply of their run of a gradient
+    give their run of the whole buffer's params and accumulator, bit for
+    bit; a run of the wrong length is refused."""
+    params, lay, _ = _layouts("small", 4, True, tile=256)
+    _, whole = init_sharded_flat_buffer(params, M, 4, tile=256,
+                                        group_by=lambda p: p[0])
+    _, part = init_sharded_flat_buffer(params, M, 4, tile=256,
+                                       group_by=lambda p: p[0], held=2)
+    assert tuple(part["grads"].shape) == (M, 2, lay.shard_size)
+    run = slice(2 * lay.shard_size, 4 * lay.shard_size)
+    grads, accum, _ = _apply_inputs(lay)
+    p, a = lay.ravel(params), accum.clone()
+    pr, ar = p[run].clone(), a[run].clone()
+    for j, token in enumerate([3, 0, 3, 3]):
+        p, a, applied, whole = sharded_flat_push_and_maybe_apply(
+            whole, grads[j], token, p, a, LR, layout=lay, iota=IOTA)
+        pr, ar, run_applied, part = sharded_flat_push_and_maybe_apply(
+            part, grads[j][run], token, pr, ar, LR, layout=lay, iota=IOTA)
+        assert applied == run_applied == (j == M - 1)
+    assert torch.equal(pr.view(torch.int32), p[run].view(torch.int32))
+    assert torch.equal(ar.view(torch.int32), a[run].view(torch.int32))
+    with pytest.raises(ValueError, match="takes a"):
+        sharded_flat_push(lay, part, grads[0], 0)
+    with pytest.raises(ValueError, match="1 to 4 shards"):
+        init_sharded_flat_buffer(params, M, 4, tile=256, held=5)
+
+
+def test_one_rank_world_sharded_lm_step_is_the_in_process_step(tmp_path):
+    """``build_programs(mode="fused", workers=4, world=)`` over a gloo world
+    of one rank (all 4 shards, the whole batch: the card's NCCL world) is
+    the in-process step bit for bit: the float32 LM's losses, params and
+    accumulator over 4 microsteps at M = 2 (2 applies)."""
+    from repro_torch.distributed import process_group
+    cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                              dtype="float32")
+    gba = GBAConfig(local_batch=2, buffer_size=2, staleness_tolerance=4)
+    stream = make_lm_stream(cfg.vocab_size, S, 2, seed=0)
+    threads = torch.get_num_threads()
+    world, _ = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                  "cpu", timeout=60.0, threads=threads)
+    try:
+        runs = []
+        for w in (world, programs.inprocess):
+            progs = programs.build_programs(
+                cfg, gba, params=_granite_f32(cfg), mode="fused", lr=1e-3,
+                workers=4, world=w)
+            st, losses = progs.state, []
+            for i in range(4):
+                st, loss = progs.step(st, {
+                    k: torch.from_numpy(v)
+                    for k, v in stream.batch(i).items()}, i // 2)
+                losses.append(loss)
+            runs.append((progs.layout, st, torch.stack(losses)))
+    finally:
+        process_group.leave()
+        torch.set_num_threads(threads)
+    (lay, got, gl), (_, want, wl) = runs
+    assert torch.equal(gl.view(torch.int32), wl.view(torch.int32))
+    assert torch.equal(got["accum"].view(torch.int32),
+                       want["accum"].view(torch.int32))
+    for a, b in zip(lay.leaves(got["params"]), lay.leaves(want["params"])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _granite_f32(cfg) -> dict:
+    return T.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
 
 
 def test_per_leaf_kernel_apply_refuses_grouped_layouts():

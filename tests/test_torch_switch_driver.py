@@ -236,7 +236,7 @@ def _model(name, inp, ref):
                                     "b": torch.from_numpy(inp["b"])}}}
         return (params, _fold_loss, lambda i: {"x": inp["x"][i]},
                 lambda path: path[0])
-    _, loss_fn, group_by = SD.demo_model()
+    _, loss_fn, group_by = SD.demo_model(device="cpu")
     params = {}
     for k, v in ref.items():
         if k.startswith("init/"):
@@ -430,7 +430,7 @@ def test_demo_model_is_the_reference_draw():
     within 4 ulps, and almost all of them bit for bit (XLA's ``log1p``
     may round the last bit otherwise)."""
     jparams, _, _ = JSD.demo_model()
-    params, _, _ = SD.demo_model()
+    params, _, _ = SD.demo_model(device="cpu")
     equal = total = 0
     for (path, a), (_, b) in zip(tree_paths(params),
                                  tree_paths(_to_torch(jparams)),
@@ -442,7 +442,7 @@ def test_demo_model_is_the_reference_draw():
 
 
 def test_driver_refuses_what_the_reference_refuses():
-    params, loss_fn, group_by = SD.demo_model()
+    params, loss_fn, group_by = SD.demo_model(device="cpu")
     with pytest.raises(ValueError, match="workers"):
         SD.SwitchDriver(1, loss_fn, params, spec=ClusterSpec(num_workers=2),
                         plan=FaultPlan.quiet(2),
@@ -465,7 +465,7 @@ def _one_worker(impl="fused", batch_fn=None, jax_side=False):
             plan=JaxFaultPlan.quiet(1), cfg=JSD.SwitchConfig(**cfg_kw),
             batch_fn=batch_fn or JSD.demo_batch_fn(8), group_by=group_by,
             tile=128)
-    params, loss_fn, group_by = SD.demo_model()
+    params, loss_fn, group_by = SD.demo_model(device="cpu")
     return SD.SwitchDriver(
         1, loss_fn, params,
         spec=ClusterSpec(num_workers=1, jitter=0.0, seed=0),
@@ -518,7 +518,7 @@ def test_run_rejects_unknown_mode_and_bad_schedule():
 # ---------------------------------------------------------------------------
 
 def _demo_driver(impl, **kw):
-    params, loss_fn, group_by = SD.demo_model()
+    params, loss_fn, group_by = SD.demo_model(device="cpu")
     return _driver(params, loss_fn, SD.demo_batch_fn(LB), group_by,
                    impl=impl, **kw)
 

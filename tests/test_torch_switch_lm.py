@@ -7,7 +7,9 @@ step (``make_gba_psum_step``, ``build_programs(mode="sync_psum")``) and
   tombstone slot): the reference runs ``build_programs(mode="sync_psum")``
   on a forced 4-device CPU mesh in a subprocess, from the same params and
   batches; params and accumulator within 1e-6, losses within rtol 1e-6
-  (float32 sums in other orders).
+  (float32 sums in other orders).  The same step on 2 gloo ranks
+  (``world=``, 2 workers a rank, summed in worker order through the
+  chain) within 1e-5 of the reference on every rank.
 * The launcher: ``python -m repro.launch.train --arch granite-8b
   --reduced --mesh 4x1 --host-devices 4 --autoswitch --plan strained
   --batches 120`` and the port's ``train.main`` with the same arguments
@@ -39,6 +41,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.gba import aggregate_dense, tree_paths
 from repro_torch.core.gba_shard_map import make_gba_psum_step
 from repro_torch.data import make_lm_stream
+from repro_torch.distributed import process_group, selfcheck
 from repro_torch.launch import train
 from repro_torch.launch.programs import (build_programs, loss_and_grads,
                                          make_loss_fn)
@@ -164,6 +167,25 @@ def test_sync_psum_step_matches_the_reference(sync_step_run):
             assert leaf.dtype == torch.float32
             np.testing.assert_allclose(leaf.numpy(), want, rtol=0,
                                        atol=1e-6, err_msg=str(path))
+
+
+def test_sync_psum_step_on_two_gloo_ranks_matches_the_reference(
+        sync_step_run, tmp_path):
+    """``build_programs(mode="sync_psum", world=)`` on 2 gloo ranks of 2
+    workers each, every rank taking its workers' rows: each rank's params,
+    accumulator and losses within 1e-5 of the reference's psum step on a
+    forced 4-device mesh."""
+    _, inp, ref = sync_step_run
+    _, cfg = _cfgs()
+    gba = GBAConfig(local_batch=B, buffer_size=W, staleness_tolerance=IOTA)
+    process_group.spawn(selfcheck.run_lm_psum, 2, cfg, inp, gba, LR,
+                        str(tmp_path), device="cpu", timeout=240.0)
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"rank{r}.npz"))
+        assert set(got) == set(ref)
+        for k, want in ref.items():
+            np.testing.assert_allclose(got[k], want, rtol=0, atol=1e-5,
+                                       err_msg=f"rank {r}: {k}")
 
 
 def test_sync_psum_step_is_the_decayed_aggregate():
