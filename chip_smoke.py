@@ -68,7 +68,17 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   with int8, the switching harness (``launch.train --autoswitch --ranks``:
   its psum sync step's worker-order sum and the swaps' gathers through
   NCCL) and the sharded fused step (``--compress none --ranks``: the
-  gradient reduce-scattered, the params gathered).
+  gradient reduce-scattered, the params gathered);
+* LM serving of the attention-family architectures
+  (``repro_torch.launch.serve --arch ...``) at full width, bf16: gemma2-27b
+  (46 layers, alternating sliding-window and global attention, softcaps),
+  gemma3-12b (48 layers, 5 local : 1 global, window 1,024), starcoder2-3b
+  (30 sliding-window layers, layernorm), phi3.5-moe-42b-a6.6b (16 experts
+  top-2, depth cut from 32 to 24 layers: 83.7 GB of weights at 32) and
+  kimi-k2-1t-a32b (head dim 112, a dense prefix layer, 384 experts top-8;
+  depth cut from 61 to the prefix layer and one MoE layer: 17.0 G
+  parameters a MoE layer): the fixed-batch loop at batch 4 x 128, 31
+  decode steps; gemma3-12b's rings past their window and its engine.
 
 Phases:
 
@@ -194,7 +204,23 @@ Phases:
     (a)'s at each apply (host copies), every loss equal, 4 ``gba_apply``
     launches an apply, seconds a global step beside (a)'s; the process
     group destroyed;
-17. one JSON line of the kernels, then the result line.
+17. LM serving of the five attention-family architectures at full width:
+    (a) for each, the depth and why it was cut, init seconds and peak,
+    the fixed-batch loop counted (``flash_decode`` launches a step: one a
+    global layer without an attention softcap, so gemma3-12b 8, gemma2-27b
+    and starcoder2-3b none, phi3.5-moe 24, kimi-k2 2; no other kernel),
+    prefill ms, decode ms a step, tok/s and peak memory, then one more
+    step whose every ``flash_decode`` launch is held to the plain version
+    on the inputs the path gave it (hd 256 G 2, hd 128 G 4, hd 112 G 8);
+    (b) gemma3-12b's rings at full width: a prefill of 4 x 1,152 tokens
+    past its window of 1,024 and 8 decode steps, the kernel route held to
+    the masked route fed the same tokens; (c) gemma3-12b's engine, 8
+    requests in 4 slots, against the offline greedy decode; (d) each
+    architecture's ``.reduced()`` in float32, card against CPU: logits
+    within 1e-5 of the largest, greedy tokens and every MoE layer's expert
+    choices equal; (e) ``flash_decode`` at (4, 32768, 8, 8, 112) and (4,
+    32768, 8, 2, 256) timed against its plain version, its bound and SDPA;
+18. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -202,7 +228,8 @@ microsteps, each scheme of the wire step, the pytree step, its tree ops,
 the resident oracle, the serve loop, the 32k decode, the engine, the
 autoswitch run, the int8 re-entry run, each model's GBA day of phase 15,
 the six benches, the sharded fused step, each wire run of phase 16 and
-each of its NCCL switching runs and its NCCL sharded fused step)
+each of its NCCL switching runs and its NCCL sharded fused step, each
+architecture's serve loop, gemma3-12b's ring and its engine)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -2846,58 +2873,67 @@ def flash_phase(T: dict, cycles_per_ms: float) -> dict:
                   f"{'ok' if ok else 'FAIL'}")
             check(ok, f"flash_decode {label} pos {pos}")
         del q, k, v
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = []
-    for b, length, kv, g, hd, pos in FLASH_TIMED:
-        q = torch.randn((b, kv, g, hd), generator=gen,
-                        device="cuda").bfloat16()
-        k = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        v = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        mask = (torch.arange(length, device="cuda") <= pos)[None, None,
-                                                            None, :]
-
-        def library(q=q, k=k, v=v, mask=mask, b=b, kv=kv, g=g, hd=hd):
-            return sdpa(q.reshape(b, kv * g, 1, hd), k.transpose(1, 2),
-                        v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
-        got = fd(q, k, v, p)
-        lib_diff = (library().reshape(got.shape).float()
-                    - got.float()).abs().max().item()
-        check(lib_diff <= 2.0**-6 * got.float().abs().max().item(),
-              f"SDPA agrees with the kernel: {lib_diff}")
-        med, runs, held = _timed({
-            "kernel": lambda q=q, k=k, v=v, p=p: fd(q, k, v, p),
-            "plain": lambda q=q, k=k, v=v, pos=pos: ref(q, k, v, pos),
-            "library": library}, length < 4096, cycles_per_ms)
-        bnd, by = flash_bound_ms(b, length, kv, g, hd, pos, 2)
-        plan = T["flash_launch_plan"](q, k)
-        row = {"shape": [b, length, kv, g, hd], "pos": pos, "dtype": "bf16",
-               "ms": med["kernel"], "plain_ms": med["plain"],
-               "library_ms": med["library"],
-               "library": "F.scaled_dot_product_attention(enable_gqa=True,"
-                          " boolean mask)",
-               "library_max_abs_diff": lib_diff, "bound_ms": bnd,
-               "bound_by": by, "plan": plan, "sleep_held": held,
-               "device_runs_ms": runs}
-        earlier = EARLIER_MS[("flash_decode", (b, length, kv, g, hd))]
-        rows.append(row)
-        print(f"  flash_decode ({b}, {length}, {kv}, {g}, {hd}) bf16 pos "
-              f"{pos}: {plan['stages']} stages, {plan['nsplit']} splits of "
-              f"{plan['chunk']} positions, {plan['blocks_per_sm']} blocks "
-              f"an SM; device ms per call: kernel {med['kernel']!r} "
-              f"(earlier design {earlier['ms']!r}, {earlier['method']}), "
-              f"plain {med['plain']!r}, SDPA {med['library']!r} (max |diff| "
-              f"{lib_diff!r}), bound {bnd!r} ({by}); device runs: "
-              f"{json.dumps(runs)}")
-        for name, ok in held.items():
-            if not ok:
-                print(f"    {name}: the sleep did not outlast the host's "
-                      f"issuing, so its device ms include the host's pace")
-        del q, k, v
-        torch.cuda.empty_cache()
+    rows = [flash_timed(T, gen, shape, cycles_per_ms)
+            for shape in FLASH_TIMED]
     return {"max_abs_err": max_err, "timed": rows}
+
+
+def flash_timed(T: dict, gen: torch.Generator, shape: tuple,
+                cycles_per_ms: float) -> dict:
+    """``flash_decode`` at ``shape`` = (B, L, KV, G, hd, pos) on random bf16
+    inputs, timed in turns with its plain version and SDPA (whose output
+    must agree within 2**-6 of the largest), beside its byte bound and its
+    launch plan."""
+    fd, ref = T["flash_decode"], T["flash_decode_ref"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, length, kv, g, hd, pos = shape
+    q = torch.randn((b, kv, g, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, length, kv, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(length, device="cuda") <= pos)[None, None, None, :]
+
+    def library():
+        return sdpa(q.reshape(b, kv * g, 1, hd), k.transpose(1, 2),
+                    v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    got = fd(q, k, v, p)
+    lib_diff = (library().reshape(got.shape).float()
+                - got.float()).abs().max().item()
+    check(lib_diff <= 2.0**-6 * got.float().abs().max().item(),
+          f"SDPA agrees with the kernel: {lib_diff}")
+    med, runs, held = _timed({
+        "kernel": lambda: fd(q, k, v, p),
+        "plain": lambda: ref(q, k, v, pos),
+        "library": library}, length < 4096, cycles_per_ms)
+    bnd, by = flash_bound_ms(b, length, kv, g, hd, pos, 2)
+    plan = T["flash_launch_plan"](q, k)
+    row = {"shape": [b, length, kv, g, hd], "pos": pos, "dtype": "bf16",
+           "ms": med["kernel"], "plain_ms": med["plain"],
+           "library_ms": med["library"],
+           "library": "F.scaled_dot_product_attention(enable_gqa=True,"
+                      " boolean mask)",
+           "library_max_abs_diff": lib_diff, "bound_ms": bnd,
+           "bound_by": by, "plan": plan, "sleep_held": held,
+           "device_runs_ms": runs}
+    earlier = EARLIER_MS.get(("flash_decode", (b, length, kv, g, hd)))
+    print(f"  flash_decode ({b}, {length}, {kv}, {g}, {hd}) bf16 pos "
+          f"{pos}: {plan['stages']} stages, {plan['nsplit']} splits of "
+          f"{plan['chunk']} positions, {plan['blocks_per_sm']} blocks "
+          f"an SM; device ms per call: kernel {med['kernel']!r}"
+          + (f" (earlier design {earlier['ms']!r}, {earlier['method']})"
+             if earlier else "")
+          + f", plain {med['plain']!r}, SDPA {med['library']!r} (max |diff| "
+          f"{lib_diff!r}), bound {bnd!r} ({by}); device runs: "
+          f"{json.dumps(runs)}")
+    for name, ok in held.items():
+        if not ok:
+            print(f"    {name}: the sleep did not outlast the host's "
+                  f"issuing, so its device ms include the host's pace")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
 
 
 def serve_phase(T: dict, counters) -> dict:
@@ -2930,14 +2966,23 @@ def serve_phase(T: dict, counters) -> dict:
     return out
 
 
-def serve_row(serve: dict) -> dict:
-    """The kernels line's row of ``flash_decode``, timed at decode_32k."""
+def serve_row(serve: dict, archs: dict) -> dict:
+    """The kernels line's row of ``flash_decode``, timed at decode_32k;
+    its shapes also at the head dims of phase 17's architectures."""
     by_path = {
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
         "serve_engine": serve["engine"]["launches"]["flash_decode"]}
-    timed = serve["flash_decode"]["timed"]
-    at = timed[-1]
+    for arch in ARCH_DEPTHS:
+        row = archs[arch]
+        by_path[f"archs_{arch}"] = row["launches"]["flash_decode"]
+        if arch == "gemma3-12b":
+            by_path["archs_gemma3-12b_ring"] = \
+                row["ring"]["launches"]["flash_decode"]
+            by_path["archs_gemma3-12b_engine"] = \
+                row["engine"]["launches"]["flash_decode"]
+    timed = serve["flash_decode"]["timed"] + archs["flash_decode"]
+    at = serve["flash_decode"]["timed"][-1]
     return {
         "name": "flash_decode",
         "route": "cuda",
@@ -2945,7 +2990,9 @@ def serve_row(serve: dict) -> dict:
         "replaces": "src/repro/kernels/flash_decode.py:116",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": serve["flash_decode"]["max_abs_err"],
+        "max_abs_err": max([serve["flash_decode"]["max_abs_err"]] + [
+            h["max_abs_err"] for arch in ARCH_DEPTHS
+            for h in archs[arch]["flash_held"]]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
@@ -4001,6 +4048,348 @@ def sharded_ps_phase(T: dict, counters, lm: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: LM serving, the attention-family architectures at full width
+
+# (layers kept, why): the deepest stack one H100 holds with its bf16
+# weights, init_model's one float32 draw of its largest leaf, and the
+# serve loop's activations
+ARCH_DEPTHS = {
+    "gemma2-27b": (46, "all 46 layers: 28.4 G params, 56.8 GB of bf16 "
+                       "weights"),
+    "gemma3-12b": (48, "all 48 layers: 12.8 G params, 25.6 GB"),
+    "starcoder2-3b": (30, "all 30 layers: 4.3 G params, 8.6 GB"),
+    "phi3.5-moe-42b-a6.6b": (24, "cut 32 -> 24 layers: 1.30 G params a "
+                                 "layer, 83.7 GB of weights at 32 > the "
+                                 "card's 80 GB; 62.9 GB at 24"),
+    "kimi-k2-1t-a32b": (2, "cut 61 -> 2 layers, the dense prefix layer and "
+                           "1 MoE repeat: 17.0 G params a MoE layer, 39 GB "
+                           "of weights at 2, plus init's 22.5 GB float32 "
+                           "draw of one (384, 7168, 2048) expert tensor"),
+}
+# flash_decode launches a decode step at those depths: one a global layer
+# without an attention softcap
+ARCH_KERNEL_LAYERS = {"gemma2-27b": 0, "gemma3-12b": 8, "starcoder2-3b": 0,
+                      "phi3.5-moe-42b-a6.6b": 24, "kimi-k2-1t-a32b": 2}
+# the fixed-batch loop: B prompts of P tokens, G generated (cache 160)
+ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 128, 32
+# gemma3-12b's ring at full width: a prompt past its window of 1,024
+RING_PROMPT, RING_STEPS = 1152, 8
+# the engine on gemma3-12b: 8 requests of 4 to 128 tokens, 4 slots
+ARCH_ENGINE_GEN = 16
+# the kernel at the path's head dims, timed at decode_32k's length
+ARCH_FLASH_TIMED = ((4, 32_768, 8, 8, 112, LONG_POS),
+                    (4, 32_768, 8, 2, 256, LONG_POS))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def kernel_layers(cfg) -> int:
+    """Layers whose decode at a scalar position launches ``flash_decode``:
+    the global ones, in a model without an attention softcap."""
+    if cfg.attn_softcap:
+        return 0
+    kinds = (*cfg.prefix_layers, *cfg.block_pattern * cfg.num_repeats)
+    return sum(k in ("global", "moe") for k in kinds)
+
+
+class record_flash:
+    """Within the block, ``ops.flash_decode`` launches the kernel and keeps
+    the inputs and output of the first call at each shape."""
+
+    def __init__(self, T: dict):
+        self.ops, self.calls = T["ops"], {}
+
+    def __enter__(self):
+        self.saved = self.ops.flash_decode
+
+        def spy(q, k, v, pos):
+            out = self.saved(q, k, v, pos)
+            key = (*k.shape, q.shape[2])
+            if key not in self.calls:
+                self.calls[key] = (q.clone(), k.clone(), v.clone(),
+                                   pos.clone(), out.clone())
+            return out
+        self.ops.flash_decode = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_decode = self.saved
+
+
+class record_routes:
+    """Within the block, ``layers.moe_route`` keeps every route it
+    returns."""
+
+    def __init__(self, T: dict):
+        self.layers, self.routes = T["layers"], []
+
+    def __enter__(self):
+        self.saved = self.layers.moe_route
+
+        def spy(p, cfg, xt):
+            r = self.saved(p, cfg, xt)
+            self.routes.append(r)
+            return r
+        self.layers.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.saved
+
+
+def arch_serve(T: dict, arch: str, counters) -> dict:
+    """(a) one architecture at full width: init, the fixed-batch loop of
+    ``launch.serve`` counted, and each ``flash_decode`` shape of one more
+    decode step held to the plain version on its own inputs."""
+    Tm, serve = T["transformer"], T["serve"]
+    depth, why = ARCH_DEPTHS[arch]
+    full = T["get_config"](arch)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    check(cfg.dtype == "bfloat16", f"{arch}: bf16")
+    print(f"  {arch}: {why}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Tm.init_model(cfg,
+                           generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    out = {"layers": depth, "of_layers": full.num_layers, "cut": why,
+           "params": T["param_count"](params),
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "weights_gb": tree_bytes(params) / 1e9}
+    prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, ARCH_PROMPT),
+                            generator=torch.Generator("cuda").manual_seed(1),
+                            device="cuda")
+    serve.run_fixed_batch(params, cfg, prompts, 2, log=lambda _: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters(reset=True)
+    res = serve.run_fixed_batch(params, cfg, prompts, ARCH_GEN,
+                                log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = counters()
+    steps = res["decode_steps"]
+    want = ARCH_KERNEL_LAYERS[arch]
+    check(kernel_layers(cfg) == want, f"{arch}: {want} kernel layers")
+    check(launches["flash_decode"] == want * steps,
+          f"{arch}: {want} flash_decode launches a decode step: "
+          f"{launches['flash_decode']} in {steps}")
+    check(sum(v for k, v in launches.items()
+              if k not in ("flash_decode", "calls")) == 0,
+          f"{arch}: the serve loop launches no other kernel")
+    tokens = res["tokens"]
+    check(tokens.shape == (ARCH_BATCH, ARCH_GEN), "tokens (B, gen)")
+    out.update({
+        "prefill_ms": res["prefill_s"] * 1e3,
+        "decode_step_ms": res["decode_s"] / steps * 1e3,
+        "tokens_per_s": ARCH_BATCH * steps / res["decode_s"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches})
+    # one more step from the loop's prompts and tokens: every launch shape
+    # held to the plain version on the inputs the path gave it
+    _, cache = Tm.prefill(params, cfg, prompts,
+                          cache_len=ARCH_PROMPT + ARCH_GEN)
+    with record_flash(T) as rec:
+        logits, _ = Tm.decode_step(params, cfg, tokens[:, :1], cache)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: finite logits")
+    held = []
+    for (b, length, kv, hd, g), (q, k, v, pos, got) in rec.calls.items():
+        want_out = T["flash_decode_ref"](q, k, v, pos)
+        err = (got.float() - want_out.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want_out.float(), rtol=BF16_RTOL,
+                            atol=BF16_ATOL)
+        held.append({"shape": [b, length, kv, g, hd], "pos": int(pos),
+                     "max_abs_err": err})
+        print(f"  {arch}: flash_decode on the path's inputs ({b}, {length},"
+              f" {kv}, {g}, {hd}) at pos {int(pos)}: max |err| {err!r} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{arch}: flash_decode held to the plain version")
+    check(len(rec.calls) == (1 if want else 0),
+          f"{arch}: one launch shape on the path")
+    out["flash_held"] = held
+    print(f"  {arch}, {depth} of {full.num_layers} layers, {out['params']:,}"
+          f" params ({out['weights_gb']!r} GB), init {out['init_s']:.1f} s, "
+          f"init peak {out['init_peak_gb']!r} GB; batch {ARCH_BATCH}x"
+          f"{ARCH_PROMPT}, gen {ARCH_GEN}: prefill {out['prefill_ms']!r} ms,"
+          f" decode {out['decode_step_ms']!r} ms a step, "
+          f"{out['tokens_per_s']!r} tok/s, peak {out['peak_gb']!r} GB; "
+          f"launches {json.dumps(launches)}")
+    return out, cfg, params
+
+
+def ring_phase(T: dict, cfg, params, counters) -> dict:
+    """(b) gemma3-12b's ring at full width: a prefill of B x 1,152 tokens
+    (its local layers keep the last 1,024), then 8 decode steps at a
+    scalar position (the global layers through ``flash_decode``), held to
+    the same steps at a (B,) vector of that position (every layer through
+    the masked attention) fed the same tokens: logits within 2**-6 of the
+    largest."""
+    Tm = T["transformer"]
+    prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, RING_PROMPT),
+                            generator=torch.Generator("cuda").manual_seed(5),
+                            device="cuda")
+    cache_len = RING_PROMPT + RING_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = Tm.prefill(params, cfg, prompts, cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ring = cache["blocks"]["l0"]["attn"]["k"]
+    check(ring.shape[2] == cfg.sliding_window < RING_PROMPT,
+          f"the local layers' ring of {cfg.sliding_window}")
+    vec = {**T["tree_map"](lambda x: x.clone(), {
+        k: v for k, v in cache.items() if k != "pos"}),
+        "pos": cache["pos"].expand(ARCH_BATCH).clone()}
+    token = logits.argmax(-1)[:, None].to(torch.int32)
+    tokens, seen = [], []
+    counters(reset=True)
+    t0 = time.perf_counter()
+    for _ in range(RING_STEPS):
+        tokens.append(token)
+        lg, cache = Tm.decode_step(params, cfg, token, cache)
+        seen.append(lg)
+        token = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = counters()
+    check(launches["flash_decode"] == ARCH_KERNEL_LAYERS["gemma3-12b"]
+          * RING_STEPS, f"ring: flash_decode launches "
+          f"{launches['flash_decode']}")
+    masked = []
+    for tok in tokens:
+        lg, vec = Tm.decode_step(params, cfg, tok, vec)
+        masked.append(lg)
+    kern, masked = torch.cat(seen, 1), torch.cat(masked, 1)
+    check(bool(torch.isfinite(kern).all()), "ring: finite logits")
+    err = (kern - masked).abs().max().item()
+    scale = masked.abs().max().item()
+    out = {"prompt": RING_PROMPT, "window": cfg.sliding_window,
+           "prefill_ms": prefill_s * 1e3,
+           "decode_step_ms": decode_s / RING_STEPS * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "logit_max_abs_diff": err,
+           "logit_max_abs": scale}
+    print(f"  gemma3-12b ring: prefill {ARCH_BATCH}x{RING_PROMPT} "
+          f"{out['prefill_ms']!r} ms, {RING_STEPS} decode steps at "
+          f"{out['decode_step_ms']!r} ms a step, peak {out['peak_gb']!r} GB;"
+          f" scalar (kernel) vs vector (masked) position: max |logit diff| "
+          f"{err!r} of {scale!r}")
+    check(err <= 2.0**-6 * scale, "ring: the two routes agree")
+    return out
+
+
+def arch_engine(T: dict, cfg, params, counters) -> dict:
+    """(c) the engine on gemma3-12b: 8 requests in 4 slots, every request
+    complete, the per-slot positions through the masked attention, each
+    request's first token equal to its offline greedy decode's (the rest
+    counted: bf16 routes may round apart)."""
+    S = T["S"]
+    eng = S.ServingEngine(S.StaticSource(params), cfg,
+                          num_slots=ENGINE_SLOTS,
+                          max_len=ARCH_PROMPT + ARCH_ENGINE_GEN)
+    rng = np.random.default_rng(0)
+    for uid in range(ENGINE_REQUESTS):
+        plen = int(rng.integers(4, ARCH_PROMPT + 1))
+        eng.submit(S.Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, plen, dtype=np.int64).astype(np.int32),
+            max_new_tokens=ARCH_ENGINE_GEN))
+    torch.cuda.synchronize()
+    counters(reset=True)
+    stats = eng.run()
+    torch.cuda.synchronize()
+    launches = counters()
+    print(f"  gemma3-12b engine: {json.dumps(stats)}")
+    check(stats["completed"] == ENGINE_REQUESTS, "every request completed")
+    check(launches["flash_decode"] == 0,
+          "the engine's per-slot positions take the masked route")
+    agree = total = 0
+    for req in eng.completed:
+        off = _offline_greedy(T, params, cfg, req.prompt, ARCH_ENGINE_GEN)
+        check(off[0] == req.output[0],
+              f"request {req.uid}: the prefill's token agrees")
+        agree += sum(a == b for a, b in zip(off, req.output))
+        total += len(off)
+    print(f"  gemma3-12b engine vs offline greedy: {agree} of {total} tokens"
+          f" agree")
+    return {"stats": stats, "launches": launches, "tokens_agree": agree,
+            "tokens": total}
+
+
+def arch_card_vs_cpu(T: dict, arch: str) -> dict:
+    """(d) ``.reduced()`` in float32, card against CPU from the same
+    weights: the fixed-batch loop on the card, then prefill and 8 steps
+    teacher-forced on both; logits within 1e-5 of the largest, greedy
+    tokens equal, and every MoE layer's expert choices and kept entries
+    equal."""
+    cfg = dataclasses.replace(T["get_config"](arch).reduced(),
+                              dtype="float32")
+    host = T["transformer"].init_model(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = T["tree_to_device"](host, torch.device("cuda"))
+    prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, 80),
+                            generator=torch.Generator().manual_seed(1))
+    res = T["serve"].run_fixed_batch(card, cfg, prompts.cuda(), 9,
+                                     log=lambda _: None)
+    tokens = res["tokens"]
+    with record_routes(T) as on_card_routes:
+        on_card, _ = _forced(T, card, cfg, prompts.cuda(), tokens, 90)
+    with record_routes(T) as on_host_routes:
+        on_host, _ = _forced(T, host, cfg, prompts, tokens.cpu(), 90)
+    err = (on_card.cpu() - on_host).abs().max().item()
+    scale = on_host.abs().max().item()
+    same = bool(torch.equal(on_host.argmax(-1), tokens.cpu()))
+    routes = list(zip(on_card_routes.routes, on_host_routes.routes))
+    check(len(on_card_routes.routes) == len(on_host_routes.routes),
+          f"{arch}: as many routes on both")
+    same_routes = all(
+        torch.equal(a["sel"].cpu(), b["sel"])
+        and torch.equal(a["keep"].cpu(), b["keep"]) for a, b in routes)
+    print(f"  {arch} reduced f32 card vs CPU, prefill + 8 steps: max |logit "
+          f"diff| {err!r} of {scale!r}; greedy tokens equal: {same}; "
+          f"{len(routes)} MoE routes equal: {same_routes}")
+    check(err <= SERVE_HOLD_FRAC * scale, f"{arch}: card vs CPU logits")
+    check(same, f"{arch}: card vs CPU greedy tokens")
+    check(same_routes, f"{arch}: card vs CPU expert choices")
+    return {"logit_max_abs_diff": err, "logit_max_abs": scale,
+            "moe_routes": len(routes)}
+
+
+def archs_phase(T: dict, counters) -> dict:
+    phase(17, "LM serving: the attention-family archs at full width, bf16")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"  allocated at the start: "
+          f"{torch.cuda.memory_allocated() / 1e9!r} GB")
+    out = {}
+    for arch in ARCH_DEPTHS:
+        row, cfg, params = arch_serve(T, arch, counters)
+        if arch == "gemma3-12b":
+            row["ring"] = ring_phase(T, cfg, params, counters)
+            row["engine"] = arch_engine(T, cfg, params, counters)
+        del params
+        torch.cuda.empty_cache()
+        row["reduced_f32"] = arch_card_vs_cpu(T, arch)
+        out[arch] = row
+    gen = torch.Generator("cuda").manual_seed(6)
+    cycles_per_ms = sleep_cycles_per_ms()
+    out["flash_decode"] = [flash_timed(T, gen, shape, cycles_per_ms)
+                           for shape in ARCH_FLASH_TIMED]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4041,7 +4430,7 @@ def main() -> int:
     from repro_torch.launch import quickstart, serve, train
     from repro_torch.launch.programs import build_programs, loss_and_grads
     from repro_torch.models.recsys import init_recsys
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
     from repro_torch.models.transformer import init_model, param_count
     from repro_torch.optim import get_optimizer, tree_map
     from repro_torch.sim.cluster import ClusterSpec, Schedule, Slot
@@ -4109,7 +4498,8 @@ def main() -> int:
          "embedding_bag_grad_resident": embedding_bag_grad_resident,
          "embedding_bag_grad_resident_sorted":
          embedding_bag_grad_resident_sorted,
-         "transformer": transformer, "serve": serve, "S": S,
+         "transformer": transformer, "layers": layers, "serve": serve,
+         "S": S,
          "flash_decode": flash_decode, "flash_decode_ref": flash_decode_ref,
          "flash_launch_plan": launch_plan, "SD": switch_driver,
          "fig6": fig6_switching, "bench_autoswitch": bench_autoswitch,
@@ -4211,8 +4601,10 @@ def main() -> int:
     tasks = tasks_phase(T, counters)
     torch.cuda.empty_cache()
     sharded = sharded_ps_phase(T, counters, lm)
+    torch.cuda.empty_cache()
+    archs = archs_phase(T, counters)
 
-    phase(17, "kernels")
+    phase(18, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -4242,6 +4634,7 @@ def main() -> int:
         "switching": switching,
         "tasks": tasks,
         "sharded_ps": sharded,
+        "lm_archs": archs,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -4350,7 +4743,7 @@ def main() -> int:
         "shapes": [apply_row],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
-        serve_row(served)]}))
+        serve_row(served, archs)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,16 @@
 """Configs of the port: the recsys models and the LM registry.
 
 ``get_config("<arch-id>")`` knows the ten architecture ids of
-``repro.configs``.  The port runs the dense transformer only, so it returns
-``granite-8b`` and raises ``NotImplementedError`` for the other nine,
-which wait in ROADMAP.md's queue of modules to port.
+``repro.configs``.  The port runs the attention-family transformers
+(global and sliding-window attention, softcaps, layernorm, the top-k MoE
+and prefix layers), so it returns granite-8b, gemma2-27b, gemma3-12b,
+starcoder2-3b, phi3.5-moe-42b-a6.6b and kimi-k2-1t-a32b, and raises
+``NotImplementedError`` for the other four (a Mamba2 mixer, an image or
+audio frontend), which wait in ROADMAP.md's queue of modules to port.
 """
 from __future__ import annotations
+
+import importlib
 
 from repro_torch.configs.base import GBAConfig, ModelConfig
 from repro_torch.configs.recsys import (ALIMAMA_DIEN, CRITEO_DEEPFM,
@@ -16,17 +21,29 @@ ARCH_IDS = ("kimi-k2-1t-a32b", "granite-8b", "zamba2-2.7b", "gemma3-12b",
             "mamba2-780m", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
             "seamless-m4t-medium", "llama-3.2-vision-11b", "gemma2-27b")
 
+# the ported architectures and their modules
+_ARCH_MODULES = {
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "granite-8b": "granite_8b",
+    "gemma3-12b": "gemma3_12b",
+    "starcoder2-3b": "starcoder2_3b",
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b_a6p6b",
+    "gemma2-27b": "gemma2_27b",
+}
+
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
-    if arch != "granite-8b":
+    if arch not in _ARCH_MODULES:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port runs the dense "
-            f"transformer of granite-8b; the other architectures wait in "
-            f"ROADMAP.md's queue of modules to port")
-    from repro_torch.configs.granite_8b import CONFIG
-    return CONFIG
+            f"arch {arch!r} is not ported yet: the port runs the "
+            f"attention-family transformers; the Mamba2 and the vision and "
+            f"audio architectures wait in ROADMAP.md's queue of modules to "
+            f"port")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.CONFIG
 
 
 __all__ = ["ALIMAMA_DIEN", "ARCH_IDS", "CRITEO_DEEPFM", "GBAConfig",

@@ -31,17 +31,17 @@
 // warps and 1 producer warp, one launch a call.
 //  - One thread of the producer keeps a ring of 3 or 4 stages in shared
 //    memory full.  A stage holds 64 positions of K and of V; each is asked
-//    for as hd / 64 boxes of 64 positions x 64 values (8 KB) through a
-//    tensor map, a 4-d view (hd, KV, L, B) of the cache that the host
-//    encodes for each call, and the Tensor Memory Accelerator completes
-//    the bytes on the stage's `mbarrier`.  No consumer instruction is
-//    spent on copies; at hd 128 up to 3 x 32 KB are in flight a block, two
-//    blocks an SM.  One KV head's positions lie 2 KB apart in the (B, L,
-//    KV, hd) layout, so a copy per 256-byte row was the alternative; its
-//    issue rate, not the bytes, bounded it.  The map's 128-byte swizzle
-//    puts the 8 rows an `ldmatrix` reads on 8 different bank groups.  The
-//    first stage is asked for before `pos` has arrived, and positions past
-//    L read as zeros.
+//    for as ceil(hd / 64) boxes of 64 positions x 64 values (8 KB) through a
+//    tensor map, a 4-d view (hd, KV, L, B) of the cache (3-d at hd 112,
+//    below) that the host encodes for each call, and the Tensor Memory
+//    Accelerator completes the bytes on the stage's `mbarrier`.  No
+//    consumer instruction is spent on copies; at hd 128 up to 3 x 32 KB
+//    are in flight a block, two blocks an SM.  One KV head's positions
+//    lie 2 KB apart in the (B, L, KV, hd) layout, so a copy per 256-byte
+//    row was the alternative; its issue rate, not the bytes, bounded it.
+//    The map's 128-byte swizzle puts the 8 rows an `ldmatrix` reads on 8
+//    different bank groups.  The first stage is asked for before `pos`
+//    has arrived, and positions past L read as zeros.
 //  - Consumer warp w takes positions 16w .. 16w + 15 of each stage and
 //    scores them on the tensor cores: `mma.sync` m16n8k16 with bf16
 //    inputs and float32 accumulation, scores^T = K q^T (M = 16 positions,
@@ -52,8 +52,8 @@
 //    positions x 2 query heads; 3 shuffles a reduction), and p goes
 //    through a 16 x 8 float32 tile of the warp in shared memory to
 //    `p . v`, which stays float32 FMAs on the CUDA cores: a lane holds
-//    hd/32 columns of v for every query head.  p is never rounded.  (A
-//    tensor-core `p . v` with p split into two bf16 terms held the
+//    1/32 of the stage's columns of v for every query head.  p is never
+//    rounded.  (A tensor-core `p . v` with p split into two bf16 terms held the
 //    tolerances too, but moved more outputs by a bf16 ulp and saved no
 //    time: the copies, not the FMAs, bound the call.)
 //  - Each warp keeps its own (m, l, acc); at the end the four are merged
@@ -65,9 +65,27 @@
 //    launch and no launch tail.  The wrapper's plan (`ring_plan`) gives a
 //    row whose tiles all fit the ring one split, else one wave of splits.
 // float32 (the reduced-size checks): the CUDA-core path below: blocks of
-// hd threads, 16 KB tiles of K and V staged two deep by
-// `cp.async` from every thread, scores by FMAs and warp shuffles, and a
-// second kernel that combines the partials.  TF32 is never used.
+// hd threads (rounded up to a warp), 16 KB tiles of K and V staged two
+// deep by `cp.async` from every thread, scores by FMAs and warp shuffles,
+// and a second kernel that combines the partials.  TF32 is never used.
+//
+// Head dims: 64, 112 (kimi-k2), 128 and 256, as the TPU kernel takes any.
+// 112 is a multiple of 16 but not of 32 or 64.  The ring asks for two
+// 64-value boxes of a 112-value row, laid out in the stage as at hd 128.
+// The tensor map views the cache as 3-d (KV * hd, L, B), all heads of a
+// position in one row, so the second box of head kv holds its last 48
+// values and the first 16 of head kv + 1 (zeros past the last head).  A
+// 4-d map whose innermost dimension is 112 had the Tensor Memory
+// Accelerator fill those 16 columns with zeros instead, and took 0.27 ms
+// against this view's 0.23 at decode_32k with kimi-k2's heads (H100 80GB
+// HBM3, 700 W).  No score and no output reads those 16 columns: the score
+// mma walks 7 k-steps of 16 values (q is not padded), and p . v adds 4
+// columns a lane as at 128 but only 112 columns are merged and written.
+// The boxes start 224 * kv + 128 h bytes into a position's row, off the
+// 128-byte lines at hd 64, 128 and 256, which bounds this head dim below
+// the others (PERF.md).  The f32 path launches 128 threads; lanes past
+// column 111 load zeros for their share of q and k, and threads 112-127
+// add into no column.  Scores are divided by sqrtf(112.f).
 //
 // float32 path detail: a block streams its positions through shared
 // memory in tiles of 16 KB of K and 16 KB of V (32 positions at hd 128 in
@@ -148,12 +166,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Issue the copies of n cache rows, each HD values, from src (row stride
-// row_stride values) into the stage dst (rows packed).
+// row_stride values) into the stage dst (rows packed), from every thread
+// of the block.
 template <typename T, int HD>
 __device__ __forceinline__ void copy_rows(T* dst, const T* src, int n,
                                           int64_t row_stride) {
   using G = Tile<T, HD>;
-  for (int c = threadIdx.x; c < n * G::kCopiesPerRow; c += HD) {
+  for (int c = threadIdx.x; c < n * G::kCopiesPerRow; c += blockDim.x) {
     const int r = c / G::kCopiesPerRow, w = c % G::kCopiesPerRow;
     cp_async16(reinterpret_cast<char*>(dst) + r * G::kRowBytes + w * 16,
                reinterpret_cast<const char*>(src + r * row_stride) + w * 16);
@@ -173,20 +192,28 @@ __device__ __forceinline__ void halve(float* v, int lane) {
   }
 }
 
-// Block (split, kv, b) of HD threads: the partial softmax of positions
-// [split * chunk, min((split + 1) * chunk, L)) for the G query rows of
-// (b, kv), G <= KG (a power of two: a warp scores 32 / KG positions at
-// once).  Partials are laid out (B, KV, nsplit, G) and (B, KV, nsplit, G,
-// HD).  Dynamic shared memory: two stages of K, then two of V.
+// Threads of a float32 split block: HD rounded up to a warp.
+template <int HD>
+constexpr int kSplitThreads = (HD + 31) / 32 * 32;
+
+// Block (split, kv, b) of kSplitThreads<HD> threads: the partial softmax
+// of positions [split * chunk, min((split + 1) * chunk, L)) for the G
+// query rows of (b, kv), G <= KG (a power of two: a warp scores 32 / KG
+// positions at once).  Thread d < HD adds column d of p . v; a lane holds
+// values lane * kVpl .. + kVpl - 1 of a q and a k row, zeros past HD.
+// Partials are laid out (B, KV, nsplit, G) and (B, KV, nsplit, G, HD).
+// Dynamic shared memory: two stages of K, then two of V.
 template <typename T, int HD, int KG>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(kSplitThreads<HD>)
     flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ pos_p,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int length, int kv_heads,
                        int g_heads, int chunk, int nsplit) {
-  constexpr int kWarps = HD / 32;
-  constexpr int kVpl = HD / 32;  // values of a row per lane
+  constexpr int kThreads = kSplitThreads<HD>;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kVpl = kThreads / 32;  // values of a row per lane
+  static_assert(HD % kVpl == 0, "a lane's values lie wholly in the row");
   constexpr int kGroup = 32 / KG;  // positions a warp scores at once
   constexpr int kTile = Tile<T, HD>::kPositions;
   constexpr int kStage = kStageBytes / static_cast<int>(sizeof(T));
@@ -199,6 +226,9 @@ __global__ void __launch_bounds__(HD)
 
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this lane's share of a row lies inside it (always, but at hd 112 for
+  // lanes 28-31)
+  const bool in_row = lane * kVpl < HD;
   const int pos = *pos_p;
   const int start = split * chunk;
   const int end = min(start + chunk, length);
@@ -226,7 +256,7 @@ __global__ void __launch_bounds__(HD)
     for (int g = 0; g < KG; ++g)
 #pragma unroll
       for (int j = 0; j < kVpl; ++j)
-        qr[g][j] = g < g_heads ? to_f32(qb[g * HD + j]) : 0.0f;
+        qr[g][j] = g < g_heads && in_row ? to_f32(qb[g * HD + j]) : 0.0f;
   }
   float acc[KG];
 #pragma unroll
@@ -264,7 +294,7 @@ __global__ void __launch_bounds__(HD)
 #pragma unroll
       for (int r = 0; r < kGroup; ++r) {
         P kr;
-        if (i0 + r < n) {
+        if (i0 + r < n && in_row) {
           kr = *reinterpret_cast<const P*>(ks + (i0 + r) * HD + lane * kVpl);
         } else {
 #pragma unroll
@@ -311,11 +341,12 @@ __global__ void __launch_bounds__(HD)
       }
     }
     __syncthreads();
-    // acc[g] = acc[g] * alpha[g] + sum_i p[g][i] * v[i][tid]
+    // acc[g] = acc[g] * alpha[g] + sum_i p[g][i] * v[i][tid]; a thread
+    // past HD reads column HD - 1 and writes nothing
 #pragma unroll
     for (int g = 0; g < KG; ++g)
       if (g < g_heads) acc[g] *= s_alpha[g];
-    const T* vt = vs + tid;
+    const T* vt = vs + min(tid, HD - 1);
     int i = 0;
     for (; i + 4 <= n; i += 4) {
       float x[4];
@@ -346,6 +377,7 @@ __global__ void __launch_bounds__(HD)
     part_m[part * g_heads + tid] = s_m[tid];
     part_l[part * g_heads + tid] = s_l[tid];
   }
+  if (tid >= HD) return;
   float* pa = part_acc + part * g_heads * HD + tid;
 #pragma unroll
   for (int g = 0; g < KG; ++g)
@@ -388,11 +420,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   const dim3 grid(nsplit, kv_heads, b);
   constexpr int kSmem = 4 * kStageBytes;  // two stages of K and of V
+  constexpr int kThreads = kSplitThreads<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_decode_split<T, HD, KG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  flash_decode_split<T, HD, KG><<<grid, HD, kSmem, stream>>>(
+  flash_decode_split<T, HD, KG><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, part_m, part_l, part_acc, length,
       kv_heads, g_heads, chunk, nsplit);
@@ -435,6 +468,10 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
       return dispatch_group<T, 64>(q, k, v, pos, part_m, part_l, part_acc,
                                    out, b, length, kv_heads, g_heads, chunk,
                                    nsplit, s);
+    case 112:
+      return dispatch_group<T, 112>(q, k, v, pos, part_m, part_l, part_acc,
+                                    out, b, length, kv_heads, g_heads, chunk,
+                                    nsplit, s);
     case 128:
       return dispatch_group<T, 128>(q, k, v, pos, part_m, part_l, part_acc,
                                     out, b, length, kv_heads, g_heads, chunk,
@@ -460,14 +497,18 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxSplits = 256;  // partials the last block weighs at once
 constexpr int kMaxDevices = 64;
 
-// One stage: HD / 64 boxes of K, then as many of V.  A box is 64
+// One stage: ceil(HD / 64) boxes of K, then as many of V.  A box is 64
 // positions x 64 values (128 bytes a row), laid out by the tensor map's
 // 128-byte swizzle: 16-byte piece c of row r sits at piece c ^ (r % 8), so
 // the 8 rows an `ldmatrix` reads fall on 8 different bank groups.  A box
-// starts on a 1024-byte boundary, where the swizzle pattern starts.
+// starts on a 1024-byte boundary, where the swizzle pattern starts.  The
+// columns of the last box past HD (16 at hd 112) belong to the next head
+// and are never read.
 template <int HD>
 struct Ring {
-  static constexpr int kBoxes = HD / 64;
+  static_assert(HD % 16 == 0, "whole k-steps of the score mma");
+  static constexpr int kBoxes = (HD + 63) / 64;
+  static constexpr int kCols = kBoxes * 64;  // HD padded to whole boxes
   static constexpr int kBoxBytes = kRingTile * 128;
   static constexpr int kHalfBytes = kBoxes * kBoxBytes;  // K, or V
   static constexpr int kStageBytes = 2 * kHalfBytes;
@@ -480,7 +521,8 @@ struct Ring {
 // is built); `repro_flash_decode_ring_smem_bytes` exports this one, and a
 // card test holds the two equal.
 size_t ring_smem_bytes(int hd, int stages) {
-  const size_t stage = static_cast<size_t>(2) * kRingTile * hd * 2;
+  const size_t cols = static_cast<size_t>(hd + 63) / 64 * 64;
+  const size_t stage = static_cast<size_t>(2) * kRingTile * cols * 2;
   return 1024 + stages * (stage + 16) +
          kConsumers * kSlice * 8 * sizeof(float) + 16;
 }
@@ -548,6 +590,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 3-d tensor map at coordinates (c0, c1, c2), innermost
+// first, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -637,8 +693,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // min((split + 1) * chunk, L)) of row (b, kv), G <= KG query heads (a
 // power of two, the accumulators' count).  k_map and v_map view the
 // (B, L, KV, HD) caches as 4-d tensors (HD, KV, L, B) in boxes of (64, 1,
-// 64, 1).  Partials are laid out (B, KV, nsplit, G) and (B, KV, nsplit, G,
-// HD); tickets (B, KV) start at 0 and are left at 0.
+// 64, 1), or, at HD 112, as 3-d tensors (KV * HD, L, B) in boxes of (64,
+// 64, 1) (`cache_map`).  Partials are laid out (B, KV, nsplit, G) and
+// (B, KV, nsplit, G, HD); tickets (B, KV) start at 0 and are left at 0.
 template <int HD, int KG>
 __global__ void __launch_bounds__(kRingThreads)
     flash_decode_ring(const __nv_bfloat16* __restrict__ q,
@@ -651,8 +708,8 @@ __global__ void __launch_bounds__(kRingThreads)
                       int kv_heads, int g_heads, int chunk, int nsplit,
                       int stages) {
   using R = Ring<HD>;
-  constexpr int kVpl = HD / 32;    // columns of v a lane adds
-  constexpr int kSteps = HD / 16;  // k-steps of the score mma
+  constexpr int kVpl = R::kCols / 32;  // columns of v a lane adds
+  constexpr int kSteps = HD / 16;      // k-steps of the score mma
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -678,9 +735,17 @@ __global__ void __launch_bounds__(kRingThreads)
     mbar_expect_tx(&full[s], R::kStageBytes);
 #pragma unroll
     for (int h = 0; h < R::kBoxes; ++h) {
-      tma_load_4d(st + h * R::kBoxBytes, &k_map, 64 * h, kv, t0, b, &full[s]);
-      tma_load_4d(st + R::kHalfBytes + h * R::kBoxBytes, &v_map, 64 * h, kv,
-                  t0, b, &full[s]);
+      if constexpr (HD % 64 == 0) {
+        tma_load_4d(st + h * R::kBoxBytes, &k_map, 64 * h, kv, t0, b,
+                    &full[s]);
+        tma_load_4d(st + R::kHalfBytes + h * R::kBoxBytes, &v_map, 64 * h,
+                    kv, t0, b, &full[s]);
+      } else {
+        tma_load_3d(st + h * R::kBoxBytes, &k_map, kv * HD + 64 * h, t0, b,
+                    &full[s]);
+        tma_load_3d(st + R::kHalfBytes + h * R::kBoxBytes, &v_map,
+                    kv * HD + 64 * h, t0, b, &full[s]);
+      }
     }
   };
 
@@ -822,7 +887,7 @@ __global__ void __launch_bounds__(kRingThreads)
   __syncthreads();  // every stage is consumed: the ring is scratch now
   float* w_m = reinterpret_cast<float*>(smem);  // (kConsumers, 8)
   float* w_l = w_m + kConsumers * 8;             // (kConsumers, 8)
-  float* w_acc = w_l + kConsumers * 8;           // (kConsumers, KG, HD)
+  float* w_acc = w_l + kConsumers * 8;  // (kConsumers, KG, R::kCols)
   if (warp < kConsumers) {
     if (gq == 0) {
       w_m[warp * 8 + 2 * t4] = m_run[0];
@@ -834,7 +899,7 @@ __global__ void __launch_bounds__(kRingThreads)
     for (int g = 0; g < KG; ++g)
 #pragma unroll
       for (int jj = 0; jj < kVpl; ++jj)
-        w_acc[(warp * KG + g) * HD + lane * kVpl + jj] = acc[g][jj];
+        w_acc[(warp * KG + g) * R::kCols + lane * kVpl + jj] = acc[g][jj];
   }
   __syncthreads();
   // the block's partial: the warps' states weighed by exp(m_w - max m);
@@ -850,7 +915,7 @@ __global__ void __launch_bounds__(kRingThreads)
     for (int w = 0; w < kConsumers; ++w) {
       const float wt = expf(w_m[w * 8 + g] - mx);
       den = fmaf(w_l[w * 8 + g], wt, den);
-      num = fmaf(w_acc[(w * KG + g) * HD + d], wt, num);
+      num = fmaf(w_acc[(w * KG + g) * R::kCols + d], wt, num);
     }
     if (nsplit == 1) {
       out[(bk * g_heads + g) * HD + d] = __float2bfloat16_rn(num / den);
@@ -924,8 +989,10 @@ EncodeTiled encode_tiled() {
 }
 
 // A (B, L, KV, hd) bf16 cache as the 4-d tensor (hd, KV, L, B), innermost
-// first, in boxes of (64, 1, kRingTile, 1) with the 128-byte swizzle;
-// positions past L read as zeros.
+// first, in boxes of (64, 1, kRingTile, 1) with the 128-byte swizzle; at a
+// head dim that is not a multiple of 64, as the 3-d tensor (KV * hd, L, B)
+// in boxes of (64, kRingTile, 1).  Positions past L, and columns past the
+// row, read as zeros.
 bool cache_map(CUtensorMap* map, const void* base, int b, int length,
                int kv_heads, int hd) {
   const EncodeTiled encode = encode_tiled();
@@ -939,6 +1006,17 @@ bool cache_map(CUtensorMap* map, const void* base, int b, int length,
                                  row * kv_heads * static_cast<cuuint64_t>(length)};
   const cuuint32_t box[4] = {64, 1, kRingTile, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (hd % 64) {
+    const cuuint64_t dims3[3] = {static_cast<cuuint64_t>(hd) * kv_heads,
+                                 static_cast<cuuint64_t>(length),
+                                 static_cast<cuuint64_t>(b)};
+    const cuuint32_t box3[3] = {64, kRingTile, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  const_cast<void*>(base), dims3, strides + 1, box3, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1033,7 +1111,7 @@ extern "C" int repro_flash_decode_ring_smem_bytes(int hd, int stages) {
 // G, hd), k and v (B, L, KV, hd) and out (B, KV, G, hd) contiguous, k and
 // v on 16-byte boundaries; pos one int32 on the device; part_m and part_l
 // (B, KV, nsplit, G) and part_acc (B, KV, nsplit, G, hd) float32 scratch,
-// with nsplit * chunk >= L.  hd is 64, 128 or 256 and G at most 8.
+// with nsplit * chunk >= L.  hd is 64, 112, 128 or 256 and G at most 8.
 // bfloat16 also takes `tickets`, B * KV int32 that are 0 and are left 0,
 // and `stages` (1 to 4) of its ring; chunk is then a multiple of 64 and
 // nsplit at most 256.  float32 ignores both.  Returns a cudaError_t; the
@@ -1062,6 +1140,10 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
       return ring_group<64>(q, k, v, pos, part_m, part_l, part_acc, tickets,
                             out, b, length, kv_heads, g_heads, chunk, nsplit,
                             stages, s);
+    case 112:
+      return ring_group<112>(q, k, v, pos, part_m, part_l, part_acc,
+                             tickets, out, b, length, kv_heads, g_heads,
+                             chunk, nsplit, stages, s);
     case 128:
       return ring_group<128>(q, k, v, pos, part_m, part_l, part_acc,
                              tickets, out, b, length, kv_heads, g_heads,

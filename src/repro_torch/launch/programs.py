@@ -374,7 +374,7 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
 
     The worker-parallel steps (``wire``, ``sync_psum``) take the rows of
     the workers held here (the whole batch in process)."""
-    T.check_supported(cfg)
+    T.check_trainable(cfg)
     if mode == "pytree":
         opt = optimizer or get_optimizer(
             ARCH_OPTIMIZER.get(cfg.name, "adam"), lr)

@@ -6,12 +6,17 @@ LM.
     python -m repro_torch.launch.serve --arch granite-8b --engine \\
         [--requests 8] [--ckpt PATH [--ckpt-select params]] ...
 
-Counterpart of ``repro.launch.serve``.  The default is the fixed-batch
-loop: one prefill of ``--batch`` random prompts of ``--prompt-len``
-tokens into a cache of ``prompt-len + gen-len`` positions, then
-``gen-len - 1`` greedy decode steps, every sequence at the same position,
-so each layer's attention is one ``flash_decode`` launch a step.  It
-prints the reference's two lines: prefill ms, and decode ms with tok/s.
+Counterpart of ``repro.launch.serve`` for the architectures the port
+runs: granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b,
+phi3.5-moe-42b-a6.6b and kimi-k2-1t-a32b (the other four exit non-zero,
+naming ROADMAP.md).  The default is the fixed-batch loop: one prefill of
+``--batch`` random prompts of ``--prompt-len`` tokens into a cache of
+``prompt-len + gen-len`` positions (a ring of the window in a
+sliding-window layer), then ``gen-len - 1`` greedy decode steps, every
+sequence at the same position, so each global layer's attention is one
+``flash_decode`` launch a step in a model without an attention softcap
+(the rest run the reference's masked attention).  It prints the
+reference's two lines: prefill ms, and decode ms with tok/s.
 
 ``--engine`` runs the continuous-batching :class:`~repro_torch.serving.
 ServingEngine` instead: ``--requests`` requests with random prompts of 4

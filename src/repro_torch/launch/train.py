@@ -24,7 +24,10 @@ per microstep the gradient into the (M, N) buffer, and on every M-th
 microstep one ``gba_apply`` launch (Eq. (1) weights and Adagrad) over the
 flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
 ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
-``--reduced`` takes the config's smoke variant.
+``--reduced`` takes the config's smoke variant.  ``--arch`` trains
+granite-8b; an architecture the port serves but does not train yet
+(``models.transformer.check_trainable``) exits non-zero before any step,
+naming ROADMAP.md.
 
 ``--fused --mesh Wx1`` (``--compress none``, the default) runs the
 reference's sharded fused step (``run_lm_fused`` with W workers): the
@@ -466,6 +469,7 @@ def main(argv: list[str] | None = None):
     if args.arch:
         try:
             cfg = get_config(args.arch)
+            T.check_trainable(cfg)
         except NotImplementedError as e:
             ap.error(str(e))
         # the optimizer comes from the arch's own name, before .reduced()

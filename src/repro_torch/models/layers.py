@@ -1,26 +1,33 @@
-"""Dense transformer layers: RMSNorm, RoPE, causal GQA attention (full
-sequence, and one-token decode against a KV cache) and the gated (SwiGLU)
-MLP.
+"""Transformer layers: RMSNorm and layernorm, RoPE, causal GQA attention
+(global or sliding-window, with an optional softcap; full sequence, and
+one-token decode against a KV cache), the gated (SwiGLU) MLP and the
+top-k MoE FFN.
 
-Counterpart of the dense subset of ``repro.models.layers``, with its
-parameter names, shapes and arithmetic.  ``init_*`` builds a dict of
-tensors, ``*_fwd`` applies it.  Attention is written as the reference
-writes it (einsum, scores in float32 masked with ``_MASK_VALUE``, softmax,
-probabilities cast to the value dtype), not through a fused attention
-operator, so that the numbers are the reference's.  Where the reference
-asks for ``preferred_element_type=float32``, the port casts both operands
-to float32: a bfloat16 product is exact in float32, so the sums are float32
-sums of the same products.  The one exception is the decode step at a
-scalar position, which runs the ``flash_decode`` kernel (see
-:func:`attention_decode`).
+Counterpart of the attention-family subset of ``repro.models.layers``,
+with its parameter names, shapes and arithmetic.  ``*_spec`` describes a
+module's parameters as a dict of :class:`Leaf` (shape, dtype, and how the
+value is drawn), which ``models.transformer.init_model`` materialises;
+``*_fwd`` applies the tensors.  Attention is written as the reference
+writes it (einsum, scores in float32, softcapped, masked with
+``_MASK_VALUE``, softmax, probabilities cast to the value dtype), not
+through a fused attention operator, so that the numbers are the
+reference's.  Where the reference asks for
+``preferred_element_type=float32``, the port casts both operands to
+float32: a bfloat16 product is exact in float32, so the sums are float32
+sums of the same products.  The one exception is the decode step of a
+global layer at a scalar position, which runs the ``flash_decode`` kernel
+(see :func:`attention_decode`).
 
-Decode caches are the reference's global-layer layout, ``{"k", "v"}`` of
-``(B, cache_len, KV, hd)`` with RoPE'd keys; :func:`attention_decode`
+Decode caches are the reference's layouts, ``{"k", "v"}`` of ``(B, L, KV,
+hd)`` with RoPE'd keys: a global layer keeps ``L = cache_len`` positions,
+a local (sliding-window) layer a ring of ``L = min(window, cache_len)``
+in which position ``p`` sits at slot ``p % L``.  :func:`attention_decode`
 writes them in place.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -34,15 +41,24 @@ _MASK_VALUE = -2.0e38
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _dense_init(gen: torch.Generator, shape: tuple[int, ...],
-                dtype: torch.dtype, scale: float | None = None
-                ) -> torch.Tensor:
-    """Normal(0, 1) * ``scale`` (1/sqrt(fan_in) by default), drawn in
-    float32 on the generator's device and cast to ``dtype``."""
+@dataclass(frozen=True)
+class Leaf:
+    """One parameter: its shape and dtype, and its value: zeros when
+    ``scale`` is None, else a float32 Normal(0, 1) draw times ``scale``,
+    cast to ``dtype``."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    scale: float | None
+
+
+def dense(shape: tuple[int, ...], dtype: torch.dtype,
+          scale: float | None = None) -> Leaf:
+    """A drawn leaf at ``scale``, 1/sqrt(fan_in) by default (the
+    reference's ``_dense_init``)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
-    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    return Leaf(tuple(shape), dtype,
+                scale if scale is not None else 1.0 / math.sqrt(fan_in))
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -52,17 +68,28 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def init_norm(cfg: ModelConfig, device: torch.device) -> Params:
-    """RMSNorm: a float32 ``scale`` of zeros (the gain is ``1 + scale``)."""
-    return {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                 device=device)}
+def norm_spec(cfg: ModelConfig) -> Params:
+    """A float32 ``scale`` of zeros (the gain is ``1 + scale``), and for
+    layernorm a float32 ``bias`` of zeros."""
+    zeros = Leaf((cfg.d_model,), torch.float32, None)
+    if cfg.norm == "rmsnorm":
+        return {"scale": zeros}
+    return {"scale": zeros, "bias": zeros}
 
 
 def norm_fwd(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Gemma-style RMSNorm in float32, eps 1e-6, back in ``x``'s dtype."""
+    """Gemma-style RMSNorm, or layernorm (population variance) when ``p``
+    has a ``bias``; in float32, eps 1e-6, back in ``x``'s dtype."""
     xf = x.float()
-    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + 1e-6) * (1.0 + p["scale"])
+    if "bias" in p:
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        centered = xf - mean
+        var = torch.mean(centered * centered, dim=-1, keepdim=True)
+        y = centered * torch.rsqrt(var + 1e-6)
+        y = y * (1.0 + p["scale"]) + p["bias"]
+    else:
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * (1.0 + p["scale"])
     return y.to(x.dtype)
 
 
@@ -81,24 +108,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def attention_spec(cfg: ModelConfig) -> Params:
     dt = dtype_of(cfg)
     hd = cfg.resolved_head_dim
     return {
-        "wq": _dense_init(gen, (cfg.d_model, cfg.num_heads, hd), dt),
-        "wk": _dense_init(gen, (cfg.d_model, cfg.num_kv_heads, hd), dt),
-        "wv": _dense_init(gen, (cfg.d_model, cfg.num_kv_heads, hd), dt),
-        "wo": _dense_init(gen, (cfg.num_heads, hd, cfg.d_model), dt),
+        "wq": dense((cfg.d_model, cfg.num_heads, hd), dt),
+        "wk": dense((cfg.d_model, cfg.num_kv_heads, hd), dt),
+        "wv": dense((cfg.d_model, cfg.num_kv_heads, hd), dt),
+        "wo": dense((cfg.num_heads, hd, cfg.d_model), dt),
     }
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor) -> torch.Tensor:
+          mask: torch.Tensor, softcap: float) -> torch.Tensor:
     """q: (B,S,Hkv,G,hd), k/v: (B,T,Hkv,hd), mask: (B,S,T) bool ->
-    (B,S,Hkv,G,hd) float32."""
+    (B,S,Hkv,G,hd) float32.  A nonzero ``softcap`` c maps the scaled
+    scores s to ``tanh(s / c) * c`` before the mask."""
     hd = q.shape[-1]
     scores = torch.einsum("bsngh,btnh->bnsgt", q.float(), k.float())
     scores = scores / math.sqrt(hd)
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
     # scores are (B,Hkv,S,G,T); the mask broadcasts as (B,1,S,1,T)
     scores = torch.where(mask[:, None, :, None, :], scores, _MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
@@ -107,10 +137,13 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, *, return_kv: bool = False):
-    """Full-sequence causal self-attention.  x: (B,S,D) -> (B,S,D).  With
-    ``return_kv`` also returns the (RoPE'd) k and v, (B,S,KV,hd) each, for
-    the decode cache."""
+                  positions: torch.Tensor, *, window: int = 0,
+                  return_kv: bool = False):
+    """Full-sequence causal self-attention.  x: (B,S,D) -> (B,S,D).  A
+    nonzero ``window`` also masks every key ``window`` or more positions
+    behind the query (``q_pos - t_pos < window``).  With ``return_kv``
+    also returns the (RoPE'd) k and v, (B,S,KV,hd) each, for the decode
+    cache."""
     B, S, _ = x.shape
     G = cfg.num_heads // cfg.num_kv_heads
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
@@ -119,8 +152,10 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     mask = positions[:, :, None] >= positions[:, None, :]
+    if window:
+        mask &= positions[:, :, None] - positions[:, None, :] < window
     q = q.reshape(B, S, cfg.num_kv_heads, G, cfg.resolved_head_dim)
-    out = _sdpa(q, k, v, mask)
+    out = _sdpa(q, k, v, mask, cfg.attn_softcap)
     out = out.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
     # float32 attention output times the weight: float32, as jnp promotes
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
@@ -130,14 +165,26 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
-                seq_len: int, cache_len: int) -> Params:
-    """Full-sequence k/v (B,S,KV,hd) as a decode cache of capacity
-    ``cache_len``: zero-padded after position ``seq_len - 1`` and cast to
-    the model dtype (the reference's global-layer branch)."""
-    pad = cache_len - seq_len
-    if pad < 0:
-        raise ValueError(f"cache_len {cache_len} < prompt {seq_len}")
+                seq_len: int, cache_len: int, window: int = 0) -> Params:
+    """Full-sequence k/v (B,S,KV,hd) as a decode cache, cast to the model
+    dtype.  A global layer (``window`` 0) keeps ``cache_len`` positions,
+    zero-padded after ``seq_len - 1``.  A local layer keeps a ring of
+    ``L = min(window, cache_len)``: the last L positions rolled by
+    ``seq_len % L`` so that position p sits at slot ``p % L`` (the
+    addressing of :func:`attention_decode`), or, for a prompt shorter
+    than L, positions 0 .. S-1 at slots 0 .. S-1 and zeros after."""
     dt = dtype_of(cfg)
+    if window:
+        cap = min(window, cache_len)
+        if seq_len >= cap:
+            shift = seq_len % cap
+            return {"k": torch.roll(k[:, -cap:], shift, dims=1).to(dt),
+                    "v": torch.roll(v[:, -cap:], shift, dims=1).to(dt)}
+        pad = cap - seq_len
+    else:
+        pad = cache_len - seq_len
+        if pad < 0:
+            raise ValueError(f"cache_len {cache_len} < prompt {seq_len}")
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
@@ -145,10 +192,12 @@ def kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                    device: torch.device) -> Params:
-    """An empty (zero) KV cache of one global attention layer, in the
-    model dtype."""
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+                    device: torch.device, window: int = 0) -> Params:
+    """An empty (zero) KV cache of one attention layer in the model dtype:
+    ``cache_len`` positions, or a ring of ``min(window, cache_len)`` for a
+    local layer."""
+    length = min(window, cache_len) if window else cache_len
+    shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
     dt = dtype_of(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -170,22 +219,30 @@ def _write_rows(cache: torch.Tensor, slots: torch.Tensor,
 
 
 def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                     cache: Params, pos: torch.Tensor
+                     cache: Params, pos: torch.Tensor, *, window: int = 0
                      ) -> tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,D); ``pos`` a 0-d integer tensor (every
     sequence at one position, the fixed-batch loop) or a (B,) vector (one
     position a slot, the continuous-batching engine).  The new k and v are
-    written into ``cache`` in place at each row's position (rows at or
-    past the cache's length are dropped); returns ``(y (B,1,D), cache)``.
+    written into ``cache`` in place at each row's slot: its position in a
+    global layer (rows at or past the cache's length are dropped), the
+    position modulo the ring's length L in a local layer (``window``
+    nonzero), where slot ``idx`` then holds the position ``pos - ((pos -
+    idx) % L)`` and counts when that is 0 or more.  Returns ``(y (B,1,D),
+    cache)``.
 
-    A scalar ``pos`` goes through the ``flash_decode`` kernel
-    (``ops.flash_decode``), whose output is in q's dtype and whose
-    probabilities stay in float32, then through the output projection in
-    that dtype.  A (B,) ``pos`` runs the reference's masked ``_sdpa``,
-    which casts the probabilities to the value dtype and keeps a float32
-    output for the projection.  In float32 the two routes agree to float32
-    rounding; in bfloat16 they differ by those two roundings, about one
-    bf16 ulp of the attention output."""
+    The route depends on the layer and the position, never on a failure:
+    a global layer (``window`` 0) of a model without an attention softcap
+    at a scalar ``pos`` goes through the ``flash_decode`` kernel
+    (``ops.flash_decode``), whose contract, like the TPU kernel's, has
+    neither a window nor a softcap.  Its output is in q's dtype, its
+    probabilities stay in float32, and the output projection runs in that
+    dtype.  Every other case (a (B,) ``pos``, a local layer, a softcapped
+    model) runs the reference's masked ``_sdpa``, which casts the
+    probabilities to the value dtype and keeps a float32 output for the
+    projection.  In float32 the two routes agree to float32 rounding; in
+    bfloat16 they differ by those two roundings, about one bf16 ulp of the
+    attention output."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     KV = cfg.num_kv_heads
@@ -197,31 +254,107 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  cfg.rope_theta)
     v_new = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
     k_cache, v_cache = cache["k"], cache["v"]
-    _write_rows(k_cache, pos_vec, k_new[:, 0])
-    _write_rows(v_cache, pos_vec, v_new[:, 0])
-    if pos.dim() == 0:
+    L = k_cache.shape[1]
+    slots = pos_vec % L if window else pos_vec
+    _write_rows(k_cache, slots, k_new[:, 0])
+    _write_rows(v_cache, slots, v_new[:, 0])
+    if pos.dim() == 0 and not window and not cfg.attn_softcap:
         out = ops.flash_decode(q.reshape(B, KV, G, hd), k_cache, v_cache, pos)
         out = out.reshape(B, 1, cfg.num_heads, hd)
         y = torch.einsum("bsnh,nhd->bsd", out, p["wo"]).to(x.dtype)
     else:
-        L = k_cache.shape[1]
-        valid = torch.arange(L, device=x.device)[None, :] <= posb  # (B, L)
+        idx = torch.arange(L, device=x.device)[None, :]
+        if window:
+            abs_pos = posb - torch.remainder(posb - idx, L)
+            valid = (abs_pos >= 0) & (abs_pos <= posb)          # (B, L)
+        else:
+            valid = idx <= posb                                  # (B, L)
         out = _sdpa(q.reshape(B, 1, KV, G, hd), k_cache, v_cache,
-                    valid[:, None, :])
+                    valid[:, None, :], cfg.attn_softcap)
         out = out.reshape(B, 1, cfg.num_heads, hd)
         y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
     return y, {"k": k_cache, "v": v_cache}
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def mlp_spec(cfg: ModelConfig) -> Params:
     dt = dtype_of(cfg)
     return {
-        "wi_gate": _dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
-        "wi_up": _dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
-        "wo": _dense_init(gen, (cfg.d_ff, cfg.d_model), dt),
+        "wi_gate": dense((cfg.d_model, cfg.d_ff), dt),
+        "wi_up": dense((cfg.d_model, cfg.d_ff), dt),
+        "wo": dense((cfg.d_ff, cfg.d_model), dt),
     }
 
 
 def mlp_fwd(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     return (h @ p["wo"]).to(x.dtype)
+
+
+def moe_spec(cfg: ModelConfig) -> Params:
+    """A float32 router (D, E) and the experts' gated MLPs stacked on a
+    leading E axis."""
+    dt = dtype_of(cfg)
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": dense((D, E), torch.float32),
+        "wi_gate": dense((E, D, F), dt),
+        "wi_up": dense((E, D, F), dt),
+        "wo": dense((E, F, D), dt),
+    }
+
+
+def moe_route(p: Params, cfg: ModelConfig, xt: torch.Tensor) -> dict:
+    """The reference's routing of T tokens xt (T, D): the float32 router's
+    softmax, its ``top_k`` (``sel`` (T, K), the weights renormalised to sum
+    to 1), the Switch-style load-balance ``aux`` loss, the capacity
+    ``cap = max(1, int(T * K / E * capacity_factor))``, and each (token,
+    choice) entry's ``slot``, its rank in its expert's queue in entry
+    order (a stable argsort of the flat choices), with ``keep = slot <
+    cap``: entries past an expert's capacity are dropped."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    T = xt.shape[0]
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)    # (T, E)
+    weights, sel = torch.topk(probs, K, dim=-1)                 # (T, K)
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    flat_sel = sel.reshape(-1)                                  # (T*K,)
+    counts = torch.bincount(flat_sel, minlength=E)
+    frac = counts.float() / (T * K)
+    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    cap = max(1, int(T * K / E * cfg.moe_capacity_factor))
+    order = torch.argsort(flat_sel, stable=True)
+    starts = torch.cumsum(counts, 0) - counts                   # (E,)
+    ranks = torch.arange(flat_sel.shape[0], device=xt.device) \
+        - starts[flat_sel[order]]
+    slot = torch.empty_like(flat_sel).scatter_(0, order, ranks)
+    return {"weights": weights, "sel": sel, "aux": aux, "cap": cap,
+            "slot": slot, "keep": slot < cap}
+
+
+def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top-k MoE FFN: returns (output (B,S,D) in x's dtype, the
+    float32 aux loss).  The kept entries are scattered into an (E, cap, D)
+    block (a dropped one adds zeros at (E - 1, cap - 1), as the
+    reference's), each expert's gated MLP runs on its block, and each
+    token gathers its kept entries' outputs and sums them by its routing
+    weights in x's dtype."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    xt = x.reshape(B * S, D)
+    r = moe_route(p, cfg, xt)
+    cap, keep, flat_sel = r["cap"], r["keep"], r["sel"].reshape(-1)
+    slot = r["slot"]
+    src = torch.repeat_interleave(xt, K, dim=0)                 # (T*K, D)
+    expert_in = torch.zeros((E, cap, D), dtype=x.dtype, device=x.device)
+    expert_in.index_put_(
+        (torch.where(keep, flat_sel, E - 1),
+         torch.where(keep, slot, cap - 1)),
+        torch.where(keep[:, None], src, 0).to(x.dtype), accumulate=True)
+    h = torch.nn.functional.silu(torch.bmm(expert_in, p["wi_gate"])) \
+        * torch.bmm(expert_in, p["wi_up"])
+    expert_out = torch.bmm(h, p["wo"])                          # (E, cap, D)
+    gathered = expert_out[flat_sel, slot.clamp(max=cap - 1)]    # (T*K, D)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    combined = (gathered.reshape(B * S, K, D)
+                * r["weights"][..., None].to(x.dtype)).sum(dim=1)
+    return combined.reshape(B, S, D).to(x.dtype), r["aux"]

@@ -1,27 +1,34 @@
-"""The dense decoder-only transformer: embedding -> stacked blocks ->
-norm -> logits, its language-model loss, and serving's prefill and
-one-token decode against a KV cache.
+"""The decoder-only transformer: embedding -> prefix layers -> stacked
+blocks -> norm -> logits, its language-model loss, and serving's prefill
+and one-token decode against a KV cache.
 
-Counterpart of ``repro.models.transformer`` for the dense architectures
-(``granite-8b``): parameter names, the stacked ``blocks`` (a leading
-``num_repeats`` axis, one ``l{i}`` entry per position of the block
-pattern) and the arithmetic are the reference's.  The reference scans the
-repeat axis with ``lax.scan``; here it is a Python loop over that axis, and
-autograd gives each stacked leaf its stacked gradient.
+Counterpart of ``repro.models.transformer`` for the attention-family
+architectures (granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b,
+phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b): the layer kinds ``global``,
+``local`` (sliding-window attention), ``moe`` and ``local_moe`` (the top-k
+MoE FFN in place of the MLP), un-scanned ``prefix_layers``, the attention
+and logit softcaps, RMSNorm and layernorm.  Parameter names, the stacked
+``blocks`` (a leading ``num_repeats`` axis, one ``l{i}`` entry per
+position of the block pattern), the ``prefix`` list and the arithmetic
+are the reference's.  The reference scans the repeat axis with
+``lax.scan``; here it is a Python loop over that axis, and autograd gives
+each stacked leaf its stacked gradient.
 
-The decode cache is the reference's tree, ``{"pos", "blocks": {"l{i}":
-{"attn": {"k", "v"}}}}`` with each k and v stacked to ``(num_repeats, B,
-cache_len, KV, hd)``.  ``cache["pos"]`` is an int32 tensor on the cache's
-device: a scalar after :func:`prefill`, ``pos + 1`` after each
-:func:`decode_step`, or the engine's (B,) vector of slot positions.
-:func:`decode_step` writes the new keys and values into the cache in
-place (a functional update would copy the whole cache every step) and
-returns a new top-level dict that shares them.
+The decode cache is the reference's tree, ``{"pos", "prefix": [{"attn":
+{"k", "v"}}, ...], "blocks": {"l{i}": {"attn": {"k", "v"}}}}`` with each
+block k and v stacked to ``(num_repeats, B, L, KV, hd)`` (L the cache
+length, or the ring of a local layer).  ``cache["pos"]`` is an int32
+tensor on the cache's device: a scalar after :func:`prefill`, ``pos + 1``
+after each :func:`decode_step`, or the engine's (B,) vector of slot
+positions.  :func:`decode_step` writes the new keys and values into the
+cache in place (a functional update would copy the whole cache every
+step) and returns a new top-level dict that shares them.
 
-:func:`check_supported` raises for anything else a ``ModelConfig`` can ask
-for (MoE, Mamba, cross-attention, prefix layers, tied embeddings, softcaps,
-sliding windows, query or loss chunking, rematerialisation, layernorm):
-those come with their architectures in later slices of the port.
+:func:`check_supported` raises for what the port does not run (Mamba and
+cross-attention layers, image and audio frontends, tied embeddings, query
+and loss chunking, rematerialisation); :func:`check_trainable` also
+raises, for training, for everything beyond the dense granite-8b stack:
+training the other architectures comes in a later slice of the port.
 """
 from __future__ import annotations
 
@@ -35,10 +42,32 @@ from repro_torch.models import layers as L
 
 Params = dict[str, Any]
 
+KINDS = ("global", "local", "moe", "local_moe")
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming every feature of ``cfg`` that
     the port does not run."""
+    asked = []
+    kinds = (set(cfg.block_pattern) | set(cfg.prefix_layers)) - set(KINDS)
+    if kinds:
+        asked.append(f"layer kinds {sorted(kinds)}")
+    for name in ("attn_q_chunk", "loss_seq_chunk", "encoder_layers",
+                 "num_image_tokens", "tie_embeddings", "remat_blocks"):
+        if getattr(cfg, name):
+            asked.append(name)
+    if asked:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the attention-family transformer "
+            f"only; not ported: {', '.join(asked)} (see ROADMAP.md)")
+    L.dtype_of(cfg)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """:func:`check_supported`, then raise ``NotImplementedError`` for a
+    model the port serves but does not train yet: anything beyond global
+    layers with an MLP and RMSNorm (granite-8b's stack)."""
+    check_supported(cfg)
     asked = []
     kinds = (set(cfg.block_pattern) | set(cfg.prefix_layers)) - {"global"}
     if kinds:
@@ -46,58 +75,96 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.prefix_layers:
         asked.append("prefix layers")
     for name in ("num_experts", "sliding_window", "logit_softcap",
-                 "attn_softcap", "attn_q_chunk", "loss_seq_chunk",
-                 "encoder_layers", "num_image_tokens", "tie_embeddings",
-                 "remat_blocks"):
+                 "attn_softcap"):
         if getattr(cfg, name):
             asked.append(name)
     if cfg.norm != "rmsnorm":
         asked.append(f"norm {cfg.norm!r}")
     if asked:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense transformer only; not "
-            f"ported: {', '.join(asked)} (see ROADMAP.md)")
-    L.dtype_of(cfg)
+            f"{cfg.name}: training is not ported yet for "
+            f"{', '.join(asked)}: the port trains the dense transformer "
+            f"(granite-8b) and serves this one; training this architecture "
+            f"waits in ROADMAP.md")
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """A ``"global"`` layer: attention and gated MLP, each after an
-    RMSNorm."""
-    return {"ln1": L.init_norm(cfg, gen.device),
-            "attn": L.init_attention(gen, cfg),
-            "ln2": L.init_norm(cfg, gen.device),
-            "mlp": L.init_mlp(gen, cfg)}
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind in ("local", "local_moe") else 0
 
 
-def _layer_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+def _is_moe(kind: str) -> bool:
+    return kind in ("moe", "local_moe")
+
+
+def _layer_spec(cfg: ModelConfig, kind: str) -> Params:
+    """Attention and an MLP (``global``, ``local``) or the MoE FFN
+    (``moe``, ``local_moe``), each after a norm."""
+    ffn = ("moe", L.moe_spec(cfg)) if _is_moe(kind) else (
+        "mlp", L.mlp_spec(cfg))
+    return {"ln1": L.norm_spec(cfg), "attn": L.attention_spec(cfg),
+            "ln2": L.norm_spec(cfg), ffn[0]: ffn[1]}
+
+
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's FFN on ``norm(x)``: (output, the MoE's aux or None)."""
+    h = L.norm_fwd(p["ln2"], x)
+    if "moe" in p:
+        return L.moe_fwd(p["moe"], cfg, h)
+    return L.mlp_fwd(p["mlp"], h), None
+
+
+def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+               positions: torch.Tensor, aux: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     x = x + L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
-                            positions)
-    return x + L.mlp_fwd(p["mlp"], L.norm_fwd(p["ln2"], x))
+                            positions, window=_window(cfg, kind))
+    h, a = _ffn(p, cfg, x)
+    return x + h, aux if a is None else aux + a
 
 
-def _layer_cache(cfg: ModelConfig, batch: int, cache_len: int,
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  device: torch.device) -> Params:
-    return {"attn": L.init_attn_cache(cfg, batch, cache_len, device)}
+    return {"attn": L.init_attn_cache(cfg, batch, cache_len, device,
+                                      _window(cfg, kind))}
 
 
-def _layer_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
+def _layer_prefill(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                    positions: torch.Tensor, seq_len: int, cache_len: int
                    ) -> tuple[torch.Tensor, Params]:
+    window = _window(cfg, kind)
     h, (k, v) = L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
-                                positions, return_kv=True)
-    cache = {"attn": L.kv_to_cache(cfg, k, v, seq_len, cache_len)}
+                                positions, window=window, return_kv=True)
+    cache = {"attn": L.kv_to_cache(cfg, k, v, seq_len, cache_len, window)}
     x = x + h
-    return x + L.mlp_fwd(p["mlp"], L.norm_fwd(p["ln2"], x)), cache
+    return x + _ffn(p, cfg, x)[0], cache
 
 
-def _layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+def _layer_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                   cache: Params, pos: torch.Tensor
                   ) -> tuple[torch.Tensor, Params]:
     h, attn = L.attention_decode(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
-                                 cache["attn"], pos)
+                                 cache["attn"], pos,
+                                 window=_window(cfg, kind))
     x = x + h
-    return x + L.mlp_fwd(p["mlp"], L.norm_fwd(p["ln2"], x)), {"attn": attn}
+    return x + _ffn(p, cfg, x)[0], {"attn": attn}
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree: Any) -> list:
+    """The leaves of a tree in its insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def _stack(trees: list) -> Any:
@@ -106,128 +173,192 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def _map(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def _materialize(spec: Any, gen: torch.Generator, device: torch.device,
+                 repeats: int | None = None) -> Any:
+    """The tensors of a tree of ``layers.Leaf`` on ``device``, each with a
+    leading ``repeats`` axis when that is given.  Each leaf is allocated
+    once; for each repeat in turn, each drawn leaf in tree order takes a
+    float32 Normal(0, 1) draw on the generator's device, times its scale,
+    cast into its slot.  So the values are those of drawing every repeat's
+    tree one after another and stacking them, and the peak is the tensors
+    plus one leaf's float32 draw."""
+    lead = () if repeats is None else (repeats,)
+    out = _map(spec, lambda s: (torch.zeros if s.scale is None
+                                else torch.empty)(
+        (*lead, *s.shape), dtype=s.dtype, device=device))
+    drawn = [(s, t) for s, t in zip(_leaves(spec), _leaves(out))
+             if s.scale is not None]
+    for r in range(1 if repeats is None else repeats):
+        for s, t in drawn:
+            draw = torch.randn(s.shape, generator=gen, device=gen.device)
+            (t if repeats is None else t[r]).copy_(draw.mul_(s.scale))
+            del draw
+    return out
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device: str | torch.device = "cuda") -> Params:
-    """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``lm_head``
-    (D, V), ``final_norm`` and ``blocks`` stacked over ``num_repeats``.
-    Drawn on the generator's device in a fixed order (so one seed gives the
-    same parameters wherever they end up) and moved to ``device``."""
+    """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``final_norm``,
+    ``lm_head`` (D, V), the ``prefix`` layers (a list, when the config has
+    any) and ``blocks`` stacked over ``num_repeats``.  Drawn on the
+    generator's device in a fixed order (so one seed gives the same
+    parameters wherever they end up) into tensors on ``device``, each
+    allocated once at its full (stacked) shape."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
-    params: Params = {
-        "embed": L._dense_init(generator, (cfg.vocab_size, cfg.d_model), dt,
-                               scale=0.02),
-        "final_norm": L.init_norm(cfg, generator.device),
-        "lm_head": L._dense_init(generator, (cfg.d_model, cfg.vocab_size),
-                                 dt),
+    top: Params = {
+        "embed": L.dense((cfg.vocab_size, cfg.d_model), dt, scale=0.02),
+        "final_norm": L.norm_spec(cfg),
+        "lm_head": L.dense((cfg.d_model, cfg.vocab_size), dt),
     }
-    params["blocks"] = _stack([
-        {f"l{i}": _init_layer(generator, cfg)
-         for i in range(len(cfg.block_pattern))}
-        for _ in range(cfg.num_repeats)])
-    return _map(params, lambda t: t.to(dev))
+    if cfg.prefix_layers:
+        top["prefix"] = [_layer_spec(cfg, kind) for kind in cfg.prefix_layers]
+    block = {f"l{i}": _layer_spec(cfg, kind)
+             for i, kind in enumerate(cfg.block_pattern)}
+    params = _materialize(top, generator, dev)
+    params["blocks"] = _materialize(block, generator, dev, cfg.num_repeats)
+    return params
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(L.dtype_of(cfg))
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    """The untied head in float32: (B, S, D) -> (B, S, V), softcapped by
+    ``tanh(l / c) * c`` when the config has a ``logit_softcap`` c."""
+    logits = torch.einsum("bsd,dv->bsv", x.float(),
+                          params["lm_head"].float())
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def _block(tree: Params, r: int) -> Params:
+    return _map(tree, lambda t: t[r])
+
+
+def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int -> (logits (B, S, V) float32, aux), ``aux`` the
+    float32 sum of the MoE layers' load-balance losses (0.0 without
+    any), as the reference's ``forward`` returns them."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i, kind in enumerate(cfg.prefix_layers):
+        x, aux = _layer_fwd(params["prefix"][i], cfg, kind, x, positions,
+                            aux)
+    for r in range(cfg.num_repeats):
+        block = _block(params["blocks"], r)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux)
+    return _logits(params, cfg, L.norm_fwd(params["final_norm"], x)), aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
-    """tokens: (B, S) int -> logits (B, S, V) float32."""
-    check_supported(cfg)
-    B, S = tokens.shape
-    x = params["embed"][tokens.long()].to(L.dtype_of(cfg))
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    for r in range(cfg.num_repeats):
-        block = _map(params["blocks"], lambda t: t[r])
-        for i in range(len(cfg.block_pattern)):
-            x = _layer_fwd(block[f"l{i}"], cfg, x, positions)
-    return _logits(params, L.norm_fwd(params["final_norm"], x))
-
-
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The untied head in float32: (B, S, D) -> (B, S, V)."""
-    return torch.einsum("bsd,dv->bsv", x.float(), params["lm_head"].float())
+    """tokens: (B, S) int -> logits (B, S, V) float32 (see
+    :func:`forward_aux` for the MoE's aux loss)."""
+    return forward_aux(params, cfg, tokens)[0]
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: int | None = None) -> tuple[torch.Tensor, Params]:
     """Score the prompt and build the decode cache.  tokens: (B, S) int ->
     (last-position logits (B, V) float32, a cache of ``cache_len``
-    positions (default S) ready for :func:`decode_step` at ``pos = S``)."""
+    positions (default S; a local layer keeps its ring) ready for
+    :func:`decode_step` at ``pos = S``)."""
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
-    x = params["embed"][tokens.long()].to(L.dtype_of(cfg))
+    x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    cache: Params = {"pos": torch.full((), S, dtype=torch.int32,
+                                       device=tokens.device)}
+    if cfg.prefix_layers:
+        cache["prefix"] = []
+        for i, kind in enumerate(cfg.prefix_layers):
+            x, c = _layer_prefill(params["prefix"][i], cfg, kind, x,
+                                  positions, S, cache_len)
+            cache["prefix"].append(c)
     blocks = []
     for r in range(cfg.num_repeats):
-        block = _map(params["blocks"], lambda t: t[r])
+        block = _block(params["blocks"], r)
         block_c = {}
-        for i in range(len(cfg.block_pattern)):
-            x, block_c[f"l{i}"] = _layer_prefill(block[f"l{i}"], cfg, x,
-                                                 positions, S, cache_len)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, block_c[f"l{i}"] = _layer_prefill(block[f"l{i}"], cfg, kind,
+                                                 x, positions, S, cache_len)
         blocks.append(block_c)
-    cache = {"pos": torch.full((), S, dtype=torch.int32,
-                               device=tokens.device),
-             "blocks": _stack(blocks)}
+    cache["blocks"] = _stack(blocks)
     x = L.norm_fwd(params["final_norm"], x[:, -1:, :])
-    return _logits(params, x)[:, 0], cache
+    return _logits(params, cfg, x)[:, 0], cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: str | torch.device = "cuda") -> Params:
-    """An empty cache at ``pos = 0``, each leaf allocated once at its
+    """An empty cache at ``pos = 0``, each block leaf allocated once at its
     stacked ``(num_repeats, ...)`` shape."""
     check_supported(cfg)
     dev = resolve_device(device)
-    one = _layer_cache(cfg, batch, cache_len, torch.device("meta"))
-    blocks = {f"l{i}": _map(one, lambda t: torch.zeros(
-        (cfg.num_repeats, *t.shape), dtype=t.dtype, device=dev))
-        for i in range(len(cfg.block_pattern))}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "blocks": blocks}
+    cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.prefix_layers:
+        cache["prefix"] = [_layer_cache(cfg, kind, batch, cache_len, dev)
+                           for kind in cfg.prefix_layers]
+    meta = torch.device("meta")
+    cache["blocks"] = {
+        f"l{i}": _map(_layer_cache(cfg, kind, batch, cache_len, meta),
+                      lambda t: torch.zeros((cfg.num_repeats, *t.shape),
+                                            dtype=t.dtype, device=dev))
+        for i, kind in enumerate(cfg.block_pattern)}
+    return cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params) -> tuple[torch.Tensor, Params]:
     """token: (B, 1) int -> (logits (B, 1, V) float32, the cache at
-    ``pos + 1``).  The cache's k and v are written in place; every layer's
-    attention goes through ``flash_decode`` when ``cache["pos"]`` is a
-    scalar (see ``layers.attention_decode``)."""
+    ``pos + 1``).  The cache's k and v are written in place; a global
+    layer's attention goes through ``flash_decode`` when ``cache["pos"]``
+    is a scalar and the model has no attention softcap, every other
+    through the masked attention (see ``layers.attention_decode``)."""
     check_supported(cfg)
     pos = cache["pos"]
-    x = params["embed"][token.long()].to(L.dtype_of(cfg))
+    x = _embed(params, cfg, token)
+    for i, kind in enumerate(cfg.prefix_layers):
+        x, _ = _layer_decode(params["prefix"][i], cfg, kind, x,
+                             cache["prefix"][i], pos)
     for r in range(cfg.num_repeats):
-        block = _map(params["blocks"], lambda t: t[r])
-        block_c = _map(cache["blocks"], lambda t: t[r])
-        for i in range(len(cfg.block_pattern)):
-            x, _ = _layer_decode(block[f"l{i}"], cfg, x, block_c[f"l{i}"],
-                                 pos)
+        block = _block(params["blocks"], r)
+        block_c = _block(cache["blocks"], r)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, _ = _layer_decode(block[f"l{i}"], cfg, kind, x,
+                                 block_c[f"l{i}"], pos)
     x = L.norm_fwd(params["final_norm"], x)
-    return _logits(params, x), {**cache, "pos": pos + 1}
+    return _logits(params, cfg, x), {**cache, "pos": pos + 1}
 
 
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token negative log-likelihood, ``log_softmax`` in
-    float32.  The reference adds ``router_aux_loss_weight * aux``, whose
-    ``aux`` is 0.0 for a dense model; adding 0.0 changes no loss, so the
-    port leaves it out."""
-    logits = forward(params, cfg, tokens)
+    float32, plus ``router_aux_loss_weight * aux`` for a model with MoE
+    layers, as the reference adds it.  Without MoE layers ``aux`` is 0.0,
+    and adding 0.0 changes no loss, so the term is left out."""
+    logits, aux = forward_aux(params, cfg, tokens)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(nll)
+    loss = torch.mean(nll)
+    if any(map(_is_moe, (*cfg.prefix_layers, *cfg.block_pattern))):
+        loss = loss + cfg.router_aux_loss_weight * aux
+    return loss
 
 
 def param_count(params: Params) -> int:
-    if isinstance(params, dict):
-        return sum(param_count(v) for v in params.values())
-    return params.numel()
+    return sum(t.numel() for t in _leaves(params))
 
 
 def param_group_key(path_names: tuple[str, ...]) -> str:
@@ -236,8 +367,8 @@ def param_group_key(path_names: tuple[str, ...]) -> str:
     position ``l{i}`` of the block pattern (its leaves stacked over
     ``num_repeats``), ``head`` for ``lm_head``, and one group per other
     top-level module (``embed``, ``final_norm``).  The reference's prefix
-    layers, shared attention and encoder groups come with their
-    architectures."""
+    layers, shared attention and encoder groups come with the training of
+    their architectures."""
     head = path_names[0]
     if head == "blocks":
         return f"blocks.{path_names[1]}"

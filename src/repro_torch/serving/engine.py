@@ -8,8 +8,9 @@ slot's rows), so decode throughput holds under ragged request lengths.
 
 Each slot keeps its own position (``slot_pos``), so the decode step gets
 a (num_slots,) position vector and runs the reference's masked attention
-(``models.layers.attention_decode``); the ``flash_decode`` kernel, whose
-position is one scalar, serves the fixed-batch loop of ``launch.serve``.
+(``models.layers.attention_decode``), a local layer's ring addressed at
+each slot's own position; the ``flash_decode`` kernel, whose position is
+one scalar, serves the fixed-batch loop of ``launch.serve``.
 
 The engine takes its weights from a :class:`ParamSource`
 (``serving.sources``) and pins exactly one snapshot per decode step:
@@ -51,14 +52,19 @@ class Request:
 
 def _slot_assign(cache_tree: Any, slot_cache: Any, slot: int) -> None:
     """Write ``slot_cache`` (a batch-1 cache tree) into ``cache_tree`` at
-    slot index ``slot``, in place.  Stacked leaves ``(repeats, B, ...)``
-    take ``(repeats, 1, ...)`` into ``[:, slot]``, plain ``(B, ...)``
-    leaves ``(1, ...)`` into ``[slot]``; scalars and leaves of another rank
-    (the engine-owned position) are left alone."""
+    slot index ``slot``, in place, walking its dicts and lists (the
+    ``prefix`` layers' caches).  Stacked leaves ``(repeats, B, ...)`` take
+    ``(repeats, 1, ...)`` into ``[:, slot]``, plain ``(B, ...)`` leaves
+    ``(1, ...)`` into ``[slot]``; scalars and leaves of another rank (the
+    engine-owned position) are left alone."""
     if isinstance(cache_tree, dict):
         for key, full in cache_tree.items():
             if key in slot_cache:
                 _slot_assign(full, slot_cache[key], slot)
+        return
+    if isinstance(cache_tree, list):
+        for full, one in zip(cache_tree, slot_cache, strict=True):
+            _slot_assign(full, one, slot)
         return
     full, one = cache_tree, slot_cache
     if full.dim() == 0 or one is None or one.dim() != full.dim():

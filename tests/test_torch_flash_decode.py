@@ -39,7 +39,8 @@ from repro_torch.kernels.flash_decode import (CONSUMER_WARPS, HEAD_DIMS,
 from repro_torch.kernels.ref import flash_decode_ref
 
 PALLAS_CASES = [(2, 2, 4, 64, 1024, 1000), (1, 4, 1, 32, 512, 511),
-                (3, 1, 8, 16, 1024, 37), (1, 8, 2, 128, 512, 200)]
+                (3, 1, 8, 16, 1024, 37), (1, 8, 2, 128, 512, 200),
+                (2, 2, 8, 112, 1024, 700)]   # kimi-k2: hd 112, G 8
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-6
 
 
@@ -160,7 +161,7 @@ def test_wrapper_refuses_a_pos_that_is_not_one_integer(pos):
 
 
 def test_supported_set():
-    assert HEAD_DIMS == (64, 128, 256) and MAX_GROUP == 8
+    assert HEAD_DIMS == (64, 112, 128, 256) and MAX_GROUP == 8
 
 
 @pytest.mark.parametrize("length,rows,sms,tile,want", [
@@ -189,6 +190,8 @@ H100_SMEM = (232_448, 233_472, 1_024)
     (544, 32, 128, (128, 5, 3, 2)),
     (700, 2, 256, (64, 11, 3, 1)),
     (1 << 20, 1, 128, (4096, 256, 3, 2)),  # one row: MAX_SPLITS splits
+    (160, 32, 112, (192, 1, 3, 2)),       # kimi-k2's serve loop, as hd 128
+    (32_768, 32, 112, (4096, 8, 3, 2)),
 ])
 def test_ring_plan_at_the_paths_shapes(length, rows, hd, want):
     assert ring_plan(length, rows, 132, hd, H100_SMEM) == want
@@ -222,10 +225,12 @@ def test_ring_plan_reads_every_position_once_and_fits(length, rows, hd):
     per_block, per_sm_bytes, reserved = H100_SMEM
     smem = ring_smem_bytes(hd, stages)
     assert smem <= per_block and per_sm * (smem + reserved) <= per_sm_bytes
-    # the end of the launch reuses the ring: the warps' states, then the
-    # weights of MAX_SPLITS partials
+    # the end of the launch reuses the ring: the warps' states (over hd
+    # padded to whole 64-value boxes), then the weights of MAX_SPLITS
+    # partials
     ring = stages * ring_stage_bytes(hd)
-    assert CONSUMER_WARPS * (16 + MAX_GROUP * hd) * 4 <= ring
+    cols = -(-hd // 64) * 64
+    assert CONSUMER_WARPS * (16 + MAX_GROUP * cols) * 4 <= ring
     assert (MAX_SPLITS + 1) * 8 * 4 <= ring
     for pos in {-1, 0, length // 2, length - 1, length + 5}:
         seen = _positions_read(length, pos, chunk, nsplit)
@@ -237,13 +242,15 @@ def test_ring_swizzle_spreads_each_read_over_the_banks():
     """A stage's boxes are 64 rows of 128 bytes under the 128-byte swizzle
     (piece c of row r at piece c ^ (r % 8)), each on a 1024-byte boundary.
     The 8 rows an ldmatrix reads, one piece each, land on 8 distinct
-    pieces, and a warp's p . v read of one row of v (hd / 32 values a
-    lane) touches every piece of each box row once."""
+    pieces, and a warp's p . v read of one row of v (a 32nd of the row's
+    columns a lane, hd padded to whole boxes: 4 at hd 112, whose last 16
+    columns the kernel loads and never reads) touches every piece of each
+    box row once."""
     for hd in HEAD_DIMS:
         assert ring_stage_bytes(hd) % 1024 == 0
         for c in range(8):
             assert len({c ^ r for r in range(8)}) == 8
-        vpl = hd // 32
+        vpl = -(-hd // 64) * 64 // 32
         for i in range(16):
             pieces = {}
             for lane in range(32):

@@ -24,7 +24,8 @@ sums each row in entry order and is held bit for bit to its plain version
 and to the streamed ``embedding_bag_grad``.  ``flash_decode`` splits the
 cache across blocks and sums in another order than its plain version's
 512-position blocks: bf16 outputs within one bf16 ulp (rtol 2**-7, atol
-1e-6), f32 outputs within rtol 1e-5, atol 1e-6.
+1e-6), f32 outputs within rtol 1e-5, atol 1e-6, at every head dim it
+takes (64, 112, 128, 256).
 """
 import dataclasses
 
@@ -955,6 +956,31 @@ def test_flash_decode_matches_plain_version(case, where):
     _flash_close(got, flash_decode_ref(q, k, v, pos))
 
 
+# kimi-k2's head dim: 112 is a multiple of 16 but not of 32 or 64
+HD112_LENGTHS = (1, 63, 700, 32_768)
+
+
+@pytest.mark.parametrize("where", ["last slot", "mid-cache"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("length", HD112_LENGTHS)
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_decode_at_head_dim_112(g, length, dtype, where):
+    """hd 112 on both paths (the bf16 ring's second box half past the row,
+    the f32 path's idle lanes), held to the plain version."""
+    _need_card()
+    b, kv = 2, 8
+    q, k, v = _flash_inputs(b, length, kv, g, 112, dtype, seed=g + length)
+    pos = length - 1 if where == "last slot" else length // 2
+    launches = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(pos, dtype=torch.int32,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == launches + 1
+    assert got.dtype == dtype and got.shape == (b, kv, g, 112)
+    _flash_close(got, flash_decode_ref(q, k, v, pos))
+
+
 def test_flash_decode_masks_everything_below_zero_as_the_tpu_kernel():
     """pos < 0 masks every position: all scores are -1e30 and the output
     is the mean of v, as in the TPU kernel and the plain version."""
@@ -1049,6 +1075,81 @@ def test_serve_decode_on_the_card_matches_the_cpu():
         prompts.to(dev), 9, log=lambda _: None)["tokens"].cpu()
         for dev in ("cpu", "cuda")}
     assert torch.equal(runs["cpu"], runs["cuda"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "gemma3-12b", "starcoder2-3b",
+                                  "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"])
+def test_full_width_layers_decode_through_their_route(arch):
+    """Each new layer kind at full width (the arch's prefix and one repeat
+    of its pattern, bf16): 6 decode steps at a scalar position, each
+    global layer without a softcap through ``flash_decode``, against the
+    same steps at a (B,) vector of that position (every layer through the
+    masked attention), both fed the scalar run's tokens: logits within
+    2**-6 of the largest, and ``flash_decode`` launched once a step for
+    each global layer without a softcap.  The two routes' attention
+    outputs may round one bf16 ulp apart, which can move a top-k choice
+    among kimi-k2's 384 experts (and at a capacity of 1 a decode step,
+    which entries are dropped), so the masked run replays the kernel
+    run's expert choices and slots, its weights renormalised from its own
+    router probabilities: what is compared is the attention route."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    full = get_config(arch)
+    cfg = dataclasses.replace(
+        full, num_layers=len(full.prefix_layers) + len(full.block_pattern))
+    params = T.init_model(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                          device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 72), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+    kernel_layers = 0 if cfg.attn_softcap else sum(
+        kind == "moe" or kind == "global"
+        for kind in (*cfg.prefix_layers, *cfg.block_pattern))
+
+    def run(vector, tokens=None):
+        logits, cache = T.prefill(params, cfg, prompts, cache_len=80)
+        if vector:
+            cache["pos"] = cache["pos"].expand(2).clone()
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        out, seen = [tok], []
+        for i in range(6):
+            lg, cache = T.decode_step(params, cfg, tok if tokens is None
+                                      else tokens[:, i:i + 1], cache)
+            seen.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+        return torch.cat(out, 1), torch.cat(seen, 1)
+
+    routed, route = [], L.moe_route
+
+    def record(p, cfg, xt):
+        r = route(p, cfg, xt)
+        routed.append(r)
+        return r
+
+    def replay(p, cfg, xt):
+        r, want = route(p, cfg, xt), routed.pop(0)
+        probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+        w = probs.gather(1, want["sel"])
+        return {**r, "sel": want["sel"], "slot": want["slot"],
+                "keep": want["keep"], "weights": w / w.sum(-1, keepdim=True)}
+
+    launches = flash_decode.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(L, "moe_route", record)
+        tokens, logits = run(False)
+    assert flash_decode.launches == launches + 6 * kernel_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(L, "moe_route", replay)
+        _, masked = run(True, tokens)
+    assert not routed
+    assert flash_decode.launches == launches + 6 * kernel_layers
+    assert bool(torch.isfinite(logits).all())
+    err = (logits - masked).abs().max().item()
+    assert err <= 2.0**-6 * masked.abs().max().item(), err
+    del params
+    torch.cuda.empty_cache()
 
 
 def _ring_chunk(b, length, kv, hd):

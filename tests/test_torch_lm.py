@@ -119,10 +119,28 @@ def test_config_matches_the_reference(reduced):
         JaxGBAConfig())
 
 
+PORTED = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
+          "kimi-k2-1t-a32b")
+
+
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "granite-8b"])
 def test_archs_not_ported_raise_and_name_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+    """The four architectures that need a Mamba2 mixer or a frontend
+    raise, naming ROADMAP.md; the five attention-family ones are ported
+    and equal the reference's configs, full and reduced."""
+    if arch not in PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+        return
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
+        jcfg.reduced())
+    assert (cfg.resolved_head_dim, cfg.num_repeats) == (
+        jcfg.resolved_head_dim, jcfg.num_repeats)
+    T.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="training .* ROADMAP"):
+        T.check_trainable(cfg)
 
 
 def test_unknown_arch_raises():
@@ -245,15 +263,43 @@ FEATURES = {
 }
 
 
+# the features the port serves (and does not train yet)
+SERVED = ("moe", "prefix", "logit-softcap", "attn-softcap", "window",
+          "layernorm")
+
+
 @pytest.mark.parametrize("feature", sorted(FEATURES))
 def test_check_supported_raises_for_what_is_not_ported(feature):
+    """The features of the attention-family archs build and run a reduced
+    model (forward, prefill, two decode steps; finite logits) and are
+    refused for training; the rest are refused outright."""
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               **FEATURES[feature])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        T.init_model(cfg, generator=torch.Generator().manual_seed(0),
-                     device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    if feature not in SERVED:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            T.check_supported(cfg)
+        with pytest.raises(NotImplementedError):
+            T.init_model(cfg, generator=gen, device="cpu")
+        return
+    T.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="training is not ported"):
+        T.check_trainable(cfg)
+    p = T.init_model(cfg, generator=gen, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=gen)
+    logits, aux = T.forward_aux(p, cfg, toks)
+    assert logits.shape == (2, 70, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert (aux.item() > 0) == (feature == "moe")
+    if cfg.logit_softcap:
+        assert logits.abs().max().item() <= cfg.logit_softcap
+    last, cache = T.prefill(p, cfg, toks, cache_len=72)
+    torch.testing.assert_close(last, logits[:, -1], rtol=1e-5, atol=1e-5)
+    tok = last.argmax(-1)[:, None].to(torch.int32)
+    for _ in range(2):
+        lg, cache = T.decode_step(p, cfg, tok, cache)
+        assert bool(torch.isfinite(lg).all())
+        tok = lg.argmax(-1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +521,11 @@ def test_train_cli_runs_the_pytree_step_with_adam_on_the_cpu():
 @pytest.mark.parametrize("args,says", [
     (("--arch", "granite-8b", "--reduced", "--mesh", "4x1"),
      "pytree step over PS workers is not ported"),
-    (("--arch", "gemma2-27b", "--reduced", "--fused"), "not ported yet"),
+    (("--arch", "gemma2-27b", "--reduced", "--fused"),
+     "training this architecture waits in ROADMAP.md"),
+    (("--arch", "kimi-k2-1t-a32b", "--reduced"),
+     "training this architecture waits in ROADMAP.md"),
+    (("--arch", "mamba2-780m", "--reduced"), "not ported yet"),
 ])
 def test_train_cli_refuses_what_the_port_does_not_run(args, says):
     proc = _train(*args, "--device", "cpu")
