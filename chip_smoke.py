@@ -74,11 +74,12 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   (46 layers, alternating sliding-window and global attention, softcaps),
   gemma3-12b (48 layers, 5 local : 1 global, window 1,024), starcoder2-3b
   (30 sliding-window layers, layernorm), phi3.5-moe-42b-a6.6b (16 experts
-  top-2, depth cut from 32 to 24 layers: 83.7 GB of weights at 32) and
-  kimi-k2-1t-a32b (head dim 112, a dense prefix layer, 384 experts top-8;
-  depth cut from 61 to the prefix layer and one MoE layer: 17.0 G
-  parameters a MoE layer): the fixed-batch loop at batch 4 x 128, 31
-  decode steps; gemma3-12b's rings past their window and its engine.
+  top-2; 83.7 GB of weights at its 32 layers) and kimi-k2-1t-a32b (head
+  dim 112, a dense prefix layer, 384 experts top-8; 17.0 G parameters a
+  MoE layer), each at the deepest stack the card's free memory holds
+  (phi3.5-moe about 30 layers, kimi-k2 the prefix layer and one MoE
+  layer): the fixed-batch loop at batch 4 x 128, 31 decode steps;
+  gemma3-12b's rings past their window and its engine.
 
 Phases:
 
@@ -205,10 +206,12 @@ Phases:
     launches an apply, seconds a global step beside (a)'s; the process
     group destroyed;
 17. LM serving of the five attention-family architectures at full width:
-    (a) for each, the depth and why it was cut, init seconds and peak,
-    the fixed-batch loop counted (``flash_decode`` launches a step: one a
+    (a) for each, the deepest stack that the card's free memory holds
+    (``fit_depth``, its arithmetic printed), init seconds and peak, the
+    fixed-batch loop counted (``flash_decode`` launches a step: one a
     global layer without an attention softcap, so gemma3-12b 8, gemma2-27b
-    and starcoder2-3b none, phi3.5-moe 24, kimi-k2 2; no other kernel),
+    and starcoder2-3b none, phi3.5-moe and kimi-k2 one a layer kept; no
+    other kernel),
     prefill ms, decode ms a step, tok/s and peak memory, then one more
     step whose every ``flash_decode`` launch is held to the plain version
     on the inputs the path gave it (hd 256 G 2, hd 128 G 4, hd 112 G 8);
@@ -2973,7 +2976,7 @@ def serve_row(serve: dict, archs: dict) -> dict:
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
         "serve_engine": serve["engine"]["launches"]["flash_decode"]}
-    for arch in ARCH_DEPTHS:
+    for arch in ARCHS:
         row = archs[arch]
         by_path[f"archs_{arch}"] = row["launches"]["flash_decode"]
         if arch == "gemma3-12b":
@@ -2991,7 +2994,7 @@ def serve_row(serve: dict, archs: dict) -> dict:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max([serve["flash_decode"]["max_abs_err"]] + [
-            h["max_abs_err"] for arch in ARCH_DEPTHS
+            h["max_abs_err"] for arch in ARCHS
             for h in archs[arch]["flash_held"]]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
@@ -4051,26 +4054,21 @@ def sharded_ps_phase(T: dict, counters, lm: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 17: LM serving, the attention-family architectures at full width
 
-# (layers kept, why): the deepest stack one H100 holds with its bf16
-# weights, init_model's one float32 draw of its largest leaf, and the
-# serve loop's activations
-ARCH_DEPTHS = {
-    "gemma2-27b": (46, "all 46 layers: 28.4 G params, 56.8 GB of bf16 "
-                       "weights"),
-    "gemma3-12b": (48, "all 48 layers: 12.8 G params, 25.6 GB"),
-    "starcoder2-3b": (30, "all 30 layers: 4.3 G params, 8.6 GB"),
-    "phi3.5-moe-42b-a6.6b": (24, "cut 32 -> 24 layers: 1.30 G params a "
-                                 "layer, 83.7 GB of weights at 32 > the "
-                                 "card's 80 GB; 62.9 GB at 24"),
-    "kimi-k2-1t-a32b": (2, "cut 61 -> 2 layers, the dense prefix layer and "
-                           "1 MoE repeat: 17.0 G params a MoE layer, 39 GB "
-                           "of weights at 2, plus init's 22.5 GB float32 "
-                           "draw of one (384, 7168, 2048) expert tensor"),
-}
-# flash_decode launches a decode step at those depths: one a global layer
-# without an attention softcap
-ARCH_KERNEL_LAYERS = {"gemma2-27b": 0, "gemma3-12b": 8, "starcoder2-3b": 0,
-                      "phi3.5-moe-42b-a6.6b": 24, "kimi-k2-1t-a32b": 2}
+ARCHS = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
+         "kimi-k2-1t-a32b")
+# Room kept above the weights for what the loop allocates besides them:
+# init_model's float32 draw of one leaf, or, when that is smaller, this
+# much for the serve loop (phi3.5-moe's loop at 24 layers peaked 0.66 GB
+# above its weights; H100 80GB HBM3, 700 W), plus the allocator's slack.
+SERVE_ROOM_GB, SLACK_GB = 2.0, 0.5
+# flash_decode launches a decode step at a depth: one a global layer
+# without an attention softcap (gemma3-12b's sixth layer, every layer of
+# phi3.5-moe and kimi-k2)
+ARCH_KERNEL_LAYERS = {"gemma2-27b": lambda d: 0,
+                      "gemma3-12b": lambda d: d // 6,
+                      "starcoder2-3b": lambda d: 0,
+                      "phi3.5-moe-42b-a6.6b": lambda d: d,
+                      "kimi-k2-1t-a32b": lambda d: d}
 # the fixed-batch loop: B prompts of P tokens, G generated (cache 160)
 ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 128, 32
 # gemma3-12b's ring at full width: a prompt past its window of 1,024
@@ -4089,6 +4087,42 @@ def tree_bytes(tree) -> int:
     if isinstance(tree, list):
         return sum(tree_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()
+
+
+def fit_depth(T: dict, full) -> tuple[int, str]:
+    """The deepest stack of ``full`` that the card holds now: the prefix
+    layers and the most whole repeats whose bf16 weights, with the larger
+    of init's float32 draw and ``SERVE_ROOM_GB`` and ``SLACK_GB`` on top,
+    fit in the device's free memory; and the arithmetic, in GB of 10^9
+    bytes."""
+    top, block = T["transformer"].model_spec(full)
+    leaves = T["transformer"]._leaves
+
+    def gb(specs, itemsize=None) -> list[float]:
+        return [int(np.prod(s.shape)) * (itemsize or s.dtype.itemsize) / 1e9
+                for s in leaves(specs)]
+
+    fixed, repeat = sum(gb(top)), sum(gb(block))
+    draw = max(n for n, s in zip(gb([top, block], 4), leaves([top, block]))
+               if s.scale is not None)
+    room = max(draw, SERVE_ROOM_GB) + SLACK_GB
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    per = len(full.block_pattern)
+    reps = min(full.num_repeats, max(0, int((free - fixed - room) // repeat)))
+    check(reps >= 1, f"{full.name}: one repeat fits "
+                     f"({fixed + repeat + room!r} GB needed, {free!r} free)")
+    depth = len(full.prefix_layers) + reps * per
+    kept = (f"all {depth} layers" if reps == full.num_repeats else
+            f"cut {full.num_layers} -> {depth} layers")
+    why = (f"{kept}: {fixed:.2f} GB embed, head and prefix + {reps} x "
+           f"{repeat:.3f} GB a repeat of {per} layer(s) + {room:.2f} GB room "
+           f"(float32 draw {draw:.2f}, serve {SERVE_ROOM_GB:.2f}, slack "
+           f"{SLACK_GB:.2f}) = {fixed + reps * repeat + room:.2f} GB <= "
+           f"{free:.2f} GB free")
+    if reps < full.num_repeats:
+        why += (f"; {depth + per} layers need "
+                f"{fixed + (reps + 1) * repeat + room:.2f} GB")
+    return depth, why
 
 
 def kernel_layers(cfg) -> int:
@@ -4150,8 +4184,10 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
     ``launch.serve`` counted, and each ``flash_decode`` shape of one more
     decode step held to the plain version on its own inputs."""
     Tm, serve = T["transformer"], T["serve"]
-    depth, why = ARCH_DEPTHS[arch]
     full = T["get_config"](arch)
+    torch.cuda.empty_cache()
+    depth, why = fit_depth(T, full)
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
     cfg = dataclasses.replace(full, num_layers=depth)
     check(cfg.dtype == "bfloat16", f"{arch}: bf16")
     print(f"  {arch}: {why}")
@@ -4163,7 +4199,7 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
                            device="cuda")
     torch.cuda.synchronize()
     out = {"layers": depth, "of_layers": full.num_layers, "cut": why,
-           "params": T["param_count"](params),
+           "free_gb": free_gb, "params": T["param_count"](params),
            "init_s": time.perf_counter() - t0,
            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "weights_gb": tree_bytes(params) / 1e9}
@@ -4179,7 +4215,7 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
     torch.cuda.synchronize()
     launches = counters()
     steps = res["decode_steps"]
-    want = ARCH_KERNEL_LAYERS[arch]
+    want = ARCH_KERNEL_LAYERS[arch](depth)
     check(kernel_layers(cfg) == want, f"{arch}: {want} kernel layers")
     check(launches["flash_decode"] == want * steps,
           f"{arch}: {want} flash_decode launches a decode step: "
@@ -4263,8 +4299,8 @@ def ring_phase(T: dict, cfg, params, counters) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = counters()
-    check(launches["flash_decode"] == ARCH_KERNEL_LAYERS["gemma3-12b"]
-          * RING_STEPS, f"ring: flash_decode launches "
+    check(launches["flash_decode"] == ARCH_KERNEL_LAYERS["gemma3-12b"](
+          cfg.num_layers) * RING_STEPS, f"ring: flash_decode launches "
           f"{launches['flash_decode']}")
     masked = []
     for tok in tokens:
@@ -4372,7 +4408,7 @@ def archs_phase(T: dict, counters) -> dict:
     print(f"  allocated at the start: "
           f"{torch.cuda.memory_allocated() / 1e9!r} GB")
     out = {}
-    for arch in ARCH_DEPTHS:
+    for arch in ARCHS:
         row, cfg, params = arch_serve(T, arch, counters)
         if arch == "gemma3-12b":
             row["ring"] = ring_phase(T, cfg, params, counters)

@@ -32,8 +32,8 @@
 //  - One thread of the producer keeps a ring of 3 or 4 stages in shared
 //    memory full.  A stage holds 64 positions of K and of V; each is asked
 //    for as ceil(hd / 64) boxes of 64 positions x 64 values (8 KB) through a
-//    tensor map, a 4-d view (hd, KV, L, B) of the cache (3-d at hd 112,
-//    below) that the host encodes for each call, and the Tensor Memory
+//    tensor map, a 3-d view (KV * hd, L, B) of the cache that the host
+//    encodes for each call, and the Tensor Memory
 //    Accelerator completes the bytes on the stage's `mbarrier`.  No
 //    consumer instruction is spent on copies; at hd 128 up to 3 x 32 KB
 //    are in flight a block, two blocks an SM.  One KV head's positions
@@ -82,8 +82,8 @@
 // mma walks 7 k-steps of 16 values (q is not padded), and p . v adds 4
 // columns a lane as at 128 but only 112 columns are merged and written.
 // The boxes start 224 * kv + 128 h bytes into a position's row, off the
-// 128-byte lines at hd 64, 128 and 256, which bounds this head dim below
-// the others (PERF.md).  The f32 path launches 128 threads; lanes past
+// 128-byte lines they keep at hd 64, 128 and 256, which bounds this head
+// dim below the others (PERF.md).  The f32 path launches 128 threads; lanes past
 // column 111 load zeros for their share of q and k, and threads 112-127
 // add into no column.  Scores are divided by sqrtf(112.f).
 //
@@ -578,23 +578,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// One box of a 4-d tensor map at coordinates (c0, c1, c2, c3), innermost
+// One box of a 3-d tensor map at coordinates (c0, c1, c2), innermost
 // first, copied by the Tensor Memory Accelerator; its bytes complete on
 // `bar`.  Coordinates past the tensor's end read as zeros.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, int c2, int c3,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One box of a 3-d tensor map at coordinates (c0, c1, c2), innermost
-// first, as tma_load_4d.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             int c0, int c1, int c2,
                                             uint64_t* bar) {
@@ -692,8 +678,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Block (split, kv, b) of kRingThreads threads: positions [split * chunk,
 // min((split + 1) * chunk, L)) of row (b, kv), G <= KG query heads (a
 // power of two, the accumulators' count).  k_map and v_map view the
-// (B, L, KV, HD) caches as 4-d tensors (HD, KV, L, B) in boxes of (64, 1,
-// 64, 1), or, at HD 112, as 3-d tensors (KV * HD, L, B) in boxes of (64,
+// (B, L, KV, HD) caches as 3-d tensors (KV * HD, L, B) in boxes of (64,
 // 64, 1) (`cache_map`).  Partials are laid out (B, KV, nsplit, G) and
 // (B, KV, nsplit, G, HD); tickets (B, KV) start at 0 and are left at 0.
 template <int HD, int KG>
@@ -735,17 +720,10 @@ __global__ void __launch_bounds__(kRingThreads)
     mbar_expect_tx(&full[s], R::kStageBytes);
 #pragma unroll
     for (int h = 0; h < R::kBoxes; ++h) {
-      if constexpr (HD % 64 == 0) {
-        tma_load_4d(st + h * R::kBoxBytes, &k_map, 64 * h, kv, t0, b,
-                    &full[s]);
-        tma_load_4d(st + R::kHalfBytes + h * R::kBoxBytes, &v_map, 64 * h,
-                    kv, t0, b, &full[s]);
-      } else {
-        tma_load_3d(st + h * R::kBoxBytes, &k_map, kv * HD + 64 * h, t0, b,
-                    &full[s]);
-        tma_load_3d(st + R::kHalfBytes + h * R::kBoxBytes, &v_map,
-                    kv * HD + 64 * h, t0, b, &full[s]);
-      }
+      tma_load_3d(st + h * R::kBoxBytes, &k_map, kv * HD + 64 * h, t0, b,
+                  &full[s]);
+      tma_load_3d(st + R::kHalfBytes + h * R::kBoxBytes, &v_map,
+                  kv * HD + 64 * h, t0, b, &full[s]);
     }
   };
 
@@ -988,36 +966,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, L, KV, hd) bf16 cache as the 4-d tensor (hd, KV, L, B), innermost
-// first, in boxes of (64, 1, kRingTile, 1) with the 128-byte swizzle; at a
-// head dim that is not a multiple of 64, as the 3-d tensor (KV * hd, L, B)
-// in boxes of (64, kRingTile, 1).  Positions past L, and columns past the
-// row, read as zeros.
+// A (B, L, KV, hd) bf16 cache as the 3-d tensor (KV * hd, L, B),
+// innermost first, in boxes of (64, kRingTile, 1) with the 128-byte
+// swizzle: a box holds 64 values of one head's row, or at hd 112 the
+// row's last 48 and the next head's first 16.  Positions past L, and
+// values past the last head, read as zeros.
 bool cache_map(CUtensorMap* map, const void* base, int b, int length,
                int kv_heads, int hd) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(kv_heads),
-                              static_cast<cuuint64_t>(length),
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * kv_heads;
+  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(length),
                               static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {row, row * kv_heads,
-                                 row * kv_heads * static_cast<cuuint64_t>(length)};
-  const cuuint32_t box[4] = {64, 1, kRingTile, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (hd % 64) {
-    const cuuint64_t dims3[3] = {static_cast<cuuint64_t>(hd) * kv_heads,
-                                 static_cast<cuuint64_t>(length),
-                                 static_cast<cuuint64_t>(b)};
-    const cuuint32_t box3[3] = {64, kRingTile, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  const_cast<void*>(base), dims3, strides + 1, box3, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-  }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const cuuint64_t strides[2] = {row * 2,
+                                 row * 2 * static_cast<cuuint64_t>(length)};
+  const cuuint32_t box[3] = {64, kRingTile, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -196,16 +196,11 @@ def _materialize(spec: Any, gen: torch.Generator, device: torch.device,
     return out
 
 
-def init_model(cfg: ModelConfig, *, generator: torch.Generator,
-               device: str | torch.device = "cuda") -> Params:
-    """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``final_norm``,
-    ``lm_head`` (D, V), the ``prefix`` layers (a list, when the config has
-    any) and ``blocks`` stacked over ``num_repeats``.  Drawn on the
-    generator's device in a fixed order (so one seed gives the same
-    parameters wherever they end up) into tensors on ``device``, each
-    allocated once at its full (stacked) shape."""
+def model_spec(cfg: ModelConfig) -> tuple[Params, Params]:
+    """The ``layers.Leaf`` trees of :func:`init_model`: the unstacked
+    leaves (``embed``, ``final_norm``, ``lm_head`` and the ``prefix``
+    layers, when the config has any) and one repeat of ``blocks``."""
     check_supported(cfg)
-    dev = resolve_device(device)
     dt = L.dtype_of(cfg)
     top: Params = {
         "embed": L.dense((cfg.vocab_size, cfg.d_model), dt, scale=0.02),
@@ -216,6 +211,19 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
         top["prefix"] = [_layer_spec(cfg, kind) for kind in cfg.prefix_layers]
     block = {f"l{i}": _layer_spec(cfg, kind)
              for i, kind in enumerate(cfg.block_pattern)}
+    return top, block
+
+
+def init_model(cfg: ModelConfig, *, generator: torch.Generator,
+               device: str | torch.device = "cuda") -> Params:
+    """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``final_norm``,
+    ``lm_head`` (D, V), the ``prefix`` layers (a list, when the config has
+    any) and ``blocks`` stacked over ``num_repeats``.  Drawn on the
+    generator's device in a fixed order (so one seed gives the same
+    parameters wherever they end up) into tensors on ``device``, each
+    allocated once at its full (stacked) shape."""
+    top, block = model_spec(cfg)
+    dev = resolve_device(device)
     params = _materialize(top, generator, dev)
     params["blocks"] = _materialize(block, generator, dev, cfg.num_repeats)
     return params
@@ -345,16 +353,12 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token negative log-likelihood, ``log_softmax`` in
-    float32, plus ``router_aux_loss_weight * aux`` for a model with MoE
-    layers, as the reference adds it.  Without MoE layers ``aux`` is 0.0,
-    and adding 0.0 changes no loss, so the term is left out."""
+    float32, plus ``router_aux_loss_weight * aux``, as the reference adds
+    it.  Without MoE layers ``aux`` is 0.0, which changes no loss."""
     logits, aux = forward_aux(params, cfg, tokens)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    loss = torch.mean(nll)
-    if any(map(_is_moe, (*cfg.prefix_layers, *cfg.block_pattern))):
-        loss = loss + cfg.router_aux_loss_weight * aux
-    return loss
+    return torch.mean(nll) + cfg.router_aux_loss_weight * aux
 
 
 def param_count(params: Params) -> int:

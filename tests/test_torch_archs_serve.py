@@ -9,15 +9,18 @@ every ring wraps; the continuous-batching engine on gemma3-12b's rings;
 ``_slot_assign`` on kimi-k2's prefix cache; and ``launch.serve`` for the
 five.
 
-Parameters are built by the JAX package (under ``jax.jit``) and carried
-across with ``params_from_jax``, a copy; the reference's model functions
-run under ``jax.jit`` outside any mesh.  Tolerances, as
+Parameters are drawn by the port's ``init_model`` (cheaper than compiling
+the reference's) and carried to the reference as jax arrays; the
+reference's model functions run under ``jax.jit`` outside any mesh.  Tolerances, as
 ``tests/test_torch_serve_lm.py`` states its own: float32 logits within
 1e-5 of their largest magnitude and greedy tokens equal, caches within
 1e-5 of their largest; bfloat16 logits and caches within 2**-6 of their
 largest (XLA and PyTorch round bfloat16 intermediates at different
-places).  The MoE's expert choices at these seeds have no near-tie in
-either dtype (``tests/test_torch_archs.py`` holds them exactly).
+places).  The MoE's expert choices at the parameter seed (1) have no
+near-tie in either dtype: in bfloat16 a choice within the packages'
+roundings of a tie flips and moves the logits past the tolerance, as it
+does at 2 of the seeds 1 to 15 (``tests/test_torch_archs.py`` holds the
+choices exactly).
 """
 import dataclasses
 
@@ -30,7 +33,6 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
-from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -42,6 +44,16 @@ ARCHS = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
 CPU = torch.device("cpu")
 B, S, CACHE = 2, 80, 96
 TOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The reduced models run thousands of tiny operators: one intra-op
+    thread keeps them from contending with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -63,10 +75,15 @@ def _cfgs(arch, dtype="float32"):
             dataclasses.replace(get_config(arch).reduced(), dtype=dtype))
 
 
-def _params(jcfg, seed=1):
-    jp = jax.jit(JT.init_model, static_argnums=1)(jax.random.PRNGKey(seed),
-                                                   jcfg)
-    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device=CPU)
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _params(cfg, seed=1):
+    """The port's parameters and the same values as the reference's."""
+    p = T.init_model(cfg, generator=torch.Generator().manual_seed(seed),
+                     device=CPU)
+    return jax.tree.map(
+        lambda t: jnp.asarray(t.float().numpy(), dtype=_JDT[t.dtype]), p), p
 
 
 def _np(x):
@@ -120,7 +137,7 @@ def _clone(tree):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_the_reference(arch, dtype):
     jcfg, cfg = _cfgs(arch, dtype)
-    jp, p = _params(jcfg)
+    jp, p = _params(cfg)
     frac = TOL[dtype]
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)) \
         .astype(np.int32)
