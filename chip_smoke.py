@@ -79,7 +79,14 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   MoE layer), each at the deepest stack the card's free memory holds
   (phi3.5-moe about 30 layers, kimi-k2 the prefix layer and one MoE
   layer): the fixed-batch loop at batch 4 x 128, 31 decode steps;
-  gemma3-12b's rings past their window and its engine.
+  gemma3-12b's rings past their window and its engine;
+* LM training of the same five architectures (``repro_torch.launch.train
+  --arch ... --fused [--mesh Wx1]``) at full width, bf16, batch 4 x 128,
+  iota 4, lr 1e-3: the fused step, 2 global steps at the largest M of (4,
+  2, 1) and the deepest stack that the card's free memory holds, on one
+  layout while N < 2^31 and over layer-grouped shards above it; kimi-k2
+  (19.5 G parameters at its prefix layer and one MoE layer) waits for the
+  model axis.
 
 Phases:
 
@@ -223,7 +230,22 @@ Phases:
     within 1e-5 of the largest, greedy tokens and every MoE layer's expert
     choices equal; (e) ``flash_decode`` at (4, 32768, 8, 8, 112) and (4,
     32768, 8, 2, 256) timed against its plain version, its bound and SDPA;
-18. one JSON line of the kernels, then the result line.
+18. LM training of the five attention-family architectures at full
+    width, bf16, batch 4 x 128, iota 4: (a) for each, the largest M of
+    (4, 2, 1) at which one repeat fits and the deepest stack at that M
+    that the card's free memory holds (``train_plan``, its arithmetic
+    printed), on one layout while N < 2^31 and over W layer-grouped
+    shards when one repeat is past it; 2 global steps of the fused step,
+    the second's first slot 6 steps old: ``W`` ``gba_apply`` launches at
+    each apply and none between, each apply held bit for bit to the plain
+    version at 4,096 sampled elements of every leaf, finite losses, init
+    seconds and peak, seconds a microstep and a global step, the path
+    peak; an architecture that no M fits (kimi-k2) prints why it waits;
+    ``gba_apply`` timed on starcoder2-3b's state at its N; (b) each
+    ``.reduced()`` in float32, card against CPU over the same shards:
+    losses within rtol 1e-5, flat params and accumulator within rtol 1e-5
+    / atol 1e-7, buffer tokens and every MoE route equal;
+19. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -232,7 +254,8 @@ the resident oracle, the serve loop, the 32k decode, the engine, the
 autoswitch run, the int8 re-entry run, each model's GBA day of phase 15,
 the six benches, the sharded fused step, each wire run of phase 16 and
 each of its NCCL switching runs and its NCCL sharded fused step, each
-architecture's serve loop, gemma3-12b's ring and its engine)
+architecture's serve loop, gemma3-12b's ring and its engine, each
+architecture's training run)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -4426,6 +4449,361 @@ def archs_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LM training, the attention-family architectures at full width
+
+# M is the largest of these at which one repeat of the pattern fits
+TRAIN_MS = (4, 2, 1)
+# the fused step's device bytes a parameter at M slots: the bf16 params (2
+# B), their bf16 gradient (2), its float32 ravel (4), the float32 Adagrad
+# accumulator (4) and the M-slot float32 buffer (4 M); at an apply the
+# float32 ravel of the params and the new bf16 params take the place of
+# the gradient and its ravel.  Phase 9's step at M = 4 peaked at 25.75 GB
+# for 838,881,280 parameters on an H100 80GB HBM3 at 700 W, 30.7 B a
+# parameter against these 28.
+TRAIN_FIXED_B = 12
+# beside them: the float32 logits of the batch and the copies the loss and
+# its backward make of them (softcap, log-softmax, their gradients), and
+# the allocator's slack
+TRAIN_LOGIT_COPIES, TRAIN_SLACK_GB = 8, 2.0
+# gba_apply takes N < 2^31 on one layout (kernels/gba_apply.py:28); a stack
+# whose single repeat is past it runs over W layer-grouped shards
+APPLY_MAX_N = 2**31 - 1
+# the token of the first microstep of the second global step: 6 steps old
+# at that step's apply, which Eq. (1) drops at iota 4
+TRAIN_STALE = -5
+# the columns of each leaf whose apply is held bit for bit to the plain
+# version on copies of the pre-apply values
+TRAIN_SAMPLE = 4096
+# card against CPU at .reduced() in float32: a parameter seed at which no
+# MoE route of the 8 microsteps of phi3.5-moe and kimi-k2 lies within 2.8e-4
+# of a tie (the least margin on the CPU), so card and CPU choose alike
+TRAIN_HOLD_SEED, TRAIN_HOLD_SEQ = 3, 80
+
+
+def train_plan(T: dict, full) -> tuple[dict | None, str]:
+    """The fused step that the card's free memory holds for ``full``:
+    the largest M of ``TRAIN_MS`` at which the prefix layers and one
+    repeat fit, at (12 + 4 M) B a parameter beside the logits' copies and
+    the slack; then the deepest stack at that M, on one layout while N <
+    2^31, or, when one repeat is already past it, over the fewest W
+    layer-grouped shards whose shard is below it.  Returns (the plan, or
+    None when no M fits, and the arithmetic, in GB of 10^9 bytes)."""
+    top, block = T["transformer"].model_spec(full)
+    leaves = T["transformer"]._leaves
+    fixed = sum(int(np.prod(s.shape)) for s in leaves(top))
+    repeat = sum(int(np.prod(s.shape)) for s in leaves(block))
+    act = (TRAIN_LOGIT_COPIES * LM_BATCH * LM_SEQ * full.vocab_size * 4
+           / 1e9)
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    per = len(full.block_pattern)
+    room = free - act - TRAIN_SLACK_GB
+
+    def need(n: int, m: int) -> float:
+        return n * (TRAIN_FIXED_B + 4 * m) / 1e9 + act + TRAIN_SLACK_GB
+
+    head = (f"{fixed / 1e9:.3f} G params embed, head and prefix + "
+            f"{repeat / 1e9:.3f} G a repeat of {per} layer(s); logits "
+            f"{act:.2f} GB, slack {TRAIN_SLACK_GB:.2f} GB, {free:.2f} GB "
+            f"free")
+    tried = []
+    for m in TRAIN_MS:
+        bpp = TRAIN_FIXED_B + 4 * m
+        reps = min(full.num_repeats, int((room * 1e9 / bpp - fixed)
+                                         // repeat))
+        if reps < 1:
+            tried.append(f"M={m}: one repeat, N {fixed + repeat:,}, needs "
+                         f"{need(fixed + repeat, m):.2f} GB at {bpp} B a "
+                         f"parameter")
+            continue
+        workers = 1
+        if fixed + repeat <= APPLY_MAX_N:
+            reps = min(reps, (APPLY_MAX_N - fixed) // repeat)
+        else:
+            while (fixed + reps * repeat) / workers > APPLY_MAX_N * 0.99:
+                workers *= 2
+        n = fixed + reps * repeat
+        depth = len(full.prefix_layers) + reps * per
+        why = (f"{head}; M={m}, {depth} of {full.num_layers} layers, N "
+               f"{n:,}: {n / 1e9:.3f} G x {bpp} B = {n * bpp / 1e9:.2f} GB "
+               f"+ logits + slack = {need(n, m):.2f} GB <= {free:.2f}")
+        if reps < full.num_repeats:
+            nxt = n + repeat
+            why += (f"; {depth + per} layers need {need(nxt, m):.2f} GB"
+                     + (", N past 2^31 on one layout"
+                        if workers == 1 and nxt > APPLY_MAX_N else ""))
+        why += ("; one layout (N < 2^31)" if workers == 1 else
+                f"; N past 2^31: {workers} layer-grouped shards")
+        if tried:
+            why += "; " + "; ".join(tried)
+        return {"depth": depth, "m": m, "workers": workers, "n": n,
+                "need_gb": need(n, m)}, why
+    return None, (f"{head}; " + "; ".join(tried) + ": waits for the model "
+                  f"axis (ROADMAP.md queue 1 item 2)")
+
+
+def _leaf_columns(layout, j: int, idx: torch.Tensor) -> tuple:
+    """(shard, column) of elements ``idx`` of leaf ``j`` in the flat
+    vectors: one layout's (0, offset + idx), or a layer-grouped sharded
+    one's, shard-major."""
+    if not hasattr(layout, "leaf_group"):
+        return torch.zeros_like(idx), layout.offsets[j] + idx
+    g = layout.leaf_group[j]
+    pos = layout.offsets[j] + idx
+    gsn = layout.group_shard_sizes[g]
+    return pos // gsn, layout.group_local_offsets[g] + pos % gsn
+
+
+class apply_sample:
+    """Copies, before an apply, of ``TRAIN_SAMPLE`` random elements of
+    every leaf of the params and of the accumulator at their columns; then
+    :meth:`check` holds the apply's new params and accumulator there to
+    ``gba_apply_ref`` on the copies and the buffer's columns, bit for bit
+    (the apply is elementwise over the columns)."""
+
+    def __init__(self, T: dict, layout, state: dict, gen: torch.Generator):
+        self.T, self.layout = T, layout
+        ss = layout.shard_size if hasattr(layout, "leaf_group") else 0
+        self.picks, before = [], []
+        for j, leaf in enumerate(layout.leaves(state["params"])):
+            n = leaf.numel()
+            idx = (torch.randint(0, n, (TRAIN_SAMPLE,), generator=gen,
+                                 device="cuda") if n > TRAIN_SAMPLE else
+                   torch.arange(n, device="cuda"))
+            shard, col = _leaf_columns(layout, j, idx)
+            self.picks.append((j, idx, shard, col))
+            before.append(leaf.reshape(-1)[idx].float())
+        self.shard = torch.cat([p[2] for p in self.picks])
+        self.col = torch.cat([p[3] for p in self.picks])
+        self.param = torch.cat(before)
+        self.accum = state["accum"][self.shard * ss + self.col].clone()
+        self.ss = ss
+
+    def check(self, new: dict, step: int) -> bool:
+        grads = new["buffer"]["grads"]
+        rows = grads.unsqueeze(1) if grads.dim() == 2 else grads
+        buf = rows[:, self.shard, self.col].contiguous()
+        want_p, want_a = self.T["gba_apply_ref"](
+            self.param.clone(), self.accum.clone(), buf,
+            new["buffer"]["tokens"], step, LM_LR, iota=LM_IOTA)
+        got_a = new["accum"][self.shard * self.ss + self.col]
+        if not torch.equal(got_a.view(torch.int32), want_a.view(torch.int32)):
+            return False
+        leaves, at = self.layout.leaves(new["params"]), 0
+        for j, idx, _, _ in self.picks:
+            got = leaves[j].reshape(-1)[idx]
+            want = want_p[at:at + idx.numel()].to(got.dtype)
+            at += idx.numel()
+            bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+            if not torch.equal(got.view(bits), want.view(bits)):
+                return False
+        return True
+
+
+def train_timing(T: dict, layout, state: dict, m: int) -> dict:
+    """``gba_apply`` on the run's own flat params, accumulator and buffer
+    at its N: median of 3 runs of 5 calls (they move the params further;
+    the run is over).  The plain version's float64 intermediates of an (M,
+    N) buffer do not fit beside the state at this N."""
+    flat = layout.ravel(state["params"])
+    buf, tokens = state["buffer"]["grads"], state["buffer"]["tokens"]
+    step = state["buffer"]["step"]
+
+    def fn():
+        T["gba_apply"](flat, state["accum"], buf, tokens, step, LM_LR,
+                       iota=LM_IOTA)
+    runs = [time_calls(fn, 5)[0] for _ in range(3)]
+    n = flat.shape[0]
+    bnd, by = apply_bound_ms(m, n, 4, 4)
+    del flat
+    row = {"shape": [m, n], "dtypes": "f32 param/accum/buffer",
+           "ms": float(np.median(runs)), "device_runs_ms": runs,
+           "bound_ms": bnd, "bound_by": by, "plain_ms": None,
+           "plain_note": "its float64 intermediates of the (M, N) buffer "
+                         "do not fit beside the training state",
+           "library_ms": None}
+    print(f"  gba_apply M={m} N={n:,} f32 on the run's state, device ms "
+          f"per call: {row['ms']!r} (runs {runs}), bound {bnd!r} ({by})")
+    return row
+
+
+def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
+    """(a) one architecture at full width through the fused step, at the
+    depth, M and W of :func:`train_plan`: 2 global steps, one stale
+    slot."""
+    full = T["get_config"](arch)
+    torch.cuda.empty_cache()
+    plan, why = train_plan(T, full)
+    print(f"  {arch}: {why}")
+    if plan is None:
+        return {"trained": False, "why": why}
+    m, workers = plan["m"], plan["workers"]
+    cfg = dataclasses.replace(full, num_layers=plan["depth"])
+    check(cfg.dtype == "bfloat16", f"{arch}: bf16")
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=m,
+                         staleness_tolerance=LM_IOTA)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    progs = T["build_programs"](cfg, gba, params=params, mode="fused",
+                                lr=LM_LR, workers=workers)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    layout = progs.layout
+    n = layout.total
+    check(n == plan["n"], f"{arch}: N {n} == the plan's {plan['n']}")
+    if workers > 1:
+        check(layout.num_shards == workers
+              and layout.shard_size <= APPLY_MAX_N,
+              f"{arch}: {workers} shards of {layout.shard_size} < 2^31")
+    print(f"  {arch}: {plan['depth']} layers, N {n:,}, M={m}, W={workers}; "
+          f"init + build {init_s:.2f} s, peak {init_peak:.2f} GB")
+    steps = 2 * m
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH, steps, "cuda")
+    tokens = [i // m for i in range(steps)]
+    tokens[m] = TRAIN_STALE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    # the programs keep no reference to the first params once stepping
+    state, rows, progs.state = progs.state, [], None
+    counters(reset=True)
+    for i in range(steps):
+        applies = (i + 1) % m == 0
+        old_step = state["buffer"]["step"]
+        sample = apply_sample(T, layout, state, gen) if applies else None
+        launched = counters()["gba_apply"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = progs.step(state, batches[i], tokens[i])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = counters()["gba_apply"] - launched
+        check(launched == (workers if applies else 0),
+              f"{arch} microstep {i + 1}: {launched} gba_apply launches")
+        if applies:
+            check(sample.check(state, old_step),
+                  f"{arch} microstep {i + 1}: the apply bit-identical to "
+                  f"gba_apply_ref at {sample.col.numel()} sampled columns")
+        del sample
+        rows.append({"microstep": i + 1, "token": tokens[i],
+                     "loss": loss.item(), "seconds": seconds,
+                     "gba_apply": launched,
+                     "gstep": state["buffer"]["step"]})
+        print(f"  {json.dumps(rows[-1])}")
+    torch.cuda.synchronize()
+    launches = counters()
+    path_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in rows]
+    check(all(np.isfinite(losses)), f"{arch}: finite losses {losses}")
+    check(launches["gba_apply"] == 2 * workers,
+          f"{arch}: {2 * workers} gba_apply launches, {workers} an apply")
+    check(state["buffer"]["step"] == 2, f"{arch}: 2 global steps")
+    check(int(state["buffer"]["tokens"][0]) == TRAIN_STALE,
+          f"{arch}: the second global step's first slot is the stale one")
+    micro = [r["seconds"] for r in rows]
+    globals_s = [sum(micro[k * m:(k + 1) * m]) for k in range(2)]
+    print(f"  {arch}: launches {json.dumps(launches)}; microstep s "
+          f"{micro}; global step s {globals_s}; path peak {path_peak:.2f} "
+          f"GB (planned {plan['need_gb']:.2f})")
+    out = {"trained": True, "why": why, "depth": plan["depth"], "M": m,
+           "W": workers, "N": n, "init_s": init_s,
+           "init_peak_gb": init_peak, "microsteps": rows,
+           "global_step_s": globals_s, "path_peak_gb": path_peak,
+           "planned_gb": plan["need_gb"], "launches": launches}
+    if timed:
+        out["gba_apply"] = train_timing(T, layout, state, m)
+    del state, progs, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(T: dict, arch: str, workers: int) -> dict:
+    """(b) ``.reduced()`` in float32, the fused step over ``workers``
+    shards (one layout at 1) from the same params on the card and on the
+    CPU, 2 global steps, one slot stale: losses within rtol 1e-5, flat
+    params and accumulator within rtol 1e-5 / atol 1e-7, buffer tokens
+    and every MoE route equal."""
+    cfg = dataclasses.replace(T["get_config"](arch).reduced(),
+                              dtype="float32")
+    gba = T["GBAConfig"](local_batch=2, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    host = T["init_model"](cfg, generator=torch.Generator().manual_seed(
+        TRAIN_HOLD_SEED), device="cpu")
+    tokens = [i // LM_M for i in range(2 * LM_M)]
+    tokens[LM_M] = TRAIN_STALE
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        progs = T["build_programs"](cfg, gba, params=T["tree_to_device"](
+            host, torch.device(dev)), lr=LM_LR, workers=workers)
+        state, losses = progs.state, []
+        with record_routes(T) as seen:
+            for i, b in enumerate(lm_batches(T, cfg.vocab_size,
+                                             TRAIN_HOLD_SEQ, 2, len(tokens),
+                                             dev)):
+                state, loss = progs.step(state, b, tokens[i])
+                losses.append(loss.item())
+        runs[dev] = (losses, progs.layout.ravel(state["params"]).cpu(),
+                     state["accum"].cpu(), state["buffer"]["tokens"].cpu(),
+                     seen.routes)
+    (lc, pc, ac, tc, rc), (lh, ph, ah, th, rh) = runs["cuda"], runs["cpu"]
+    same_routes = len(rc) == len(rh) and all(
+        torch.equal(a["sel"].cpu(), b["sel"])
+        and torch.equal(a["keep"].cpu(), b["keep"]) for a, b in zip(rc, rh))
+    out = {"W": workers, "losses_card": lc, "losses_cpu": lh,
+           "max_param_diff": (pc - ph).abs().max().item(),
+           "max_accum_diff": (ac - ah).abs().max().item(),
+           "moe_routes": len(rc)}
+    print(f"  {arch} reduced f32, W={workers}, card vs CPU: "
+          f"{json.dumps(out)}; routes equal: {same_routes}")
+    check(torch.equal(tc, th), f"{arch}: card vs CPU buffer tokens")
+    check(same_routes, f"{arch}: card vs CPU MoE routes")
+    check(np.allclose(lc, lh, rtol=HOLD_LM_RTOL, atol=0),
+          f"{arch}: card vs CPU losses within rtol {HOLD_LM_RTOL}")
+    for name, a, b in (("flat params", pc, ph), ("accumulator", ac, ah)):
+        check(torch.allclose(a, b, rtol=HOLD_LM_RTOL, atol=HOLD_LM_ATOL),
+              f"{arch}: card vs CPU {name} within rtol {HOLD_LM_RTOL} atol "
+              f"{HOLD_LM_ATOL}")
+    return out
+
+
+def expandable_segments(on: bool) -> None:
+    """Expandable segments in the caching allocator.  Phase 18's steps
+    allocate and free vectors of up to 14 GB beside 50 GB of state, and
+    fixed segments then fragment (on an H100 80GB HBM3, gemma2-27b at M =
+    2 found 11.5 GiB reserved but unallocated and no room for its 13 GiB
+    ravel)."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(
+        f"expandable_segments:{on}")
+
+
+def train_phase(T: dict, counters) -> dict:
+    phase(18, "LM training: the attention-family archs at full width")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    out = {}
+    for arch in ARCHS:
+        row = train_arch(T, arch, counters, timed=arch == "starcoder2-3b")
+        # the reduced model runs the full width's shards (kimi-k2, which
+        # waits, the reference's documented --mesh 4x1)
+        row["reduced_f32"] = train_card_vs_cpu(
+            T, arch, row["W"] if row["trained"] else 4)
+        out[arch] = row
+    torch.cuda.empty_cache()
+    expandable_segments(False)
+    trained = [a for a in ARCHS if out[a]["trained"]]
+    check({"starcoder2-3b", "phi3.5-moe-42b-a6.6b"} <= set(trained),
+          f"starcoder2-3b and phi3.5-moe train at full width: {trained}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 18: {out['seconds']:.1f} s; trained at full width: "
+          f"{trained}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4639,8 +5017,10 @@ def main() -> int:
     sharded = sharded_ps_phase(T, counters, lm)
     torch.cuda.empty_cache()
     archs = archs_phase(T, counters)
+    torch.cuda.empty_cache()
+    trained = train_phase(T, counters)
 
-    phase(18, "kernels")
+    phase(19, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -4671,6 +5051,7 @@ def main() -> int:
         "tasks": tasks,
         "sharded_ps": sharded,
         "lm_archs": archs,
+        "lm_archs_train": trained,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -4683,7 +5064,9 @@ def main() -> int:
         "nccl_int8": sharded["nccl"]["nccl"]["launches"]["gba_apply"],
         "switch_nccl": sharded["switch_nccl"]["launches"]["gba_apply"],
         "sharded_fused_nccl":
-        sharded["sharded_fused_nccl"]["launches"]["gba_apply"]}
+        sharded["sharded_fused_nccl"]["launches"]["gba_apply"],
+        **{f"train_{a}": trained[a]["launches"]["gba_apply"] for a in ARCHS
+           if trained[a]["trained"]}}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -4776,7 +5159,7 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the decayed "
                         "aggregate and the Adagrad update",
         "at": apply_row["shape"],
-        "shapes": [apply_row],
+        "shapes": [apply_row, trained["starcoder2-3b"]["gba_apply"]],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
         serve_row(served, archs)]}))

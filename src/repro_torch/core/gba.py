@@ -47,12 +47,22 @@ Params = dict[str, Any]
 
 def tree_paths(tree: Params, prefix: tuple[str, ...] = ()):
     """(path, leaf) pairs in ``jax.tree.flatten`` order: dict keys
-    sorted, depth first."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from tree_paths(tree[k], prefix + (k,))
+    sorted, list entries in index order, depth first.  A list entry's
+    name in the path is ``#i``, as the reference's ``path_names`` gives
+    it."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    else:
+        items = ((f"#{i}", v) for i, v in enumerate(tree))
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from tree_paths(v, prefix + (k,))
         else:
-            yield prefix + (k,), tree[k]
+            yield prefix + (k,), v
+
+
+def _child(node: Any, name: str) -> Any:
+    return node[int(name[1:])] if isinstance(node, list) else node[name]
 
 
 def path_leaves(paths: tuple[tuple[str, ...], ...],
@@ -62,21 +72,32 @@ def path_leaves(paths: tuple[tuple[str, ...], ...],
     for path in paths:
         node = tree
         for k in path:
-            node = node[k]
+            node = _child(node, k)
         out.append(node)
     return out
 
 
+def _lists(node: Any) -> Any:
+    """A dict whose keys are ``#0 .. #n-1`` as the list of its values."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k == f"#{i}" for i, k in enumerate(node)):
+        return list(node.values())
+    return node
+
+
 def path_unflatten(paths: tuple[tuple[str, ...], ...],
                    leaves: list[torch.Tensor]) -> Params:
-    """The nested dict that holds ``leaves[j]`` at ``paths[j]``."""
+    """The nested dicts and lists that hold ``leaves[j]`` at
+    ``paths[j]`` (a ``#i`` name is entry i of a list)."""
     tree: Params = {}
     for path, leaf in zip(paths, leaves, strict=True):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    return tree
+    return _lists(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -202,9 +223,10 @@ def buffer_push_and_maybe_apply(
 
 @dataclass(frozen=True)
 class FlatLayout:
-    """Ravel/unravel a dense parameter tree (nested dicts of tensors) to one
-    flat float32 vector.  Leaf ``j`` (in ``jax.tree.flatten`` order, the
-    reference's) lives at ``flat[offsets[j] : offsets[j] + sizes[j]]``."""
+    """Ravel/unravel a dense parameter tree (nested dicts and lists of
+    tensors) to one flat float32 vector.  Leaf ``j`` (in
+    ``jax.tree.flatten`` order, the reference's) lives at
+    ``flat[offsets[j] : offsets[j] + sizes[j]]``."""
 
     paths: tuple[tuple[str, ...], ...]
     shapes: tuple[tuple[int, ...], ...]

@@ -77,7 +77,7 @@ from repro_torch.kernels.ref import EPS
 from repro_torch.launch import switch_driver as SD
 from repro_torch.launch.programs import (init_fused_train_state,
                                          make_fused_train_step)
-from repro_torch.optim import adagrad
+from repro_torch.optim import adagrad, tree_map
 from repro_torch.sim.cluster import ClusterSpec
 from repro_torch.sim.faults import FaultPlan
 
@@ -379,9 +379,7 @@ def run_lm_psum(world, device: torch.device, cfg, inp: dict, gba: GBAConfig,
 
 
 def _to(params: dict, device: torch.device) -> dict:
-    if isinstance(params, dict):
-        return {k: _to(v, device) for k, v in params.items()}
-    return params.to(device, copy=True)
+    return tree_map(lambda t: t.to(device, copy=True), params)
 
 
 def differing(got, want) -> int:

@@ -466,8 +466,8 @@ class SwitchDriver:
         """Bit-exactness of the carryover: the round-tripped state, in
         storage of its own, must reproduce the source exactly."""
         def leaves(t):
-            return ([x for _, x in tree_paths(t)] if isinstance(t, dict)
-                    else [t])
+            return ([x for _, x in tree_paths(t)]
+                    if isinstance(t, (dict, list)) else [t])
 
         for x, y in zip(leaves(a), leaves(b), strict=True):
             if x.numel() and x.data_ptr() == y.data_ptr():

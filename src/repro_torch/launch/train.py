@@ -18,16 +18,21 @@ smoke.
 launcher's default (``repro_torch.launch.programs``, ``mode="pytree"``):
 per microstep the LM loss and its gradient, added into a per-leaf
 accumulator with its Eq. (1) weight over M, and on every M-th microstep
-the arch's optimizer (``ARCH_OPTIMIZER``: Adam for granite-8b) applies
+the arch's optimizer (``ARCH_OPTIMIZER``: Adagrad for kimi-k2, Adam for
+the others) applies
 it.  With ``--fused`` it trains with the fused flat-buffer step instead:
 per microstep the gradient into the (M, N) buffer, and on every M-th
 microstep one ``gba_apply`` launch (Eq. (1) weights and Adagrad) over the
 flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
 ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
-``--reduced`` takes the config's smoke variant.  ``--arch`` trains
-granite-8b; an architecture the port serves but does not train yet
-(``models.transformer.check_trainable``) exits non-zero before any step,
-naming ROADMAP.md.
+``--reduced`` takes the config's smoke variant.  ``--arch`` trains the
+attention-family architectures (granite-8b, gemma2-27b, gemma3-12b,
+starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b; kimi-k2's
+optimizer is Adagrad, the others' Adam); one the port does not run
+(``models.transformer.check_trainable``: the Mamba2 and cross-attention
+architectures) exits non-zero before any step, naming ROADMAP.md.  Unlike
+the reference's launcher, ``--reduced`` does not switch an Adagrad
+architecture to the fused step: ``--fused`` asks for it.
 
 ``--fused --mesh Wx1`` (``--compress none``, the default) runs the
 reference's sharded fused step (``run_lm_fused`` with W workers): the
@@ -414,7 +419,8 @@ def run_autoswitch(cfg: ModelConfig, *, workers: int,
 def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS,
-                    help="LM architecture (granite-8b is ported)")
+                    help="LM architecture (the six attention-family ones "
+                         "are ported)")
     ap.add_argument("--vocab", type=int, default=0,
                     help="rows of the hashed table of the sparse smoke")
     ap.add_argument("--steps", type=int, default=20)

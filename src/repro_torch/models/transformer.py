@@ -26,9 +26,8 @@ step) and returns a new top-level dict that shares them.
 
 :func:`check_supported` raises for what the port does not run (Mamba and
 cross-attention layers, image and audio frontends, tied embeddings, query
-and loss chunking, rematerialisation); :func:`check_trainable` also
-raises, for training, for everything beyond the dense granite-8b stack:
-training the other architectures comes in a later slice of the port.
+and loss chunking, rematerialisation), and :func:`check_trainable`, which
+the training programs call, refuses the same.
 """
 from __future__ import annotations
 
@@ -64,28 +63,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """:func:`check_supported`, then raise ``NotImplementedError`` for a
-    model the port serves but does not train yet: anything beyond global
-    layers with an MLP and RMSNorm (granite-8b's stack)."""
+    """Raise ``NotImplementedError`` for a model the port does not train:
+    what :func:`check_supported` refuses.  Every model the port runs, it
+    also trains (its gradient is autograd's through the forward)."""
     check_supported(cfg)
-    asked = []
-    kinds = (set(cfg.block_pattern) | set(cfg.prefix_layers)) - {"global"}
-    if kinds:
-        asked.append(f"layer kinds {sorted(kinds)}")
-    if cfg.prefix_layers:
-        asked.append("prefix layers")
-    for name in ("num_experts", "sliding_window", "logit_softcap",
-                 "attn_softcap"):
-        if getattr(cfg, name):
-            asked.append(name)
-    if cfg.norm != "rmsnorm":
-        asked.append(f"norm {cfg.norm!r}")
-    if asked:
-        raise NotImplementedError(
-            f"{cfg.name}: training is not ported yet for "
-            f"{', '.join(asked)}: the port trains the dense transformer "
-            f"(granite-8b) and serves this one; training this architecture "
-            f"waits in ROADMAP.md")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -367,15 +348,16 @@ def param_count(params: Params) -> int:
 
 def param_group_key(path_names: tuple[str, ...]) -> str:
     """The layer group of a parameter path, for the layer-grouped
-    ``ShardedFlatLayout`` of the worker-parallel step: one group per
-    position ``l{i}`` of the block pattern (its leaves stacked over
-    ``num_repeats``), ``head`` for ``lm_head``, and one group per other
-    top-level module (``embed``, ``final_norm``).  The reference's prefix
-    layers, shared attention and encoder groups come with the training of
-    their architectures."""
+    ``ShardedFlatLayout`` of the worker-parallel steps, as the
+    reference's: one group per position ``l{i}`` of the block pattern
+    (its leaves stacked over ``num_repeats``), one per prefix layer
+    (``prefix.#{i}``), ``head`` for ``lm_head``, one per other top-level
+    module (``embed``, ``final_norm``) and ``misc`` for an empty path."""
+    if not path_names:
+        return "misc"
     head = path_names[0]
-    if head == "blocks":
-        return f"blocks.{path_names[1]}"
+    if head in ("blocks", "prefix") and len(path_names) > 1:
+        return f"{head}.{path_names[1]}"
     if head == "lm_head":
         return "head"
     return head

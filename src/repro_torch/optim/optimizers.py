@@ -6,7 +6,8 @@ Counterpart of ``repro.optim.optimizers``, with the same interface:
     state = opt.init(params)
     params, state = opt.update(params, grads, state)
 
-``params`` and ``grads`` are (nested) dicts of tensors with the same keys.
+``params`` and ``grads`` are nested dicts and lists of tensors of the same
+structure (a model's ``prefix`` layers are a list).
 ``update`` returns new tensors and never writes into its arguments: the
 replay trainer keeps earlier parameter versions by reference
 (``repro_torch.core.trainer.VersionRing``), and an update in place would
@@ -24,17 +25,21 @@ State = Any
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of nested dicts with the same keys."""
+    """``fn`` over the leaves of nested dicts and lists of the same
+    structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> Iterator[Any]:
-    """The leaves of nested dicts, in key order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """The leaves of nested dicts and lists, in their insertion order."""
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from tree_leaves(v)
     else:
         yield tree
@@ -52,6 +57,9 @@ def _unzip(tree: Any, n: int) -> list[Any]:
     if isinstance(tree, dict):
         parts = {k: _unzip(v, n) for k, v in tree.items()}
         return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, list):
+        parts = [_unzip(v, n) for v in tree]
+        return [[p[i] for p in parts] for i in range(n)]
     return list(tree)
 
 

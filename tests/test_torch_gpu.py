@@ -1152,6 +1152,60 @@ def test_full_width_layers_decode_through_their_route(arch):
     torch.cuda.empty_cache()
 
 
+def test_full_width_moe_layer_trains_on_the_card_as_on_the_cpu():
+    """phi3.5-moe's MoE FFN at full width (d_model 4096, 16 experts of
+    d_ff 6400, top 2) in float32, forward and backward on the card
+    against the CPU from the same draw: 128 tokens, some past their
+    expert's capacity of 20.  The router's seed (1) leaves every token's
+    2nd and 3rd probability 7.1e-4 apart or more on the CPU, so both sides
+    choose alike: ``sel``, ``slot`` and ``keep`` are held equal first.
+    Then the output, the aux loss and the gradients of the input and of
+    every leaf of ``loss = sum(y * dy) + aux`` within 1e-5 of each one's
+    largest magnitude (float32 sums in other orders; the dispatch's
+    ``index_put_`` and the gather's backward add with atomics on the
+    card)."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              dtype="float32")
+    host = T._materialize(L.moe_spec(cfg), torch.Generator().manual_seed(1),
+                          torch.device("cpu"))
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(101))
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev).requires_grad_() for k, v in host.items()}
+        xin = x.to(dev).requires_grad_()
+        routes, route = [], L.moe_route
+
+        def record(p, cfg, xt):
+            routes.append(route(p, cfg, xt))
+            return routes[-1]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(L, "moe_route", record)
+            y, aux = L.moe_fwd(p, cfg, xin)
+        loss = (y * dy.to(dev)).sum() + aux
+        grads = torch.autograd.grad(loss, [xin, *p.values()])
+        runs[dev] = (routes[0], y.detach().cpu(), aux.item(),
+                     [g.cpu() for g in grads])
+        del p, xin, y, grads
+    (rc, yc, ac, gc), (rg, yg, ag, gg) = runs["cpu"], runs["cuda"]
+    dropped = int((~rc["keep"]).sum())
+    assert rc["cap"] == rg["cap"] == 20 and dropped > 0
+    for k in ("sel", "slot", "keep"):
+        assert torch.equal(rg[k].cpu(), rc[k]), k
+    assert (yg - yc).abs().max() <= 1e-5 * yc.abs().max()
+    assert abs(ag - ac) <= 1e-5 * abs(ac)
+    for name, a, b in zip(["x", *host], gg, gc):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name
+    torch.cuda.empty_cache()
+
+
 def _ring_chunk(b, length, kv, hd):
     from repro_torch.kernels.flash_decode import _device, ring_plan
     sms, smem = _device(torch.cuda.current_device())

@@ -49,7 +49,7 @@ from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core.gba import FlatLayout
 from repro_torch.data import make_lm_stream
 from repro_torch.kernels import ops
-from repro_torch.launch.programs import build_programs
+from repro_torch.launch.programs import build_programs, loss_and_grads
 from repro_torch.models import transformer as T
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -126,8 +126,8 @@ PORTED = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "granite-8b"])
 def test_archs_not_ported_raise_and_name_the_roadmap(arch):
     """The four architectures that need a Mamba2 mixer or a frontend
-    raise, naming ROADMAP.md; the five attention-family ones are ported
-    and equal the reference's configs, full and reduced."""
+    raise, naming ROADMAP.md; the five attention-family ones are ported,
+    equal the reference's configs, full and reduced, and train."""
     if arch not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
@@ -139,8 +139,8 @@ def test_archs_not_ported_raise_and_name_the_roadmap(arch):
     assert (cfg.resolved_head_dim, cfg.num_repeats) == (
         jcfg.resolved_head_dim, jcfg.num_repeats)
     T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="training .* ROADMAP"):
-        T.check_trainable(cfg)
+    T.check_trainable(cfg)
+    T.check_trainable(cfg.reduced())
 
 
 def test_unknown_arch_raises():
@@ -263,7 +263,7 @@ FEATURES = {
 }
 
 
-# the features the port serves (and does not train yet)
+# the features the port serves and trains
 SERVED = ("moe", "prefix", "logit-softcap", "attn-softcap", "window",
           "layernorm")
 
@@ -271,22 +271,30 @@ SERVED = ("moe", "prefix", "logit-softcap", "attn-softcap", "window",
 @pytest.mark.parametrize("feature", sorted(FEATURES))
 def test_check_supported_raises_for_what_is_not_ported(feature):
     """The features of the attention-family archs build and run a reduced
-    model (forward, prefill, two decode steps; finite logits) and are
-    refused for training; the rest are refused outright."""
+    model (forward, prefill, two decode steps; finite logits) and train (a
+    finite gradient for every leaf); the rest are refused outright, for
+    training too."""
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               **FEATURES[feature])
     gen = torch.Generator().manual_seed(0)
     if feature not in SERVED:
         with pytest.raises(NotImplementedError, match="not ported"):
             T.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            T.check_trainable(cfg)
         with pytest.raises(NotImplementedError):
             T.init_model(cfg, generator=gen, device="cpu")
         return
     T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="training is not ported"):
-        T.check_trainable(cfg)
+    T.check_trainable(cfg)
     p = T.init_model(cfg, generator=gen, device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=gen)
+    loss, grads = loss_and_grads(cfg, p, {"tokens": toks,
+                                          "labels": toks.roll(-1, 1)})
+    assert bool(torch.isfinite(loss))
+    layout = FlatLayout.from_params(grads)
+    assert layout.paths == FlatLayout.from_params(p).paths
+    assert all(bool(torch.isfinite(g).all()) for g in layout.leaves(grads))
     logits, aux = T.forward_aux(p, cfg, toks)
     assert logits.shape == (2, 70, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
@@ -521,10 +529,10 @@ def test_train_cli_runs_the_pytree_step_with_adam_on_the_cpu():
 @pytest.mark.parametrize("args,says", [
     (("--arch", "granite-8b", "--reduced", "--mesh", "4x1"),
      "pytree step over PS workers is not ported"),
-    (("--arch", "gemma2-27b", "--reduced", "--fused"),
-     "training this architecture waits in ROADMAP.md"),
-    (("--arch", "kimi-k2-1t-a32b", "--reduced"),
-     "training this architecture waits in ROADMAP.md"),
+    (("--arch", "gemma2-27b", "--reduced", "--fused", "--mesh", "4x2"),
+     "a model axis above 1 is not ported"),
+    (("--arch", "kimi-k2-1t-a32b", "--reduced", "--mesh", "4x1"),
+     "pytree step over PS workers is not ported"),
     (("--arch", "mamba2-780m", "--reduced"), "not ported yet"),
 ])
 def test_train_cli_refuses_what_the_port_does_not_run(args, says):
