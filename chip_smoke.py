@@ -86,7 +86,15 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   2, 1) and the deepest stack that the card's free memory holds, on one
   layout while N < 2^31 and over layer-grouped shards above it; kimi-k2
   (19.5 G parameters at its prefix layer and one MoE layer) waits for the
-  model axis.
+  model axis;
+* LM serving and training of the Mamba2 architectures at full width and
+  full depth, bf16: mamba2-780m (48 Mamba2/SSD mixer layers, d_model
+  1536, state 128, tied embeddings; 780 M parameters) and zamba2-2.7b (54
+  layers, d_model 2560, state 64, a shared attention block of 32 heads of
+  80 after every sixth mixer; 2.34 G parameters): the fixed-batch loop at
+  batch 4 x 128, 31 decode steps, zamba2's two attention routes and its
+  engine, and the fused step at the largest M of (4, 2, 1) that fits, on
+  one layout while N < 2^31 and over layer-grouped shards past it.
 
 Phases:
 
@@ -245,7 +253,24 @@ Phases:
     ``.reduced()`` in float32, card against CPU over the same shards:
     losses within rtol 1e-5, flat params and accumulator within rtol 1e-5
     / atol 1e-7, buffer tokens and every MoE route equal;
-19. one JSON line of the kernels, then the result line.
+19. the Mamba2 architectures at full width and full depth: (a) for
+    each, the fixed-batch loop of phase 17 (a) (``flash_decode``
+    launches a step: none for mamba2-780m, 9 for zamba2-2.7b, one a
+    shared-attention layer, each launch shape held to the plain version
+    on the path's inputs: hd 80, G 1); (b) zamba2's kernel route held to
+    the masked route, a prefill of 4 x 128 and 8 steps fed the same
+    tokens, within 2**-6 of the largest; (c) zamba2's engine against the
+    offline greedy decode; (d) each ``.reduced()`` in float32, card
+    against CPU, logits within 1e-5 and greedy tokens equal; (e)
+    ``flash_decode`` at (4, 160, 32, 1, 80) and (4, 32768, 32, 1, 80)
+    timed against its plain version, its bound and SDPA; (f) each trained
+    through the fused step as phase 18 (a), at full depth: ``train_plan``
+    keeps a whole stack that memory holds, over W layer-grouped shards
+    when it is past 2^31; (g) each ``.reduced()`` fused step in
+    float32, card against CPU, as phase 18 (b) (zamba2's flat state
+    within rtol 1e-4: its stack of 6 layers carries float32 rounding
+    about ten times further);
+20. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -255,7 +280,9 @@ autoswitch run, the int8 re-entry run, each model's GBA day of phase 15,
 the six benches, the sharded fused step, each wire run of phase 16 and
 each of its NCCL switching runs and its NCCL sharded fused step, each
 architecture's serve loop, gemma3-12b's ring and its engine, each
-architecture's training run)
+architecture's training run, each Mamba2 architecture's serve loop,
+zamba2's kernel route and its engine, each Mamba2 architecture's
+training run)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -2992,9 +3019,10 @@ def serve_phase(T: dict, counters) -> dict:
     return out
 
 
-def serve_row(serve: dict, archs: dict) -> dict:
+def serve_row(serve: dict, archs: dict, ssm: dict) -> dict:
     """The kernels line's row of ``flash_decode``, timed at decode_32k;
-    its shapes also at the head dims of phase 17's architectures."""
+    its shapes also at the head dims of phase 17's architectures and of
+    zamba2's shared attention (phase 19)."""
     by_path = {
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
@@ -3007,7 +3035,14 @@ def serve_row(serve: dict, archs: dict) -> dict:
                 row["ring"]["launches"]["flash_decode"]
             by_path["archs_gemma3-12b_engine"] = \
                 row["engine"]["launches"]["flash_decode"]
-    timed = serve["flash_decode"]["timed"] + archs["flash_decode"]
+    for arch in SSM_ARCHS:
+        by_path[f"ssm_{arch}"] = ssm[arch]["launches"]["flash_decode"]
+    by_path["ssm_zamba2-2.7b_routes"] = \
+        ssm["zamba2-2.7b"]["routes"]["launches"]["flash_decode"]
+    by_path["ssm_zamba2-2.7b_engine"] = \
+        ssm["zamba2-2.7b"]["engine"]["launches"]["flash_decode"]
+    timed = (serve["flash_decode"]["timed"] + archs["flash_decode"]
+             + ssm["flash_decode"])
     at = serve["flash_decode"]["timed"][-1]
     return {
         "name": "flash_decode",
@@ -3018,7 +3053,8 @@ def serve_row(serve: dict, archs: dict) -> dict:
         "launches_by_path": by_path,
         "max_abs_err": max([serve["flash_decode"]["max_abs_err"]] + [
             h["max_abs_err"] for arch in ARCHS
-            for h in archs[arch]["flash_held"]]),
+            for h in archs[arch]["flash_held"]] + [
+            h["max_abs_err"] for h in ssm["zamba2-2.7b"]["flash_held"]]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
@@ -4086,12 +4122,14 @@ ARCHS = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
 SERVE_ROOM_GB, SLACK_GB = 2.0, 0.5
 # flash_decode launches a decode step at a depth: one a global layer
 # without an attention softcap (gemma3-12b's sixth layer, every layer of
-# phi3.5-moe and kimi-k2)
+# phi3.5-moe and kimi-k2; zamba2-2.7b's sixth, the shared attention)
 ARCH_KERNEL_LAYERS = {"gemma2-27b": lambda d: 0,
                       "gemma3-12b": lambda d: d // 6,
                       "starcoder2-3b": lambda d: 0,
                       "phi3.5-moe-42b-a6.6b": lambda d: d,
-                      "kimi-k2-1t-a32b": lambda d: d}
+                      "kimi-k2-1t-a32b": lambda d: d,
+                      "mamba2-780m": lambda d: 0,
+                      "zamba2-2.7b": lambda d: d // 6}
 # the fixed-batch loop: B prompts of P tokens, G generated (cache 160)
 ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 128, 32
 # gemma3-12b's ring at full width: a prompt past its window of 1,024
@@ -4150,11 +4188,12 @@ def fit_depth(T: dict, full) -> tuple[int, str]:
 
 def kernel_layers(cfg) -> int:
     """Layers whose decode at a scalar position launches ``flash_decode``:
-    the global ones, in a model without an attention softcap."""
+    the global ones and zamba2's shared-attention ones, in a model without
+    an attention softcap."""
     if cfg.attn_softcap:
         return 0
     kinds = (*cfg.prefix_layers, *cfg.block_pattern * cfg.num_repeats)
-    return sum(k in ("global", "moe") for k in kinds)
+    return sum(k in ("global", "moe", "mamba_attn") for k in kinds)
 
 
 class record_flash:
@@ -4286,27 +4325,27 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
     return out, cfg, params
 
 
-def ring_phase(T: dict, cfg, params, counters) -> dict:
-    """(b) gemma3-12b's ring at full width: a prefill of B x 1,152 tokens
-    (its local layers keep the last 1,024), then 8 decode steps at a
-    scalar position (the global layers through ``flash_decode``), held to
-    the same steps at a (B,) vector of that position (every layer through
-    the masked attention) fed the same tokens: logits within 2**-6 of the
-    largest."""
+def route_check(T: dict, cfg, params, counters, prompt_len: int,
+                steps: int, seed: int, on_prefill=None) -> dict:
+    """A prefill of B x ``prompt_len`` tokens, then ``steps`` decode steps
+    at a scalar position (the global and shared-attention layers through
+    ``flash_decode``, counted), held to the same steps at a (B,) vector of
+    that position (every layer through the masked attention) fed the same
+    tokens: logits within 2**-6 of the largest.  ``on_prefill`` sees the
+    prefill's cache."""
     Tm = T["transformer"]
-    prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, RING_PROMPT),
-                            generator=torch.Generator("cuda").manual_seed(5),
-                            device="cuda")
-    cache_len = RING_PROMPT + RING_STEPS
+    prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, prompt_len),
+                            generator=torch.Generator("cuda").manual_seed(
+                                seed), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = Tm.prefill(params, cfg, prompts, cache_len=cache_len)
+    logits, cache = Tm.prefill(params, cfg, prompts,
+                               cache_len=prompt_len + steps)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    ring = cache["blocks"]["l0"]["attn"]["k"]
-    check(ring.shape[2] == cfg.sliding_window < RING_PROMPT,
-          f"the local layers' ring of {cfg.sliding_window}")
+    if on_prefill is not None:
+        on_prefill(cache)
     vec = {**T["tree_map"](lambda x: x.clone(), {
         k: v for k, v in cache.items() if k != "pos"}),
         "pos": cache["pos"].expand(ARCH_BATCH).clone()}
@@ -4314,7 +4353,7 @@ def ring_phase(T: dict, cfg, params, counters) -> dict:
     tokens, seen = [], []
     counters(reset=True)
     t0 = time.perf_counter()
-    for _ in range(RING_STEPS):
+    for _ in range(steps):
         tokens.append(token)
         lg, cache = Tm.decode_step(params, cfg, token, cache)
         seen.append(lg)
@@ -4322,37 +4361,53 @@ def ring_phase(T: dict, cfg, params, counters) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = counters()
-    check(launches["flash_decode"] == ARCH_KERNEL_LAYERS["gemma3-12b"](
-          cfg.num_layers) * RING_STEPS, f"ring: flash_decode launches "
+    check(launches["flash_decode"] == kernel_layers(cfg) * steps,
+          f"{cfg.name} routes: flash_decode launches "
           f"{launches['flash_decode']}")
     masked = []
     for tok in tokens:
         lg, vec = Tm.decode_step(params, cfg, tok, vec)
         masked.append(lg)
     kern, masked = torch.cat(seen, 1), torch.cat(masked, 1)
-    check(bool(torch.isfinite(kern).all()), "ring: finite logits")
+    check(bool(torch.isfinite(kern).all()), f"{cfg.name}: finite logits")
     err = (kern - masked).abs().max().item()
     scale = masked.abs().max().item()
-    out = {"prompt": RING_PROMPT, "window": cfg.sliding_window,
-           "prefill_ms": prefill_s * 1e3,
-           "decode_step_ms": decode_s / RING_STEPS * 1e3,
+    out = {"prompt": prompt_len, "prefill_ms": prefill_s * 1e3,
+           "decode_step_ms": decode_s / steps * 1e3,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches, "logit_max_abs_diff": err,
            "logit_max_abs": scale}
-    print(f"  gemma3-12b ring: prefill {ARCH_BATCH}x{RING_PROMPT} "
-          f"{out['prefill_ms']!r} ms, {RING_STEPS} decode steps at "
+    print(f"  {cfg.name} routes: prefill {ARCH_BATCH}x{prompt_len} "
+          f"{out['prefill_ms']!r} ms, {steps} decode steps at "
           f"{out['decode_step_ms']!r} ms a step, peak {out['peak_gb']!r} GB;"
           f" scalar (kernel) vs vector (masked) position: max |logit diff| "
           f"{err!r} of {scale!r}")
-    check(err <= 2.0**-6 * scale, "ring: the two routes agree")
+    check(err <= 2.0**-6 * scale, f"{cfg.name}: the two routes agree")
     return out
 
 
+def ring_phase(T: dict, cfg, params, counters) -> dict:
+    """(b) gemma3-12b's ring at full width: a prefill of B x 1,152 tokens
+    (its local layers keep the last 1,024), then 8 decode steps at a
+    scalar position (the global layers through ``flash_decode``), held to
+    the same steps at a (B,) vector of that position (every layer through
+    the masked attention) fed the same tokens: logits within 2**-6 of the
+    largest."""
+    def ring(cache):
+        check(cache["blocks"]["l0"]["attn"]["k"].shape[2]
+              == cfg.sliding_window < RING_PROMPT,
+              f"the local layers' ring of {cfg.sliding_window}")
+    out = route_check(T, cfg, params, counters, RING_PROMPT, RING_STEPS, 5,
+                      ring)
+    return {**out, "window": cfg.sliding_window}
+
+
 def arch_engine(T: dict, cfg, params, counters) -> dict:
-    """(c) the engine on gemma3-12b: 8 requests in 4 slots, every request
-    complete, the per-slot positions through the masked attention, each
-    request's first token equal to its offline greedy decode's (the rest
-    counted: bf16 routes may round apart)."""
+    """(c) the engine on gemma3-12b (and zamba2-2.7b in phase 19): 8
+    requests in 4 slots, every request complete, the per-slot positions
+    through the masked attention, each request's first token equal to its
+    offline greedy decode's (the rest counted: bf16 routes may round
+    apart)."""
     S = T["S"]
     eng = S.ServingEngine(S.StaticSource(params), cfg,
                           num_slots=ENGINE_SLOTS,
@@ -4368,7 +4423,7 @@ def arch_engine(T: dict, cfg, params, counters) -> dict:
     stats = eng.run()
     torch.cuda.synchronize()
     launches = counters()
-    print(f"  gemma3-12b engine: {json.dumps(stats)}")
+    print(f"  {cfg.name} engine: {json.dumps(stats)}")
     check(stats["completed"] == ENGINE_REQUESTS, "every request completed")
     check(launches["flash_decode"] == 0,
           "the engine's per-slot positions take the masked route")
@@ -4379,8 +4434,8 @@ def arch_engine(T: dict, cfg, params, counters) -> dict:
               f"request {req.uid}: the prefill's token agrees")
         agree += sum(a == b for a, b in zip(off, req.output))
         total += len(off)
-    print(f"  gemma3-12b engine vs offline greedy: {agree} of {total} tokens"
-          f" agree")
+    print(f"  {cfg.name} engine vs offline greedy: {agree} of {total} "
+          f"tokens agree")
     return {"stats": stats, "launches": launches, "tokens_agree": agree,
             "tokens": total}
 
@@ -4485,10 +4540,11 @@ def train_plan(T: dict, full) -> tuple[dict | None, str]:
     """The fused step that the card's free memory holds for ``full``:
     the largest M of ``TRAIN_MS`` at which the prefix layers and one
     repeat fit, at (12 + 4 M) B a parameter beside the logits' copies and
-    the slack; then the deepest stack at that M, on one layout while N <
-    2^31, or, when one repeat is already past it, over the fewest W
-    layer-grouped shards whose shard is below it.  Returns (the plan, or
-    None when no M fits, and the arithmetic, in GB of 10^9 bytes)."""
+    the slack; then the deepest stack at that M: the whole stack when
+    memory holds it, else the deepest on one layout while N < 2^31; over
+    the fewest W layer-grouped shards whose shard is below 2^31 when N is
+    past it.  Returns (the plan, or None when no M fits, and the
+    arithmetic, in GB of 10^9 bytes)."""
     top, block = T["transformer"].model_spec(full)
     leaves = T["transformer"]._leaves
     fixed = sum(int(np.prod(s.shape)) for s in leaves(top))
@@ -4517,7 +4573,7 @@ def train_plan(T: dict, full) -> tuple[dict | None, str]:
                          f"parameter")
             continue
         workers = 1
-        if fixed + repeat <= APPLY_MAX_N:
+        if fixed + repeat <= APPLY_MAX_N and reps < full.num_repeats:
             reps = min(reps, (APPLY_MAX_N - fixed) // repeat)
         else:
             while (fixed + reps * repeat) / workers > APPLY_MAX_N * 0.99:
@@ -4720,12 +4776,13 @@ def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
     return out
 
 
-def train_card_vs_cpu(T: dict, arch: str, workers: int) -> dict:
+def train_card_vs_cpu(T: dict, arch: str, workers: int,
+                      flat_rtol: float = HOLD_LM_RTOL) -> dict:
     """(b) ``.reduced()`` in float32, the fused step over ``workers``
     shards (one layout at 1) from the same params on the card and on the
     CPU, 2 global steps, one slot stale: losses within rtol 1e-5, flat
-    params and accumulator within rtol 1e-5 / atol 1e-7, buffer tokens
-    and every MoE route equal."""
+    params and accumulator within rtol ``flat_rtol`` (1e-5) / atol 1e-7,
+    buffer tokens and every MoE route equal."""
     cfg = dataclasses.replace(T["get_config"](arch).reduced(),
                               dtype="float32")
     gba = T["GBAConfig"](local_batch=2, buffer_size=LM_M,
@@ -4763,8 +4820,8 @@ def train_card_vs_cpu(T: dict, arch: str, workers: int) -> dict:
     check(np.allclose(lc, lh, rtol=HOLD_LM_RTOL, atol=0),
           f"{arch}: card vs CPU losses within rtol {HOLD_LM_RTOL}")
     for name, a, b in (("flat params", pc, ph), ("accumulator", ac, ah)):
-        check(torch.allclose(a, b, rtol=HOLD_LM_RTOL, atol=HOLD_LM_ATOL),
-              f"{arch}: card vs CPU {name} within rtol {HOLD_LM_RTOL} atol "
+        check(torch.allclose(a, b, rtol=flat_rtol, atol=HOLD_LM_ATOL),
+              f"{arch}: card vs CPU {name} within rtol {flat_rtol} atol "
               f"{HOLD_LM_ATOL}")
     return out
 
@@ -4801,6 +4858,59 @@ def train_phase(T: dict, counters) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 18: {out['seconds']:.1f} s; trained at full width: "
           f"{trained}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the Mamba2 archs at full width, serving and training
+
+SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b")
+# zamba2's shared attention: a prompt of 128, 8 steps a route
+SSM_ROUTE_STEPS = 8
+# card against CPU at zamba2-2.7b.reduced(): its stack of 6 layers carries
+# float32 rounding about ten times further than one mamba2 layer (against
+# a float64 evaluation the CPU's float32 gradients lie 1.1e-5 of their
+# largest away; tests/test_torch_archs_ssm.py holds its fused flat state
+# against the JAX package's within rtol 1e-4)
+SSM_TRAIN_FLAT_RTOL = {"mamba2-780m": HOLD_LM_RTOL, "zamba2-2.7b": 1e-4}
+# flash_decode at zamba2's shared attention: hd 80, G 1, 32 KV heads; the
+# serve loop's last step and decode_32k's length
+SSM_FLASH_TIMED = ((4, 160, 32, 1, 80, 159),
+                   (4, 32_768, 32, 1, 80, LONG_POS))
+
+
+def ssm_phase(T: dict, counters) -> dict:
+    phase(19, "LM serving and training: mamba2-780m and zamba2-2.7b at full "
+              "width")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for arch in SSM_ARCHS:
+        row, cfg, params = arch_serve(T, arch, counters)
+        check(row["layers"] == row["of_layers"], f"{arch}: full depth")
+        if arch == "zamba2-2.7b":
+            row["routes"] = route_check(T, cfg, params, counters,
+                                        ARCH_PROMPT, SSM_ROUTE_STEPS, 5)
+            row["engine"] = arch_engine(T, cfg, params, counters)
+        del params
+        torch.cuda.empty_cache()
+        row["reduced_f32"] = arch_card_vs_cpu(T, arch)
+        out[arch] = row
+    gen = torch.Generator("cuda").manual_seed(7)
+    out["flash_decode"] = [flash_timed(T, gen, shape, sleep_cycles_per_ms())
+                           for shape in SSM_FLASH_TIMED]
+    expandable_segments(True)
+    for arch in SSM_ARCHS:
+        row = train_arch(T, arch, counters, timed=False)
+        check(row["trained"], f"{arch} trains at full width")
+        row["reduced_f32"] = train_card_vs_cpu(
+            T, arch, row["W"], SSM_TRAIN_FLAT_RTOL[arch])
+        out[f"train_{arch}"] = row
+    torch.cuda.empty_cache()
+    expandable_segments(False)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 19: {out['seconds']:.1f} s; trained at depths "
+          f"{[out[f'train_{a}']['depth'] for a in SSM_ARCHS]}")
     return out
 
 
@@ -5019,8 +5129,10 @@ def main() -> int:
     archs = archs_phase(T, counters)
     torch.cuda.empty_cache()
     trained = train_phase(T, counters)
+    torch.cuda.empty_cache()
+    ssm = ssm_phase(T, counters)
 
-    phase(19, "kernels")
+    phase(20, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -5052,6 +5164,7 @@ def main() -> int:
         "sharded_ps": sharded,
         "lm_archs": archs,
         "lm_archs_train": trained,
+        "lm_ssm": ssm,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -5066,7 +5179,9 @@ def main() -> int:
         "sharded_fused_nccl":
         sharded["sharded_fused_nccl"]["launches"]["gba_apply"],
         **{f"train_{a}": trained[a]["launches"]["gba_apply"] for a in ARCHS
-           if trained[a]["trained"]}}
+           if trained[a]["trained"]},
+        **{f"train_{a}": ssm[f"train_{a}"]["launches"]["gba_apply"]
+           for a in SSM_ARCHS}}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -5162,7 +5277,7 @@ def main() -> int:
         "shapes": [apply_row, trained["starcoder2-3b"]["gba_apply"]],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
-        serve_row(served, archs)]}))
+        serve_row(served, archs, ssm)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,10 +3,12 @@
 ``get_config("<arch-id>")`` knows the ten architecture ids of
 ``repro.configs``.  The port runs the attention-family transformers
 (global and sliding-window attention, softcaps, layernorm, the top-k MoE
-and prefix layers), so it returns granite-8b, gemma2-27b, gemma3-12b,
-starcoder2-3b, phi3.5-moe-42b-a6.6b and kimi-k2-1t-a32b, and raises
-``NotImplementedError`` for the other four (a Mamba2 mixer, an image or
-audio frontend), which wait in ROADMAP.md's queue of modules to port.
+and prefix layers) and the Mamba2/SSD models (mamba2-780m, and
+zamba2-2.7b with its shared attention), so it returns granite-8b,
+gemma2-27b, gemma3-12b, starcoder2-3b, phi3.5-moe-42b-a6.6b,
+kimi-k2-1t-a32b, mamba2-780m and zamba2-2.7b, and raises
+``NotImplementedError`` for the other two (an image or audio frontend),
+which wait in ROADMAP.md's queue of modules to port.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ _ARCH_MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b_a6p6b",
     "gemma2-27b": "gemma2_27b",
+    "mamba2-780m": "mamba2_780m",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 
@@ -38,9 +42,9 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _ARCH_MODULES:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: the port runs the "
-            f"attention-family transformers; the Mamba2 and the vision and "
-            f"audio architectures wait in ROADMAP.md's queue of modules to "
-            f"port")
+            f"attention-family transformers and the Mamba2 models; the "
+            f"vision and audio architectures wait in ROADMAP.md's queue of "
+            f"modules to port")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG

@@ -69,23 +69,26 @@
 // deep by `cp.async` from every thread, scores by FMAs and warp shuffles,
 // and a second kernel that combines the partials.  TF32 is never used.
 //
-// Head dims: 64, 112 (kimi-k2), 128 and 256, as the TPU kernel takes any.
-// 112 is a multiple of 16 but not of 32 or 64.  The ring asks for two
-// 64-value boxes of a 112-value row, laid out in the stage as at hd 128.
-// The tensor map views the cache as 3-d (KV * hd, L, B), all heads of a
-// position in one row, so the second box of head kv holds its last 48
-// values and the first 16 of head kv + 1 (zeros past the last head).  A
-// 4-d map whose innermost dimension is 112 had the Tensor Memory
-// Accelerator fill those 16 columns with zeros instead, and took 0.27 ms
-// against this view's 0.23 at decode_32k with kimi-k2's heads (H100 80GB
-// HBM3, 700 W).  No score and no output reads those 16 columns: the score
-// mma walks 7 k-steps of 16 values (q is not padded), and p . v adds 4
-// columns a lane as at 128 but only 112 columns are merged and written.
-// The boxes start 224 * kv + 128 h bytes into a position's row, off the
-// 128-byte lines they keep at hd 64, 128 and 256, which bounds this head
-// dim below the others (PERF.md).  The f32 path launches 128 threads; lanes past
-// column 111 load zeros for their share of q and k, and threads 112-127
-// add into no column.  Scores are divided by sqrtf(112.f).
+// Head dims: 64, 80 (zamba2's shared attention), 112 (kimi-k2), 128 and
+// 256, as the TPU kernel takes any.  80 and 112 are multiples of 16 but not
+// of 32 or 64.  The ring asks for two 64-value boxes of
+// an 80- or 112-value row, laid out in the stage as at hd 128.  The tensor
+// map views the cache as 3-d (KV * hd, L, B), all heads of a position in
+// one row, so the second box of head kv holds its last 16 (hd 80) or 48
+// (hd 112) values and the first 48 or 16 of head kv + 1 (zeros past the
+// last head).  A 4-d map whose innermost dimension is 112 had the Tensor
+// Memory Accelerator fill those 16 columns with zeros instead, and took
+// 0.27 ms against this view's 0.23 at decode_32k with kimi-k2's heads
+// (H100 80GB HBM3, 700 W).  No score and no output reads those columns:
+// the score mma walks hd / 16 k-steps of 16 values (5 at 80, 7 at 112; q
+// is not padded), and p . v adds 4 columns a lane as at 128 but only hd
+// columns are merged and written.  The boxes start 2 * hd * kv + 128 h
+// bytes into a position's row, off the 128-byte lines they keep at hd 64,
+// 128 and 256, which bounds these two head dims below the others
+// (PERF.md).  The f32 path launches 128 threads at both, 4 values a lane
+// (96 threads would give 3, which do not divide 80): lanes past column
+// hd - 1 load zeros for their share of q and k, and threads hd to 127 add
+// into no column.  Scores are divided by sqrtf(80.f) or sqrtf(112.f).
 //
 // float32 path detail: a block streams its positions through shared
 // memory in tiles of 16 KB of K and 16 KB of V (32 positions at hd 128 in
@@ -192,9 +195,16 @@ __device__ __forceinline__ void halve(float* v, int lane) {
   }
 }
 
-// Threads of a float32 split block: HD rounded up to a warp.
+// Threads of a float32 split block: HD rounded up to whole warps, and up
+// again until the warps' count (a lane's values of a row) divides HD: 128
+// at hd 80 and 112.
+constexpr int split_threads(int hd) {
+  int t = (hd + 31) / 32 * 32;
+  while (hd % (t / 32)) t += 32;
+  return t;
+}
 template <int HD>
-constexpr int kSplitThreads = (HD + 31) / 32 * 32;
+constexpr int kSplitThreads = split_threads(HD);
 
 // Block (split, kv, b) of kSplitThreads<HD> threads: the partial softmax
 // of positions [split * chunk, min((split + 1) * chunk, L)) for the G
@@ -226,8 +236,8 @@ __global__ void __launch_bounds__(kSplitThreads<HD>)
 
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // this lane's share of a row lies inside it (always, but at hd 112 for
-  // lanes 28-31)
+  // this lane's share of a row lies inside it (always, but at hd 80 for
+  // lanes 20-31 and at hd 112 for lanes 28-31)
   const bool in_row = lane * kVpl < HD;
   const int pos = *pos_p;
   const int start = split * chunk;
@@ -468,6 +478,10 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
       return dispatch_group<T, 64>(q, k, v, pos, part_m, part_l, part_acc,
                                    out, b, length, kv_heads, g_heads, chunk,
                                    nsplit, s);
+    case 80:
+      return dispatch_group<T, 80>(q, k, v, pos, part_m, part_l, part_acc,
+                                   out, b, length, kv_heads, g_heads, chunk,
+                                   nsplit, s);
     case 112:
       return dispatch_group<T, 112>(q, k, v, pos, part_m, part_l, part_acc,
                                     out, b, length, kv_heads, g_heads, chunk,
@@ -502,8 +516,8 @@ constexpr int kMaxDevices = 64;
 // 128-byte swizzle: 16-byte piece c of row r sits at piece c ^ (r % 8), so
 // the 8 rows an `ldmatrix` reads fall on 8 different bank groups.  A box
 // starts on a 1024-byte boundary, where the swizzle pattern starts.  The
-// columns of the last box past HD (16 at hd 112) belong to the next head
-// and are never read.
+// columns of the last box past HD (48 at hd 80, 16 at hd 112) belong to
+// the next head and are never read.
 template <int HD>
 struct Ring {
   static_assert(HD % 16 == 0, "whole k-steps of the score mma");
@@ -968,8 +982,9 @@ EncodeTiled encode_tiled() {
 
 // A (B, L, KV, hd) bf16 cache as the 3-d tensor (KV * hd, L, B),
 // innermost first, in boxes of (64, kRingTile, 1) with the 128-byte
-// swizzle: a box holds 64 values of one head's row, or at hd 112 the
-// row's last 48 and the next head's first 16.  Positions past L, and
+// swizzle: a box holds 64 values of one head's row, or at hd 80 the
+// row's last 16 and the next head's first 48, at hd 112 the row's last 48
+// and the next head's first 16.  Positions past L, and
 // values past the last head, read as zeros.
 bool cache_map(CUtensorMap* map, const void* base, int b, int length,
                int kv_heads, int hd) {
@@ -1076,7 +1091,8 @@ extern "C" int repro_flash_decode_ring_smem_bytes(int hd, int stages) {
 // G, hd), k and v (B, L, KV, hd) and out (B, KV, G, hd) contiguous, k and
 // v on 16-byte boundaries; pos one int32 on the device; part_m and part_l
 // (B, KV, nsplit, G) and part_acc (B, KV, nsplit, G, hd) float32 scratch,
-// with nsplit * chunk >= L.  hd is 64, 112, 128 or 256 and G at most 8.
+// with nsplit * chunk >= L.  hd is 64, 80, 112, 128 or 256 and G at most
+// 8.
 // bfloat16 also takes `tickets`, B * KV int32 that are 0 and are left 0,
 // and `stages` (1 to 4) of its ring; chunk is then a multiple of 64 and
 // nsplit at most 256.  float32 ignores both.  Returns a cudaError_t; the
@@ -1103,6 +1119,10 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   switch (hd) {
     case 64:
       return ring_group<64>(q, k, v, pos, part_m, part_l, part_acc, tickets,
+                            out, b, length, kv_heads, g_heads, chunk, nsplit,
+                            stages, s);
+    case 80:
+      return ring_group<80>(q, k, v, pos, part_m, part_l, part_acc, tickets,
                             out, b, length, kv_heads, g_heads, chunk, nsplit,
                             stages, s);
     case 112:

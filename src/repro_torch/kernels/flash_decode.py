@@ -33,7 +33,7 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import flash_decode_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 112, 128, 256)   # the head dims the kernel is built for
+HEAD_DIMS = (64, 80, 112, 128, 256)   # the head dims the kernel takes
 MAX_GROUP = 8                # query heads per KV head a block holds
 STAGE_BYTES = 16384          # of K (and of V) a float32 block stages per tile
 # float32 split blocks resident on an SM at once: 64 KB of stages each
@@ -105,8 +105,8 @@ def split_plan(length: int, rows: int, sms: int, tile: int,
 def ring_stage_bytes(hd: int) -> int:
     """A bfloat16 stage: ``TILE`` rows of K and of V, in ceil(hd / 64)
     boxes of ``TILE`` x 128 bytes each (the tensor map's 128-byte swizzle;
-    at hd 112 the last box's 16 columns past the head are the next head's
-    and are never read)."""
+    at hd 80 and 112 the last box's 48 and 16 columns past the head are
+    the next head's and are never read)."""
     return 2 * TILE * (-(-hd // 64) * 64) * 2
 
 
@@ -126,7 +126,7 @@ def ring_plan(length: int, rows: int, sms: int, hd: int,
     ``rows`` (B * KV) rows of ``length`` positions, on ``sms`` SMs with
     ``smem`` = (bytes a block may use, bytes an SM holds, bytes kept back
     a block).  Two blocks an SM where each fits ``MIN_STAGES`` stages (hd
-    64, 112 and 128), else one (hd 256); as many stages as fit, up to
+    64, 80, 112 and 128), else one (hd 256); as many stages as fit, up to
     ``MAX_STAGES``.  A row whose tiles all fit the ring at once is one
     split: its block asks for every tile in one round trip, and a split
     would add only the combine.  Longer rows take the splits of
@@ -200,9 +200,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Every position ``idx > pos`` is masked; the arithmetic is
     :func:`flash_decode_ref`'s, summed in another order.
 
-    The kernel takes hd in ``HEAD_DIMS`` (64, 112, 128, 256), G from 1 to
-    ``MAX_GROUP`` (8), any L from 1 to 2**31 - 1 (a partial last tile is
-    masked), and contiguous tensors, k and v on 16-byte boundaries; the
+    The kernel takes hd in ``HEAD_DIMS`` (64, 80, 112, 128, 256), G from
+    1 to ``MAX_GROUP`` (8), any L from 1 to 2**31 - 1 (a partial last tile
+    is masked), and contiguous tensors, k and v on 16-byte boundaries; the
     wrapper refuses anything else on either device (the boundary on the
     card only).  A ``pos`` tensor stays on the card: the kernel reads it
     there, so a decode loop needs no host round trip."""

@@ -8,14 +8,17 @@ LM.
 
 Counterpart of ``repro.launch.serve`` for the architectures the port
 runs: granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b,
-phi3.5-moe-42b-a6.6b and kimi-k2-1t-a32b (the other four exit non-zero,
-naming ROADMAP.md).  The default is the fixed-batch loop: one prefill of
-``--batch`` random prompts of ``--prompt-len`` tokens into a cache of
-``prompt-len + gen-len`` positions (a ring of the window in a
-sliding-window layer), then ``gen-len - 1`` greedy decode steps, every
-sequence at the same position, so each global layer's attention is one
-``flash_decode`` launch a step in a model without an attention softcap
-(the rest run the reference's masked attention).  It prints the
+phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b, mamba2-780m and zamba2-2.7b (the
+other two exit non-zero, naming ROADMAP.md).  The default is the
+fixed-batch loop: one prefill of ``--batch`` random prompts of
+``--prompt-len`` tokens into a cache of ``prompt-len + gen-len``
+positions (a ring of the window in a sliding-window layer; a Mamba2
+mixer keeps its state and conv window, and needs a prompt of at least 3
+tokens), then ``gen-len - 1`` greedy decode steps, every sequence at the
+same position, so each global layer's attention, and each of zamba2's
+shared-attention layers, is one ``flash_decode`` launch a step in a model
+without an attention softcap (the rest run the reference's masked
+attention).  It prints the
 reference's two lines: prefill ms, and decode ms with tok/s.
 
 ``--engine`` runs the continuous-batching :class:`~repro_torch.serving.

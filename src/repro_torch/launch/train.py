@@ -27,10 +27,11 @@ flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
 ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
 ``--reduced`` takes the config's smoke variant.  ``--arch`` trains the
 attention-family architectures (granite-8b, gemma2-27b, gemma3-12b,
-starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b; kimi-k2's
-optimizer is Adagrad, the others' Adam); one the port does not run
-(``models.transformer.check_trainable``: the Mamba2 and cross-attention
-architectures) exits non-zero before any step, naming ROADMAP.md.  Unlike
+starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b) and the Mamba2 ones
+(mamba2-780m, zamba2-2.7b); kimi-k2's optimizer is Adagrad, the others'
+Adam.  One the port does not run (``models.transformer.check_trainable``:
+the vision and audio architectures) exits non-zero before any step,
+naming ROADMAP.md.  Unlike
 the reference's launcher, ``--reduced`` does not switch an Adagrad
 architecture to the fused step: ``--fused`` asks for it.
 

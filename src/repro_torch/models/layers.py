@@ -1,10 +1,12 @@
 """Transformer layers: RMSNorm and layernorm, RoPE, causal GQA attention
 (global or sliding-window, with an optional softcap; full sequence, and
-one-token decode against a KV cache), the gated (SwiGLU) MLP and the
-top-k MoE FFN.
+one-token decode against a KV cache), the gated (SwiGLU) MLP, the top-k
+MoE FFN and the Mamba2/SSD mixer (full sequence by the chunked SSD scan,
+and the one-token recurrent update).
 
-Counterpart of the attention-family subset of ``repro.models.layers``,
-with its parameter names, shapes and arithmetic.  ``*_spec`` describes a
+Counterpart of ``repro.models.layers`` (without its cross-attention and
+the ``mamba_split_proj`` variant), with its parameter names, shapes and
+arithmetic.  ``*_spec`` describes a
 module's parameters as a dict of :class:`Leaf` (shape, dtype, and how the
 value is drawn), which ``models.transformer.init_model`` materialises;
 ``*_fwd`` applies the tensors.  Attention is written as the reference
@@ -21,8 +23,10 @@ global layer at a scalar position, which runs the ``flash_decode`` kernel
 Decode caches are the reference's layouts, ``{"k", "v"}`` of ``(B, L, KV,
 hd)`` with RoPE'd keys: a global layer keeps ``L = cache_len`` positions,
 a local (sliding-window) layer a ring of ``L = min(window, cache_len)``
-in which position ``p`` sits at slot ``p % L``.  :func:`attention_decode`
-writes them in place.
+in which position ``p`` sits at slot ``p % L``.  A Mamba2 mixer's cache is
+``{"ssm" (B, H, P, N) float32, "conv" (B, CONV_W - 1, d_inner + 2N)}``:
+the recurrent state and the last pre-convolution inputs.
+:func:`attention_decode` and :func:`mamba_decode` write them in place.
 """
 from __future__ import annotations
 
@@ -43,13 +47,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclass(frozen=True)
 class Leaf:
-    """One parameter: its shape and dtype, and its value: zeros when
-    ``scale`` is None, else a float32 Normal(0, 1) draw times ``scale``,
-    cast to ``dtype``."""
+    """One parameter: its shape and dtype, and its value: ``fill`` (zeros
+    by default) when ``scale`` is None, else a float32 Normal(0, 1) draw
+    times ``scale``, cast to ``dtype``."""
 
     shape: tuple[int, ...]
     dtype: torch.dtype
     scale: float | None
+    fill: float = 0.0
 
 
 def dense(shape: tuple[int, ...], dtype: torch.dtype,
@@ -68,10 +73,11 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def norm_spec(cfg: ModelConfig) -> Params:
+def norm_spec(cfg: ModelConfig, dim: int | None = None) -> Params:
     """A float32 ``scale`` of zeros (the gain is ``1 + scale``), and for
-    layernorm a float32 ``bias`` of zeros."""
-    zeros = Leaf((cfg.d_model,), torch.float32, None)
+    layernorm a float32 ``bias`` of zeros, of width ``dim`` (default
+    ``d_model``)."""
+    zeros = Leaf((dim or cfg.d_model,), torch.float32, None)
     if cfg.norm == "rmsnorm":
         return {"scale": zeros}
     return {"scale": zeros, "bias": zeros}
@@ -358,3 +364,206 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor
     combined = (gathered.reshape(B * S, K, D)
                 * r["weights"][..., None].to(x.dtype)).sum(dim=1)
     return combined.reshape(B, S, D).to(x.dtype), r["aux"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD mixer
+
+CONV_W = 4  # causal short-conv width
+
+
+def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(d_inner, heads H, state N) of the mixer: d_inner = expand x
+    d_model in heads of ``ssm_head_dim`` (P) values."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return d_inner, d_inner // cfg.ssm_head_dim, cfg.ssm_state
+
+
+def mamba_spec(cfg: ModelConfig) -> Params:
+    """The fused ``in_proj`` (D, 2 d_inner + 2N + H) giving z, x, B, C and
+    dt; the depthwise ``conv_w`` (CONV_W, d_inner + 2N) at scale 0.5; the
+    float32 per-head ``A_log`` and ``dt_bias`` (zeros) and ``D_skip``
+    (ones); ``out_norm`` of width d_inner and ``out_proj``."""
+    dt = dtype_of(cfg)
+    d_inner, H, N = ssm_dims(cfg)
+    return {
+        "A_log": Leaf((H,), torch.float32, None),
+        "D_skip": Leaf((H,), torch.float32, None, fill=1.0),
+        "dt_bias": Leaf((H,), torch.float32, None),
+        "out_norm": norm_spec(cfg, d_inner),
+        "out_proj": dense((d_inner, cfg.d_model), dt),
+        "in_proj": dense((cfg.d_model, 2 * d_inner + 2 * N + H), dt),
+        "conv_w": dense((CONV_W, d_inner + 2 * N), dt, scale=0.5),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` writes it."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x (B, S, C), w (CONV_W, C); x padded by
+    CONV_W - 1 zeros in front, the taps summed in order in x's dtype."""
+    S = x.shape[1]
+    x_pad = torch.nn.functional.pad(x, (0, 0, CONV_W - 1, 0))
+    out = x_pad[:, 0:S] * w[0]
+    for i in range(1, CONV_W):
+        out = out + x_pad[:, i:i + S] * w[i]
+    return out
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x (..., Q) log-decays -> (..., Q, Q): entry (i, j) the sum of x over
+    (j, i], -inf above the diagonal."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, diff, -torch.inf)
+
+
+def ssd_chunked(xh: torch.Tensor, dt_h: torch.Tensor, a_log: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan (Mamba2, arXiv:2405.21060 Sec. 6), as the
+    reference's: xh (B, S, H, P), dt_h (B, S, H) float32, a_log (H,),
+    Bm and Cm (B, S, N), S a multiple of ``chunk`` -> (y (B, S, H, P)
+    float32, the final state (B, H, P, N) float32).  Within a chunk the
+    quadratic form, between chunks a recurrence over the chunks' end
+    states from ``h0`` (zeros by default), all in float32."""
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    a = -torch.exp(a_log)                                   # (H,) negative
+    da = (dt_h * a[None, None, :]).float()                  # (B,S,H)
+    xw = xh * dt_h[..., None]                               # float32
+
+    def c(t):
+        return t.reshape(Bsz, nc, chunk, *t.shape[2:])
+    xw_c, da_c, B_c, C_c = c(xw), c(da), c(Bm.float()), c(Cm.float())
+
+    # intra-chunk (quadratic within the chunk)
+    Lm = torch.exp(_segsum(torch.movedim(da_c, -1, 2)))     # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqn,bckn->bcqk", C_c, B_c)      # (B,nc,Q,Q)
+    y_intra = torch.einsum("bchqk,bcqk,bckhp->bcqhp", Lm, scores, xw_c)
+
+    # chunk end-states
+    cum = torch.cumsum(da_c, dim=2)                         # (B,nc,Q,H)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)       # (B,nc,Q,H)
+    states = torch.einsum("bcqh,bcqn,bcqhp->bchpn", decay_to_end, B_c,
+                          xw_c)                             # (B,nc,H,P,N)
+
+    # the recurrence over the chunks: h_prev[:, c] is the state at the
+    # start of chunk c
+    chunk_decay = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0)
+    h_prev = []
+    for i in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, i, :, None, None] + states[:, i]
+    h_prev = torch.stack(h_prev, dim=1)                     # (B,nc,H,P,N)
+    final = (h_prev[:, -1] * chunk_decay[:, -1, :, None, None]
+             + states[:, -1])
+
+    # inter-chunk contribution
+    decay_from_start = torch.exp(cum)                       # (B,nc,Q,H)
+    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", C_c, h_prev,
+                           decay_from_start)
+    return (y_intra + y_inter).reshape(Bsz, S, H, P), final
+
+
+def _split_zxbcdt(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    d_inner, _, N = ssm_dims(cfg)
+    return torch.split(zxbcdt, [d_inner, d_inner, N, N,
+                                zxbcdt.shape[-1] - 2 * d_inner - 2 * N],
+                       dim=-1)
+
+
+def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``out_proj(out_norm(y) * silu(z))`` in ``dtype``."""
+    y = norm_fwd(p["out_norm"], y.to(dtype)) * torch.nn.functional.silu(z)
+    return (y @ p["out_proj"]).to(dtype)
+
+
+def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              return_cache: bool = False):
+    """The full-sequence Mamba2 mixer.  x: (B, S, D) -> (B, S, D); with
+    ``return_cache`` also the decode cache after the sequence: the final
+    float32 state and the last ``CONV_W - 1`` pre-convolution inputs
+    (pre-silu xBC) in the model dtype.  S is padded to a multiple of
+    ``ssm_chunk`` with zeros (dt 0 there: a decay of 1 and no input, so
+    the state is the one after position S - 1).  A cache needs at least
+    ``CONV_W - 1`` positions: a shorter prompt is refused, as the
+    reference's decode cannot take its shorter conv window."""
+    B, S, _ = x.shape
+    d_inner, H, N = ssm_dims(cfg)
+    if return_cache and S < CONV_W - 1:
+        raise ValueError(f"{cfg.name}: a prompt of {S} token(s) leaves a "
+                         f"conv window of {S} < {CONV_W - 1} positions; the "
+                         f"Mamba2 decode cache needs {CONV_W - 1}")
+    z, xs, Bm, Cm, dt_r = _split_zxbcdt(cfg, x @ p["in_proj"])
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)
+    conv = torch.nn.functional.silu(_causal_conv(xbc, p["conv_w"]))
+    xs, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
+    dt_h = _softplus(dt_r.float() + p["dt_bias"])
+    xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    pad = (-S) % cfg.ssm_chunk
+    if pad:
+        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt_h = torch.nn.functional.pad(dt_h, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    y, final = ssd_chunked(xh, dt_h, p["A_log"], Bm, Cm, cfg.ssm_chunk)
+    y = y[:, :S] + xh[:, :S] * p["D_skip"][None, None, :, None]
+    out = _gated_out(p, y.reshape(B, S, d_inner), z, x.dtype)
+    if return_cache:
+        return out, {"ssm": final,
+                     "conv": xbc[:, -(CONV_W - 1):].to(dtype_of(cfg))}
+    return out
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, device: torch.device
+                     ) -> Params:
+    """An empty (zero) mixer cache: the float32 state and the conv window
+    in the model dtype."""
+    d_inner, H, N = ssm_dims(cfg)
+    return {
+        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, CONV_W - 1, d_inner + 2 * N),
+                            dtype=dtype_of(cfg), device=device),
+    }
+
+
+def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params
+                 ) -> tuple[torch.Tensor, Params]:
+    """The one-token recurrent update.  x: (B, 1, D) -> ((B, 1, D),
+    cache): the conv window takes the new pre-convolution input and drops
+    its oldest, and the state decays by ``exp(dt * a)`` and takes ``dt B
+    x``, in float32.  Both are written into ``cache``'s tensors in place
+    (views into a stacked cache write through)."""
+    B = x.shape[0]
+    d_inner, H, N = ssm_dims(cfg)
+    z, xs, Bm, Cm, dt_r = _split_zxbcdt(cfg, x[:, 0] @ p["in_proj"])
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)                    # (B, C)
+    conv_hist = torch.cat([cache["conv"],
+                           xbc[:, None, :].to(cache["conv"].dtype)], dim=1)
+    conv = torch.einsum("bwc,wc->bc", conv_hist, p["conv_w"])
+    conv = torch.nn.functional.silu(conv)
+    xs, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
+    dt_h = _softplus(dt_r.float() + p["dt_bias"])            # (B, H)
+    decay = torch.exp(dt_h * -torch.exp(p["A_log"])[None, :])
+    xh = xs.reshape(B, H, cfg.ssm_head_dim).float()
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt_h, Bm.float(), xh)
+    h = cache["ssm"] * decay[..., None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h)
+    y = y + xh * p["D_skip"][None, :, None]
+    out = _gated_out(p, y.reshape(B, d_inner), z, x.dtype)[:, None, :]
+    cache["ssm"].copy_(h)
+    cache["conv"].copy_(conv_hist[:, 1:])
+    return out, cache

@@ -4,30 +4,41 @@ and one-token decode against a KV cache.
 
 Counterpart of ``repro.models.transformer`` for the attention-family
 architectures (granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b,
-phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b): the layer kinds ``global``,
-``local`` (sliding-window attention), ``moe`` and ``local_moe`` (the top-k
-MoE FFN in place of the MLP), un-scanned ``prefix_layers``, the attention
-and logit softcaps, RMSNorm and layernorm.  Parameter names, the stacked
-``blocks`` (a leading ``num_repeats`` axis, one ``l{i}`` entry per
-position of the block pattern), the ``prefix`` list and the arithmetic
-are the reference's.  The reference scans the repeat axis with
-``lax.scan``; here it is a Python loop over that axis, and autograd gives
-each stacked leaf its stacked gradient.
+phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b) and the Mamba2 ones (mamba2-780m,
+zamba2-2.7b): the layer kinds ``global``, ``local`` (sliding-window
+attention), ``moe`` and ``local_moe`` (the top-k MoE FFN in place of the
+MLP), ``mamba`` (the Mamba2/SSD mixer alone) and ``mamba_attn`` (the mixer,
+then zamba2's shared attention: one set of attention weights,
+``params["shared_attn"]["attn"]``, applied in every such layer and not
+stacked, so that autograd sums its gradient over the layers), un-scanned
+``prefix_layers``, the attention and logit softcaps, RMSNorm and
+layernorm, and tied embeddings (no ``lm_head``: the embedding is scaled
+by ``sqrt(d_model)`` on the way in and its transpose is the head).
+Parameter names, the stacked ``blocks`` (a leading ``num_repeats`` axis,
+one ``l{i}`` entry per position of the block pattern), the ``prefix``
+list and the arithmetic are the reference's.  The reference scans the
+repeat axis with ``lax.scan``; here it is a Python loop over that axis,
+and autograd gives each stacked leaf its stacked gradient.
 
 The decode cache is the reference's tree, ``{"pos", "prefix": [{"attn":
-{"k", "v"}}, ...], "blocks": {"l{i}": {"attn": {"k", "v"}}}}`` with each
-block k and v stacked to ``(num_repeats, B, L, KV, hd)`` (L the cache
-length, or the ring of a local layer).  ``cache["pos"]`` is an int32
-tensor on the cache's device: a scalar after :func:`prefill`, ``pos + 1``
-after each :func:`decode_step`, or the engine's (B,) vector of slot
-positions.  :func:`decode_step` writes the new keys and values into the
-cache in place (a functional update would copy the whole cache every
-step) and returns a new top-level dict that shares them.
+{"k", "v"}}, ...], "blocks": {"l{i}": {"attn": {"k", "v"}, "ssm": {"ssm",
+"conv"}}}}`` (an attention layer's ``attn``, a mixer's ``ssm``, both in a
+``mamba_attn`` layer) with each block leaf stacked to ``(num_repeats, B,
+...)``: k and v ``(num_repeats, B, L, KV, hd)`` (L the cache length, or
+the ring of a local layer), the mixer's state ``(num_repeats, B, H, P,
+N)`` in float32 and its conv window ``(num_repeats, B, CONV_W - 1, C)``.
+``cache["pos"]`` is an int32 tensor on the cache's device: a scalar after
+:func:`prefill`, ``pos + 1`` after each :func:`decode_step`, or the
+engine's (B,) vector of slot positions.  :func:`decode_step` writes the
+new keys and values, states and conv windows into the cache in place (a
+functional update would copy the whole cache every step) and returns a
+new top-level dict that shares them.
 
-:func:`check_supported` raises for what the port does not run (Mamba and
-cross-attention layers, image and audio frontends, tied embeddings, query
-and loss chunking, rematerialisation), and :func:`check_trainable`, which
-the training programs call, refuses the same.
+:func:`check_supported` raises for what the port does not run
+(cross-attention layers, image and audio frontends, query and loss
+chunking, rematerialisation, the split Mamba projections), and
+:func:`check_trainable`, which the training programs call, refuses the
+same.
 """
 from __future__ import annotations
 
@@ -41,7 +52,7 @@ from repro_torch.models import layers as L
 
 Params = dict[str, Any]
 
-KINDS = ("global", "local", "moe", "local_moe")
+KINDS = ("global", "local", "moe", "local_moe", "mamba", "mamba_attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -52,13 +63,17 @@ def check_supported(cfg: ModelConfig) -> None:
     if kinds:
         asked.append(f"layer kinds {sorted(kinds)}")
     for name in ("attn_q_chunk", "loss_seq_chunk", "encoder_layers",
-                 "num_image_tokens", "tie_embeddings", "remat_blocks"):
+                 "num_image_tokens", "remat_blocks"):
         if getattr(cfg, name):
             asked.append(name)
+    if cfg.mamba_split_proj:
+        asked.append("mamba_split_proj (a speed variant of the reference's "
+                     "launch/variants.py: ROADMAP.md queue 1 item 1.4)")
     if asked:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the attention-family transformer "
-            f"only; not ported: {', '.join(asked)} (see ROADMAP.md)")
+            f"{cfg.name}: the port runs the attention-family and Mamba2 "
+            f"transformers only; not ported: {', '.join(asked)} (see "
+            f"ROADMAP.md)")
     L.dtype_of(cfg)
 
 
@@ -77,9 +92,21 @@ def _is_moe(kind: str) -> bool:
     return kind in ("moe", "local_moe")
 
 
+def _is_mamba(kind: str) -> bool:
+    return kind in ("mamba", "mamba_attn")
+
+
 def _layer_spec(cfg: ModelConfig, kind: str) -> Params:
     """Attention and an MLP (``global``, ``local``) or the MoE FFN
-    (``moe``, ``local_moe``), each after a norm."""
+    (``moe``, ``local_moe``), each after a norm; or the Mamba2 mixer after
+    a norm (``mamba``), and the norm of the shared attention after it
+    (``mamba_attn``; its attention weights are the model's
+    ``shared_attn``)."""
+    if _is_mamba(kind):
+        spec = {"ln1": L.norm_spec(cfg), "mixer": L.mamba_spec(cfg)}
+        if kind == "mamba_attn":
+            spec["ln_sh"] = L.norm_spec(cfg)
+        return spec
     ffn = ("moe", L.moe_spec(cfg)) if _is_moe(kind) else (
         "mlp", L.mlp_spec(cfg))
     return {"ln1": L.norm_spec(cfg), "attn": L.attention_spec(cfg),
@@ -96,8 +123,15 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
 
 
 def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-               positions: torch.Tensor, aux: torch.Tensor
+               positions: torch.Tensor, aux: torch.Tensor,
+               shared: Params | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _is_mamba(kind):
+        x = x + L.mamba_fwd(p["mixer"], cfg, L.norm_fwd(p["ln1"], x))
+        if kind == "mamba_attn":
+            x = x + L.attention_fwd(shared["attn"], cfg,
+                                    L.norm_fwd(p["ln_sh"], x), positions)
+        return x, aux
     x = x + L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
                             positions, window=_window(cfg, kind))
     h, a = _ffn(p, cfg, x)
@@ -106,29 +140,59 @@ def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  device: torch.device) -> Params:
-    return {"attn": L.init_attn_cache(cfg, batch, cache_len, device,
-                                      _window(cfg, kind))}
+    cache = {}
+    if _is_mamba(kind):
+        cache["ssm"] = L.init_mamba_cache(cfg, batch, device)
+    if kind != "mamba":
+        cache["attn"] = L.init_attn_cache(cfg, batch, cache_len, device,
+                                          _window(cfg, kind))
+    return cache
 
 
 def _layer_prefill(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                   positions: torch.Tensor, seq_len: int, cache_len: int
+                   positions: torch.Tensor, seq_len: int, cache_len: int,
+                   shared: Params | None = None
                    ) -> tuple[torch.Tensor, Params]:
     window = _window(cfg, kind)
-    h, (k, v) = L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
-                                positions, window=window, return_kv=True)
-    cache = {"attn": L.kv_to_cache(cfg, k, v, seq_len, cache_len, window)}
+    cache: Params = {}
+    if _is_mamba(kind):
+        h, cache["ssm"] = L.mamba_fwd(p["mixer"], cfg,
+                                      L.norm_fwd(p["ln1"], x),
+                                      return_cache=True)
+        x = x + h
+        if kind == "mamba":
+            return x, cache
+        attn, norm = shared["attn"], p["ln_sh"]
+    else:
+        attn, norm = p["attn"], p["ln1"]
+    h, (k, v) = L.attention_fwd(attn, cfg, L.norm_fwd(norm, x), positions,
+                                window=window, return_kv=True)
+    cache["attn"] = L.kv_to_cache(cfg, k, v, seq_len, cache_len, window)
     x = x + h
+    if _is_mamba(kind):
+        return x, cache
     return x + _ffn(p, cfg, x)[0], cache
 
 
 def _layer_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                  cache: Params, pos: torch.Tensor
-                  ) -> tuple[torch.Tensor, Params]:
-    h, attn = L.attention_decode(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
-                                 cache["attn"], pos,
-                                 window=_window(cfg, kind))
+                  cache: Params, pos: torch.Tensor,
+                  shared: Params | None = None) -> torch.Tensor:
+    """One layer's decode step, its cache written in place; returns the
+    layer's output."""
+    if _is_mamba(kind):
+        h, _ = L.mamba_decode(p["mixer"], cfg, L.norm_fwd(p["ln1"], x),
+                              cache["ssm"])
+        x = x + h
+        if kind == "mamba":
+            return x
+        h, _ = L.attention_decode(shared["attn"], cfg,
+                                  L.norm_fwd(p["ln_sh"], x), cache["attn"],
+                                  pos)
+        return x + h
+    h, _ = L.attention_decode(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
+                              cache["attn"], pos, window=_window(cfg, kind))
     x = x + h
-    return x + _ffn(p, cfg, x)[0], {"attn": attn}
+    return x + _ffn(p, cfg, x)[0]
 
 
 def _map(tree: Any, fn) -> Any:
@@ -164,9 +228,10 @@ def _materialize(spec: Any, gen: torch.Generator, device: torch.device,
     tree one after another and stacking them, and the peak is the tensors
     plus one leaf's float32 draw."""
     lead = () if repeats is None else (repeats,)
-    out = _map(spec, lambda s: (torch.zeros if s.scale is None
-                                else torch.empty)(
-        (*lead, *s.shape), dtype=s.dtype, device=device))
+    out = _map(spec, lambda s: torch.empty(
+        (*lead, *s.shape), dtype=s.dtype, device=device)
+        if s.scale is not None else
+        torch.full((*lead, *s.shape), s.fill, dtype=s.dtype, device=device))
     drawn = [(s, t) for s, t in zip(_leaves(spec), _leaves(out))
              if s.scale is not None]
     for r in range(1 if repeats is None else repeats):
@@ -179,15 +244,19 @@ def _materialize(spec: Any, gen: torch.Generator, device: torch.device,
 
 def model_spec(cfg: ModelConfig) -> tuple[Params, Params]:
     """The ``layers.Leaf`` trees of :func:`init_model`: the unstacked
-    leaves (``embed``, ``final_norm``, ``lm_head`` and the ``prefix``
-    layers, when the config has any) and one repeat of ``blocks``."""
+    leaves (``embed``, ``final_norm``, ``lm_head`` unless the embeddings
+    are tied, the ``prefix`` layers and zamba2's ``shared_attn``, when the
+    config has them) and one repeat of ``blocks``."""
     check_supported(cfg)
     dt = L.dtype_of(cfg)
     top: Params = {
         "embed": L.dense((cfg.vocab_size, cfg.d_model), dt, scale=0.02),
         "final_norm": L.norm_spec(cfg),
-        "lm_head": L.dense((cfg.d_model, cfg.vocab_size), dt),
     }
+    if not cfg.tie_embeddings:
+        top["lm_head"] = L.dense((cfg.d_model, cfg.vocab_size), dt)
+    if "mamba_attn" in (*cfg.prefix_layers, *cfg.block_pattern):
+        top["shared_attn"] = {"attn": L.attention_spec(cfg)}
     if cfg.prefix_layers:
         top["prefix"] = [_layer_spec(cfg, kind) for kind in cfg.prefix_layers]
     block = {f"l{i}": _layer_spec(cfg, kind)
@@ -198,8 +267,10 @@ def model_spec(cfg: ModelConfig) -> tuple[Params, Params]:
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device: str | torch.device = "cuda") -> Params:
     """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``final_norm``,
-    ``lm_head`` (D, V), the ``prefix`` layers (a list, when the config has
-    any) and ``blocks`` stacked over ``num_repeats``.  Drawn on the
+    ``lm_head`` (D, V) unless the embeddings are tied, the shared
+    attention of ``mamba_attn`` layers, the ``prefix`` layers (a list,
+    when the config has any) and ``blocks`` stacked over
+    ``num_repeats``.  Drawn on the
     generator's device in a fixed order (so one seed gives the same
     parameters wherever they end up) into tensors on ``device``, each
     allocated once at its full (stacked) shape."""
@@ -212,15 +283,21 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
            ) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(L.dtype_of(cfg))
+    """The embedding rows, times ``sqrt(d_model)`` in the embedding's
+    dtype when the embeddings are tied."""
+    x = params["embed"][tokens.long()]
+    if cfg.tie_embeddings:
+        x = x * cfg.d_model ** 0.5
+    return x.to(L.dtype_of(cfg))
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
-    """The untied head in float32: (B, S, D) -> (B, S, V), softcapped by
+    """The head in float32: (B, S, D) -> (B, S, V) through ``lm_head``, or
+    ``embed``'s transpose when the embeddings are tied; softcapped by
     ``tanh(l / c) * c`` when the config has a ``logit_softcap`` c."""
-    logits = torch.einsum("bsd,dv->bsv", x.float(),
-                          params["lm_head"].float())
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x.float(), head.float())
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -240,13 +317,15 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    shared = params.get("shared_attn")
     for i, kind in enumerate(cfg.prefix_layers):
         x, aux = _layer_fwd(params["prefix"][i], cfg, kind, x, positions,
-                            aux)
+                            aux, shared)
     for r in range(cfg.num_repeats):
         block = _block(params["blocks"], r)
         for i, kind in enumerate(cfg.block_pattern):
-            x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux)
+            x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux,
+                                shared)
     return _logits(params, cfg, L.norm_fwd(params["final_norm"], x)), aux
 
 
@@ -261,8 +340,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: int | None = None) -> tuple[torch.Tensor, Params]:
     """Score the prompt and build the decode cache.  tokens: (B, S) int ->
     (last-position logits (B, V) float32, a cache of ``cache_len``
-    positions (default S; a local layer keeps its ring) ready for
-    :func:`decode_step` at ``pos = S``)."""
+    positions (default S; a local layer keeps its ring, a Mamba2 mixer its
+    state and conv window) ready for :func:`decode_step` at ``pos =
+    S``)."""
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -270,11 +350,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     cache: Params = {"pos": torch.full((), S, dtype=torch.int32,
                                        device=tokens.device)}
+    shared = params.get("shared_attn")
     if cfg.prefix_layers:
         cache["prefix"] = []
         for i, kind in enumerate(cfg.prefix_layers):
             x, c = _layer_prefill(params["prefix"][i], cfg, kind, x,
-                                  positions, S, cache_len)
+                                  positions, S, cache_len, shared)
             cache["prefix"].append(c)
     blocks = []
     for r in range(cfg.num_repeats):
@@ -282,7 +363,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         block_c = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, block_c[f"l{i}"] = _layer_prefill(block[f"l{i}"], cfg, kind,
-                                                 x, positions, S, cache_len)
+                                                 x, positions, S, cache_len,
+                                                 shared)
         blocks.append(block_c)
     cache["blocks"] = _stack(blocks)
     x = L.norm_fwd(params["final_norm"], x[:, -1:, :])
@@ -311,22 +393,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params) -> tuple[torch.Tensor, Params]:
     """token: (B, 1) int -> (logits (B, 1, V) float32, the cache at
-    ``pos + 1``).  The cache's k and v are written in place; a global
-    layer's attention goes through ``flash_decode`` when ``cache["pos"]``
-    is a scalar and the model has no attention softcap, every other
-    through the masked attention (see ``layers.attention_decode``)."""
+    ``pos + 1``).  The cache's k and v, states and conv windows are
+    written in place (each repeat's are views into the stacked leaves); a
+    global layer's attention, and zamba2's shared attention, goes through
+    ``flash_decode`` when ``cache["pos"]`` is a scalar and the model has
+    no attention softcap, every other through the masked attention (see
+    ``layers.attention_decode``)."""
     check_supported(cfg)
     pos = cache["pos"]
     x = _embed(params, cfg, token)
+    shared = params.get("shared_attn")
     for i, kind in enumerate(cfg.prefix_layers):
-        x, _ = _layer_decode(params["prefix"][i], cfg, kind, x,
-                             cache["prefix"][i], pos)
+        x = _layer_decode(params["prefix"][i], cfg, kind, x,
+                          cache["prefix"][i], pos, shared)
     for r in range(cfg.num_repeats):
         block = _block(params["blocks"], r)
         block_c = _block(cache["blocks"], r)
         for i, kind in enumerate(cfg.block_pattern):
-            x, _ = _layer_decode(block[f"l{i}"], cfg, kind, x,
-                                 block_c[f"l{i}"], pos)
+            x = _layer_decode(block[f"l{i}"], cfg, kind, x,
+                              block_c[f"l{i}"], pos, shared)
     x = L.norm_fwd(params["final_norm"], x)
     return _logits(params, cfg, x), {**cache, "pos": pos + 1}
 
@@ -352,7 +437,8 @@ def param_group_key(path_names: tuple[str, ...]) -> str:
     reference's: one group per position ``l{i}`` of the block pattern
     (its leaves stacked over ``num_repeats``), one per prefix layer
     (``prefix.#{i}``), ``head`` for ``lm_head``, one per other top-level
-    module (``embed``, ``final_norm``) and ``misc`` for an empty path."""
+    module (``embed``, ``final_norm``, ``shared_attn``) and ``misc`` for
+    an empty path."""
     if not path_names:
         return "misc"
     head = path_names[0]

@@ -55,8 +55,9 @@ def _slot_assign(cache_tree: Any, slot_cache: Any, slot: int) -> None:
     slot index ``slot``, in place, walking its dicts and lists (the
     ``prefix`` layers' caches).  Stacked leaves ``(repeats, B, ...)`` take
     ``(repeats, 1, ...)`` into ``[:, slot]``, plain ``(B, ...)`` leaves
-    ``(1, ...)`` into ``[slot]``; scalars and leaves of another rank (the
-    engine-owned position) are left alone."""
+    ``(1, ...)`` into ``[slot]`` (a Mamba2 mixer's state and conv window
+    are stacked leaves like k and v); scalars and leaves of another rank
+    (the engine-owned position) are left alone."""
     if isinstance(cache_tree, dict):
         for key, full in cache_tree.items():
             if key in slot_cache:

@@ -40,7 +40,8 @@ from repro_torch.kernels.ref import flash_decode_ref
 
 PALLAS_CASES = [(2, 2, 4, 64, 1024, 1000), (1, 4, 1, 32, 512, 511),
                 (3, 1, 8, 16, 1024, 37), (1, 8, 2, 128, 512, 200),
-                (2, 2, 8, 112, 1024, 700)]   # kimi-k2: hd 112, G 8
+                (2, 2, 8, 112, 1024, 700),   # kimi-k2: hd 112, G 8
+                (2, 4, 1, 80, 1024, 900)]    # zamba2: hd 80, G 1
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-6
 
 
@@ -161,7 +162,7 @@ def test_wrapper_refuses_a_pos_that_is_not_one_integer(pos):
 
 
 def test_supported_set():
-    assert HEAD_DIMS == (64, 112, 128, 256) and MAX_GROUP == 8
+    assert HEAD_DIMS == (64, 80, 112, 128, 256) and MAX_GROUP == 8
 
 
 @pytest.mark.parametrize("length,rows,sms,tile,want", [
@@ -192,6 +193,9 @@ H100_SMEM = (232_448, 233_472, 1_024)
     (1 << 20, 1, 128, (4096, 256, 3, 2)),  # one row: MAX_SPLITS splits
     (160, 32, 112, (192, 1, 3, 2)),       # kimi-k2's serve loop, as hd 128
     (32_768, 32, 112, (4096, 8, 3, 2)),
+    (160, 128, 80, (192, 1, 3, 2)),       # zamba2's serve loop, as hd 128
+    (32_768, 128, 80, (16384, 2, 3, 2)),  # zamba2's 4 x 32 rows: 2 splits
+    (32_768, 32, 80, (4096, 8, 3, 2)),
 ])
 def test_ring_plan_at_the_paths_shapes(length, rows, hd, want):
     assert ring_plan(length, rows, 132, hd, H100_SMEM) == want
@@ -243,9 +247,9 @@ def test_ring_swizzle_spreads_each_read_over_the_banks():
     (piece c of row r at piece c ^ (r % 8)), each on a 1024-byte boundary.
     The 8 rows an ldmatrix reads, one piece each, land on 8 distinct
     pieces, and a warp's p . v read of one row of v (a 32nd of the row's
-    columns a lane, hd padded to whole boxes: 4 at hd 112, whose last 16
-    columns the kernel loads and never reads) touches every piece of each
-    box row once."""
+    columns a lane, hd padded to whole boxes: 4 at hd 80 and 112, whose
+    last 48 and 16 columns the kernel loads and never reads) touches
+    every piece of each box row once."""
     for hd in HEAD_DIMS:
         assert ring_stage_bytes(hd) % 1024 == 0
         for c in range(8):

@@ -25,7 +25,7 @@ and to the streamed ``embedding_bag_grad``.  ``flash_decode`` splits the
 cache across blocks and sums in another order than its plain version's
 512-position blocks: bf16 outputs within one bf16 ulp (rtol 2**-7, atol
 1e-6), f32 outputs within rtol 1e-5, atol 1e-6, at every head dim it
-takes (64, 112, 128, 256).
+takes (64, 80, 112, 128, 256).
 """
 import dataclasses
 
@@ -981,6 +981,33 @@ def test_flash_decode_at_head_dim_112(g, length, dtype, where):
     _flash_close(got, flash_decode_ref(q, k, v, pos))
 
 
+# zamba2's shared attention: hd 80 (a multiple of 16, not of 32), 32 KV
+# heads, G 1
+HD80_LENGTHS = (1, 63, 160, 700, 32_768)
+
+
+@pytest.mark.parametrize("where", ["last slot", "mid-cache"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("length", HD80_LENGTHS)
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_decode_at_head_dim_80(g, length, dtype, where):
+    """hd 80 on both paths (the bf16 ring's second box 48 columns past the
+    row, the f32 path's 128 threads of 4 values a lane, lanes 20-31
+    idle), held to the plain version, at zamba2's 32 KV heads."""
+    _need_card()
+    b, kv = 2, 32
+    q, k, v = _flash_inputs(b, length, kv, g, 80, dtype, seed=g + length)
+    pos = length - 1 if where == "last slot" else length // 2
+    launches = flash_decode.launches
+    got = flash_decode(q, k, v, torch.tensor(pos, dtype=torch.int32,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    assert flash_decode.launches == launches + 1
+    assert got.dtype == dtype and got.shape == (b, kv, g, 80)
+    _flash_close(got, flash_decode_ref(q, k, v, pos))
+
+
 def test_flash_decode_masks_everything_below_zero_as_the_tpu_kernel():
     """pos < 0 masks every position: all scores are -1e30 and the output
     is the mean of v, as in the TPU kernel and the plain version."""
@@ -1152,6 +1179,52 @@ def test_full_width_layers_decode_through_their_route(arch):
     torch.cuda.empty_cache()
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_full_width_ssm_layers_decode_through_their_route(arch):
+    """One repeat of each Mamba2 arch's pattern at full width, bf16 (1
+    mixer layer of mamba2-780m; 5 mixer layers and one mixer with the
+    shared attention at hd 80 of zamba2-2.7b): 6 decode steps at a scalar
+    position (the shared attention through ``flash_decode``, one launch a
+    step) against the same steps at a (B,) vector of that position (the
+    masked attention), both fed the scalar run's tokens: logits within
+    2**-6 of the largest.  mamba2 launches no kernel."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
+    params = T.init_model(
+        cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 72), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+    kernel_layers = sum(k == "mamba_attn" for k in cfg.block_pattern)
+
+    def run(vector, tokens=None):
+        logits, cache = T.prefill(params, cfg, prompts, cache_len=80)
+        if vector:
+            cache["pos"] = cache["pos"].expand(2).clone()
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        out, seen = [tok], []
+        for i in range(6):
+            lg, cache = T.decode_step(params, cfg, tok if tokens is None
+                                      else tokens[:, i:i + 1], cache)
+            seen.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+        return torch.cat(out, 1), torch.cat(seen, 1)
+
+    launches = flash_decode.launches
+    tokens, logits = run(False)
+    assert flash_decode.launches == launches + 6 * kernel_layers
+    _, masked = run(True, tokens)
+    assert flash_decode.launches == launches + 6 * kernel_layers
+    assert bool(torch.isfinite(logits).all())
+    err = (logits - masked).abs().max().item()
+    assert err <= 2.0**-6 * masked.abs().max().item(), err
+    del params
+    torch.cuda.empty_cache()
+
+
 def test_full_width_moe_layer_trains_on_the_card_as_on_the_cpu():
     """phi3.5-moe's MoE FFN at full width (d_model 4096, 16 experts of
     d_ff 6400, top 2) in float32, forward and backward on the card
@@ -1289,6 +1362,7 @@ def test_planned_shared_memory_is_the_kernels(kernel):
     lib = runtime.load_library(kernel)
     if kernel == "flash_decode":
         own = lib.repro_flash_decode_ring_smem_bytes
+        assert 80 in fd.HEAD_DIMS
         cases = [((hd, stages), fd.ring_smem_bytes(hd, stages))
                  for hd in fd.HEAD_DIMS
                  for stages in range(fd.MAX_STAGES + 1)]

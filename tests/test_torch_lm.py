@@ -120,14 +120,15 @@ def test_config_matches_the_reference(reduced):
 
 
 PORTED = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
-          "kimi-k2-1t-a32b")
+          "kimi-k2-1t-a32b", "mamba2-780m", "zamba2-2.7b")
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "granite-8b"])
 def test_archs_not_ported_raise_and_name_the_roadmap(arch):
-    """The four architectures that need a Mamba2 mixer or a frontend
-    raise, naming ROADMAP.md; the five attention-family ones are ported,
-    equal the reference's configs, full and reduced, and train."""
+    """The two architectures that need an image or audio frontend raise,
+    naming ROADMAP.md; the five attention-family ones and the two Mamba2
+    ones are ported, equal the reference's configs, full and reduced, and
+    train."""
     if arch not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
@@ -265,15 +266,15 @@ FEATURES = {
 
 # the features the port serves and trains
 SERVED = ("moe", "prefix", "logit-softcap", "attn-softcap", "window",
-          "layernorm")
+          "layernorm", "mamba", "tied")
 
 
 @pytest.mark.parametrize("feature", sorted(FEATURES))
 def test_check_supported_raises_for_what_is_not_ported(feature):
-    """The features of the attention-family archs build and run a reduced
-    model (forward, prefill, two decode steps; finite logits) and train (a
-    finite gradient for every leaf); the rest are refused outright, for
-    training too."""
+    """The features of the attention-family and Mamba2 archs build and
+    run a reduced model (forward, prefill, two decode steps; finite
+    logits) and train (a finite gradient for every leaf); the rest are
+    refused outright, for training too."""
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               **FEATURES[feature])
     gen = torch.Generator().manual_seed(0)
@@ -533,7 +534,7 @@ def test_train_cli_runs_the_pytree_step_with_adam_on_the_cpu():
      "a model axis above 1 is not ported"),
     (("--arch", "kimi-k2-1t-a32b", "--reduced", "--mesh", "4x1"),
      "pytree step over PS workers is not ported"),
-    (("--arch", "mamba2-780m", "--reduced"), "not ported yet"),
+    (("--arch", "llama-3.2-vision-11b", "--reduced"), "not ported yet"),
 ])
 def test_train_cli_refuses_what_the_port_does_not_run(args, says):
     proc = _train(*args, "--device", "cpu")
