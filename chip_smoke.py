@@ -94,7 +94,14 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   80 after every sixth mixer; 2.34 G parameters): the fixed-batch loop at
   batch 4 x 128, 31 decode steps, zamba2's two attention routes and its
   engine, and the fused step at the largest M of (4, 2, 1) that fits, on
-  one layout while N < 2^31 and over layer-grouped shards past it.
+  one layout while N < 2^31 and over layer-grouped shards past it;
+* LM serving of the architectures with cross layers at full width and
+  full depth, bf16: llama-3.2-vision-11b (40 layers, a cross layer every
+  fifth over 1,601 stub image embeddings; 10.1 G parameters) and
+  seamless-m4t-medium (12 causal encoder layers over 1,024 stub frames,
+  then 12 cross layers over their output, layernorm, hd 64; 0.98 G
+  parameters): the fixed-batch loop at batch 4 x 128, 31 decode steps,
+  the kernel and masked routes and the engine.
 
 Phases:
 
@@ -270,7 +277,24 @@ Phases:
     float32, card against CPU, as phase 18 (b) (zamba2's flat state
     within rtol 1e-4: its stack of 6 layers carries float32 rounding
     about ten times further);
-20. one JSON line of the kernels, then the result line.
+20. the cross archs at full width and full depth: (a) for each, its
+    memory (``serve.make_memory``; seamless's through ``encode_audio``,
+    timed) and the fixed-batch loop of phase 17 (a) over it
+    (``flash_decode`` launches a step: 48 for llama-3.2-vision-11b, 40
+    self-attention and 8 cross-attention, 24 for seamless-m4t-medium,
+    12 and 12; each launch shape held to the plain version on the path's
+    inputs: hd 128 G 4 at 160 and 1,601 positions, hd 64 G 1 at 160 and
+    1,024); (b) the kernel route held to the masked route (the
+    cross-attention's too), a prefill of 4 x 128 and 8 steps fed the same
+    tokens, within 2**-6 of the largest; (c) the engine, which serves
+    them without a memory as the reference's does, against the offline
+    greedy decode; (d) each ``.reduced()`` in float32 from one memory
+    draw, card against CPU, seamless's encoder output within 1e-5 of its
+    largest, logits within 1e-5 and greedy tokens equal; (e)
+    ``flash_decode`` at (4, 1601, 8, 4, 128), (4, 160, 16, 1, 64) and (4,
+    1024, 16, 1, 64) at their last position timed against its plain
+    version, its bound and SDPA;
+21. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -282,7 +306,8 @@ each of its NCCL switching runs and its NCCL sharded fused step, each
 architecture's serve loop, gemma3-12b's ring and its engine, each
 architecture's training run, each Mamba2 architecture's serve loop,
 zamba2's kernel route and its engine, each Mamba2 architecture's
-training run)
+training run, each cross architecture's serve loop, kernel route and
+engine)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -2646,11 +2671,14 @@ class plain_flash:
         self.ops.flash_decode = self.saved
 
 
-def _forced(T: dict, params, cfg, prompts, tokens, cache_len: int):
-    """Prefill, then decode fed ``tokens`` (B, n): the logits (B, n, V) of
-    the prefill and of each of the n - 1 steps, and the cache after."""
+def _forced(T: dict, params, cfg, prompts, tokens, cache_len: int,
+            memory=None):
+    """Prefill (over ``memory``, for cross layers), then decode fed
+    ``tokens`` (B, n): the logits (B, n, V) of the prefill and of each of
+    the n - 1 steps, and the cache after."""
     Tm = T["transformer"]
-    logits, cache = Tm.prefill(params, cfg, prompts, cache_len=cache_len)
+    logits, cache = Tm.prefill(params, cfg, prompts, memory,
+                               cache_len=cache_len)
     out = [logits[:, None]]
     for i in range(tokens.shape[1] - 1):
         lg, cache = Tm.decode_step(params, cfg, tokens[:, i:i + 1], cache)
@@ -3019,10 +3047,11 @@ def serve_phase(T: dict, counters) -> dict:
     return out
 
 
-def serve_row(serve: dict, archs: dict, ssm: dict) -> dict:
+def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict) -> dict:
     """The kernels line's row of ``flash_decode``, timed at decode_32k;
-    its shapes also at the head dims of phase 17's architectures and of
-    zamba2's shared attention (phase 19)."""
+    its shapes also at the head dims of phase 17's architectures, of
+    zamba2's shared attention (phase 19) and of the cross archs (phase
+    20)."""
     by_path = {
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
@@ -3041,8 +3070,14 @@ def serve_row(serve: dict, archs: dict, ssm: dict) -> dict:
         ssm["zamba2-2.7b"]["routes"]["launches"]["flash_decode"]
     by_path["ssm_zamba2-2.7b_engine"] = \
         ssm["zamba2-2.7b"]["engine"]["launches"]["flash_decode"]
+    for arch in CROSS_ARCHS:
+        by_path[f"cross_{arch}"] = cross[arch]["launches"]["flash_decode"]
+        by_path[f"cross_{arch}_routes"] = \
+            cross[arch]["routes"]["launches"]["flash_decode"]
+        by_path[f"cross_{arch}_engine"] = \
+            cross[arch]["engine"]["launches"]["flash_decode"]
     timed = (serve["flash_decode"]["timed"] + archs["flash_decode"]
-             + ssm["flash_decode"])
+             + ssm["flash_decode"] + cross["flash_decode"])
     at = serve["flash_decode"]["timed"][-1]
     return {
         "name": "flash_decode",
@@ -3054,7 +3089,9 @@ def serve_row(serve: dict, archs: dict, ssm: dict) -> dict:
         "max_abs_err": max([serve["flash_decode"]["max_abs_err"]] + [
             h["max_abs_err"] for arch in ARCHS
             for h in archs[arch]["flash_held"]] + [
-            h["max_abs_err"] for h in ssm["zamba2-2.7b"]["flash_held"]]),
+            h["max_abs_err"] for h in ssm["zamba2-2.7b"]["flash_held"]] + [
+            h["max_abs_err"] for arch in CROSS_ARCHS
+            for h in cross[arch]["flash_held"]]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
@@ -4122,14 +4159,18 @@ ARCHS = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
 SERVE_ROOM_GB, SLACK_GB = 2.0, 0.5
 # flash_decode launches a decode step at a depth: one a global layer
 # without an attention softcap (gemma3-12b's sixth layer, every layer of
-# phi3.5-moe and kimi-k2; zamba2-2.7b's sixth, the shared attention)
+# phi3.5-moe and kimi-k2; zamba2-2.7b's sixth, the shared attention), two
+# a cross layer (its self-attention and its cross-attention; every fifth
+# of llama-3.2-vision-11b, all of seamless-m4t-medium's)
 ARCH_KERNEL_LAYERS = {"gemma2-27b": lambda d: 0,
                       "gemma3-12b": lambda d: d // 6,
                       "starcoder2-3b": lambda d: 0,
                       "phi3.5-moe-42b-a6.6b": lambda d: d,
                       "kimi-k2-1t-a32b": lambda d: d,
                       "mamba2-780m": lambda d: 0,
-                      "zamba2-2.7b": lambda d: d // 6}
+                      "zamba2-2.7b": lambda d: d // 6,
+                      "llama-3.2-vision-11b": lambda d: d + d // 5,
+                      "seamless-m4t-medium": lambda d: 2 * d}
 # the fixed-batch loop: B prompts of P tokens, G generated (cache 160)
 ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 128, 32
 # gemma3-12b's ring at full width: a prompt past its window of 1,024
@@ -4187,13 +4228,15 @@ def fit_depth(T: dict, full) -> tuple[int, str]:
 
 
 def kernel_layers(cfg) -> int:
-    """Layers whose decode at a scalar position launches ``flash_decode``:
-    the global ones and zamba2's shared-attention ones, in a model without
-    an attention softcap."""
+    """``flash_decode`` launches of a decode step at a scalar position, in
+    a model without an attention softcap: one a global layer and a
+    zamba2 shared-attention layer, two a cross layer (self- and
+    cross-attention)."""
     if cfg.attn_softcap:
         return 0
     kinds = (*cfg.prefix_layers, *cfg.block_pattern * cfg.num_repeats)
-    return sum(k in ("global", "moe", "mamba_attn") for k in kinds)
+    return sum(k in ("global", "moe", "mamba_attn") for k in kinds) \
+        + 2 * sum(k == "cross" for k in kinds)
 
 
 class record_flash:
@@ -4211,13 +4254,30 @@ class record_flash:
             key = (*k.shape, q.shape[2])
             if key not in self.calls:
                 self.calls[key] = (q.clone(), k.clone(), v.clone(),
-                                   pos.clone(), out.clone())
+                                   pos.clone() if isinstance(
+                                       pos, torch.Tensor) else pos,
+                                   out.clone())
             return out
         self.ops.flash_decode = spy
         return self
 
     def __exit__(self, *exc):
         self.ops.flash_decode = self.saved
+
+
+class masked_cross:
+    """Within the block, the cross-attention decode takes the masked
+    route (``layers.cross_kernel`` says no)."""
+
+    def __init__(self, T: dict):
+        self.layers = T["layers"]
+
+    def __enter__(self):
+        self.saved = self.layers.cross_kernel
+        self.layers.cross_kernel = lambda cfg: False
+
+    def __exit__(self, *exc):
+        self.layers.cross_kernel = self.saved
 
 
 class record_routes:
@@ -4242,7 +4302,9 @@ class record_routes:
 
 
 def arch_serve(T: dict, arch: str, counters) -> dict:
-    """(a) one architecture at full width: init, the fixed-batch loop of
+    """(a) one architecture at full width: init, the memory of a model
+    with cross layers (``serve.make_memory``: image embeddings, or frames
+    through the audio encoder, timed), the fixed-batch loop of
     ``launch.serve`` counted, and each ``flash_decode`` shape of one more
     decode step held to the plain version on its own inputs."""
     Tm, serve = T["transformer"], T["serve"]
@@ -4268,12 +4330,20 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
     prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, ARCH_PROMPT),
                             generator=torch.Generator("cuda").manual_seed(1),
                             device="cuda")
-    serve.run_fixed_batch(params, cfg, prompts, 2, log=lambda _: None)
+    t0 = time.perf_counter()
+    memory = serve.make_memory(params, cfg, ARCH_BATCH, torch.device("cuda"))
+    torch.cuda.synchronize()
+    if memory is not None:
+        out["memory_ms"] = (time.perf_counter() - t0) * 1e3
+        out["memory_shape"] = list(memory.shape)
+        check(bool(torch.isfinite(memory).all()), f"{arch}: finite memory")
+    serve.run_fixed_batch(params, cfg, prompts, 2, memory=memory,
+                          log=lambda _: None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters(reset=True)
     res = serve.run_fixed_batch(params, cfg, prompts, ARCH_GEN,
-                                log=lambda _: None)
+                                memory=memory, log=lambda _: None)
     torch.cuda.synchronize()
     launches = counters()
     steps = res["decode_steps"]
@@ -4295,7 +4365,7 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
         "launches": launches})
     # one more step from the loop's prompts and tokens: every launch shape
     # held to the plain version on the inputs the path gave it
-    _, cache = Tm.prefill(params, cfg, prompts,
+    _, cache = Tm.prefill(params, cfg, prompts, memory,
                           cache_len=ARCH_PROMPT + ARCH_GEN)
     with record_flash(T) as rec:
         logits, _ = Tm.decode_step(params, cfg, tokens[:, :1], cache)
@@ -4312,8 +4382,9 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
               f" {kv}, {g}, {hd}) at pos {int(pos)}: max |err| {err!r} "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{arch}: flash_decode held to the plain version")
-    check(len(rec.calls) == (1 if want else 0),
-          f"{arch}: one launch shape on the path")
+    shapes = (1 if want else 0) + ("cross" in cfg.block_pattern)
+    check(len(rec.calls) == shapes,
+          f"{arch}: {shapes} launch shape(s) on the path")
     out["flash_held"] = held
     print(f"  {arch}, {depth} of {full.num_layers} layers, {out['params']:,}"
           f" params ({out['weights_gb']!r} GB), init {out['init_s']:.1f} s, "
@@ -4321,16 +4392,20 @@ def arch_serve(T: dict, arch: str, counters) -> dict:
           f"{ARCH_PROMPT}, gen {ARCH_GEN}: prefill {out['prefill_ms']!r} ms,"
           f" decode {out['decode_step_ms']!r} ms a step, "
           f"{out['tokens_per_s']!r} tok/s, peak {out['peak_gb']!r} GB; "
-          f"launches {json.dumps(launches)}")
-    return out, cfg, params
+          f"launches {json.dumps(launches)}"
+          + (f"; memory {out['memory_shape']} in {out['memory_ms']!r} ms"
+             if memory is not None else ""))
+    return out, cfg, params, memory
 
 
 def route_check(T: dict, cfg, params, counters, prompt_len: int,
-                steps: int, seed: int, on_prefill=None) -> dict:
-    """A prefill of B x ``prompt_len`` tokens, then ``steps`` decode steps
-    at a scalar position (the global and shared-attention layers through
-    ``flash_decode``, counted), held to the same steps at a (B,) vector of
-    that position (every layer through the masked attention) fed the same
+                steps: int, seed: int, on_prefill=None,
+                memory=None) -> dict:
+    """A prefill of B x ``prompt_len`` tokens (over ``memory``, for cross
+    layers), then ``steps`` decode steps at a scalar position (the global,
+    shared-attention and cross layers through ``flash_decode``, counted),
+    held to the same steps at a (B,) vector of that position (every layer
+    through the masked attention, the cross-attention too) fed the same
     tokens: logits within 2**-6 of the largest.  ``on_prefill`` sees the
     prefill's cache."""
     Tm = T["transformer"]
@@ -4340,7 +4415,7 @@ def route_check(T: dict, cfg, params, counters, prompt_len: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = Tm.prefill(params, cfg, prompts,
+    logits, cache = Tm.prefill(params, cfg, prompts, memory,
                                cache_len=prompt_len + steps)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -4365,9 +4440,10 @@ def route_check(T: dict, cfg, params, counters, prompt_len: int,
           f"{cfg.name} routes: flash_decode launches "
           f"{launches['flash_decode']}")
     masked = []
-    for tok in tokens:
-        lg, vec = Tm.decode_step(params, cfg, tok, vec)
-        masked.append(lg)
+    with masked_cross(T):
+        for tok in tokens:
+            lg, vec = Tm.decode_step(params, cfg, tok, vec)
+            masked.append(lg)
     kern, masked = torch.cat(seen, 1), torch.cat(masked, 1)
     check(bool(torch.isfinite(kern).all()), f"{cfg.name}: finite logits")
     err = (kern - masked).abs().max().item()
@@ -4403,11 +4479,12 @@ def ring_phase(T: dict, cfg, params, counters) -> dict:
 
 
 def arch_engine(T: dict, cfg, params, counters) -> dict:
-    """(c) the engine on gemma3-12b (and zamba2-2.7b in phase 19): 8
-    requests in 4 slots, every request complete, the per-slot positions
-    through the masked attention, each request's first token equal to its
-    offline greedy decode's (the rest counted: bf16 routes may round
-    apart)."""
+    """(c) the engine on gemma3-12b (and zamba2-2.7b in phase 19, the
+    cross archs in phase 20, which it serves without a memory, as the
+    reference's engine does): 8 requests in 4 slots, every request
+    complete, the per-slot positions through the masked attention, each
+    request's first token equal to its offline greedy decode's (the rest
+    counted: bf16 routes may round apart)."""
     S = T["S"]
     eng = S.ServingEngine(S.StaticSource(params), cfg,
                           num_slots=ENGINE_SLOTS,
@@ -4440,26 +4517,53 @@ def arch_engine(T: dict, cfg, params, counters) -> dict:
             "tokens": total}
 
 
+def host_memory(T: dict, cfg, host: dict, card: dict) -> tuple:
+    """The cross layers' memory on the CPU and on the card from one host
+    draw (image embeddings, or frames that each side's ``encode_audio``
+    encodes), or (None, None) for a model without one."""
+    if cfg.family not in ("vlm", "audio"):
+        return None, None
+    rows = cfg.num_image_tokens or cfg.encoder_frames
+    x = torch.randn((ARCH_BATCH, rows, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    if cfg.family == "vlm":
+        return x, x.cuda()
+    enc = T["transformer"].encode_audio
+    return enc(host, cfg, x), enc(card, cfg, x.cuda())
+
+
 def arch_card_vs_cpu(T: dict, arch: str) -> dict:
     """(d) ``.reduced()`` in float32, card against CPU from the same
-    weights: the fixed-batch loop on the card, then prefill and 8 steps
-    teacher-forced on both; logits within 1e-5 of the largest, greedy
-    tokens equal, and every MoE layer's expert choices and kept entries
-    equal."""
+    weights (and the same memory draw, for cross layers; the audio
+    encoder's output held within 1e-5 of its largest): the fixed-batch
+    loop on the card, then prefill and 8 steps teacher-forced on both;
+    logits within 1e-5 of the largest, greedy tokens equal, and every MoE
+    layer's expert choices and kept entries equal."""
     cfg = dataclasses.replace(T["get_config"](arch).reduced(),
                               dtype="float32")
     host = T["transformer"].init_model(
         cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     card = T["tree_to_device"](host, torch.device("cuda"))
+    mem_host, mem_card = host_memory(T, cfg, host, card)
+    out = {}
+    if cfg.family == "audio":
+        err = (mem_card.cpu() - mem_host).abs().max().item()
+        scale = mem_host.abs().max().item()
+        print(f"  {arch} reduced f32 encode_audio card vs CPU: max |diff| "
+              f"{err!r} of {scale!r}")
+        check(err <= SERVE_HOLD_FRAC * scale, f"{arch}: card vs CPU memory")
+        out["memory_max_abs_diff"] = err
     prompts = torch.randint(0, cfg.vocab_size, (ARCH_BATCH, 80),
                             generator=torch.Generator().manual_seed(1))
     res = T["serve"].run_fixed_batch(card, cfg, prompts.cuda(), 9,
-                                     log=lambda _: None)
+                                     memory=mem_card, log=lambda _: None)
     tokens = res["tokens"]
     with record_routes(T) as on_card_routes:
-        on_card, _ = _forced(T, card, cfg, prompts.cuda(), tokens, 90)
+        on_card, _ = _forced(T, card, cfg, prompts.cuda(), tokens, 90,
+                             mem_card)
     with record_routes(T) as on_host_routes:
-        on_host, _ = _forced(T, host, cfg, prompts, tokens.cpu(), 90)
+        on_host, _ = _forced(T, host, cfg, prompts, tokens.cpu(), 90,
+                             mem_host)
     err = (on_card.cpu() - on_host).abs().max().item()
     scale = on_host.abs().max().item()
     same = bool(torch.equal(on_host.argmax(-1), tokens.cpu()))
@@ -4475,7 +4579,7 @@ def arch_card_vs_cpu(T: dict, arch: str) -> dict:
     check(err <= SERVE_HOLD_FRAC * scale, f"{arch}: card vs CPU logits")
     check(same, f"{arch}: card vs CPU greedy tokens")
     check(same_routes, f"{arch}: card vs CPU expert choices")
-    return {"logit_max_abs_diff": err, "logit_max_abs": scale,
+    return {**out, "logit_max_abs_diff": err, "logit_max_abs": scale,
             "moe_routes": len(routes)}
 
 
@@ -4487,7 +4591,7 @@ def archs_phase(T: dict, counters) -> dict:
           f"{torch.cuda.memory_allocated() / 1e9!r} GB")
     out = {}
     for arch in ARCHS:
-        row, cfg, params = arch_serve(T, arch, counters)
+        row, cfg, params, _ = arch_serve(T, arch, counters)
         if arch == "gemma3-12b":
             row["ring"] = ring_phase(T, cfg, params, counters)
             row["engine"] = arch_engine(T, cfg, params, counters)
@@ -4886,7 +4990,7 @@ def ssm_phase(T: dict, counters) -> dict:
     torch.cuda.empty_cache()
     out = {}
     for arch in SSM_ARCHS:
-        row, cfg, params = arch_serve(T, arch, counters)
+        row, cfg, params, _ = arch_serve(T, arch, counters)
         check(row["layers"] == row["of_layers"], f"{arch}: full depth")
         if arch == "zamba2-2.7b":
             row["routes"] = route_check(T, cfg, params, counters,
@@ -4911,6 +5015,47 @@ def ssm_phase(T: dict, counters) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 19: {out['seconds']:.1f} s; trained at depths "
           f"{[out[f'train_{a}']['depth'] for a in SSM_ARCHS]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: LM serving, the archs with cross layers at full width
+
+CROSS_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-medium")
+# the kernel at the cross archs' new shapes: llama's cross-attention over
+# its 1,601 image tokens, seamless's self-attention (the serve loop's last
+# step) and its cross-attention over 1,024 frames (hd 64, G 1, 16 KV heads)
+CROSS_FLASH_TIMED = ((4, 1601, 8, 4, 128, 1600), (4, 160, 16, 1, 64, 159),
+                     (4, 1024, 16, 1, 64, 1023))
+
+
+def cross_phase(T: dict, counters) -> dict:
+    """llama-3.2-vision-11b and seamless-m4t-medium at full width and all
+    their layers: (a) the fixed-batch loop over the memory (48 and 24
+    ``flash_decode`` launches a step), each launch shape held to the plain
+    version; (b) the kernel route against the masked route over the same
+    memory; (c) the engine, without a memory; (d) each ``.reduced()`` f32
+    card vs CPU; then the kernel timed at the new shapes."""
+    phase(20, "LM serving: llama-3.2-vision-11b and seamless-m4t-medium at "
+              "full width")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for arch in CROSS_ARCHS:
+        row, cfg, params, memory = arch_serve(T, arch, counters)
+        check(row["layers"] == row["of_layers"], f"{arch}: full depth")
+        row["routes"] = route_check(T, cfg, params, counters, ARCH_PROMPT,
+                                    SSM_ROUTE_STEPS, 5, memory=memory)
+        row["engine"] = arch_engine(T, cfg, params, counters)
+        del params, memory
+        torch.cuda.empty_cache()
+        row["reduced_f32"] = arch_card_vs_cpu(T, arch)
+        out[arch] = row
+    gen = torch.Generator("cuda").manual_seed(8)
+    out["flash_decode"] = [flash_timed(T, gen, shape, sleep_cycles_per_ms())
+                           for shape in CROSS_FLASH_TIMED]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 20: {out['seconds']:.1f} s")
     return out
 
 
@@ -5131,8 +5276,10 @@ def main() -> int:
     trained = train_phase(T, counters)
     torch.cuda.empty_cache()
     ssm = ssm_phase(T, counters)
+    torch.cuda.empty_cache()
+    cross = cross_phase(T, counters)
 
-    phase(20, "kernels")
+    phase(21, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -5165,6 +5312,7 @@ def main() -> int:
         "lm_archs": archs,
         "lm_archs_train": trained,
         "lm_ssm": ssm,
+        "lm_cross": cross,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -5277,7 +5425,7 @@ def main() -> int:
         "shapes": [apply_row, trained["starcoder2-3b"]["gba_apply"]],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
-        serve_row(served, archs, ssm)]}))
+        serve_row(served, archs, ssm, cross)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

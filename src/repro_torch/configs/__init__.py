@@ -1,14 +1,13 @@
 """Configs of the port: the recsys models and the LM registry.
 
 ``get_config("<arch-id>")`` knows the ten architecture ids of
-``repro.configs``.  The port runs the attention-family transformers
-(global and sliding-window attention, softcaps, layernorm, the top-k MoE
-and prefix layers) and the Mamba2/SSD models (mamba2-780m, and
-zamba2-2.7b with its shared attention), so it returns granite-8b,
-gemma2-27b, gemma3-12b, starcoder2-3b, phi3.5-moe-42b-a6.6b,
-kimi-k2-1t-a32b, mamba2-780m and zamba2-2.7b, and raises
-``NotImplementedError`` for the other two (an image or audio frontend),
-which wait in ROADMAP.md's queue of modules to port.
+``repro.configs`` and returns each: the attention-family transformers
+(granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b, phi3.5-moe-42b-a6.6b,
+kimi-k2-1t-a32b), the Mamba2/SSD models (mamba2-780m, and zamba2-2.7b
+with its shared attention) and the two with ``cross`` layers over a
+memory (llama-3.2-vision-11b over stub image embeddings,
+seamless-m4t-medium over its audio encoder's output).  The port serves
+all ten; ``models.transformer.check_trainable`` says which it trains.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ ARCH_IDS = ("kimi-k2-1t-a32b", "granite-8b", "zamba2-2.7b", "gemma3-12b",
             "mamba2-780m", "starcoder2-3b", "phi3.5-moe-42b-a6.6b",
             "seamless-m4t-medium", "llama-3.2-vision-11b", "gemma2-27b")
 
-# the ported architectures and their modules
+# the architectures and their modules
 _ARCH_MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "granite-8b": "granite_8b",
@@ -33,18 +32,14 @@ _ARCH_MODULES = {
     "gemma2-27b": "gemma2_27b",
     "mamba2-780m": "mamba2_780m",
     "zamba2-2.7b": "zamba2_2p7b",
+    "llama-3.2-vision-11b": "llama3p2_vision_11b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
-    if arch not in _ARCH_MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: the port runs the "
-            f"attention-family transformers and the Mamba2 models; the "
-            f"vision and audio architectures wait in ROADMAP.md's queue of "
-            f"modules to port")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG

@@ -6,19 +6,25 @@ LM.
     python -m repro_torch.launch.serve --arch granite-8b --engine \\
         [--requests 8] [--ckpt PATH [--ckpt-select params]] ...
 
-Counterpart of ``repro.launch.serve`` for the architectures the port
-runs: granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b,
-phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b, mamba2-780m and zamba2-2.7b (the
-other two exit non-zero, naming ROADMAP.md).  The default is the
-fixed-batch loop: one prefill of ``--batch`` random prompts of
-``--prompt-len`` tokens into a cache of ``prompt-len + gen-len``
-positions (a ring of the window in a sliding-window layer; a Mamba2
-mixer keeps its state and conv window, and needs a prompt of at least 3
-tokens), then ``gen-len - 1`` greedy decode steps, every sequence at the
-same position, so each global layer's attention, and each of zamba2's
-shared-attention layers, is one ``flash_decode`` launch a step in a model
-without an attention softcap (the rest run the reference's masked
-attention).  It prints the
+Counterpart of ``repro.launch.serve`` for all ten architectures:
+granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b, phi3.5-moe-42b-a6.6b,
+kimi-k2-1t-a32b, mamba2-780m, zamba2-2.7b, llama-3.2-vision-11b and
+seamless-m4t-medium.  The default is the fixed-batch loop: one prefill
+of ``--batch`` random prompts of ``--prompt-len`` tokens into a cache of
+``prompt-len + gen-len`` positions (a ring of the window in a
+sliding-window layer; a Mamba2 mixer keeps its state and conv window,
+and needs a prompt of at least 3 tokens), then ``gen-len - 1`` greedy
+decode steps, every sequence at the same position, so each global
+layer's attention, each cross layer's self-attention and each of
+zamba2's shared-attention layers is one ``flash_decode`` launch a step
+in a model without an attention softcap (the rest run the reference's
+masked attention).  The VLM (llama-3.2-vision-11b) draws
+``(batch, num_image_tokens, d_model)`` image embeddings as its memory,
+the audio model (seamless-m4t-medium) ``(batch, encoder_frames,
+d_model)`` frame embeddings that ``encode_audio`` turns into its memory
+(before the prefill's clock starts, as in the reference); the prefill
+keeps the memory in the cache, and each cross layer's cross-attention
+over it is one more ``flash_decode`` launch a step.  It prints the
 reference's two lines: prefill ms, and decode ms with tok/s.
 
 ``--engine`` runs the continuous-batching :class:`~repro_torch.serving.
@@ -27,14 +33,15 @@ to ``--prompt-len`` tokens are admitted into ``--batch`` decode slots
 from a parameter source (fresh weights by default; ``--ckpt`` an npz file
 or a checkpoint directory, newest step wins, ``--ckpt-select`` its
 subtree of params).  Slots sit at different positions, so its decode runs
-the reference's masked attention.
+the reference's masked attention.  As the reference's, the engine passes
+no memory: a cross layer's cross-attention then runs as a second causal
+self-attention (``models.transformer``).
 
-Weights and prompts are drawn from seeded ``torch.Generator``s on the
+Weights, prompts and memories are drawn from seeded ``torch.Generator``s on the
 device, so their values differ from the JAX launcher's while the shapes
 and the computation match.  There is no mesh: the model runs on one
 device.  ``--device`` is ``cuda`` (the default; raises without a card) or
-``cpu``.  The reference's VLM and audio branches belong to architectures
-that ``get_config`` does not give yet.
+``cpu``.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -63,15 +71,34 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return decode_step
 
 
+def make_memory(params: dict, cfg: ModelConfig, batch: int,
+                device: torch.device) -> torch.Tensor | None:
+    """The cross layers' memory of the reference's launcher, or None for a
+    config without one: a VLM's ``(batch, num_image_tokens, d_model)``
+    stub image embeddings, or an audio model's ``(batch, encoder_frames,
+    d_model)`` stub frame embeddings run through ``encode_audio``; each a
+    float32 Normal(0, 1) draw of a generator on ``device`` seeded with 2,
+    cast to the model dtype."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    rows = cfg.num_image_tokens if cfg.family == "vlm" else \
+        cfg.encoder_frames
+    x = torch.randn((batch, rows, cfg.d_model), device=device,
+                    generator=torch.Generator(device).manual_seed(2)
+                    ).to(L.dtype_of(cfg))
+    return x if cfg.family == "vlm" else T.encode_audio(params, cfg, x)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def run_fixed_batch(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
-                    gen_len: int, *, log: Callable[[str], None] = print
-                    ) -> dict:
-    """Prefill ``prompts`` (B, S) into a cache of S + ``gen_len`` positions
+                    gen_len: int, *, memory: torch.Tensor | None = None,
+                    log: Callable[[str], None] = print) -> dict:
+    """Prefill ``prompts`` (B, S), with the cross layers' ``memory`` (B, T,
+    D) when the model has one, into a cache of S + ``gen_len`` positions
     and decode ``gen_len - 1`` greedy steps.  Returns the seconds of the
     prefill and of the decode loop (each ending in a device
     synchronisation) and the tokens (B, gen_len), the first from the
@@ -80,7 +107,7 @@ def run_fixed_batch(params: dict, cfg: ModelConfig, prompts: torch.Tensor,
     batch, prompt_len = prompts.shape
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = T.prefill(params, cfg, prompts,
+    logits, cache = T.prefill(params, cfg, prompts, memory,
                               cache_len=prompt_len + gen_len)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -174,7 +201,8 @@ def main(argv: list[str] | None = None) -> dict:
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator(dev).manual_seed(1),
                             device=dev)
-    return run_fixed_batch(params, cfg, prompts, args.gen_len)
+    memory = make_memory(params, cfg, args.batch, dev)
+    return run_fixed_batch(params, cfg, prompts, args.gen_len, memory=memory)
 
 
 if __name__ == "__main__":

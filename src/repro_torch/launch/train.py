@@ -29,9 +29,10 @@ flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
 attention-family architectures (granite-8b, gemma2-27b, gemma3-12b,
 starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b) and the Mamba2 ones
 (mamba2-780m, zamba2-2.7b); kimi-k2's optimizer is Adagrad, the others'
-Adam.  One the port does not run (``models.transformer.check_trainable``:
-the vision and audio architectures) exits non-zero before any step,
-naming ROADMAP.md.  Unlike
+Adam.  One the port does not train (``models.transformer.
+check_trainable``: llama-3.2-vision-11b and seamless-m4t-medium, whose
+cross layers it serves) exits non-zero before any step, naming
+ROADMAP.md.  Unlike
 the reference's launcher, ``--reduced`` does not switch an Adagrad
 architecture to the fused step: ``--fused`` asks for it.
 

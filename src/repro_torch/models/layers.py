@@ -1,12 +1,11 @@
 """Transformer layers: RMSNorm and layernorm, RoPE, causal GQA attention
 (global or sliding-window, with an optional softcap; full sequence, and
-one-token decode against a KV cache), the gated (SwiGLU) MLP, the top-k
-MoE FFN and the Mamba2/SSD mixer (full sequence by the chunked SSD scan,
-and the one-token recurrent update).
+one-token decode against a KV cache), cross-attention over a memory, the
+gated (SwiGLU) MLP, the top-k MoE FFN and the Mamba2/SSD mixer (full
+sequence by the chunked SSD scan, and the one-token recurrent update).
 
-Counterpart of ``repro.models.layers`` (without its cross-attention and
-the ``mamba_split_proj`` variant), with its parameter names, shapes and
-arithmetic.  ``*_spec`` describes a
+Counterpart of ``repro.models.layers`` (without its ``mamba_split_proj``
+variant), with its parameter names, shapes and arithmetic.  ``*_spec`` describes a
 module's parameters as a dict of :class:`Leaf` (shape, dtype, and how the
 value is drawn), which ``models.transformer.init_model`` materialises;
 ``*_fwd`` applies the tensors.  Attention is written as the reference
@@ -16,9 +15,9 @@ through a fused attention operator, so that the numbers are the
 reference's.  Where the reference asks for
 ``preferred_element_type=float32``, the port casts both operands to
 float32: a bfloat16 product is exact in float32, so the sums are float32
-sums of the same products.  The one exception is the decode step of a
-global layer at a scalar position, which runs the ``flash_decode`` kernel
-(see :func:`attention_decode`).
+sums of the same products.  The exceptions are the decode step of a
+global layer at a scalar position and the cross-attention decode, which
+run the ``flash_decode`` kernel (see :func:`attention_decode`).
 
 Decode caches are the reference's layouts, ``{"k", "v"}`` of ``(B, L, KV,
 hd)`` with RoPE'd keys: a global layer keeps ``L = cache_len`` positions,
@@ -38,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import HEAD_DIMS, MAX_GROUP
 
 Params = dict[str, Any]
 
@@ -115,6 +115,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def attention_spec(cfg: ModelConfig) -> Params:
+    """Self-attention's weights; a cross-attention has the same shapes (its
+    keys and values come from memory states of width d_model)."""
     dt = dtype_of(cfg)
     hd = cfg.resolved_head_dim
     return {
@@ -126,17 +128,19 @@ def attention_spec(cfg: ModelConfig) -> Params:
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor, softcap: float) -> torch.Tensor:
-    """q: (B,S,Hkv,G,hd), k/v: (B,T,Hkv,hd), mask: (B,S,T) bool ->
-    (B,S,Hkv,G,hd) float32.  A nonzero ``softcap`` c maps the scaled
-    scores s to ``tanh(s / c) * c`` before the mask."""
+          mask: torch.Tensor | None, softcap: float) -> torch.Tensor:
+    """q: (B,S,Hkv,G,hd), k/v: (B,T,Hkv,hd), mask: (B,S,T) bool, or None
+    to attend to every key (cross-attention) -> (B,S,Hkv,G,hd) float32.  A
+    nonzero ``softcap`` c maps the scaled scores s to ``tanh(s / c) * c``
+    before the mask."""
     hd = q.shape[-1]
     scores = torch.einsum("bsngh,btnh->bnsgt", q.float(), k.float())
     scores = scores / math.sqrt(hd)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     # scores are (B,Hkv,S,G,T); the mask broadcasts as (B,1,S,1,T)
-    scores = torch.where(mask[:, None, :, None, :], scores, _MASK_VALUE)
+    if mask is not None:
+        scores = torch.where(mask[:, None, :, None, :], scores, _MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bnsgt,btnh->bsngh", probs.to(v.dtype).float(),
                         v.float())
@@ -144,22 +148,28 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
+                  kv_override: torch.Tensor | None = None,
                   return_kv: bool = False):
     """Full-sequence causal self-attention.  x: (B,S,D) -> (B,S,D).  A
     nonzero ``window`` also masks every key ``window`` or more positions
-    behind the query (``q_pos - t_pos < window``).  With ``return_kv``
-    also returns the (RoPE'd) k and v, (B,S,KV,hd) each, for the decode
-    cache."""
+    behind the query (``q_pos - t_pos < window``).  With ``kv_override``,
+    a memory (B,T,D) in the model dtype, it is cross-attention: keys and
+    values are projected from the memory, and neither the queries nor the
+    keys take RoPE nor a mask.  With ``return_kv`` also returns the
+    (RoPE'd) k and v, (B,S,KV,hd) each, for the decode cache."""
     B, S, _ = x.shape
     G = cfg.num_heads // cfg.num_kv_heads
+    kv_in = x if kv_override is None else kv_override
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("btd,dnh->btnh", x, p["wk"])
-    v = torch.einsum("btd,dnh->btnh", x, p["wv"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    mask = positions[:, :, None] >= positions[:, None, :]
-    if window:
-        mask &= positions[:, :, None] - positions[:, None, :] < window
+    k = torch.einsum("btd,dnh->btnh", kv_in, p["wk"])
+    v = torch.einsum("btd,dnh->btnh", kv_in, p["wv"])
+    mask = None
+    if kv_override is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        mask = positions[:, :, None] >= positions[:, None, :]
+        if window:
+            mask &= positions[:, :, None] - positions[:, None, :] < window
     q = q.reshape(B, S, cfg.num_kv_heads, G, cfg.resolved_head_dim)
     out = _sdpa(q, k, v, mask, cfg.attn_softcap)
     out = out.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
@@ -224,8 +234,44 @@ def _write_rows(cache: torch.Tensor, slots: torch.Tensor,
                                     cache[rows, slot])
 
 
+def cross_kernel(cfg: ModelConfig) -> bool:
+    """Whether the cross-attention decode of ``cfg`` runs ``flash_decode``:
+    its head dim is one the kernel takes, its query heads per KV head at
+    most ``MAX_GROUP``, and it has no attention softcap (the kernel's
+    contract has none)."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    return (cfg.resolved_head_dim in HEAD_DIMS and G <= MAX_GROUP
+            and not cfg.attn_softcap)
+
+
+def _cross_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  memory: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention of x (B,1,D) over ``memory`` (B,T,D),
+    whose k and v are projected anew each step, as the reference projects
+    them; no RoPE, no mask.  Through ``flash_decode`` at ``pos = T - 1``
+    (which masks nothing) where :func:`cross_kernel` allows, with k and v
+    made contiguous (B,T,KV,hd) for its tensor map; else the reference's
+    ``_sdpa`` without a mask."""
+    B, T = x.shape[0], memory.shape[1]
+    hd = cfg.resolved_head_dim
+    KV = cfg.num_kv_heads
+    G = cfg.num_heads // KV
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    k = torch.einsum("btd,dnh->btnh", memory, p["wk"])
+    v = torch.einsum("btd,dnh->btnh", memory, p["wv"])
+    if cross_kernel(cfg):
+        out = ops.flash_decode(q.reshape(B, KV, G, hd).contiguous(),
+                               k.contiguous(), v.contiguous(), T - 1)
+        out = out.reshape(B, 1, cfg.num_heads, hd)
+        return torch.einsum("bsnh,nhd->bsd", out, p["wo"]).to(x.dtype)
+    out = _sdpa(q.reshape(B, 1, KV, G, hd), k, v, None, cfg.attn_softcap)
+    out = out.reshape(B, 1, cfg.num_heads, hd)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
+
+
 def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                     cache: Params, pos: torch.Tensor, *, window: int = 0
+                     cache: Params, pos: torch.Tensor, *, window: int = 0,
+                     kv_override: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,D); ``pos`` a 0-d integer tensor (every
     sequence at one position, the fixed-batch loop) or a (B,) vector (one
@@ -248,7 +294,13 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     probabilities to the value dtype and keeps a float32 output for the
     projection.  In float32 the two routes agree to float32 rounding; in
     bfloat16 they differ by those two roundings, about one bf16 ulp of the
-    attention output."""
+    attention output.
+
+    With ``kv_override``, a memory (B,T,D), it is the cross-attention
+    decode of :func:`_cross_decode`: ``pos`` and ``cache`` are not read,
+    and ``cache`` is returned unwritten."""
+    if kv_override is not None:
+        return _cross_decode(p, cfg, x, kv_override), cache
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     KV = cfg.num_kv_heads

@@ -1,19 +1,34 @@
-"""The decoder-only transformer: embedding -> prefix layers -> stacked
-blocks -> norm -> logits, its language-model loss, and serving's prefill
-and one-token decode against a KV cache.
+"""The transformer: embedding -> prefix layers -> stacked blocks -> norm
+-> logits, its language-model loss, serving's prefill and one-token decode
+against a KV cache, and the audio encoder that makes a decoder's memory.
 
-Counterpart of ``repro.models.transformer`` for the attention-family
-architectures (granite-8b, gemma2-27b, gemma3-12b, starcoder2-3b,
-phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b) and the Mamba2 ones (mamba2-780m,
-zamba2-2.7b): the layer kinds ``global``, ``local`` (sliding-window
-attention), ``moe`` and ``local_moe`` (the top-k MoE FFN in place of the
-MLP), ``mamba`` (the Mamba2/SSD mixer alone) and ``mamba_attn`` (the mixer,
-then zamba2's shared attention: one set of attention weights,
+Counterpart of ``repro.models.transformer`` for every architecture of the
+reference: the attention-family ones (granite-8b, gemma2-27b, gemma3-12b,
+starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b), the Mamba2 ones
+(mamba2-780m, zamba2-2.7b) and the two over a memory
+(llama-3.2-vision-11b, seamless-m4t-medium): the layer kinds ``global``,
+``local`` (sliding-window attention), ``moe`` and ``local_moe`` (the
+top-k MoE FFN in place of the MLP), ``cross`` (self-attention, then
+cross-attention over the memory, then the MLP), ``mamba`` (the
+Mamba2/SSD mixer alone) and ``mamba_attn`` (the mixer, then zamba2's
+shared attention: one set of attention weights,
 ``params["shared_attn"]["attn"]``, applied in every such layer and not
 stacked, so that autograd sums its gradient over the layers), un-scanned
 ``prefix_layers``, the attention and logit softcaps, RMSNorm and
 layernorm, and tied embeddings (no ``lm_head``: the embedding is scaled
 by ``sqrt(d_model)`` on the way in and its transpose is the head).
+
+The memory of a ``cross`` layer is (B, T, d_model) in the model dtype:
+stub image embeddings (llama-3.2-vision-11b) or the output of
+:func:`encode_audio` (seamless-m4t-medium), whose ``encoder`` is a stack
+of ``global`` layers (causal, with RoPE, as the reference computes it)
+and ``enc_norm``.  Without a memory a ``cross`` layer's ``xattn`` runs as
+a second causal self-attention, as the reference's does (its serving
+engine passes none): over the layer's input in prefill, and in decode
+over the self-attention's cache as it stood before the step with the
+``xattn``'s own key and value at ``pos``, on a copy, so that the cache is
+not written twice.
+
 Parameter names, the stacked ``blocks`` (a leading ``num_repeats`` axis,
 one ``l{i}`` entry per position of the block pattern), the ``prefix``
 list and the arithmetic are the reference's.  The reference scans the
@@ -29,19 +44,24 @@ the ring of a local layer), the mixer's state ``(num_repeats, B, H, P,
 N)`` in float32 and its conv window ``(num_repeats, B, CONV_W - 1, C)``.
 ``cache["pos"]`` is an int32 tensor on the cache's device: a scalar after
 :func:`prefill`, ``pos + 1`` after each :func:`decode_step`, or the
-engine's (B,) vector of slot positions.  :func:`decode_step` writes the
-new keys and values, states and conv windows into the cache in place (a
-functional update would copy the whole cache every step) and returns a
-new top-level dict that shares them.
+engine's (B,) vector of slot positions.  ``cache["memory"]``, when the
+prefill or :func:`init_cache` was given one, is the cross layers' memory
+(B, T, d_model), which each decode step reads and never writes; a
+``cross`` layer caches its self-attention's k and v alone.
+:func:`decode_step` writes the new keys and values, states and conv
+windows into the cache in place (a functional update would copy the
+whole cache every step) and returns a new top-level dict that shares
+them.
 
-:func:`check_supported` raises for what the port does not run
-(cross-attention layers, image and audio frontends, query and loss
-chunking, rematerialisation, the split Mamba projections), and
+:func:`check_supported` raises for what the port does not run (query and
+loss chunking, rematerialisation, the split Mamba projections), and
 :func:`check_trainable`, which the training programs call, refuses the
-same.
+same and the ``cross`` layers and their image and audio memories, whose
+training is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -52,7 +72,8 @@ from repro_torch.models import layers as L
 
 Params = dict[str, Any]
 
-KINDS = ("global", "local", "moe", "local_moe", "mamba", "mamba_attn")
+KINDS = ("global", "local", "moe", "local_moe", "cross", "mamba",
+         "mamba_attn")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -62,8 +83,7 @@ def check_supported(cfg: ModelConfig) -> None:
     kinds = (set(cfg.block_pattern) | set(cfg.prefix_layers)) - set(KINDS)
     if kinds:
         asked.append(f"layer kinds {sorted(kinds)}")
-    for name in ("attn_q_chunk", "loss_seq_chunk", "encoder_layers",
-                 "num_image_tokens", "remat_blocks"):
+    for name in ("attn_q_chunk", "loss_seq_chunk", "remat_blocks"):
         if getattr(cfg, name):
             asked.append(name)
     if cfg.mamba_split_proj:
@@ -71,17 +91,26 @@ def check_supported(cfg: ModelConfig) -> None:
                      "launch/variants.py: ROADMAP.md queue 1 item 1.4)")
     if asked:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the attention-family and Mamba2 "
-            f"transformers only; not ported: {', '.join(asked)} (see "
-            f"ROADMAP.md)")
+            f"{cfg.name}: not ported: {', '.join(asked)} (see ROADMAP.md)")
     L.dtype_of(cfg)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port does not train:
-    what :func:`check_supported` refuses.  Every model the port runs, it
-    also trains (its gradient is autograd's through the forward)."""
+    what :func:`check_supported` refuses, and the ``cross`` layers with
+    their image and audio memories (``lm_loss`` over a memory and the
+    encoder's backward wait in ROADMAP.md).  Every other model the port
+    runs, it also trains (its gradient is autograd's through the
+    forward)."""
     check_supported(cfg)
+    asked = [name for name, on in (
+        ("cross layers", "cross" in (*cfg.prefix_layers, *cfg.block_pattern)),
+        ("num_image_tokens", cfg.num_image_tokens),
+        ("encoder_layers", cfg.encoder_layers)) if on]
+    if asked:
+        raise NotImplementedError(
+            f"{cfg.name}: training is not ported yet for {', '.join(asked)} "
+            f"(serving is; see ROADMAP.md queue 1)")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -98,10 +127,11 @@ def _is_mamba(kind: str) -> bool:
 
 def _layer_spec(cfg: ModelConfig, kind: str) -> Params:
     """Attention and an MLP (``global``, ``local``) or the MoE FFN
-    (``moe``, ``local_moe``), each after a norm; or the Mamba2 mixer after
-    a norm (``mamba``), and the norm of the shared attention after it
-    (``mamba_attn``; its attention weights are the model's
-    ``shared_attn``)."""
+    (``moe``, ``local_moe``), each after a norm, with the cross-attention
+    ``xattn`` after its norm ``lnx`` between them (``cross``); or the
+    Mamba2 mixer after a norm (``mamba``), and the norm of the shared
+    attention after it (``mamba_attn``; its attention weights are the
+    model's ``shared_attn``)."""
     if _is_mamba(kind):
         spec = {"ln1": L.norm_spec(cfg), "mixer": L.mamba_spec(cfg)}
         if kind == "mamba_attn":
@@ -109,8 +139,10 @@ def _layer_spec(cfg: ModelConfig, kind: str) -> Params:
         return spec
     ffn = ("moe", L.moe_spec(cfg)) if _is_moe(kind) else (
         "mlp", L.mlp_spec(cfg))
-    return {"ln1": L.norm_spec(cfg), "attn": L.attention_spec(cfg),
-            "ln2": L.norm_spec(cfg), ffn[0]: ffn[1]}
+    spec = {"ln1": L.norm_spec(cfg), "attn": L.attention_spec(cfg)}
+    if kind == "cross":
+        spec |= {"lnx": L.norm_spec(cfg), "xattn": L.attention_spec(cfg)}
+    return spec | {"ln2": L.norm_spec(cfg), ffn[0]: ffn[1]}
 
 
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
@@ -124,7 +156,8 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
 
 def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                positions: torch.Tensor, aux: torch.Tensor,
-               shared: Params | None = None
+               shared: Params | None = None,
+               memory: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     if _is_mamba(kind):
         x = x + L.mamba_fwd(p["mixer"], cfg, L.norm_fwd(p["ln1"], x))
@@ -134,6 +167,9 @@ def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         return x, aux
     x = x + L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
                             positions, window=_window(cfg, kind))
+    if kind == "cross":
+        x = x + L.attention_fwd(p["xattn"], cfg, L.norm_fwd(p["lnx"], x),
+                                positions, kv_override=memory)
     h, a = _ffn(p, cfg, x)
     return x + h, aux if a is None else aux + a
 
@@ -151,7 +187,8 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 def _layer_prefill(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                    positions: torch.Tensor, seq_len: int, cache_len: int,
-                   shared: Params | None = None
+                   shared: Params | None = None,
+                   memory: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, Params]:
     window = _window(cfg, kind)
     cache: Params = {}
@@ -171,12 +208,33 @@ def _layer_prefill(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     x = x + h
     if _is_mamba(kind):
         return x, cache
+    if kind == "cross":
+        x = x + L.attention_fwd(p["xattn"], cfg, L.norm_fwd(p["lnx"], x),
+                                positions, kv_override=memory)
     return x + _ffn(p, cfg, x)[0], cache
+
+
+def _xattn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Params, pos: torch.Tensor,
+                  memory: torch.Tensor | None) -> torch.Tensor:
+    """A ``cross`` layer's ``xattn`` in decode: over ``memory``, or,
+    without one, as the reference runs it: a causal self-attention over
+    the layer's self-attention cache as it stood before this step with
+    its own k and v at ``pos``, a write the reference discards.  The
+    self-attention has written its row at each slot in place, and the
+    copy's rows at those slots take the ``xattn``'s, so the copy is that
+    cache, and the layer's own is written once."""
+    if memory is not None:
+        return L.attention_decode(p["xattn"], cfg, x, cache, pos,
+                                  kv_override=memory)[0]
+    prior = {"k": cache["k"].clone(), "v": cache["v"].clone()}
+    return L.attention_decode(p["xattn"], cfg, x, prior, pos)[0]
 
 
 def _layer_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                   cache: Params, pos: torch.Tensor,
-                  shared: Params | None = None) -> torch.Tensor:
+                  shared: Params | None = None,
+                  memory: torch.Tensor | None = None) -> torch.Tensor:
     """One layer's decode step, its cache written in place; returns the
     layer's output."""
     if _is_mamba(kind):
@@ -192,6 +250,9 @@ def _layer_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     h, _ = L.attention_decode(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
                               cache["attn"], pos, window=_window(cfg, kind))
     x = x + h
+    if kind == "cross":
+        x = x + _xattn_decode(p, cfg, L.norm_fwd(p["lnx"], x),
+                              cache["attn"], pos, memory)
     return x + _ffn(p, cfg, x)[0]
 
 
@@ -243,9 +304,11 @@ def _materialize(spec: Any, gen: torch.Generator, device: torch.device,
 
 
 def model_spec(cfg: ModelConfig) -> tuple[Params, Params]:
-    """The ``layers.Leaf`` trees of :func:`init_model`: the unstacked
+    """The ``layers.Leaf`` trees of :func:`init_model`: the top-level
     leaves (``embed``, ``final_norm``, ``lm_head`` unless the embeddings
-    are tied, the ``prefix`` layers and zamba2's ``shared_attn``, when the
+    are tied, the ``prefix`` layers, zamba2's ``shared_attn`` and the audio
+    ``encoder``, a ``global`` layer's leaves each stacked to a leading
+    ``encoder_layers`` axis and drawn whole, and its ``enc_norm``, when the
     config has them) and one repeat of ``blocks``."""
     check_supported(cfg)
     dt = L.dtype_of(cfg)
@@ -259,6 +322,11 @@ def model_spec(cfg: ModelConfig) -> tuple[Params, Params]:
         top["shared_attn"] = {"attn": L.attention_spec(cfg)}
     if cfg.prefix_layers:
         top["prefix"] = [_layer_spec(cfg, kind) for kind in cfg.prefix_layers]
+    if cfg.encoder_layers:
+        top["encoder"] = _map(_layer_spec(cfg, "global"), lambda s:
+                              dataclasses.replace(
+                                  s, shape=(cfg.encoder_layers, *s.shape)))
+        top["enc_norm"] = L.norm_spec(cfg)
     block = {f"l{i}": _layer_spec(cfg, kind)
              for i, kind in enumerate(cfg.block_pattern)}
     return top, block
@@ -269,7 +337,8 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
     """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``final_norm``,
     ``lm_head`` (D, V) unless the embeddings are tied, the shared
     attention of ``mamba_attn`` layers, the ``prefix`` layers (a list,
-    when the config has any) and ``blocks`` stacked over
+    when the config has any), the audio ``encoder`` stacked over
+    ``encoder_layers`` and its ``enc_norm``, and ``blocks`` stacked over
     ``num_repeats``.  Drawn on the
     generator's device in a fixed order (so one seed gives the same
     parameters wherever they end up) into tensors on ``device``, each
@@ -307,11 +376,31 @@ def _block(tree: Params, r: int) -> Params:
     return _map(tree, lambda t: t[r])
 
 
-def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def encode_audio(params: Params, cfg: ModelConfig, frames: torch.Tensor
+                 ) -> torch.Tensor:
+    """The audio encoder over stub frame embeddings: frames (B, T, D) ->
+    memory (B, T, D) in the model dtype.  The frames are cast to the model
+    dtype and run through the ``encoder``'s ``global`` layers (causal,
+    with RoPE at positions 0 .. T - 1, as the reference computes them),
+    then ``enc_norm``."""
+    check_supported(cfg)
+    B, T, _ = frames.shape
+    positions = torch.arange(T, device=frames.device).expand(B, T)
+    x = frames.to(L.dtype_of(cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=frames.device)
+    for r in range(cfg.encoder_layers):
+        x, _ = _layer_fwd(_block(params["encoder"], r), cfg, "global", x,
+                          positions, aux)
+    return L.norm_fwd(params["enc_norm"], x)
+
+
+def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                memory: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int -> (logits (B, S, V) float32, aux), ``aux`` the
-    float32 sum of the MoE layers' load-balance losses (0.0 without
-    any), as the reference's ``forward`` returns them."""
+    """tokens: (B, S) int, ``memory`` (B, T, D) for the cross layers ->
+    (logits (B, S, V) float32, aux), ``aux`` the float32 sum of the MoE
+    layers' load-balance losses (0.0 without any), as the reference's
+    ``forward`` returns them."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -320,29 +409,32 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     shared = params.get("shared_attn")
     for i, kind in enumerate(cfg.prefix_layers):
         x, aux = _layer_fwd(params["prefix"][i], cfg, kind, x, positions,
-                            aux, shared)
+                            aux, shared, memory)
     for r in range(cfg.num_repeats):
         block = _block(params["blocks"], r)
         for i, kind in enumerate(cfg.block_pattern):
             x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux,
-                                shared)
+                                shared, memory)
     return _logits(params, cfg, L.norm_fwd(params["final_norm"], x)), aux
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """tokens: (B, S) int -> logits (B, S, V) float32 (see
-    :func:`forward_aux` for the MoE's aux loss)."""
-    return forward_aux(params, cfg, tokens)[0]
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            memory: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens: (B, S) int, ``memory`` (B, T, D) for the cross layers ->
+    logits (B, S, V) float32 (see :func:`forward_aux` for the MoE's aux
+    loss)."""
+    return forward_aux(params, cfg, tokens, memory)[0]
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            memory: torch.Tensor | None = None,
             cache_len: int | None = None) -> tuple[torch.Tensor, Params]:
-    """Score the prompt and build the decode cache.  tokens: (B, S) int ->
-    (last-position logits (B, V) float32, a cache of ``cache_len``
-    positions (default S; a local layer keeps its ring, a Mamba2 mixer its
-    state and conv window) ready for :func:`decode_step` at ``pos =
-    S``)."""
+    """Score the prompt and build the decode cache.  tokens: (B, S) int,
+    ``memory`` (B, T, D) for the cross layers -> (last-position logits (B,
+    V) float32, a cache of ``cache_len`` positions (default S; a local
+    layer keeps its ring, a Mamba2 mixer its state and conv window) ready
+    for :func:`decode_step` at ``pos = S``, holding ``memory`` when one
+    was given)."""
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -350,12 +442,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     cache: Params = {"pos": torch.full((), S, dtype=torch.int32,
                                        device=tokens.device)}
+    if memory is not None:
+        cache["memory"] = memory
     shared = params.get("shared_attn")
     if cfg.prefix_layers:
         cache["prefix"] = []
         for i, kind in enumerate(cfg.prefix_layers):
             x, c = _layer_prefill(params["prefix"][i], cfg, kind, x,
-                                  positions, S, cache_len, shared)
+                                  positions, S, cache_len, shared, memory)
             cache["prefix"].append(c)
     blocks = []
     for r in range(cfg.num_repeats):
@@ -364,7 +458,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for i, kind in enumerate(cfg.block_pattern):
             x, block_c[f"l{i}"] = _layer_prefill(block[f"l{i}"], cfg, kind,
                                                  x, positions, S, cache_len,
-                                                 shared)
+                                                 shared, memory)
         blocks.append(block_c)
     cache["blocks"] = _stack(blocks)
     x = L.norm_fwd(params["final_norm"], x[:, -1:, :])
@@ -372,9 +466,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: str | torch.device = "cuda") -> Params:
+               device: str | torch.device = "cuda",
+               memory: torch.Tensor | None = None) -> Params:
     """An empty cache at ``pos = 0``, each block leaf allocated once at its
-    stacked ``(num_repeats, ...)`` shape."""
+    stacked ``(num_repeats, ...)`` shape, holding ``memory`` when one is
+    given."""
     check_supported(cfg)
     dev = resolve_device(device)
     cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -387,6 +483,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       lambda t: torch.zeros((cfg.num_repeats, *t.shape),
                                             dtype=t.dtype, device=dev))
         for i, kind in enumerate(cfg.block_pattern)}
+    if memory is not None:
+        cache["memory"] = memory
     return cache
 
 
@@ -395,23 +493,27 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """token: (B, 1) int -> (logits (B, 1, V) float32, the cache at
     ``pos + 1``).  The cache's k and v, states and conv windows are
     written in place (each repeat's are views into the stacked leaves); a
-    global layer's attention, and zamba2's shared attention, goes through
-    ``flash_decode`` when ``cache["pos"]`` is a scalar and the model has
-    no attention softcap, every other through the masked attention (see
-    ``layers.attention_decode``)."""
+    global layer's attention, a cross layer's self-attention and zamba2's
+    shared attention go through ``flash_decode`` when ``cache["pos"]`` is
+    a scalar and the model has no attention softcap, every other through
+    the masked attention (see ``layers.attention_decode``).  A cross
+    layer's cross-attention over ``cache["memory"]`` goes through
+    ``flash_decode`` wherever ``layers.cross_kernel`` allows, at a scalar
+    or a (B,) position."""
     check_supported(cfg)
     pos = cache["pos"]
+    memory = cache.get("memory")
     x = _embed(params, cfg, token)
     shared = params.get("shared_attn")
     for i, kind in enumerate(cfg.prefix_layers):
         x = _layer_decode(params["prefix"][i], cfg, kind, x,
-                          cache["prefix"][i], pos, shared)
+                          cache["prefix"][i], pos, shared, memory)
     for r in range(cfg.num_repeats):
         block = _block(params["blocks"], r)
         block_c = _block(cache["blocks"], r)
         for i, kind in enumerate(cfg.block_pattern):
             x = _layer_decode(block[f"l{i}"], cfg, kind, x,
-                              block_c[f"l{i}"], pos, shared)
+                              block_c[f"l{i}"], pos, shared, memory)
     x = L.norm_fwd(params["final_norm"], x)
     return _logits(params, cfg, x), {**cache, "pos": pos + 1}
 

@@ -12,6 +12,11 @@ a (num_slots,) position vector and runs the reference's masked attention
 each slot's own position; the ``flash_decode`` kernel, whose position is
 one scalar, serves the fixed-batch loop of ``launch.serve``.
 
+Like the reference's engine, it prefills and decodes without a memory:
+in llama-3.2-vision-11b and seamless-m4t-medium a ``cross`` layer's
+cross-attention then runs as a second causal self-attention (see
+``models.transformer``).
+
 The engine takes its weights from a :class:`ParamSource`
 (``serving.sources``) and pins exactly one snapshot per decode step:
 ``_sync`` adopts the newest snapshot at the step boundary, so a live sync

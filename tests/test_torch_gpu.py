@@ -1008,6 +1008,38 @@ def test_flash_decode_at_head_dim_80(g, length, dtype, where):
     _flash_close(got, flash_decode_ref(q, k, v, pos))
 
 
+# the launch shapes (B, L, KV, G, hd) of the cross layers' archs:
+# llama-3.2-vision-11b's cross-attention over 1,601 image tokens (not a
+# multiple of the ring's 64-position tile), seamless-m4t-medium's hd 64 at
+# G 1 over 16 KV heads, its self-attention and its cross-attention over
+# 1,024 encoder frames
+CROSS_SHAPES = {
+    "llama cross (4, 1601, 8, 4, 128)": (4, 1601, 8, 4, 128),
+    "seamless self (4, 160, 16, 1, 64)": (4, 160, 16, 1, 64),
+    "seamless cross (4, 1024, 16, 1, 64)": (4, 1024, 16, 1, 64),
+}
+
+
+@pytest.mark.parametrize("where", ["last slot", "mid-cache"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(CROSS_SHAPES))
+def test_flash_decode_at_the_cross_archs_shapes(case, dtype, where):
+    """The cross archs' shapes on both paths, held to the plain version;
+    the cross-attention's own position is the last slot (L - 1), which
+    masks nothing."""
+    _need_card()
+    b, length, kv, g, hd = CROSS_SHAPES[case]
+    q, k, v = _flash_inputs(b, length, kv, g, hd, dtype, seed=length + g)
+    pos = length - 1 if where == "last slot" else length // 2
+    launches = flash_decode.launches
+    got = flash_decode(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == launches + 1
+    assert got.dtype == dtype and got.shape == (b, kv, g, hd)
+    _flash_close(got, flash_decode_ref(q, k, v, pos))
+
+
 def test_flash_decode_masks_everything_below_zero_as_the_tpu_kernel():
     """pos < 0 masks every position: all scores are -1e30 and the output
     is the mean of v, as in the TPU kernel and the plain version."""
