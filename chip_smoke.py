@@ -101,7 +101,17 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   seamless-m4t-medium (12 causal encoder layers over 1,024 stub frames,
   then 12 cross layers over their output, layernorm, hd 64; 0.98 G
   parameters): the fixed-batch loop at batch 4 x 128, 31 decode steps,
-  the kernel and masked routes and the engine.
+  the kernel and masked routes and the engine;
+* LM training of the same two (``repro_torch.launch.train --arch ...
+  --fused [--mesh Wx1]``) at full width, bf16, batch 4 x 128, iota 4, lr
+  1e-3, each batch with a drawn memory (1,601 image embeddings, or 1,024
+  frames that the loss runs through the encoder): the fused step, 2
+  global steps at the M and depth that ``train_plan`` gives (llama 5 of
+  40 layers over 2 layer-grouped shards, seamless all 24 on one layout);
+  the reference's training-memory variants (``repro_torch.launch.
+  variants``: query chunks of 1,024, loss chunks of 512, block
+  checkpoints, all three) on granite-8b at full width, depth 2, one
+  sequence of 4,096 tokens.
 
 Phases:
 
@@ -294,7 +304,31 @@ Phases:
     ``flash_decode`` at (4, 1601, 8, 4, 128), (4, 160, 16, 1, 64) and (4,
     1024, 16, 1, 64) at their last position timed against its plain
     version, its bound and SDPA;
-21. one JSON line of the kernels, then the result line.
+21. the cross archs' training and the variants: (a) for each cross
+    arch, ``train_plan``'s arithmetic and phase 18 (a)'s fused step at
+    full width, each microstep's batch with a drawn memory
+    (``memory_entry``, as ``serve.make_memory`` draws its stub): W
+    ``gba_apply`` launches an apply, each held bit for bit to the plain
+    version at 4,096 sampled elements of every leaf, every cross layer's
+    ``xattn`` and ``lnx`` leaf and every ``encoder`` and ``enc_norm`` leaf
+    moved by the first apply, seconds and peaks, and ``gba_apply`` timed
+    on the run's own state against its bound (one shard's launch over 2
+    shards); (b) each ``.reduced()`` in float32, card against CPU over
+    the full width's shards, from one host draw of the memory; (c)
+    seamless-m4t-medium's ``.reduced()`` int8 wire step in float32, card
+    against CPU (2 warm and 2 compressed global steps, each batch's drawn
+    frames split over the 4 workers), one ``quantize_minmax`` a worker and
+    layer group, one ``dequantize`` a shard and group and 4 ``gba_apply``
+    launches a compressed step; (d) one microstep's loss and gradient of
+    granite-8b at full width, depth 2, 1 x 4,096 tokens, under
+    ``baseline``, ``chunked_attn``, ``remat``, ``chunked_loss`` and
+    ``full_opt``, each against ``baseline`` (the loss within 2**-6
+    relative, each leaf within 2**-5 of its largest), with its peak and
+    seconds; then ``mamba_split`` on mamba2-780m's ``.reduced()`` in
+    float32, card against CPU (logits, a prefill and 4 decode steps, every
+    gradient leaf, within 1e-5 of the largest); the phase within
+    ``PHASE21_BUDGET_S``;
+22. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -307,7 +341,7 @@ architecture's serve loop, gemma3-12b's ring and its engine, each
 architecture's training run, each Mamba2 architecture's serve loop,
 zamba2's kernel route and its engine, each Mamba2 architecture's
 training run, each cross architecture's serve loop, kernel route and
-engine)
+engine, and each cross architecture's training run)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -1954,12 +1988,13 @@ def _flips(card: list, host: list, per_step: int) -> dict:
             "first_step_max_steps_from_boundary": near}
 
 
-def wire_card_vs_cpu(T: dict, counters) -> dict:
-    """``granite-8b.reduced()`` in float32, ``WIRE_STEPS`` global steps of
+def wire_card_vs_cpu(T: dict, counters, arch: str = "granite-8b",
+                     schemes: tuple = ("none", "int8", "onebit")) -> dict:
+    """``arch``'s ``.reduced()`` in float32, ``WIRE_STEPS`` global steps of
     each scheme from the same params, card against CPU: every code of
     every quantize launch compared (``_flips``), losses within
-    ``WIRE_HOLD_RTOL``."""
-    cfg = dataclasses.replace(T["get_config"]("granite-8b").reduced(),
+    ``WIRE_HOLD_RTOL``; each scheme's card run's launches a step kept."""
+    cfg = dataclasses.replace(T["get_config"](arch).reduced(),
                               dtype="float32")
     host = T["init_model"](cfg, generator=torch.Generator().manual_seed(0),
                            device="cpu")
@@ -1967,7 +2002,7 @@ def wire_card_vs_cpu(T: dict, counters) -> dict:
     # what the CPU side's float32 sum orders depend on
     cpu = {"capability": torch.backends.cpu.get_cpu_capability(),
            "threads": torch.get_num_threads()}
-    for scheme in ("none", "int8", "onebit"):
+    for scheme in schemes:
         seen, losses = {}, {}
         for dev in ("cuda", "cpu"):
             rec = seen[dev] = []
@@ -1986,6 +2021,8 @@ def wire_card_vs_cpu(T: dict, counters) -> dict:
             finally:
                 ops.quantize_wire = real
             losses[dev] = run["losses"]
+            if dev == "cuda":
+                steps, groups = run["steps"], run["geometry"]["groups"]
         card, cpu_rec = seen["cuda"], seen["cpu"]
         check(len(card) == len(cpu_rec),
               f"{scheme}: as many quantize launches on the card as on the CPU")
@@ -2006,7 +2043,7 @@ def wire_card_vs_cpu(T: dict, counters) -> dict:
                        "losses_cpu": losses["cpu"],
                        "code_flips": sum(flips["flips_by_step"]), **flips,
                        "codes": sum(r["out"][0].numel() for r in card),
-                       "cpu": cpu}
+                       "cpu": cpu, "card_steps": steps, "groups": groups}
         del seen, card, cpu_rec
         print(f"  {cfg.name} f32 card vs CPU, {scheme}: "
               f"{json.dumps(out[scheme])}")
@@ -4762,16 +4799,19 @@ class apply_sample:
 
 def train_timing(T: dict, layout, state: dict, m: int) -> dict:
     """``gba_apply`` on the run's own flat params, accumulator and buffer
-    at its N: median of 3 runs of 5 calls (they move the params further;
+    at its N (over W > 1 shards, one launch's: shard 0's contiguous
+    block): median of 3 runs of 5 calls (they move the params further;
     the run is over).  The plain version's float64 intermediates of an (M,
     N) buffer do not fit beside the state at this N."""
-    flat = layout.ravel(state["params"])
+    flat, accum = layout.ravel(state["params"]), state["accum"]
     buf, tokens = state["buffer"]["grads"], state["buffer"]["tokens"]
     step = state["buffer"]["step"]
+    if buf.dim() == 3:
+        ss = layout.shard_size
+        flat, accum, buf = flat[:ss], accum[:ss], buf[:, 0]
 
     def fn():
-        T["gba_apply"](flat, state["accum"], buf, tokens, step, LM_LR,
-                       iota=LM_IOTA)
+        T["gba_apply"](flat, accum, buf, tokens, step, LM_LR, iota=LM_IOTA)
     runs = [time_calls(fn, 5)[0] for _ in range(3)]
     n = flat.shape[0]
     bnd, by = apply_bound_ms(m, n, 4, 4)
@@ -4787,10 +4827,37 @@ def train_timing(T: dict, layout, state: dict, m: int) -> dict:
     return row
 
 
+def memory_entry(T: dict, cfg, rows: int, seed: int, device: str) -> dict:
+    """The cross layers' memory of a training batch of ``rows``: a
+    Normal(0, 1) draw of a generator on ``device`` seeded with ``seed``,
+    float32 cast to the model dtype, as ``serve.make_memory`` draws its
+    stub: ``image_embeds`` for a VLM, or ``frames`` for an audio model,
+    which the loss runs through the encoder; ``{}`` for a model without
+    cross layers.  Not the launcher's zeros: over zeros the
+    cross-attention's weights take no gradient."""
+    if cfg.family not in ("vlm", "audio"):
+        return {}
+    key, length = (("image_embeds", cfg.num_image_tokens)
+                   if cfg.family == "vlm" else ("frames", cfg.encoder_frames))
+    x = torch.randn((rows, length, cfg.d_model), device=device,
+                    generator=torch.Generator(device).manual_seed(seed))
+    return {key: x.to(T["layers"].dtype_of(cfg))}
+
+
+def cross_leaves(T: dict, params: dict) -> dict:
+    """The leaves that only a memory trains, by path: each cross layer's
+    ``xattn`` and ``lnx``, and the audio ``encoder`` and ``enc_norm``."""
+    return {path: t for path, t in T["tree_paths"](params)
+            if path[0] in ("encoder", "enc_norm")
+            or path[0] == "blocks" and path[2] in ("xattn", "lnx")}
+
+
 def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
     """(a) one architecture at full width through the fused step, at the
-    depth, M and W of :func:`train_plan`: 2 global steps, one stale
-    slot."""
+    depth, M and W of :func:`train_plan`: 2 global steps, one stale slot;
+    for a model with cross layers each batch with a drawn memory
+    (:func:`memory_entry`), and the leaves only a memory trains
+    (:func:`cross_leaves`) held to have moved at the first apply."""
     full = T["get_config"](arch)
     torch.cuda.empty_cache()
     plan, why = train_plan(T, full)
@@ -4829,15 +4896,20 @@ def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the programs keep no reference to the first params once stepping
     state, rows, progs.state = progs.state, [], None
+    watched = {k: t.clone() for k, t in cross_leaves(T, state["params"])
+               .items()}
+    moved = None
     counters(reset=True)
     for i in range(steps):
         applies = (i + 1) % m == 0
         old_step = state["buffer"]["step"]
         sample = apply_sample(T, layout, state, gen) if applies else None
+        batch = {**batches[i], **memory_entry(T, cfg, LM_BATCH, 2 + i,
+                                              "cuda")}
         launched = counters()["gba_apply"]
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, loss = progs.step(state, batches[i], tokens[i])
+        state, loss = progs.step(state, batch, tokens[i])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launched = counters()["gba_apply"] - launched
@@ -4847,7 +4919,17 @@ def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
             check(sample.check(state, old_step),
                   f"{arch} microstep {i + 1}: the apply bit-identical to "
                   f"gba_apply_ref at {sample.col.numel()} sampled columns")
-        del sample
+        if applies and moved is None and watched:
+            now = cross_leaves(T, state["params"])
+            moved = {"/".join(k): not torch.equal(now[k], v)
+                     for k, v in watched.items()}
+            still = [k for k, v in moved.items() if not v]
+            print(f"  {arch}: {len(moved) - len(still)} of {len(moved)} "
+                  f"leaves that only the memory trains moved at the first "
+                  f"apply")
+            check(not still, f"{arch}: moved at the first apply: {still}")
+            del watched, now
+        del sample, batch
         rows.append({"microstep": i + 1, "token": tokens[i],
                      "loss": loss.item(), "seconds": seconds,
                      "gba_apply": launched,
@@ -4873,6 +4955,8 @@ def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
            "init_peak_gb": init_peak, "microsteps": rows,
            "global_step_s": globals_s, "path_peak_gb": path_peak,
            "planned_gb": plan["need_gb"], "launches": launches}
+    if moved is not None:
+        out["cross_leaves_moved"] = sum(moved.values())
     if timed:
         out["gba_apply"] = train_timing(T, layout, state, m)
     del state, progs, batches
@@ -4884,7 +4968,8 @@ def train_card_vs_cpu(T: dict, arch: str, workers: int,
                       flat_rtol: float = HOLD_LM_RTOL) -> dict:
     """(b) ``.reduced()`` in float32, the fused step over ``workers``
     shards (one layout at 1) from the same params on the card and on the
-    CPU, 2 global steps, one slot stale: losses within rtol 1e-5, flat
+    CPU (and the same host draw of a cross layers' memory), 2 global
+    steps, one slot stale: losses within rtol 1e-5, flat
     params and accumulator within rtol ``flat_rtol`` (1e-5) / atol 1e-7,
     buffer tokens and every MoE route equal."""
     cfg = dataclasses.replace(T["get_config"](arch).reduced(),
@@ -4904,6 +4989,9 @@ def train_card_vs_cpu(T: dict, arch: str, workers: int,
             for i, b in enumerate(lm_batches(T, cfg.vocab_size,
                                              TRAIN_HOLD_SEQ, 2, len(tokens),
                                              dev)):
+                # a cross layers' memory drawn on the host, for both sides
+                b |= {k: v.to(dev) for k, v in memory_entry(
+                    T, cfg, 2, 3 + i, "cpu").items()}
                 state, loss = progs.step(state, b, tokens[i])
                 losses.append(loss.item())
         runs[dev] = (losses, progs.layout.ravel(state["params"]).cpu(),
@@ -5059,6 +5147,216 @@ def cross_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: LM training, the cross archs and the reference's memory variants
+
+# the variants at full width: granite-8b at phase 9's width and depth, one
+# sequence long enough that attn_q_chunk 1,024 and loss_seq_chunk 512 engage
+VARIANT_ARCH, VARIANT_SEQ = "granite-8b", 4096
+VARIANT_NAMES = ("baseline", "chunked_attn", "remat", "chunked_loss",
+                 "full_opt")
+# bf16 against the baseline: the loss relative, each gradient leaf of its
+# largest magnitude (a checkpoint runs the same operators again; the
+# chunks round bf16 intermediates in other groupings)
+VARIANT_LOSS_RTOL, VARIANT_GRAD_FRAC = 2.0**-6, 2.0**-5
+SPLIT_ARCH, SPLIT_DECODE = "mamba2-780m", 4
+# phase 21's seconds on an H100 80GB HBM3 at 700 W are expected near 60;
+# past this the run fails, so the script stays within its 1200-second
+# limit
+PHASE21_BUDGET_S = 300.0
+
+
+class drawn_memory:
+    """Within the block, the launcher's batches (``train.lm_batch``) carry
+    a drawn memory in place of the reference launcher's zeros: the whole
+    batch's, a host Normal(0, 1) draw seeded with the sum of the stream
+    batch's tokens, cut to the rows the call takes, so that each worker
+    takes its own rows and the card and the CPU see the same values."""
+
+    def __init__(self, T: dict):
+        self.train = T["train"]
+
+    def __enter__(self):
+        self.saved = self.train.lm_batch
+
+        def draw(cfg, b, device, rows=slice(None)):
+            batch = self.saved(cfg, b, device, rows)
+            seed = int(b["tokens"].astype(np.int64).sum())
+            for key in ("image_embeds", "frames"):
+                if key in batch:
+                    full = torch.randn(
+                        (b["tokens"].shape[0], *batch[key].shape[1:]),
+                        generator=torch.Generator().manual_seed(seed))
+                    batch[key] = full[rows].to(batch[key])
+            return batch
+        self.train.lm_batch = draw
+        return self
+
+    def __exit__(self, *exc):
+        self.train.lm_batch = self.saved
+
+
+def cross_wire_card_vs_cpu(T: dict, counters) -> dict:
+    """(c) seamless-m4t-medium's ``.reduced()`` int8 wire step in float32,
+    card against CPU (``--fused --mesh 4x1 --compress int8``): 2 float32
+    warmup and 2 compressed global steps, each batch's drawn frames split
+    over the 4 workers with its tokens; per compressed step one
+    ``quantize_minmax`` a worker and layer group, one ``dequantize`` a
+    shard and group and one ``gba_apply`` a shard."""
+    arch = CROSS_ARCHS[1]
+    with drawn_memory(T):
+        out = wire_card_vs_cpu(T, counters, arch, ("int8",))["int8"]
+    groups = len(out["groups"])
+    want = {"quantize": WIRE_W * groups, "dequantize": WIRE_W * groups,
+            "gba_apply": WIRE_W}
+    for row in out["card_steps"][WIRE_WARMUP:]:
+        check({k: row[k] for k in want} == want,
+              f"{arch} int8 wire, compressed step {row['step']}: launches "
+              f"{row} == {want}")
+    print(f"  {arch} int8 wire: {groups} layer groups, a compressed step "
+          f"launches {json.dumps(want)}")
+    return {**out, "groups": groups, "launches_per_compressed_step": want}
+
+
+def variant_run(T: dict, name: str, base_cfg, params: dict, batch: dict
+                ) -> dict:
+    """One microstep's loss and gradient of ``base_cfg`` under the
+    variant ``name``, twice: the loss and the gradient tree of the second
+    call, the seconds of each (the first takes the allocator's and the
+    checkpoints' first use) and the second's peak device memory."""
+    cfg, _ = T["VARIANTS"][name](base_cfg, {})
+    seconds = []
+    for _ in range(2):
+        grads = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, grads = T["loss_and_grads"](cfg, params, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+    return {"cfg": cfg, "loss": loss.item(), "grads": grads,
+            "first_seconds": seconds[0], "seconds": seconds[1],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def variants_full_width(T: dict) -> dict:
+    """(d) granite-8b at full width, depth 2, one sequence of 4,096 tokens
+    (so ``attn_q_chunk`` 1,024 and ``loss_seq_chunk`` 512 engage): one
+    microstep's loss and gradient under each of ``VARIANT_NAMES``, each
+    against ``baseline``'s: the loss within 2**-6 relative, each leaf
+    within 2**-5 of its largest magnitude; each variant's peak and
+    seconds."""
+    cfg = dataclasses.replace(T["get_config"](VARIANT_ARCH),
+                              num_layers=LM_LAYERS)
+    torch.cuda.empty_cache()
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    batch = lm_batches(T, cfg.vocab_size, VARIANT_SEQ, 1, 1, "cuda")[0]
+    base = variant_run(T, "baseline", cfg, params, batch)
+    want = T["leaves"](base.pop("grads"))
+    out = {"baseline": {k: base[k] for k in ("loss", "first_seconds",
+                                             "seconds", "peak_gb")}}
+    print(f"  {VARIANT_ARCH} depth {LM_LAYERS}, 1 x {VARIANT_SEQ} tokens, "
+          f"baseline: {json.dumps(out['baseline'])}")
+    for name in VARIANT_NAMES[1:]:
+        run = variant_run(T, name, cfg, params, batch)
+        got = T["leaves"](run.pop("grads"))
+        worst = max((g.float() - w.float()).abs().max().item()
+                    / max(w.float().abs().max().item(), 1e-30)
+                    for g, w in zip(got, want))
+        rel = abs(run["loss"] - base["loss"]) / abs(base["loss"])
+        c = run.pop("cfg")
+        out[name] = {**run, "fields": {k: getattr(c, k) for k in (
+            "attn_q_chunk", "loss_seq_chunk", "remat_blocks")},
+            "loss_rel_diff": rel, "worst_leaf_frac": worst}
+        print(f"  {name}: {json.dumps(out[name])}")
+        check(rel <= VARIANT_LOSS_RTOL,
+              f"{name}: loss within {VARIANT_LOSS_RTOL} of the baseline's")
+        check(worst <= VARIANT_GRAD_FRAC,
+              f"{name}: every gradient leaf within {VARIANT_GRAD_FRAC} of "
+              f"its largest magnitude of the baseline's")
+        del got
+    del params, want, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_card_vs_cpu(T: dict) -> dict:
+    """(d) ``mamba_split`` on mamba2-780m's ``.reduced()`` in float32,
+    card against CPU from the same weights: the logits, a prefill then 4
+    decode steps and every gradient leaf, each within 1e-5 of its largest
+    magnitude."""
+    cfg, _ = T["VARIANTS"]["mamba_split"](dataclasses.replace(
+        T["get_config"](SPLIT_ARCH).reduced(), dtype="float32"), {})
+    tf = T["transformer"]
+    host = tf.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    card = T["tree_to_device"](host, torch.device("cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    out, worst = {}, {}
+
+    def hold(what, got, want):
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        frac = err / max(want.float().abs().max().item(), 1e-30)
+        worst[what] = max(worst.get(what, 0.0), frac)
+        check(frac <= SERVE_HOLD_FRAC,
+              f"mamba_split {what}: card vs CPU within {SERVE_HOLD_FRAC} of "
+              f"the largest ({frac!r})")
+    hold("logits", tf.forward(card, cfg, toks.cuda()),
+         tf.forward(host, cfg, toks))
+    lc, cc = tf.prefill(card, cfg, toks.cuda(), cache_len=48)
+    lh, ch = tf.prefill(host, cfg, toks, cache_len=48)
+    for _ in range(SPLIT_DECODE):
+        hold("decode logits", lc, lh)
+        tok = lh.reshape(2, -1).argmax(-1)[:, None].to(torch.int32)
+        lc, cc = tf.decode_step(card, cfg, tok.cuda(), cc)
+        lh, ch = tf.decode_step(host, cfg, tok, ch)
+    hold("decode logits", lc, lh)
+    loss_c, gc = T["loss_and_grads"](
+        cfg, card, {k: v.cuda() for k, v in batch.items()})
+    loss_h, gh = T["loss_and_grads"](cfg, host, batch)
+    for g, w in zip(T["leaves"](gc), T["leaves"](gh)):
+        hold("gradient leaf", g, w)
+    out = {"loss_card": loss_c.item(), "loss_cpu": loss_h.item(),
+           "worst_frac": worst,
+           "split_leaves": sorted(k for k in card["blocks"]["l0"]["mixer"]
+                                  if k.startswith(("w_", "conv_")))}
+    print(f"  mamba_split {cfg.name} f32 card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def cross_train_phase(T: dict, counters) -> dict:
+    """(a) llama-3.2-vision-11b and seamless-m4t-medium at full width
+    through the fused step, each batch with a drawn memory, ``gba_apply``
+    timed on each run's state; (b) each ``.reduced()`` f32 card vs CPU;
+    (c) seamless's reduced int8 wire step card vs CPU; (d) the variants at
+    full width, and the split Mamba projections card vs CPU."""
+    phase(21, "LM training: the cross archs and the variants")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    out = {}
+    for arch in CROSS_ARCHS:
+        row = train_arch(T, arch, counters, timed=True)
+        check(row["trained"], f"{arch} trains at full width")
+        row["reduced_f32"] = train_card_vs_cpu(T, arch, row["W"])
+        out[arch] = row
+    torch.cuda.empty_cache()
+    expandable_segments(False)
+    out["wire_int8"] = cross_wire_card_vs_cpu(T, counters)
+    out["variants"] = variants_full_width(T)
+    out["mamba_split"] = split_card_vs_cpu(T)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 21: {out['seconds']:.1f} s (budget {PHASE21_BUDGET_S:.0f}"
+          f" s); trained at depths "
+          f"{[out[a]['depth'] for a in CROSS_ARCHS]}")
+    check(out["seconds"] <= PHASE21_BUDGET_S,
+          f"phase 21 within its budget of {PHASE21_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5098,6 +5396,7 @@ def main() -> int:
                                          quantize_sign_ref)
     from repro_torch.launch import quickstart, serve, train
     from repro_torch.launch.programs import build_programs, loss_and_grads
+    from repro_torch.launch.variants import VARIANTS
     from repro_torch.models.recsys import init_recsys
     from repro_torch.models import layers, transformer
     from repro_torch.models.transformer import init_model, param_count
@@ -5158,6 +5457,7 @@ def main() -> int:
          "run_lm_pytree": train.run_lm_pytree,
          "loss_and_grads": loss_and_grads,
          "leaves": lambda tree: [x for _, x in tree_paths(tree)],
+         "tree_paths": tree_paths, "VARIANTS": VARIANTS,
          "tree_map": tree_map, "init_buffer": init_buffer,
          "buffer_push_and_maybe_apply": buffer_push_and_maybe_apply,
          "gba_aggregate": gba_aggregate,
@@ -5278,8 +5578,10 @@ def main() -> int:
     ssm = ssm_phase(T, counters)
     torch.cuda.empty_cache()
     cross = cross_phase(T, counters)
+    torch.cuda.empty_cache()
+    cross_train = cross_train_phase(T, counters)
 
-    phase(21, "kernels")
+    phase(22, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -5313,6 +5615,7 @@ def main() -> int:
         "lm_archs_train": trained,
         "lm_ssm": ssm,
         "lm_cross": cross,
+        "lm_cross_train": cross_train,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -5329,7 +5632,9 @@ def main() -> int:
         **{f"train_{a}": trained[a]["launches"]["gba_apply"] for a in ARCHS
            if trained[a]["trained"]},
         **{f"train_{a}": ssm[f"train_{a}"]["launches"]["gba_apply"]
-           for a in SSM_ARCHS}}
+           for a in SSM_ARCHS},
+        **{f"train_{a}": cross_train[a]["launches"]["gba_apply"]
+           for a in CROSS_ARCHS}}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -5422,7 +5727,8 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the decayed "
                         "aggregate and the Adagrad update",
         "at": apply_row["shape"],
-        "shapes": [apply_row, trained["starcoder2-3b"]["gba_apply"]],
+        "shapes": [apply_row, trained["starcoder2-3b"]["gba_apply"],
+                   *(cross_train[a]["gba_apply"] for a in CROSS_ARCHS)],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
         serve_row(served, archs, ssm, cross)]}))

@@ -7,7 +7,7 @@ kimi-k2-1t-a32b), the Mamba2/SSD models (mamba2-780m, and zamba2-2.7b
 with its shared attention) and the two with ``cross`` layers over a
 memory (llama-3.2-vision-11b over stub image embeddings,
 seamless-m4t-medium over its audio encoder's output).  The port serves
-all ten; ``models.transformer.check_trainable`` says which it trains.
+and trains all ten.
 """
 from __future__ import annotations
 

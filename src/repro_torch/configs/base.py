@@ -2,9 +2,9 @@
 
 A copy of ``repro.configs.base``, field for field, so that a config names
 the same model in both packages.  ``ModelConfig`` carries every field of
-the reference as data, including those of architectures the port does not
-run yet; ``repro_torch.models.transformer.check_supported`` says which
-ones the port runs.  ``INPUT_SHAPES`` and ``TrainConfig`` are not copied:
+the reference, and the port runs each of them;
+``repro_torch.models.transformer.check_supported`` refuses a layer kind
+that does not exist.  ``INPUT_SHAPES`` and ``TrainConfig`` are not copied:
 nothing in the port reads them.
 """
 from __future__ import annotations

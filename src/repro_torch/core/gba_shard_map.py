@@ -102,7 +102,8 @@ def make_gba_psum_step(workers: int, loss_fn: Callable,
                          for k, v in batch.items()}
                 with torch.enable_grad():
                     loss_w = loss_fn(path_unflatten(paths, live), chunk)
-                    grads = torch.autograd.grad(loss_w, live)
+                    grads = torch.autograd.grad(loss_w, live,
+                                                materialize_grads=True)
                 del live
                 losses.append(loss_w.detach())
                 yield list(grads), weights[w] / m
@@ -198,7 +199,8 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
         live = [x.detach().requires_grad_() for x in leaves]
         with torch.enable_grad():
             loss = loss_fn(layout.unflatten(live), batch)
-            grads = list(torch.autograd.grad(loss, live))
+            grads = list(torch.autograd.grad(loss, live,
+                                             materialize_grads=True))
         return loss.detach(), grads
 
     def dequantized(codes, sides):

@@ -76,7 +76,15 @@ ARCH_ACC_DTYPE = {"kimi-k2-1t-a32b": torch.bfloat16}
 
 
 def _loss_from_batch(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    return T.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+    """The LM loss of a batch of ``tokens`` and ``labels`` (B, S), over
+    the cross layers' memory when the batch has one: ``image_embeds`` (B,
+    T, D), or ``frames`` (B, T, D) that the params' audio encoder turns
+    into it inside the loss, as the reference's."""
+    memory = batch.get("image_embeds")
+    if "frames" in batch:
+        memory = T.encode_audio(params, cfg, batch["frames"])
+    return T.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                     memory=memory)
 
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
@@ -97,12 +105,14 @@ def loss_and_grads(cfg: ModelConfig, params: Any, batch: dict
 
 def _grads_of(loss_fn: Callable, params: Any, batch: dict
               ) -> tuple[torch.Tensor, Any]:
-    """``loss_fn(params, batch)`` (detached) and its gradient tree."""
+    """``loss_fn(params, batch)`` (detached) and its gradient tree; a leaf
+    the loss does not reach takes zeros, as under ``jax.grad`` (the audio
+    encoder when a batch has no ``frames``)."""
     paths, leaves = zip(*tree_paths(params))
     live = [x.detach().requires_grad_() for x in leaves]
     with torch.enable_grad():
         loss = loss_fn(path_unflatten(paths, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, materialize_grads=True)
     return loss.detach(), path_unflatten(paths, list(grads))
 
 
@@ -137,7 +147,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     params and optimizer state, the accumulator is zeroed in place and
     ``gstep`` advances.  On the other microsteps ``params`` and ``opt``
     come back as the very objects that went in.  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S) on the params' device."""
+    ``tokens`` and ``labels`` (B, S) on the params' device, and the cross
+    layers' memory where the model has one (``_loss_from_batch``)."""
     m = gba.buffer_size
     iota = gba.staleness_tolerance
 
@@ -203,8 +214,9 @@ def make_fused_train_step(cfg: ModelConfig, gba: GBAConfig,
     updates the flat params and the accumulator.  The params are raveled
     and unraveled only on that microstep; on the others ``params`` and
     ``accum`` come back as the very tensors that went in.  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S) on the params' device; ``loss_fn``
-    replaces the LM loss of ``cfg``.
+    ``tokens`` and ``labels`` (B, S) on the params' device, and the cross
+    layers' memory where the model has one (``_loss_from_batch``);
+    ``loss_fn`` replaces the LM loss of ``cfg``.
 
     Over R > 1 ranks (``world`` a ``process_group.ProcessGroupBackend``
     and a sharded layout) ``batch`` is this rank's rows, an R-th of the
@@ -373,8 +385,9 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     ``build_programs(mode="sync_psum")``.
 
     The worker-parallel steps (``wire``, ``sync_psum``) take the rows of
-    the workers held here (the whole batch in process)."""
-    T.check_trainable(cfg)
+    the workers held here (the whole batch in process), and split every
+    entry of the batch, the memory too, by rows among them."""
+    T.check_supported(cfg)
     if mode == "pytree":
         opt = optimizer or get_optimizer(
             ARCH_OPTIMIZER.get(cfg.name, "adam"), lr)

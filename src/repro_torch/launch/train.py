@@ -25,15 +25,17 @@ per microstep the gradient into the (M, N) buffer, and on every M-th
 microstep one ``gba_apply`` launch (Eq. (1) weights and Adagrad) over the
 flat params; ``--fused`` forces Adagrad, as in the reference.  Microstep
 ``i`` carries the token ``i // M``, as in ``repro.launch.train``.
-``--reduced`` takes the config's smoke variant.  ``--arch`` trains the
-attention-family architectures (granite-8b, gemma2-27b, gemma3-12b,
-starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b) and the Mamba2 ones
-(mamba2-780m, zamba2-2.7b); kimi-k2's optimizer is Adagrad, the others'
-Adam.  One the port does not train (``models.transformer.
-check_trainable``: llama-3.2-vision-11b and seamless-m4t-medium, whose
-cross layers it serves) exits non-zero before any step, naming
-ROADMAP.md.  Unlike
-the reference's launcher, ``--reduced`` does not switch an Adagrad
+``--reduced`` takes the config's smoke variant.  ``--arch`` trains all
+ten architectures: the attention-family ones (granite-8b, gemma2-27b,
+gemma3-12b, starcoder2-3b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b), the
+Mamba2 ones (mamba2-780m, zamba2-2.7b) and the two with cross layers over
+a memory (llama-3.2-vision-11b, seamless-m4t-medium); kimi-k2's optimizer
+is Adagrad, the others' Adam.  The batches of a model with cross layers
+carry the reference launcher's memory (``lm_batch``): zeros of ``(batch,
+num_image_tokens, d_model)`` as ``image_embeds`` for the VLM, or of
+``(batch, encoder_frames, d_model)`` as ``frames``, which the audio
+encoder runs through inside the loss, in the model dtype.  Unlike the
+reference's launcher, ``--reduced`` does not switch an Adagrad
 architecture to the fused step: ``--fused`` asks for it.
 
 ``--fused --mesh Wx1`` (``--compress none``, the default) runs the
@@ -65,6 +67,10 @@ token-controlled worker-parallel async step, W workers with ``--batch``
 sequences each, under the ``--plan`` fault plan, switching on live
 telemetry over ``--batches`` local batches.  It needs no ``--fused`` and 2
 or more workers; ``--ranks R`` runs it on R ranks of W / R workers each.
+Its batches are the stream's tokens and labels alone, as the reference's
+``batch_fn`` gives them: a cross layer's ``xattn`` then runs without a
+memory, as a second causal self-attention, and the audio encoder takes
+no gradient.
 The reference's JAX-only ``--host-devices`` is not ported.
 
 ``--vocab`` is the counterpart of ``run_embedding_smoke`` in
@@ -98,6 +104,7 @@ from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.programs import (ARCH_OPTIMIZER, TrainPrograms,
                                          build_programs, make_loss_fn)
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import get_optimizer
 
@@ -162,6 +169,25 @@ def run_embedding_smoke(vocab: int, *, steps: int = 20, embed_dim: int = 16,
     return losses
 
 
+def lm_batch(cfg: ModelConfig, b: dict, device: torch.device,
+             rows: slice = slice(None)) -> dict:
+    """A microstep's batch on ``device`` from the stream's batch ``b``: its
+    ``tokens`` and ``labels`` at ``rows``, and for a model with cross
+    layers the reference launcher's memory of those rows, zeros in the
+    model dtype: ``image_embeds`` (rows, num_image_tokens, d_model) for a
+    VLM, ``frames`` (rows, encoder_frames, d_model) for an audio model."""
+    batch = {k: torch.from_numpy(b[k][rows]).to(device)
+             for k in ("tokens", "labels")}
+    if cfg.family in ("vlm", "audio"):
+        key, length = (("image_embeds", cfg.num_image_tokens)
+                       if cfg.family == "vlm" else
+                       ("frames", cfg.encoder_frames))
+        batch[key] = torch.zeros(
+            (batch["tokens"].shape[0], length, cfg.d_model),
+            dtype=L.dtype_of(cfg), device=device)
+    return batch
+
+
 def run_lm_pytree(cfg: ModelConfig, *, optimizer: str = "adam",
                   steps: int = 20, batch: int = 4, seq: int = 128,
                   buffer: int = 4, iota: int = 4, lr: float = 1e-3,
@@ -195,9 +221,7 @@ def run_lm_pytree(cfg: ModelConfig, *, optimizer: str = "adam",
     state, losses = progs.state, []
     t0 = time.perf_counter()
     for i in range(steps):
-        b = stream.batch(i)
-        tensors = {k: torch.from_numpy(b[k]).to(dev)
-                   for k in ("tokens", "labels")}
+        tensors = lm_batch(cfg, stream.batch(i), dev)
         t = time.perf_counter()
         state, loss = progs.step(state, tensors, i // buffer)
         losses.append(loss.item())
@@ -264,9 +288,8 @@ def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
     state, losses = progs.state, []
     t0 = time.perf_counter()
     for i in range(steps):
-        b = stream.batch(i)
-        tensors = {k: torch.from_numpy(b[k][first:first + rows]).to(dev)
-                   for k in ("tokens", "labels")}
+        tensors = lm_batch(cfg, stream.batch(i), dev,
+                           slice(first, first + rows))
         state, loss = progs.step(state, tensors, i // buffer)
         losses.append(loss.item())
         if i % 5 == 0 or i == steps - 1:
@@ -329,9 +352,7 @@ def run_wire_train(cfg: ModelConfig, *, workers: int, scheme: str,
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
-        b = stream.batch(i)
-        tensors = {k: torch.from_numpy(b[k][held]).to(dev)
-                   for k in ("tokens", "labels")}
+        tensors = lm_batch(cfg, stream.batch(i), dev, held)
         tokens = torch.full((workers,), i, dtype=torch.int32, device=dev)
         warm = pol.stateful and i < pol.warmup_steps
         fn = progs.wire_step_for(i)
@@ -384,6 +405,8 @@ def run_autoswitch(cfg: ModelConfig, *, workers: int,
     local batches, in ``mode`` (``"auto"``: the controller decides), over
     the collectives of ``world`` (all workers here by default, or this
     rank's share).  The layout is the layer-grouped one of the wire step.
+    The batches hold no memory, as the reference's ``batch_fn``'s: the
+    cross layers' ``xattn`` runs as a second causal self-attention.
     Parameters are drawn from seed 0 on the device unless ``params`` (on
     ``device``) are given.  Prints the reference launcher's summary line
     and returns the ``SwitchResult``."""
@@ -421,8 +444,7 @@ def run_autoswitch(cfg: ModelConfig, *, workers: int,
 def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS,
-                    help="LM architecture (the six attention-family ones "
-                         "are ported)")
+                    help="LM architecture (all ten are ported)")
     ap.add_argument("--vocab", type=int, default=0,
                     help="rows of the hashed table of the sparse smoke")
     ap.add_argument("--steps", type=int, default=20)
@@ -477,7 +499,7 @@ def main(argv: list[str] | None = None):
     if args.arch:
         try:
             cfg = get_config(args.arch)
-            T.check_trainable(cfg)
+            T.check_supported(cfg)
         except NotImplementedError as e:
             ap.error(str(e))
         # the optimizer comes from the arch's own name, before .reduced()

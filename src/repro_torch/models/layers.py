@@ -4,8 +4,9 @@ one-token decode against a KV cache), cross-attention over a memory, the
 gated (SwiGLU) MLP, the top-k MoE FFN and the Mamba2/SSD mixer (full
 sequence by the chunked SSD scan, and the one-token recurrent update).
 
-Counterpart of ``repro.models.layers`` (without its ``mamba_split_proj``
-variant), with its parameter names, shapes and arithmetic.  ``*_spec`` describes a
+Counterpart of ``repro.models.layers``, with its parameter names, shapes
+and arithmetic, its ``attn_q_chunk`` and ``mamba_split_proj`` variants
+included.  ``*_spec`` describes a
 module's parameters as a dict of :class:`Leaf` (shape, dtype, and how the
 value is drawn), which ``models.transformer.init_model`` materialises;
 ``*_fwd`` applies the tensors.  Attention is written as the reference
@@ -34,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -146,6 +148,18 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.float())
 
 
+def _q_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: int,
+             window: int, softcap: float) -> torch.Tensor:
+    """``_sdpa`` of the queries at positions ``start ..`` over every key,
+    under the (1, qc, S) causal mask of those rows (and the window)."""
+    row = torch.arange(start, start + q.shape[1], device=q.device)
+    col = torch.arange(k.shape[1], device=q.device)
+    mask = row[:, None] >= col[None, :]
+    if window:
+        mask &= row[:, None] - col[None, :] < window
+    return _sdpa(q, k, v, mask[None], softcap)
+
+
 def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   kv_override: torch.Tensor | None = None,
@@ -156,22 +170,37 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     a memory (B,T,D) in the model dtype, it is cross-attention: keys and
     values are projected from the memory, and neither the queries nor the
     keys take RoPE nor a mask.  With ``return_kv`` also returns the
-    (RoPE'd) k and v, (B,S,KV,hd) each, for the decode cache."""
+    (RoPE'd) k and v, (B,S,KV,hd) each, for the decode cache.
+
+    With an ``attn_q_chunk`` qc that divides S and is below it, a
+    self-attention never makes its (S, S) scores: the queries run in
+    chunks of qc in order, each under a checkpoint with its own (qc, S)
+    mask, and the chunks' outputs are concatenated, as the reference's
+    scan over chunks.  The cross-attention is never chunked."""
     B, S, _ = x.shape
     G = cfg.num_heads // cfg.num_kv_heads
     kv_in = x if kv_override is None else kv_override
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     k = torch.einsum("btd,dnh->btnh", kv_in, p["wk"])
     v = torch.einsum("btd,dnh->btnh", kv_in, p["wv"])
-    mask = None
     if kv_override is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        mask = positions[:, :, None] >= positions[:, None, :]
-        if window:
-            mask &= positions[:, :, None] - positions[:, None, :] < window
     q = q.reshape(B, S, cfg.num_kv_heads, G, cfg.resolved_head_dim)
-    out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+    qc = cfg.attn_q_chunk
+    if qc and S % qc == 0 and S > qc and kv_override is None:
+        out = torch.cat([
+            checkpoint(_q_chunk, q[:, start:start + qc], k, v, start, window,
+                       cfg.attn_softcap, use_reentrant=False)
+            for start in range(0, S, qc)], dim=1)
+    else:
+        mask = None
+        if kv_override is None:
+            mask = positions[:, :, None] >= positions[:, None, :]
+            if window:
+                mask &= positions[:, :, None] - positions[:, None, :] \
+                    < window
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
     out = out.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
     # float32 attention output times the weight: float32, as jnp promotes
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
@@ -432,19 +461,38 @@ def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 def mamba_spec(cfg: ModelConfig) -> Params:
-    """The fused ``in_proj`` (D, 2 d_inner + 2N + H) giving z, x, B, C and
-    dt; the depthwise ``conv_w`` (CONV_W, d_inner + 2N) at scale 0.5; the
-    float32 per-head ``A_log`` and ``dt_bias`` (zeros) and ``D_skip``
-    (ones); ``out_norm`` of width d_inner and ``out_proj``."""
+    """The float32 per-head ``A_log`` and ``dt_bias`` (zeros) and
+    ``D_skip`` (ones); ``out_norm`` of width d_inner and ``out_proj``; and
+    the input projections: the fused ``in_proj`` (D, 2 d_inner + 2N + H)
+    giving z, x, B, C and dt, and the depthwise ``conv_w`` (CONV_W,
+    d_inner + 2N) at scale 0.5, or, with ``mamba_split_proj``, the
+    reference's one weight a stream, ``w_z`` and ``w_x`` (D, d_inner),
+    ``w_B`` and ``w_C`` (D, N) and ``w_dt`` (D, H), and one conv a
+    convolved stream, ``conv_x`` (CONV_W, d_inner), ``conv_B`` and
+    ``conv_C`` (CONV_W, N), at scale 0.5."""
     dt = dtype_of(cfg)
+    D = cfg.d_model
     d_inner, H, N = ssm_dims(cfg)
-    return {
+    common = {
         "A_log": Leaf((H,), torch.float32, None),
         "D_skip": Leaf((H,), torch.float32, None, fill=1.0),
         "dt_bias": Leaf((H,), torch.float32, None),
         "out_norm": norm_spec(cfg, d_inner),
-        "out_proj": dense((d_inner, cfg.d_model), dt),
-        "in_proj": dense((cfg.d_model, 2 * d_inner + 2 * N + H), dt),
+        "out_proj": dense((d_inner, D), dt),
+    }
+    if cfg.mamba_split_proj:
+        return common | {
+            "w_z": dense((D, d_inner), dt),
+            "w_x": dense((D, d_inner), dt),
+            "w_B": dense((D, N), dt),
+            "w_C": dense((D, N), dt),
+            "w_dt": dense((D, H), dt),
+            "conv_x": dense((CONV_W, d_inner), dt, scale=0.5),
+            "conv_B": dense((CONV_W, N), dt, scale=0.5),
+            "conv_C": dense((CONV_W, N), dt, scale=0.5),
+        }
+    return common | {
+        "in_proj": dense((D, 2 * d_inner + 2 * N + H), dt),
         "conv_w": dense((CONV_W, d_inner + 2 * N), dt, scale=0.5),
     }
 
@@ -528,11 +576,22 @@ def ssd_chunked(xh: torch.Tensor, dt_h: torch.Tensor, a_log: torch.Tensor,
     return (y_intra + y_inter).reshape(Bsz, S, H, P), final
 
 
-def _split_zxbcdt(cfg: ModelConfig, zxbcdt: torch.Tensor):
+def _in_proj(p: Params, cfg: ModelConfig, x: torch.Tensor) -> tuple:
+    """(z, the pre-convolution xBC, dt, the conv weight over xBC) of x:
+    the fused ``in_proj``'s columns and ``conv_w``, or the split
+    projections' outputs and convs concatenated.  A depthwise conv is per
+    channel, so the split convs over their streams are the concatenated
+    conv over xBC, tap for tap."""
     d_inner, _, N = ssm_dims(cfg)
-    return torch.split(zxbcdt, [d_inner, d_inner, N, N,
-                                zxbcdt.shape[-1] - 2 * d_inner - 2 * N],
-                       dim=-1)
+    if cfg.mamba_split_proj:
+        xbc = torch.cat([x @ p["w_x"], x @ p["w_B"], x @ p["w_C"]], dim=-1)
+        conv_w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=-1)
+        return x @ p["w_z"], xbc, x @ p["w_dt"], conv_w
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt_r = torch.split(
+        zxbcdt, [d_inner, d_inner + 2 * N,
+                 zxbcdt.shape[-1] - 2 * d_inner - 2 * N], dim=-1)
+    return z, xbc, dt_r, p["conv_w"]
 
 
 def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor,
@@ -558,9 +617,8 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"{cfg.name}: a prompt of {S} token(s) leaves a "
                          f"conv window of {S} < {CONV_W - 1} positions; the "
                          f"Mamba2 decode cache needs {CONV_W - 1}")
-    z, xs, Bm, Cm, dt_r = _split_zxbcdt(cfg, x @ p["in_proj"])
-    xbc = torch.cat([xs, Bm, Cm], dim=-1)
-    conv = torch.nn.functional.silu(_causal_conv(xbc, p["conv_w"]))
+    z, xbc, dt_r, conv_w = _in_proj(p, cfg, x)
+    conv = torch.nn.functional.silu(_causal_conv(xbc, conv_w))
     xs, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
     dt_h = _softplus(dt_r.float() + p["dt_bias"])
     xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
@@ -601,11 +659,10 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params
     (views into a stacked cache write through)."""
     B = x.shape[0]
     d_inner, H, N = ssm_dims(cfg)
-    z, xs, Bm, Cm, dt_r = _split_zxbcdt(cfg, x[:, 0] @ p["in_proj"])
-    xbc = torch.cat([xs, Bm, Cm], dim=-1)                    # (B, C)
+    z, xbc, dt_r, conv_w = _in_proj(p, cfg, x[:, 0])         # xbc (B, C)
     conv_hist = torch.cat([cache["conv"],
                            xbc[:, None, :].to(cache["conv"].dtype)], dim=1)
-    conv = torch.einsum("bwc,wc->bc", conv_hist, p["conv_w"])
+    conv = torch.einsum("bwc,wc->bc", conv_hist, conv_w)
     conv = torch.nn.functional.silu(conv)
     xs, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
     dt_h = _softplus(dt_r.float() + p["dt_bias"])            # (B, H)

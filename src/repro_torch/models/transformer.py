@@ -53,11 +53,16 @@ windows into the cache in place (a functional update would copy the
 whole cache every step) and returns a new top-level dict that shares
 them.
 
-:func:`check_supported` raises for what the port does not run (query and
-loss chunking, rematerialisation, the split Mamba projections), and
-:func:`check_trainable`, which the training programs call, refuses the
-same and the ``cross`` layers and their image and audio memories, whose
-training is not ported yet.
+The reference's training-memory variants run as the reference runs
+them: ``attn_q_chunk`` (queries in chunks, each under a checkpoint; see
+``layers.attention_fwd``), ``loss_seq_chunk`` (the head and the
+cross-entropy over chunks of the sequence, each under a checkpoint; see
+:func:`lm_loss`), ``remat_blocks`` (each repeat of the block pattern under
+a checkpoint) and ``mamba_split_proj`` (see ``layers.mamba_spec``).  A
+checkpoint here is ``torch.utils.checkpoint.checkpoint`` without
+re-entry, the counterpart of ``jax.checkpoint``: the forward keeps the
+segment's inputs alone and the backward runs the segment again.
+:func:`check_supported` refuses a layer kind that does not exist.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
@@ -77,40 +83,15 @@ KINDS = ("global", "local", "moe", "local_moe", "cross", "mamba",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming every feature of ``cfg`` that
-    the port does not run."""
-    asked = []
+    """Raise ``NotImplementedError`` for a layer kind of ``cfg`` that is
+    not one of ``KINDS``, and ``ValueError`` for a dtype the port does not
+    take.  Every other model the port runs, it also trains (its gradient
+    is autograd's through the forward)."""
     kinds = (set(cfg.block_pattern) | set(cfg.prefix_layers)) - set(KINDS)
     if kinds:
-        asked.append(f"layer kinds {sorted(kinds)}")
-    for name in ("attn_q_chunk", "loss_seq_chunk", "remat_blocks"):
-        if getattr(cfg, name):
-            asked.append(name)
-    if cfg.mamba_split_proj:
-        asked.append("mamba_split_proj (a speed variant of the reference's "
-                     "launch/variants.py: ROADMAP.md queue 1 item 1.4)")
-    if asked:
         raise NotImplementedError(
-            f"{cfg.name}: not ported: {', '.join(asked)} (see ROADMAP.md)")
+            f"{cfg.name}: not ported: layer kinds {sorted(kinds)}")
     L.dtype_of(cfg)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port does not train:
-    what :func:`check_supported` refuses, and the ``cross`` layers with
-    their image and audio memories (``lm_loss`` over a memory and the
-    encoder's backward wait in ROADMAP.md).  Every other model the port
-    runs, it also trains (its gradient is autograd's through the
-    forward)."""
-    check_supported(cfg)
-    asked = [name for name, on in (
-        ("cross layers", "cross" in (*cfg.prefix_layers, *cfg.block_pattern)),
-        ("num_image_tokens", cfg.num_image_tokens),
-        ("encoder_layers", cfg.encoder_layers)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{cfg.name}: training is not ported yet for {', '.join(asked)} "
-            f"(serving is; see ROADMAP.md queue 1)")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -360,12 +341,16 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     return x.to(L.dtype_of(cfg))
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
+def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            head: torch.Tensor | None = None) -> torch.Tensor:
     """The head in float32: (B, S, D) -> (B, S, V) through ``lm_head``, or
     ``embed``'s transpose when the embeddings are tied; softcapped by
     ``tanh(l / c) * c`` when the config has a ``logit_softcap`` c."""
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    head = _head(params, cfg) if head is None else head
     logits = torch.einsum("bsd,dv->bsv", x.float(), head.float())
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
@@ -394,13 +379,25 @@ def encode_audio(params: Params, cfg: ModelConfig, frames: torch.Tensor
     return L.norm_fwd(params["enc_norm"], x)
 
 
-def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                memory: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def _repeat(block: Params, cfg: ModelConfig, x: torch.Tensor,
+            positions: torch.Tensor, aux: torch.Tensor,
+            shared: Params | None, memory: torch.Tensor | None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One repeat of the block pattern: the reference's scan body."""
+    for i, kind in enumerate(cfg.block_pattern):
+        x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux,
+                            shared, memory)
+    return x, aux
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   memory: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int, ``memory`` (B, T, D) for the cross layers ->
-    (logits (B, S, V) float32, aux), ``aux`` the float32 sum of the MoE
-    layers' load-balance losses (0.0 without any), as the reference's
-    ``forward`` returns them."""
+    (the final norm's output (B, S, D) in the model dtype, aux): the
+    forward up to the head, as the reference's ``forward_hidden``.  With
+    ``remat_blocks`` each repeat of the block pattern runs under a
+    checkpoint; the prefix layers do not."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -411,11 +408,22 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x, aux = _layer_fwd(params["prefix"][i], cfg, kind, x, positions,
                             aux, shared, memory)
     for r in range(cfg.num_repeats):
-        block = _block(params["blocks"], r)
-        for i, kind in enumerate(cfg.block_pattern):
-            x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux,
-                                shared, memory)
-    return _logits(params, cfg, L.norm_fwd(params["final_norm"], x)), aux
+        args = (_block(params["blocks"], r), cfg, x, positions, aux, shared,
+                memory)
+        x, aux = (checkpoint(_repeat, *args, use_reentrant=False)
+                  if cfg.remat_blocks else _repeat(*args))
+    return L.norm_fwd(params["final_norm"], x), aux
+
+
+def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                memory: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int, ``memory`` (B, T, D) for the cross layers ->
+    (logits (B, S, V) float32, aux), ``aux`` the float32 sum of the MoE
+    layers' load-balance losses (0.0 without any), as the reference's
+    ``forward`` returns them."""
+    x, aux = forward_hidden(params, cfg, tokens, memory)
+    return _logits(params, cfg, x), aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -518,15 +526,45 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return _logits(params, cfg, x), {**cache, "pos": pos + 1}
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, in float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+
+
+def _chunk_nll(params: Params, cfg: ModelConfig, head: torch.Tensor,
+               h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of one chunk's negative log-likelihoods."""
+    return _nll(_logits(params, cfg, h, head), labels).sum()
+
+
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor) -> torch.Tensor:
+            labels: torch.Tensor, memory: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Mean next-token negative log-likelihood, ``log_softmax`` in
     float32, plus ``router_aux_loss_weight * aux``, as the reference adds
-    it.  Without MoE layers ``aux`` is 0.0, which changes no loss."""
-    logits, aux = forward_aux(params, cfg, tokens)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(nll) + cfg.router_aux_loss_weight * aux
+    it (without MoE layers ``aux`` is 0.0, which changes no loss);
+    ``memory`` (B, T, D) feeds the cross layers.
+
+    With a ``loss_seq_chunk`` c that divides S and is below it, the full
+    (B, S, V) logits are never made: :func:`forward_hidden`, then for each
+    chunk of c positions in order, under a checkpoint, its head product
+    and the sum of its negative log-likelihoods, added into a float32
+    total from 0; the mean is that total over B * S, as the reference
+    divides it."""
+    sc, (B, S) = cfg.loss_seq_chunk, tokens.shape
+    if sc and S % sc == 0 and S > sc:
+        hidden, aux = forward_hidden(params, cfg, tokens, memory)
+        head = _head(params, cfg)
+        total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for start in range(0, S, sc):
+            total = total + checkpoint(
+                _chunk_nll, params, cfg, head, hidden[:, start:start + sc],
+                labels[:, start:start + sc], use_reentrant=False)
+        return total / (B * S) + cfg.router_aux_loss_weight * aux
+    logits, aux = forward_aux(params, cfg, tokens, memory)
+    return torch.mean(_nll(logits, labels)) + \
+        cfg.router_aux_loss_weight * aux
 
 
 def param_count(params: Params) -> int:
@@ -539,8 +577,9 @@ def param_group_key(path_names: tuple[str, ...]) -> str:
     reference's: one group per position ``l{i}`` of the block pattern
     (its leaves stacked over ``num_repeats``), one per prefix layer
     (``prefix.#{i}``), ``head`` for ``lm_head``, one per other top-level
-    module (``embed``, ``final_norm``, ``shared_attn``) and ``misc`` for
-    an empty path."""
+    module (``embed``, ``final_norm``, ``shared_attn``, and the audio
+    ``encoder``, its leaves stacked over ``encoder_layers``, and
+    ``enc_norm``) and ``misc`` for an empty path."""
     if not path_names:
         return "misc"
     head = path_names[0]

@@ -42,7 +42,7 @@ from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServingEngine
@@ -407,24 +407,8 @@ def test_engine_matches_the_references_engine(draws, arch):
 
 
 # ---------------------------------------------------------------------------
-# training refused; the launchers
+# the launchers (training: tests/test_torch_archs_cross_train.py)
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_check_trainable_refuses_both_archs(arch, capsys):
-    """Serving runs; training, full or reduced, is refused naming
-    ROADMAP.md, by ``check_trainable`` and by the training launcher."""
-    cfg = get_config(arch)
-    for c in (cfg, cfg.reduced()):
-        T.check_supported(c)
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            T.check_trainable(c)
-        assert "cross layers" in str(e.value)
-    with pytest.raises(SystemExit):
-        train.main(["--arch", arch, "--reduced", "--steps", "1",
-                    "--device", "cpu"])
-    assert "training is not ported yet" in capsys.readouterr().err
-
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_fixed_batch_and_engine_on_the_cpu(arch, capsys):

@@ -70,6 +70,7 @@ from repro_torch.data import make_lm_stream
 from repro_torch.kernels import ops
 from repro_torch.launch import serve, train
 from repro_torch.launch.programs import build_programs
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import get_optimizer
 from repro_torch.serving import Request, ServingEngine
@@ -195,7 +196,6 @@ def test_full_width_spec_is_the_references_leaf_set(arch):
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     T.check_supported(cfg)
-    T.check_trainable(cfg)
     want = jax.eval_shape(lambda: JT.init_model(jax.random.PRNGKey(0), jcfg))
     top, block = T.model_spec(cfg)
     got = {path: dataclasses.replace(spec, shape=(
@@ -214,11 +214,46 @@ def test_full_width_spec_is_the_references_leaf_set(arch):
     assert ("shared_attn" in top) == (arch == ZAMBA)
 
 
-def test_split_proj_variant_is_refused():
-    cfg = dataclasses.replace(get_config("mamba2-780m"),
-                              mamba_split_proj=True)
-    with pytest.raises(NotImplementedError, match="1.4"):
-        T.check_supported(cfg)
+def _split_from_fused(p, cfg):
+    """The same weights in the split layout: ``in_proj``'s z, x, B, C and
+    dt columns and ``conv_w``'s x, B and C columns as the split leaves."""
+    d_inner, _, N = L.ssm_dims(cfg)
+    cols = [d_inner, d_inner, N, N, p["in_proj"].shape[-1]
+            - 2 * d_inner - 2 * N]
+    out = {k: v for k, v in p.items() if k not in ("in_proj", "conv_w")}
+    out |= dict(zip(("w_z", "w_x", "w_B", "w_C", "w_dt"),
+                    torch.split(p["in_proj"], cols, dim=-1)))
+    return out | dict(zip(("conv_x", "conv_B", "conv_C"),
+                          torch.split(p["conv_w"], cols[1:4], dim=-1)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_split_proj_variant_is_refused(arch):
+    """``mamba_split_proj`` runs (it was refused before the port took
+    it): the fused weights carried into the split layout give the fused
+    model's logits, and its prefill then 4 decode steps (the three convs
+    concatenated over the conv window) the fused model's, within 1e-5 of
+    the largest (``tests/test_torch_variants.py`` holds the split layout
+    against the reference's)."""
+    _, cfg, _, p = _model(arch)
+    split = dataclasses.replace(cfg, mamba_split_proj=True)
+    T.check_supported(split)
+    ps = {**p, "blocks": {
+        k: {**v, "mixer": _split_from_fused(v["mixer"], cfg)}
+        for k, v in p["blocks"].items()}}
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 2))
+    _close_to_max(T.forward(ps, split, toks), T.forward(p, cfg, toks), 1e-5,
+                  "logits")
+    want, cache = T.prefill(p, cfg, toks, cache_len=CACHE)
+    got, scache = T.prefill(ps, split, toks, cache_len=CACHE)
+    for step in range(5):
+        _close_to_max(got, want, 1e-5, f"step {step}")
+        tok = want.reshape(B, -1).argmax(-1)[:, None].to(torch.int32)
+        want, cache = T.decode_step(p, cfg, tok, cache)
+        got, scache = T.decode_step(ps, split, tok, scache)
+    for name in ("ssm", "conv"):
+        _close_to_max(scache["blocks"]["l0"]["ssm"][name],
+                      cache["blocks"]["l0"]["ssm"][name], 1e-5, name)
 
 
 # ---------------------------------------------------------------------------

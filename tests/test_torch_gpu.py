@@ -1578,3 +1578,93 @@ def test_one_rank_nccl_world_switches_and_shards_as_in_process(tmp_path,
         assert selfcheck.differing(got[k], v) == 0, k
     if case == "demo_nan":
         assert all(v.item() == 0 for v in want.values())
+
+
+def _memory_batch(cfg, seed, seq=16):
+    """One sequence of ``seq`` tokens and labels and a drawn memory
+    (``image_embeds``, or ``frames`` for the encoder) on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), generator=gen)
+    key, length = (("image_embeds", cfg.num_image_tokens)
+                   if cfg.family == "vlm" else ("frames", cfg.encoder_frames))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            key: torch.randn((1, length, cfg.d_model), generator=gen)}
+
+
+@pytest.mark.parametrize("arch,layers", [("llama-3.2-vision-11b", 5),
+                                         ("seamless-m4t-medium", 1)])
+def test_full_width_cross_stack_trains_on_the_card_as_on_the_cpu(arch,
+                                                                 layers):
+    """One full-width repeat of llama-3.2-vision-11b (4 global layers and a
+    cross layer over 1,601 drawn image embeddings) and seamless-m4t-medium's
+    full encoder (12 layers over 1,024 drawn frames) and one cross layer,
+    in float32: ``lm_loss`` over the memory and every gradient leaf, the
+    cross layer's ``xattn`` and the encoder's included, card against CPU
+    from the same draw, within 1e-5 of each one's largest magnitude
+    (float32 sums in other orders)."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.core.gba import tree_paths
+    from repro_torch.launch.programs import loss_and_grads
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              num_layers=layers)
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    batch = _memory_batch(cfg, 4)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = host if dev == "cpu" else T._map(host, lambda t: t.cuda())
+        loss, grads = loss_and_grads(
+            cfg, params, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = (loss.item(), [(p, g.cpu()) for p, g in
+                                   tree_paths(grads)])
+        del params, grads
+        torch.cuda.empty_cache()
+    (lc, gc), (lh, gh) = runs["cuda"], runs["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    names = {p[0] for p, _ in gh} | {p[2] for p, _ in gh
+                                     if p[0] == "blocks"}
+    assert "xattn" in names and ("encoder" in names) == (layers == 1)
+    for (path, a), (_, b) in zip(gc, gh):
+        assert bool(torch.isfinite(a).all()), path
+        assert b.abs().max() > 0, f"{path}: a zero gradient"
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), path
+
+
+def test_full_opt_layer_at_2048_tokens_matches_the_baseline_on_the_card():
+    """granite-8b's full-width layer (bf16) over one sequence of 2,048
+    tokens under ``full_opt`` (queries in chunks of 1,024 and the loss in
+    chunks of 512, each checkpointed, the repeat checkpointed) against the
+    baseline on the card: the loss within 2**-6 relative, each gradient
+    leaf within 2**-5 of its largest magnitude (bf16 intermediates rounded
+    in other groupings), and a lower peak of device memory."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.core.gba import tree_paths
+    from repro_torch.launch.programs import loss_and_grads
+    from repro_torch.launch.variants import VARIANTS
+    from repro_torch.models import transformer as T
+    base = dataclasses.replace(get_config("granite-8b"), num_layers=1)
+    params = T.init_model(base, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    toks = torch.randint(0, base.vocab_size, (1, 2049), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for name in ("baseline", "full_opt"):
+        cfg, _ = VARIANTS[name](base, {})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        runs[name] = (loss.item(), [g for _, g in tree_paths(grads)],
+                      torch.cuda.max_memory_allocated())
+    (lb, gb, pb), (lo, go, po) = runs["baseline"], runs["full_opt"]
+    assert abs(lo - lb) <= 2.0**-6 * abs(lb)
+    for a, b in zip(go, gb):
+        assert (a.float() - b.float()).abs().max() \
+            <= 2.0**-5 * b.float().abs().max()
+    assert po < pb, (po, pb)
+    del params, runs
+    torch.cuda.empty_cache()

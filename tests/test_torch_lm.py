@@ -119,15 +119,11 @@ def test_config_matches_the_reference(reduced):
         JaxGBAConfig())
 
 
-# served, not trained yet: the archs with cross layers over a memory
-SERVED_ONLY = ("llama-3.2-vision-11b", "seamless-m4t-medium")
-
-
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "granite-8b"])
 def test_archs_not_ported_raise_and_name_the_roadmap(arch):
     """Every architecture is ported and equals the reference's config,
-    full and reduced; the two over an image or audio memory are served,
-    and their training raises, naming ROADMAP.md; the others train."""
+    full and reduced, and the port serves and trains each (the two over
+    an image or audio memory too): ``check_supported`` passes."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
@@ -135,13 +131,7 @@ def test_archs_not_ported_raise_and_name_the_roadmap(arch):
     assert (cfg.resolved_head_dim, cfg.num_repeats) == (
         jcfg.resolved_head_dim, jcfg.num_repeats)
     T.check_supported(cfg)
-    if arch in SERVED_ONLY:
-        for c in (cfg, cfg.reduced()):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                T.check_trainable(c)
-        return
-    T.check_trainable(cfg)
-    T.check_trainable(cfg.reduced())
+    T.check_supported(cfg.reduced())
 
 
 def test_unknown_arch_raises():
@@ -251,6 +241,8 @@ def test_gradients_match_jax_grad(dtype, layers):
 FEATURES = {
     "moe": dict(block_pattern=("moe",), num_experts=4, experts_per_token=2),
     "mamba": dict(block_pattern=("mamba",), ssm_state=16),
+    "mamba-split": dict(block_pattern=("mamba",), ssm_state=16,
+                        mamba_split_proj=True),
     "cross": dict(block_pattern=("cross",)),
     "prefix": dict(prefix_layers=("global",), num_layers=3),
     "tied": dict(tie_embeddings=True),
@@ -264,60 +256,44 @@ FEATURES = {
 }
 
 
-# the features the port serves and trains
-SERVED = ("moe", "prefix", "logit-softcap", "attn-softcap", "window",
-          "layernorm", "mamba", "tied")
-# the features the port serves and does not train yet
-SERVED_UNTRAINED = ("cross",)
-
-
 @pytest.mark.parametrize("feature", sorted(FEATURES))
 def test_check_supported_raises_for_what_is_not_ported(feature):
-    """The features of the attention-family and Mamba2 archs build and
-    run a reduced model (forward, prefill, two decode steps; finite
-    logits) and train (a finite gradient for every leaf); the cross layer
-    runs (here without a memory, as the reference's engine runs it) and
-    its training is refused; the rest are refused outright, for training
-    too."""
+    """Every feature of the reference's model code builds and runs a
+    reduced model over 80 tokens (forward, prefill, two decode steps;
+    finite logits) and trains (a finite gradient for every leaf): the
+    cross layer without a memory, as the reference's engine runs it, and
+    the query and loss chunks engaged (16 divides 80).  Only a layer kind
+    that does not exist is refused."""
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               **FEATURES[feature])
     gen = torch.Generator().manual_seed(0)
-    if feature not in SERVED + SERVED_UNTRAINED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.check_trainable(cfg)
-        with pytest.raises(NotImplementedError):
-            T.init_model(cfg, generator=gen, device="cpu")
-        return
     T.check_supported(cfg)
     p = T.init_model(cfg, generator=gen, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=gen)
-    if feature in SERVED_UNTRAINED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.check_trainable(cfg)
-    else:
-        T.check_trainable(cfg)
-        loss, grads = loss_and_grads(cfg, p, {"tokens": toks,
-                                              "labels": toks.roll(-1, 1)})
-        assert bool(torch.isfinite(loss))
-        layout = FlatLayout.from_params(grads)
-        assert layout.paths == FlatLayout.from_params(p).paths
-        assert all(bool(torch.isfinite(g).all())
-                   for g in layout.leaves(grads))
+    toks = torch.randint(0, cfg.vocab_size, (2, 80), generator=gen)
+    loss, grads = loss_and_grads(cfg, p, {"tokens": toks,
+                                          "labels": toks.roll(-1, 1)})
+    assert bool(torch.isfinite(loss))
+    layout = FlatLayout.from_params(grads)
+    assert layout.paths == FlatLayout.from_params(p).paths
+    assert all(bool(torch.isfinite(g).all()) for g in layout.leaves(grads))
     logits, aux = T.forward_aux(p, cfg, toks)
-    assert logits.shape == (2, 70, cfg.vocab_size)
+    assert logits.shape == (2, 80, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     assert (aux.item() > 0) == (feature == "moe")
     if cfg.logit_softcap:
         assert logits.abs().max().item() <= cfg.logit_softcap
-    last, cache = T.prefill(p, cfg, toks, cache_len=72)
+    last, cache = T.prefill(p, cfg, toks, cache_len=82)
     torch.testing.assert_close(last, logits[:, -1], rtol=1e-5, atol=1e-5)
     tok = last.argmax(-1)[:, None].to(torch.int32)
     for _ in range(2):
         lg, cache = T.decode_step(p, cfg, tok, cache)
         assert bool(torch.isfinite(lg).all())
         tok = lg.argmax(-1).to(torch.int32)
+    unknown = dataclasses.replace(cfg, block_pattern=("conv",))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        T.check_supported(unknown)
+    with pytest.raises(NotImplementedError):
+        T.init_model(unknown, generator=gen, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -543,7 +519,8 @@ def test_train_cli_runs_the_pytree_step_with_adam_on_the_cpu():
      "a model axis above 1 is not ported"),
     (("--arch", "kimi-k2-1t-a32b", "--reduced", "--mesh", "4x1"),
      "pytree step over PS workers is not ported"),
-    (("--arch", "llama-3.2-vision-11b", "--reduced"), "not ported yet"),
+    (("--arch", "seamless-m4t-medium", "--reduced", "--fused", "--mesh",
+      "4x2"), "a model axis above 1 is not ported"),
 ])
 def test_train_cli_refuses_what_the_port_does_not_run(args, says):
     proc = _train(*args, "--device", "cpu")

@@ -375,11 +375,12 @@ def test_serve_engine_from_a_checkpoint_subtree(tmp_path, capsys):
 
 
 def test_serve_refuses_an_arch_that_is_not_ported(monkeypatch):
-    """Every architecture id is ported now: a config with a feature the
-    port does not run (the reference's query chunking) exits non-zero
-    before any weights are made."""
-    chunked = dataclasses.replace(get_config("granite-8b"), attn_q_chunk=16)
-    monkeypatch.setattr(serve, "get_config", lambda arch: chunked)
+    """Every architecture id and every config field is ported now: a
+    config with a layer kind that does not exist exits non-zero before
+    any weights are made."""
+    unknown = dataclasses.replace(get_config("granite-8b"),
+                                  block_pattern=("conv",))
+    monkeypatch.setattr(serve, "get_config", lambda arch: unknown)
     with pytest.raises(SystemExit):
         serve.main(["--arch", "granite-8b", "--device", "cpu"])
 
