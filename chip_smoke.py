@@ -111,7 +111,15 @@ Runs, through ``repro_torch`` alone and with random weights from a seed:
   the reference's training-memory variants (``repro_torch.launch.
   variants``: query chunks of 1,024, loss chunks of 512, block
   checkpoints, all three) on granite-8b at full width, depth 2, one
-  sequence of 4,096 tokens.
+  sequence of 4,096 tokens;
+* the model axis (``repro_torch.launch.train --arch ... --fused --mesh
+  2x2``): the reference's sharding rules split granite-8b (full width,
+  depth 2, bf16, batch 4 x 128, M = 4, iota 4) over 2 data x 2 model
+  shards in one process (attention heads, ``d_ff`` and the vocabulary
+  over the model shards; 4 ``gba_apply`` launches an apply), then over a
+  one-rank NCCL world holding all four; phi3.5-moe at full width, depth
+  1 (8 experts a model shard); and the eight archs without Mamba layers
+  at ``.reduced()``.
 
 Phases:
 
@@ -328,7 +336,22 @@ Phases:
     float32, card against CPU (logits, a prefill and 4 decode steps, every
     gradient leaf, within 1e-5 of the largest); the phase within
     ``PHASE21_BUDGET_S``;
-22. one JSON line of the kernels, then the result line.
+22. the model axis: (a) granite-8b at full width, depth 2, bf16, over
+    the (2, 2) mesh in process, 2 global steps with one slot stale: 4
+    ``gba_apply`` launches an apply, each model shard's apply held bit
+    for bit to the plain version at 4,096 sampled elements of every
+    leaf, the leaves the rules leave whole bit-identical across the model
+    shards, the first loss within 2**-6 of the unsharded step's on the
+    same params and batches and the params put back together after the
+    first apply within 2**-5 of each leaf's largest, seconds beside the
+    unsharded step's, peak memory, ``gba_apply`` timed on one launch's
+    block (4, 209,725,440); (b) the same over a one-rank NCCL world,
+    its state bit-identical to (a)'s at each apply; (c) phi3.5-moe at
+    full width, depth 1, at ``train_plan``'s M, every route of its first
+    global step equal to the unsharded step's, 4 launches an apply; (d)
+    the eight archs' ``.reduced()`` float32 2x2 step, card against CPU
+    as phase 18 (b); the phase within ``MODEL_BUDGET_S``;
+23. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -341,7 +364,8 @@ architecture's serve loop, gemma3-12b's ring and its engine, each
 architecture's training run, each Mamba2 architecture's serve loop,
 zamba2's kernel route and its engine, each Mamba2 architecture's
 training run, each cross architecture's serve loop, kernel route and
-engine, and each cross architecture's training run)
+engine, each cross architecture's training run, and each run of the
+model axis)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -4327,8 +4351,8 @@ class record_routes:
     def __enter__(self):
         self.saved = self.layers.moe_route
 
-        def spy(p, cfg, xt):
-            r = self.saved(p, cfg, xt)
+        def spy(p, cfg, xt, logits=None):
+            r = self.saved(p, cfg, xt, logits)
             self.routes.append(r)
             return r
         self.layers.moe_route = spy
@@ -4800,22 +4824,28 @@ class apply_sample:
 def train_timing(T: dict, layout, state: dict, m: int) -> dict:
     """``gba_apply`` on the run's own flat params, accumulator and buffer
     at its N (over W > 1 shards, one launch's: shard 0's contiguous
-    block): median of 3 runs of 5 calls (they move the params further;
-    the run is over).  The plain version's float64 intermediates of an (M,
-    N) buffer do not fit beside the state at this N."""
+    block): :func:`apply_block_timing`."""
     flat, accum = layout.ravel(state["params"]), state["accum"]
-    buf, tokens = state["buffer"]["grads"], state["buffer"]["tokens"]
-    step = state["buffer"]["step"]
+    buf = state["buffer"]["grads"]
     if buf.dim() == 3:
         ss = layout.shard_size
         flat, accum, buf = flat[:ss], accum[:ss], buf[:, 0]
+    return apply_block_timing(T, flat, accum, buf, state["buffer"], m)
+
+
+def apply_block_timing(T: dict, flat, accum, buf, buffer: dict, m: int
+                       ) -> dict:
+    """``gba_apply`` on one launch's block of a run's state: median of 3
+    runs of 5 calls (they move the params further; the run is over).  The
+    plain version's float64 intermediates of an (M, N) buffer do not fit
+    beside the state at this N."""
+    tokens, step = buffer["tokens"], buffer["step"]
 
     def fn():
         T["gba_apply"](flat, accum, buf, tokens, step, LM_LR, iota=LM_IOTA)
     runs = [time_calls(fn, 5)[0] for _ in range(3)]
     n = flat.shape[0]
     bnd, by = apply_bound_ms(m, n, 4, 4)
-    del flat
     row = {"shape": [m, n], "dtypes": "f32 param/accum/buffer",
            "ms": float(np.median(runs)), "device_runs_ms": runs,
            "bound_ms": bnd, "bound_by": by, "plain_ms": None,
@@ -4965,13 +4995,15 @@ def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
 
 
 def train_card_vs_cpu(T: dict, arch: str, workers: int,
-                      flat_rtol: float = HOLD_LM_RTOL) -> dict:
+                      flat_rtol: float = HOLD_LM_RTOL, model: int = 1
+                      ) -> dict:
     """(b) ``.reduced()`` in float32, the fused step over ``workers``
-    shards (one layout at 1) from the same params on the card and on the
-    CPU (and the same host draw of a cross layers' memory), 2 global
-    steps, one slot stale: losses within rtol 1e-5, flat
-    params and accumulator within rtol ``flat_rtol`` (1e-5) / atol 1e-7,
-    buffer tokens and every MoE route equal."""
+    shards (one layout at 1; over ``model`` model shards too where that is
+    above 1, each model shard's params raveled in turn) from the same
+    params on the card and on the CPU (and the same host draw of a cross
+    layers' memory), 2 global steps, one slot stale: losses within rtol
+    1e-5, flat params and accumulator within rtol ``flat_rtol`` (1e-5) /
+    atol 1e-7, buffer tokens and every MoE route equal."""
     cfg = dataclasses.replace(T["get_config"](arch).reduced(),
                               dtype="float32")
     gba = T["GBAConfig"](local_batch=2, buffer_size=LM_M,
@@ -4983,7 +5015,7 @@ def train_card_vs_cpu(T: dict, arch: str, workers: int,
     runs = {}
     for dev in ("cuda", "cpu"):
         progs = T["build_programs"](cfg, gba, params=T["tree_to_device"](
-            host, torch.device(dev)), lr=LM_LR, workers=workers)
+            host, torch.device(dev)), lr=LM_LR, workers=workers, model=model)
         state, losses = progs.state, []
         with record_routes(T) as seen:
             for i, b in enumerate(lm_batches(T, cfg.vocab_size,
@@ -4994,18 +5026,20 @@ def train_card_vs_cpu(T: dict, arch: str, workers: int,
                     T, cfg, 2, 3 + i, "cpu").items()}
                 state, loss = progs.step(state, b, tokens[i])
                 losses.append(loss.item())
-        runs[dev] = (losses, progs.layout.ravel(state["params"]).cpu(),
+        params = (state["params"] if model > 1 else [state["params"]])
+        runs[dev] = (losses, torch.cat([progs.layout.ravel(p).cpu()
+                                        for p in params]),
                      state["accum"].cpu(), state["buffer"]["tokens"].cpu(),
                      seen.routes)
     (lc, pc, ac, tc, rc), (lh, ph, ah, th, rh) = runs["cuda"], runs["cpu"]
     same_routes = len(rc) == len(rh) and all(
         torch.equal(a["sel"].cpu(), b["sel"])
         and torch.equal(a["keep"].cpu(), b["keep"]) for a, b in zip(rc, rh))
-    out = {"W": workers, "losses_card": lc, "losses_cpu": lh,
+    out = {"W": workers, "T": model, "losses_card": lc, "losses_cpu": lh,
            "max_param_diff": (pc - ph).abs().max().item(),
            "max_accum_diff": (ac - ah).abs().max().item(),
            "moe_routes": len(rc)}
-    print(f"  {arch} reduced f32, W={workers}, card vs CPU: "
+    print(f"  {arch} reduced f32, W={workers}, T={model}, card vs CPU: "
           f"{json.dumps(out)}; routes equal: {same_routes}")
     check(torch.equal(tc, th), f"{arch}: card vs CPU buffer tokens")
     check(same_routes, f"{arch}: card vs CPU MoE routes")
@@ -5357,6 +5391,302 @@ def cross_train_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the model axis, --fused --mesh 2x2
+
+MODEL_MESH = (2, 2)              # (data W, model T)
+MODEL_ARCHS = ("granite-8b", *ARCHS, *CROSS_ARCHS)
+MODEL_MOE = "phi3.5-moe-42b-a6.6b"
+# against the unsharded step at full width in bf16: the first loss, and
+# each leaf of the params after the first apply against its largest
+# magnitude (the shards' float32 partials round once where the unsharded
+# products round per GEMM; phase 21 (d)'s bounds)
+MODEL_LOSS_FRAC, MODEL_PARAM_FRAC = 2.0**-6, 2.0**-5
+# phase 22 took 20.5 s alone on an H100 80GB HBM3 at 700 W
+MODEL_BUDGET_S = 90.0
+
+
+def _whole_leaves(T: dict, tp, shard: dict) -> list:
+    """The leaves of a model shard's tree that the rules leave whole."""
+    specs = dict(T["tree_paths"](tp.specs))
+    return [x for path, x in T["tree_paths"](shard)
+            if not T["model_dims"](specs[path])]
+
+
+def _block_state(state: dict, i: int, blocks: int) -> dict:
+    """Model shard ``i``'s part of a (W, T) fused state, in the form of a
+    data-only sharded state: its tree, its accumulator run and its
+    ``blocks`` buffer blocks."""
+    run = state["accum"].shape[0] // len(state["params"])
+    return {"params": state["params"][i],
+            "accum": state["accum"][i * run:(i + 1) * run],
+            "buffer": {**state["buffer"], "grads": state["buffer"]["grads"][
+                :, i * blocks:(i + 1) * blocks]}}
+
+
+def _snapshot(T: dict, state: dict) -> dict:
+    """A device copy of a (W, T) fused state's params and accumulator."""
+    return {"params": [[x.clone() for x in T["leaves"](p)]
+                       for p in state["params"]],
+            "accum": state["accum"].clone()}
+
+
+def model_axis_run(T: dict, cfg, params: dict, batches: list, tokens: list,
+                   m: int, counters, world, label: str, sample: bool,
+                   snapshots: list | None = None, keep: list | None = None
+                   ) -> dict:
+    """The fused step over the (2, 2) mesh at M = ``m`` from ``params``
+    over ``batches`` and ``tokens`` (on ``world``): 4 ``gba_apply`` launches an
+    apply, each model shard's apply held bit for bit to ``gba_apply_ref``
+    at 4,096 sampled elements of every leaf where ``sample``, the whole
+    leaves' copies bit-identical across the model shards; each apply's
+    state equal to ``snapshots``' bit for bit where they are given, or
+    copied into ``keep``.  Returns the losses, seconds, launches and the
+    first apply's params put back together."""
+    w, t = MODEL_MESH
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=m,
+                         staleness_tolerance=LM_IOTA)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    progs = T["build_programs"](cfg, gba, params=params, mode="fused",
+                                lr=LM_LR, workers=w, model=t, world=world)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tp, layout = progs.model_axis, progs.layout
+    blocks = len(world.workers(w))
+    state, progs.state = progs.state, None
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, first, launched_total, applies = [], None, 0, 0
+    for i, (batch, token) in enumerate(zip(batches, tokens)):
+        applying = (i + 1) % m == 0
+        old_step = state["buffer"]["step"]
+        samples = ([apply_sample(T, layout, _block_state(state, j, blocks),
+                                 gen) for j in range(len(state["params"]))]
+                   if applying and sample else None)
+        launched = counters()["gba_apply"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = progs.step(state, batch, token)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launched = counters()["gba_apply"] - launched
+        launched_total += launched
+        check(launched == (w * t if applying else 0),
+              f"{label} microstep {i + 1}: {launched} gba_apply launches")
+        if applying:
+            applies += 1
+            if samples is not None:
+                check(all(smp.check(_block_state(state, j, blocks), old_step)
+                          for j, smp in enumerate(samples)),
+                      f"{label} microstep {i + 1}: each model shard's apply "
+                      f"bit-identical to gba_apply_ref at sampled columns")
+            whole = [_whole_leaves(T, tp, s) for s in state["params"]]
+            check(all(_same_bits(a, b) for other in whole[1:]
+                      for a, b in zip(whole[0], other)),
+                  f"{label} microstep {i + 1}: the {len(whole[0])} whole "
+                  f"leaves bit-identical across the model shards")
+            if snapshots is not None:
+                snap = snapshots[applies - 1]
+                same = _same_bits(snap["accum"], state["accum"]) and all(
+                    _same_bits(a, b) for sp, p in zip(snap["params"],
+                                                      state["params"])
+                    for a, b in zip(sp, T["leaves"](p)))
+                check(same, f"{label} microstep {i + 1}: the state "
+                            f"bit-identical to the in-process run's")
+            if keep is not None:
+                keep.append(_snapshot(T, state))
+            if first is None:
+                first = tp.gather_shards(state["params"])
+        rows.append({"microstep": i + 1, "token": token,
+                     "loss": loss.item(), "seconds": seconds,
+                     "gba_apply": launched})
+    torch.cuda.synchronize()
+    out = {"build_s": build_s, "microsteps": rows,
+           "losses": [r["loss"] for r in rows],
+           "launches": launched_total, "applies": applies,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "N_per_model_shard": layout.total,
+           "shard_size": layout.shard_size, "split": sorted(tp.split),
+           "first_apply_params": first, "state": state, "layout": layout}
+    check(all(np.isfinite(out["losses"])), f"{label}: finite losses")
+    check(launched_total == applies * w * t,
+          f"{label}: {w * t} gba_apply launches an apply")
+    return out
+
+
+def _unsharded(T: dict, cfg, params: dict, batches: list, tokens: list
+               ) -> dict:
+    """The single-layout fused step on the same params and batches over
+    one global step: its losses, its seconds, and its params after the
+    apply."""
+    m = len(tokens)
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=m,
+                         staleness_tolerance=LM_IOTA)
+    torch.cuda.reset_peak_memory_stats()
+    progs = T["build_programs"](cfg, gba, params=params, mode="fused",
+                                lr=LM_LR)
+    state, progs.state, seconds, losses = progs.state, None, [], []
+    for batch, token in zip(batches, tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = progs.step(state, batch, token)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return {"losses": losses, "seconds": seconds, "params": state["params"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _leaf_fracs(T: dict, got: dict, want: dict) -> list:
+    """Each leaf's largest difference over its largest magnitude."""
+    return [((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp_min(1e-30)).item()
+            for (_, a), (_, b) in zip(T["tree_paths"](got),
+                                      T["tree_paths"](want))]
+
+
+def model_axis_granite(T: dict, counters) -> dict:
+    """(a) granite-8b at full width, depth 2, bf16 over the 2x2 mesh in
+    process, against the unsharded step from the same params; (b) one
+    NCCL rank holding the 2x2 shards, bit-identical to (a) at each
+    apply."""
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH, 2 * LM_M,
+                         "cuda")
+    tokens = [i // LM_M for i in range(2 * LM_M)]
+    tokens[LM_M] = TRAIN_STALE
+    one = _unsharded(T, cfg, params, batches[:LM_M], tokens[:LM_M])
+    counters(reset=True)
+    kept = []
+    run = model_axis_run(T, cfg, params, batches, tokens, LM_M, counters,
+                         T["inprocess"], "granite-8b 2x2", sample=True,
+                         keep=kept)
+    first_loss = abs(run["losses"][0] - one["losses"][0]) / abs(
+        one["losses"][0])
+    fracs = _leaf_fracs(T, run.pop("first_apply_params"), one["params"])
+    del one["params"]
+    timing = apply_block_timing(
+        T, run["layout"].ravel(run["state"]["params"][0])[
+            :run["shard_size"]], run["state"]["accum"][:run["shard_size"]],
+        run["state"]["buffer"]["grads"][:, 0], run["state"]["buffer"], LM_M)
+    del run["state"], run["layout"]
+    torch.cuda.empty_cache()
+    micro = [r["seconds"] for r in run["microsteps"]]
+    print(f"  granite-8b 2x2: losses {run['losses']}; first loss "
+          f"{run['losses'][0]!r} vs unsharded {one['losses'][0]!r} (rel "
+          f"{first_loss:.3g}); params after the first apply within "
+          f"{max(fracs):.3g} of each leaf's largest; microstep s {micro} "
+          f"(apply at 4 and 8) vs unsharded {one['seconds']}; peak "
+          f"{run['peak_gb']:.2f} GB vs unsharded {one['peak_gb']:.2f} GB; "
+          f"N per model shard {run['N_per_model_shard']:,}, "
+          f"{run['shard_size']:,} a launch")
+    check(first_loss <= MODEL_LOSS_FRAC,
+          f"granite-8b 2x2: the first loss within {MODEL_LOSS_FRAC} of "
+          f"the unsharded step's")
+    check(max(fracs) <= MODEL_PARAM_FRAC,
+          f"granite-8b 2x2: params after the first apply within "
+          f"{MODEL_PARAM_FRAC} of each leaf's largest")
+    pg = T["process_group"]
+    with tempfile.TemporaryDirectory() as tmp:
+        world, _ = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                           "cuda", timeout=300.0)
+        try:
+            check(world.backend == "nccl" and list(world.model_shards(2))
+                  == [0, 1], "one NCCL rank holding the 2 model shards")
+            counters(reset=True)
+            nccl = model_axis_run(T, cfg, params, batches, tokens, LM_M,
+                                  counters, world, "granite-8b 2x2 NCCL",
+                                  sample=False, snapshots=kept)
+        finally:
+            pg.leave()
+    del nccl["state"], nccl["layout"], nccl["first_apply_params"], kept
+    check(nccl["losses"] == run["losses"],
+          "granite-8b 2x2 NCCL: the in-process run's losses")
+    print(f"  granite-8b 2x2 over one NCCL rank: losses equal, state "
+          f"bit-identical at both applies; microstep s "
+          f"{[r['seconds'] for r in nccl['microsteps']]}")
+    del params, batches
+    torch.cuda.empty_cache()
+    return {"in_process": run, "nccl": nccl, "unsharded": one,
+            "first_loss_rel": first_loss, "param_leaf_fracs": fracs,
+            "gba_apply": timing}
+
+
+def model_axis_moe(T: dict, counters) -> dict:
+    """(c) phi3.5-moe at full width, depth 1, over the 2x2 mesh (8
+    experts a model shard) at the M that ``train_plan`` fits: every route
+    of its first global step equal to the unsharded step's on the same
+    params and batches, 4 launches an apply, the peak."""
+    full = T["get_config"](MODEL_MOE)
+    torch.cuda.empty_cache()
+    plan, why = train_plan(T, full)
+    check(plan is not None, f"{MODEL_MOE}: {why}")
+    m = plan["m"]
+    cfg = dataclasses.replace(full, num_layers=1)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH, m, "cuda")
+    tokens = [0] * m
+    with record_routes(T) as base:
+        one = _unsharded(T, cfg, params, batches, tokens)
+    del one["params"]
+    torch.cuda.empty_cache()
+    counters(reset=True)
+    with record_routes(T) as seen:
+        run = model_axis_run(T, cfg, params, batches, tokens, m, counters,
+                             T["inprocess"], f"{MODEL_MOE} 2x2",
+                             sample=False)
+    del run["state"], run["layout"], run["first_apply_params"], params
+    torch.cuda.empty_cache()
+    pairs = list(zip(base.routes, seen.routes[:m]))
+    differ = [i for i, (a, b) in enumerate(pairs)
+              if not (torch.equal(a["sel"], b["sel"])
+                      and torch.equal(a["keep"], b["keep"]))]
+    print(f"  {MODEL_MOE} 2x2, depth 1, M={m}: {len(pairs)} routes of the "
+          f"first global step, {len(differ)} differ from the unsharded "
+          f"step's; losses {run['losses']} vs {one['losses']}; peak "
+          f"{run['peak_gb']:.2f} GB vs unsharded {one['peak_gb']:.2f} GB")
+    check(len(pairs) == m and not differ,
+          f"{MODEL_MOE} 2x2: every route equal to the unsharded step's")
+    return {"M": m, "routes": len(pairs), "routes_differ": len(differ),
+            "run": run, "unsharded": one}
+
+
+def model_axis_phase(T: dict, counters) -> dict:
+    phase(22, "the model axis: --fused --mesh 2x2 (2 data x 2 model "
+              "shards): granite-8b and phi3.5-moe at full width, the eight "
+              "archs' reduced steps card vs CPU")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    out = {"granite": model_axis_granite(T, counters),
+           "moe": model_axis_moe(T, counters)}
+    counters(reset=True)
+    out["reduced_f32"] = {arch: train_card_vs_cpu(T, arch, MODEL_MESH[0],
+                                                  model=MODEL_MESH[1])
+                          for arch in MODEL_ARCHS}
+    out["reduced_launches"] = counters()["gba_apply"]
+    check(out["reduced_launches"] == len(MODEL_ARCHS) * 2 * 4,
+          f"the reduced steps on the card: 8 gba_apply launches each")
+    expandable_segments(False)
+    torch.cuda.empty_cache()
+    out["launches"] = {
+        "granite_2x2": out["granite"]["in_process"]["launches"],
+        "granite_2x2_nccl": out["granite"]["nccl"]["launches"],
+        "moe_2x2": out["moe"]["run"]["launches"],
+        "reduced_2x2": out["reduced_launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 22: {out['seconds']:.1f} s (budget "
+          f"{MODEL_BUDGET_S:.0f} s); gba_apply launches "
+          f"{json.dumps(out['launches'])}")
+    check(out["seconds"] <= MODEL_BUDGET_S,
+          f"phase 22 within its budget of {MODEL_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5418,6 +5748,7 @@ def main() -> int:
     from repro_torch.launch.programs import make_loss_fn
     from repro_torch.core.flat_sharded import ShardedFlatLayout
     from repro_torch.distributed import inprocess, process_group
+    from repro_torch.distributed.sharding import model_dims
 
     t_start = time.perf_counter()
     kind = device_phase()
@@ -5482,6 +5813,7 @@ def main() -> int:
          "jax_init_recsys": jax_init_recsys, "ModeSetup": ModeSetup,
          "evaluate": evaluate, "ShardedFlatLayout": ShardedFlatLayout,
          "inprocess": inprocess, "process_group": process_group,
+         "model_dims": model_dims,
          "benches": {
              "tab52_qps": tab52_qps, "convergence": convergence,
              "multitask": multitask, "decay_ablation": decay_ablation,
@@ -5580,8 +5912,10 @@ def main() -> int:
     cross = cross_phase(T, counters)
     torch.cuda.empty_cache()
     cross_train = cross_train_phase(T, counters)
+    torch.cuda.empty_cache()
+    model_axis = model_axis_phase(T, counters)
 
-    phase(22, "kernels")
+    phase(23, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -5616,6 +5950,7 @@ def main() -> int:
         "lm_ssm": ssm,
         "lm_cross": cross,
         "lm_cross_train": cross_train,
+        "lm_model_axis": model_axis,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -5634,7 +5969,8 @@ def main() -> int:
         **{f"train_{a}": ssm[f"train_{a}"]["launches"]["gba_apply"]
            for a in SSM_ARCHS},
         **{f"train_{a}": cross_train[a]["launches"]["gba_apply"]
-           for a in CROSS_ARCHS}}
+           for a in CROSS_ARCHS},
+        **{f"model_axis_{k}": v for k, v in model_axis["launches"].items()}}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -5728,7 +6064,8 @@ def main() -> int:
                         "aggregate and the Adagrad update",
         "at": apply_row["shape"],
         "shapes": [apply_row, trained["starcoder2-3b"]["gba_apply"],
-                   *(cross_train[a]["gba_apply"] for a in CROSS_ARCHS)],
+                   *(cross_train[a]["gba_apply"] for a in CROSS_ARCHS),
+                   model_axis["granite"]["gba_apply"]],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
         serve_row(served, archs, ssm, cross)]}))

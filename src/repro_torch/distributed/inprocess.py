@@ -10,7 +10,9 @@ copy or nothing: the flat parameter vector is shared, so the tiled
 ``all_to_all`` of a worker's gradient block is a strided copy into the
 shards' receive buffer, the reduce-scatter of the one gradient is that
 gradient, the ordered ``psum`` is a sum in worker order, and the
-workers' losses are already all here.
+workers' losses are already all here.  Along the ``model`` axis
+(``distributed.tensor_parallel``) every model shard is held here too, so
+the gather of the shards' tensors is those tensors.
 ``repro_torch.distributed.process_group`` provides the same functions
 over ``torch.distributed`` ranks.
 """
@@ -30,6 +32,17 @@ def workers(m: int) -> range:
     """The workers, and the shards of the same indices, held here: all
     ``m``."""
     return range(m)
+
+
+def model_shards(t: int) -> range:
+    """The model shards held here: all ``t``."""
+    return range(t)
+
+
+def model_gather(parts: list) -> list:
+    """Every model shard's tensor, in shard order, from the held shards':
+    ``parts``, which are all of them."""
+    return list(parts)
 
 
 def gather_flat(run: torch.Tensor) -> torch.Tensor:

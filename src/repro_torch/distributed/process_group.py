@@ -30,6 +30,16 @@ wire rows.  :class:`ProcessGroupBackend` offers the functions of
   bits; an ``all_reduce`` would add in an order of its own, and the
   non-finite check before the apply must agree on every rank.
 
+With ``model_ranks`` Rm > 1 the R ranks are an (R / Rm, Rm) grid, rank
+``d * Rm + m`` at data coordinate ``d`` and model coordinate ``m``: the
+functions above run along the data subgroup (the ranks of one model
+coordinate; ``rank`` and ``size`` are then the data coordinate and the
+data ranks), and ``model_gather`` along the model subgroup (the ranks of
+one data coordinate), each of which holds T / Rm consecutive model
+shards: one tiled all-gather of the held shards' tensors, in rank order,
+so in shard order.  Both subgroups come from ``dist.new_group`` (gloo on
+the CPU, NCCL one rank a card).
+
 gloo carries CPU tensors and NCCL CUDA tensors, one rank per card: NCCL
 cannot put two ranks on one GPU.  A tensor on the other kind of device is
 refused; nothing falls back to the in-process backend.  The collectives
@@ -45,6 +55,7 @@ rank's membership, for a caller that runs a world of one itself.
 from __future__ import annotations
 
 import contextlib
+import copy
 import datetime
 import os
 import tempfile
@@ -62,14 +73,19 @@ BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
 DEVICES = {v: k for k, v in BACKENDS.items()}
 
 
-def check_world(ranks: int, workers: int, device: str | torch.device
-                ) -> torch.device:
-    """The device type of ``ranks`` ranks holding ``workers`` workers, or
-    ``ValueError`` where ``ranks`` does not divide ``workers``, and
-    ``RuntimeError`` where a CUDA world has more ranks than visible
-    cards."""
-    if ranks < 1 or workers % ranks:
-        raise ValueError(f"{ranks} ranks must divide {workers} workers")
+def check_world(ranks: int, workers: int, device: str | torch.device,
+                model_ranks: int = 1, model: int = 1) -> torch.device:
+    """The device type of ``ranks`` ranks, an (R / ``model_ranks``,
+    ``model_ranks``) grid holding ``workers`` workers (data shards) and
+    ``model`` model shards; ``ValueError`` where the grid does not divide
+    them, and ``RuntimeError`` where a CUDA world has more ranks than
+    visible cards."""
+    if model_ranks < 1 or ranks % model_ranks or model % model_ranks:
+        raise ValueError(f"{model_ranks} model ranks must divide {ranks} "
+                         f"ranks and {model} model shards")
+    if ranks < 1 or workers % (ranks // model_ranks):
+        raise ValueError(f"{ranks // model_ranks} ranks must divide "
+                         f"{workers} workers")
     dev = resolve_device(torch.device(device).type)
     if dev.type == "cuda" and ranks > torch.cuda.device_count():
         raise RuntimeError(
@@ -79,18 +95,63 @@ def check_world(ranks: int, workers: int, device: str | torch.device
     return dev
 
 
+def grid(ranks: int, workers: int, model: int) -> int:
+    """The model ranks Rm of ``ranks`` ranks over a (``workers``,
+    ``model``) mesh: the largest divisor of ``model`` that divides
+    ``ranks`` with R / Rm dividing ``workers``; ``ValueError`` where none
+    does.  1 without a model axis (``check_world`` then checks the
+    workers)."""
+    if model == 1:
+        return 1
+    for rm in range(min(ranks, model), 0, -1):
+        if model % rm == 0 and ranks % rm == 0 \
+                and workers % (ranks // rm) == 0:
+            return rm
+    raise ValueError(f"no grid of {ranks} ranks divides the mesh "
+                     f"{workers}x{model}")
+
+
 class ProcessGroupBackend:
     """The step's collectives over the default process group, which must
-    be initialised."""
+    be initialised, its ranks a (data, ``model_ranks``) grid."""
 
-    def __init__(self):
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+    def __init__(self, model_ranks: int = 1):
+        world_rank, world_size = dist.get_rank(), dist.get_world_size()
+        if model_ranks < 1 or world_size % model_ranks:
+            raise ValueError(f"{model_ranks} model ranks must divide "
+                             f"{world_size} ranks")
         self.backend = str(dist.get_backend())
         if self.backend not in DEVICES:
             raise ValueError(f"backend {self.backend!r}: expected one of "
                              f"{sorted(DEVICES)}")
         self.device_type = DEVICES[self.backend]
+        rm = self.model_size = model_ranks
+        self.rank, self.model_rank = divmod(world_rank, rm)
+        self.size = world_size // rm
+        self.group = self.model_group = None
+        if rm > 1:
+            # every rank makes every group, in the same order
+            for m in range(rm):
+                g = dist.new_group([d * rm + m for d in range(self.size)])
+                if m == self.model_rank:
+                    self.group = g
+            for d in range(self.size):
+                g = dist.new_group([d * rm + m for m in range(rm)])
+                if d == self.rank:
+                    self.model_group = g
+
+    def without_model(self) -> "ProcessGroupBackend":
+        """This rank's data collectives with every model shard held in
+        process: the same ``rank``, ``size`` and data subgroup, no model
+        ranks.  The ranks of one data coordinate then run alike."""
+        out = copy.copy(self)
+        out.model_size, out.model_rank, out.model_group = 1, 0, None
+        return out
+
+    def _peer(self, d: int) -> int:
+        """The global rank of data coordinate ``d`` in this rank's data
+        subgroup."""
+        return d * self.model_size + self.model_rank
 
     def _check(self, *tensors: torch.Tensor) -> None:
         for t in tensors:
@@ -112,7 +173,8 @@ class ProcessGroupBackend:
         rank order, on every rank."""
         self._check(run)
         whole = run.new_empty((run.shape[0] * self.size,))
-        dist.all_gather_into_tensor(whole, run.contiguous())
+        dist.all_gather_into_tensor(whole, run.contiguous(),
+                                    group=self.group)
         return whole
 
     def all_gather(self, layout: ShardedFlatLayout,
@@ -133,7 +195,7 @@ class ProcessGroupBackend:
             raise ValueError(f"{flat.shape[0]} elements do not split over "
                              f"{self.size} ranks")
         run = flat.new_empty((flat.shape[0] // self.size,))
-        dist.reduce_scatter_tensor(run, flat.contiguous())
+        dist.reduce_scatter_tensor(run, flat.contiguous(), group=self.group)
         return run
 
     def worker_sum(self, terms: Iterable[tuple[list, torch.Tensor]],
@@ -155,7 +217,7 @@ class ProcessGroupBackend:
             held = _drain(list(terms))
             acc = [torch.empty_like(x) for x in like]
             for a in acc:
-                dist.recv(a, self.rank - 1)
+                dist.recv(a, self._peer(self.rank - 1), group=self.group)
         for tensors, scale in held:
             for a, t in zip(acc, tensors, strict=True):
                 a.add_(t * scale.to(t.dtype))
@@ -163,10 +225,11 @@ class ProcessGroupBackend:
         del held
         if self.rank < self.size - 1:
             for a in acc:
-                dist.send(a, self.rank + 1)
+                dist.send(a, self._peer(self.rank + 1), group=self.group)
         if self.size > 1:
             for a in acc:
-                dist.broadcast(a, src=self.size - 1)
+                dist.broadcast(a, src=self._peer(self.size - 1),
+                               group=self.group)
         return acc
 
     def route(self, dst: torch.Tensor, worker: int, lo: int, hi: int,
@@ -185,7 +248,7 @@ class ProcessGroupBackend:
                              f"block is not one of rank {self.rank}'s {k}")
         send = src.contiguous()
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
+        dist.all_to_all_single(recv, send, group=self.group)
         # chunk p of recv: rank p's j-th worker's rows for this rank's k
         # shards; that worker is p * k + j
         dst.view(k, self.size, k, dst.shape[-1])[:, :, j, lo:hi].copy_(
@@ -197,7 +260,30 @@ class ProcessGroupBackend:
         mine = torch.stack(losses)
         self._check(mine)
         every = mine.new_empty((self.size * mine.shape[0],))
-        dist.all_gather_into_tensor(every, mine)
+        dist.all_gather_into_tensor(every, mine, group=self.group)
+        return list(every.unbind())
+
+    def model_shards(self, t: int) -> range:
+        """The ``t / model_size`` consecutive model shards this rank
+        holds."""
+        if t % self.model_size:
+            raise ValueError(f"{self.model_size} model ranks must divide "
+                             f"{t} model shards")
+        k = t // self.model_size
+        return range(self.model_rank * k, (self.model_rank + 1) * k)
+
+    def model_gather(self, parts: list) -> list:
+        """Every model shard's tensor, in shard order, from the held
+        shards' ``parts`` (each the same shape): one tiled all-gather
+        along the model subgroup; ``parts`` themselves where this rank
+        holds every shard."""
+        if self.model_size == 1:
+            return list(parts)
+        mine = torch.stack(parts)
+        self._check(mine)
+        every = mine.new_empty((self.model_size * mine.shape[0],
+                                *mine.shape[1:]))
+        dist.all_gather_into_tensor(every, mine, group=self.model_group)
         return list(every.unbind())
 
 
@@ -209,12 +295,14 @@ def _drain(items: list):
 
 def join(rank: int, ranks: int, init_method: str,
          device: str | torch.device, timeout: float | None = None,
-         threads: int = 1) -> tuple[ProcessGroupBackend, torch.device]:
+         threads: int = 1, model_ranks: int = 1
+         ) -> tuple[ProcessGroupBackend, torch.device]:
     """Join the ``ranks``-rank world at ``init_method`` as ``rank``: gloo
     for ``device="cpu"``, running ``threads`` intra-op threads (one by
     default, since R ranks share the host's cores; CPU matmuls round by
     thread count), NCCL on ``cuda:rank`` for ``"cuda"``.  ``timeout``
-    bounds each collective (torch's default where None).  Returns the
+    bounds each collective (torch's default where None); ``model_ranks``
+    makes the world an (R / model_ranks, model_ranks) grid.  Returns the
     backend and the rank's device."""
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -230,7 +318,7 @@ def join(rank: int, ranks: int, init_method: str,
               else {"timeout": datetime.timedelta(seconds=timeout)})
     dist.init_process_group(BACKENDS[dev.type], init_method=init_method,
                             world_size=ranks, rank=rank, **kwargs)
-    return ProcessGroupBackend(), dev
+    return ProcessGroupBackend(model_ranks), dev
 
 
 def leave() -> None:
@@ -240,9 +328,10 @@ def leave() -> None:
 
 
 def _entry(rank: int, ranks: int, init_method: str, device: str,
-           timeout: float | None, threads: int, fn: Callable,
-           args: tuple) -> None:
-    world, dev = join(rank, ranks, init_method, device, timeout, threads)
+           timeout: float | None, threads: int, model_ranks: int,
+           fn: Callable, args: tuple) -> None:
+    world, dev = join(rank, ranks, init_method, device, timeout, threads,
+                      model_ranks)
     try:
         if rank:
             with open(os.devnull, "w") as null, \
@@ -255,12 +344,14 @@ def _entry(rank: int, ranks: int, init_method: str, device: str,
 
 
 def spawn(fn: Callable, ranks: int, *args, device: str = "cuda",
-          timeout: float | None = None, threads: int = 1) -> None:
+          timeout: float | None = None, threads: int = 1,
+          model_ranks: int = 1) -> None:
     """Run ``fn(world, device, *args)`` on ``ranks`` new processes, each
     one rank of a fresh world (``world`` its :class:`ProcessGroupBackend`,
     ``device`` its device: NCCL on one card a rank for ``"cuda"``, the
     default, gloo for ``"cpu"``, each gloo rank running ``threads``
-    intra-op threads); only rank 0's standard output is kept.
+    intra-op threads, the world an (R / ``model_ranks``, ``model_ranks``)
+    grid); only rank 0's standard output is kept.
     ``fn`` and ``args`` must pickle: ``fn`` a function of an importable
     module.  Raises when a rank raises, or, given a ``timeout``, when the
     ranks have not all ended within that many seconds; either way no rank
@@ -272,7 +363,8 @@ def spawn(fn: Callable, ranks: int, *args, device: str = "cuda",
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'rendezvous')}"
         ctx = torch.multiprocessing.start_processes(
-            _entry, args=(ranks, init, dev.type, timeout, threads, fn, args),
+            _entry, args=(ranks, init, dev.type, timeout, threads,
+                          model_ranks, fn, args),
             nprocs=ranks, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         try:

@@ -54,7 +54,11 @@ by thread count, so the in-process side runs one thread as each rank does:
 
 :func:`run_lm_psum` is the ranks' entry for the LM's sync psum step on
 given params and batches, which the tests hold to the reference's psum
-step.
+step.  :func:`run_model_axis` is the ranks' entry for the fused step over
+a (W, T) mesh on an (Rd, Rm) grid: it runs the step with the model shards
+spread over the model subgroup, then with every model shard in process
+over the same data subgroup, and saves both, which must agree bit for
+bit.
 """
 from __future__ import annotations
 
@@ -376,6 +380,41 @@ def run_lm_psum(world, device: torch.device, cfg, inp: dict, gba: GBAConfig,
         for path, leaf in tree_paths(tree):
             out[prefix + "/".join(path)] = leaf.cpu().numpy()
     np.savez(os.path.join(out_dir, f"rank{mine[0] // len(mine)}.npz"), **out)
+
+
+def run_model_axis(world, device: torch.device, cfg, gba: GBAConfig,
+                   params: dict, batches: list, tokens: list, workers: int,
+                   model: int, out: str) -> None:
+    """The fused step over the (``workers``, ``model``) mesh from
+    ``params`` (whole, on the host) over ``batches`` (whole microsteps, as
+    numpy) with ``tokens``: once over ``world`` (this rank's model shards,
+    its data rows), once over ``world.without_model()`` (every model shard
+    here, the same rows); saves each run's losses, and each held model
+    shard's params (raveled whole) and accumulator blocks, to
+    ``out/rank{r}.pt``."""
+    from repro_torch.launch.programs import build_programs
+    saved = {}
+    for label, w in (("ranks", world), ("process", world.without_model())):
+        progs = build_programs(cfg, gba, params=_to(params, device),
+                               mode="fused", lr=1e-3, workers=workers,
+                               world=w, model=model)
+        rows = gba.local_batch // w.size
+        state, losses = progs.state, []
+        for b, token in zip(batches, tokens):
+            state, loss = progs.step(state, {
+                k: torch.from_numpy(v[w.rank * rows:(w.rank + 1) * rows])
+                .to(device) for k, v in b.items()}, token)
+            losses.append(loss)
+        lay, held = progs.layout, progs.model_axis.held
+        run = state["accum"].shape[0] // len(held)
+        saved[label] = {
+            "losses": torch.stack(losses).cpu(),
+            **{f"param/{t}": lay.ravel(s).cpu()
+               for t, s in zip(held, state["params"])},
+            **{f"accum/{t}": state["accum"][i * run:(i + 1) * run].cpu()
+               for i, t in enumerate(held)}}
+    rank = world.rank * world.model_size + world.model_rank
+    torch.save(saved, os.path.join(out, f"rank{rank}.pt"))
 
 
 def _to(params: dict, device: torch.device) -> dict:

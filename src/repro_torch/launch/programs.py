@@ -22,6 +22,11 @@ Counterpart of ``repro.launch.programs`` for its four modes.
     step: the reference's sharded fused step, its microsteps on the one
     device or, over ``torch.distributed`` ranks (``world``), each
     microstep's batch split over R ranks that hold W / R shards each.
+    With ``model`` T > 1 the step runs over a (W, T) mesh: the model's
+    modules split over T model shards by the reference's rule tables
+    (``distributed.tensor_parallel``), and each model shard's flat state
+    is a ``ShardedFlatLayout`` of W data shards over that shard's
+    parameters, W * T ``gba_apply`` launches an apply.
 ``wire``
     W PS workers, each also a shard (``repro_torch.core.gba_shard_map``),
     in one process on one device or spread over ``torch.distributed``
@@ -58,13 +63,16 @@ from repro_torch.core.flat_sharded import (TILE, ShardedFlatLayout,
                                            make_sharded_apply,
                                            sharded_flat_push)
 from repro_torch.core.gba import (FlatLayout, flat_buffer_push,
-                                  init_flat_buffer, path_unflatten,
-                                  tree_paths)
+                                  init_flat_buffer, path_leaves,
+                                  path_unflatten, tree_paths)
 from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
                                             make_gba_psum_step)
 from repro_torch.core.staleness import threshold_decay
 from repro_torch.distributed import inprocess
+from repro_torch.distributed.sharding import model_dims
+from repro_torch.distributed.tensor_parallel import ModelAxis, model_axis
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim import Optimizer, adagrad, get_optimizer, tree_map
 
@@ -75,23 +83,31 @@ ARCH_OPTIMIZER = {"kimi-k2-1t-a32b": "adagrad"}
 ARCH_ACC_DTYPE = {"kimi-k2-1t-a32b": torch.bfloat16}
 
 
-def _loss_from_batch(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def _loss_from_batch(params, cfg: ModelConfig, batch: dict,
+                     tp: ModelAxis | None = None) -> torch.Tensor:
     """The LM loss of a batch of ``tokens`` and ``labels`` (B, S), over
     the cross layers' memory when the batch has one: ``image_embeds`` (B,
     T, D), or ``frames`` (B, T, D) that the params' audio encoder turns
-    into it inside the loss, as the reference's."""
+    into it inside the loss, as the reference's.  Under a model axis
+    ``tp`` ``params`` are the held model shards' trees."""
     memory = batch.get("image_embeds")
     if "frames" in batch:
-        memory = T.encode_audio(params, cfg, batch["frames"])
+        memory = T.encode_audio(params, cfg, batch["frames"], tp)
     return T.lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                     memory=memory)
+                     memory=memory, tp=tp)
 
 
-def make_loss_fn(cfg: ModelConfig) -> Callable:
-    """``loss_fn(params, batch) -> scalar``, the LM loss of ``cfg``: the
-    signature of the worker-parallel steps and the switching harness."""
+def make_loss_fn(cfg: ModelConfig, tp: ModelAxis | None = None
+                 ) -> Callable:
+    """``loss_fn(params, batch) -> scalar``, the LM loss of ``cfg`` (over
+    the model axis ``tp`` where one is given): the signature of the
+    worker-parallel steps and the switching harness."""
     def loss_fn(params, batch):
-        return _loss_from_batch(params, cfg, batch)
+        # three arguments without a model axis: the signature a caller
+        # may put in place of _loss_from_batch
+        if tp is None:
+            return _loss_from_batch(params, cfg, batch)
+        return _loss_from_batch(params, cfg, batch, tp)
     return loss_fn
 
 
@@ -173,6 +189,15 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                 "gstep": state["gstep"] + int(is_full)}, loss
 
     return train_step
+
+
+def _ranks_loss(world, loss: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' shares of the loss in rank order from +0.0,
+    the same bits on every rank."""
+    total = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    for part in world.all_losses([loss]):
+        total = total + part
+    return total
 
 
 def init_fused_train_state(params: Any, gba: GBAConfig, workers: int = 1,
@@ -272,11 +297,121 @@ def make_fused_train_step(cfg: ModelConfig, gba: GBAConfig,
         if is_full:
             params = apply(params, accum, new_buffer, buffer["step"])
         if ranks > 1:
-            total = torch.zeros((), dtype=loss.dtype, device=loss.device)
-            for part in world.all_losses([loss]):
-                total = total + part
-            loss = total
+            loss = _ranks_loss(world, loss)
         return {"params": params, "accum": accum,
+                "buffer": new_buffer}, loss
+
+    return train_step
+
+
+def init_model_axis_state(params: Any, gba: GBAConfig, workers: int,
+                          tp: ModelAxis, layer_groups: bool = True,
+                          tile: int = TILE, world=inprocess
+                          ) -> tuple[ShardedFlatLayout, dict]:
+    """State of the fused step over a (W, T) mesh: ``params``, the held
+    model shards' trees (``tp.place``: each split leaf cut to the shard's
+    slice, each leaf the rules leave whole a copy, at first the one
+    tensor); one ``ShardedFlatLayout`` of ``workers`` data shards over a
+    model shard's tree (every model shard's has the same shapes),
+    layer-grouped unless ``layer_groups`` is False; and, for the k_m held
+    model shards and the k_d data shards ``world`` holds of each, ``accum``
+    ``(k_m * k_d * shard_size,)`` filled with ``INITIAL_ACCUM`` and the
+    buffer's ``grads`` the ``(M, k_m * k_d, shard_size)`` view of
+    shard-major zeros, model shard by model shard."""
+    shards = tp.place(params)
+    layout = ShardedFlatLayout.from_params(
+        shards[0], workers, tile,
+        group_by=T.param_group_key if layer_groups else None)
+    blocks = len(tp.held) * len(world.workers(workers))
+    dev = layout.leaves(shards[0])[0].device
+    grads = torch.zeros((blocks, gba.buffer_size, layout.shard_size),
+                        dtype=torch.float32, device=dev)
+    buffer = {"grads": grads.transpose(0, 1),
+              "tokens": torch.zeros((gba.buffer_size,), dtype=torch.int32,
+                                    device=dev),
+              "fill": 0, "step": 0}
+    accum = torch.full((blocks * layout.shard_size,), INITIAL_ACCUM,
+                       dtype=torch.float32, device=dev)
+    return layout, {"params": shards, "accum": accum, "buffer": buffer}
+
+
+def make_model_axis_step(cfg: ModelConfig, gba: GBAConfig,
+                         layout: ShardedFlatLayout, tp: ModelAxis,
+                         lr: float = 1e-3, world=inprocess) -> Callable:
+    """``train_step(state, batch, token) -> (state, loss)`` over a (W, T)
+    mesh (state of :func:`init_model_axis_state`).  The loss runs over the
+    model axis (``models.transformer.lm_loss(tp=...)``); a leaf split over
+    ``model`` takes its gradient on each held shard, a leaf the rules leave
+    whole takes it once, on the first held shard's copy, and that one
+    gradient goes to every held shard.  Each held model shard's raveled
+    gradient is pushed into its k_d blocks of the buffer (over R data
+    ranks reduce-scattered first, as the data-only step does); when the
+    push fills the buffer, one ``gba_apply`` launch a block, k_m * k_d
+    here and W * T over the mesh, updates each model shard's run of the
+    flat params and its accumulator, and each shard's params are gathered
+    along ``data`` alone into its tree.  The whole leaves' copies are then
+    bit-identical: the same gradient, accumulator and arithmetic.  The
+    loss returned is the sum of the data ranks' shares in rank order."""
+    iota, m = gba.staleness_tolerance, gba.buffer_size
+    loss_fn = make_loss_fn(cfg, tp)
+    ranks = world.size
+    share = loss_fn if ranks == 1 else (
+        lambda params, batch: loss_fn(params, batch) / ranks)
+    apply_shards = make_sharded_apply(layout, iota=iota)
+    mine = world.workers(layout.num_shards)
+    ss, k_d = layout.shard_size, len(mine)
+    lo, run = mine[0] * ss, k_d * ss
+    whole = [not model_dims(spec)
+             for spec in path_leaves(layout.paths, tp.specs)]
+
+    def grads_of(shards: list, batch: dict) -> tuple[torch.Tensor, list]:
+        first = [x.detach().requires_grad_()
+                 for x in layout.leaves(shards[0])]
+        live = [first] + [[f if w else x.detach().requires_grad_()
+                           for f, x, w in zip(first, layout.leaves(s),
+                                              whole)]
+                          for s in shards[1:]]
+        wanted = first + [x for ls in live[1:]
+                          for x, w in zip(ls, whole) if not w]
+        with torch.enable_grad():
+            loss = share([layout.unflatten(ls) for ls in live], batch)
+            got = torch.autograd.grad(loss, wanted, materialize_grads=True)
+        ours, rest = list(got[:len(first)]), iter(got[len(first):])
+        grads = [ours] + [[g if w else next(rest) for g, w in zip(ours, whole)]
+                          for _ in shards[1:]]
+        return loss.detach(), [layout.unflatten(gs) for gs in grads]
+
+    def train_step(state: dict, batch: dict, token: int
+                   ) -> tuple[dict, torch.Tensor]:
+        shards, accum, buffer = state["params"], state["accum"], \
+            state["buffer"]
+        loss, grads = grads_of(shards, batch)
+        slot = buffer["fill"] % m
+        for i, g in enumerate(grads):
+            run_i = world.reduce_scatter(layout.ravel(g))
+            buffer["grads"][slot, i * k_d:(i + 1) * k_d].copy_(
+                run_i.view(k_d, ss))
+            del run_i
+        del grads
+        buffer["tokens"][slot] = token
+        fill = buffer["fill"] + 1
+        is_full = fill % m == 0
+        new_buffer = {"grads": buffer["grads"], "tokens": buffer["tokens"],
+                      "fill": fill, "step": buffer["step"] + int(is_full)}
+        if is_full:
+            flat_p = torch.empty((len(shards) * run,), dtype=torch.float32,
+                                 device=accum.device)
+            for i, s in enumerate(shards):
+                flat_p[i * run:(i + 1) * run].copy_(
+                    layout.ravel(s)[lo:lo + run])
+            apply_shards(flat_p, accum, new_buffer["grads"].unbind(1),
+                         new_buffer["tokens"], buffer["step"], lr)
+            shards = [world.all_gather(layout, flat_p[i * run:(i + 1) * run])
+                      for i in range(len(shards))]
+            del flat_p
+        if ranks > 1:
+            loss = _ranks_loss(world, loss)
+        return {"params": shards, "accum": accum,
                 "buffer": new_buffer}, loss
 
     return train_step
@@ -324,7 +459,9 @@ class TrainPrograms:
     ``accum``, ``buffer``) and ``step``; ``wire`` fills ``layout``,
     ``state`` (``param_flat``, ``accum``), ``warm_step``,
     ``compressed_step``, ``wire_state`` and ``compress``; ``sync_psum``
-    fills ``state`` (``params``, ``opt``), ``step`` and ``optimizer``."""
+    fills ``state`` (``params``, ``opt``), ``step`` and ``optimizer``.
+    ``fused`` over a model axis of T > 1 also fills ``model_axis``, and
+    its ``state["params"]`` is the list of the held model shards' trees."""
 
     layout: Any
     state: dict
@@ -334,6 +471,7 @@ class TrainPrograms:
     compressed_step: Callable | None = None
     wire_state: dict | None = None
     compress: CompressionPolicy | None = None
+    model_axis: ModelAxis | None = None
 
     def wire_step_for(self, async_steps_taken: int) -> Callable:
         """The wire step for a global step after ``async_steps_taken``
@@ -354,7 +492,7 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
                    workers: int = 1,
                    compress: CompressionPolicy | None = None,
                    layer_groups: bool = True,
-                   world=inprocess) -> TrainPrograms:
+                   world=inprocess, model: int = 1) -> TrainPrograms:
     """The step(s) of ``mode`` and their state, from ``params`` (on the
     device the steps run on).
 
@@ -366,7 +504,13 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     PS shards, layer-grouped unless ``layer_groups`` is False
     (``init_fused_train_state``), of which this process holds
     ``world.workers(workers)``: all of them in process, W / R on each of
-    R ranks, whose steps take their R-th of each microstep's batch.
+    R ranks, whose steps take their R-th of each microstep's batch.  With
+    ``model`` T > 1 it runs over the (``workers``, T) mesh
+    (:func:`init_model_axis_state`, :func:`make_model_axis_step`): the
+    process holds ``world.model_shards(T)``, and a split the rule tables
+    ask for that this port does not run raises here, at build time
+    (``distributed.tensor_parallel.model_axis``).  Only ``fused`` takes a
+    model axis: the reference's wire and sync steps replicate over it.
 
     ``wire`` runs ``workers`` PS workers and shards over the collectives
     of ``world`` (``distributed.inprocess``, or a
@@ -388,6 +532,9 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     the workers held here (the whole batch in process), and split every
     entry of the batch, the memory too, by rows among them."""
     T.check_supported(cfg)
+    if model != 1 and mode != "fused":
+        raise ValueError(f"{mode} mode runs no model axis (model={model}): "
+                         f"its step replicates over model")
     if mode == "pytree":
         opt = optimizer or get_optimizer(
             ARCH_OPTIMIZER.get(cfg.name, "adam"), lr)
@@ -397,9 +544,18 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
                              step=make_train_step(cfg, opt, gba),
                              optimizer=opt)
     if mode == "fused":
-        if workers < 1:
-            raise ValueError(f"fused mode needs 1 or more workers, got "
-                             f"{workers}")
+        if workers < 1 or model < 1:
+            raise ValueError(f"fused mode needs 1 or more workers and model "
+                             f"shards, got {workers} x {model}")
+        if model > 1:
+            tp = model_axis(cfg, Mesh(("data", "model"), (workers, model)),
+                            world)
+            layout, state = init_model_axis_state(params, gba, workers, tp,
+                                                  layer_groups, world=world)
+            return TrainPrograms(layout=layout, state=state,
+                                 step=make_model_axis_step(
+                                     cfg, gba, layout, tp, lr=lr,
+                                     world=world), model_axis=tp)
         layout, state = init_fused_train_state(params, gba, workers,
                                                layer_groups, world=world)
         return TrainPrograms(layout=layout, state=state,

@@ -8,6 +8,8 @@ smoke.
     python -m repro_torch.launch.train --arch granite-8b --fused \\
         --mesh 4x1 [--compress {none,int8,onebit}] [--compress-warmup 2] \\
         [--layer-groups {on,off}] [--ranks R] [--reduced] [--steps 20] ...
+    python -m repro_torch.launch.train --arch granite-8b --fused \\
+        --mesh 2x2 [--ranks R] [--reduced] [--steps 20] ...
     python -m repro_torch.launch.train --arch granite-8b --mesh 4x1 \\
         --autoswitch [--plan {quiet,strained}] [--batches 120] [--ranks R] \\
         [--reduced]
@@ -57,8 +59,21 @@ microstep's ``--batch`` over the ranks, reduce-scatters the gradient
 into the W / R shards each rank owns and gathers the params after each
 apply.  A gloo rank runs as many intra-op threads as the launching
 process, so a worker's CPU matmuls round as they do without ``--ranks``
-(the ranks then share the cores R times over).  A model axis above 1 is
-not ported.
+(the ranks then share the cores R times over).
+
+``--fused --mesh WxT`` with T > 1 (``--compress none``) runs the sharded
+fused step over a (data W, model T) mesh (``run_lm_fused`` with ``model``
+T): the model's attention heads, MLP columns, experts and vocabulary
+split over T model shards by the reference's rule tables
+(``repro_torch.distributed.sharding``, ``distributed.tensor_parallel``),
+each model shard's flat state split into W data shards, and W * T
+``gba_apply`` launches an apply.  ``--ranks R`` puts it on an (R / Rm,
+Rm) grid of ranks, Rm the largest divisor of T that divides R with R /
+Rm dividing W (``process_group.grid``): the ranks of one data coordinate
+take the same batch rows and hold T / Rm model shards each.  A Mamba
+arch, a split that needs the rules' head_dim fallback, ``--compress
+int8|onebit`` and ``--autoswitch`` refuse T > 1 (the reference's wire
+and sync steps replicate over ``model``).
 
 ``--mesh Wx1 --autoswitch`` runs the switching harness
 (``repro_torch.launch.switch_driver``) on the arch's steps
@@ -102,6 +117,8 @@ from repro_torch.distributed import inprocess, process_group
 from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.distributed.tensor_parallel import model_axis
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.launch.programs import (ARCH_OPTIMIZER, TrainPrograms,
                                          build_programs, make_loss_fn)
 from repro_torch.models import layers as L
@@ -240,16 +257,17 @@ def run_lm_pytree(cfg: ModelConfig, *, optimizer: str = "adam",
 def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
                  seq: int = 128, buffer: int = 4, iota: int = 4,
                  lr: float = 1e-3, workers: int = 1,
-                 layer_groups: bool = True,
+                 layer_groups: bool = True, model: int = 1,
                  device: str | torch.device = "cuda",
                  world=inprocess) -> list[float]:
     """Train ``cfg`` for ``steps`` microsteps of the fused GBA step on the
     LM stream (seed 0), its flat state split into ``workers`` PS shards
     when there are 2 or more (layer-grouped unless ``layer_groups`` is
-    False), the shards and each microstep's ``batch`` sequences spread
-    over the ranks of ``world`` (all here by default); returns the
-    losses.  Parameters are drawn from seed 0 on the device.  Raises if a
-    loss is not finite."""
+    False), the model split over ``model`` model shards when that is above
+    1, the shards and each microstep's ``batch`` sequences spread over the
+    ranks of ``world`` (all here by default); returns the losses.
+    Parameters are drawn from seed 0 on the device.  Raises if a loss is
+    not finite."""
     dev = resolve_device(device)
     if batch % world.size:
         raise ValueError(f"{world.size} ranks must divide --batch {batch}")
@@ -257,20 +275,28 @@ def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
                           device=dev)
     gba = GBAConfig(local_batch=batch, buffer_size=buffer,
                     staleness_tolerance=iota)
+    count = T.param_count(params)
     progs = build_programs(cfg, gba, params=params, mode="fused", lr=lr,
                            workers=workers, layer_groups=layer_groups,
-                           world=world)
+                           world=world, model=model)
     del params
     stream = make_lm_stream(cfg.vocab_size, seq, batch, seed=0)
-    print(f"{cfg.name}: {T.param_count(progs.state['params']) / 1e6:.1f}M "
-          f"params on {dev}")
+    print(f"{cfg.name}: {count / 1e6:.1f}M params on {dev}")
     rows, mine = batch // world.size, world.workers(max(workers, 1))
     if world is not inprocess:
         print(f"process group: {world.backend}, {world.size} ranks x "
-              f"{len(mine)} shards, {rows} sequences a rank a microstep")
+              f"{len(mine)} shards, {rows} sequences a rank a microstep"
+              + (f"; {world.model_size} model ranks" if model > 1 else ""))
     first = mine[0] // len(mine) * rows
     layout = progs.layout
-    if isinstance(layout, ShardedFlatLayout):
+    if progs.model_axis is not None:
+        tp = progs.model_axis
+        print(f"model axis: mesh data={workers} x model={model}, model "
+              f"shards {list(tp.held)} held here, split "
+              f"{sorted(tp.split)}; per model shard N={layout.total:,} "
+              f"over {workers} data shard(s) of {layout.shard_size:,}; "
+              f"{workers * model} gba_apply launches an apply")
+    elif isinstance(layout, ShardedFlatLayout):
         print(f"sharded fused gba_apply path (Adagrad): flat buffer "
               f"({buffer}, {layout.padded_total}) sliced over "
               f"data={layout.num_shards} (shard_size={layout.shard_size}, "
@@ -383,13 +409,15 @@ def on_rank(world, device: torch.device, run: Callable, cfg: ModelConfig,
 
 
 def _on_ranks(ranks: int, workers: int, device: str, run: Callable,
-              cfg: ModelConfig, kwargs: dict) -> None:
-    """``run`` on ``ranks`` spawned ranks of ``workers / ranks`` workers
-    each, every gloo rank running this process's intra-op threads, so
-    that its CPU matmuls round as they would here."""
-    process_group.check_world(ranks, workers, device)
+              cfg: ModelConfig, kwargs: dict, model: int = 1) -> None:
+    """``run`` on ``ranks`` spawned ranks, an (R / Rm, Rm) grid over the
+    (``workers``, ``model``) mesh (``process_group.grid``), every gloo
+    rank running this process's intra-op threads, so that its CPU
+    matmuls round as they would here."""
+    rm = process_group.grid(ranks, workers, model)
+    process_group.check_world(ranks, workers, device, rm, model)
     process_group.spawn(on_rank, ranks, run, cfg, kwargs, device=device,
-                        threads=torch.get_num_threads())
+                        threads=torch.get_num_threads(), model_ranks=rm)
 
 
 def run_autoswitch(cfg: ModelConfig, *, workers: int,
@@ -460,10 +488,11 @@ def main(argv: list[str] | None = None):
                          "(forces Adagrad); default: the pytree step with "
                          "the arch's optimizer")
     ap.add_argument("--mesh", default="",
-                    help="WORKERSx1 (needs --fused or --autoswitch): that "
-                         "many PS shards (the sharded fused step) or, with "
-                         "--compress int8|onebit, PS workers and shards "
-                         "(the worker-parallel wire step), e.g. 4x1")
+                    help="WORKERSxMODEL (needs --fused or --autoswitch): "
+                         "that many PS shards (the sharded fused step) over "
+                         "MODEL tensor-parallel model shards, e.g. 2x2; or, "
+                         "with --compress int8|onebit or --autoswitch, "
+                         "WORKERSx1 PS workers and shards, e.g. 4x1")
     ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
                     help="layer-grouped flat layout of the sharded fused "
                          "and wire steps: one gather and one route per "
@@ -512,7 +541,8 @@ def main(argv: list[str] | None = None):
             if not (workers.isdigit() and int(workers) >= 2
                     and model in ("", "1")):
                 ap.error(f"--autoswitch needs --mesh WORKERSx1 with 2 or "
-                         f"more workers, got --mesh {args.mesh!r}")
+                         f"more workers, got --mesh {args.mesh!r}: its sync "
+                         f"step replicates over model")
             kwargs = dict(workers=int(workers), plan=args.plan,
                           batches=args.batches, batch=args.batch,
                           seq=args.seq, iota=args.iota, lr=args.lr)
@@ -534,28 +564,38 @@ def main(argv: list[str] | None = None):
         if opt_name != "adagrad":
             print(f"--fused forces Adagrad (arch default was {opt_name})")
         if args.mesh:
-            workers, _, model = args.mesh.partition("x")
             try:
-                workers, model = int(workers), int(model or 1)
-            except ValueError:
-                ap.error(f"--mesh {args.mesh!r}: expected WORKERSx1")
-            if model != 1:
-                ap.error(f"--mesh {args.mesh}: a model axis above 1 is not "
-                         f"ported (see ROADMAP.md)")
+                mesh = parse_mesh(args.mesh)
+            except ValueError as e:
+                ap.error(str(e))
+            workers, model = mesh.shape["data"], mesh.shape["model"]
             if workers < 2:
                 ap.error(f"--mesh {args.mesh}: needs 2 or more workers")
+            if model > 1 and args.compress != "none":
+                ap.error(f"--mesh {args.mesh} --compress {args.compress}: "
+                         f"the wire step replicates over model; a model "
+                         f"axis above 1 runs with --compress none")
             if args.compress == "none":
                 kwargs = dict(steps=args.steps, batch=args.batch,
                               seq=args.seq, buffer=args.buffer,
                               iota=args.iota, lr=args.lr, workers=workers,
-                              layer_groups=args.layer_groups == "on")
-                if not args.ranks:
-                    return run_lm_fused(cfg, device=args.device, **kwargs)
-                if args.batch % args.ranks:
+                              layer_groups=args.layer_groups == "on",
+                              model=model)
+                try:
+                    if model > 1:
+                        model_axis(cfg, mesh, inprocess)
+                    if not args.ranks:
+                        return run_lm_fused(cfg, device=args.device,
+                                            **kwargs)
+                    rm = process_group.grid(args.ranks, workers, model)
+                except (ValueError, NotImplementedError) as e:
+                    ap.error(str(e))
+                if args.batch % (args.ranks // rm):
                     ap.error(f"--ranks {args.ranks}: the sharded fused step "
-                             f"splits --batch {args.batch} over the ranks")
+                             f"splits --batch {args.batch} over "
+                             f"{args.ranks // rm} data ranks")
                 return _on_ranks(args.ranks, workers, args.device,
-                                 run_lm_fused, cfg, kwargs)
+                                 run_lm_fused, cfg, kwargs, model)
             if args.batch % workers:
                 ap.error(f"--mesh {args.mesh}: the wire step needs workers "
                          f"that divide --batch {args.batch}")

@@ -9,9 +9,13 @@ that the variants set are run by the port's model code: ``attn_q_chunk``
 (``models.layers.mamba_spec``) and ``moe_capacity_factor``
 (``models.layers.moe_route``).  Of the options, ``gba`` is a
 ``GBAConfig``; ``serve_tp`` and ``moe_ep`` are carried as data, as the
-reference carries them: their readers are the reference's mesh sharding
-of the dry run (``repro.launch.steps.build_step``), whose counterpart is
-the model axis of ROADMAP.md queue 1 item 2.
+reference carries them.  ``serve_tp``'s reader is the dry run's serving
+placement (``repro.launch.steps.build_step`` through
+``serve_param_specs``; ``distributed.sharding.serve_param_specs`` here),
+which waits with the dry run (ROADMAP.md queue 5).  ``moe_ep`` changes
+nothing numerically here: over the model axis each shard already
+dispatches to its own experts (``models.layers.moe_tp``), the layout the
+reference's ``constrain_expert`` asks GSPMD for.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ def _chunked_attn_2048(cfg, opts):
 
 
 def _serve_tp(cfg, opts):
-    """Weights replicated over the data axis in serving (an option for the
-    model axis)."""
+    """Weights replicated over the data axis in serving: the dry run's
+    ``serve_param_specs``, which waits with the dry run."""
     return cfg, {**opts, "serve_tp": True}
 
 
@@ -82,8 +86,8 @@ def _mamba_split(cfg, opts):
 
 
 def _moe_ep(cfg, opts):
-    """Expert-parallel constraints on the dispatch buffers (an option for
-    the model axis)."""
+    """Expert-parallel constraints on the dispatch buffers; the model
+    axis's MoE is expert-parallel by construction, so nothing changes."""
     return cfg, {**opts, "moe_ep": True}
 
 

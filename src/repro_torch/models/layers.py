@@ -163,7 +163,7 @@ def _q_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: int,
 def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   kv_override: torch.Tensor | None = None,
-                  return_kv: bool = False):
+                  return_kv: bool = False, partial: bool = False):
     """Full-sequence causal self-attention.  x: (B,S,D) -> (B,S,D).  A
     nonzero ``window`` also masks every key ``window`` or more positions
     behind the query (``q_pos - t_pos < window``).  With ``kv_override``,
@@ -176,7 +176,10 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     self-attention never makes its (S, S) scores: the queries run in
     chunks of qc in order, each under a checkpoint with its own (qc, S)
     mask, and the chunks' outputs are concatenated, as the reference's
-    scan over chunks.  The cross-attention is never chunked."""
+    scan over chunks.  The cross-attention is never chunked.
+
+    With ``partial`` the output stays float32, uncast: one model shard's
+    row-parallel partial of ``wo`` (:func:`attention_tp`)."""
     B, S, _ = x.shape
     G = cfg.num_heads // cfg.num_kv_heads
     kv_in = x if kv_override is None else kv_override
@@ -203,7 +206,9 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa(q, k, v, mask, cfg.attn_softcap)
     out = out.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
     # float32 attention output times the weight: float32, as jnp promotes
-    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
+    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float())
+    if not partial:
+        y = y.to(x.dtype)
     if return_kv:
         return y, (k, v)
     return y
@@ -390,9 +395,11 @@ def moe_spec(cfg: ModelConfig) -> Params:
     }
 
 
-def moe_route(p: Params, cfg: ModelConfig, xt: torch.Tensor) -> dict:
+def moe_route(p: Params, cfg: ModelConfig, xt: torch.Tensor,
+              logits: torch.Tensor | None = None) -> dict:
     """The reference's routing of T tokens xt (T, D): the float32 router's
-    softmax, its ``top_k`` (``sel`` (T, K), the weights renormalised to sum
+    softmax (of ``logits`` (T, E) where they are given: the model axis's
+    gathered router columns, :func:`moe_tp`), its ``top_k`` (``sel`` (T, K), the weights renormalised to sum
     to 1), the Switch-style load-balance ``aux`` loss, the capacity
     ``cap = max(1, int(T * K / E * capacity_factor))``, and each (token,
     choice) entry's ``slot``, its rank in its expert's queue in entry
@@ -400,7 +407,9 @@ def moe_route(p: Params, cfg: ModelConfig, xt: torch.Tensor) -> dict:
     cap``: entries past an expert's capacity are dropped."""
     E, K = cfg.num_experts, cfg.experts_per_token
     T = xt.shape[0]
-    probs = torch.softmax(xt.float() @ p["router"], dim=-1)    # (T, E)
+    if logits is None:
+        logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)                       # (T, E)
     weights, sel = torch.topk(probs, K, dim=-1)                 # (T, K)
     weights = weights / torch.sum(weights, dim=-1, keepdim=True)
     flat_sel = sel.reshape(-1)                                  # (T*K,)
@@ -442,6 +451,86 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor
     expert_out = torch.bmm(h, p["wo"])                          # (E, cap, D)
     gathered = expert_out[flat_sel, slot.clamp(max=cap - 1)]    # (T*K, D)
     gathered = torch.where(keep[:, None], gathered, 0)
+    combined = (gathered.reshape(B * S, K, D)
+                * r["weights"][..., None].to(x.dtype)).sum(dim=1)
+    return combined.reshape(B, S, D).to(x.dtype), r["aux"]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's model axis
+#
+# ``ps`` is the list of the model shards' trees of one module that this
+# process holds, ``tp`` its ``distributed.tensor_parallel.ModelAxis``.  A
+# module the rules leave whole runs on the first held shard's copy.
+
+def attention_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, tp, *, window: int = 0,
+                 kv_override: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`attention_fwd` with its heads split over ``model``: each
+    held shard runs its H / T query heads over its KV / T KV heads on the
+    broadcast input (and memory), and the float32 partials of the
+    row-parallel ``wo`` are model-summed, then cast to x's dtype."""
+    if "attn" not in tp.split:
+        return attention_fwd(ps[0], cfg, x, positions, window=window,
+                             kv_override=kv_override)
+    local = tp.local_attention(cfg)
+    xs = tp.broadcast(x)
+    ms = ([None] * len(ps) if kv_override is None
+          else tp.broadcast(kv_override))
+    return tp.model_sum([
+        attention_fwd(p, local, xi, positions, window=window,
+                      kv_override=mi, partial=True)
+        for p, xi, mi in zip(ps, xs, ms)]).to(x.dtype)
+
+
+def mlp_tp(ps: list, x: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`mlp_fwd` with ``d_ff`` split over ``model``: column-parallel
+    ``wi_gate`` and ``wi_up``, row-parallel ``wo`` in float32 partials,
+    model-summed, then cast to x's dtype."""
+    if "mlp" not in tp.split:
+        return mlp_fwd(ps[0], x)
+    parts = []
+    for p, xi in zip(ps, tp.broadcast(x)):
+        h = torch.nn.functional.silu(xi @ p["wi_gate"]) * (xi @ p["wi_up"])
+        parts.append(h.float() @ p["wo"].float())
+    return tp.model_sum(parts).to(x.dtype)
+
+
+def moe_tp(ps: list, cfg: ModelConfig, x: torch.Tensor, tp
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_fwd` with the experts split over ``model``: the router's
+    expert columns all-gathered in order into the full (tokens, E) logits,
+    so every shard routes as the unsharded layer; each held shard
+    scatters the kept entries of its E / T experts into its (E / T, cap,
+    D) block and runs them; the gathered (tokens x K, D) entries, each
+    nonzero on one shard alone, are model-summed exactly, and the combine
+    is the unsharded one."""
+    if "moe" not in tp.split:
+        return moe_fwd(ps[0], cfg, x)
+    B, S, D = x.shape
+    K = cfg.experts_per_token
+    el = cfg.num_experts // tp.size
+    xs = tp.broadcast(x.reshape(B * S, D))
+    logits = tp.gather([xi.float() @ p["router"] for p, xi in zip(ps, xs)],
+                       dim=-1)
+    r = moe_route(None, cfg, xs[0], logits=logits)
+    cap, flat_sel, slot = r["cap"], r["sel"].reshape(-1), r["slot"]
+    parts = []
+    for p, xi, t in zip(ps, xs, tp.held):
+        local = flat_sel - t * el
+        mine = r["keep"] & (local >= 0) & (local < el)
+        expert_in = torch.zeros((el, cap, D), dtype=x.dtype, device=x.device)
+        expert_in.index_put_(
+            (torch.where(mine, local, el - 1),
+             torch.where(mine, slot, cap - 1)),
+            torch.where(mine[:, None], torch.repeat_interleave(xi, K, dim=0),
+                        0).to(x.dtype), accumulate=True)
+        h = torch.nn.functional.silu(torch.bmm(expert_in, p["wi_gate"])) \
+            * torch.bmm(expert_in, p["wi_up"])
+        out = torch.bmm(h, p["wo"])                             # (el, cap, D)
+        got = out[local.clamp(0, el - 1), slot.clamp(max=cap - 1)]
+        parts.append(torch.where(mine[:, None], got, 0))
+    gathered = tp.model_sum(parts)                                    # (T*K, D)
     combined = (gathered.reshape(B * S, K, D)
                 * r["weights"][..., None].to(x.dtype)).sum(dim=1)
     return combined.reshape(B, S, D).to(x.dtype), r["aux"]

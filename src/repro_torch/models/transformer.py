@@ -126,32 +126,59 @@ def _layer_spec(cfg: ModelConfig, kind: str) -> Params:
     return spec | {"ln2": L.norm_spec(cfg), ffn[0]: ffn[1]}
 
 
-def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
+def _sub(p: Any, key: str, tp) -> Any:
+    """``p[key]``, or under a model axis ``tp`` (``p`` the held shards'
+    trees) the list of each shard's."""
+    return p[key] if tp is None else [q[key] for q in p]
+
+
+def _one(p: Any, tp) -> Any:
+    """``p``, or under a model axis the first held shard's tree: where a
+    leaf is whole over ``model`` (norms), every shard holds it."""
+    return p if tp is None else p[0]
+
+
+def _attention(p: Any, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, tp, **kw) -> torch.Tensor:
+    if tp is None:
+        return L.attention_fwd(p, cfg, x, positions, **kw)
+    return L.attention_tp(p, cfg, x, positions, tp, **kw)
+
+
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, tp=None
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The layer's FFN on ``norm(x)``: (output, the MoE's aux or None)."""
-    h = L.norm_fwd(p["ln2"], x)
-    if "moe" in p:
-        return L.moe_fwd(p["moe"], cfg, h)
-    return L.mlp_fwd(p["mlp"], h), None
+    h = L.norm_fwd(_one(p, tp)["ln2"], x)
+    if "moe" in _one(p, tp):
+        if tp is None:
+            return L.moe_fwd(p["moe"], cfg, h)
+        return L.moe_tp(_sub(p, "moe", tp), cfg, h, tp)
+    if tp is None:
+        return L.mlp_fwd(p["mlp"], h), None
+    return L.mlp_tp(_sub(p, "mlp", tp), h, tp), None
 
 
 def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                positions: torch.Tensor, aux: torch.Tensor,
                shared: Params | None = None,
-               memory: torch.Tensor | None = None
+               memory: torch.Tensor | None = None, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer's forward; under a model axis ``tp`` (the Mamba kinds
+    excepted) ``p`` is the held shards' trees of the layer."""
     if _is_mamba(kind):
         x = x + L.mamba_fwd(p["mixer"], cfg, L.norm_fwd(p["ln1"], x))
         if kind == "mamba_attn":
             x = x + L.attention_fwd(shared["attn"], cfg,
                                     L.norm_fwd(p["ln_sh"], x), positions)
         return x, aux
-    x = x + L.attention_fwd(p["attn"], cfg, L.norm_fwd(p["ln1"], x),
-                            positions, window=_window(cfg, kind))
+    norms = _one(p, tp)
+    x = x + _attention(_sub(p, "attn", tp), cfg, L.norm_fwd(norms["ln1"], x),
+                       positions, tp, window=_window(cfg, kind))
     if kind == "cross":
-        x = x + L.attention_fwd(p["xattn"], cfg, L.norm_fwd(p["lnx"], x),
-                                positions, kv_override=memory)
-    h, a = _ffn(p, cfg, x)
+        x = x + _attention(_sub(p, "xattn", tp), cfg,
+                           L.norm_fwd(norms["lnx"], x), positions, tp,
+                           kv_override=memory)
+    h, a = _ffn(p, cfg, x, tp)
     return x + h, aux if a is None else aux + a
 
 
@@ -313,6 +340,19 @@ def model_spec(cfg: ModelConfig) -> tuple[Params, Params]:
     return top, block
 
 
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The tree of :func:`init_model` as meta tensors: every leaf's shape
+    (``blocks`` stacked over ``num_repeats``) and dtype, nothing
+    allocated; what the sharding rules read at full size."""
+    top, block = model_spec(cfg)
+    meta = torch.device("meta")
+    shapes = _map(top, lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                             device=meta))
+    shapes["blocks"] = _map(block, lambda s: torch.empty(
+        (cfg.num_repeats, *s.shape), dtype=s.dtype, device=meta))
+    return shapes
+
+
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device: str | torch.device = "cuda") -> Params:
     """Fresh parameters: ``embed`` (V, D) at scale 0.02, ``final_norm``,
@@ -331,17 +371,34 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
     return params
 
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, tp=None
            ) -> torch.Tensor:
     """The embedding rows, times ``sqrt(d_model)`` in the embedding's
-    dtype when the embeddings are tied."""
-    x = params["embed"][tokens.long()]
+    dtype when the embeddings are tied.  Under a model axis that splits
+    the vocabulary, each held shard looks up the tokens in its rows, zero
+    for a token outside them, and the shards' rows are model-summed: one
+    is nonzero, so the sum is exact."""
+    if tp is None or "vocab" not in tp.split:
+        x = _one(params, tp)["embed"][tokens.long()]
+    else:
+        tok, parts = tokens.long(), []
+        for p, t in zip(params, tp.held):
+            n = p["embed"].shape[0]
+            local = tok - t * n
+            mine = (local >= 0) & (local < n)
+            parts.append(torch.where(mine[..., None],
+                                     p["embed"][local.clamp(0, n - 1)], 0))
+        x = tp.model_sum(parts)
     if cfg.tie_embeddings:
         x = x * cfg.d_model ** 0.5
     return x.to(L.dtype_of(cfg))
 
 
-def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def _head(params: Params, cfg: ModelConfig, tp=None) -> Any:
+    """The head (D, V): ``lm_head``, or ``embed``'s transpose when the
+    embeddings are tied; under a model axis the held shards' heads."""
+    if tp is not None:
+        return [_head(p, cfg) for p in params]
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
@@ -361,58 +418,72 @@ def _block(tree: Params, r: int) -> Params:
     return _map(tree, lambda t: t[r])
 
 
-def encode_audio(params: Params, cfg: ModelConfig, frames: torch.Tensor
-                 ) -> torch.Tensor:
+def _blocks(tree: Any, r: int, tp) -> Any:
+    """Repeat ``r`` of a stacked tree, or of each held shard's."""
+    return _block(tree, r) if tp is None else [_block(t, r) for t in tree]
+
+
+def encode_audio(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                 tp=None) -> torch.Tensor:
     """The audio encoder over stub frame embeddings: frames (B, T, D) ->
     memory (B, T, D) in the model dtype.  The frames are cast to the model
     dtype and run through the ``encoder``'s ``global`` layers (causal,
     with RoPE at positions 0 .. T - 1, as the reference computes them),
-    then ``enc_norm``."""
+    then ``enc_norm``; under a model axis ``tp`` ``params`` are the held
+    shards' trees."""
     check_supported(cfg)
     B, T, _ = frames.shape
     positions = torch.arange(T, device=frames.device).expand(B, T)
     x = frames.to(L.dtype_of(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=frames.device)
+    encoder = _sub(params, "encoder", tp)
     for r in range(cfg.encoder_layers):
-        x, _ = _layer_fwd(_block(params["encoder"], r), cfg, "global", x,
-                          positions, aux)
-    return L.norm_fwd(params["enc_norm"], x)
+        x, _ = _layer_fwd(_blocks(encoder, r, tp), cfg, "global", x,
+                          positions, aux, tp=tp)
+    return L.norm_fwd(_one(params, tp)["enc_norm"], x)
 
 
 def _repeat(block: Params, cfg: ModelConfig, x: torch.Tensor,
             positions: torch.Tensor, aux: torch.Tensor,
-            shared: Params | None, memory: torch.Tensor | None
+            shared: Params | None, memory: torch.Tensor | None, tp=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One repeat of the block pattern: the reference's scan body."""
     for i, kind in enumerate(cfg.block_pattern):
-        x, aux = _layer_fwd(block[f"l{i}"], cfg, kind, x, positions, aux,
-                            shared, memory)
+        x, aux = _layer_fwd(_sub(block, f"l{i}", tp), cfg, kind, x,
+                            positions, aux, shared, memory, tp)
     return x, aux
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   memory: torch.Tensor | None = None
+                   memory: torch.Tensor | None = None, tp=None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int, ``memory`` (B, T, D) for the cross layers ->
     (the final norm's output (B, S, D) in the model dtype, aux): the
     forward up to the head, as the reference's ``forward_hidden``.  With
     ``remat_blocks`` each repeat of the block pattern runs under a
-    checkpoint; the prefix layers do not."""
+    checkpoint (whose backward issues the model axis's collectives
+    again); the prefix layers do not.  Under a model axis ``tp``
+    (``distributed.tensor_parallel.ModelAxis``) ``params`` is the list of
+    the held model shards' trees (``sharding.place``), and the output is
+    whole over ``model``."""
     check_supported(cfg)
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    shared = params.get("shared_attn")
+    shared = _one(params, tp).get("shared_attn")
     for i, kind in enumerate(cfg.prefix_layers):
-        x, aux = _layer_fwd(params["prefix"][i], cfg, kind, x, positions,
-                            aux, shared, memory)
+        layer = (params["prefix"][i] if tp is None
+                 else [p["prefix"][i] for p in params])
+        x, aux = _layer_fwd(layer, cfg, kind, x, positions, aux, shared,
+                            memory, tp)
+    blocks = _sub(params, "blocks", tp)
     for r in range(cfg.num_repeats):
-        args = (_block(params["blocks"], r), cfg, x, positions, aux, shared,
-                memory)
+        args = (_blocks(blocks, r, tp), cfg, x, positions, aux, shared,
+                memory, tp)
         x, aux = (checkpoint(_repeat, *args, use_reentrant=False)
                   if cfg.remat_blocks else _repeat(*args))
-    return L.norm_fwd(params["final_norm"], x), aux
+    return L.norm_fwd(_one(params, tp)["final_norm"], x), aux
 
 
 def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -479,20 +550,33 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """An empty cache at ``pos = 0``, each block leaf allocated once at its
     stacked ``(num_repeats, ...)`` shape, holding ``memory`` when one is
     given."""
-    check_supported(cfg)
     dev = resolve_device(device)
-    cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
-    if cfg.prefix_layers:
-        cache["prefix"] = [_layer_cache(cfg, kind, batch, cache_len, dev)
-                           for kind in cfg.prefix_layers]
-    meta = torch.device("meta")
-    cache["blocks"] = {
-        f"l{i}": _map(_layer_cache(cfg, kind, batch, cache_len, meta),
-                      lambda t: torch.zeros((cfg.num_repeats, *t.shape),
-                                            dtype=t.dtype, device=dev))
-        for i, kind in enumerate(cfg.block_pattern)}
+    cache = _map(cache_shapes(cfg, batch, cache_len), lambda t: torch.zeros(
+        t.shape, dtype=t.dtype, device=dev))
     if memory is not None:
         cache["memory"] = memory
+    return cache
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
+                 memory_len: int = 0) -> Params:
+    """The tree of :func:`init_cache` as meta tensors (with a ``memory`` of
+    ``memory_len`` positions when that is nonzero): the shapes the cache
+    rules read, nothing allocated."""
+    check_supported(cfg)
+    meta = torch.device("meta")
+    cache: Params = {"pos": torch.empty((), dtype=torch.int32, device=meta)}
+    if cfg.prefix_layers:
+        cache["prefix"] = [_layer_cache(cfg, kind, batch, cache_len, meta)
+                           for kind in cfg.prefix_layers]
+    cache["blocks"] = {
+        f"l{i}": _map(_layer_cache(cfg, kind, batch, cache_len, meta),
+                      lambda t: torch.empty((cfg.num_repeats, *t.shape),
+                                            dtype=t.dtype, device=meta))
+        for i, kind in enumerate(cfg.block_pattern)}
+    if memory_len:
+        cache["memory"] = torch.empty((batch, memory_len, cfg.d_model),
+                                      dtype=L.dtype_of(cfg), device=meta)
     return cache
 
 
@@ -532,15 +616,44 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
+def _nll_tp(cfg: ModelConfig, heads: list, h: torch.Tensor,
+            labels: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`_nll` of the hidden states ``h`` over the held shards'
+    ``heads``, in vocab-parallel form: each shard's softcapped float32
+    logits over its columns; the largest logit, a max over the shards
+    (exact, no gradient: the log-sum-exp does not depend on it); the
+    model-summed sums of ``exp(logit - max)``; and the label's logit,
+    picked by the shard that owns it and model-summed.  The loss is
+    ``max + log(sum) - logit[label]``, as ``log_softmax`` gives it."""
+    if "vocab" not in tp.split:
+        return _nll(_logits(None, cfg, h, heads[0]), labels)
+    logits = [_logits(None, cfg, hi, w)
+              for hi, w in zip(tp.broadcast(h), heads)]
+    top = tp.max([lg.amax(dim=-1) for lg in logits])
+    total = tp.model_sum([torch.exp(lg - top[..., None]).sum(dim=-1)
+                    for lg in logits])
+    lab, picked = labels.long(), []
+    for lg, t in zip(logits, tp.held):
+        n = lg.shape[-1]
+        local = lab - t * n
+        mine = (local >= 0) & (local < n)
+        got = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        picked.append(torch.where(mine, got, 0))
+    return top + torch.log(total) - tp.model_sum(picked)
+
+
 def _chunk_nll(params: Params, cfg: ModelConfig, head: torch.Tensor,
-               h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+               h: torch.Tensor, labels: torch.Tensor, tp=None
+               ) -> torch.Tensor:
     """The float32 sum of one chunk's negative log-likelihoods."""
+    if tp is not None:
+        return _nll_tp(cfg, head, h, labels, tp).sum()
     return _nll(_logits(params, cfg, h, head), labels).sum()
 
 
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, memory: torch.Tensor | None = None
-            ) -> torch.Tensor:
+            labels: torch.Tensor, memory: torch.Tensor | None = None,
+            tp=None) -> torch.Tensor:
     """Mean next-token negative log-likelihood, ``log_softmax`` in
     float32, plus ``router_aux_loss_weight * aux``, as the reference adds
     it (without MoE layers ``aux`` is 0.0, which changes no loss);
@@ -551,17 +664,25 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     chunk of c positions in order, under a checkpoint, its head product
     and the sum of its negative log-likelihoods, added into a float32
     total from 0; the mean is that total over B * S, as the reference
-    divides it."""
+    divides it.
+
+    Under a model axis ``tp`` ``params`` are the held shards' trees (see
+    :func:`forward_hidden`) and the head and the loss run vocab-parallel
+    (:func:`_nll_tp`), chunk by chunk with ``loss_seq_chunk``."""
     sc, (B, S) = cfg.loss_seq_chunk, tokens.shape
     if sc and S % sc == 0 and S > sc:
-        hidden, aux = forward_hidden(params, cfg, tokens, memory)
-        head = _head(params, cfg)
+        hidden, aux = forward_hidden(params, cfg, tokens, memory, tp)
+        head = _head(params, cfg, tp)
         total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for start in range(0, S, sc):
             total = total + checkpoint(
                 _chunk_nll, params, cfg, head, hidden[:, start:start + sc],
-                labels[:, start:start + sc], use_reentrant=False)
+                labels[:, start:start + sc], tp, use_reentrant=False)
         return total / (B * S) + cfg.router_aux_loss_weight * aux
+    if tp is not None:
+        hidden, aux = forward_hidden(params, cfg, tokens, memory, tp)
+        nll = _nll_tp(cfg, _head(params, cfg, tp), hidden, labels, tp)
+        return torch.mean(nll) + cfg.router_aux_loss_weight * aux
     logits, aux = forward_aux(params, cfg, tokens, memory)
     return torch.mean(_nll(logits, labels)) + \
         cfg.router_aux_loss_weight * aux

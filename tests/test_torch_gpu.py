@@ -1668,3 +1668,77 @@ def test_full_opt_layer_at_2048_tokens_matches_the_baseline_on_the_card():
     assert po < pb, (po, pb)
     del params, runs
     torch.cuda.empty_cache()
+
+
+def _reduced_f32(arch):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+def _mesh_2x2_run(cfg, host, dev, world=None):
+    """8 microsteps of ``--fused --mesh 2x2`` at M = 4, microstep 5's slot
+    stale, from ``host`` params on ``dev``: the losses, each model shard's
+    raveled params and the accumulator, on the host."""
+    from repro_torch.configs import GBAConfig
+    from repro_torch.convert import tree_to_device
+    from repro_torch.data import make_lm_stream
+    from repro_torch.distributed import inprocess
+    from repro_torch.launch.programs import build_programs
+    gba = GBAConfig(local_batch=2, buffer_size=4, staleness_tolerance=4)
+    progs = build_programs(cfg, gba, params=tree_to_device(
+        host, torch.device(dev)), mode="fused", lr=1e-3, workers=2, model=2,
+        world=world or inprocess)
+    stream = make_lm_stream(cfg.vocab_size, 80, 2, seed=0)
+    state, losses = progs.state, []
+    for i, token in enumerate([0, 0, 0, 0, 1, -5, 1, 1]):
+        state, loss = progs.step(state, {
+            k: torch.from_numpy(v).to(dev)
+            for k, v in stream.batch(i).items()}, token)
+        losses.append(loss.item())
+    return (losses, torch.cat([progs.layout.ravel(p).cpu()
+                               for p in state["params"]]),
+            state["accum"].cpu())
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "phi3.5-moe-42b-a6.6b"])
+def test_mesh_2x2_fused_step_on_the_card_matches_the_cpu(arch):
+    """``--fused --mesh 2x2`` (2 data x 2 model shards in process) at
+    ``.reduced()`` float32, card against CPU from the same params (seed
+    3): losses within rtol 1e-5, every model shard's params and the
+    accumulator within rtol 1e-5 / atol 1e-7 (float32 sums in other
+    orders); 4 ``gba_apply`` launches an apply on the card."""
+    _need_card()
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32(arch)
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    launches = gba_apply.launches
+    lc, pc, ac = _mesh_2x2_run(cfg, host, "cuda")
+    assert gba_apply.launches - launches == 8
+    lh, ph, ah = _mesh_2x2_run(cfg, host, "cpu")
+    np.testing.assert_allclose(lc, lh, rtol=1e-5)
+    assert torch.allclose(pc, ph, rtol=1e-5, atol=1e-7)
+    assert torch.allclose(ac, ah, rtol=1e-5, atol=1e-7)
+
+
+def test_one_rank_nccl_world_holding_the_2x2_shards_is_in_process(tmp_path):
+    """The same step over a one-rank NCCL world holding both model and
+    both data shards is the in-process step on the card bit for bit."""
+    _need_card()
+    import torch.distributed as dist
+    from repro_torch.distributed import process_group
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32("granite-8b")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    world, _ = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                  "cuda", timeout=120.0)
+    try:
+        got = _mesh_2x2_run(cfg, host, "cuda", world)
+    finally:
+        process_group.leave()
+    assert not dist.is_initialized()
+    want = _mesh_2x2_run(cfg, host, "cuda")
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -515,11 +515,11 @@ def test_train_cli_runs_the_pytree_step_with_adam_on_the_cpu():
 @pytest.mark.parametrize("args,says", [
     (("--arch", "granite-8b", "--reduced", "--mesh", "4x1"),
      "pytree step over PS workers is not ported"),
-    (("--arch", "gemma2-27b", "--reduced", "--fused", "--mesh", "4x2"),
+    (("--arch", "zamba2-2.7b", "--reduced", "--fused", "--mesh", "4x2"),
      "a model axis above 1 is not ported"),
     (("--arch", "kimi-k2-1t-a32b", "--reduced", "--mesh", "4x1"),
      "pytree step over PS workers is not ported"),
-    (("--arch", "seamless-m4t-medium", "--reduced", "--fused", "--mesh",
+    (("--arch", "mamba2-780m", "--reduced", "--fused", "--mesh",
       "4x2"), "a model axis above 1 is not ported"),
 ])
 def test_train_cli_refuses_what_the_port_does_not_run(args, says):
