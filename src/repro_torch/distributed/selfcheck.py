@@ -382,39 +382,43 @@ def run_lm_psum(world, device: torch.device, cfg, inp: dict, gba: GBAConfig,
     np.savez(os.path.join(out_dir, f"rank{mine[0] // len(mine)}.npz"), **out)
 
 
-def run_model_axis(world, device: torch.device, cfg, gba: GBAConfig,
-                   params: dict, batches: list, tokens: list, workers: int,
-                   model: int, out: str) -> None:
-    """The fused step over the (``workers``, ``model``) mesh from
-    ``params`` (whole, on the host) over ``batches`` (whole microsteps, as
-    numpy) with ``tokens``: once over ``world`` (this rank's model shards,
-    its data rows), once over ``world.without_model()`` (every model shard
-    here, the same rows); saves each run's losses, and each held model
-    shard's params (raveled whole) and accumulator blocks, to
-    ``out/rank{r}.pt``."""
+def run_model_axis(world, device: torch.device, gba: GBAConfig,
+                   cases: list, tokens: list, workers: int, model: int,
+                   out: str) -> None:
+    """The fused step over the (``workers``, ``model``) mesh for each of
+    ``cases``, ``(cfg, params, batches)``: from ``params`` (whole, on the
+    host) over ``batches`` (whole microsteps, as numpy) with ``tokens``,
+    once over ``world`` (this rank's model shards, its data rows), once
+    over ``world.without_model()`` (every model shard here, the same
+    rows); saves each case's runs' losses, and each held model shard's
+    params (raveled whole) and accumulator blocks, to
+    ``out/rank{r}.pt``, a list in the order of ``cases``."""
     from repro_torch.launch.programs import build_programs
-    saved = {}
-    for label, w in (("ranks", world), ("process", world.without_model())):
-        progs = build_programs(cfg, gba, params=_to(params, device),
-                               mode="fused", lr=1e-3, workers=workers,
-                               world=w, model=model)
-        rows = gba.local_batch // w.size
-        state, losses = progs.state, []
-        for b, token in zip(batches, tokens):
-            state, loss = progs.step(state, {
-                k: torch.from_numpy(v[w.rank * rows:(w.rank + 1) * rows])
-                .to(device) for k, v in b.items()}, token)
-            losses.append(loss)
-        lay, held = progs.layout, progs.model_axis.held
-        run = state["accum"].shape[0] // len(held)
-        saved[label] = {
-            "losses": torch.stack(losses).cpu(),
-            **{f"param/{t}": lay.ravel(s).cpu()
-               for t, s in zip(held, state["params"])},
-            **{f"accum/{t}": state["accum"][i * run:(i + 1) * run].cpu()
-               for i, t in enumerate(held)}}
+    runs = []
+    for cfg, params, batches in cases:
+        saved = {}
+        for label, w in (("ranks", world), ("process", world.without_model())):
+            progs = build_programs(cfg, gba, params=_to(params, device),
+                                   mode="fused", lr=1e-3, workers=workers,
+                                   world=w, model=model)
+            rows = gba.local_batch // w.size
+            state, losses = progs.state, []
+            for b, token in zip(batches, tokens):
+                state, loss = progs.step(state, {
+                    k: torch.from_numpy(v[w.rank * rows:(w.rank + 1) * rows])
+                    .to(device) for k, v in b.items()}, token)
+                losses.append(loss)
+            lay, held = progs.layout, progs.model_axis.held
+            run = state["accum"].shape[0] // len(held)
+            saved[label] = {
+                "losses": torch.stack(losses).cpu(),
+                **{f"param/{t}": lay.ravel(s).cpu()
+                   for t, s in zip(held, state["params"])},
+                **{f"accum/{t}": state["accum"][i * run:(i + 1) * run].cpu()
+                   for i, t in enumerate(held)}}
+        runs.append(saved)
     rank = world.rank * world.model_size + world.model_rank
-    torch.save(saved, os.path.join(out, f"rank{rank}.pt"))
+    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
 
 
 def _to(params: dict, device: torch.device) -> dict:

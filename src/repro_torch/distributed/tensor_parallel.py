@@ -8,10 +8,19 @@ shards (all T in process, or T / Rm on each rank of an (Rd x Rm) grid of
 ranks), one parameter tree each (``sharding.place``), and runs every
 split module once a held shard on that shard's slice:
 
-* attention (self, cross, and the audio encoder's): the q, k and v heads
-  split, which keeps GQA's groups whole when the KV heads divide T (head
-  ``n = kv * G + g``); ``wo`` is row-parallel, its float32 partials
-  model-summed;
+* attention (self, cross, the audio encoder's and zamba2's shared one):
+  the q, k and v heads split, which keeps GQA's groups whole when the KV
+  heads divide T (head ``n = kv * G + g``); ``wo`` is row-parallel, its
+  float32 partials model-summed.  Where the rules fall back to head_dim,
+  the specs give one of two designs.  The q heads divide T and the KV
+  heads do not (``wk`` and ``wv`` split along head_dim, or stay whole
+  where head_dim does not divide T either): each shard projects its
+  head_dim slice of k and v for every KV head, the slices are gathered,
+  RoPE runs on the whole head_dim, and each shard attends its H / T
+  query heads against the KV heads they use.  The q heads do not divide
+  T either (every projection and ``wo`` along head_dim): q, k and v are
+  gathered and attended whole, and each shard feeds its head_dim slice
+  of the output through its rows of ``wo``;
 * the dense MLP: ``wi_gate`` and ``wi_up`` column-parallel, ``wo``
   row-parallel;
 * the MoE FFN: the router's expert columns all-gathered into the full
@@ -20,7 +29,15 @@ split module once a held shard on that shard's slice:
   model-summed before the combine (each entry is nonzero on one shard
   alone, so the sum is exact);
 * the embedding and the head: a vocab-parallel lookup, vocab-parallel
-  logits, and the loss's ``log_softmax`` in vocab-parallel form.
+  logits, and the loss's ``log_softmax`` in vocab-parallel form (tied
+  embeddings too: each shard's rows take the lookup's gradient and the
+  head's);
+* the Mamba2 mixer: the leaves the rules split (the columns of
+  ``in_proj``, of the convs and of the split projections, the rows of
+  ``out_proj``) are gathered whole (:meth:`ModelAxis.whole`), and the
+  mixer runs once over the process's batch rows, its output whole: a
+  column block of the fused ``in_proj`` mixes the z, x, B, C and dt
+  streams, so no shard can run its block alone.
 
 A module whose leaves the rules leave whole (the dimension does not
 divide T) runs whole on the first held shard's copy and is never
@@ -30,20 +47,24 @@ rows, whole over ``model``: the reference's activation constraint
 layout, not a global, and its ``constrain_expert`` (the MoE dispatch over
 ``model``) is each shard dispatching to its own experts.
 
-The collectives: :meth:`ModelAxis.model_sum` adds the shards' partials in shard
-order from +0.0, and its backward hands each held partial the output's
-gradient; :meth:`ModelAxis.broadcast` hands a replicated input to each
-held shard, and its backward adds the shards' gradients in shard order
-from +0.0.  Over ranks both are one tiled all-gather along the model
-subgroup (``world.model_gather``), then the same ordered sum, so a
-process that holds every shard and R ranks that hold a run each compute
-the same bits.  Checkpointed regions issue them again in the backward,
-in the same order on every rank.
+The collectives: :meth:`ModelAxis.model_sum` adds the shards' partials
+in shard order from +0.0, and its backward hands each held partial the
+output's gradient; :meth:`ModelAxis.broadcast` hands a replicated input
+to each held shard, and its backward adds the shards' gradients in shard
+order from +0.0; :meth:`ModelAxis.gather` concatenates the shards'
+tensors, and its backward hands each held shard its chunk of the
+gradient; :meth:`ModelAxis.chunk` hands each held shard its chunk of a
+replicated tensor, and its backward concatenates every shard's
+gradient.  Over ranks each is one tiled all-gather along the model
+subgroup (``world.model_gather``), then the same ordered sum or
+concatenation, so a process that holds every shard and R ranks that
+hold a run each compute the same bits.  Checkpointed regions issue them
+again in the backward, in the same order on every rank.
 
-:func:`model_axis` reads the split from the rule tables and refuses what
-this port does not run: a Mamba layer kind over T > 1, a split that needs
-the rules' head_dim fallback, and KV heads that do not divide T
-(ROADMAP.md, queue 1 item 2).
+:func:`model_axis` reads the split from the rule tables and runs every
+spec they give; it refuses only a spec the rules cannot produce.  What
+is left of the model axis (FSDP over ``data``, the configurations that
+need more than one card) waits in ROADMAP.md, queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -56,10 +77,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gba import tree_paths
 from repro_torch.distributed import sharding as S
 
-ROADMAP = "ROADMAP.md, queue 1 item 2"
+ROADMAP = "ROADMAP.md, queue 1 item 2.5"
 
 # the leaves of each module kind that splits, by name and parent
 _ATTN = ("wq", "wk", "wv", "wo")
+_MAMBA = ("in_proj", "conv_w", "out_proj", "w_z", "w_x", "w_B", "w_C",
+          "w_dt", "conv_x", "conv_B", "conv_C")
+# the (q and wo, k and v) splits of an attention that the rules give
+_ATTN_DESIGNS = {("heads", "heads"), ("heads", "head_dim"), ("heads", None),
+                 ("head_dim", "head_dim"), (None, None)}
 
 
 def ordered_sum(parts: list[torch.Tensor]) -> torch.Tensor:
@@ -107,19 +133,36 @@ class _Gather(torch.autograd.Function):
                                     for t in ctx.held))
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, world, held, n, dim, x):
+        ctx.world, ctx.dim = world, dim
+        chunks = x.chunk(n, dim=dim)
+        return tuple(chunks[t].contiguous() for t in held)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        every = ctx.world.model_gather([g.contiguous() for g in grads])
+        return None, None, None, None, torch.cat(every, dim=ctx.dim)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """One process's part of a (data W, model T) mesh: ``held``, the model
     shards it holds; ``split``, the module kinds that split over
-    ``model`` (of ``"attn"``, ``"mlp"``, ``"moe"``, ``"vocab"``);
-    ``specs``, the rule tables' spec of every parameter; ``world``, whose
-    ``model_gather`` joins the shards of other processes."""
+    ``model`` (of ``"attn"``, ``"mlp"``, ``"moe"``, ``"vocab"``,
+    ``"mamba"``); ``specs``, the rule tables' spec of every parameter;
+    ``world``, whose ``model_gather`` joins the shards of other
+    processes; ``attn``, the dimension the rules split in the attention's
+    (``wq`` and ``wo``, ``wk`` and ``wv``): ``"heads"``, ``"head_dim"``
+    or None (whole)."""
 
     mesh: Any
     world: Any
     held: range
     split: frozenset
     specs: Any
+    attn: tuple = (None, None)
 
     @property
     def size(self) -> int:
@@ -140,6 +183,13 @@ class ModelAxis:
         the backward hands each held shard its chunk of the gradient."""
         return _Gather.apply(self.world, tuple(self.held), dim, *parts)
 
+    def chunk(self, x: torch.Tensor, dim: int) -> tuple[torch.Tensor, ...]:
+        """Each held shard's chunk of ``x`` (replicated) along ``dim``,
+        the inverse of :meth:`gather`: the backward concatenates every
+        shard's gradient in shard order, so each process's ``x`` takes
+        the whole gradient."""
+        return _Split.apply(self.world, tuple(self.held), self.size, dim, x)
+
     def max(self, parts: list[torch.Tensor]) -> torch.Tensor:
         """The elementwise largest of every shard's tensor (no gradient)."""
         every = self.world.model_gather([p.detach() for p in parts])
@@ -148,6 +198,28 @@ class ModelAxis:
             out = torch.maximum(out, p)
         return out
 
+    def whole(self, ps: list, shapes: Any, parent: str) -> Any:
+        """One module's whole tree from the held shards' trees ``ps``:
+        ``shapes`` is the module's tree at its whole (unstacked) shapes,
+        anything with ``.shape``, and ``parent`` its name in the rule
+        tables.  A leaf the rules split is the shards' slices gathered
+        along its ``model`` dimension (:meth:`gather`: the backward hands
+        each held shard its chunk of the gradient), a whole leaf the first
+        held shard's."""
+        specs = S.param_specs({parent: shapes}, self.mesh)[parent]
+
+        def join(spec, *leaves):
+            dims = S.model_dims(spec)
+            return self.gather(list(leaves), dims[0]) if dims else leaves[0]
+
+        def walk(spec, *trees):
+            if isinstance(spec, dict):
+                return {k: walk(spec[k], *(t[k] for t in trees))
+                        for k in spec}
+            return join(spec, *trees)
+
+        return walk(specs, *ps)
+
     def local_attention(self, cfg: ModelConfig) -> ModelConfig:
         """``cfg`` for one shard's heads: H / T query heads over KV / T KV
         heads, head_dim unchanged."""
@@ -155,6 +227,15 @@ class ModelAxis:
         return dataclasses.replace(cfg, num_heads=cfg.num_heads // t,
                                    num_kv_heads=cfg.num_kv_heads // t,
                                    head_dim=cfg.resolved_head_dim)
+
+    def kv_heads(self, cfg: ModelConfig, shard: int) -> torch.Tensor:
+        """The KV head of each of model shard ``shard``'s H / T query
+        heads: query head ``n`` uses KV head ``n // G``, so a shard
+        attends its heads in groups of one, whatever the split of GQA's
+        groups over the shards."""
+        h = cfg.num_heads // self.size
+        return torch.arange(shard * h, (shard + 1) * h) \
+            // (cfg.num_heads // cfg.num_kv_heads)
 
     def place(self, params: Any) -> list:
         """The held shards' trees of the whole tree ``params``."""
@@ -177,27 +258,46 @@ def _module(names: tuple[str, ...]) -> str | None:
         return "mlp"
     if parent in ("attn", "xattn") and name in _ATTN:
         return "attn"
+    if parent == "mixer" and name in _MAMBA:
+        return "mamba"
     return None
 
 
-def _expected(module: str, name: str, stacked: int) -> int:
-    """The dimension the split of ``module`` cuts in leaf ``name``: the
-    vocabulary, the expert (the router's columns), the MLP's hidden
-    columns and rows, or the attention's heads."""
-    if module == "vocab":
-        return 0 if name == "embed" else 1
-    if module == "moe":
-        return stacked + (1 if name == "router" else 0)
-    return stacked + (0 if name == "wo" else 1)
+def _split_kind(module: str, name: str, stacked: int, dims: list[int]
+                ) -> str | None:
+    """What the split of leaf ``name`` of ``module`` cuts, from its
+    ``model`` dimensions: None where it stays whole; for attention
+    ``"heads"`` or ``"head_dim"`` (the rules' fallback); for the others
+    ``"split"`` (the vocabulary, the experts and the router's columns,
+    the MLP's hidden columns and rows, the mixer's columns, and
+    ``out_proj``'s rows).  ``ValueError`` for a dimension the rules never
+    split."""
+    if not dims:
+        return None
+    if module == "attn":
+        heads = stacked + (0 if name == "wo" else 1)
+        kinds = {heads: "heads", heads + 1: "head_dim"}
+    elif module == "vocab":
+        kinds = {0 if name == "embed" else 1: "split"}
+    elif module == "moe":
+        kinds = {stacked + (1 if name == "router" else 0): "split"}
+    else:
+        rows = name in ("wo", "out_proj")
+        kinds = {stacked + (0 if rows else 1): "split"}
+    if len(dims) != 1 or dims[0] not in kinds:
+        raise ValueError(f"dimensions {dims} over model: not a split of "
+                         f"the rule tables")
+    return kinds[dims[0]]
 
 
 def model_axis(cfg: ModelConfig, mesh, world) -> ModelAxis:
     """The model axis of ``cfg`` on ``mesh`` for a process of ``world``:
-    the modules the rule tables split, checked module by module.
-    ``NotImplementedError`` for a Mamba layer kind over T > 1, and
-    ``ValueError`` for a split this port does not run (the head_dim
-    fallback, KV heads that do not divide T, a module split in part);
-    each names the leaf and ROADMAP.md."""
+    the modules the rule tables split, checked module by module, and the
+    attention's design.  Every spec the rules give runs; ``ValueError``,
+    naming the leaf, for one they cannot produce: a leaf outside the
+    ported modules split over model, a dimension the rules never split,
+    an MLP, MoE or vocabulary split in part, or an attention whose
+    projections split other than as the rules split them."""
     from repro_torch.models import transformer as T
     t = mesh.shape["model"]
     shapes = T.param_shapes(cfg)
@@ -205,42 +305,40 @@ def model_axis(cfg: ModelConfig, mesh, world) -> ModelAxis:
     held = world.model_shards(t)
     if t == 1:
         return ModelAxis(mesh, world, held, frozenset(), specs)
-    kinds = set(cfg.block_pattern) | set(cfg.prefix_layers)
-    mamba = sorted(kinds & {"mamba", "mamba_attn"})
-    if mamba:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis above 1 is not ported for the layer "
-            f"kinds {mamba} (model {t}): the Mamba2 mixer's fused "
-            f"projection does not split over model ({ROADMAP})")
     shapes = dict(tree_paths(shapes))
     found: dict[str, set] = {}
+    attn: dict[tuple, dict] = {}
     for path, spec in tree_paths(specs):
-        module = _module(path)
+        module, where = _module(path), "/".join(path)
         dims = S.model_dims(spec)
         if module is None:
             if dims:
-                raise ValueError(f"{cfg.name}: leaf {'/'.join(path)} splits "
-                                 f"over model outside a ported module "
-                                 f"({ROADMAP})")
+                raise ValueError(f"{cfg.name}: leaf {where} splits over "
+                                 f"model outside the ported modules: not a "
+                                 f"spec of the rule tables ({ROADMAP})")
             continue
         stacked = sum(1 for n in path if n in ("blocks", "encoder"))
-        want = _expected(module, path[-1], stacked)
-        if dims and dims != [want]:
-            raise ValueError(
-                f"{cfg.name}: leaf {'/'.join(path)} {tuple(shapes[path].shape)}"
-                f" splits dimension {dims} over model {t}: the rules' "
-                f"head_dim fallback, which this port does not run "
-                f"({ROADMAP})")
-        found.setdefault(module, set()).add(bool(dims))
-        if module == "attn" and path[-1] in ("wk", "wv") and not dims \
-                and cfg.num_heads % t == 0:
-            raise ValueError(
-                f"{cfg.name}: leaf {'/'.join(path)}: {cfg.num_kv_heads} KV "
-                f"heads do not divide the model axis {t} ({ROADMAP})")
-    mixed = sorted(m for m, v in found.items() if len(v) > 1)
+        try:
+            kind = _split_kind(module, path[-1], stacked, dims)
+        except ValueError as e:
+            raise ValueError(f"{cfg.name}: leaf {where} "
+                             f"{tuple(shapes[path].shape)}: {e} "
+                             f"({ROADMAP})") from None
+        if module == "attn":
+            attn.setdefault(path[:-1], {})[path[-1]] = kind
+        found.setdefault(module, set()).add(kind is not None)
+    designs = {(a["wq"], a["wk"])
+               if a["wq"] == a["wo"] and a["wk"] == a["wv"] else "mixed"
+               for a in attn.values()}
+    if attn and (len(designs) != 1 or not designs <= _ATTN_DESIGNS):
+        raise ValueError(f"{cfg.name}: the attention projections split as "
+                         f"{sorted(map(str, attn.values()))} over model {t}:"
+                         f" not a split of the rule tables ({ROADMAP})")
+    mixed = sorted(m for m, v in found.items()
+                   if len(v) > 1 and m not in ("attn", "mamba"))
     if mixed:
         raise ValueError(f"{cfg.name}: modules {mixed} split in part over "
                          f"model {t} ({ROADMAP})")
-    split = frozenset(m for m, v in found.items() if v == {True})
-    return ModelAxis(mesh, world, held, split, specs)
-
+    split = frozenset(m for m, v in found.items() if True in v)
+    design = next(iter(designs)) if attn else (None, None)
+    return ModelAxis(mesh, world, held, split, specs, design)

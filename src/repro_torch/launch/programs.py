@@ -507,10 +507,10 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     R ranks, whose steps take their R-th of each microstep's batch.  With
     ``model`` T > 1 it runs over the (``workers``, T) mesh
     (:func:`init_model_axis_state`, :func:`make_model_axis_step`): the
-    process holds ``world.model_shards(T)``, and a split the rule tables
-    ask for that this port does not run raises here, at build time
-    (``distributed.tensor_parallel.model_axis``).  Only ``fused`` takes a
-    model axis: the reference's wire and sync steps replicate over it.
+    process holds ``world.model_shards(T)``, and every spec the rule
+    tables give runs (``distributed.tensor_parallel.model_axis``).  Only
+    ``fused`` takes a model axis: the reference's wire and sync steps
+    replicate over it.
 
     ``wire`` runs ``workers`` PS workers and shards over the collectives
     of ``world`` (``distributed.inprocess``, or a

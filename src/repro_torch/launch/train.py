@@ -9,8 +9,8 @@ smoke.
         --mesh 4x1 [--compress {none,int8,onebit}] [--compress-warmup 2] \\
         [--layer-groups {on,off}] [--ranks R] [--reduced] [--steps 20] ...
     python -m repro_torch.launch.train --arch granite-8b --fused \\
-        --mesh 2x2 [--ranks R] [--reduced] [--steps 20] ...
-    python -m repro_torch.launch.train --arch granite-8b --mesh 4x1 \\
+        --mesh WxT [--ranks R] [--reduced] [--steps 20] ...
+    python -m repro_torch.launch.train --arch granite-8b --mesh WxT \\
         --autoswitch [--plan {quiet,strained}] [--batches 120] [--ranks R] \\
         [--reduced]
     python -m repro_torch.launch.train --vocab 1000000 --steps 5 \\
@@ -70,12 +70,19 @@ each model shard's flat state split into W data shards, and W * T
 ``gba_apply`` launches an apply.  ``--ranks R`` puts it on an (R / Rm,
 Rm) grid of ranks, Rm the largest divisor of T that divides R with R /
 Rm dividing W (``process_group.grid``): the ranks of one data coordinate
-take the same batch rows and hold T / Rm model shards each.  A Mamba
-arch, a split that needs the rules' head_dim fallback, ``--compress
-int8|onebit`` and ``--autoswitch`` refuse T > 1 (the reference's wire
-and sync steps replicate over ``model``).
+take the same batch rows and hold T / Rm model shards each.  Every arch
+runs at every T the rules split (the Mamba2 mixer, gathered whole; the
+rules' head_dim fallback).
 
-``--mesh Wx1 --autoswitch`` runs the switching harness
+Where the reference leaves ``model`` unused, so does the port, and says
+that the model axis of T is replicated: ``--fused --mesh WxT --compress
+int8|onebit`` runs the wire step over W workers, ``--autoswitch --mesh
+WxT`` the switching harness over W workers, ``--mesh WxT`` without
+``--fused`` the pytree step as without ``--mesh``, and ``--fused --mesh
+1xT`` the single-layout fused step (a data axis of 1, where
+``--compress`` falls back to none).
+
+``--mesh WxT --autoswitch`` runs the switching harness
 (``repro_torch.launch.switch_driver``) on the arch's steps
 (``run_autoswitch``): the pytree sync step with Adagrad and the
 token-controlled worker-parallel async step, W workers with ``--batch``
@@ -420,6 +427,15 @@ def _on_ranks(ranks: int, workers: int, device: str, run: Callable,
                         threads=torch.get_num_threads(), model_ranks=rm)
 
 
+def _replicated(model: int, step: str) -> None:
+    """Say that ``step`` runs with the model axis of ``model`` replicated
+    (where it is above 1): the reference's step leaves ``model``
+    unused."""
+    if model > 1:
+        print(f"model axis of {model} replicated: {step} over the data axis "
+              f"alone, as in the reference")
+
+
 def run_autoswitch(cfg: ModelConfig, *, workers: int,
                    plan: str = "strained", batches: int = 120,
                    batch: int = 4, seq: int = 128, iota: int = 4,
@@ -488,11 +504,13 @@ def main(argv: list[str] | None = None):
                          "(forces Adagrad); default: the pytree step with "
                          "the arch's optimizer")
     ap.add_argument("--mesh", default="",
-                    help="WORKERSxMODEL (needs --fused or --autoswitch): "
-                         "that many PS shards (the sharded fused step) over "
-                         "MODEL tensor-parallel model shards, e.g. 2x2; or, "
-                         "with --compress int8|onebit or --autoswitch, "
-                         "WORKERSx1 PS workers and shards, e.g. 4x1")
+                    help="WORKERSxMODEL: with --fused, that many PS shards "
+                         "(the sharded fused step) over MODEL "
+                         "tensor-parallel model shards, e.g. 2x2 (1xMODEL: "
+                         "the single-layout step); with --compress "
+                         "int8|onebit or --autoswitch, WORKERS PS workers "
+                         "and shards, the model replicated; without "
+                         "either, the pytree step, unplaced")
     ap.add_argument("--layer-groups", choices=("on", "off"), default="on",
                     help="layer-grouped flat layout of the sharded fused "
                          "and wire steps: one gather and one route per "
@@ -508,12 +526,15 @@ def main(argv: list[str] | None = None):
                     help="run the worker-parallel step on that many "
                          "torch.distributed ranks of WORKERS / RANKS "
                          "workers or shards each: gloo on the CPU, NCCL "
-                         "one rank per card (needs --mesh WORKERSx1 with "
-                         "--fused or --autoswitch)")
+                         "one rank per card (needs --mesh WORKERSxMODEL "
+                         "with 2 or more workers and --fused or "
+                         "--autoswitch); with --fused and MODEL > 1 an "
+                         "(R / Rm, Rm) grid of data and model ranks")
     ap.add_argument("--autoswitch", action="store_true",
                     help="the switching harness on the arch's sync and "
                          "async steps under --plan (needs --mesh "
-                         "WORKERSx1 with 2 or more workers)")
+                         "WORKERSxMODEL with 2 or more workers; the model "
+                         "axis is replicated)")
     ap.add_argument("--plan", choices=("quiet", "strained"),
                     default="strained",
                     help="fault plan of --autoswitch: quiet (a vacant "
@@ -536,69 +557,45 @@ def main(argv: list[str] | None = None):
         opt_name = ARCH_OPTIMIZER.get(cfg.name, "adam")
         if args.reduced:
             cfg = cfg.reduced()
+        mesh = None
+        if args.mesh:
+            try:
+                mesh = parse_mesh(args.mesh)
+            except ValueError as e:
+                ap.error(str(e))
+        workers, model = ((mesh.shape["data"], mesh.shape["model"]) if mesh
+                          else (1, 1))
         if args.autoswitch:
-            workers, _, model = args.mesh.partition("x")
-            if not (workers.isdigit() and int(workers) >= 2
-                    and model in ("", "1")):
-                ap.error(f"--autoswitch needs --mesh WORKERSx1 with 2 or "
-                         f"more workers, got --mesh {args.mesh!r}: its sync "
-                         f"step replicates over model")
-            kwargs = dict(workers=int(workers), plan=args.plan,
+            if workers < 2:
+                ap.error(f"--autoswitch needs --mesh WORKERSxMODEL with 2 "
+                         f"or more workers, got --mesh {args.mesh!r}")
+            _replicated(model, "the switching harness runs its steps")
+            kwargs = dict(workers=workers, plan=args.plan,
                           batches=args.batches, batch=args.batch,
                           seq=args.seq, iota=args.iota, lr=args.lr)
             if not args.ranks:
                 return run_autoswitch(cfg, device=args.device, **kwargs)
-            return _on_ranks(args.ranks, int(workers), args.device,
+            return _on_ranks(args.ranks, workers, args.device,
                              run_autoswitch, cfg, kwargs)
         if not args.fused:
-            if args.mesh:
-                ap.error("--mesh: the pytree step over PS workers is not "
-                         "ported; pass --fused for the wire step")
             if args.compress != "none" or args.ranks:
                 ap.error("--compress or --ranks needs --fused --mesh "
-                         "WORKERSx1: the single-device step has no wire")
+                         "WORKERSxMODEL: the single-device step has no wire")
+            if mesh:
+                print(f"mesh data={workers} x model={model}: the pytree step "
+                      f"runs unplaced, as without --mesh; the model axis of "
+                      f"{model} is replicated")
             return run_lm_pytree(cfg, optimizer=opt_name, steps=args.steps,
                                  batch=args.batch, seq=args.seq,
                                  buffer=args.buffer, iota=args.iota,
                                  lr=args.lr, device=args.device)
         if opt_name != "adagrad":
             print(f"--fused forces Adagrad (arch default was {opt_name})")
-        if args.mesh:
-            try:
-                mesh = parse_mesh(args.mesh)
-            except ValueError as e:
-                ap.error(str(e))
-            workers, model = mesh.shape["data"], mesh.shape["model"]
-            if workers < 2:
-                ap.error(f"--mesh {args.mesh}: needs 2 or more workers")
-            if model > 1 and args.compress != "none":
-                ap.error(f"--mesh {args.mesh} --compress {args.compress}: "
-                         f"the wire step replicates over model; a model "
-                         f"axis above 1 runs with --compress none")
-            if args.compress == "none":
-                kwargs = dict(steps=args.steps, batch=args.batch,
-                              seq=args.seq, buffer=args.buffer,
-                              iota=args.iota, lr=args.lr, workers=workers,
-                              layer_groups=args.layer_groups == "on",
-                              model=model)
-                try:
-                    if model > 1:
-                        model_axis(cfg, mesh, inprocess)
-                    if not args.ranks:
-                        return run_lm_fused(cfg, device=args.device,
-                                            **kwargs)
-                    rm = process_group.grid(args.ranks, workers, model)
-                except (ValueError, NotImplementedError) as e:
-                    ap.error(str(e))
-                if args.batch % (args.ranks // rm):
-                    ap.error(f"--ranks {args.ranks}: the sharded fused step "
-                             f"splits --batch {args.batch} over "
-                             f"{args.ranks // rm} data ranks")
-                return _on_ranks(args.ranks, workers, args.device,
-                                 run_lm_fused, cfg, kwargs, model)
+        if workers > 1 and args.compress != "none":
             if args.batch % workers:
                 ap.error(f"--mesh {args.mesh}: the wire step needs workers "
                          f"that divide --batch {args.batch}")
+            _replicated(model, "the wire step runs")
             kwargs = dict(workers=workers, scheme=args.compress,
                           steps=args.steps, batch=args.batch, seq=args.seq,
                           iota=args.iota, lr=args.lr,
@@ -608,9 +605,33 @@ def main(argv: list[str] | None = None):
                 return run_wire_train(cfg, device=args.device, **kwargs)
             return _on_ranks(args.ranks, workers, args.device,
                              run_wire_train, cfg, kwargs)
+        if workers > 1:
+            kwargs = dict(steps=args.steps, batch=args.batch, seq=args.seq,
+                          buffer=args.buffer, iota=args.iota, lr=args.lr,
+                          workers=workers,
+                          layer_groups=args.layer_groups == "on",
+                          model=model)
+            try:
+                if model > 1:
+                    model_axis(cfg, mesh, inprocess)
+                if not args.ranks:
+                    return run_lm_fused(cfg, device=args.device, **kwargs)
+                rm = process_group.grid(args.ranks, workers, model)
+            except ValueError as e:
+                ap.error(str(e))
+            if args.batch % (args.ranks // rm):
+                ap.error(f"--ranks {args.ranks}: the sharded fused step "
+                         f"splits --batch {args.batch} over "
+                         f"{args.ranks // rm} data ranks")
+            return _on_ranks(args.ranks, workers, args.device,
+                             run_lm_fused, cfg, kwargs, model)
         if args.compress != "none" or args.ranks:
-            ap.error("--compress or --ranks needs --mesh WORKERSx1: the "
-                     "single-device step has no wire")
+            ap.error("--compress or --ranks needs --mesh WORKERSxMODEL with "
+                     "2 or more workers: the single-device step has no wire")
+        if mesh:
+            print(f"mesh data=1 x model={model}: the single-layout fused "
+                  f"step, as without --mesh; the model axis of {model} is "
+                  f"replicated")
         return run_lm_fused(cfg,
                             steps=args.steps, batch=args.batch,
                             seq=args.seq, buffer=args.buffer,

@@ -180,8 +180,6 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     With ``partial`` the output stays float32, uncast: one model shard's
     row-parallel partial of ``wo`` (:func:`attention_tp`)."""
-    B, S, _ = x.shape
-    G = cfg.num_heads // cfg.num_kv_heads
     kv_in = x if kv_override is None else kv_override
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     k = torch.einsum("btd,dnh->btnh", kv_in, p["wk"])
@@ -189,22 +187,7 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if kv_override is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    q = q.reshape(B, S, cfg.num_kv_heads, G, cfg.resolved_head_dim)
-    qc = cfg.attn_q_chunk
-    if qc and S % qc == 0 and S > qc and kv_override is None:
-        out = torch.cat([
-            checkpoint(_q_chunk, q[:, start:start + qc], k, v, start, window,
-                       cfg.attn_softcap, use_reentrant=False)
-            for start in range(0, S, qc)], dim=1)
-    else:
-        mask = None
-        if kv_override is None:
-            mask = positions[:, :, None] >= positions[:, None, :]
-            if window:
-                mask &= positions[:, :, None] - positions[:, None, :] \
-                    < window
-        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
-    out = out.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    out = _attend(cfg, q, k, v, positions, window, kv_override is not None)
     # float32 attention output times the weight: float32, as jnp promotes
     y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float())
     if not partial:
@@ -212,6 +195,33 @@ def attention_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if return_kv:
         return y, (k, v)
     return y
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, positions: torch.Tensor, window: int,
+            cross: bool) -> torch.Tensor:
+    """The attention of q (B,S,H,hd) over k and v (B,T,KV,hd), query head
+    ``n`` on KV head ``n // (H / KV)``, RoPE already applied -> (B,S,H,hd)
+    float32: causal (and windowed) for a self-attention, chunked by
+    ``attn_q_chunk`` where it applies, unmasked for a ``cross`` one."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    q = q.reshape(B, S, KV, H // KV, hd)
+    qc = cfg.attn_q_chunk
+    if qc and S % qc == 0 and S > qc and not cross:
+        out = torch.cat([
+            checkpoint(_q_chunk, q[:, start:start + qc], k, v, start, window,
+                       cfg.attn_softcap, use_reentrant=False)
+            for start in range(0, S, qc)], dim=1)
+    else:
+        mask = None
+        if not cross:
+            mask = positions[:, :, None] >= positions[:, None, :]
+            if window:
+                mask &= positions[:, :, None] - positions[:, None, :] \
+                    < window
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+    return out.reshape(B, S, H, hd)
 
 
 def kv_to_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
@@ -466,13 +476,23 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor
 def attention_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, tp, *, window: int = 0,
                  kv_override: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`attention_fwd` with its heads split over ``model``: each
-    held shard runs its H / T query heads over its KV / T KV heads on the
-    broadcast input (and memory), and the float32 partials of the
+    """:func:`attention_fwd` split over ``model`` as the rules split its
+    projections (``tp.attn``).  By heads: each held shard runs its H / T
+    query heads over its KV / T KV heads on the broadcast input (and
+    memory).  The rules' head_dim fallback with the query heads split:
+    :func:`_attention_kv_whole`.  Every projection along head_dim:
+    :func:`_attention_head_dim`.  Each way the float32 partials of the
     row-parallel ``wo`` are model-summed, then cast to x's dtype."""
+    q_split, kv_split = tp.attn
     if "attn" not in tp.split:
         return attention_fwd(ps[0], cfg, x, positions, window=window,
                              kv_override=kv_override)
+    if q_split == "head_dim":
+        return _attention_head_dim(ps, cfg, x, positions, tp, window,
+                                   kv_override)
+    if kv_split != "heads":
+        return _attention_kv_whole(ps, cfg, x, positions, tp, window,
+                                   kv_override)
     local = tp.local_attention(cfg)
     xs = tp.broadcast(x)
     ms = ([None] * len(ps) if kv_override is None
@@ -481,6 +501,66 @@ def attention_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
         attention_fwd(p, local, xi, positions, window=window,
                       kv_override=mi, partial=True)
         for p, xi, mi in zip(ps, xs, ms)]).to(x.dtype)
+
+
+def _kv_tp(ps: list, x: torch.Tensor, name: str, tp) -> torch.Tensor:
+    """The (B,T,KV,hd) projection ``name`` (``wk`` or ``wv``) of ``x``,
+    whole over ``model``: each held shard's head_dim slice of every KV
+    head on the broadcast ``x``, gathered along head_dim; or, where the
+    rules leave the weight whole, its one projection of ``x``."""
+    if tp.attn[1] is None:
+        return torch.einsum("btd,dnh->btnh", x, ps[0][name])
+    return tp.gather([torch.einsum("btd,dnh->btnh", xi, p[name])
+                      for p, xi in zip(ps, tp.broadcast(x))], dim=-1)
+
+
+def _attention_kv_whole(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, tp, window: int,
+                        kv_override: torch.Tensor | None) -> torch.Tensor:
+    """The query heads split over ``model``, the KV heads not (they do
+    not divide T): k and v whole over ``model`` (:func:`_kv_tp`), RoPE on
+    the whole head_dim (rotate-half pairs dims i and i + hd / 2), handed
+    to each held shard, which attends its H / T query heads against the
+    KV heads they use (``tp.kv_heads``); the backward adds the shards'
+    gradients of k and v in shard order."""
+    kv_in = x if kv_override is None else kv_override
+    k, v = _kv_tp(ps, kv_in, "wk", tp), _kv_tp(ps, kv_in, "wv", tp)
+    if kv_override is None:
+        k = rope(k, positions, cfg.rope_theta)
+    parts = []
+    for p, xi, ki, vi, t in zip(ps, tp.broadcast(x), tp.broadcast(k),
+                                tp.broadcast(v), tp.held):
+        q = torch.einsum("bsd,dnh->bsnh", xi, p["wq"])
+        if kv_override is None:
+            q = rope(q, positions, cfg.rope_theta)
+        heads = tp.kv_heads(cfg, t).to(k.device)
+        out = _attend(cfg, q, ki.index_select(2, heads),
+                      vi.index_select(2, heads), positions, window,
+                      kv_override is not None)
+        parts.append(torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()))
+    return tp.model_sum(parts).to(x.dtype)
+
+
+def _attention_head_dim(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, tp, window: int,
+                        kv_override: torch.Tensor | None) -> torch.Tensor:
+    """Every projection split along head_dim (the query heads do not
+    divide T): the held shards' slices of q, k and v gathered along
+    head_dim, RoPE on the whole head_dim, the attention run whole once,
+    and each held shard's head_dim chunk of its output (``tp.chunk``,
+    whose backward gathers the whole output gradient) through its rows
+    of ``wo``."""
+    kv_in = x if kv_override is None else kv_override
+    q = tp.gather([torch.einsum("bsd,dnh->bsnh", xi, p["wq"])
+                   for p, xi in zip(ps, tp.broadcast(x))], dim=-1)
+    k, v = _kv_tp(ps, kv_in, "wk", tp), _kv_tp(ps, kv_in, "wv", tp)
+    if kv_override is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = _attend(cfg, q, k, v, positions, window, kv_override is not None)
+    return tp.model_sum([
+        torch.einsum("bsnh,nhd->bsd", o, p["wo"].float())
+        for p, o in zip(ps, tp.chunk(out, -1))]).to(x.dtype)
 
 
 def mlp_tp(ps: list, x: torch.Tensor, tp) -> torch.Tensor:
@@ -724,6 +804,18 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor,
         return out, {"ssm": final,
                      "conv": xbc[:, -(CONV_W - 1):].to(dtype_of(cfg))}
     return out
+
+
+def mamba_tp(ps: list, cfg: ModelConfig, x: torch.Tensor, tp
+             ) -> torch.Tensor:
+    """:func:`mamba_fwd` under ``model``: the mixer's tree put back
+    together from the held shards' (``tp.whole``: the split leaves
+    gathered, whose backward hands each held shard its chunk of the
+    gradient) and run once over the process's batch rows; the output is
+    whole, not model-summed.  A column block of the fused ``in_proj``
+    mixes the z, x, B, C and dt streams, so no shard runs its block
+    alone."""
+    return mamba_fwd(tp.whole(ps, mamba_spec(cfg), "mixer"), cfg, x)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device: torch.device

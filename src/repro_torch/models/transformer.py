@@ -163,15 +163,18 @@ def _layer_fwd(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                shared: Params | None = None,
                memory: torch.Tensor | None = None, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One layer's forward; under a model axis ``tp`` (the Mamba kinds
-    excepted) ``p`` is the held shards' trees of the layer."""
-    if _is_mamba(kind):
-        x = x + L.mamba_fwd(p["mixer"], cfg, L.norm_fwd(p["ln1"], x))
-        if kind == "mamba_attn":
-            x = x + L.attention_fwd(shared["attn"], cfg,
-                                    L.norm_fwd(p["ln_sh"], x), positions)
-        return x, aux
+    """One layer's forward; under a model axis ``tp`` ``p`` (and
+    ``shared``) is the held shards' trees of the layer (and of the shared
+    attention)."""
     norms = _one(p, tp)
+    if _is_mamba(kind):
+        h = L.norm_fwd(norms["ln1"], x)
+        x = x + (L.mamba_fwd(p["mixer"], cfg, h) if tp is None
+                 else L.mamba_tp(_sub(p, "mixer", tp), cfg, h, tp))
+        if kind == "mamba_attn":
+            x = x + _attention(_sub(shared, "attn", tp), cfg,
+                               L.norm_fwd(norms["ln_sh"], x), positions, tp)
+        return x, aux
     x = x + _attention(_sub(p, "attn", tp), cfg, L.norm_fwd(norms["ln1"], x),
                        positions, tp, window=_window(cfg, kind))
     if kind == "cross":
@@ -471,7 +474,8 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens, tp)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    shared = _one(params, tp).get("shared_attn")
+    shared = (_sub(params, "shared_attn", tp)
+              if "shared_attn" in _one(params, tp) else None)
     for i, kind in enumerate(cfg.prefix_layers):
         layer = (params["prefix"][i] if tp is None
                  else [p["prefix"][i] for p in params])

@@ -513,14 +513,15 @@ def test_train_cli_runs_the_pytree_step_with_adam_on_the_cpu():
 
 
 @pytest.mark.parametrize("args,says", [
-    (("--arch", "granite-8b", "--reduced", "--mesh", "4x1"),
-     "pytree step over PS workers is not ported"),
-    (("--arch", "zamba2-2.7b", "--reduced", "--fused", "--mesh", "4x2"),
-     "a model axis above 1 is not ported"),
-    (("--arch", "kimi-k2-1t-a32b", "--reduced", "--mesh", "4x1"),
-     "pytree step over PS workers is not ported"),
+    (("--arch", "granite-8b", "--reduced", "--mesh", "4x1", "--ranks",
+      "2"), "--compress or --ranks needs --fused"),
+    (("--arch", "zamba2-2.7b", "--reduced", "--fused", "--mesh", "1x2",
+      "--ranks", "2"), "needs --mesh WORKERSxMODEL with 2 or more workers"),
+    (("--arch", "kimi-k2-1t-a32b", "--reduced", "--mesh", "1x2",
+      "--autoswitch"), "--autoswitch needs --mesh WORKERSxMODEL with 2"),
     (("--arch", "mamba2-780m", "--reduced", "--fused", "--mesh",
-      "4x2"), "a model axis above 1 is not ported"),
+      "3x2", "--compress", "int8"), "the wire step needs workers that "
+     "divide --batch"),
 ])
 def test_train_cli_refuses_what_the_port_does_not_run(args, says):
     proc = _train(*args, "--device", "cpu")

@@ -487,9 +487,9 @@ def test_train_main_cli(capsys):
                            "--device", "cpu"])) == 2
     assert "step    1" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        train.main(["--arch", "granite-8b", "--mesh", "4x1", "--device",
-                    "cpu"])
-    assert "pytree step over PS workers is not ported" in (
+        train.main(["--arch", "granite-8b", "--mesh", "4x1", "--ranks", "2",
+                    "--device", "cpu"])
+    assert "--compress or --ranks needs --fused" in (
         capsys.readouterr().err)
 
 

@@ -546,9 +546,9 @@ def test_train_cli_runs_the_wire_step_on_the_cpu(scheme, groups, ratio,
 
 
 @pytest.mark.parametrize("args,says", [
-    (("--mesh", "2x2", "--compress", "int8"), "model axis"),
+    (("--mesh", "3x2", "--compress", "int8"), "divide --batch"),
     (("--mesh", "3x1", "--compress", "int8"), "divide --batch"),
-    (("--mesh", "1x1"), "2 or more workers"),
+    (("--mesh", "1x1", "--ranks", "2"), "2 or more workers"),
     (("--compress", "int8"), "needs --mesh"),
 ])
 def test_train_cli_refuses_what_the_wire_does_not_run(args, says):
