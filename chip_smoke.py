@@ -3851,7 +3851,7 @@ def sharded_fused_phase(T: dict, counters, lm: dict, kept: list) -> dict:
     torch.cuda.empty_cache()
 
     progs = T["build_programs"](cfg, gba, params=params, lr=LM_LR,
-                                workers=SHARD_W)
+                                workers=SHARD_W, place_state=False)
     del params
     layout = progs.layout
     check(layout.num_shards == SHARD_W and layout.num_groups > 1,
@@ -4147,7 +4147,8 @@ def sharded_fused_nccl_phase(T: dict, counters, world, dev, kept: list,
     batches = lm_batches(T, cfg.vocab_size, LM_SEQ, LM_BATCH, LM_MICROSTEPS,
                          "cuda")
     progs = T["build_programs"](cfg, gba, params=params, lr=LM_LR,
-                                workers=SHARD_W, world=world)
+                                workers=SHARD_W, world=world,
+                                place_state=False)
     del params
     layout = progs.layout
     torch.cuda.synchronize()
@@ -4922,7 +4923,7 @@ def train_arch(T: dict, arch: str, counters, timed: bool) -> dict:
     params = T["init_model"](cfg, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
     progs = T["build_programs"](cfg, gba, params=params, mode="fused",
-                                lr=LM_LR, workers=workers)
+                                lr=LM_LR, workers=workers, place_state=False)
     del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -5033,7 +5034,8 @@ def train_card_vs_cpu(T: dict, arch: str, workers: int,
     runs = {}
     for dev in ("cuda", "cpu"):
         progs = T["build_programs"](cfg, gba, params=T["tree_to_device"](
-            host, torch.device(dev)), lr=LM_LR, workers=workers, model=model)
+            host, torch.device(dev)), lr=LM_LR, workers=workers, model=model,
+            place_state=False)
         state, losses = progs.state, []
         with record_routes(T) as seen:
             for i, b in enumerate(lm_batches(T, cfg.vocab_size,
@@ -5436,6 +5438,11 @@ MODEL_LOSS_FRAC, MODEL_PARAM_FRAC = 2.0**-6, 2.0**-5
 # the rows (e), (f) and (g) have budgets of their own
 MODEL_BUDGET_S = 90.0
 MODEL_SSM_BUDGET_S, MODEL_WIDE_BUDGET_S, MODEL_WIRE_BUDGET_S = 60.0, 75.0, 30.0
+# (h)-(j): FSDP of the weights over data (place_state=True) at 2 x 2 in
+# process and over one NCCL rank, and at 4 x 1, each against the same
+# step with the weights whole over data; a budget of their own
+FSDP_MESH = (4, 1)
+FSDP_BUDGET_S = 90.0
 
 
 def _whole_leaves(T: dict, tp, shard: dict) -> list:
@@ -5481,7 +5488,8 @@ def model_axis_run(T: dict, cfg, params: dict, batches: list, tokens: list,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     progs = T["build_programs"](cfg, gba, params=params, mode="fused",
-                                lr=LM_LR, workers=w, model=t, world=world)
+                                lr=LM_LR, workers=w, model=t, world=world,
+                                place_state=False)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     tp, layout = progs.model_axis, progs.layout
@@ -5545,6 +5553,134 @@ def model_axis_run(T: dict, cfg, params: dict, batches: list, tokens: list,
     check(launched_total == applies * w * t,
           f"{label}: {w * t} gba_apply launches an apply")
     return out
+
+
+def _trees(progs, state: dict) -> list:
+    """The held model shards' trees of a fused state over a (W, T) mesh,
+    whole over ``data`` (under FSDP the blocks gathered over ``data``)."""
+    trees = progs.gather_params(state["params"])
+    return trees if isinstance(trees, list) else [trees]
+
+
+def placed_run(T: dict, cfg, params: dict, batches: list, tokens: list,
+               counters, world, label: str, mesh: tuple, place_state: bool,
+               snapshots: list | None = None, keep: list | None = None,
+               sample: bool = False) -> dict:
+    """The fused step over the (W, T) ``mesh`` at M = ``LM_M`` from
+    ``params`` on ``world``, the weights held over ``data`` where
+    ``place_state`` (FSDP: between microsteps each (data, model) block
+    holds exactly the rules' share of the bytes): W x T ``gba_apply``
+    launches an apply, each model shard's apply held bit for bit to
+    ``gba_apply_ref`` at 4,096 sampled elements of every leaf where
+    ``sample``; at each apply every param and the accumulator equal to
+    ``snapshots``' bit for bit where they are given, or copied into
+    ``keep`` (host copies, so that they add nothing to a later run's
+    peak).  Returns the losses, the seconds of each microstep, the
+    launches, the peak and the peak above the memory in use at the start
+    (``peak_run_gb``: what the run itself added)."""
+    w, t = mesh
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    progs = T["build_programs"](cfg, gba, params=params, mode="fused",
+                                lr=LM_LR, workers=w, model=t, world=world,
+                                place_state=place_state)
+    layout, pl = progs.layout, progs.placement
+    check((pl is not None) == place_state,
+          f"{label}: place_state={place_state} as asked")
+    blocks = len(world.workers(w))
+    state, progs.state = progs.state, None
+    share = None
+    if place_state:
+        held = len(state["params"]) * len(pl.held)
+        share = T["sharding"].block_bytes(params, pl.specs, pl.mesh) * held
+        check(T["fsdp"].held_bytes(state["params"]) == share,
+              f"{label}: {held} blocks hold the rules' share, {share:,} B")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, launched_total, applies = [], 0, 0
+    for i, (batch, token) in enumerate(zip(batches, tokens)):
+        applying = (i + 1) % LM_M == 0
+        old_step = state["buffer"]["step"]
+        samples = None
+        if applying and sample:
+            trees = _trees(progs, state)
+            samples = [apply_sample(T, layout, {
+                **_block_state(state, j, blocks), "params": tr}, gen)
+                for j, tr in enumerate(trees)]
+            del trees
+        launched = counters()["gba_apply"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, loss = progs.step(state, batch, token)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launched = counters()["gba_apply"] - launched
+        launched_total += launched
+        check(launched == (w * t if applying else 0),
+              f"{label} microstep {i + 1}: {launched} gba_apply launches")
+        if share is not None:
+            check(T["fsdp"].held_bytes(state["params"]) == share,
+                  f"{label} microstep {i + 1}: the blocks hold the rules' "
+                  f"share")
+        if applying:
+            applies += 1
+            trees = _trees(progs, state)
+            if samples is not None:
+                check(all(smp.check({**_block_state(state, j, blocks),
+                                     "params": tr}, old_step)
+                          for j, (smp, tr) in enumerate(zip(samples,
+                                                            trees))),
+                      f"{label} microstep {i + 1}: each model shard's "
+                      f"apply bit-identical to gba_apply_ref at sampled "
+                      f"columns")
+            if snapshots is not None:
+                snap = snapshots[applies - 1]
+                same = _same_bits(snap["accum"], state["accum"]) and all(
+                    _same_bits(a, b) for sp, tr in zip(snap["params"],
+                                                       trees)
+                    for a, b in zip(sp, T["leaves"](tr)))
+                check(same, f"{label} microstep {i + 1}: the params and "
+                            f"the accumulator bit-identical to the "
+                            f"compared run's")
+            if keep is not None:
+                keep.append({"params": [[x.to("cpu", copy=True)
+                                         for x in T["leaves"](tr)]
+                                        for tr in trees],
+                             "accum": state["accum"].to("cpu", copy=True)})
+            del trees
+        rows.append({"microstep": i + 1, "loss": loss.item(),
+                     "seconds": seconds, "gba_apply": launched})
+    torch.cuda.synchronize()
+    out = {"microsteps": rows, "losses": [r["loss"] for r in rows],
+           "launches": launched_total, "applies": applies,
+           "fill_s": [r["seconds"] for r in rows
+                      if r["microstep"] % LM_M],
+           "apply_s": [r["seconds"] for r in rows
+                       if not r["microstep"] % LM_M],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_run_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "mesh": list(mesh), "place_state": place_state}
+    if pl is not None:
+        name, gathered = T["fsdp"].largest_gather(pl)
+        out.update(held_bytes=share, largest_gather=[name, gathered],
+                   relayout_bound_bytes=T["fsdp"].transient_bytes(pl),
+                   window=T["fsdp"].WINDOW)
+    del state, progs
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(out["losses"])), f"{label}: finite losses")
+    check(launched_total == applies * w * t,
+          f"{label}: {w * t} gba_apply launches an apply")
+    return out
+
+
+def _fill_apply(run: dict) -> str:
+    """A run's median fill microstep after the first, its apply
+    microsteps, and its peak above the memory in use at its start."""
+    return (f"fill {np.median(run['fill_s'][1:]):.4f} s (first "
+            f"{run['fill_s'][0]:.4f}), apply {run['apply_s']} s, peak "
+            f"+{run['peak_run_gb']:.2f} GB (of {run['peak_gb']:.2f})")
 
 
 def _unsharded(T: dict, cfg, params: dict, batches: list, tokens: list
@@ -5621,6 +5757,30 @@ def model_axis_granite(T: dict, counters) -> dict:
     check(max(fracs) <= MODEL_PARAM_FRAC,
           f"granite-8b 2x2: params after the first apply within "
           f"{MODEL_PARAM_FRAC} of each leaf's largest")
+    # (h) FSDP over 2 x 2 in process against (a), bit for bit, timed
+    # beside (a)'s step run again without snapshots
+    t_fsdp = time.perf_counter()
+    counters(reset=True)
+    fsdp = {"2x2_unplaced": placed_run(
+        T, cfg, params, batches, tokens, counters, T["inprocess"],
+        "granite-8b 2x2", MODEL_MESH, False)}
+    counters(reset=True)
+    kept_h = []
+    fsdp["2x2"] = placed_run(T, cfg, params, batches, tokens, counters,
+                             T["inprocess"], "granite-8b 2x2 FSDP",
+                             MODEL_MESH, True, snapshots=kept,
+                             keep=kept_h, sample=True)
+    check(fsdp["2x2"]["losses"] == run["losses"],
+          "granite-8b 2x2 FSDP: (a)'s losses")
+    print(f"  (h) granite-8b 2x2 FSDP: losses, params and accumulator "
+          f"bit-identical to (a) at both applies; "
+          f"{_fill_apply(fsdp['2x2'])} vs (a) unplaced "
+          f"{_fill_apply(fsdp['2x2_unplaced'])}; held "
+          f"{fsdp['2x2']['held_bytes']:,} B, largest gather "
+          f"{fsdp['2x2']['largest_gather']}, re-layout transient at most "
+          f"{fsdp['2x2']['relayout_bound_bytes']:,} B; microstep s "
+          f"{[r['seconds'] for r in fsdp['2x2']['microsteps']]}")
+    fsdp_s = time.perf_counter() - t_fsdp
     pg = T["process_group"]
     with tempfile.TemporaryDirectory() as tmp:
         world, _ = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
@@ -5632,15 +5792,54 @@ def model_axis_granite(T: dict, counters) -> dict:
             nccl = model_axis_run(T, cfg, params, batches, tokens, LM_M,
                                   counters, world, "granite-8b 2x2 NCCL",
                                   sample=False, snapshots=kept)
+            del kept
+            # (i) FSDP over the one NCCL rank against (h)
+            t_fsdp = time.perf_counter()
+            counters(reset=True)
+            fsdp["2x2_nccl"] = placed_run(
+                T, cfg, params, batches, tokens, counters, world,
+                "granite-8b 2x2 FSDP NCCL", MODEL_MESH, True,
+                snapshots=kept_h)
+            fsdp_s += time.perf_counter() - t_fsdp
         finally:
             pg.leave()
-    del nccl["state"], nccl["layout"], nccl["first_apply_params"], kept
+    del nccl["state"], nccl["layout"], nccl["first_apply_params"], kept_h
     check(nccl["losses"] == run["losses"],
           "granite-8b 2x2 NCCL: the in-process run's losses")
+    check(fsdp["2x2_nccl"]["losses"] == run["losses"],
+          "granite-8b 2x2 FSDP NCCL: the in-process run's losses")
     print(f"  granite-8b 2x2 over one NCCL rank: losses equal, state "
           f"bit-identical at both applies; microstep s "
           f"{[r['seconds'] for r in nccl['microsteps']]}")
+    print(f"  (i) granite-8b 2x2 FSDP over one NCCL rank: state "
+          f"bit-identical to (h) at both applies; "
+          f"{_fill_apply(fsdp['2x2_nccl'])}")
     torch.cuda.empty_cache()
+    # (j) FSDP at 4 x 1 (phase 16's configuration) against the same step
+    # with the weights whole over data
+    t_fsdp = time.perf_counter()
+    kept_j = []
+    counters(reset=True)
+    fsdp["4x1_unplaced"] = placed_run(
+        T, cfg, params, batches, tokens, counters, T["inprocess"],
+        "granite-8b 4x1", FSDP_MESH, False, keep=kept_j)
+    counters(reset=True)
+    fsdp["4x1"] = placed_run(
+        T, cfg, params, batches, tokens, counters, T["inprocess"],
+        "granite-8b 4x1 FSDP", FSDP_MESH, True, snapshots=kept_j,
+        sample=True)
+    del kept_j
+    torch.cuda.empty_cache()
+    check(fsdp["4x1"]["losses"] == fsdp["4x1_unplaced"]["losses"],
+          "granite-8b 4x1 FSDP: the unplaced run's losses")
+    print(f"  (j) granite-8b 4x1 FSDP: state bit-identical to the "
+          f"unplaced 4x1 run at both applies; {_fill_apply(fsdp['4x1'])} "
+          f"vs unplaced {_fill_apply(fsdp['4x1_unplaced'])}; held "
+          f"{fsdp['4x1']['held_bytes']:,} B, largest gather "
+          f"{fsdp['4x1']['largest_gather']}, re-layout transient at most "
+          f"{fsdp['4x1']['relayout_bound_bytes']:,} B")
+    fsdp_s += time.perf_counter() - t_fsdp
+    fsdp["seconds"] = fsdp_s
     t_wide = time.perf_counter()
     del one["params"]
     wide = model_axis_wide(T, counters, cfg, params, batches[:LM_M],
@@ -5650,7 +5849,7 @@ def model_axis_granite(T: dict, counters) -> dict:
     torch.cuda.empty_cache()
     return {"in_process": run, "nccl": nccl, "unsharded": one,
             "first_loss_rel": first_loss, "param_leaf_fracs": fracs,
-            "gba_apply": timing, "wide": wide}
+            "gba_apply": timing, "wide": wide, "fsdp": fsdp}
 
 
 def model_axis_against(T: dict, label: str, run: dict, one: dict) -> dict:
@@ -5851,13 +6050,14 @@ def model_axis_phase(T: dict, counters) -> dict:
               "shards): granite-8b and phi3.5-moe at full width, (f) the "
               "head_dim fallback over 2 x 16, (e) the Mamba2 archs, the "
               "ten archs' reduced steps card vs CPU, (g) the int8 wire at "
-              "4 x 2")
+              "4 x 2, (h)-(j) FSDP of the weights over data at 2 x 2 (in "
+              "process, one NCCL rank) and 4 x 1")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     expandable_segments(True)
     out = {"granite": model_axis_granite(T, counters),
            "moe": model_axis_moe(T, counters)}
-    wide = out["granite"]["wide"]
+    wide, fsdp = out["granite"]["wide"], out["granite"]["fsdp"]
     t0 = time.perf_counter()
     out["ssm"] = model_axis_ssm(T, counters)
     ssm_s = time.perf_counter() - t0
@@ -5884,11 +6084,15 @@ def model_axis_phase(T: dict, counters) -> dict:
         **{f"{a.split('-')[0]}_2x2": out["ssm"][a]["launches"]
            for a in SSM_ARCHS},
         "reduced_2x2": out["reduced_launches"],
-        "int8_wire_4x2": out["wire"]["4x2"]["launches"]["gba_apply"]}
+        "int8_wire_4x2": out["wire"]["4x2"]["launches"]["gba_apply"],
+        **{f"fsdp_{k}": v["launches"] for k, v in fsdp.items()
+           if isinstance(v, dict) and "launches" in v}}
     out["seconds"] = time.perf_counter() - t_phase
     out["row_seconds"] = {"head_dim_2x16": wide["seconds"], "ssm": ssm_s,
-                          "reduced": reduced_s, "wire": wire_s}
-    earlier = out["seconds"] - ssm_s - wide["seconds"] - wire_s
+                          "reduced": reduced_s, "wire": wire_s,
+                          "fsdp": fsdp["seconds"]}
+    earlier = (out["seconds"] - ssm_s - wide["seconds"] - wire_s
+               - fsdp["seconds"])
     print(f"  phase 22: {out['seconds']:.1f} s; rows "
           f"{json.dumps(out['row_seconds'])}; rows (a)-(d) "
           f"{earlier:.1f} s (budget {MODEL_BUDGET_S:.0f} s); gba_apply "
@@ -5898,7 +6102,8 @@ def model_axis_phase(T: dict, counters) -> dict:
             ("(e) the Mamba2 archs over 2 x 2", ssm_s, MODEL_SSM_BUDGET_S),
             ("(f) the head_dim fallback over 2 x 16", wide["seconds"],
              MODEL_WIDE_BUDGET_S),
-            ("(g) the int8 wire at 4 x 2", wire_s, MODEL_WIRE_BUDGET_S)):
+            ("(g) the int8 wire at 4 x 2", wire_s, MODEL_WIRE_BUDGET_S),
+            ("(h)-(j) FSDP over data", fsdp["seconds"], FSDP_BUDGET_S)):
         check(secs <= budget, f"{what} within its budget of {budget} s")
     return out
 
@@ -5963,7 +6168,8 @@ def main() -> int:
     from repro_torch.launch import switch_driver
     from repro_torch.launch.programs import make_loss_fn
     from repro_torch.core.flat_sharded import ShardedFlatLayout
-    from repro_torch.distributed import inprocess, process_group
+    from repro_torch.distributed import fsdp, inprocess, process_group
+    from repro_torch.distributed import sharding as sharding_rules
     from repro_torch.distributed.sharding import model_dims
 
     t_start = time.perf_counter()
@@ -6029,7 +6235,8 @@ def main() -> int:
          "jax_init_recsys": jax_init_recsys, "ModeSetup": ModeSetup,
          "evaluate": evaluate, "ShardedFlatLayout": ShardedFlatLayout,
          "inprocess": inprocess, "process_group": process_group,
-         "model_dims": model_dims,
+         "model_dims": model_dims, "fsdp": fsdp,
+         "sharding": sharding_rules,
          "benches": {
              "tab52_qps": tab52_qps, "convergence": convergence,
              "multitask": multitask, "decay_ablation": decay_ablation,

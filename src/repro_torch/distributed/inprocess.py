@@ -12,7 +12,10 @@ shards' receive buffer, the reduce-scatter of the one gradient is that
 gradient, the ordered ``psum`` is a sum in worker order, and the
 workers' losses are already all here.  Along the ``model`` axis
 (``distributed.tensor_parallel``) every model shard is held here too, so
-the gather of the shards' tensors is those tensors.
+the gather of the shards' tensors is those tensors; and along ``data``
+under FSDP (``distributed.fsdp``) every data shard's rows are here, so
+the gather of a leaf is the concatenation of the held blocks' rows, and
+the reduction of its gradient is this process's gradient.
 ``repro_torch.distributed.process_group`` provides the same functions
 over ``torch.distributed`` ranks.
 """
@@ -43,6 +46,20 @@ def model_gather(parts: list) -> list:
     """Every model shard's tensor, in shard order, from the held shards':
     ``parts``, which are all of them."""
     return list(parts)
+
+
+def data_gather(parts: list, dim: int) -> torch.Tensor:
+    """A leaf whole over ``data`` from the held data shards' rows
+    ``parts`` (all of them, in shard order): their concatenation along
+    ``dim``, a new tensor."""
+    return torch.cat(parts, dim=dim)
+
+
+def data_reduce(whole: torch.Tensor, dim: int) -> torch.Tensor:
+    """The held data shards' rows, along ``dim``, of the sum over the
+    processes of their float32 ``whole`` gradients: ``whole``, this
+    process's alone, which holds every row."""
+    return whole
 
 
 def gather_flat(run: torch.Tensor) -> torch.Tensor:

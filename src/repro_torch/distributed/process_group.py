@@ -25,6 +25,11 @@ wire rows.  :class:`ProcessGroupBackend` offers the functions of
 * ``route``: one ``dist.all_to_all_single`` per call, each rank sending
   the k rows of a worker's ``(W, cols)`` block that its peer's shards
   own; codes travel as int8, sidebands and gradients as float32;
+* ``data_gather`` and ``data_reduce``, FSDP's pair along one leaf
+  dimension (``distributed.fsdp``): one tiled all-gather of the ranks'
+  rows of a leaf, in rank order, and one ``dist.reduce_scatter_tensor``
+  of the ranks' float32 gradients of the whole leaf, each rank keeping
+  its rows of the sum (``reduce_scatter``'s own arithmetic);
 * ``all_losses``: one tiled all-gather of every rank's scalar losses.
   The steps sum them in order from +0.0, so every rank sees the same
   bits; an ``all_reduce`` would add in an order of its own, and the
@@ -186,6 +191,31 @@ class ProcessGroupBackend:
             raise ValueError(f"{self.size} runs of {param_flat.shape[0]} "
                              f"elements do not make {layout.padded_total}")
         return layout.unravel(self.gather_flat(param_flat))
+
+    def data_gather(self, parts: list, dim: int) -> torch.Tensor:
+        """A leaf whole over ``data`` from every rank's rows along
+        ``dim``, in rank order: ``parts`` are this rank's data shards'
+        rows, in shard order; a new contiguous tensor."""
+        run = parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+        self._check(run)
+        mine = run.movedim(dim, 0).contiguous()
+        every = mine.new_empty((self.size * mine.shape[0],
+                                *mine.shape[1:]))
+        dist.all_gather_into_tensor(every, mine, group=self.group)
+        return every.movedim(0, dim).contiguous()
+
+    def data_reduce(self, whole: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's rows, along ``dim``, of the sum over the ranks of
+        their ``whole`` gradients of a leaf: one reduce-scatter of the
+        rows, as :meth:`reduce_scatter` sums its columns."""
+        self._check(whole)
+        if whole.shape[dim] % self.size:
+            raise ValueError(f"{whole.shape[dim]} rows do not split over "
+                             f"{self.size} ranks")
+        rows = whole.movedim(dim, 0).contiguous()
+        run = rows.new_empty((rows.shape[0] // self.size, *rows.shape[1:]))
+        dist.reduce_scatter_tensor(run, rows, group=self.group)
+        return run.movedim(0, dim)
 
     def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
         """This rank's run of the sum over the ranks of their shard-major

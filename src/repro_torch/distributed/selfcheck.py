@@ -27,7 +27,16 @@ test module.  Its cases:
   ``gba_apply`` launches per held shard and global step, and the losses.
   A loss is the sum of the ranks' shares of the batch's mean, rounded
   other than the mean of the whole batch, so ``compare`` gives its
-  largest relative difference instead of a count (``ROUNDED``).
+  largest relative difference instead of a count (``ROUNDED``);
+* ``fsdp``: the same step with the params placed over ``data`` by the
+  rule tables (``place_state=True``, ``distributed.fsdp``) on
+  ``FSDP_SHAPES``, whose embedding, head and MLP rows split over the 4
+  data shards: the params gathered whole, the run of the accumulator,
+  the launches and the losses as ``fused``, and on each process the
+  elements whose bits differ from the same step with
+  ``place_state=False`` on the same world (``vs_unplaced``) and the
+  bytes it holds less the rules' share of its blocks (``bytes``), both
+  0.
 
 The exact problem makes every gradient exact, so the comparison does not
 hang on the order of a library's sums: leaves that are not tile
@@ -58,7 +67,9 @@ step.  :func:`run_model_axis` is the ranks' entry for the fused step over
 a (W, T) mesh on an (Rd, Rm) grid: it runs the step with the model shards
 spread over the model subgroup, then with every model shard in process
 over the same data subgroup, and saves both, which must agree bit for
-bit.
+bit; with ``place_state`` both hold the params over ``data`` (FSDP), and
+a third run, ``place_state=False`` on the ranks, must agree with them
+too.
 """
 from __future__ import annotations
 
@@ -75,11 +86,14 @@ from repro_torch.core.flat_sharded import ShardedFlatLayout
 from repro_torch.core.gba import tree_paths
 from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
                                             make_gba_psum_step)
-from repro_torch.distributed import inprocess, process_group
+from repro_torch.distributed import fsdp, inprocess, process_group
+from repro_torch.distributed import sharding as S
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import EPS
 from repro_torch.launch import switch_driver as SD
-from repro_torch.launch.programs import (init_fused_train_state,
+from repro_torch.launch.programs import (init_fsdp_state,
+                                         init_fused_train_state,
+                                         make_fsdp_step,
                                          make_fused_train_step)
 from repro_torch.optim import adagrad, tree_map
 from repro_torch.sim.cluster import ClusterSpec
@@ -91,12 +105,21 @@ FUSED_M, FUSED_STEPS = 2, 6
 DEMO_BATCHES = 96
 SHAPES = {"embed": (33, 9), "blocks": {"l0": {"w": (41,), "b": (7, 5)}},
           "head": (700,)}
-CASES = SCHEMES + ("psum", "switched", "fused", "demo_auto",
+# the fsdp case's tree: the names the rule tables split over data (the
+# embedding's and the MLP's d_model, the head's rows), 16 a multiple of 4
+FSDP_SHAPES = {"embed": (33, 16), "lm_head": (16, 40),
+               "final_norm": {"scale": (16,)},
+               "blocks": {"l0": {"mlp": {"wi_up": (2, 16, 24),
+                                         "wo": (2, 24, 16)},
+                                 "ln1": {"scale": (2, 16)}}}}
+# its re-layouts' window: several to a layer group
+FSDP_WINDOW = 300
+CASES = SCHEMES + ("psum", "switched", "fused", "fsdp", "demo_auto",
                    "demo_schedule", "demo_nan")
 # the flat vectors each process holds a run of
 RUNS = ("param", "accum", "residual", "momentum")
 # (case, name) compared by relative difference, not bits
-ROUNDED = {("fused", "loss")}
+ROUNDED = {("fused", "loss"), ("fsdp", "loss")}
 SWITCHED = ["sync"] * 3 + ["gba"] * 3 + ["sync"] * 2
 
 
@@ -104,14 +127,15 @@ def problem(workers: int, seed: int = 7) -> tuple[dict, torch.Tensor]:
     """The params (float32 normal draws of ``SHAPES``) and the ``(STEPS,
     ROWS_PER_WORKER * workers)`` inputs, on the CPU."""
     rng = np.random.default_rng(seed)
-
-    def draw(shape):
-        if isinstance(shape, dict):
-            return {k: draw(v) for k, v in shape.items()}
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-
-    params = draw(SHAPES)
+    params = _draw(rng, SHAPES)
     return params, _inputs(rng, (STEPS, ROWS_PER_WORKER * workers))
+
+
+def _draw(rng: np.random.Generator, shape) -> dict:
+    """Float32 normal draws of a tree of shapes."""
+    if isinstance(shape, dict):
+        return {k: _draw(rng, v) for k, v in shape.items()}
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
 def _inputs(rng: np.random.Generator, shape: tuple) -> torch.Tensor:
@@ -248,15 +272,22 @@ def _switched(world, device, workers, params, seed: int = 11) -> dict:
     return _result(drv.run_schedule(schedule(workers, IOTA), SWITCHED))
 
 
-def _fused(world, device, workers, params, seed: int = 13) -> dict:
+def _fused(world, device, workers, params, seed: int = 13,
+           place_state: bool = False) -> dict:
     xs = _inputs(np.random.default_rng(seed),
                  (FUSED_STEPS, ROWS_PER_WORKER * workers))
     gba = GBAConfig(local_batch=ROWS_PER_WORKER * workers,
                     buffer_size=FUSED_M, staleness_tolerance=IOTA)
-    layout, state = init_fused_train_state(_to(params, device), gba,
+    if place_state:
+        placement, state = init_fsdp_state(_to(params, device), gba,
                                            workers, tile=TILE, world=world)
-    step = make_fused_train_step(None, gba, layout, lr=LR, world=world,
-                                 loss_fn=linear_loss)
+        step = make_fsdp_step(None, gba, placement, lr=LR, world=world,
+                              loss_fn=linear_loss)
+    else:
+        layout, state = init_fused_train_state(
+            _to(params, device), gba, workers, tile=TILE, world=world)
+        step = make_fused_train_step(None, gba, layout, lr=LR,
+                                     world=world, loss_fn=linear_loss)
     rows = xs.shape[1] // world.size
     rank = world.workers(workers)[0] // len(world.workers(workers))
     losses, launches = [], []
@@ -270,9 +301,31 @@ def _fused(world, device, workers, params, seed: int = 13) -> dict:
         if (i + 1) % FUSED_M == 0:
             launches.append((ops.kernel_calls["gba_apply_flat"] - calls)
                             / len(world.workers(workers)))
-    return {"params": _flat(state["params"]), "accum": state["accum"].cpu(),
-            "loss": torch.stack(losses).cpu(),
-            "launches_per_shard": torch.tensor(launches)}
+    out = {"accum": state["accum"].cpu(), "loss": torch.stack(losses).cpu(),
+           "launches_per_shard": torch.tensor(launches)}
+    if not place_state:
+        return {"params": _flat(state["params"]), **out}
+    share = S.block_bytes(params, placement.specs, placement.mesh)
+    return {"params": _flat(fsdp.gather(placement, state["params"])[0]),
+            **out, "bytes": torch.tensor(
+                [fsdp.held_bytes(state["params"])
+                 - share * len(placement.held)])}
+
+
+def _fsdp(world, device, workers) -> dict:
+    """The fused step with the params over ``data`` against
+    ``place_state=False`` on the same world and problem, its re-layouts
+    in windows of ``FSDP_WINDOW`` elements."""
+    params = _draw(np.random.default_rng(17), FSDP_SHAPES)
+    window, fsdp.WINDOW = fsdp.WINDOW, FSDP_WINDOW
+    try:
+        got = _fused(world, device, workers, params, place_state=True)
+    finally:
+        fsdp.WINDOW = window
+    want = _fused(world, device, workers, params)
+    got["vs_unplaced"] = torch.tensor([
+        differing(got[k], want[k]) for k in ("params", "accum", "loss")])
+    return got
 
 
 def _demo_driver(world, device, workers, impl: str, *, local_batch=8,
@@ -328,6 +381,8 @@ def run(world, device: torch.device, workers: int, cases: tuple,
             held[case] = _switched(world, device, workers, params)
         elif case == "fused":
             held[case] = _fused(world, device, workers, params)
+        elif case == "fsdp":
+            held[case] = _fsdp(world, device, workers)
         elif case == "demo_auto":
             held[case] = _result(_demo_driver(
                 world, device, workers, "psum", local_batch=256,
@@ -384,23 +439,47 @@ def run_lm_psum(world, device: torch.device, cfg, inp: dict, gba: GBAConfig,
 
 def run_model_axis(world, device: torch.device, gba: GBAConfig,
                    cases: list, tokens: list, workers: int, model: int,
-                   out: str) -> None:
+                   out: str, place_state: bool = False,
+                   window: int | None = None) -> None:
     """The fused step over the (``workers``, ``model``) mesh for each of
     ``cases``, ``(cfg, params, batches)``: from ``params`` (whole, on the
     host) over ``batches`` (whole microsteps, as numpy) with ``tokens``,
     once over ``world`` (this rank's model shards, its data rows), once
     over ``world.without_model()`` (every model shard here, the same
-    rows); saves each case's runs' losses, and each held model shard's
-    params (raveled whole) and accumulator blocks, to
-    ``out/rank{r}.pt``, a list in the order of ``cases``."""
+    rows), the params held over ``data`` where ``place_state`` (then
+    once more over ``world`` with ``place_state=False``, ``unplaced``);
+    saves each case's runs' losses, and each held model shard's params
+    (gathered whole over ``data`` and raveled) and accumulator blocks, and
+    under FSDP the bytes the run's blocks hold less the rules' share of
+    them, to ``out/rank{r}.pt``, a list in the order of ``cases``.
+    ``window``, where given, is this process's ``fsdp.WINDOW`` for the
+    runs."""
+    saved = fsdp.WINDOW
+    if window is not None:
+        fsdp.WINDOW = window
+    try:
+        runs = _model_axis_runs(world, device, gba, cases, tokens,
+                                workers, model, place_state)
+    finally:
+        fsdp.WINDOW = saved
+    rank = world.rank * world.model_size + world.model_rank
+    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _model_axis_runs(world, device, gba, cases, tokens, workers, model,
+                     place_state) -> list:
     from repro_torch.launch.programs import build_programs
     runs = []
+    labels = [("ranks", world, place_state),
+              ("process", world.without_model(), place_state)]
+    if place_state:
+        labels.append(("unplaced", world, False))
     for cfg, params, batches in cases:
         saved = {}
-        for label, w in (("ranks", world), ("process", world.without_model())):
+        for label, w, placed in labels:
             progs = build_programs(cfg, gba, params=_to(params, device),
                                    mode="fused", lr=1e-3, workers=workers,
-                                   world=w, model=model)
+                                   world=w, model=model, place_state=placed)
             rows = gba.local_batch // w.size
             state, losses = progs.state, []
             for b, token in zip(batches, tokens):
@@ -408,17 +487,26 @@ def run_model_axis(world, device: torch.device, gba: GBAConfig,
                     k: torch.from_numpy(v[w.rank * rows:(w.rank + 1) * rows])
                     .to(device) for k, v in b.items()}, token)
                 losses.append(loss)
-            lay, held = progs.layout, progs.model_axis.held
+            lay = progs.layout
+            held = (progs.model_axis.held if progs.model_axis is not None
+                    else range(1))
+            trees = progs.gather_params(state["params"])
+            trees = trees if progs.model_axis is not None else [trees]
             run = state["accum"].shape[0] // len(held)
             saved[label] = {
                 "losses": torch.stack(losses).cpu(),
                 **{f"param/{t}": lay.ravel(s).cpu()
-                   for t, s in zip(held, state["params"])},
+                   for t, s in zip(held, trees)},
                 **{f"accum/{t}": state["accum"][i * run:(i + 1) * run].cpu()
                    for i, t in enumerate(held)}}
+            if placed:
+                p = progs.placement
+                share = S.block_bytes(params, p.specs, p.mesh)
+                saved[label]["bytes"] = torch.tensor(
+                    [fsdp.held_bytes(state["params"])
+                     - share * len(held) * len(p.held)])
         runs.append(saved)
-    rank = world.rank * world.model_size + world.model_rank
-    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
+    return runs
 
 
 def _to(params: dict, device: torch.device) -> dict:

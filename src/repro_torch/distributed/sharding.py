@@ -23,12 +23,17 @@ of anything with ``.shape`` (``models.transformer.param_shapes`` and
 ``cache_shapes`` give meta tensors at the full size), and a mesh with
 ``axis_names`` and ``shape`` (``launch.mesh.Mesh``).
 
-The port runs the ``model`` entries (:func:`place`, ``launch.programs``'
-fused step over a (W, T) mesh) and keeps each parameter whole over
-``data``: FSDP of the weights is not ported (ROADMAP.md).  The reference's
-``to_named`` has no counterpart; :func:`place` cuts a tree into the slice
-one model shard holds and :func:`gather_model_shards` puts the shards back
-together.
+The port runs both axes on the sharded fused step
+(``launch.programs.build_programs(mode="fused", workers=W)`` with W > 1,
+at any T): the ``model`` entries split the modules over the model shards
+(``distributed.tensor_parallel``), and the ``data`` entries hold each
+weight's rows over the W data shards (FSDP, ``distributed.fsdp``), as
+the reference's ``jax.device_put(state, to_named(specs, mesh))`` places
+them.  The reference's ``to_named`` has no counterpart: :func:`place`
+cuts a tree into the block one (data, model) shard holds, or, without a
+data index, the slice one model shard holds; :func:`gather_data_shards`
+and :func:`gather_model_shards` put the blocks back together, in that
+order.
 
 The reference's activation constraints (``act_sharding``) are a module
 global that pins the residual stream to ``P(data, None, None)`` and the
@@ -346,40 +351,83 @@ def batch_partition(mesh, batch: int, ndim: int) -> Spec:
 
 def model_dims(spec: Spec) -> list[int]:
     """The dimensions a spec splits over ``model``."""
+    return _axis_dims(spec, "model")
+
+
+def data_dims(spec: Spec) -> list[int]:
+    """The dimensions a spec splits over ``data`` (FSDP)."""
+    return _axis_dims(spec, "data")
+
+
+def _axis_dims(spec: Spec, axis: str) -> list[int]:
     return [d for d, ax in enumerate(spec)
-            if ax == "model" or (isinstance(ax, tuple) and "model" in ax)]
+            if ax == axis or (isinstance(ax, tuple) and axis in ax)]
 
 
 def _model_size(mesh) -> int:
     return mesh.shape["model"] if "model" in mesh.axis_names else 1
 
 
-def place(tree: Any, specs: Any, mesh, model_index: int) -> Any:
+def _data_size(mesh) -> int:
+    return mesh.shape["data"] if "data" in mesh.axis_names else 1
+
+
+def place(tree: Any, specs: Any, mesh, model_index: int,
+          data_index: int | None = None) -> Any:
     """The tree that model shard ``model_index`` holds: each leaf cut
     along its ``model`` dimensions to that shard's contiguous slice, a
     copy of its own; a leaf the rules leave whole over ``model`` is
-    returned as it is (the same tensor).  ``data`` entries are not cut:
-    the port keeps each parameter whole over ``data``."""
-    t_size = _model_size(mesh)
+    returned as it is (the same tensor).  With ``data_index`` the block
+    that data shard ``data_index`` of that model shard holds: each leaf
+    also cut along its ``data`` dimension to the ``data_index``-th of its
+    contiguous rows, as ``jax.device_put(x, NamedSharding(mesh, spec))``
+    lays out the block of device (``data_index``, ``model_index``), and
+    every leaf a copy of its own (a leaf whole over both axes too)."""
+    t_size, w_size = _model_size(mesh), _data_size(mesh)
     if not 0 <= model_index < t_size:
         raise IndexError(f"model shard {model_index} of {t_size}")
+    if data_index is not None and not 0 <= data_index < w_size:
+        raise IndexError(f"data shard {data_index} of {w_size}")
 
     def cut(leaf, spec):
-        dims = model_dims(spec)
-        if not dims or t_size == 1:
+        cuts = [] if t_size == 1 else [(d, t_size, model_index)
+                                       for d in model_dims(spec)]
+        if data_index is not None:
+            cuts += [(d, w_size, data_index) for d in data_dims(spec)]
+        if not cuts and data_index is None:
             return leaf
-        for d in dims:
-            n = leaf.shape[d] // t_size
-            leaf = leaf.narrow(d, model_index * n, n)
+        for d, size, index in cuts:
+            n = leaf.shape[d] // size
+            leaf = leaf.narrow(d, index * n, n)
         return leaf.clone(memory_format=torch.contiguous_format)
 
     return _zip_map(cut, tree, specs)
 
 
+def gather_data_shards(blocks: list, specs: Any, mesh) -> Any:
+    """A model shard's tree from its every data shard's block (in data
+    shard order): each leaf split over ``data`` the blocks' rows
+    concatenated along that dimension, each other leaf block 0's.  The
+    inverse of :func:`place` over ``data``."""
+    w_size = _data_size(mesh)
+    if len(blocks) != w_size:
+        raise ValueError(f"{len(blocks)} blocks for a data axis of "
+                         f"{w_size}")
+
+    def join(spec, *leaves):
+        dims = data_dims(spec)
+        if not dims or w_size == 1:
+            return leaves[0]
+        return torch.cat(leaves, dim=dims[0])
+
+    return _zip_map(join, specs, *blocks)
+
+
 def gather_model_shards(shards: list, specs: Any, mesh) -> Any:
     """The whole tree from every model shard's tree (in shard order): each
     split leaf the shards' slices concatenated along its ``model``
-    dimension, each whole leaf shard 0's.  The inverse of :func:`place`."""
+    dimension, each whole leaf shard 0's.  The inverse of :func:`place`
+    over ``model``."""
     t_size = _model_size(mesh)
     if len(shards) != t_size:
         raise ValueError(f"{len(shards)} shard trees for a model axis of "
@@ -395,6 +443,17 @@ def gather_model_shards(shards: list, specs: Any, mesh) -> Any:
         return torch.cat(leaves, dim=dims[0])
 
     return _zip_map(join, specs, *shards)
+
+
+def block_bytes(shapes: Any, specs: Any, mesh) -> int:
+    """The bytes of the block one (data, model) shard holds of a tree of
+    ``shapes`` (anything with ``.shape`` and ``.dtype``) under ``specs``:
+    each leaf's bytes over the devices its spec splits it across."""
+    total = 0
+    for leaf, spec in zip(_spec_leaves(shapes), _spec_leaves(specs)):
+        total += leaf.numel() * leaf.dtype.itemsize // _shard_count(spec,
+                                                                   mesh)
+    return total
 
 
 def _zip_map(fn, first: Any, *rest: Any) -> Any:

@@ -62,9 +62,12 @@ hold a run each compute the same bits.  Checkpointed regions issue them
 again in the backward, in the same order on every rank.
 
 :func:`model_axis` reads the split from the rule tables and runs every
-spec they give; it refuses only a spec the rules cannot produce.  What
-is left of the model axis (FSDP over ``data``, the configurations that
-need more than one card) waits in ROADMAP.md, queue 1 item 2.
+spec they give; it refuses only a spec the rules cannot produce.  The
+rule tables' ``data`` entries (FSDP) are applied beneath this module: on
+the sharded fused step each held model shard's tree is gathered over
+``data`` on use (``distributed.fsdp``), so the split modules here see
+the trees they see without it.  What is left (the configurations that
+need more than one card) waits in ROADMAP.md, queue 1 item 2.5.
 """
 from __future__ import annotations
 

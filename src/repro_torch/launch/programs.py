@@ -26,7 +26,13 @@ Counterpart of ``repro.launch.programs`` for its four modes.
     modules split over T model shards by the reference's rule tables
     (``distributed.tensor_parallel``), and each model shard's flat state
     is a ``ShardedFlatLayout`` of W data shards over that shard's
-    parameters, W * T ``gba_apply`` launches an apply.
+    parameters, W * T ``gba_apply`` launches an apply.  With W > 1 the
+    params are placed by the rule tables as the reference places them
+    (``place_state=True``, its default): each weight's rows held over the
+    W data shards, gathered on use and its gradient reduced over ``data``
+    (``distributed.fsdp``, :func:`init_fsdp_state`,
+    :func:`make_fsdp_step`); ``place_state=False`` keeps them whole over
+    ``data``.
 ``wire``
     W PS workers, each also a shard (``repro_torch.core.gba_shard_map``),
     in one process on one device or spread over ``torch.distributed``
@@ -68,7 +74,8 @@ from repro_torch.core.gba import (FlatLayout, flat_buffer_push,
 from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
                                             make_gba_psum_step)
 from repro_torch.core.staleness import threshold_decay
-from repro_torch.distributed import inprocess
+from repro_torch.distributed import fsdp, inprocess
+from repro_torch.distributed import sharding as S
 from repro_torch.distributed.sharding import model_dims
 from repro_torch.distributed.tensor_parallel import ModelAxis, model_axis
 from repro_torch.kernels import ops
@@ -417,6 +424,120 @@ def make_model_axis_step(cfg: ModelConfig, gba: GBAConfig,
     return train_step
 
 
+def init_fsdp_state(params: Any, gba: GBAConfig, workers: int,
+                    tp: ModelAxis | None = None, layer_groups: bool = True,
+                    tile: int = TILE, world=inprocess
+                    ) -> tuple[fsdp.Placement, dict]:
+    """State of the fused step over a (W, T) mesh, W = ``workers`` > 1,
+    with the params placed by the rule tables (T = 1 without a model axis
+    ``tp``): ``params`` the blocks ``[model][data]`` of the held model
+    shards (``tp.held``, or the one) and the data shards ``world`` holds
+    (``fsdp.place``: each leaf cut to the block's rows and columns, each a
+    copy of its own); the flat state of :func:`init_model_axis_state`,
+    over one model shard's ``ShardedFlatLayout`` of W data shards,
+    layer-grouped unless ``layer_groups`` is False: ``accum`` ``(k_m *
+    k_d * shard_size,)`` filled with ``INITIAL_ACCUM`` and the buffer's
+    ``grads`` ``(M, k_m * k_d, shard_size)``.  Returns (the
+    ``fsdp.Placement``, state)."""
+    mesh = tp.mesh if tp is not None else Mesh(("data", "model"),
+                                               (workers, 1))
+    specs = tp.specs if tp is not None else S.param_specs(params, mesh)
+    meta = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), params)
+    layout = ShardedFlatLayout.from_params(
+        S.place(meta, specs, mesh, 0), workers, tile,
+        group_by=T.param_group_key if layer_groups else None)
+    placement = fsdp.Placement.of(layout, specs, mesh, world)
+    held = tp.held if tp is not None else range(1)
+    blocks = fsdp.place(params, specs, mesh, held, placement.held)
+    n = len(held) * len(placement.held)
+    dev = layout.leaves(blocks[0][0])[0].device
+    grads = torch.zeros((n, gba.buffer_size, layout.shard_size),
+                        dtype=torch.float32, device=dev)
+    buffer = {"grads": grads.transpose(0, 1),
+              "tokens": torch.zeros((gba.buffer_size,), dtype=torch.int32,
+                                    device=dev),
+              "fill": 0, "step": 0}
+    accum = torch.full((n * layout.shard_size,), INITIAL_ACCUM,
+                       dtype=torch.float32, device=dev)
+    return placement, {"params": blocks, "accum": accum, "buffer": buffer}
+
+
+def make_fsdp_step(cfg: ModelConfig, gba: GBAConfig,
+                   placement: fsdp.Placement, tp: ModelAxis | None = None,
+                   lr: float = 1e-3, world=inprocess,
+                   loss_fn: Callable | None = None) -> Callable:
+    """``train_step(state, batch, token) -> (state, loss)`` of the fused
+    step with the params held over ``data`` (state of
+    :func:`init_fsdp_state`).  Each microstep the loss runs on the held
+    blocks through ``fsdp.Microstep`` (over the model axis ``tp`` where
+    one is given): each module gathered over ``data`` on use, and each
+    weight's gradient reduced over the data ranks in float32 into the
+    rank's rows, which ``fsdp.push`` moves into the slot's columns of each
+    held model shard's blocks of the buffer.  When the push fills the
+    buffer, the held columns of the params (``fsdp.columns``), one
+    ``gba_apply`` launch a (data, model) block (W * T over the mesh), and
+    each block's rows cut from the updated columns (``fsdp.rows``), in
+    place.  ``loss_fn(tree, batch)``, where given, replaces the LM loss
+    and takes the first model shard's tree gathered whole.  Over R data
+    ranks ``batch`` is the rank's rows, its loss its share of the
+    batch's mean, and the loss returned the ranks' shares summed in rank
+    order.  It is :func:`make_fused_train_step` (T = 1) or
+    :func:`make_model_axis_step` on the same params bit for bit in one
+    process, and over two data ranks."""
+    iota, m = gba.staleness_tolerance, gba.buffer_size
+    layout, ranks = placement.layout, world.size
+    lm = loss_fn is None
+    loss_fn = loss_fn or make_loss_fn(cfg, tp)
+    apply_shards = make_sharded_apply(layout, iota=iota)
+    k_d, ss = len(placement.held), layout.shard_size
+    run = k_d * ss
+
+    def train_step(state: dict, batch: dict, token: int
+                   ) -> tuple[dict, torch.Tensor]:
+        blocks, accum, buffer = state["params"], state["accum"], \
+            state["buffer"]
+        step = fsdp.Microstep(placement, blocks)
+        if not lm:
+            params = step.whole()
+        else:
+            params = step.views() if tp is not None else step.views()[0]
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            if ranks > 1:
+                loss = loss / ranks
+            torch.autograd.grad(loss, [step.anchor], allow_unused=True)
+        del params
+        slot = buffer["fill"] % m
+        for i, sink in enumerate(step.sink):
+            fsdp.push(placement, sink,
+                      buffer["grads"][slot, i * k_d:(i + 1) * k_d])
+        leaves = step.leaves
+        del step
+        buffer["tokens"][slot] = token
+        fill = buffer["fill"] + 1
+        is_full = fill % m == 0
+        new_buffer = {"grads": buffer["grads"], "tokens": buffer["tokens"],
+                      "fill": fill, "step": buffer["step"] + int(is_full)}
+        if is_full:
+            flat_p = torch.empty((len(blocks) * run,), dtype=torch.float32,
+                                 device=accum.device)
+            for i, ls in enumerate(leaves):
+                fsdp.columns(placement, ls, flat_p[i * run:(i + 1) * run])
+            apply_shards(flat_p, accum, new_buffer["grads"].unbind(1),
+                         new_buffer["tokens"], buffer["step"], lr)
+            for i, ls in enumerate(leaves):
+                fsdp.rows(placement, flat_p[i * run:(i + 1) * run], ls)
+            del flat_p
+        loss = loss.detach()
+        if ranks > 1:
+            loss = _ranks_loss(world, loss)
+        return {"params": blocks, "accum": accum,
+                "buffer": new_buffer}, loss
+
+    return train_step
+
+
 def make_wire_psum_steps(cfg: ModelConfig, gba: GBAConfig,
                          layout: ShardedFlatLayout, workers: int, *,
                          compress: CompressionPolicy | None = None,
@@ -461,7 +582,11 @@ class TrainPrograms:
     ``compressed_step``, ``wire_state`` and ``compress``; ``sync_psum``
     fills ``state`` (``params``, ``opt``), ``step`` and ``optimizer``.
     ``fused`` over a model axis of T > 1 also fills ``model_axis``, and
-    its ``state["params"]`` is the list of the held model shards' trees."""
+    its ``state["params"]`` is the list of the held model shards' trees;
+    with the params placed over ``data`` (W > 1, ``place_state``) it fills
+    ``placement`` (``distributed.fsdp.Placement``, whose ``layout`` is
+    ``layout``), and ``state["params"]`` holds the blocks ``[model][data]``
+    of the held shards (:meth:`gather_params` puts them together)."""
 
     layout: Any
     state: dict
@@ -472,6 +597,18 @@ class TrainPrograms:
     wire_state: dict | None = None
     compress: CompressionPolicy | None = None
     model_axis: ModelAxis | None = None
+    placement: fsdp.Placement | None = None
+
+    def gather_params(self, params: Any) -> Any:
+        """The held model shards' trees (a list under a model axis, else
+        the one tree) of the fused state's ``params``: under FSDP the
+        held blocks gathered over ``data`` (``fsdp.gather``: over ranks
+        every rank of the data subgroup calls it); else ``params``
+        themselves."""
+        if self.placement is None:
+            return params
+        trees = fsdp.gather(self.placement, params)
+        return trees if self.model_axis is not None else trees[0]
 
     def wire_step_for(self, async_steps_taken: int) -> Callable:
         """The wire step for a global step after ``async_steps_taken``
@@ -492,7 +629,8 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
                    workers: int = 1,
                    compress: CompressionPolicy | None = None,
                    layer_groups: bool = True,
-                   world=inprocess, model: int = 1) -> TrainPrograms:
+                   world=inprocess, model: int = 1,
+                   place_state: bool = True) -> TrainPrograms:
     """The step(s) of ``mode`` and their state, from ``params`` (on the
     device the steps run on).
 
@@ -510,7 +648,12 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     process holds ``world.model_shards(T)``, and every spec the rule
     tables give runs (``distributed.tensor_parallel.model_axis``).  Only
     ``fused`` takes a model axis: the reference's wire and sync steps
-    replicate over it.
+    replicate over it.  With ``workers`` > 1 and ``place_state`` (the
+    reference's argument, and its default) the params are placed over
+    the (W, T) mesh's ``data`` axis too, as the reference's
+    ``device_put`` of ``param_specs`` places them
+    (:func:`init_fsdp_state`, :func:`make_fsdp_step`); with
+    ``place_state=False`` they stay whole over ``data``.
 
     ``wire`` runs ``workers`` PS workers and shards over the collectives
     of ``world`` (``distributed.inprocess``, or a
@@ -547,9 +690,16 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
         if workers < 1 or model < 1:
             raise ValueError(f"fused mode needs 1 or more workers and model "
                              f"shards, got {workers} x {model}")
+        tp = (model_axis(cfg, Mesh(("data", "model"), (workers, model)),
+                         world) if model > 1 else None)
+        if workers > 1 and place_state:
+            placement, state = init_fsdp_state(params, gba, workers, tp,
+                                               layer_groups, world=world)
+            return TrainPrograms(layout=placement.layout, state=state,
+                                 step=make_fsdp_step(cfg, gba, placement,
+                                                     tp, lr=lr, world=world),
+                                 model_axis=tp, placement=placement)
         if model > 1:
-            tp = model_axis(cfg, Mesh(("data", "model"), (workers, model)),
-                            world)
             layout, state = init_model_axis_state(params, gba, workers, tp,
                                                   layer_groups, world=world)
             return TrainPrograms(layout=layout, state=state,

@@ -74,6 +74,14 @@ take the same batch rows and hold T / Rm model shards each.  Every arch
 runs at every T the rules split (the Mamba2 mixer, gathered whole; the
 rules' head_dim fallback).
 
+At every T with W > 1 the sharded fused step holds each weight's rows
+over ``data`` as the reference's ``device_put`` of ``param_specs`` places
+them (FSDP, ``repro_torch.distributed.fsdp``): a process keeps the blocks
+of its (data, model) shards alone, gathers each module over ``data`` on
+use (``blocks`` a repeat at a time) and reduces its gradient over the
+data ranks in float32; the launcher prints the bytes it holds, the
+rules' share, the whole tree's, and the largest gather.
+
 Where the reference leaves ``model`` unused, so does the port, and says
 that the model axis of T is replicated: ``--fused --mesh WxT --compress
 int8|onebit`` runs the wire step over W workers, ``--autoswitch --mesh
@@ -120,7 +128,8 @@ from repro_torch.configs.base import GBAConfig, ModelConfig
 from repro_torch.core.compression import CompressionPolicy
 from repro_torch.core.flat_sharded import ShardedFlatLayout
 from repro_torch.data.lm import make_lm_stream
-from repro_torch.distributed import inprocess, process_group
+from repro_torch.distributed import fsdp, inprocess, process_group
+from repro_torch.distributed import sharding as S
 from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
 from repro_torch.kernels.runtime import resolve_device
@@ -318,6 +327,24 @@ def run_lm_fused(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
     else:
         print(f"fused gba_apply path (Adagrad): flat buffer ({buffer}, "
               f"{layout.total})")
+    if progs.placement is not None:
+        pl = progs.placement
+        shapes = T.param_shapes(cfg)
+        whole = sum(x.numel() * x.element_size()
+                    for x in T._leaves(shapes))
+        share = S.block_bytes(shapes, pl.specs, pl.mesh)
+        held = fsdp.held_bytes(progs.state["params"])
+        n = len(progs.state["params"]) * len(pl.held)
+        name, gathered = fsdp.largest_gather(pl)
+        print(f"fsdp: weights held over data={workers}: this process "
+              f"holds {held:,} B in {n} block{'s' * (n > 1)}, the rules' "
+              f"share "
+              f"({share:,} B a block) of the whole tree's {whole:,} B; "
+              f"largest gather {name} {gathered:,} B a model shard; "
+              f"re-layout transient at most "
+              f"{fsdp.transient_bytes(pl):,} B float32 (windows of "
+              f"{fsdp.WINDOW:,} elements; peak_gather, the largest layer "
+              f"group, {layout.peak_gather_bytes:,} B)")
     state, losses = progs.state, []
     t0 = time.perf_counter()
     for i in range(steps):

@@ -73,6 +73,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import fsdp
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
 
@@ -468,7 +469,10 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     again); the prefix layers do not.  Under a model axis ``tp``
     (``distributed.tensor_parallel.ModelAxis``) ``params`` is the list of
     the held model shards' trees (``sharding.place``), and the output is
-    whole over ``model``."""
+    whole over ``model``.  FSDP-held params (``distributed.fsdp.Top``,
+    the sharded fused step's) gather each top-level module on its first
+    use and each repeat of ``blocks`` inside a checkpoint of the repeat,
+    whatever ``remat_blocks`` says; a whole tree runs as above."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, tp)
@@ -483,11 +487,23 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                             memory, tp)
     blocks = _sub(params, "blocks", tp)
     for r in range(cfg.num_repeats):
-        args = (_blocks(blocks, r, tp), cfg, x, positions, aux, shared,
-                memory, tp)
+        rest = (cfg, x, positions, aux, shared, memory, tp)
+        if fsdp.held(blocks):
+            x, aux = checkpoint(_held_repeat, blocks, r, *rest,
+                                use_reentrant=False)
+            continue
+        args = (_blocks(blocks, r, tp), *rest)
         x, aux = (checkpoint(_repeat, *args, use_reentrant=False)
                   if cfg.remat_blocks else _repeat(*args))
     return L.norm_fwd(_one(params, tp)["final_norm"], x), aux
+
+
+def _held_repeat(blocks: Any, r: int, *rest) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """:func:`_repeat` on repeat ``r`` of FSDP-held ``blocks``, gathered
+    over ``data`` here, inside the repeat's checkpoint, so that the
+    backward gathers them again."""
+    return _repeat(fsdp.repeat(blocks, r), *rest)
 
 
 def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

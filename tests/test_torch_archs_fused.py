@@ -123,7 +123,7 @@ def test_kimi_sharded_fused_step_is_the_single_layout_step_bit_for_bit(
     gba = GBAConfig(local_batch=B, buffer_size=M, staleness_tolerance=IOTA)
     one = build_programs(cfg, gba, params=p, mode="fused", lr=LR)
     four = build_programs(cfg, gba, params=T._map(p, torch.clone),
-                          mode="fused", lr=LR, workers=4)
+                          mode="fused", lr=LR, workers=4, place_state=False)
     lay = four.layout
     assert lay.num_shards == 4 and "prefix.#0" in lay.group_keys
     s1, s4 = one.state, four.state

@@ -558,7 +558,7 @@ def test_zamba_fused_step_over_2_shards_is_the_single_layout_step():
     gba = GBAConfig(local_batch=B, buffer_size=M, staleness_tolerance=IOTA)
     one = build_programs(cfg, gba, params=p, mode="fused", lr=LR)
     two = build_programs(cfg, gba, params=T._map(p, torch.clone),
-                         mode="fused", lr=LR, workers=2)
+                         mode="fused", lr=LR, workers=2, place_state=False)
     lay = two.layout
     assert lay.num_shards == 2
     assert lay.group_keys == ("blocks.l0", "blocks.l1", "blocks.l2",

@@ -10,7 +10,8 @@ the reference has no process-group counterpart to run here.
 workers and then in process, one world spawned per R for all of them:
 the wire step for none, int8 and onebit, the psum sync step, a switched
 ``run_schedule`` with ``sync_impl="psum"`` and the sharded fused step on a
-problem whose gradients are exact, and the switching harness on the demo
+problem whose gradients are exact (also with the weights held over
+``data``, FSDP), and the switching harness on the demo
 MLP (``run(mode="auto")`` on the strained plan, the swap schedule, a NaN
 batch on the last rank's worker), one intra-op thread on both sides,
 since CPU matmuls round by thread count.
@@ -112,6 +113,25 @@ def test_gloo_sharded_fused_step_is_bit_identical_to_in_process(checked):
     assert fused == {"params": 0, "accum": 0, "launches_per_shard": 0}, \
         (ranks, rep)
     assert held["fused"]["launches_per_shard"].tolist() == [1.0] * (
+        selfcheck.FUSED_STEPS // selfcheck.FUSED_M)
+
+
+def test_gloo_fsdp_step_is_bit_identical_to_in_process(checked):
+    """The sharded fused step with the weights over ``data`` (FSDP) on
+    the exact problem, 2 and 4 data ranks: the params gathered over
+    ``data`` and the ranks' runs of the accumulator bit for bit the
+    in-process run's, one launch per held shard an apply, the losses
+    within 1e-6; on every process the run bit for bit the same step with
+    ``place_state=False``, and the blocks holding exactly the rules'
+    share of the bytes."""
+    ranks, rep, held = checked
+    fsdp = rep["fsdp"]
+    assert fsdp.pop("loss") < 1e-6, (ranks, rep)
+    assert fsdp == {"params": 0, "accum": 0, "launches_per_shard": 0,
+                    "bytes": 0, "vs_unplaced": 0}, (ranks, rep)
+    assert held["fsdp"]["vs_unplaced"].tolist() == [0, 0, 0]
+    assert held["fsdp"]["bytes"].tolist() == [0]
+    assert held["fsdp"]["launches_per_shard"].tolist() == [1.0] * (
         selfcheck.FUSED_STEPS // selfcheck.FUSED_M)
 
 

@@ -1675,11 +1675,13 @@ def _reduced_f32(arch):
     return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
 
 
-def _mesh_2x2_run(cfg, host, dev, world=None, model=2):
-    """8 microsteps of ``--fused --mesh 2x2`` (``2 x model``) at M = 4,
-    microstep 5's slot stale, from ``host`` params on ``dev``: the losses,
-    each model shard's raveled params and the accumulator, on the
-    host."""
+def _mesh_2x2_run(cfg, host, dev, world=None, model=2, workers=2,
+                  place_state=False):
+    """8 microsteps of ``--fused --mesh 2x2`` (``workers x model``) at M =
+    4, microstep 5's slot stale, from ``host`` params on ``dev``, the
+    weights whole over ``data`` unless ``place_state`` (FSDP): the losses,
+    each model shard's raveled params (gathered over ``data``) and the
+    accumulator, on the host."""
     from repro_torch.configs import GBAConfig
     from repro_torch.convert import tree_to_device
     from repro_torch.data import make_lm_stream
@@ -1687,8 +1689,8 @@ def _mesh_2x2_run(cfg, host, dev, world=None, model=2):
     from repro_torch.launch.programs import build_programs
     gba = GBAConfig(local_batch=2, buffer_size=4, staleness_tolerance=4)
     progs = build_programs(cfg, gba, params=tree_to_device(
-        host, torch.device(dev)), mode="fused", lr=1e-3, workers=2,
-        model=model, world=world or inprocess)
+        host, torch.device(dev)), mode="fused", lr=1e-3, workers=workers,
+        model=model, world=world or inprocess, place_state=place_state)
     stream = make_lm_stream(cfg.vocab_size, 80, 2, seed=0)
     state, losses = progs.state, []
     for i, token in enumerate([0, 0, 0, 0, 1, -5, 1, 1]):
@@ -1696,8 +1698,9 @@ def _mesh_2x2_run(cfg, host, dev, world=None, model=2):
             k: torch.from_numpy(v).to(dev)
             for k, v in stream.batch(i).items()}, token)
         losses.append(loss.item())
-    return (losses, torch.cat([progs.layout.ravel(p).cpu()
-                               for p in state["params"]]),
+    trees = progs.gather_params(state["params"])
+    return (losses, torch.cat([progs.layout.ravel(p).cpu() for p in (
+        trees if isinstance(trees, list) else [trees])]),
             state["accum"].cpu())
 
 
@@ -1760,3 +1763,48 @@ def test_one_rank_nccl_world_holding_the_2x2_shards_is_in_process(tmp_path):
     assert got[0] == want[0]
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _same_run(got, want):
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("workers,model", [(2, 2), (4, 1)])
+def test_fsdp_step_on_the_card_is_the_unplaced_step(workers, model):
+    """FSDP of the weights over ``data`` (``place_state=True``) on the
+    card, granite-8b ``.reduced()`` float32 over 2 x 2 and 4 x 1 in
+    process: losses, params and accumulator bit for bit the same step
+    with the weights whole over ``data``; W x T ``gba_apply`` launches an
+    apply."""
+    _need_card()
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32("granite-8b")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    launches = gba_apply.launches
+    got = _mesh_2x2_run(cfg, host, "cuda", model=model, workers=workers,
+                        place_state=True)
+    assert gba_apply.launches - launches == 2 * workers * model
+    _same_run(got, _mesh_2x2_run(cfg, host, "cuda", model=model,
+                                 workers=workers))
+
+
+def test_fsdp_over_a_one_rank_nccl_world_is_in_process(tmp_path):
+    """The FSDP step over a one-rank NCCL world holding both model and
+    both data shards is the in-process FSDP step on the card bit for
+    bit."""
+    _need_card()
+    from repro_torch.distributed import process_group
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32("granite-8b")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    world, _ = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                  "cuda", timeout=120.0)
+    try:
+        got = _mesh_2x2_run(cfg, host, "cuda", world, place_state=True)
+    finally:
+        process_group.leave()
+    _same_run(got, _mesh_2x2_run(cfg, host, "cuda", place_state=True))

@@ -383,7 +383,7 @@ def _step_matches(arch, w, t, monkeypatch):
     jprogs = jax_build_programs(jcfg, JaxGBAConfig(**gba), mode="fused",
                                params=jp, lr=LR)
     progs = build_programs(cfg, GBAConfig(**gba), params=p, mode="fused",
-                           lr=LR, workers=w, model=t)
+                           lr=LR, workers=w, model=t, place_state=False)
     tp, lay = progs.model_axis, progs.layout
     assert progs.state["accum"].shape == (t * lay.padded_total,)
     margins = _margins(monkeypatch)
@@ -477,7 +477,7 @@ def test_one_rank_world_is_the_in_process_step_bit_for_bit(tmp_path):
         for w in (world, inprocess):
             progs = build_programs(cfg, gba, params=T._map(p, torch.clone),
                                    mode="fused", lr=LR, workers=2, model=2,
-                                   world=w)
+                                   world=w, place_state=False)
             st, losses = progs.state, []
             for i, b in enumerate(batches):
                 st, loss = progs.step(st, {k: torch.from_numpy(v)

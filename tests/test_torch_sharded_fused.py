@@ -259,7 +259,7 @@ def test_one_rank_world_sharded_lm_step_is_the_in_process_step(tmp_path):
         for w in (world, programs.inprocess):
             progs = programs.build_programs(
                 cfg, gba, params=_granite_f32(cfg), mode="fused", lr=1e-3,
-                workers=4, world=w)
+                workers=4, world=w, place_state=False)
             st, losses = progs.state, []
             for i in range(4):
                 st, loss = progs.step(st, {
@@ -349,7 +349,7 @@ def test_sharded_fused_step_is_bit_identical_to_the_single_host_step(
         cfg, GBAConfig(local_batch=B, buffer_size=M,
                        staleness_tolerance=IOTA),
         params=params, mode="fused", lr=LR, workers=workers,
-        layer_groups=grouped)
+        layer_groups=grouped, place_state=False)
     lay = progs.layout
     assert isinstance(lay, ShardedFlatLayout)
     assert lay.num_shards == workers
@@ -391,7 +391,8 @@ def test_sharded_lm_step_matches_the_reference_lm_step():
     jprogs = jax_programs.build_programs(jcfg, JaxGBAConfig(**gba),
                                          mode="fused", params=jp, lr=1e-3)
     progs = programs.build_programs(cfg, GBAConfig(**gba), params=tp,
-                                    mode="fused", lr=1e-3, workers=4)
+                                    mode="fused", lr=1e-3, workers=4,
+                                    place_state=False)
     stream = make_lm_stream(cfg.vocab_size, S, 2, seed=0)
     js, ts, jl, tl = jprogs.state, progs.state, [], []
     for i in range(8):
