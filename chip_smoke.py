@@ -368,7 +368,28 @@ Phases:
     int8`` at ``--mesh 4x2``, its losses and launches bit for bit the
     ``--mesh 4x1`` run's; the rows of (a)-(d) within ``MODEL_BUDGET_S``,
     (e), (f) and (g) each within its own budget;
-23. one JSON line of the kernels, then the result line.
+23. ``launch.steps.build_step`` (the reference's placed steps) at full
+    width, bf16: (a) granite-8b, all 36 layers, served over (1, 4) in
+    process by ``serve_param_specs`` (every weight whole over ``data``):
+    the prefill of 4 x 128 tokens and 31 greedy decode steps, 36 x 4
+    ``flash_decode`` launches a step, each on one model shard's 2 KV
+    heads, 8 launches of one more step held to the plain version on
+    their own inputs, every step's logits within 2**-6 of the largest of
+    the unplaced decode fed the same tokens (a greedy token it would not
+    pick is printed with its margin); (b) the same over (2, 2) by
+    ``param_specs`` (each layer gathered over ``data`` on use), in
+    process and over one NCCL rank, bit-identical; (c) the placed pytree
+    step (Adam), granite-8b depth 2 over (2, 2), M = 4, one apply,
+    against the unplaced pytree step: the first loss within 2**-6, 4,096
+    sampled elements of every param leaf within lr either side plus a
+    bf16 ulp, then over one NCCL rank bit-identical (losses and every
+    held block); (d) ``launch.dryrun.dryrun_step`` at (1, 1) for (a)'s
+    decode and (c)'s applying microstep against the same steps at (1, 1)
+    on the card: argument bytes within 1 % of the allocation of the held
+    state and inputs, argument + temporary bytes printed beside the
+    step's peak; the card's memory equal to the dry run's ``CARD_BYTES``;
+    within ``STEPS_BUDGET_S``;
+24. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -382,7 +403,7 @@ architecture's training run, each Mamba2 architecture's serve loop,
 zamba2's kernel route and its engine, each Mamba2 architecture's
 training run, each cross architecture's serve loop, kernel route and
 engine, each cross architecture's training run, and each run of the
-model axis)
+model axis, and each placed serve loop of phase 23)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -3125,11 +3146,12 @@ def serve_phase(T: dict, counters) -> dict:
     return out
 
 
-def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict) -> dict:
+def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
+              placed: dict) -> dict:
     """The kernels line's row of ``flash_decode``, timed at decode_32k;
     its shapes also at the head dims of phase 17's architectures, of
     zamba2's shared attention (phase 19) and of the cross archs (phase
-    20)."""
+    20); its launches also on phase 23's placed decode."""
     by_path = {
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
@@ -3154,6 +3176,8 @@ def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict) -> dict:
             cross[arch]["routes"]["launches"]["flash_decode"]
         by_path[f"cross_{arch}_engine"] = \
             cross[arch]["engine"]["launches"]["flash_decode"]
+    for key, run in placed["serve"].items():
+        by_path[f"build_step_serve_{key}"] = run["launches"]["flash_decode"]
     timed = (serve["flash_decode"]["timed"] + archs["flash_decode"]
              + ssm["flash_decode"] + cross["flash_decode"])
     at = serve["flash_decode"]["timed"][-1]
@@ -3169,7 +3193,8 @@ def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict) -> dict:
             for h in archs[arch]["flash_held"]] + [
             h["max_abs_err"] for h in ssm["zamba2-2.7b"]["flash_held"]] + [
             h["max_abs_err"] for arch in CROSS_ARCHS
-            for h in cross[arch]["flash_held"]]),
+            for h in cross[arch]["flash_held"]] + [
+            run["flash_max_abs_err"] for run in placed["serve"].values()]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
@@ -6108,6 +6133,540 @@ def model_axis_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: launch.steps.build_step over a (data, model) mesh
+
+# (a) and (b): the serve loop of phase 13 through the placed steps
+STEPS_SERVE_MESHES = {"a": (1, 4), "b": (2, 2)}
+# (c) the placed pytree step: depth 2, one apply at M = LM_M
+STEPS_TRAIN_MESH = (2, 2)
+# (d) the dry run's argument bytes against the card's allocation
+STEPS_ARG_FRAC = 0.01
+# flash_decode launches of one placed decode step sampled against the
+# plain version on their own inputs
+STEPS_FLASH_SAMPLED = 8
+# (c) against the unplaced pytree step in bf16: one bf16 ulp of a param
+# (relative), the count of sampled params beyond Adam's step printed
+STEPS_TRAIN_ULP = 2.0**-7
+# (c) Adam's m after the apply, (1 - b1) times the accumulated gradient,
+# against the unplaced step's: each leaf's relative L2 difference (the
+# bf16 gradients of two half batches summed in float32 against one whole
+# batch's; a gradient of the wrong sign, of half the batch, or without
+# the data reduce is 0.5 or more)
+STEPS_M_FRAC = 2.0**-5
+STEPS_BUDGET_S = 90.0
+
+
+class recorded_flash:
+    """Within the block, each ``ops.flash_decode`` call's inputs are kept
+    (clones, the first ``n``) beside its output."""
+
+    def __init__(self, T: dict, n: int):
+        self.ops, self.n, self.calls = T["ops"], n, []
+
+    def __enter__(self):
+        self.saved = fn = self.ops.flash_decode
+
+        def rec(q, k, v, pos):
+            out = fn(q, k, v, pos)
+            if len(self.calls) < self.n:
+                self.calls.append((q.clone(), k.clone(), v.clone(),
+                                   pos.clone() if torch.is_tensor(pos)
+                                   else pos, out.clone()))
+            return out
+        self.ops.flash_decode = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_decode = self.saved
+
+
+def placed_serve(T: dict, cfg, params, prompts, mesh: tuple, serve_tp: bool,
+                 counters, world, label: str) -> dict:
+    """The fixed-batch loop of phase 13 through ``build_step``'s prefill
+    and decode over ``mesh`` (weights by ``serve_param_specs`` where
+    ``serve_tp``, else ``param_specs``, gathered over ``data`` on use):
+    the prefill of the prompts into a cache of ``SERVE_PROMPT +
+    SERVE_GEN`` positions, then ``SERVE_GEN - 1`` greedy decode steps,
+    counted; then one more step with its ``flash_decode`` launches
+    sampled against the plain version on their own inputs."""
+    St, Mesh, Shape = T["steps"], T["Mesh"], T["InputShape"]
+    m = Mesh(("data", "model"), mesh)
+    b, cache_len = prompts.shape[0], SERVE_PROMPT + SERVE_GEN
+    pre, _ = St.build_step(cfg, Shape("p", SERVE_PROMPT, b, "prefill"), m,
+                           serve_tp=serve_tp, world=world,
+                           cache_len=cache_len)
+    dec, _ = St.build_step(cfg, Shape("d", cache_len, b, "decode"), m,
+                           serve_tp=serve_tp, world=world)
+    whole_over_data = not any(
+        T["sharding"].data_dims(sp) for _, sp in
+        T["tree_paths"](pre.placement.specs))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    held = pre.place_params(params)
+    torch.cuda.synchronize()
+    held_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    counters(reset=True)
+    t0 = time.perf_counter()
+    logits, caches = pre(held, pre.place_batch({"tokens": prompts}))
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    out_logits, tokens = [logits[:, None]], [tok]
+    for _ in range(SERVE_GEN - 1):
+        tok, lg, caches = dec(held, tok, caches)
+        out_logits.append(lg)
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with recorded_flash(T, STEPS_FLASH_SAMPLED) as rec:
+        dec(held, tok, caches)
+    errs = []
+    for i, (q, k, v, p, o) in enumerate(rec.calls):
+        want = T["flash_decode_ref"](q, k, v, p).float()
+        errs.append((o.float() - want).abs().max().item())
+        ok = torch.allclose(o.float(), want, rtol=BF16_RTOL, atol=BF16_ATOL)
+        print(f"  {label}: flash_decode launch {i} of the placed decode, q "
+              f"{tuple(q.shape)} against k {tuple(k.shape)} at pos "
+              f"{int(p)}: max |err| {errs[-1]!r} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: flash_decode launch {i} held to the plain "
+                  f"version on its inputs")
+    n = min(STEPS_FLASH_SAMPLED, cfg.num_layers * len(dec.tp.held))
+    check(len(errs) == n, f"{label}: {n} flash_decode launches sampled")
+    shapes = sorted({(tuple(q.shape), tuple(k.shape)) for q, k, *_ in
+                     rec.calls})
+    return {"label": label, "logits": torch.cat(out_logits, dim=1),
+            "tokens": torch.cat(tokens, dim=1), "caches": caches,
+            "launches": launches, "seconds": seconds, "peak_gb": peak_gb,
+            "held_bytes": held_bytes, "whole_over_data": whole_over_data,
+            "flash_sampled": len(errs), "flash_max_abs_err": max(errs),
+            "flash_shapes": shapes, "held_model": list(dec.tp.held)}
+
+
+def _serve_hold(T: dict, cfg, params, prompts, run: dict) -> dict:
+    """``run``'s logits against the unplaced decode fed its tokens
+    (phase 13's forced run): within ``SERVE_LOGIT_FRAC`` of the largest;
+    each greedy token of ``run`` that the unplaced logits would not pick
+    printed with its step and the unplaced margin."""
+    tokens = run["tokens"]
+    want, _ = _forced(T, params, cfg, prompts, tokens,
+                      SERVE_PROMPT + SERVE_GEN)
+    err = (run["logits"].float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    picks = want.argmax(-1)
+    differ = (picks != tokens).nonzero().tolist()
+    for row, step in differ:
+        top = torch.topk(want[row, step], 2).values
+        print(f"  {run['label']}: greedy token of row {row} at step {step} "
+              f"differs from the unplaced decode's; its margin there "
+              f"{(top[0] - top[1]).item()!r}")
+    check(bool(torch.isfinite(run["logits"]).all()),
+          f"{run['label']}: finite logits")
+    check(err <= SERVE_LOGIT_FRAC[cfg.dtype] * scale,
+          f"{run['label']}: logits within {SERVE_LOGIT_FRAC[cfg.dtype]} of "
+          f"the largest of the unplaced decode's: {err} of {scale}")
+    return {"logit_max_abs_diff": err, "logit_max_abs": scale,
+            "tokens_differing": len(differ)}
+
+
+def steps_serve(T: dict, counters, cfg, params, prompts) -> dict:
+    """(a) 1 x 4 by ``serve_param_specs``, 4 ``flash_decode`` launches a
+    layer a step; (b) 2 x 2 by ``param_specs``, in process and over one
+    NCCL rank, bit-identical."""
+    out = {}
+    a = placed_serve(T, cfg, params, prompts, STEPS_SERVE_MESHES["a"], True,
+                     counters, T["inprocess"], "(a) 1x4 serve_tp")
+    check(a["whole_over_data"], "(a): serve_param_specs within the card's "
+          "memory: every weight whole over data")
+    want = cfg.num_layers * 4 * (SERVE_GEN - 1)
+    check(a["launches"]["flash_decode"] == want,
+          f"(a): {cfg.num_layers} layers x 4 model shards flash_decode "
+          f"launches a step: {a['launches']['flash_decode']} != {want}")
+    check(all(k[0][1] == cfg.num_kv_heads // 4 for k in a["flash_shapes"]),
+          f"(a): each launch on one shard's {cfg.num_kv_heads // 4} KV heads")
+    out["a"] = {**_serve_hold(T, cfg, params, prompts, a),
+                **{k: v for k, v in a.items()
+                   if k not in ("logits", "tokens", "caches")}}
+    del a
+    torch.cuda.empty_cache()
+    b = placed_serve(T, cfg, params, prompts, STEPS_SERVE_MESHES["b"], False,
+                     counters, T["inprocess"], "(b) 2x2 param_specs")
+    check(not b["whole_over_data"], "(b): weights split over data")
+    want = cfg.num_layers * 2 * (SERVE_GEN - 1)
+    check(b["launches"]["flash_decode"] == want,
+          f"(b): {cfg.num_layers} layers x 2 model shards flash_decode "
+          f"launches a step in process: {b['launches']['flash_decode']}")
+    hold = _serve_hold(T, cfg, params, prompts, b)
+    kept = (b["logits"].cpu(), b["tokens"].cpu(),
+            [x.cpu() for c in b["caches"] for x in T["leaves"](c)])
+    out["b"] = {**hold, **{k: v for k, v in b.items()
+                           if k not in ("logits", "tokens", "caches")}}
+    del b
+    torch.cuda.empty_cache()
+    pg = T["process_group"]
+    with tempfile.TemporaryDirectory() as tmp:
+        world, _ = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                           "cuda", timeout=300.0)
+        try:
+            n = placed_serve(T, cfg, params, prompts,
+                             STEPS_SERVE_MESHES["b"], False, counters,
+                             world, "(b) 2x2 param_specs NCCL")
+        finally:
+            pg.leave()
+    check(_same_bits(n["logits"].cpu(), kept[0])
+          and torch.equal(n["tokens"].cpu(), kept[1])
+          and all(_same_bits(x.cpu(), y) for x, y in zip(
+              [x for c in n["caches"] for x in T["leaves"](c)], kept[2])),
+          "(b): logits, tokens and every cache slice bit-identical over "
+          "one NCCL rank")
+    out["b_nccl"] = {k: v for k, v in n.items()
+                     if k not in ("logits", "tokens", "caches")}
+    return out
+
+
+def _sampled(T: dict, tree, n: int, seed: int) -> list:
+    """``n`` elements of every leaf of ``tree`` at seeded positions, as
+    float32 on the host."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _, x in T["tree_paths"](tree):
+        idx = torch.randint(0, x.numel(), (min(n, x.numel()),), generator=g)
+        out.append(x.reshape(-1)[idx.to(x.device)].float().cpu())
+    return out
+
+
+def steps_train(T: dict, counters, cfg, params, batches) -> dict:
+    """(c) the placed pytree step over 2 x 2, M = ``LM_M``, one apply,
+    against the unplaced pytree step from the same params and batches
+    (the first loss, and Adam's ``m`` after the apply, which carries the
+    accumulated gradient, leaf by leaf), then over one NCCL rank
+    bit-identical."""
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    Mesh, Shape = T["Mesh"], T["InputShape"]
+    shape = Shape("t", LM_SEQ, LM_BATCH, "train")
+    progs = T["build_programs"](cfg, gba, params=T["tree_map"](
+        torch.clone, params), mode="pytree", lr=LM_LR)
+    state, want = progs.state, []
+    for i, b in enumerate(batches):
+        state, loss = progs.step(state, b, i // LM_M)
+        want.append(float(loss))
+    want_p = _sampled(T, state["params"], 4096, 0)
+    want_m = state["opt"]["m"]
+    del progs, state
+    torch.cuda.empty_cache()
+
+    def run(world, label):
+        step, _ = T["steps"].build_step(cfg, shape, Mesh(
+            ("data", "model"), STEPS_TRAIN_MESH), gba, world=world)
+        st = step.init_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, t0 = [], time.perf_counter()
+        for i, b in enumerate(batches):
+            st, loss = step(st, step.place_batch(b), i // LM_M)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(st["gstep"] == 1 and st["micro"] == LM_M,
+              f"{label}: one apply in {LM_M} microsteps")
+        blocks = [x.cpu() for part in ("params", "acc") for x in
+                  T["leaves"](st[part])] + [
+            x.cpu() for x in T["leaves"](st["opt"])]
+        got_p = _sampled(T, step.gather_params(st["params"]), 4096, 0)
+        got_m = step.gather_params(st["opt"]["m"])
+        m_rel = {"/".join(p): ((a - b).norm() / b.norm()).item()
+                 for (p, a), (_, b) in zip(T["tree_paths"](got_m),
+                                           T["tree_paths"](want_m))}
+        del got_m
+        return {"losses": losses, "seconds": secs,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "m_rel_l2": m_rel}, blocks, got_p
+
+    here, blocks, got_p = run(T["inprocess"], "(c) 2x2 in process")
+    first = abs(here["losses"][0] - want[0]) / abs(want[0])
+    diffs = [(a - b).abs() for a, b in zip(got_p, want_p)]
+    worst = max(d.max().item() for d in diffs)
+    beyond = sum(int((d > STEPS_TRAIN_ULP * b.abs()).sum())
+                 for d, b in zip(diffs, want_p))
+    total = sum(d.numel() for d in diffs)
+    print(f"  (c) placed pytree step 2x2: losses {here['losses']} vs "
+          f"unplaced {want}; first loss rel {first:.3g}; sampled params "
+          f"after the apply: largest difference {worst!r}, {beyond} of "
+          f"{total} beyond one bf16 ulp; {here['seconds']:.2f} s, peak "
+          f"{here['peak_gb']:.2f} GB")
+    check(first <= MODEL_LOSS_FRAC,
+          f"(c): the first loss within {MODEL_LOSS_FRAC} of the unplaced "
+          f"pytree step's")
+    m_worst = max(here["m_rel_l2"].values())
+    print(f"  (c) Adam's m after the apply against the unplaced step's, "
+          f"relative L2 by leaf: {json.dumps(here['m_rel_l2'])}")
+    check(m_worst <= STEPS_M_FRAC,
+          f"(c): Adam's m after the apply within {STEPS_M_FRAC} (relative "
+          f"L2, each leaf) of the unplaced step's: worst {m_worst!r}")
+    pg = T["process_group"]
+    with tempfile.TemporaryDirectory() as tmp:
+        world, _ = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                           "cuda", timeout=300.0)
+        try:
+            nccl, nblocks, _ = run(world, "(c) 2x2 NCCL")
+        finally:
+            pg.leave()
+    check(nccl["losses"] == here["losses"]
+          and all(_same_bits(x, y) for x, y in zip(nblocks, blocks)),
+          "(c): losses and every held block bit-identical over one NCCL "
+          "rank")
+    del want_m
+    return {"in_process": here, "nccl": nccl, "unplaced_losses": want,
+            "first_loss_rel": first, "m_rel_l2_worst": m_worst,
+            "param_max_abs_diff": worst, "params_beyond_ulp": beyond,
+            "params_sampled": total}
+
+
+def steps_dryrun(T: dict, cfg_serve, params, prompts, cfg_train,
+                 train_params, batch) -> dict:
+    """(d) the dry run at a 1 x 1 mesh for (a)'s decode and (c)'s
+    microstep against the same steps at 1 x 1 on the card: the argument
+    bytes against the allocation of the held state and inputs, and the
+    argument and temporary bytes against the step's peak."""
+    D, Mesh, Shape = T["dryrun"], T["Mesh"], T["InputShape"]
+    one = Mesh(("data", "model"), (1, 1))
+    cache_len = SERVE_PROMPT + SERVE_GEN
+    b = prompts.shape[0]
+    out = {}
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    cases = (("decode", cfg_serve, Shape("d", cache_len, b, "decode"),
+              None),
+             ("train", cfg_train, Shape("t", LM_SEQ, LM_BATCH, "train"),
+              gba))
+    for name, cfg, shape, g in cases:
+        rec = D.dryrun_step(cfg, shape, one, {"gba": g} if g else {})
+        step, _ = T["steps"].build_step(cfg, shape, one, g)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        if name == "decode":
+            _, cache = T["transformer"].prefill(params, cfg, prompts,
+                                                cache_len=cache_len)
+            args = (step.place_params(params),
+                    prompts[:, -1:].to(torch.int32).contiguous(),
+                    step.place_cache(cache))
+            del cache
+        else:
+            st = step.init_state(train_params)
+            st["micro"] = LM_M - 1
+            args = (st, step.place_batch(batch), 0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        peak_base = torch.cuda.memory_allocated()
+        res = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res, args, step
+        arg_b = rec["memory"]["argument_bytes"]
+        temp_b = rec["memory"]["temp_bytes"]
+        out[name] = {"argument_bytes": arg_b, "allocated_bytes": held,
+                     "temp_bytes": temp_b, "peak_bytes": peak,
+                     "traced_over_peak": (arg_b + temp_b) / peak,
+                     "flops": rec["flops"], "trace_s": rec["trace_s"],
+                     "at_start_bytes": peak_base - base}
+        print(f"  (d) {name}: dry-run argument bytes {arg_b:,} vs "
+              f"allocated {held:,} (rel {abs(arg_b - held) / held:.4f}); "
+              f"argument + temp {arg_b + temp_b:,} vs the step's peak "
+              f"{peak:,} (ratio {(arg_b + temp_b) / peak:.3f}); traced in "
+              f"{rec['trace_s']} s")
+        check(abs(arg_b - held) <= STEPS_ARG_FRAC * held,
+              f"(d) {name}: the dry run's argument bytes within "
+              f"{STEPS_ARG_FRAC} of the card's allocation")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _median(xs: list) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+
+def steps_one_device(T: dict, cfg, params, prompts, cfg_train,
+                     train_params, batches) -> dict:
+    """(e) the placed steps at a 1 x 1 mesh against the unplaced ones on
+    the card, timed in the order unplaced, placed, placed, unplaced: (a)'s
+    serve loop (``transformer.prefill`` and ``decode_step``, phase 13's
+    path, against ``build_step``'s prefill and decode), and (c)'s pytree
+    step over 2 M microsteps (``build_programs(mode="pytree")``, phase
+    12's, against ``build_step``'s train step).  Prints whether the two
+    give the same bits; holds the placed serve within the serve
+    tolerance of the unplaced one and its losses within the first-loss
+    tolerance."""
+    St, Tm, Mesh, Shape = T["steps"], T["transformer"], T["Mesh"], \
+        T["InputShape"]
+    one = Mesh(("data", "model"), (1, 1))
+    b, cache_len = prompts.shape[0], SERVE_PROMPT + SERVE_GEN
+    pre, _ = St.build_step(cfg, Shape("p", SERVE_PROMPT, b, "prefill"), one,
+                           cache_len=cache_len)
+    dec, _ = St.build_step(cfg, Shape("d", cache_len, b, "decode"), one)
+    held = pre.place_params(params)
+
+    def serve(placed: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if placed:
+                logits, cache = pre(held, {"tokens": prompts})
+            else:
+                logits, cache = Tm.prefill(params, cfg, prompts,
+                                           cache_len=cache_len)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            out = [logits[:, None]]
+            for _ in range(SERVE_GEN - 1):
+                if placed:
+                    tok, lg, cache = dec(held, tok, cache)
+                else:
+                    lg, cache = Tm.decode_step(params, cfg, tok, cache)
+                    tok = lg.argmax(-1).to(torch.int32)
+                out.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return torch.cat(out, dim=1), {
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_a_step": (t2 - t1) * 1e3 / (SERVE_GEN - 1)}
+
+    runs: dict = {"unplaced": [], "placed": []}
+    logits = {}
+    for placed in (False, True, True, False):
+        name = "placed" if placed else "unplaced"
+        lg, t = serve(placed)
+        runs[name].append(t)
+        logits[name] = lg
+    same = _same_bits(logits["placed"], logits["unplaced"])
+    err = (logits["placed"] - logits["unplaced"]).abs().max().item()
+    scale = logits["unplaced"].abs().max().item()
+    del held, logits, pre, dec
+    torch.cuda.empty_cache()
+    check(err <= SERVE_LOGIT_FRAC[cfg.dtype] * scale,
+          f"(e): the placed serve at 1x1 within {SERVE_LOGIT_FRAC[cfg.dtype]}"
+          f" of the largest of the unplaced serve's logits: {err}")
+    serve_out = {name: {k: _median([r[k] for r in rs]) for k in rs[0]}
+                 for name, rs in runs.items()}
+    serve_out.update(runs=runs, same_bits=same, logit_max_abs_diff=err)
+
+    gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
+                         staleness_tolerance=LM_IOTA)
+    shape = Shape("t", LM_SEQ, LM_BATCH, "train")
+    micro = batches + batches
+
+    def train(placed: bool):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        if placed:
+            step, _ = St.build_step(cfg_train, shape, one, gba)
+            st = step.init_state(train_params)
+            feed = step.place_batch
+        else:
+            progs = T["build_programs"](cfg_train, gba, params=T["tree_map"](
+                torch.clone, train_params), mode="pytree", lr=LM_LR)
+            step, st, feed = progs.step, progs.state, (lambda x: x)
+            del progs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, losses = [], []
+        for i, bt in enumerate(micro):
+            t0 = time.perf_counter()
+            st, loss = step(st, feed(bt), i // LM_M)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del step, st
+        fills = [s for i, s in enumerate(secs) if i and (i + 1) % LM_M]
+        applies = [s for i, s in enumerate(secs) if (i + 1) % LM_M == 0]
+        return losses, {"fill_s": _median(fills), "apply_s": _median(applies),
+                        "first_s": secs[0], "peak_gb": peak}
+
+    truns: dict = {"unplaced": [], "placed": []}
+    losses = {}
+    for placed in (False, True, True, False):
+        name = "placed" if placed else "unplaced"
+        ls, t = train(placed)
+        truns[name].append(t)
+        losses[name] = ls
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["placed"],
+                                                   losses["unplaced"]))
+    check(rel <= MODEL_LOSS_FRAC,
+          f"(e): the placed pytree step's losses at 1x1 within "
+          f"{MODEL_LOSS_FRAC} of the unplaced step's: {rel}")
+    train_out = {name: {k: _median([r[k] for r in rs]) for k in rs[0]}
+                 for name, rs in truns.items()}
+    train_out.update(runs=truns, same_losses=losses["placed"]
+                     == losses["unplaced"], loss_max_rel=rel)
+    for what, o in (("serve", serve_out), ("train", train_out)):
+        medians = {k: o[k] for k in ("unplaced", "placed")}
+        print(f"  (e) {what} at 1x1, placed against unplaced (medians of "
+              f"two runs each): {json.dumps(medians)}; same bits: "
+              f"{o.get('same_bits', o.get('same_losses'))}")
+    return {"serve": serve_out, "train": train_out}
+
+
+def steps_phase(T: dict, counters) -> dict:
+    phase(23, "launch.steps.build_step: granite-8b served over 1 x 4 "
+              "(serve_param_specs) and 2 x 2 (param_specs; in process and "
+              "one NCCL rank), the placed pytree step over 2 x 2, the "
+              "dry run at 1 x 1 against the card, and the placed steps at "
+              "1 x 1 timed against the unplaced ones")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    props = torch.cuda.get_device_properties(0)
+    card = props.total_memory
+    print(f"  card memory (total_memory) {card:,} B; the dry run's "
+          f"serve_tp budget {T['dryrun'].CARD_BYTES:,} B")
+    cfg = T["get_config"]("granite-8b")
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator("cuda").manual_seed(1),
+                            device="cuda")
+    out = {"serve": steps_serve(T, counters, cfg, params, prompts)}
+    serve_s = time.perf_counter() - t_phase
+    cfg2 = dataclasses.replace(cfg, num_layers=LM_LAYERS)
+    small = T["init_model"](cfg2, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    batches = lm_batches(T, cfg2.vocab_size, LM_SEQ, LM_BATCH, LM_M, "cuda")
+    t0 = time.perf_counter()
+    out["train"] = steps_train(T, counters, cfg2, small, batches)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = steps_dryrun(T, cfg, params, prompts, cfg2, small,
+                                 batches[0])
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["one_device"] = steps_one_device(T, cfg, params, prompts, cfg2,
+                                         small, batches)
+    one_s = time.perf_counter() - t0
+    del params, small
+    torch.cuda.empty_cache()
+    out["card_bytes"] = card
+    out["seconds"] = time.perf_counter() - t_phase
+    out["row_seconds"] = {"serve": serve_s, "train": train_s,
+                          "dryrun": dry_s, "one_device": one_s}
+    print(f"  phase 23: {out['seconds']:.1f} s (budget {STEPS_BUDGET_S} s);"
+          f" rows {json.dumps(out['row_seconds'])}; {json.dumps(out)}")
+    check(out["seconds"] <= STEPS_BUDGET_S,
+          f"phase 23 within its budget of {STEPS_BUDGET_S} s")
+    check(card == T["dryrun"].CARD_BYTES,
+          f"the dry run's serve_tp budget is this card's memory: {card:,}")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6171,6 +6730,10 @@ def main() -> int:
     from repro_torch.distributed import fsdp, inprocess, process_group
     from repro_torch.distributed import sharding as sharding_rules
     from repro_torch.distributed.sharding import model_dims
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as launch_steps
+    from repro_torch.launch.mesh import Mesh
 
     t_start = time.perf_counter()
     kind = device_phase()
@@ -6236,7 +6799,8 @@ def main() -> int:
          "evaluate": evaluate, "ShardedFlatLayout": ShardedFlatLayout,
          "inprocess": inprocess, "process_group": process_group,
          "model_dims": model_dims, "fsdp": fsdp,
-         "sharding": sharding_rules,
+         "sharding": sharding_rules, "steps": launch_steps,
+         "dryrun": dryrun, "Mesh": Mesh, "InputShape": InputShape,
          "benches": {
              "tab52_qps": tab52_qps, "convergence": convergence,
              "multitask": multitask, "decay_ablation": decay_ablation,
@@ -6337,8 +6901,10 @@ def main() -> int:
     cross_train = cross_train_phase(T, counters)
     torch.cuda.empty_cache()
     model_axis = model_axis_phase(T, counters)
+    torch.cuda.empty_cache()
+    placed = steps_phase(T, counters)
 
-    phase(23, "kernels")
+    phase(24, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -6374,6 +6940,7 @@ def main() -> int:
         "lm_cross": cross,
         "lm_cross_train": cross_train,
         "lm_model_axis": model_axis,
+        "lm_build_step": placed,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -6494,7 +7061,7 @@ def main() -> int:
                    model_axis["granite"]["wide"]["gba_apply"]],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
-        serve_row(served, archs, ssm, cross)]}))
+        serve_row(served, archs, ssm, cross, placed)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

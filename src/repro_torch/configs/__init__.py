@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import GBAConfig, ModelConfig
+from repro_torch.configs.base import (INPUT_SHAPES, GBAConfig, InputShape,
+                                      ModelConfig)
 from repro_torch.configs.recsys import (ALIMAMA_DIEN, CRITEO_DEEPFM,
                                         PRIVATE_YOUTUBEDNN, RECSYS_CONFIGS,
                                         RecsysConfig)
@@ -46,5 +47,5 @@ def get_config(arch: str) -> ModelConfig:
 
 
 __all__ = ["ALIMAMA_DIEN", "ARCH_IDS", "CRITEO_DEEPFM", "GBAConfig",
-           "ModelConfig", "PRIVATE_YOUTUBEDNN", "RECSYS_CONFIGS",
+           "INPUT_SHAPES", "InputShape", "ModelConfig", "PRIVATE_YOUTUBEDNN", "RECSYS_CONFIGS",
            "RecsysConfig", "get_config"]

@@ -4,8 +4,9 @@ A copy of ``repro.configs.base``, field for field, so that a config names
 the same model in both packages.  ``ModelConfig`` carries every field of
 the reference, and the port runs each of them;
 ``repro_torch.models.transformer.check_supported`` refuses a layer kind
-that does not exist.  ``INPUT_SHAPES`` and ``TrainConfig`` are not copied:
-nothing in the port reads them.
+that does not exist.  ``INPUT_SHAPES`` are the reference's four, which
+``launch.steps.build_step`` and the dry run (``launch.dryrun``) read.
+``TrainConfig`` is not copied: nothing in the port reads it.
 """
 from __future__ import annotations
 
@@ -68,6 +69,15 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     @property
+    def supports_long_context(self) -> bool:
+        """Whether a 500k-token decode is in regime, as the reference
+        decides it: a Mamba2 mixer, or a native sliding-window layer."""
+        kinds = set(self.block_pattern) | set(self.prefix_layers)
+        if kinds & {"mamba", "mamba_attn"}:
+            return True
+        return "local" in kinds and self.sliding_window > 0
+
+    @property
     def num_repeats(self) -> int:
         n_scanned = self.num_layers - len(self.prefix_layers)
         if n_scanned % len(self.block_pattern):
@@ -109,6 +119,22 @@ class ModelConfig:
             encoder_frames=min(self.encoder_frames, 32)
             if self.encoder_frames else 0,
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -64,6 +64,14 @@ the slabs it meets, a slab a leaf or one repeat of a stacked leaf
 No process ravels a whole-tree gradient.  On one process, or over two
 data ranks (where any order of a two-term sum gives the same bits), the
 step is the step without FSDP bit for bit.
+
+Two more steps hold their params as such blocks, over a
+:func:`placement_of` that needs no flat state (``launch.steps``): the
+placed serving steps read them through :func:`serving_view` (a
+:class:`Microstep` without gradient sinks, under ``torch.no_grad``), and
+the placed pytree step (``launch.programs.make_placed_train_step``) runs
+a :class:`Microstep` and adds each leaf's reduced rows
+(:func:`grad_rows`) into its accumulator's blocks, with no re-layout.
 """
 from __future__ import annotations
 
@@ -75,6 +83,7 @@ import torch
 from repro_torch.core.flat_sharded import ShardedFlatLayout
 from repro_torch.core.gba import path_leaves, path_unflatten
 from repro_torch.distributed import sharding as S
+from repro_torch.optim import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,14 +169,18 @@ class Microstep:
     whole leaf for one whole over ``data``; zeros where the loss does not
     reach the leaf, as ``jax.grad`` gives them."""
 
-    def __init__(self, placement: Placement, blocks: list):
+    def __init__(self, placement: Placement, blocks: list,
+                 grad: bool = True):
         self.p = placement
         lay, k = placement.layout, len(placement.held)
         self.leaves = [[lay.leaves(b) for b in per] for per in blocks]
         dev = self.leaves[0][0][0].device
-        self.anchor = torch.zeros((), device=dev, requires_grad=True)
+        self.anchor = torch.zeros((), device=dev, requires_grad=grad)
         self.sink = []
         for i in range(len(blocks)):
+            if not grad:
+                self.sink.append([None] * len(self.leaves[i][0]))
+                continue
             row = []
             for j, leaf in enumerate(self.leaves[i][0]):
                 if i and placement.whole[j]:
@@ -186,7 +199,8 @@ class Microstep:
         parts = [ls[j] for ls in self.leaves[i]]
         sink, d = self.sink[i][j], self.p.dims[j]
         if r is not None:
-            parts, sink = [x[r] for x in parts], sink[r]
+            parts = [x[r] for x in parts]
+            sink = None if sink is None else sink[r]
             d = None if d is None else d - 1
         if d is None:
             parts = parts[:1]
@@ -224,6 +238,42 @@ class Microstep:
     def views(self) -> list:
         """Each held model shard's :class:`Top`."""
         return [Top(self, i) for i in range(len(self.leaves))]
+
+
+def placement_of(shapes: Any, specs: Any, mesh, world) -> Placement:
+    """The :class:`Placement` of a whole tree of ``shapes`` (anything with
+    ``.shape`` and ``.dtype``) by its rule tables' ``specs`` on ``mesh``,
+    W = the ``data`` axis's size: the layout over one model shard's tree
+    (its leaves' shapes and dtypes; the flat state of the fused step is
+    not made), for the steps that hold the params as blocks without it:
+    the placed serving steps and the placed pytree step."""
+    meta = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), shapes)
+    w = mesh.shape["data"] if "data" in mesh.axis_names else 1
+    layout = ShardedFlatLayout.from_params(S.place(meta, specs, mesh, 0), w)
+    return Placement.of(layout, specs, mesh, world)
+
+
+def serving_view(placement: Placement, blocks: list) -> list:
+    """Each held model shard's :class:`Top` over the held ``blocks`` for a
+    serving step, under ``torch.no_grad``: each top-level module gathered
+    over ``data`` on its first use in the step and each repeat of
+    ``blocks`` at each use, nothing kept between repeats, no gradient
+    sinks.  Where the rules leave every weight whole over ``data``
+    (``sharding.serve_param_specs``) nothing gathers."""
+    return Microstep(placement, blocks, grad=False).views()
+
+
+def grad_rows(p: Placement, step: Microstep, i: int, j: int, di: int
+              ) -> torch.Tensor:
+    """The float32 gradient of leaf ``j`` for held model shard ``i``'s
+    ``di``-th held data block after the microstep's backward, reduced
+    over ``data``: its rows of the sink; for a leaf whole over ``data``
+    the ranks' partials summed (``world.data_sum``), the whole leaf."""
+    g, d = step.sink[i][j], p.dims[j]
+    if d is None:
+        return p.world.data_sum(g)
+    return g.narrow(d, di * p.rows[j], p.rows[j])
 
 
 class Top:
@@ -495,3 +545,4 @@ def _leaves(tree: Any) -> list:
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+

@@ -62,6 +62,12 @@ def data_reduce(whole: torch.Tensor, dim: int) -> torch.Tensor:
     return whole
 
 
+def data_sum(partial: torch.Tensor) -> torch.Tensor:
+    """The sum over the processes of their float32 ``partial`` gradients
+    of a leaf whole over ``data``: ``partial``, this process's alone."""
+    return partial
+
+
 def gather_flat(run: torch.Tensor) -> torch.Tensor:
     """The whole shard-major vector from the processes' runs of it:
     ``run``, which is already the whole vector."""

@@ -29,7 +29,8 @@ wire rows.  :class:`ProcessGroupBackend` offers the functions of
   dimension (``distributed.fsdp``): one tiled all-gather of the ranks'
   rows of a leaf, in rank order, and one ``dist.reduce_scatter_tensor``
   of the ranks' float32 gradients of the whole leaf, each rank keeping
-  its rows of the sum (``reduce_scatter``'s own arithmetic);
+  its rows of the sum (``reduce_scatter``'s own arithmetic), and
+  ``data_sum``, one all-reduce of a leaf whole over ``data``;
 * ``all_losses``: one tiled all-gather of every rank's scalar losses.
   The steps sum them in order from +0.0, so every rank sees the same
   bits; an ``all_reduce`` would add in an order of its own, and the
@@ -216,6 +217,16 @@ class ProcessGroupBackend:
         run = rows.new_empty((rows.shape[0] // self.size, *rows.shape[1:]))
         dist.reduce_scatter_tensor(run, rows, group=self.group)
         return run.movedim(0, dim)
+
+    def data_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        """The sum over the data ranks of their ``partial`` gradients of a
+        leaf whole over ``data``: one all-reduce along the data subgroup,
+        into a new tensor."""
+        self._check(partial)
+        total = partial.contiguous().clone()
+        if self.size > 1:
+            dist.all_reduce(total, group=self.group)
+        return total
 
     def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
         """This rank's run of the sum over the ranks of their shard-major

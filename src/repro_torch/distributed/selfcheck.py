@@ -69,7 +69,8 @@ spread over the model subgroup, then with every model shard in process
 over the same data subgroup, and saves both, which must agree bit for
 bit; with ``place_state`` both hold the params over ``data`` (FSDP), and
 a third run, ``place_state=False`` on the ranks, must agree with them
-too.
+too.  :func:`run_steps` does the same for ``launch.steps.build_step``'s
+placed prefill, decode and train steps over a (2, 2) mesh.
 """
 from __future__ import annotations
 
@@ -507,6 +508,73 @@ def _model_axis_runs(world, device, gba, cases, tokens, workers, model,
                      - share * len(held) * len(p.held)])
         runs.append(saved)
     return runs
+
+
+def run_steps(world, device: torch.device, cfg, params: dict, out: str
+              ) -> None:
+    """``launch.steps.build_step``'s prefill, decode and train steps of
+    ``cfg`` over a (data 2, model 2) mesh from the whole ``params`` (on
+    the host), once over ``world`` (this rank's model shards and data
+    rows) and once over ``world.without_model()`` (both model shards here,
+    the same rows): the prefill of 4 prompts of 16 tokens, 2 decode steps
+    from a cache of 24 positions, and 2 train microsteps at M = 2 (the
+    second applies).  Saves, for each run and this rank's model shards,
+    the logits, next tokens and losses, every cache slice, and the
+    params, accumulator and optimizer blocks, to ``out/rank{r}.pt``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    mesh = Mesh(("data", "model"), (2, 2))
+    mine = world.model_shards(2)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))
+    gba = GBAConfig(local_batch=4, buffer_size=2)
+    runs = {}
+    for label, w in (("ranks", world), ("process", world.without_model())):
+        def held(trees, held_idx, name):
+            return {f"{name}/{t}/{'/'.join(p)}": x.detach().cpu()
+                    for t, tree in zip(held_idx, trees) if t in mine
+                    for p, x in tree_paths(tree)}
+        res = {}
+        pre, _ = steps.build_step(cfg, InputShape("p", 16, 4, "prefill"),
+                                  mesh, world=w)
+        logits, caches = pre(pre.place_params(_to(params, device)),
+                             pre.place_batch({"tokens": toks.to(device)}))
+        res["prefill"] = {"logits": logits.cpu(),
+                          **held(caches, pre.tp.held, "cache")}
+        dec, _ = steps.build_step(cfg, InputShape("d", 24, 4, "decode"),
+                                  mesh, world=w)
+        whole = _to(params, device)
+        _, cache = T.prefill(whole, cfg, toks.to(device), cache_len=24)
+        caches, tok = dec.place_cache(cache), dec.place_batch(
+            {"t": toks[:, -1:].to(device)})["t"]
+        res["decode"] = {}
+        ps = dec.place_params(whole)
+        for i in range(2):
+            tok, logits, caches = dec(ps, tok, caches)
+            res["decode"][f"logits{i}"] = logits.cpu()
+            res["decode"][f"next{i}"] = tok.cpu()
+        res["decode"].update(held(caches, dec.tp.held, "cache"))
+        tr, _ = steps.build_step(cfg, InputShape("t", 16, 4, "train"), mesh,
+                                 gba, world=w)
+        state = tr.init_state(_to(params, device))
+        batch = tr.place_batch({"tokens": toks.to(device),
+                                "labels": labels.to(device)})
+        res["train"] = {}
+        for i in range(2):
+            state, loss = tr(state, batch, 0)
+            res["train"][f"loss{i}"] = loss.reshape(1).cpu()
+        for name, blocks in (("params", state["params"]),
+                             ("acc", state["acc"]),
+                             ("m", state["opt"]["m"]),
+                             ("v", state["opt"]["v"])):
+            res["train"].update(held([b[0] for b in blocks], tr.tp.held,
+                                     name))
+        runs[label] = res
+    rank = world.rank * world.model_size + world.model_rank
+    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
 
 
 def _to(params: dict, device: torch.device) -> dict:

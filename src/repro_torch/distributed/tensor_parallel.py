@@ -249,6 +249,51 @@ class ModelAxis:
         return S.gather_model_shards(shards, self.specs, self.mesh)
 
 
+def place_cache(cache: Any, cfg: ModelConfig, mesh, batch: int,
+                held: range, rows: slice | None = None) -> list:
+    """The held model shards' trees of a whole decode cache, as the rule
+    tables place it (``sharding.cache_specs``): each leaf cut to the batch
+    ``rows`` of the held data shards (all rows by default; a leaf
+    replicated over ``data`` whole), a copy of its own, then to each held
+    model shard's slice along its ``model`` dimension (its KV heads, its
+    head_dim columns in the fallback, the mixer state's heads, the conv
+    window's channels), each slice a contiguous tensor of its own.  A leaf
+    whole over ``model`` (``pos``, ``memory``, a cache the rules do not
+    split) is one tensor that every held shard's tree shares, so that a
+    decode writes it once.  ``NotImplementedError`` where the rules split
+    a sequence over ``data`` (a batch that does not divide the data
+    axes): the sequence-split decode waits in ROADMAP.md, queue 1."""
+    specs = S.cache_specs(cache, cfg, mesh, batch)
+    dp = 1
+    for a in S.data_axes(mesh):
+        dp *= mesh.shape[a]
+    if batch % dp and any(S.data_dims(sp) for sp in S._spec_leaves(specs)):
+        raise NotImplementedError(
+            f"{cfg.name}: a batch of {batch} over {dp} data shards splits "
+            f"the KV sequence over data; the sequence-split decode waits "
+            f"in ROADMAP.md, queue 1")
+
+    def cut(leaf, spec):
+        dims = S.data_dims(spec)
+        if dims and rows is not None:
+            leaf = leaf.narrow(dims[0], rows.start, rows.stop - rows.start)
+        return leaf.clone(memory_format=torch.contiguous_format)
+
+    mine = S._zip_map(cut, cache, specs)
+    return [S.place(mine, specs, mesh, t) for t in held]
+
+
+def gather_cache(caches: list, shapes: Any, cfg: ModelConfig, mesh,
+                 batch: int) -> Any:
+    """The cache whole over ``model`` from every model shard's tree (all T
+    held, in shard order): the inverse of :func:`place_cache` over
+    ``model``, over the rows the trees hold; ``shapes`` is the whole
+    cache's tree (``models.transformer.cache_shapes``), whose rules say
+    which leaves split."""
+    specs = S.cache_specs(shapes, cfg, mesh, batch)
+    return S.gather_model_shards(caches, specs, mesh)
+
+
 def _module(names: tuple[str, ...]) -> str | None:
     """The module kind a parameter path belongs to, for the split."""
     name = names[-1]

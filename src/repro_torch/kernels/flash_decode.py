@@ -11,7 +11,9 @@ attention_decode``; the fixed-batch loop of ``launch.serve``).
 
 :func:`flash_decode` dispatches on the device of its tensors and on
 nothing else: CPU tensors take the plain version ``repro_torch.kernels.
-ref.flash_decode_ref``, CUDA tensors launch the kernel or raise.
+ref.flash_decode_ref``, CUDA tensors launch the kernel or raise, and
+``meta`` tensors (the dry run's trace, ``launch.dryrun``) give an output
+of the kernel's shape and dtype and do no arithmetic.
 ``flash_decode.launches`` counts the kernel launches of this process (one
 a call: bfloat16 combines the splits in the same launch, float32 in a
 second pass that is counted with it).
@@ -219,6 +221,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         on.add(pos.device)
     if on == {torch.device("cpu")}:
         return flash_decode_ref(q, k, v, pos)
+    if {d.type for d in on} == {"meta"}:
+        # shapes alone (the dry run's trace): the kernel's output, no
+        # arithmetic, as a registered fake kernel would give it
+        return torch.empty_like(q)
     if len(on) != 1 or q.device.type != "cuda":
         raise ValueError(f"q, k, v and a pos tensor must all lie on the CPU "
                          f"or on one CUDA device, got {sorted(map(str, on))}")

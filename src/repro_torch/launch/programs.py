@@ -198,6 +198,90 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     return train_step
 
 
+def init_placed_train_state(params: Any, optimizer: Optimizer,
+                            placement: fsdp.Placement, held: range,
+                            acc_dtype: torch.dtype = torch.float32) -> dict:
+    """State of the placed pytree step: ``params``, the accumulator
+    ``acc`` and the optimizer's leaf state (Adam's ``m`` and ``v``,
+    Adagrad's ``accum``) each held as the blocks ``[model][data]`` of the
+    held model shards ``held`` and the data shards ``placement.held``, as
+    the reference's ``train_state_specs`` place them (``fsdp.place``, each
+    leaf cut by the rule tables, a copy of its own); Adam's ``count``, and
+    ``micro`` and ``gstep``, whole.  ``params`` may be whole tensors or
+    meta tensors (the dry run's shapes)."""
+    blocks = fsdp.place(params, placement.specs, placement.mesh, held,
+                        placement.held)
+    return {
+        "params": blocks,
+        "opt": optimizer.init(blocks),
+        "acc": tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                              device=p.device), blocks),
+        "micro": 0,
+        "gstep": 0,
+    }
+
+
+def make_placed_train_step(cfg: ModelConfig, optimizer: Optimizer,
+                           gba: GBAConfig, placement: fsdp.Placement,
+                           tp: ModelAxis) -> Callable:
+    """``train_step(state, batch, token) -> (state, loss)`` of the pytree
+    step with its state held over the (data, model) mesh
+    (:func:`init_placed_train_state`), the reference's ``build_step``
+    train step.  A microstep runs the LM loss over the model axis ``tp``
+    on the held blocks through ``fsdp.Microstep``: each weight gathered
+    over ``data`` on use, its gradient reduced over ``data`` in float32
+    into the held rows (``fsdp.grad_rows``); ``acc += g.to(acc.dtype) *
+    (w / M)`` on the held rows, as :func:`make_train_step` adds it; every
+    M-th microstep ``optimizer.update`` on the held blocks alone (the
+    update is elementwise, so it is the whole tree's, bit for bit) and the
+    accumulator zeroed.  Over R data ranks ``batch`` is the rank's rows,
+    its loss its share of the batch's mean, and the loss returned the
+    ranks' shares summed in rank order.  In one process at a (1, 1) mesh
+    it is :func:`make_train_step` bit for bit."""
+    m, iota = gba.buffer_size, gba.staleness_tolerance
+    world = placement.world
+
+    def train_step(state: dict, batch: dict, token: int
+                   ) -> tuple[dict, torch.Tensor]:
+        blocks = state["params"]
+        step = fsdp.Microstep(placement, blocks)
+        with torch.enable_grad():
+            loss = _loss_from_batch(step.views(), cfg, batch, tp)
+            if world.size > 1:
+                loss = loss / world.size
+            torch.autograd.grad(loss, [step.anchor], allow_unused=True)
+        loss = loss.detach()
+        if world.size > 1:
+            loss = _ranks_loss(world, loss)
+        w = threshold_decay(torch.tensor([token], dtype=torch.int32),
+                            state["gstep"], iota)[0]
+        summed: dict = {}
+        for i, per in enumerate(state["acc"]):
+            for di, block in enumerate(per):
+                for j, a in enumerate(placement.layout.leaves(block)):
+                    if placement.dims[j] is None:
+                        key = id(step.sink[i][j])
+                        if key not in summed:
+                            summed[key] = fsdp.grad_rows(placement, step,
+                                                         i, j, di)
+                        g = summed[key]
+                    else:
+                        g = fsdp.grad_rows(placement, step, i, j, di)
+                    a.add_(g.to(a.dtype) * float((w / m).to(a.dtype)))
+        del step, summed
+        micro = state["micro"] + 1
+        is_full = micro % m == 0
+        opt = state["opt"]
+        if is_full:
+            blocks, opt = optimizer.update(blocks, state["acc"], opt)
+            tree_map(lambda a: a.zero_(), state["acc"])
+        return {"params": blocks, "opt": opt, "acc": state["acc"],
+                "micro": micro,
+                "gstep": state["gstep"] + int(is_full)}, loss
+
+    return train_step
+
+
 def _ranks_loss(world, loss: torch.Tensor) -> torch.Tensor:
     """The sum of the ranks' shares of the loss in rank order from +0.0,
     the same bits on every rank."""
@@ -581,6 +665,9 @@ class TrainPrograms:
     ``state`` (``param_flat``, ``accum``), ``warm_step``,
     ``compressed_step``, ``wire_state`` and ``compress``; ``sync_psum``
     fills ``state`` (``params``, ``opt``), ``step`` and ``optimizer``.
+    The placed ``pytree`` step also fills ``model_axis`` and
+    ``placement``, its ``params``, ``acc`` and optimizer leaves the
+    blocks ``[model][data]``.
     ``fused`` over a model axis of T > 1 also fills ``model_axis``, and
     its ``state["params"]`` is the list of the held model shards' trees;
     with the params placed over ``data`` (W > 1, ``place_state``) it fills
@@ -636,7 +723,13 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
 
     ``pytree`` takes ``optimizer`` or, by default, the arch's
     (``ARCH_OPTIMIZER``, else Adam at ``lr``), and an accumulator in
-    ``acc_dtype`` or the arch's (``ARCH_ACC_DTYPE``, else float32).
+    ``acc_dtype`` or the arch's (``ARCH_ACC_DTYPE``, else float32).  Over
+    a (``workers``, ``model``) mesh larger than one device with
+    ``place_state`` (the reference's ``build_step`` train step,
+    ``launch.steps``) its state is held as (data, model) blocks
+    (:func:`init_placed_train_state`, :func:`make_placed_train_step`);
+    ``workers`` alone, or ``place_state=False``, keeps the one-device
+    step.
 
     ``fused`` with ``workers`` > 1 splits the flat vectors into that many
     PS shards, layer-grouped unless ``layer_groups`` is False
@@ -675,13 +768,24 @@ def build_programs(cfg: ModelConfig, gba: GBAConfig, *, params: Any,
     the workers held here (the whole batch in process), and split every
     entry of the batch, the memory too, by rows among them."""
     T.check_supported(cfg)
-    if model != 1 and mode != "fused":
+    placed_tree = mode == "pytree" and place_state and workers * model > 1
+    if model != 1 and mode != "fused" and not placed_tree:
         raise ValueError(f"{mode} mode runs no model axis (model={model}): "
                          f"its step replicates over model")
     if mode == "pytree":
         opt = optimizer or get_optimizer(
             ARCH_OPTIMIZER.get(cfg.name, "adam"), lr)
         dt = acc_dtype or ARCH_ACC_DTYPE.get(cfg.name, torch.float32)
+        if placed_tree:
+            mesh = Mesh(("data", "model"), (workers, model))
+            tp = model_axis(cfg, mesh, world)
+            placement = fsdp.placement_of(params, tp.specs, mesh, world)
+            return TrainPrograms(
+                layout=placement.layout,
+                state=init_placed_train_state(params, opt, placement,
+                                              tp.held, dt),
+                step=make_placed_train_step(cfg, opt, gba, placement, tp),
+                optimizer=opt, model_axis=tp, placement=placement)
         return TrainPrograms(layout=None,
                              state=init_train_state(params, opt, dt),
                              step=make_train_step(cfg, opt, gba),

@@ -611,7 +611,9 @@ def main(argv: list[str] | None = None):
             if mesh:
                 print(f"mesh data={workers} x model={model}: the pytree step "
                       f"runs unplaced, as without --mesh; the model axis of "
-                      f"{model} is replicated")
+                      f"{model} is replicated, as in the reference's "
+                      f"launcher (the placed pytree step is "
+                      f"launch.steps.build_step's train step)")
             return run_lm_pytree(cfg, optimizer=opt_name, steps=args.steps,
                                  batch=args.batch, seq=args.seq,
                                  buffer=args.buffer, iota=args.iota,

@@ -9,13 +9,13 @@ that the variants set are run by the port's model code: ``attn_q_chunk``
 (``models.layers.mamba_spec``) and ``moe_capacity_factor``
 (``models.layers.moe_route``).  Of the options, ``gba`` is a
 ``GBAConfig``; ``serve_tp`` and ``moe_ep`` are carried as data, as the
-reference carries them.  ``serve_tp``'s reader is the dry run's serving
-placement (``repro.launch.steps.build_step`` through
-``serve_param_specs``; ``distributed.sharding.serve_param_specs`` here),
-which waits with the dry run (ROADMAP.md queue 5).  ``moe_ep`` changes
-nothing numerically here: over the model axis each shard already
-dispatches to its own experts (``models.layers.moe_tp``), the layout the
-reference's ``constrain_expert`` asks GSPMD for.
+reference carries them, to their reader, ``launch.steps.build_step``
+(and the dry run, ``launch.dryrun``, which passes a variant's options to
+it): ``serve_tp`` places prefill and decode by
+``distributed.sharding.serve_param_specs``.  ``moe_ep`` changes nothing
+numerically here: over the model axis each shard already dispatches to
+its own experts (``models.layers.moe_tp``), the layout the reference's
+``constrain_expert`` asks GSPMD for.
 """
 from __future__ import annotations
 
@@ -46,8 +46,8 @@ def _chunked_attn_2048(cfg, opts):
 
 
 def _serve_tp(cfg, opts):
-    """Weights replicated over the data axis in serving: the dry run's
-    ``serve_param_specs``, which waits with the dry run."""
+    """Weights replicated over the data axis in serving:
+    ``launch.steps.build_step`` places them by ``serve_param_specs``."""
     return cfg, {**opts, "serve_tp": True}
 
 

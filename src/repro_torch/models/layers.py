@@ -289,13 +289,15 @@ def cross_kernel(cfg: ModelConfig) -> bool:
 
 
 def _cross_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                  memory: torch.Tensor) -> torch.Tensor:
+                  memory: torch.Tensor, partial: bool = False
+                  ) -> torch.Tensor:
     """One-token cross-attention of x (B,1,D) over ``memory`` (B,T,D),
     whose k and v are projected anew each step, as the reference projects
     them; no RoPE, no mask.  Through ``flash_decode`` at ``pos = T - 1``
     (which masks nothing) where :func:`cross_kernel` allows, with k and v
     made contiguous (B,T,KV,hd) for its tensor map; else the reference's
-    ``_sdpa`` without a mask."""
+    ``_sdpa`` without a mask.  With ``partial``, one model shard's float32
+    partial of the row-parallel ``wo``."""
     B, T = x.shape[0], memory.shape[1]
     hd = cfg.resolved_head_dim
     KV = cfg.num_kv_heads
@@ -307,16 +309,25 @@ def _cross_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = ops.flash_decode(q.reshape(B, KV, G, hd).contiguous(),
                                k.contiguous(), v.contiguous(), T - 1)
         out = out.reshape(B, 1, cfg.num_heads, hd)
-        return torch.einsum("bsnh,nhd->bsd", out, p["wo"]).to(x.dtype)
+        return _out_proj(out, p["wo"], x.dtype, partial)
     out = _sdpa(q.reshape(B, 1, KV, G, hd), k, v, None, cfg.attn_softcap)
     out = out.reshape(B, 1, cfg.num_heads, hd)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
+    return _out_proj(out, p["wo"].float(), x.dtype, partial)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype,
+              partial: bool) -> torch.Tensor:
+    """The attention output (B,1,H,hd) through ``wo``, cast to ``dtype``;
+    with ``partial`` one model shard's float32 partial, uncast."""
+    if partial:
+        return torch.einsum("bsnh,nhd->bsd", out.float(), wo.float())
+    return torch.einsum("bsnh,nhd->bsd", out, wo).to(dtype)
 
 
 def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: Params, pos: torch.Tensor, *, window: int = 0,
-                     kv_override: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, Params]:
+                     kv_override: torch.Tensor | None = None,
+                     partial: bool = False) -> tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,D); ``pos`` a 0-d integer tensor (every
     sequence at one position, the fixed-batch loop) or a (B,) vector (one
     position a slot, the continuous-batching engine).  The new k and v are
@@ -342,9 +353,12 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     With ``kv_override``, a memory (B,T,D), it is the cross-attention
     decode of :func:`_cross_decode`: ``pos`` and ``cache`` are not read,
-    and ``cache`` is returned unwritten."""
+    and ``cache`` is returned unwritten.
+
+    With ``partial`` y is one model shard's float32 partial of the
+    row-parallel ``wo``, uncast (:func:`attention_decode_tp`)."""
     if kv_override is not None:
-        return _cross_decode(p, cfg, x, kv_override), cache
+        return _cross_decode(p, cfg, x, kv_override, partial), cache
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     KV = cfg.num_kv_heads
@@ -363,7 +377,7 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if pos.dim() == 0 and not window and not cfg.attn_softcap:
         out = ops.flash_decode(q.reshape(B, KV, G, hd), k_cache, v_cache, pos)
         out = out.reshape(B, 1, cfg.num_heads, hd)
-        y = torch.einsum("bsnh,nhd->bsd", out, p["wo"]).to(x.dtype)
+        y = _out_proj(out, p["wo"], x.dtype, partial)
     else:
         idx = torch.arange(L, device=x.device)[None, :]
         if window:
@@ -374,7 +388,7 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa(q.reshape(B, 1, KV, G, hd), k_cache, v_cache,
                     valid[:, None, :], cfg.attn_softcap)
         out = out.reshape(B, 1, cfg.num_heads, hd)
-        y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()).to(x.dtype)
+        y = _out_proj(out, p["wo"].float(), x.dtype, partial)
     return y, {"k": k_cache, "v": v_cache}
 
 
@@ -405,6 +419,15 @@ def moe_spec(cfg: ModelConfig) -> Params:
     }
 
 
+def expert_counts(flat_sel: torch.Tensor, experts: int) -> torch.Tensor:
+    """The (E,) int64 count of each expert in ``flat_sel``: the integers
+    of ``torch.bincount(flat_sel, minlength=E)``, by a scatter-add, which
+    has a meta kernel (the dry run traces on meta tensors)."""
+    return torch.zeros((experts,), dtype=torch.int64,
+                       device=flat_sel.device).scatter_add_(
+        0, flat_sel, torch.ones_like(flat_sel))
+
+
 def moe_route(p: Params, cfg: ModelConfig, xt: torch.Tensor,
               logits: torch.Tensor | None = None) -> dict:
     """The reference's routing of T tokens xt (T, D): the float32 router's
@@ -423,7 +446,7 @@ def moe_route(p: Params, cfg: ModelConfig, xt: torch.Tensor,
     weights, sel = torch.topk(probs, K, dim=-1)                 # (T, K)
     weights = weights / torch.sum(weights, dim=-1, keepdim=True)
     flat_sel = sel.reshape(-1)                                  # (T*K,)
-    counts = torch.bincount(flat_sel, minlength=E)
+    counts = expert_counts(flat_sel, E)
     frac = counts.float() / (T * K)
     aux = E * torch.sum(frac * torch.mean(probs, dim=0))
     cap = max(1, int(T * K / E * cfg.moe_capacity_factor))
@@ -475,32 +498,53 @@ def moe_fwd(p: Params, cfg: ModelConfig, x: torch.Tensor
 
 def attention_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, tp, *, window: int = 0,
-                 kv_override: torch.Tensor | None = None) -> torch.Tensor:
+                 kv_override: torch.Tensor | None = None,
+                 return_kv: bool = False):
     """:func:`attention_fwd` split over ``model`` as the rules split its
     projections (``tp.attn``).  By heads: each held shard runs its H / T
     query heads over its KV / T KV heads on the broadcast input (and
     memory).  The rules' head_dim fallback with the query heads split:
     :func:`_attention_kv_whole`.  Every projection along head_dim:
     :func:`_attention_head_dim`.  Each way the float32 partials of the
-    row-parallel ``wo`` are model-summed, then cast to x's dtype."""
+    row-parallel ``wo`` are model-summed, then cast to x's dtype.
+
+    With ``return_kv`` also each held shard's slice of the (RoPE'd) k and
+    v, a ``(k, v)`` a shard, as the decode cache's rules hold them
+    (``sharding.cache_specs``): its KV heads, its head_dim columns in the
+    fallback, or, where neither divides T, the whole k and v, one pair
+    for every held shard (the same tensors)."""
     q_split, kv_split = tp.attn
     if "attn" not in tp.split:
-        return attention_fwd(ps[0], cfg, x, positions, window=window,
-                             kv_override=kv_override)
-    if q_split == "head_dim":
-        return _attention_head_dim(ps, cfg, x, positions, tp, window,
-                                   kv_override)
-    if kv_split != "heads":
-        return _attention_kv_whole(ps, cfg, x, positions, tp, window,
-                                   kv_override)
+        out = attention_fwd(ps[0], cfg, x, positions, window=window,
+                            kv_override=kv_override, return_kv=return_kv)
+        return (out[0], [out[1]] * len(ps)) if return_kv else out
+    if q_split == "head_dim" or kv_split != "heads":
+        run = (_attention_head_dim if q_split == "head_dim"
+               else _attention_kv_whole)
+        y, (k, v) = run(ps, cfg, x, positions, tp, window, kv_override)
+        if not return_kv:
+            return y
+        if kv_split != "head_dim":
+            return y, [(k, v)] * len(ps)
+        return y, list(zip(_held_chunks(k, tp), _held_chunks(v, tp)))
     local = tp.local_attention(cfg)
     xs = tp.broadcast(x)
     ms = ([None] * len(ps) if kv_override is None
           else tp.broadcast(kv_override))
-    return tp.model_sum([
-        attention_fwd(p, local, xi, positions, window=window,
-                      kv_override=mi, partial=True)
-        for p, xi, mi in zip(ps, xs, ms)]).to(x.dtype)
+    outs = [attention_fwd(p, local, xi, positions, window=window,
+                          kv_override=mi, partial=True, return_kv=return_kv)
+            for p, xi, mi in zip(ps, xs, ms)]
+    if not return_kv:
+        return tp.model_sum(outs).to(x.dtype)
+    return (tp.model_sum([o[0] for o in outs]).to(x.dtype),
+            [o[1] for o in outs])
+
+
+def _held_chunks(x: torch.Tensor, tp, dim: int = -1) -> list:
+    """Each held model shard's contiguous chunk of ``x`` along ``dim``, as
+    ``sharding.place`` cuts a leaf (no gradient)."""
+    chunks = x.chunk(tp.size, dim=dim)
+    return [chunks[t].contiguous() for t in tp.held]
 
 
 def _kv_tp(ps: list, x: torch.Tensor, name: str, tp) -> torch.Tensor:
@@ -522,7 +566,7 @@ def _attention_kv_whole(ps: list, cfg: ModelConfig, x: torch.Tensor,
     the whole head_dim (rotate-half pairs dims i and i + hd / 2), handed
     to each held shard, which attends its H / T query heads against the
     KV heads they use (``tp.kv_heads``); the backward adds the shards'
-    gradients of k and v in shard order."""
+    gradients of k and v in shard order.  Returns (y, the whole (k, v))."""
     kv_in = x if kv_override is None else kv_override
     k, v = _kv_tp(ps, kv_in, "wk", tp), _kv_tp(ps, kv_in, "wv", tp)
     if kv_override is None:
@@ -538,7 +582,7 @@ def _attention_kv_whole(ps: list, cfg: ModelConfig, x: torch.Tensor,
                       vi.index_select(2, heads), positions, window,
                       kv_override is not None)
         parts.append(torch.einsum("bsnh,nhd->bsd", out, p["wo"].float()))
-    return tp.model_sum(parts).to(x.dtype)
+    return tp.model_sum(parts).to(x.dtype), (k, v)
 
 
 def _attention_head_dim(ps: list, cfg: ModelConfig, x: torch.Tensor,
@@ -549,7 +593,7 @@ def _attention_head_dim(ps: list, cfg: ModelConfig, x: torch.Tensor,
     head_dim, RoPE on the whole head_dim, the attention run whole once,
     and each held shard's head_dim chunk of its output (``tp.chunk``,
     whose backward gathers the whole output gradient) through its rows
-    of ``wo``."""
+    of ``wo``.  Returns (y, the whole (k, v))."""
     kv_in = x if kv_override is None else kv_override
     q = tp.gather([torch.einsum("bsd,dnh->bsnh", xi, p["wq"])
                    for p, xi in zip(ps, tp.broadcast(x))], dim=-1)
@@ -560,7 +604,7 @@ def _attention_head_dim(ps: list, cfg: ModelConfig, x: torch.Tensor,
     out = _attend(cfg, q, k, v, positions, window, kv_override is not None)
     return tp.model_sum([
         torch.einsum("bsnh,nhd->bsd", o, p["wo"].float())
-        for p, o in zip(ps, tp.chunk(out, -1))]).to(x.dtype)
+        for p, o in zip(ps, tp.chunk(out, -1))]).to(x.dtype), (k, v)
 
 
 def mlp_tp(ps: list, x: torch.Tensor, tp) -> torch.Tensor:
@@ -614,6 +658,100 @@ def moe_tp(ps: list, cfg: ModelConfig, x: torch.Tensor, tp
     combined = (gathered.reshape(B * S, K, D)
                 * r["weights"][..., None].to(x.dtype)).sum(dim=1)
     return combined.reshape(B, S, D).to(x.dtype), r["aux"]
+
+
+def attention_decode_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                        caches: list, pos: torch.Tensor, tp, *,
+                        window: int = 0) -> torch.Tensor:
+    """:func:`attention_decode` split over ``model``: ``caches`` are the
+    held shards' ``{"k", "v"}`` slices (``sharding.cache_specs``), each a
+    tensor of its own, written in place.  By heads each held shard writes
+    its KV heads' new row into its slice and runs the decode (through
+    ``flash_decode`` where the unsplit decode does) on its (B, KV / T, G,
+    hd) queries against its (B, L, KV / T, hd) cache; the float32
+    partials of the row-parallel ``wo`` are model-summed in shard order,
+    then cast.  In the rules' head_dim fallback: :func:`_decode_gathered`.
+    Returns y (B, 1, D)."""
+    if "attn" not in tp.split:
+        return attention_decode(ps[0], cfg, x, caches[0], pos,
+                                window=window)[0]
+    if tp.attn[1] != "heads":
+        return _decode_gathered(ps, cfg, x, caches, pos, tp, window)
+    local = tp.local_attention(cfg)
+    return tp.model_sum([
+        attention_decode(p, local, xi, c, pos, window=window,
+                         partial=True)[0]
+        for p, xi, c in zip(ps, tp.broadcast(x), caches)]).to(x.dtype)
+
+
+def _decode_gathered(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                     caches: list, pos: torch.Tensor, tp, window: int
+                     ) -> torch.Tensor:
+    """The decode where the KV heads do not divide T: the new k and v
+    whole over ``model`` (:func:`_kv_tp`), RoPE'd on the whole head_dim,
+    each held shard writing its head_dim columns into its slice (or, with
+    k and v whole, the one whole cache all held shards share); the cache's
+    k and v gathered along head_dim over ``model``, and q gathered along
+    the dimension its weight splits; the attention run whole (through
+    ``flash_decode`` where the unsplit decode does); and each held shard's
+    chunk of the output, along that dimension, through its rows of
+    ``wo``, the float32 partials model-summed in shard order."""
+    B = x.shape[0]
+    hd, KV = cfg.resolved_head_dim, cfg.num_kv_heads
+    G = cfg.num_heads // KV
+    qdim = 2 if tp.attn[0] == "heads" else -1
+    pos_vec = pos.expand(B) if pos.dim() == 0 else pos
+    posb = pos_vec[:, None]
+    q = tp.gather([torch.einsum("bsd,dnh->bsnh", xi, p["wq"])
+                   for p, xi in zip(ps, tp.broadcast(x))], dim=qdim)
+    q = rope(q, posb, cfg.rope_theta)
+    k_new = rope(_kv_tp(ps, x, "wk", tp), posb, cfg.rope_theta)[:, 0]
+    v_new = _kv_tp(ps, x, "wv", tp)[:, 0]
+    L = caches[0]["k"].shape[1]
+    slots = pos_vec % L if window else pos_vec
+    split = tp.attn[1] == "head_dim"
+    for c, kn, vn in zip(caches, *((_held_chunks(k_new, tp),
+                                    _held_chunks(v_new, tp)) if split
+                                   else ([k_new], [v_new]))):
+        _write_rows(c["k"], slots, kn)
+        _write_rows(c["v"], slots, vn)
+    k, v = ((tp.gather([c["k"] for c in caches], dim=-1),
+             tp.gather([c["v"] for c in caches], dim=-1)) if split
+            else (caches[0]["k"], caches[0]["v"]))
+    if pos.dim() == 0 and not window and not cfg.attn_softcap:
+        out = ops.flash_decode(q.reshape(B, KV, G, hd).contiguous(), k, v,
+                               pos).reshape(B, 1, cfg.num_heads, hd)
+    else:
+        idx = torch.arange(L, device=x.device)[None, :]
+        if window:
+            abs_pos = posb - torch.remainder(posb - idx, L)
+            valid = (abs_pos >= 0) & (abs_pos <= posb)
+        else:
+            valid = idx <= posb
+        out = _sdpa(q.reshape(B, 1, KV, G, hd), k, v, valid[:, None, :],
+                    cfg.attn_softcap).reshape(B, 1, cfg.num_heads, hd)
+    return tp.model_sum([_out_proj(o, p["wo"], x.dtype, True)
+                         for p, o in zip(ps, tp.chunk(out, qdim))]
+                        ).to(x.dtype)
+
+
+def cross_decode_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                    memory: torch.Tensor, tp) -> torch.Tensor:
+    """The cross-attention decode of ``x`` (B, 1, D) over ``memory`` (B,
+    T, D), whole over ``model``, split as :func:`attention_tp` splits it:
+    by heads each held shard runs :func:`_cross_decode` on its heads (the
+    kernel where the unsplit decode takes it), its float32 ``wo``
+    partial model-summed; in the head_dim fallback the full-sequence
+    cross-attention of :func:`attention_tp` on the one query."""
+    if "attn" not in tp.split:
+        return _cross_decode(ps[0], cfg, x, memory)
+    if tp.attn != ("heads", "heads"):
+        return attention_tp(ps, cfg, x, None, tp, kv_override=memory)
+    local = tp.local_attention(cfg)
+    return tp.model_sum([
+        _cross_decode(p, local, xi, mi, partial=True)
+        for p, xi, mi in zip(ps, tp.broadcast(x), tp.broadcast(memory))]
+    ).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -816,6 +954,49 @@ def mamba_tp(ps: list, cfg: ModelConfig, x: torch.Tensor, tp
     mixes the z, x, B, C and dt streams, so no shard runs its block
     alone."""
     return mamba_fwd(tp.whole(ps, mamba_spec(cfg), "mixer"), cfg, x)
+
+
+def mamba_cache_dims(cfg: ModelConfig, t: int) -> dict:
+    """The dimension of each mixer cache leaf that ``sharding.cache_specs``
+    splits over a model axis of ``t`` (None where it stays whole): the
+    state's heads, the conv window's channels."""
+    d_inner, H, N = ssm_dims(cfg)
+    return {"ssm": 1 if H % t == 0 else None,
+            "conv": 2 if (d_inner + 2 * N) % t == 0 else None}
+
+
+def mamba_prefill_tp(ps: list, cfg: ModelConfig, x: torch.Tensor, tp
+                     ) -> tuple[torch.Tensor, list]:
+    """:func:`mamba_tp` with the decode cache: the mixer run whole, and
+    its cache cut to each held shard's slice by :func:`mamba_cache_dims`
+    (a whole leaf one tensor all held shards share)."""
+    p = tp.whole(ps, mamba_spec(cfg), "mixer") if "mamba" in tp.split \
+        else ps[0]
+    out, cache = mamba_fwd(p, cfg, x, return_cache=True)
+    dims = mamba_cache_dims(cfg, tp.size)
+    parts = {k: (_held_chunks(v, tp, dims[k]) if dims[k] is not None
+                 else [v] * len(ps)) for k, v in cache.items()}
+    return out, [{k: parts[k][i] for k in parts} for i in range(len(ps))]
+
+
+def mamba_decode_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
+                    caches: list, tp) -> torch.Tensor:
+    """:func:`mamba_decode` under ``model``: the mixer put back together
+    (:func:`mamba_tp`), the held shards' cache slices gathered whole over
+    ``model`` around the step (:func:`mamba_cache_dims`), and each held
+    shard's part of the updated state and window written back into its
+    slice, in place.  Returns the output (B, 1, D), whole."""
+    p = tp.whole(ps, mamba_spec(cfg), "mixer") if "mamba" in tp.split \
+        else ps[0]
+    dims = mamba_cache_dims(cfg, tp.size)
+    whole = {k: (tp.gather([c[k] for c in caches], dim=d) if d is not None
+                 else caches[0][k]) for k, d in dims.items()}
+    out, _ = mamba_decode(p, cfg, x, whole)
+    for k, d in dims.items():
+        if d is not None:
+            for c, part in zip(caches, _held_chunks(whole[k], tp, d)):
+                c[k].copy_(part)
+    return out
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device: torch.device

@@ -527,14 +527,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             memory: torch.Tensor | None = None,
-            cache_len: int | None = None) -> tuple[torch.Tensor, Params]:
+            cache_len: int | None = None, tp=None
+            ) -> tuple[torch.Tensor, Params]:
     """Score the prompt and build the decode cache.  tokens: (B, S) int,
     ``memory`` (B, T, D) for the cross layers -> (last-position logits (B,
     V) float32, a cache of ``cache_len`` positions (default S; a local
     layer keeps its ring, a Mamba2 mixer its state and conv window) ready
     for :func:`decode_step` at ``pos = S``, holding ``memory`` when one
-    was given)."""
+    was given).
+
+    Under a model axis ``tp`` ``params`` are the held model shards' trees
+    (or their FSDP views, ``distributed.fsdp.Top``) and the cache is a
+    list, one tree a held shard, each leaf that shard's slice by
+    ``sharding.cache_specs`` (:func:`_prefill_tp`)."""
     check_supported(cfg)
+    if tp is not None:
+        return _prefill_tp(params, cfg, tokens, memory, cache_len, tp)
     B, S = tokens.shape
     cache_len = cache_len or S
     x = _embed(params, cfg, tokens)
@@ -601,7 +609,7 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Params) -> tuple[torch.Tensor, Params]:
+                cache: Params, tp=None) -> tuple[torch.Tensor, Params]:
     """token: (B, 1) int -> (logits (B, 1, V) float32, the cache at
     ``pos + 1``).  The cache's k and v, states and conv windows are
     written in place (each repeat's are views into the stacked leaves); a
@@ -611,8 +619,14 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     the masked attention (see ``layers.attention_decode``).  A cross
     layer's cross-attention over ``cache["memory"]`` goes through
     ``flash_decode`` wherever ``layers.cross_kernel`` allows, at a scalar
-    or a (B,) position."""
+    or a (B,) position.
+
+    Under a model axis ``tp`` ``params`` are the held model shards' trees
+    (or FSDP views) and ``cache`` the list of the held shards' cache
+    trees of :func:`prefill` (:func:`_decode_tp`)."""
     check_supported(cfg)
+    if tp is not None:
+        return _decode_tp(params, cfg, token, cache, tp)
     pos = cache["pos"]
     memory = cache.get("memory")
     x = _embed(params, cfg, token)
@@ -628,6 +642,202 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                               block_c[f"l{i}"], pos, shared, memory)
     x = L.norm_fwd(params["final_norm"], x)
     return _logits(params, cfg, x), {**cache, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# serving under a model axis: each held model shard's slice of the cache
+#
+# These walks give the unplaced walks' bits at a 1 x 1 mesh, but they
+# are not the one-card path: on an H100 their host work made a granite-8b
+# decode step 1.19x as long (chip_smoke.py phase 23 (e)), and a cross
+# layer's decode without memory is refused here.  ROADMAP.md says what
+# retires one of the two.
+
+def _shared(params: Any, tp) -> Any:
+    """zamba2's shared attention (the held shards' trees of it under a
+    model axis), or None."""
+    if "shared_attn" not in _one(params, tp):
+        return None
+    return _sub(params, "shared_attn", tp)
+
+
+def _repeat_of(blocks: Any, r: int, tp) -> Any:
+    """Repeat ``r`` of the held shards' ``blocks``: gathered over
+    ``data`` where they are FSDP-held (``distributed.fsdp.repeat``)."""
+    return fsdp.repeat(blocks, r) if fsdp.held(blocks) \
+        else _blocks(blocks, r, tp)
+
+
+def _logits_tp(params: Any, cfg: ModelConfig, x: torch.Tensor, tp
+               ) -> torch.Tensor:
+    """The float32 logits whole over ``model``: each held shard's
+    (softcapped) columns of the vocab-parallel head, gathered over
+    ``model`` in shard order; or the one head the rules leave whole."""
+    heads = _head(params, cfg, tp)
+    if "vocab" not in tp.split:
+        return _logits(None, cfg, x, heads[0])
+    return tp.gather([_logits(None, cfg, xi, w)
+                      for xi, w in zip(tp.broadcast(x), heads)], dim=-1)
+
+
+def _share_stack(per_repeat: list) -> list:
+    """Each held shard's stacked tree from ``per_repeat`` (a list over
+    the repeats of the held shards' trees): a leaf that is one tensor for
+    every held shard at every repeat (whole over ``model``) is stacked
+    once and shared."""
+    first = per_repeat[0][0]
+    if isinstance(first, dict):
+        subs = {k: _share_stack([[t[k] for t in row] for row in per_repeat])
+                for k in first}
+        return [{k: subs[k][i] for k in first}
+                for i in range(len(per_repeat[0]))]
+    out = []
+    for i in range(len(per_repeat[0])):
+        if i and all(row[i] is row[0] for row in per_repeat):
+            out.append(out[0])
+        else:
+            out.append(torch.stack([row[i] for row in per_repeat]))
+    return out
+
+
+def _layer_prefill_tp(p: list, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                      positions: torch.Tensor, seq_len: int, cache_len: int,
+                      shared: list | None, memory: torch.Tensor | None, tp
+                      ) -> tuple[torch.Tensor, list]:
+    """:func:`_layer_prefill` over the held shards' trees ``p``: the
+    layer's forward of :func:`_layer_fwd` under ``tp``, and each held
+    shard's slice of its cache (a whole leaf one tensor they share)."""
+    window = _window(cfg, kind)
+    norms = _one(p, tp)
+    caches: list = [{} for _ in tp.held]
+    if _is_mamba(kind):
+        h, mc = L.mamba_prefill_tp(_sub(p, "mixer", tp), cfg,
+                                   L.norm_fwd(norms["ln1"], x), tp)
+        x = x + h
+        for c, m in zip(caches, mc):
+            c["ssm"] = m
+        if kind == "mamba":
+            return x, caches
+        attn, norm = _sub(shared, "attn", tp), norms["ln_sh"]
+    else:
+        attn, norm = _sub(p, "attn", tp), norms["ln1"]
+    h, kvs = L.attention_tp(attn, cfg, L.norm_fwd(norm, x), positions, tp,
+                            window=window, return_kv=True)
+    made: dict = {}
+    for c, (k, v) in zip(caches, kvs):
+        if id(k) not in made:
+            made[id(k)] = L.kv_to_cache(cfg, k, v, seq_len, cache_len,
+                                        window)
+        c["attn"] = made[id(k)]
+    x = x + h
+    if _is_mamba(kind):
+        return x, caches
+    if kind == "cross":
+        x = x + L.attention_tp(_sub(p, "xattn", tp), cfg,
+                               L.norm_fwd(norms["lnx"], x), positions, tp,
+                               kv_override=memory)
+    return x + _ffn(p, cfg, x, tp)[0], caches
+
+
+def _prefill_tp(params: Any, cfg: ModelConfig, tokens: torch.Tensor,
+                memory: torch.Tensor | None, cache_len: int | None, tp
+                ) -> tuple[torch.Tensor, list]:
+    """:func:`prefill` under the model axis ``tp``: training's forward
+    split over ``model`` (:func:`forward_hidden`), each layer also giving
+    each held shard's slice of its cache; the last position's logits
+    gathered whole over ``model``.  Returns (logits (B, V), the held
+    shards' cache trees, ``pos`` and ``memory`` shared by them)."""
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    x = _embed(params, cfg, tokens, tp)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    top: Params = {"pos": torch.full((), S, dtype=torch.int32,
+                                     device=tokens.device)}
+    if memory is not None:
+        top["memory"] = memory
+    caches = [dict(top) for _ in tp.held]
+    shared = _shared(params, tp)
+    for i, kind in enumerate(cfg.prefix_layers):
+        layer = [q["prefix"][i] for q in params]
+        x, cs = _layer_prefill_tp(layer, cfg, kind, x, positions, S,
+                                  cache_len, shared, memory, tp)
+        for c, lc in zip(caches, cs):
+            c.setdefault("prefix", []).append(lc)
+    blocks = _sub(params, "blocks", tp)
+    per_repeat = []
+    for r in range(cfg.num_repeats):
+        block = _repeat_of(blocks, r, tp)
+        row: list = [{} for _ in tp.held]
+        for i, kind in enumerate(cfg.block_pattern):
+            x, cs = _layer_prefill_tp(_sub(block, f"l{i}", tp), cfg, kind,
+                                      x, positions, S, cache_len, shared,
+                                      memory, tp)
+            for rc, lc in zip(row, cs):
+                rc[f"l{i}"] = lc
+        per_repeat.append(row)
+        del block
+    for c, stacked in zip(caches, _share_stack(per_repeat)):
+        c["blocks"] = stacked
+    x = L.norm_fwd(_one(params, tp)["final_norm"], x[:, -1:, :])
+    return _logits_tp(params, cfg, x, tp)[:, 0], caches
+
+
+def _layer_decode_tp(p: list, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                     caches: list, pos: torch.Tensor, shared: list | None,
+                     memory: torch.Tensor | None, tp) -> torch.Tensor:
+    """:func:`_layer_decode` over the held shards' trees ``p`` and cache
+    slices ``caches``, written in place."""
+    norms = _one(p, tp)
+    if _is_mamba(kind):
+        x = x + L.mamba_decode_tp(_sub(p, "mixer", tp), cfg,
+                                  L.norm_fwd(norms["ln1"], x),
+                                  [c["ssm"] for c in caches], tp)
+        if kind == "mamba":
+            return x
+        return x + L.attention_decode_tp(
+            _sub(shared, "attn", tp), cfg, L.norm_fwd(norms["ln_sh"], x),
+            [c["attn"] for c in caches], pos, tp)
+    x = x + L.attention_decode_tp(_sub(p, "attn", tp), cfg,
+                                  L.norm_fwd(norms["ln1"], x),
+                                  [c["attn"] for c in caches], pos, tp,
+                                  window=_window(cfg, kind))
+    if kind == "cross":
+        if memory is None:
+            raise ValueError(f"{cfg.name}: a cross layer's decode under a "
+                             f"model axis needs the cache's memory")
+        x = x + L.cross_decode_tp(_sub(p, "xattn", tp), cfg,
+                                  L.norm_fwd(norms["lnx"], x), memory, tp)
+    return x + _ffn(p, cfg, x, tp)[0]
+
+
+def _decode_tp(params: Any, cfg: ModelConfig, token: torch.Tensor,
+               caches: list, tp) -> tuple[torch.Tensor, list]:
+    """:func:`decode_step` under the model axis ``tp``: each layer split
+    over ``model`` as in training, its cache slices written in place
+    (``layers.attention_decode_tp``, ``mamba_decode_tp``); the logits
+    gathered whole over ``model``.  Returns (logits (B, 1, V), the held
+    shards' cache trees at ``pos + 1``)."""
+    pos = caches[0]["pos"]
+    memory = caches[0].get("memory")
+    x = _embed(params, cfg, token, tp)
+    shared = _shared(params, tp)
+    for i, kind in enumerate(cfg.prefix_layers):
+        x = _layer_decode_tp([q["prefix"][i] for q in params], cfg, kind, x,
+                             [c["prefix"][i] for c in caches], pos, shared,
+                             memory, tp)
+    blocks = _sub(params, "blocks", tp)
+    for r in range(cfg.num_repeats):
+        block = _repeat_of(blocks, r, tp)
+        views = [_block(c["blocks"], r) for c in caches]
+        for i, kind in enumerate(cfg.block_pattern):
+            x = _layer_decode_tp(_sub(block, f"l{i}", tp), cfg, kind, x,
+                                 [v[f"l{i}"] for v in views], pos, shared,
+                                 memory, tp)
+        del block
+    x = L.norm_fwd(_one(params, tp)["final_norm"], x)
+    nxt = pos + 1
+    return _logits_tp(params, cfg, x, tp), [{**c, "pos": nxt}
+                                            for c in caches]
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -141,8 +141,9 @@ def _bad_calls():
         "head dim 32": ((q[..., :32], k[..., :32].contiguous(),
                          v[..., :32].contiguous()), ValueError),
         "group of 16": ((q.repeat(1, 1, 4, 1), k, v), ValueError),
-        "meta device": ((q.to("meta"), k.to("meta"), v.to("meta")),
-                        ValueError),
+        # all-meta tensors take the meta branch (the dry run's trace,
+        # tests/test_torch_dryrun.py); meta beside CPU is refused
+        "meta device": ((q.to("meta"), k.to("meta"), v), ValueError),
     }
 
 

@@ -1808,3 +1808,140 @@ def test_fsdp_over_a_one_rank_nccl_world_is_in_process(tmp_path):
     finally:
         process_group.leave()
     _same_run(got, _mesh_2x2_run(cfg, host, "cuda", place_state=True))
+
+
+def _placed_serve(cfg, host, device, mesh, serve_tp=False, world=None,
+                  steps=4):
+    """``launch.steps.build_step``'s prefill of 4 x 16 tokens into a
+    cache of 24 and ``steps`` greedy decode steps over ``mesh`` on
+    ``device``: the logits of each, the tokens, the cache leaves (host)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import inprocess
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import tree_map
+    from repro_torch.launch.dryrun import CARD_BYTES
+    m = Mesh(("data", "model"), mesh)
+    kw = dict(serve_tp=serve_tp, world=world or inprocess,
+              hbm_budget=CARD_BYTES)
+    pre, _ = St.build_step(cfg, InputShape("p", 16, 4, "prefill"), m,
+                           cache_len=24, **kw)
+    dec, _ = St.build_step(cfg, InputShape("d", 24, 4, "decode"), m, **kw)
+    held = pre.place_params(tree_map(lambda t: t.to(device), host))
+    toks = torch.randint(0, cfg.vocab_size, (4, 16),
+                         generator=torch.Generator().manual_seed(5))
+    logits, caches = pre(held, pre.place_batch({"tokens": toks.to(device)}))
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    out, tokens = [logits[:, None].cpu()], [tok.cpu()]
+    for _ in range(steps):
+        tok, lg, caches = dec(held, tok, caches)
+        out.append(lg.cpu())
+        tokens.append(tok.cpu())
+    from repro_torch.core.gba import tree_paths
+    return (torch.cat(out, 1), torch.cat(tokens, 1),
+            [x.cpu() for c in caches for _, x in tree_paths(c)])
+
+
+@pytest.mark.parametrize("mesh,serve_tp", [((1, 4), True), ((2, 2), False)])
+def test_placed_serve_on_the_card_matches_the_cpu(mesh, serve_tp):
+    """``build_step``'s placed prefill and 4 decode steps, granite-8b
+    ``.reduced()`` float32, over 1 x 4 by ``serve_param_specs`` and 2 x 2
+    by ``param_specs`` (each weight gathered over ``data``), card against
+    CPU: logits within rtol 1e-5 / atol 1e-5 of the largest, tokens and
+    every cache slice likewise; on the card each decode step launches
+    ``flash_decode`` once a layer a held model shard."""
+    _need_card()
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32("granite-8b")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    launches = flash_decode.launches
+    lc, tc, cc = _placed_serve(cfg, host, "cuda", mesh, serve_tp)
+    assert flash_decode.launches - launches == \
+        4 * cfg.num_layers * mesh[1]
+    lh, th, ch = _placed_serve(cfg, host, "cpu", mesh, serve_tp)
+    scale = lh.abs().max()
+    assert torch.allclose(lc, lh, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(tc, th)
+    for a, b in zip(cc, ch):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-5)
+
+
+def test_placed_serve_over_a_one_rank_nccl_world_is_in_process(tmp_path):
+    """The 2 x 2 placed serve over a one-rank NCCL world is the in-process
+    run on the card bit for bit: logits, tokens, every cache slice."""
+    _need_card()
+    from repro_torch.distributed import process_group
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32("granite-8b")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    world, _ = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                  "cuda", timeout=120.0)
+    try:
+        got = _placed_serve(cfg, host, "cuda", (2, 2), world=world)
+    finally:
+        process_group.leave()
+    want = _placed_serve(cfg, host, "cuda", (2, 2))
+    assert torch.equal(got[1], want[1])
+    for a, b in zip([got[0], *got[2]], [want[0], *want[2]]):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def _placed_train(cfg, host, device, world=None):
+    """``build_step``'s placed pytree step (Adam) over 2 x 2 at M = 2,
+    4 microsteps of 4 x 16 tokens: the losses and the whole params (host)."""
+    from repro_torch.configs.base import GBAConfig, InputShape
+    from repro_torch.distributed import inprocess
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import tree_map
+    from repro_torch.core.gba import tree_paths
+    step, _ = St.build_step(cfg, InputShape("t", 16, 4, "train"),
+                            Mesh(("data", "model"), (2, 2)),
+                            GBAConfig(local_batch=4, buffer_size=2),
+                            world=world or inprocess)
+    state = step.init_state(tree_map(lambda t: t.to(device), host))
+    gen = torch.Generator().manual_seed(6)
+    losses = []
+    for i in range(4):
+        b = {k: torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)
+             .to(device) for k in ("tokens", "labels")}
+        state, loss = step(state, step.place_batch(b), i // 2)
+        losses.append(loss.item())
+    return losses, [x.cpu() for _, x in tree_paths(
+        step.gather_params(state["params"]))]
+
+
+def test_placed_pytree_step_on_the_card_matches_the_cpu(tmp_path):
+    """The placed pytree step over 2 x 2, granite-8b ``.reduced()``
+    float32, card against CPU: losses within rtol 1e-5; the params after
+    two applies within Adam's step where a rounding flips it (lr either
+    side) and within rtol 1e-5 / atol 1e-7 at 99.9 % of the elements;
+    then over a one-rank NCCL world bit for bit the in-process run."""
+    _need_card()
+    from repro_torch.distributed import process_group
+    from repro_torch.models import transformer as T
+    cfg = _reduced_f32("granite-8b")
+    host = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                        device="cpu")
+    lc, pc = _placed_train(cfg, host, "cuda")
+    lh, ph = _placed_train(cfg, host, "cpu")
+    np.testing.assert_allclose(lc, lh, rtol=1e-5)
+    close = total = 0
+    for a, b in zip(pc, ph):
+        assert (a - b).abs().max() <= 2 * 2e-3
+        close += int(torch.isclose(a, b, rtol=1e-5, atol=1e-7).sum())
+        total += a.numel()
+    assert close >= 0.999 * total
+    world, _ = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                  "cuda", timeout=120.0)
+    try:
+        got = _placed_train(cfg, host, "cuda", world)
+    finally:
+        process_group.leave()
+    assert got[0] == lc
+    for a, b in zip(got[1], pc):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

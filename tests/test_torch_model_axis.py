@@ -613,8 +613,12 @@ def test_train_cli_steps_that_replicate_the_model_axis_equal_t1(
 
 
 def test_other_modes_refuse_a_model_axis():
+    """The wire and sync steps refuse a model axis, and so does the
+    pytree step unplaced (``place_state=False``); placed, it is
+    ``launch.steps.build_step``'s train step (``test_torch_steps.py``)."""
     cfg, p = _granite()
     for mode in ("pytree", "wire", "sync_psum"):
+        kw = {"place_state": False} if mode == "pytree" else {}
         with pytest.raises(ValueError, match="replicates over model"):
             build_programs(cfg, GBAConfig(local_batch=B, buffer_size=M),
-                           params=p, mode=mode, workers=2, model=2)
+                           params=p, mode=mode, workers=2, model=2, **kw)
