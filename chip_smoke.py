@@ -389,7 +389,29 @@ Phases:
     state and inputs, argument + temporary bytes printed beside the
     step's peak; the card's memory equal to the dry run's ``CARD_BYTES``;
     within ``STEPS_BUDGET_S``;
-24. one JSON line of the kernels, then the result line.
+24. the long-context decode whose KV sequence the rules split over
+    ``data`` (``long_500k``: 524,288 positions, batch 1), bf16 at full
+    width through ``launch.steps.build_step``: (a) gemma3-12b, all 48
+    layers, over (4, 1) in process, its cache slices drawn on the card
+    directly (never the whole cache beside them) up to ``pos = L - 8``,
+    ``LONG_STEPS`` greedy steps of 32 ``flash_decode_partial`` launches
+    (8 global layers x 4 data shards), ``LONG_SAMPLED`` launches held to
+    the plain version (out and lse), the step time, peak memory and
+    launches printed; (b) gemma3-12b at depth 12 (two global layers)
+    over (2, 2) from ``pos = L/2 - 2``, so that the new rows cross a
+    slice boundary, held to the unplaced ``decode_step`` on the whole
+    cache drawn from the same seed (each step's logits within 2**-6 of
+    the largest, a differing greedy token printed with its margin), then
+    over one NCCL rank bit-identical; (c) zamba2-2.7b, all 54 layers,
+    over (4, 1) as (a) at head dim 80, and at depth 6 (one shared
+    attention) held to the unplaced decode as (b); (d) starcoder2-3b, all
+    30 layers (its rings alone), and gemma2-27b at depth 4 (the
+    softcapped masked partial), over (2, 2), held as (b); (e)
+    ``launch.dryrun.dryrun_step`` for (a)'s decode: 4 x device (0, 0)'s
+    argument bytes within 1 % of the allocation of (a)'s held state;
+    the partial launch timed at (a)'s and (c)'s slices against its plain
+    version, its bound and SDPA; within ``LONG_BUDGET_S``;
+25. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -403,7 +425,8 @@ architecture's training run, each Mamba2 architecture's serve loop,
 zamba2's kernel route and its engine, each Mamba2 architecture's
 training run, each cross architecture's serve loop, kernel route and
 engine, each cross architecture's training run, and each run of the
-model axis, and each placed serve loop of phase 23)
+model axis, each placed serve loop of phase 23, and each decode of
+phase 24)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -413,6 +436,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3059,12 +3083,20 @@ def flash_phase(T: dict, cycles_per_ms: float) -> dict:
 
 
 def flash_timed(T: dict, gen: torch.Generator, shape: tuple,
-                cycles_per_ms: float) -> dict:
+                cycles_per_ms: float, partial: bool = False) -> dict:
     """``flash_decode`` at ``shape`` = (B, L, KV, G, hd, pos) on random bf16
     inputs, timed in turns with its plain version and SDPA (whose output
     must agree within 2**-6 of the largest), beside its byte bound and its
-    launch plan."""
+    launch plan.  With ``partial``, ``flash_decode_partial`` of the slice
+    from position 0 and its plain version (SDPA computes the output, not
+    the log-sum-exp)."""
     fd, ref = T["flash_decode"], T["flash_decode_ref"]
+    if partial:
+        def fd(q, k, v, p):
+            return T["flash_decode_partial"](q, k, v, p)[0]
+
+        def ref(q, k, v, p):
+            return T["flash_decode_partial_ref"](q, k, v, p)[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, length, kv, g, hd, pos = shape
     q = torch.randn((b, kv, g, hd), generator=gen, device="cuda").bfloat16()
@@ -3090,7 +3122,7 @@ def flash_timed(T: dict, gen: torch.Generator, shape: tuple,
     bnd, by = flash_bound_ms(b, length, kv, g, hd, pos, 2)
     plan = T["flash_launch_plan"](q, k)
     row = {"shape": [b, length, kv, g, hd], "pos": pos, "dtype": "bf16",
-           "ms": med["kernel"], "plain_ms": med["plain"],
+           "partial": partial, "ms": med["kernel"], "plain_ms": med["plain"],
            "library_ms": med["library"],
            "library": "F.scaled_dot_product_attention(enable_gqa=True,"
                       " boolean mask)",
@@ -3098,7 +3130,8 @@ def flash_timed(T: dict, gen: torch.Generator, shape: tuple,
            "bound_by": by, "plan": plan, "sleep_held": held,
            "device_runs_ms": runs}
     earlier = EARLIER_MS.get(("flash_decode", (b, length, kv, g, hd)))
-    print(f"  flash_decode ({b}, {length}, {kv}, {g}, {hd}) bf16 pos "
+    print(f"  flash_decode{'_partial' if partial else ''} ({b}, {length}, "
+          f"{kv}, {g}, {hd}) bf16 pos "
           f"{pos}: {plan['stages']} stages, {plan['nsplit']} splits of "
           f"{plan['chunk']} positions, {plan['blocks_per_sm']} blocks "
           f"an SM; device ms per call: kernel {med['kernel']!r}"
@@ -3147,11 +3180,12 @@ def serve_phase(T: dict, counters) -> dict:
 
 
 def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
-              placed: dict) -> dict:
+              placed: dict, long: dict) -> dict:
     """The kernels line's row of ``flash_decode``, timed at decode_32k;
     its shapes also at the head dims of phase 17's architectures, of
     zamba2's shared attention (phase 19) and of the cross archs (phase
-    20); its launches also on phase 23's placed decode."""
+    20), and its partial launches at phase 24's slices; its launches also
+    on phase 23's placed decode and phase 24's decodes."""
     by_path = {
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
@@ -3178,8 +3212,12 @@ def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
             cross[arch]["engine"]["launches"]["flash_decode"]
     for key, run in placed["serve"].items():
         by_path[f"build_step_serve_{key}"] = run["launches"]["flash_decode"]
+    for key in ("a", "b", "c", "c_held"):
+        by_path[f"long_500k_{key}"] = long[key]["launches"]["flash_decode"]
+    by_path["long_500k_b_nccl"] = \
+        long["b"]["nccl"]["launches"]["flash_decode"]
     timed = (serve["flash_decode"]["timed"] + archs["flash_decode"]
-             + ssm["flash_decode"] + cross["flash_decode"])
+             + ssm["flash_decode"] + cross["flash_decode"] + long["timed"])
     at = serve["flash_decode"]["timed"][-1]
     return {
         "name": "flash_decode",
@@ -3194,7 +3232,8 @@ def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
             h["max_abs_err"] for h in ssm["zamba2-2.7b"]["flash_held"]] + [
             h["max_abs_err"] for arch in CROSS_ARCHS
             for h in cross[arch]["flash_held"]] + [
-            run["flash_max_abs_err"] for run in placed["serve"].values()]),
+            run["flash_max_abs_err"] for run in placed["serve"].values()] + [
+            long[key]["flash_max_abs_err"] for key in ("a", "c")]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
@@ -6138,6 +6177,11 @@ def model_axis_phase(T: dict, counters) -> dict:
 
 # (a) and (b): the serve loop of phase 13 through the placed steps
 STEPS_SERVE_MESHES = {"a": (1, 4), "b": (2, 2)}
+# tokens each serve loop of the phase generates: the prefill's and
+# STEPS_GEN - 1 greedy decode steps (phase 13 takes SERVE_GEN); the
+# loops are host-paced at granite-8b's 36 layers, so their count sets
+# most of the phase's time
+STEPS_GEN = 8
 # (c) the placed pytree step: depth 2, one apply at M = LM_M
 STEPS_TRAIN_MESH = (2, 2)
 # (d) the dry run's argument bytes against the card's allocation
@@ -6187,12 +6231,12 @@ def placed_serve(T: dict, cfg, params, prompts, mesh: tuple, serve_tp: bool,
     and decode over ``mesh`` (weights by ``serve_param_specs`` where
     ``serve_tp``, else ``param_specs``, gathered over ``data`` on use):
     the prefill of the prompts into a cache of ``SERVE_PROMPT +
-    SERVE_GEN`` positions, then ``SERVE_GEN - 1`` greedy decode steps,
+    STEPS_GEN`` positions, then ``STEPS_GEN - 1`` greedy decode steps,
     counted; then one more step with its ``flash_decode`` launches
     sampled against the plain version on their own inputs."""
     St, Mesh, Shape = T["steps"], T["Mesh"], T["InputShape"]
     m = Mesh(("data", "model"), mesh)
-    b, cache_len = prompts.shape[0], SERVE_PROMPT + SERVE_GEN
+    b, cache_len = prompts.shape[0], SERVE_PROMPT + STEPS_GEN
     pre, _ = St.build_step(cfg, Shape("p", SERVE_PROMPT, b, "prefill"), m,
                            serve_tp=serve_tp, world=world,
                            cache_len=cache_len)
@@ -6212,7 +6256,7 @@ def placed_serve(T: dict, cfg, params, prompts, mesh: tuple, serve_tp: bool,
     logits, caches = pre(held, pre.place_batch({"tokens": prompts}))
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     out_logits, tokens = [logits[:, None]], [tok]
-    for _ in range(SERVE_GEN - 1):
+    for _ in range(STEPS_GEN - 1):
         tok, lg, caches = dec(held, tok, caches)
         out_logits.append(lg)
         tokens.append(tok)
@@ -6251,7 +6295,7 @@ def _serve_hold(T: dict, cfg, params, prompts, run: dict) -> dict:
     printed with its step and the unplaced margin."""
     tokens = run["tokens"]
     want, _ = _forced(T, params, cfg, prompts, tokens,
-                      SERVE_PROMPT + SERVE_GEN)
+                      SERVE_PROMPT + STEPS_GEN)
     err = (run["logits"].float() - want).abs().max().item()
     scale = want.abs().max().item()
     picks = want.argmax(-1)
@@ -6279,7 +6323,7 @@ def steps_serve(T: dict, counters, cfg, params, prompts) -> dict:
                      counters, T["inprocess"], "(a) 1x4 serve_tp")
     check(a["whole_over_data"], "(a): serve_param_specs within the card's "
           "memory: every weight whole over data")
-    want = cfg.num_layers * 4 * (SERVE_GEN - 1)
+    want = cfg.num_layers * 4 * (STEPS_GEN - 1)
     check(a["launches"]["flash_decode"] == want,
           f"(a): {cfg.num_layers} layers x 4 model shards flash_decode "
           f"launches a step: {a['launches']['flash_decode']} != {want}")
@@ -6293,7 +6337,7 @@ def steps_serve(T: dict, counters, cfg, params, prompts) -> dict:
     b = placed_serve(T, cfg, params, prompts, STEPS_SERVE_MESHES["b"], False,
                      counters, T["inprocess"], "(b) 2x2 param_specs")
     check(not b["whole_over_data"], "(b): weights split over data")
-    want = cfg.num_layers * 2 * (SERVE_GEN - 1)
+    want = cfg.num_layers * 2 * (STEPS_GEN - 1)
     check(b["launches"]["flash_decode"] == want,
           f"(b): {cfg.num_layers} layers x 2 model shards flash_decode "
           f"launches a step in process: {b['launches']['flash_decode']}")
@@ -6432,7 +6476,7 @@ def steps_dryrun(T: dict, cfg_serve, params, prompts, cfg_train,
     argument and temporary bytes against the step's peak."""
     D, Mesh, Shape = T["dryrun"], T["Mesh"], T["InputShape"]
     one = Mesh(("data", "model"), (1, 1))
-    cache_len = SERVE_PROMPT + SERVE_GEN
+    cache_len = SERVE_PROMPT + STEPS_GEN
     b = prompts.shape[0]
     out = {}
     gba = T["GBAConfig"](local_batch=LM_BATCH, buffer_size=LM_M,
@@ -6506,7 +6550,7 @@ def steps_one_device(T: dict, cfg, params, prompts, cfg_train,
     St, Tm, Mesh, Shape = T["steps"], T["transformer"], T["Mesh"], \
         T["InputShape"]
     one = Mesh(("data", "model"), (1, 1))
-    b, cache_len = prompts.shape[0], SERVE_PROMPT + SERVE_GEN
+    b, cache_len = prompts.shape[0], SERVE_PROMPT + STEPS_GEN
     pre, _ = St.build_step(cfg, Shape("p", SERVE_PROMPT, b, "prefill"), one,
                            cache_len=cache_len)
     dec, _ = St.build_step(cfg, Shape("d", cache_len, b, "decode"), one)
@@ -6525,7 +6569,7 @@ def steps_one_device(T: dict, cfg, params, prompts, cfg_train,
             t1 = time.perf_counter()
             tok = logits.argmax(-1)[:, None].to(torch.int32)
             out = [logits[:, None]]
-            for _ in range(SERVE_GEN - 1):
+            for _ in range(STEPS_GEN - 1):
                 if placed:
                     tok, lg, cache = dec(held, tok, cache)
                 else:
@@ -6536,7 +6580,7 @@ def steps_one_device(T: dict, cfg, params, prompts, cfg_train,
         t2 = time.perf_counter()
         return torch.cat(out, dim=1), {
             "prefill_ms": (t1 - t0) * 1e3,
-            "decode_ms_a_step": (t2 - t1) * 1e3 / (SERVE_GEN - 1)}
+            "decode_ms_a_step": (t2 - t1) * 1e3 / (STEPS_GEN - 1)}
 
     runs: dict = {"unplaced": [], "placed": []}
     logits = {}
@@ -6667,6 +6711,469 @@ def steps_phase(T: dict, counters) -> dict:
 
 
 
+# phase 24: the long-context decode, long_500k (524,288 positions, batch 1),
+# whose KV sequence the rules split over data
+LONG_LEN = 524_288
+LONG_DECODE_STEPS = 4
+# flash_decode_partial launches of a step sampled against the plain version
+LONG_SAMPLED = 8
+LONG_A = ("gemma3-12b", (4, 1))
+LONG_B = ("gemma3-12b", 12, (2, 2))        # arch, depth, mesh
+LONG_C = ("zamba2-2.7b", (4, 1), 6)        # arch, mesh, held depth
+LONG_D = (("starcoder2-3b", 30), ("gemma2-27b", 4))
+LONG_D_MESH = (2, 2)
+# (b)-(d): the placed logits against the unplaced decode's, within the
+# larger of SERVE_LOGIT_FRAC of the largest and LONG_NOISE times the
+# deviation of the same decode over (1, T), which (b) and (d) print: at
+# full width in bf16 the model axis alone, whose float32 sums run in
+# another order, moves the logits of a random-weight stack past 2**-6 of
+# the largest (starcoder2-3b's 30 layers, gemma3-12b at depth 12), so the
+# split data shards' attention is held tightly at the layer instead,
+# LONG_ATTN_SAMPLED calls a route
+LONG_NOISE = 2.0
+LONG_ATTN_SAMPLED = 3
+# a cache's drawn values: k and v N(0, 1), the Mamba2 state and window
+# N(0, 0.1^2)
+LONG_STATE_SCALE = 0.1
+# the timed partial launches: (a)'s and (c)'s slices, every position read
+LONG_TIMED = ((1, LONG_LEN // 4, 8, 2, 256), (1, LONG_LEN // 4, 32, 1, 80))
+LONG_BUDGET_S = 150.0
+
+
+def draw_cache(tree, pos: int, seed: int):
+    """A cache tree (meta or real tensors, the held slices' lists
+    included) drawn on the card from ``seed`` in tree order: ``pos`` an
+    int32 scalar, k and v N(0, 1) in their dtype, a Mamba2 state and conv
+    window ``LONG_STATE_SCALE`` N(0, 1)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def draw(name, x):
+        if name == "pos":
+            return torch.full((), pos, dtype=torch.int32, device="cuda")
+        out = torch.randn(x.shape, generator=gen, device="cuda",
+                          dtype=x.dtype)
+        return out if name in ("k", "v") else out.mul_(LONG_STATE_SCALE)
+
+    def walk(t, name=""):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, name) for v in t]
+        return draw(name, t)
+
+    return walk(tree)
+
+
+class recorded_partial:
+    """Within the block, each ``ops.flash_decode_partial`` call keeps its
+    inputs and outputs, the first ``n``: q, pos and the outputs as clones,
+    k and v as the slices themselves (a decode step writes a slice's row
+    before its launch and never after it, so after the step they are the
+    launch's inputs)."""
+
+    def __init__(self, T: dict, n: int):
+        self.ops, self.n, self.calls = T["ops"], n, []
+
+    def __enter__(self):
+        self.saved = fn = self.ops.flash_decode_partial
+
+        def rec(q, k, v, pos, start=0):
+            out, lse = fn(q, k, v, pos, start)
+            if len(self.calls) < self.n:
+                self.calls.append((q.clone(), k, v, pos.clone(), start,
+                                   out.clone(), lse.clone()))
+            return out, lse
+        self.ops.flash_decode_partial = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_decode_partial = self.saved
+
+
+def _hold_partials(T: dict, calls: list, label: str) -> float:
+    """Each recorded partial launch against the plain version on its own
+    inputs: the float32 out within rtol 1e-5, atol 1e-6 (float32 sums in
+    another order), lse within rtol and atol 1e-5 (an empty row: out 0,
+    lse -inf on both); the largest |err|."""
+    worst = 0.0
+    for i, (q, k, v, pos, start, out, lse) in enumerate(calls):
+        want, want_lse = T["flash_decode_partial_ref"](q, k, v, pos, start)
+        empty = bool((want_lse == -math.inf).all())
+        if empty:
+            ok = not out.any() and bool((lse == -math.inf).all())
+            err = 0.0
+        else:
+            err = (out - want).abs().max().item()
+            ok = (torch.allclose(out, want, rtol=1e-5, atol=1e-6)
+                  and torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5))
+        worst = max(worst, err)
+        print(f"  {label}: flash_decode_partial launch {i}, q "
+              f"{tuple(q.shape)} against a k slice {tuple(k.shape)} from "
+              f"{start} at pos {int(pos)}{' (empty)' if empty else ''}: max "
+              f"|err| {err!r} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: partial launch {i} held to the plain version")
+    return worst
+
+
+def long_greedy(T: dict, dec, held, caches, token, steps: int,
+                counters=None) -> dict:
+    """``steps`` greedy decode steps of ``dec`` from ``token``, each timed
+    to a synchronise: tokens, logits (B, steps, V) float32, the first
+    step's ms and the median of the others', peak memory, and the
+    launches counted over the run where ``counters`` is given."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if counters:
+        counters(reset=True)
+    toks, logits, ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        token, lg, caches = dec(held, token, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(token)
+        logits.append(lg.float())
+    return {"tokens": torch.cat(toks, dim=1), "logits": torch.cat(logits, 1),
+            "caches": caches, "first_step_ms": ms[0],
+            "step_ms": _median(ms[1:]), "step_ms_each": ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counters() if counters else None}
+
+
+def long_forced(dec, held, caches, first, tokens) -> torch.Tensor:
+    """The logits (B, n, V) float32 of ``dec`` fed ``first`` and then
+    ``tokens`` (B, n) but their last."""
+    tok, out = first, []
+    for i in range(tokens.shape[1]):
+        _, lg, caches = dec(held, tok, caches)
+        out.append(lg.float())
+        tok = tokens[:, i:i + 1]
+    return torch.cat(out, dim=1)
+
+
+def unplaced_logits(T: dict, cfg, params, cache, first, tokens
+                    ) -> torch.Tensor:
+    """:func:`long_forced` through the unplaced ``decode_step`` on the
+    whole ``cache``, which it writes in place."""
+    tok, out = first, []
+    for i in range(tokens.shape[1]):
+        lg, cache = T["transformer"].decode_step(params, cfg, tok, cache)
+        out.append(lg.float())
+        tok = tokens[:, i:i + 1]
+    return torch.cat(out, dim=1)
+
+
+class recorded_split:
+    """Within the block, the first ``n`` calls of each route (kernel,
+    masked) of ``layers._split_attend`` keep their inputs, q and pos as
+    clones and the slices themselves (written before the call, never
+    after it in a step), and their output."""
+
+    def __init__(self, T: dict, n: int):
+        self.layers, self.n, self.calls = T["layers"], n, []
+
+    def __enter__(self):
+        self.saved = fn = self.layers._split_attend
+
+        def rec(cfg, q, ks, vs, pos, window, tp):
+            out, kernel = fn(cfg, q, ks, vs, pos, window, tp)
+            if sum(c[-1] == kernel for c in self.calls) < self.n:
+                self.calls.append((cfg, q.clone(), ks, vs, pos.clone(),
+                                   window, out.clone(), kernel))
+            return out, kernel
+        self.layers._split_attend = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._split_attend = self.saved
+
+
+def hold_split_attention(T: dict, calls: list, label: str) -> float:
+    """Each recorded split attention against the attention of the whole
+    cache on the same inputs (its slices concatenated): ``flash_decode``
+    on the whole for the kernel route, ``layers._sdpa`` under the whole's
+    mask for the masked route; within ``BF16_RTOL`` / ``BF16_ATOL`` (one
+    bf16 rounding apart).  The largest |err|."""
+    worst = 0.0
+    for cfg, q, ks, vs, pos, window, out, kernel in calls:
+        k, v = torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+        B, _, H, hd = q.shape
+        KV, L = k.shape[2], k.shape[1]
+        if kernel:
+            want = T["flash_decode"](q.reshape(B, KV, H // KV, hd)
+                                     .contiguous(), k, v, pos)
+        else:
+            posb = pos.expand(B)[:, None]
+            idx = torch.arange(L, device=q.device)[None, :]
+            if window:
+                abs_pos = posb - torch.remainder(posb - idx, L)
+                valid = (abs_pos >= 0) & (abs_pos <= posb)
+            else:
+                valid = idx <= posb
+            want = T["layers"]._sdpa(q.reshape(B, 1, KV, H // KV, hd), k, v,
+                                     valid[:, None, :], cfg.attn_softcap)
+        want = want.reshape(out.shape).float()
+        err = (out.float() - want).abs().max().item()
+        ok = torch.allclose(out.float(), want, rtol=BF16_RTOL,
+                            atol=BF16_ATOL)
+        worst = max(worst, err)
+        print(f"  {label}: {'kernel' if kernel else 'masked'} attention "
+              f"over {len(ks)} slices {tuple(ks[0].shape)}"
+              f"{' of a ring' if window else ''} against the whole cache's:"
+              f" max |err| {err!r} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: the split attention held to the whole's")
+        del k, v
+    return worst
+
+
+def _build(T: dict, cfg, mesh: tuple, world=None):
+    Mesh, Shape = T["Mesh"], T["InputShape"]
+    return T["steps"].build_step(
+        cfg, Shape("long_500k", LONG_LEN, 1, "decode"),
+        Mesh(("data", "model"), mesh),
+        world=world if world is not None else T["inprocess"])
+
+
+def long_full(T: dict, counters, arch: str, mesh: tuple, seed: int) -> dict:
+    """(a) / (c): ``arch`` at full width and depth over ``mesh`` in
+    process, the weights placed and the whole tree let go before the
+    cache, whose held slices are drawn on the card (``draw_cache`` of the
+    step's meta arguments) up to ``pos = L - 8``; ``LONG_DECODE_STEPS`` greedy
+    steps counted, one more with ``LONG_SAMPLED`` partial launches held
+    to the plain version; the dry run's argument bytes (e) against the
+    allocation of the held state."""
+    cfg = T["get_config"](arch)
+    label = f"({arch} {mesh[0]}x{mesh[1]})"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dec, args = _build(T, cfg, mesh)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    held = dec.place_params(params)
+    torch.cuda.synchronize()
+    held_bytes = torch.cuda.memory_allocated() - base
+    del params
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    caches = draw_cache(args[2], LONG_LEN - 8, seed + 1)
+    token = torch.randint(0, cfg.vocab_size, (1, 1), dtype=torch.int32,
+                          generator=torch.Generator("cuda").manual_seed(
+                              seed + 2), device="cuda")
+    torch.cuda.synchronize()
+    held_bytes += torch.cuda.memory_allocated() - base
+    setup_s = time.perf_counter() - t0
+    run = long_greedy(T, dec, held, caches, token, LONG_DECODE_STEPS, counters)
+    globals_ = sum(T["transformer"]._window(cfg, k) == 0 and k != "mamba"
+                   for k in cfg.block_pattern) * cfg.num_repeats
+    want = globals_ * mesh[0] * mesh[1] * LONG_DECODE_STEPS
+    got = run["launches"]["flash_decode"]
+    print(f"  {label}: {cfg.num_layers} layers, L {LONG_LEN}: "
+          f"{got} flash_decode_partial launches in {LONG_DECODE_STEPS} steps "
+          f"({globals_} attention layers x {mesh[0] * mesh[1]} shards a "
+          f"step); {run['step_ms']!r} ms a step after a first of "
+          f"{run['first_step_ms']!r}, peak {run['peak_gb']!r} GB, held "
+          f"{held_bytes / 1e9!r} GB; set-up {setup_s:.1f} s")
+    check(got == want, f"{label}: {want} flash_decode_partial launches: "
+                       f"{got}")
+    check(T["ops"].kernel_calls["flash_decode"] == want,
+          f"{label}: every launch through ops.flash_decode_partial")
+    check(bool(torch.isfinite(run["logits"]).all()), f"{label}: finite")
+    sampled = min(LONG_SAMPLED, want // LONG_DECODE_STEPS)
+    with recorded_partial(T, sampled) as rec:
+        dec(held, run["tokens"][:, -1:], run["caches"])
+        torch.cuda.synchronize()
+    check(len(rec.calls) == sampled,
+          f"{label}: {sampled} partial launches sampled")
+    worst = _hold_partials(T, rec.calls, label)
+    shapes = sorted({(tuple(c[0].shape), tuple(c[1].shape))
+                     for c in rec.calls})
+    del rec
+    rec_d = T["dryrun"].dryrun_step(cfg, T["InputShape"](
+        "long_500k", LONG_LEN, 1, "decode"), T["Mesh"](("data", "model"),
+                                                     mesh))
+    arg_b = rec_d["memory"]["argument_bytes"] * mesh[0] * mesh[1]
+    rel = abs(arg_b - held_bytes) / held_bytes
+    print(f"  {label} (e): {mesh[0] * mesh[1]} x the dry run's argument "
+          f"bytes {arg_b:,} vs allocated {held_bytes:,} (rel {rel:.5f}); "
+          f"cache {rec_d['memory']['cache_bytes']:,} B a device")
+    check(rel <= STEPS_ARG_FRAC, f"{label}: the dry run's argument bytes "
+                                 f"within {STEPS_ARG_FRAC} of the card's")
+    out = {"layers": cfg.num_layers, "mesh": list(mesh),
+           "step_ms": run["step_ms"], "step_ms_each": run["step_ms_each"],
+           "peak_gb": run["peak_gb"],
+           "held_gb": held_bytes / 1e9, "launches": run["launches"],
+           "launches_per_step": want // LONG_DECODE_STEPS, "setup_s": setup_s,
+           "flash_max_abs_err": worst, "flash_shapes": shapes,
+           "dryrun": {"argument_bytes": rec_d["memory"]["argument_bytes"],
+                      "cache_bytes": rec_d["memory"]["cache_bytes"],
+                      "temp_bytes": rec_d["memory"]["temp_bytes"],
+                      "collective_bytes": rec_d["collective_bytes"],
+                      "allocated_bytes": held_bytes, "rel": rel}}
+    del held, caches, run, dec, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_held(T: dict, counters, arch: str, depth: int, mesh: tuple,
+              pos: int, seed: int, nccl: bool = False) -> dict:
+    """(b) / (c) / (d): ``arch`` at full width cut to ``depth`` layers
+    over ``mesh`` in process from a whole cache drawn at ``pos``,
+    ``LONG_DECODE_STEPS`` greedy steps, counted; with ``nccl`` the same placed
+    run over one NCCL rank, bit-identical; one more step whose split
+    attentions (``LONG_ATTN_SAMPLED`` a route) are held to the whole
+    cache's (:func:`hold_split_attention`); then the logits against the
+    unplaced decode on that cache fed the same tokens, within the larger
+    of ``SERVE_LOGIT_FRAC`` of the largest and ``LONG_NOISE`` times the
+    deviation of the same decode over (1, T), the model axis without the
+    split; a greedy token that the unplaced logits would not pick printed
+    with their margin."""
+    full = T["get_config"](arch)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    label = f"({arch} depth {depth} {mesh[0]}x{mesh[1]})"
+    torch.cuda.empty_cache()
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    whole = draw_cache(T["transformer"].cache_shapes(cfg, 1, LONG_LEN), pos,
+                       seed + 1)
+    first = torch.randint(0, cfg.vocab_size, (1, 1), dtype=torch.int32,
+                          generator=torch.Generator("cuda").manual_seed(
+                              seed + 2), device="cuda")
+
+    def placed(world=None):
+        dec, _ = _build(T, cfg, mesh, world)
+        held = dec.place_params(params)
+        run = long_greedy(T, dec, held, dec.place_cache(whole), first,
+                          LONG_DECODE_STEPS, counters)
+        run["dec"], run["held"] = dec, held
+        return run
+
+    run = placed()
+    kernel = sum(T["transformer"]._window(cfg, k) == 0 and k != "mamba"
+                 for k in cfg.block_pattern) * cfg.num_repeats \
+        if not cfg.attn_softcap else 0
+    want = kernel * mesh[0] * mesh[1] * LONG_DECODE_STEPS
+    check(run["launches"]["flash_decode"] == want,
+          f"{label}: {want} flash_decode_partial launches: "
+          f"{run['launches']['flash_decode']}")
+    out = {"layers": depth, "of_layers": full.num_layers, "mesh": list(mesh),
+           "pos": pos, "step_ms": run["step_ms"],
+           "step_ms_each": run["step_ms_each"], "peak_gb": run["peak_gb"],
+           "launches": run["launches"]}
+    print(f"  {label}: from pos {pos}, {run['step_ms']!r} ms a step after "
+          f"a first of {run['first_step_ms']!r}, peak {run['peak_gb']!r} "
+          f"GB, launches {json.dumps(run['launches'])}")
+    if nccl:
+        pg = T["process_group"]
+        with tempfile.TemporaryDirectory() as tmp:
+            world, _ = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                               "cuda", timeout=300.0)
+            try:
+                n = placed(world)
+            finally:
+                pg.leave()
+        same = (_same_bits(n["logits"], run["logits"])
+                and torch.equal(n["tokens"], run["tokens"])
+                and all(_same_bits(a, b) for a, b in zip(
+                    T["leaves"](n["caches"]), T["leaves"](run["caches"]))))
+        check(same, f"{label}: logits, tokens and every cache slice "
+                    f"bit-identical over one NCCL rank")
+        out["nccl"] = {"step_ms": n["step_ms"],
+                       "step_ms_each": n["step_ms_each"],
+                       "bit_identical": same, "launches": n["launches"]}
+        print(f"  {label}: over one NCCL rank bit-identical; "
+              f"{n['step_ms']!r} ms a step")
+        del n
+    with recorded_split(T, LONG_ATTN_SAMPLED) as rec:
+        run["dec"](run["held"], run["tokens"][:, -1:], run["caches"])
+        torch.cuda.synchronize()
+    check(len(rec.calls) > 0, f"{label}: split attentions recorded")
+    out["attention_max_abs_err"] = hold_split_attention(T, rec.calls, label)
+    out["attention_held"] = len(rec.calls)
+    del rec
+    tokens, logits = run["tokens"], run["logits"]
+    del run
+    torch.cuda.empty_cache()
+    noise = 0.0
+    if mesh[1] > 1:
+        dec, _ = _build(T, cfg, (1, mesh[1]))
+        alone = long_forced(dec, dec.place_params(params),
+                            dec.place_cache(whole), first, tokens)
+        del dec
+        torch.cuda.empty_cache()
+    want = unplaced_logits(T, cfg, params, whole, first, tokens)
+    if mesh[1] > 1:
+        noise = (alone - want).abs().max().item()
+        del alone
+    err = (logits - want).abs().max().item()
+    scale = want.abs().max().item()
+    bound = max(SERVE_LOGIT_FRAC[cfg.dtype] * scale, LONG_NOISE * noise)
+    differ = (want.argmax(-1) != tokens).nonzero().tolist()
+    for row, step in differ:
+        top = torch.topk(want[row, step], 2).values
+        print(f"  {label}: greedy token at step {step} differs from the "
+              f"unplaced decode's; its margin there "
+              f"{(top[0] - top[1]).item()!r}")
+    print(f"  {label}: logits max |diff| {err!r} of {scale!r} against the "
+          f"unplaced decode (over 1x{mesh[1]}, the model axis alone: "
+          f"{noise!r}); bound {bound!r}; {len(differ)} greedy token(s) "
+          f"differ")
+    check(bool(torch.isfinite(logits).all()), f"{label}: finite logits")
+    check(err <= bound, f"{label}: logits within {bound} of the unplaced "
+                        f"decode's: {err}")
+    out.update({"logit_max_abs_diff": err, "logit_max_abs": scale,
+                "model_axis_alone_diff": noise, "bound": bound,
+                "tokens_differing": len(differ)})
+    del params, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_phase(T: dict, counters, cycles_per_ms: float) -> dict:
+    phase(24, "the long-context decode (long_500k: 524,288 positions, "
+              "batch 1) whose KV sequence the rules split over data: "
+              "gemma3-12b whole over 4 x 1, held runs over 2 x 2 (and one "
+              "NCCL rank), zamba2-2.7b whole over 4 x 1, starcoder2-3b and "
+              "gemma2-27b over 2 x 2, the dry run, the partial launch "
+              "timed")
+    t_phase = time.perf_counter()
+    out, rows = {}, {}
+    arch, mesh = LONG_A
+    t0 = time.perf_counter()
+    out["a"] = long_full(T, counters, arch, mesh, 0)
+    rows["a"] = time.perf_counter() - t0
+    arch, depth, mesh = LONG_B
+    t0 = time.perf_counter()
+    out["b"] = long_held(T, counters, arch, depth, mesh, LONG_LEN // 2 - 2, 10,
+                         nccl=True)
+    rows["b"] = time.perf_counter() - t0
+    arch, mesh, depth = LONG_C
+    t0 = time.perf_counter()
+    out["c"] = long_full(T, counters, arch, mesh, 20)
+    out["c_held"] = long_held(T, counters, arch, depth, mesh,
+                              3 * LONG_LEN // 4 - 2, 30)
+    rows["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = {a: long_held(T, counters, a, depth, LONG_D_MESH,
+                             LONG_LEN // 2 - 2, 40 + i)
+                for i, (a, depth) in enumerate(LONG_D)}
+    rows["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(5)
+    out["timed"] = [flash_timed(T, gen, (*shape, LONG_LEN), cycles_per_ms,
+                                partial=True) for shape in LONG_TIMED]
+    rows["timed"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["row_seconds"] = rows
+    print(f"  phase 24: {out['seconds']:.1f} s (budget {LONG_BUDGET_S} s); "
+          f"rows {json.dumps(rows)}; {json.dumps(out, default=str)}")
+    check(out["seconds"] <= LONG_BUDGET_S,
+          f"phase 24 within its budget of {LONG_BUDGET_S} s")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6691,7 +7198,9 @@ def main() -> int:
         embedding_bag_grad_counts, embedding_bag_grad_resident,
         embedding_bag_grad_resident_sorted, embedding_bag_grad_sorted,
         sort_ids)
-    from repro_torch.kernels.flash_decode import flash_decode, launch_plan
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_partial,
+                                                  launch_plan)
     from repro_torch.kernels.fused_adagrad import fused_adagrad
     from repro_torch.kernels.gba_aggregate import gba_aggregate
     from repro_torch.kernels.gba_apply import gba_apply
@@ -6699,7 +7208,9 @@ def main() -> int:
                                               quantize_sign)
     from repro_torch.kernels.ref import (dequantize_ref,
                                          embedding_bag_grad_ref,
-                                         embedding_bag_ref, flash_decode_ref,
+                                         embedding_bag_ref,
+                                         flash_decode_partial_ref,
+                                         flash_decode_ref,
                                          fused_adagrad_ref,
                                          gba_aggregate_ref, gba_apply_ref,
                                          quantize_minmax_ref,
@@ -6786,6 +7297,8 @@ def main() -> int:
          "transformer": transformer, "layers": layers, "serve": serve,
          "S": S,
          "flash_decode": flash_decode, "flash_decode_ref": flash_decode_ref,
+         "flash_decode_partial": flash_decode_partial,
+         "flash_decode_partial_ref": flash_decode_partial_ref,
          "flash_launch_plan": launch_plan, "SD": switch_driver,
          "fig6": fig6_switching, "bench_autoswitch": bench_autoswitch,
          "FaultPlan": FaultPlan, "ScrapeDropout": ScrapeDropout,
@@ -6903,8 +7416,10 @@ def main() -> int:
     model_axis = model_axis_phase(T, counters)
     torch.cuda.empty_cache()
     placed = steps_phase(T, counters)
+    torch.cuda.empty_cache()
+    long = long_phase(T, counters, sleep_cycles_per_ms())
 
-    phase(24, "kernels")
+    phase(25, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -6941,6 +7456,7 @@ def main() -> int:
         "lm_cross_train": cross_train,
         "lm_model_axis": model_axis,
         "lm_build_step": placed,
+        "lm_long_context": long,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -7061,7 +7577,7 @@ def main() -> int:
                    model_axis["granite"]["wide"]["gba_apply"]],
         "ok": True,
     }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
-        serve_row(served, archs, ssm, cross, placed)]}))
+        serve_row(served, archs, ssm, cross, placed, long)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -70,7 +70,9 @@ over the same data subgroup, and saves both, which must agree bit for
 bit; with ``place_state`` both hold the params over ``data`` (FSDP), and
 a third run, ``place_state=False`` on the ranks, must agree with them
 too.  :func:`run_steps` does the same for ``launch.steps.build_step``'s
-placed prefill, decode and train steps over a (2, 2) mesh.
+placed prefill, decode and train steps over a (2, 2) mesh, and holds the
+batch-1 decode whose KV sequence the rules split over ``data`` on the
+ranks to the same decode with every shard in process (``inprocess``).
 """
 from __future__ import annotations
 
@@ -520,7 +522,16 @@ def run_steps(world, device: torch.device, cfg, params: dict, out: str
     from a cache of 24 positions, and 2 train microsteps at M = 2 (the
     second applies).  Saves, for each run and this rank's model shards,
     the logits, next tokens and losses, every cache slice, and the
-    params, accumulator and optimizer blocks, to ``out/rank{r}.pt``."""
+    params, accumulator and optimizer blocks, to ``out/rank{r}.pt``.
+
+    Then ``long``: the decode of one sequence of ``gemma3-12b``'s
+    ``.reduced()`` (local rings and a global layer, drawn from seed 11 in
+    ``cfg``'s dtype) from a prompt of 11 tokens in a cache of 24
+    positions, whose sequence the rules split over the 2 data shards
+    (slices of 12: the second step writes the second slice), 2 steps,
+    once over ``world`` and once with every shard in process
+    (``inprocess``); saved under ``"long"`` of each run, the cache slices
+    that this rank holds keyed by model and data shard."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import Mesh
@@ -572,9 +583,50 @@ def run_steps(world, device: torch.device, cfg, params: dict, out: str
                              ("v", state["opt"]["v"])):
             res["train"].update(held([b[0] for b in blocks], tr.tp.held,
                                      name))
+        res["long"] = _long_decode(world if label == "ranks" else inprocess,
+                                   world, cfg.dtype, device)
         runs[label] = res
     rank = world.rank * world.model_size + world.model_rank
     torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _long_decode(w, world, dtype: str, device: torch.device) -> dict:
+    """:func:`run_steps`'s ``long`` decode over ``w``: logits and next
+    tokens of each step, and the slices of every cache leaf that
+    ``world``'s rank holds, keyed ``cache/{model}/{data}/{path}`` (a leaf
+    whole over ``data`` under data shard ``-``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("gemma3-12b").reduced(),
+                              dtype=dtype)
+    params = _to(T.init_model(cfg, generator=torch.Generator().manual_seed(
+        11), device="cpu"), device)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (1, 11))).to(device)
+    dec, _ = steps.build_step(cfg, InputShape("l", 24, 1, "decode"),
+                              Mesh(("data", "model"), (2, 2)), world=w)
+    _, cache = T.prefill(params, cfg, toks, cache_len=24)
+    caches, tok = dec.place_cache(cache), toks[:, -1:].to(torch.int32)
+    held = dec.place_params(params)
+    res = {}
+    for i in range(2):
+        tok, logits, caches = dec(held, tok, caches)
+        res[f"logits{i}"], res[f"next{i}"] = logits.cpu(), tok.cpu()
+    mine, data = world.model_shards(2), world.workers(2)
+    for t, tree in zip(dec.tp.held, caches):
+        for path, x in tree_paths(tree):
+            sliced = path[-1].startswith("#")
+            name = "/".join(path[:-1] if sliced else path)
+            shard = (dec.tp.seq_shards()[int(path[-1][1:])] if sliced
+                     else "-")
+            if t in mine and (shard == "-" or shard in data):
+                res[f"cache/{t}/{shard}/{name}"] = x.detach().cpu()
+    return res
 
 
 def _to(params: dict, device: torch.device) -> dict:

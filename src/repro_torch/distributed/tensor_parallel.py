@@ -39,6 +39,13 @@ split module once a held shard on that shard's slice:
   column block of the fused ``in_proj`` mixes the z, x, B, C and dt
   streams, so no shard can run its block alone.
 
+Where the rules split a decode cache's KV sequence over ``data`` (a
+batch that does not divide the data axes), each process holds its data
+shards' slices of each k and v (:func:`place_cache`), every data shard
+runs the replicated batch, and the attention's partials are joined over
+``data`` in shard order (:meth:`ModelAxis.seq_gather`, ``seq_sum``,
+``seq_combine``: one all-gather along the data subgroup over ranks).
+
 A module whose leaves the rules leave whole (the dimension does not
 divide T) runs whole on the first held shard's copy and is never
 model-summed.  The residual stream between modules is the process's batch
@@ -72,6 +79,7 @@ need more than one card) waits in ROADMAP.md, queue 1 item 2.5.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -201,6 +209,53 @@ class ModelAxis:
             out = torch.maximum(out, p)
         return out
 
+    def seq_shards(self) -> range:
+        """The data shards this process holds of a KV sequence that the
+        rules split over ``data`` (a batch that does not divide the data
+        axes): ``world.workers`` of the ``data`` axis, whose slices of the
+        cache it holds (:func:`place_cache`)."""
+        return self.world.workers(self.mesh.shape["data"])
+
+    def seq_gather(self, parts: list) -> torch.Tensor:
+        """Every data shard's tensor of a sequence split over ``data``
+        (each the same shape), stacked in shard order, from the held
+        shards' ``parts``: one all-gather along the data subgroup over
+        ranks (``world.data_gather``), the held ones in process."""
+        return self.world.data_gather([p[None] for p in parts], 0)
+
+    def seq_sum(self, parts: list) -> torch.Tensor:
+        """The data shards' float32 tensors (:meth:`seq_gather`) added in
+        shard order from +0.0."""
+        every = self.seq_gather(parts)
+        total = torch.zeros_like(every[0])
+        for row in every:
+            total.add_(row)
+        return total
+
+    def seq_combine(self, parts: list) -> torch.Tensor:
+        """The attention output over a KV sequence split over ``data``
+        from each held data shard's float32 partial ``(o (..., hd), lse
+        (...))`` (``flash_decode_partial``'s), as float32: every shard's
+        partial packed as one ``(..., hd + 1)`` row and gathered in shard
+        order (:meth:`seq_gather`: one all-gather), then ``o = sum_s
+        exp(lse_s - M) o_s / sum_s exp(lse_s - M)`` with ``M = max_s
+        lse_s``, both sums in shard order from +0.0.  A shard that holds
+        no position at or below ``pos`` (lse -inf) weighs 0; a row that no
+        shard holds gives 0.  Processes and ranks compute the same
+        bits."""
+        every = self.seq_gather([torch.cat([o, lse[..., None]], dim=-1)
+                                 for o, lse in parts])
+        lse = every[..., -1]
+        top = lse.amax(dim=0)
+        top = torch.where(top == -math.inf, 0.0, top)
+        num = torch.zeros_like(every[0, ..., :-1])
+        den = torch.zeros_like(top)
+        for row in every:
+            w = torch.exp(row[..., -1] - top)
+            num.add_(w[..., None] * row[..., :-1])
+            den.add_(w)
+        return torch.where(den[..., None] > 0, num / den[..., None], 0.0)
+
     def whole(self, ps: list, shapes: Any, parent: str) -> Any:
         """One module's whole tree from the held shards' trees ``ps``:
         ``shapes`` is the module's tree at its whole (unstacked) shapes,
@@ -249,8 +304,18 @@ class ModelAxis:
         return S.gather_model_shards(shards, self.specs, self.mesh)
 
 
+def seq_split(mesh, batch: int) -> bool:
+    """Whether the cache rules split the KV sequence over ``data``: the
+    batch does not divide the data axes (``sharding.cache_specs``)."""
+    dp = 1
+    for a in S.data_axes(mesh):
+        dp *= mesh.shape[a]
+    return batch % dp != 0
+
+
 def place_cache(cache: Any, cfg: ModelConfig, mesh, batch: int,
-                held: range, rows: slice | None = None) -> list:
+                held: range, rows: slice | None = None,
+                data_held: range | None = None) -> list:
     """The held model shards' trees of a whole decode cache, as the rule
     tables place it (``sharding.cache_specs``): each leaf cut to the batch
     ``rows`` of the held data shards (all rows by default; a leaf
@@ -260,27 +325,39 @@ def place_cache(cache: Any, cfg: ModelConfig, mesh, batch: int,
     window's channels), each slice a contiguous tensor of its own.  A leaf
     whole over ``model`` (``pos``, ``memory``, a cache the rules do not
     split) is one tensor that every held shard's tree shares, so that a
-    decode writes it once.  ``NotImplementedError`` where the rules split
-    a sequence over ``data`` (a batch that does not divide the data
-    axes): the sequence-split decode waits in ROADMAP.md, queue 1."""
+    decode writes it once.
+
+    Where the rules split the KV sequence over ``data`` (a batch that does
+    not divide the data axes), each k and v leaf that they split is the
+    list of the held data shards' (``data_held``, every shard by default)
+    sequence slices of each held model shard's, each a contiguous tensor
+    of its own (``flash_decode`` reads one contiguous map), in shard
+    order; a leaf they leave whole over ``data`` (its length does not
+    divide the axis), and the Mamba2 leaves, replicated over ``data`` at
+    such a batch, are cut as above."""
     specs = S.cache_specs(cache, cfg, mesh, batch)
-    dp = 1
-    for a in S.data_axes(mesh):
-        dp *= mesh.shape[a]
-    if batch % dp and any(S.data_dims(sp) for sp in S._spec_leaves(specs)):
-        raise NotImplementedError(
-            f"{cfg.name}: a batch of {batch} over {dp} data shards splits "
-            f"the KV sequence over data; the sequence-split decode waits "
-            f"in ROADMAP.md, queue 1")
+    seq = seq_split(mesh, batch)
+    if data_held is None:
+        data_held = range(mesh.shape["data"])
 
     def cut(leaf, spec):
         dims = S.data_dims(spec)
+        if seq and dims:
+            return leaf                       # cut into slices below
         if dims and rows is not None:
             leaf = leaf.narrow(dims[0], rows.start, rows.stop - rows.start)
         return leaf.clone(memory_format=torch.contiguous_format)
 
     mine = S._zip_map(cut, cache, specs)
-    return [S.place(mine, specs, mesh, t) for t in held]
+
+    def shard(t):
+        def one(leaf, spec):
+            if seq and S.data_dims(spec):
+                return [S.place(leaf, spec, mesh, t, d) for d in data_held]
+            return S.place(leaf, spec, mesh, t)
+        return S._zip_map(one, mine, specs)
+
+    return [shard(t) for t in held]
 
 
 def gather_cache(caches: list, shapes: Any, cfg: ModelConfig, mesh,
@@ -289,8 +366,15 @@ def gather_cache(caches: list, shapes: Any, cfg: ModelConfig, mesh,
     held, in shard order): the inverse of :func:`place_cache` over
     ``model``, over the rows the trees hold; ``shapes`` is the whole
     cache's tree (``models.transformer.cache_shapes``), whose rules say
-    which leaves split."""
+    which leaves split.  A leaf split over the sequence is first put back
+    whole over ``data`` from its slices (every data shard held)."""
     specs = S.cache_specs(shapes, cfg, mesh, batch)
+    if seq_split(mesh, batch):
+        def join(spec, leaf):
+            if isinstance(leaf, list):
+                return torch.cat(leaf, dim=S.data_dims(spec)[0])
+            return leaf
+        caches = [S._zip_map(join, specs, c) for c in caches]
     return S.gather_model_shards(caches, specs, mesh)
 
 

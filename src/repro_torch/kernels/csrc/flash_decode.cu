@@ -64,6 +64,19 @@
 //    split writes its output directly.  So the combine costs no second
 //    launch and no launch tail.  The wrapper's plan (`ring_plan`) gives a
 //    row whose tiles all fit the ring one split, else one wave of splits.
+// The partial contract (`lse` given, a data shard's slice of a KV sequence
+// split over devices): the row's log-sum-exp m + log(l), in the scale the
+// scores are in, is written beside the output by whichever block finalises
+// the row (the last ticket holder, a one-split row's block, or the float32
+// combine); the output acc / l is written in float32, unrounded, whatever
+// the dtype of q, k and v, so that the slices' outputs combine and round
+// once, as one call's would; and `pos` is read as `*pos - pos_offset`,
+// the slice's local position, on the card.  A row with no position <= pos
+// (pos < 0 included) reads nothing and gives out = 0 and lse = -inf;
+// without `lse` such a row (pos < 0) reads every position, the TPU
+// kernel's mean of v, as before.  A nonempty row's l is at least 1 (its
+// largest score's p is 1), so the guard `l > 0` that gives the empty row
+// its 0 changes no output of the old contract.
 // float32 (the reduced-size checks): the CUDA-core path below: blocks of
 // hd threads (rounded up to a warp), 16 KB tiles of K and V staged two
 // deep by `cp.async` from every thread, scores by FMAs and warp shuffles,
@@ -113,6 +126,11 @@ constexpr int kMaxG = 8;          // query heads per KV head
 constexpr int kStageBytes = 16384;  // of K (and of V) a tile holds
 constexpr int kMaxTile = 128;     // positions a tile holds at most
 constexpr float kMask = -1e30f;   // the TPU kernel's mask and initial max
+
+// -inf: the log-sum-exp of a row that read nothing
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(static_cast<int>(0xff800000u));
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -217,6 +235,7 @@ template <typename T, int HD, int KG>
 __global__ void __launch_bounds__(kSplitThreads<HD>)
     flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ pos_p,
+                       int pos_offset, bool partial,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int length, int kv_heads,
                        int g_heads, int chunk, int nsplit) {
@@ -239,12 +258,14 @@ __global__ void __launch_bounds__(kSplitThreads<HD>)
   // this lane's share of a row lies inside it (always, but at hd 80 for
   // lanes 20-31 and at hd 112 for lanes 28-31)
   const bool in_row = lane * kVpl < HD;
-  const int pos = *pos_p;
+  const int pos = *pos_p - pos_offset;
   const int start = split * chunk;
   const int end = min(start + chunk, length);
   // positions past pos add exp(-1e30 - m) = 0 once m holds a real score;
-  // with pos < 0 every position is masked and all are read
-  const int last = (pos >= 0 && pos < end) ? pos + 1 : end;
+  // with pos < 0 every position is masked and all are read, or, under
+  // the partial contract, none
+  const int last = (pos >= 0 && pos < end) ? pos + 1
+                   : (pos < 0 && partial ? start : end);
   const int ntiles = last > start ? (last - start + kTile - 1) / kTile : 0;
 
   const int64_t row_stride = static_cast<int64_t>(kv_heads) * HD;
@@ -396,14 +417,18 @@ __global__ void __launch_bounds__(kSplitThreads<HD>)
 
 // Block (b * KV + kv) * G + g of HD threads: the output row from the
 // nsplit partials, out = sum_s acc_s w_s / sum_s l_s w_s with
-// w_s = exp(m_s - max_s m_s).  A split that read nothing has m = -1e30 and
-// l = acc = 0: its weight is 0 once another split holds a real score.
+// w_s = exp(m_s - max_s m_s), and with `lse` its log-sum-exp
+// max_s m_s + log(sum_s l_s w_s).  A split that read nothing has m = -1e30
+// and l = acc = 0: its weight is 0 once another split holds a real score.
+// A row that read nothing (the partial contract's empty row) has l = 0:
+// out 0, lse -inf.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
     flash_decode_combine(const float* __restrict__ part_m,
                          const float* __restrict__ part_l,
                          const float* __restrict__ part_acc,
-                         T* __restrict__ out, int g_heads, int nsplit) {
+                         T* __restrict__ out, float* __restrict__ lse,
+                         int g_heads, int nsplit) {
   const int64_t row = blockIdx.x;
   const int64_t bk = row / g_heads;
   const int g = static_cast<int>(row % g_heads);
@@ -419,81 +444,72 @@ __global__ void __launch_bounds__(HD)
     den = fmaf(l[s * g_heads], w, den);
     num = fmaf(a[static_cast<int64_t>(s) * g_heads * HD], w, num);
   }
-  out[row * HD + tid] = from_f32<T>(num / den);
+  out[row * HD + tid] = from_f32<T>(den > 0.0f ? num / den : 0.0f);
+  if (lse != nullptr && tid == 0)
+    lse[row] = den > 0.0f ? mx + logf(den) : neg_inf();
 }
 
+// One call's arguments, as `repro_flash_decode` takes them.
+struct Call {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* pos;
+  int pos_offset;
+  float* part_m;
+  float* part_l;
+  float* part_acc;
+  int* tickets;
+  void* out;
+  float* lse;
+  int b, length, kv_heads, g_heads, chunk, nsplit, stages;
+  cudaStream_t stream;
+};
+
 template <typename T, int HD, int KG>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* pos, float* part_m, float* part_l,
-                   float* part_acc, void* out, int b, int length,
-                   int kv_heads, int g_heads, int chunk, int nsplit,
-                   cudaStream_t stream) {
-  const dim3 grid(nsplit, kv_heads, b);
+cudaError_t launch(const Call& c) {
+  const dim3 grid(c.nsplit, c.kv_heads, c.b);
   constexpr int kSmem = 4 * kStageBytes;  // two stages of K and of V
   constexpr int kThreads = kSplitThreads<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_decode_split<T, HD, KG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  flash_decode_split<T, HD, KG><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, part_m, part_l, part_acc, length,
-      kv_heads, g_heads, chunk, nsplit);
+  flash_decode_split<T, HD, KG><<<grid, kThreads, kSmem, c.stream>>>(
+      static_cast<const T*>(c.q), static_cast<const T*>(c.k),
+      static_cast<const T*>(c.v), c.pos, c.pos_offset, c.lse != nullptr,
+      c.part_m, c.part_l, c.part_acc, c.length, c.kv_heads, c.g_heads,
+      c.chunk, c.nsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = b * kv_heads * g_heads;
-  flash_decode_combine<T, HD><<<rows, HD, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), g_heads, nsplit);
+  const int rows = c.b * c.kv_heads * c.g_heads;
+  flash_decode_combine<T, HD><<<rows, HD, 0, c.stream>>>(
+      c.part_m, c.part_l, c.part_acc, static_cast<T*>(c.out), c.lse,
+      c.g_heads, c.nsplit);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t dispatch_group(const void* q, const void* k, const void* v,
-                           const int* pos, float* part_m, float* part_l,
-                           float* part_acc, void* out, int b, int length,
-                           int kv_heads, int g_heads, int chunk, int nsplit,
-                           cudaStream_t s) {
-  if (g_heads <= 1)
-    return launch<T, HD, 1>(q, k, v, pos, part_m, part_l, part_acc, out, b,
-                            length, kv_heads, g_heads, chunk, nsplit, s);
-  if (g_heads <= 2)
-    return launch<T, HD, 2>(q, k, v, pos, part_m, part_l, part_acc, out, b,
-                            length, kv_heads, g_heads, chunk, nsplit, s);
-  if (g_heads <= 4)
-    return launch<T, HD, 4>(q, k, v, pos, part_m, part_l, part_acc, out, b,
-                            length, kv_heads, g_heads, chunk, nsplit, s);
-  return launch<T, HD, kMaxG>(q, k, v, pos, part_m, part_l, part_acc, out,
-                              b, length, kv_heads, g_heads, chunk, nsplit,
-                              s);
+cudaError_t dispatch_group(const Call& c) {
+  if (c.g_heads <= 1) return launch<T, HD, 1>(c);
+  if (c.g_heads <= 2) return launch<T, HD, 2>(c);
+  if (c.g_heads <= 4) return launch<T, HD, 4>(c);
+  return launch<T, HD, kMaxG>(c);
 }
 
 template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     const int* pos, float* part_m, float* part_l,
-                     float* part_acc, void* out, int b, int length,
-                     int kv_heads, int g_heads, int chunk, int nsplit,
-                     cudaStream_t s) {
+cudaError_t dispatch(int hd, const Call& c) {
   switch (hd) {
     case 64:
-      return dispatch_group<T, 64>(q, k, v, pos, part_m, part_l, part_acc,
-                                   out, b, length, kv_heads, g_heads, chunk,
-                                   nsplit, s);
+      return dispatch_group<T, 64>(c);
     case 80:
-      return dispatch_group<T, 80>(q, k, v, pos, part_m, part_l, part_acc,
-                                   out, b, length, kv_heads, g_heads, chunk,
-                                   nsplit, s);
+      return dispatch_group<T, 80>(c);
     case 112:
-      return dispatch_group<T, 112>(q, k, v, pos, part_m, part_l, part_acc,
-                                    out, b, length, kv_heads, g_heads, chunk,
-                                    nsplit, s);
+      return dispatch_group<T, 112>(c);
     case 128:
-      return dispatch_group<T, 128>(q, k, v, pos, part_m, part_l, part_acc,
-                                    out, b, length, kv_heads, g_heads, chunk,
-                                    nsplit, s);
+      return dispatch_group<T, 128>(c);
     case 256:
-      return dispatch_group<T, 256>(q, k, v, pos, part_m, part_l, part_acc,
-                                    out, b, length, kv_heads, g_heads, chunk,
-                                    nsplit, s);
+      return dispatch_group<T, 256>(c);
     default:
       return cudaErrorInvalidValue;
   }
@@ -689,23 +705,35 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 16);
 }
 
+// Element i of a bfloat16 launch's output: rounded to bf16 under the old
+// contract, float32 under the partial one.
+__device__ __forceinline__ void store_out(void* out, bool partial,
+                                          int64_t i, float x) {
+  if (partial)
+    static_cast<float*>(out)[i] = x;
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(x);
+}
+
 // Block (split, kv, b) of kRingThreads threads: positions [split * chunk,
 // min((split + 1) * chunk, L)) of row (b, kv), G <= KG query heads (a
 // power of two, the accumulators' count).  k_map and v_map view the
 // (B, L, KV, HD) caches as 3-d tensors (KV * HD, L, B) in boxes of (64,
 // 64, 1) (`cache_map`).  Partials are laid out (B, KV, nsplit, G) and
-// (B, KV, nsplit, G, HD); tickets (B, KV) start at 0 and are left at 0.
+// (B, KV, nsplit, G, HD); tickets (B, KV) start at 0 and are left at 0;
+// `lse` (B, KV, G), or null for the old contract; `out` is bf16 under the
+// old contract, float32 under the partial one.
 template <int HD, int KG>
 __global__ void __launch_bounds__(kRingThreads)
     flash_decode_ring(const __nv_bfloat16* __restrict__ q,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
-                      const int* __restrict__ pos_p,
+                      const int* __restrict__ pos_p, int pos_offset,
                       float* __restrict__ part_m, float* __restrict__ part_l,
                       float* __restrict__ part_acc, int* __restrict__ tickets,
-                      __nv_bfloat16* __restrict__ out, int length,
-                      int kv_heads, int g_heads, int chunk, int nsplit,
-                      int stages) {
+                      void* __restrict__ out, float* __restrict__ lse,
+                      int length, int kv_heads, int g_heads, int chunk,
+                      int nsplit, int stages) {
   using R = Ring<HD>;
   constexpr int kVpl = R::kCols / 32;  // columns of v a lane adds
   constexpr int kSteps = HD / 16;      // k-steps of the score mma
@@ -722,7 +750,7 @@ __global__ void __launch_bounds__(kRingThreads)
 
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int pos = *pos_p;
+  const int pos = *pos_p - pos_offset;
   const int start = split * chunk;
   const int end = length - start > chunk ? start + chunk : length;
   const int64_t bk = static_cast<int64_t>(b) * kv_heads + kv;
@@ -755,8 +783,10 @@ __global__ void __launch_bounds__(kRingThreads)
   }
   __syncthreads();
   // positions past pos add exp(-1e30 - m) = 0 once m holds a real score;
-  // with pos < 0 every position is masked and all are read
-  const int last = (pos >= 0 && pos < end) ? pos + 1 : end;
+  // with pos < 0 every position is masked and all are read, or, under
+  // the partial contract, none
+  const int last = (pos >= 0 && pos < end) ? pos + 1
+                   : (pos < 0 && lse != nullptr ? start : end);
   const int ntiles = last > start ? (last - start + kRingTile - 1) / kRingTile
                                   : 0;
 
@@ -909,8 +939,11 @@ __global__ void __launch_bounds__(kRingThreads)
       den = fmaf(w_l[w * 8 + g], wt, den);
       num = fmaf(w_acc[(w * KG + g) * R::kCols + d], wt, num);
     }
-    if (nsplit == 1) {
-      out[(bk * g_heads + g) * HD + d] = __float2bfloat16_rn(num / den);
+    if (nsplit == 1) {  // a row that read nothing has den = 0
+      store_out(out, lse != nullptr, (bk * g_heads + g) * HD + d,
+                den > 0.0f ? num / den : 0.0f);
+      if (lse != nullptr && d == 0)
+        lse[bk * g_heads + g] = den > 0.0f ? mx + logf(den) : neg_inf();
       continue;
     }
     part_acc[(part * g_heads + g) * HD + d] = num;
@@ -929,9 +962,11 @@ __global__ void __launch_bounds__(kRingThreads)
   // the last block of the row: out = sum_s acc_s w_s / sum_s l_s w_s with
   // w_s = exp(m_s - max_s m_s), in split order.  A split that read nothing
   // has m = -1e30 and l = acc = 0: its weight is 0 once another split
-  // holds a real score.
+  // holds a real score; a row that read nothing has den = 0 (out 0, lse
+  // -inf).
   float* wts = reinterpret_cast<float*>(smem);  // (nsplit, 8)
   float* dens = wts + kMaxSplits * 8;           // (8,)
+  float* maxes = dens + 8;                      // (8,)
   if (tid < g_heads) {
     const float* pm = part_m + bk * nsplit * g_heads + tid;
     const float* pl = part_l + bk * nsplit * g_heads + tid;
@@ -944,6 +979,9 @@ __global__ void __launch_bounds__(kRingThreads)
       den = fmaf(__ldcg(pl + s * g_heads), w, den);
     }
     dens[tid] = den;
+    maxes[tid] = mx;
+    if (lse != nullptr)
+      lse[bk * g_heads + tid] = den > 0.0f ? mx + logf(den) : neg_inf();
   }
   __syncthreads();
   for (int e = tid; e < g_heads * HD; e += kRingThreads) {
@@ -953,7 +991,8 @@ __global__ void __launch_bounds__(kRingThreads)
     for (int s = 0; s < nsplit; ++s)
       num = fmaf(__ldcg(pa + static_cast<int64_t>(s) * g_heads * HD),
                  wts[s * 8 + g], num);
-    out[(bk * g_heads + g) * HD + d] = __float2bfloat16_rn(num / dens[g]);
+    store_out(out, lse != nullptr, (bk * g_heads + g) * HD + d,
+              dens[g] > 0.0f ? num / dens[g] : 0.0f);
   }
   if (tid == 0) tickets[bk] = 0;
 }
@@ -1005,18 +1044,14 @@ bool cache_map(CUtensorMap* map, const void* base, int b, int length,
 }
 
 template <int HD, int KG>
-cudaError_t launch_ring(const void* q, const void* k, const void* v,
-                        const int* pos, float* part_m, float* part_l,
-                        float* part_acc, int* tickets, void* out, int b,
-                        int length, int kv_heads, int g_heads, int chunk,
-                        int nsplit, int stages, cudaStream_t stream) {
+cudaError_t launch_ring(const Call& c) {
   CUtensorMap k_map, v_map;
-  if (!cache_map(&k_map, k, b, length, kv_heads, HD) ||
-      !cache_map(&v_map, v, b, length, kv_heads, HD))
+  if (!cache_map(&k_map, c.k, c.b, c.length, c.kv_heads, HD) ||
+      !cache_map(&v_map, c.v, c.b, c.length, c.kv_heads, HD))
     return cudaErrorInvalidValue;
   // the dynamic shared memory limit is raised once a device and size
   static size_t raised[kMaxDevices] = {};
-  const size_t smem = ring_smem_bytes(HD, stages);
+  const size_t smem = ring_smem_bytes(HD, c.stages);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -1028,36 +1063,21 @@ cudaError_t launch_ring(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     raised[device] = smem;
   }
-  const dim3 grid(nsplit, kv_heads, b);
-  flash_decode_ring<HD, KG><<<grid, kRingThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k_map, v_map, pos, part_m,
-      part_l, part_acc,
-      tickets, static_cast<__nv_bfloat16*>(out), length, kv_heads, g_heads,
-      chunk, nsplit, stages);
+  const dim3 grid(c.nsplit, c.kv_heads, c.b);
+  flash_decode_ring<HD, KG><<<grid, kRingThreads, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q), k_map, v_map, c.pos,
+      c.pos_offset, c.part_m, c.part_l, c.part_acc, c.tickets,
+      c.out, c.lse, c.length, c.kv_heads,
+      c.g_heads, c.chunk, c.nsplit, c.stages);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t ring_group(const void* q, const void* k, const void* v,
-                       const int* pos, float* part_m, float* part_l,
-                       float* part_acc, int* tickets, void* out, int b,
-                       int length, int kv_heads, int g_heads, int chunk,
-                       int nsplit, int stages, cudaStream_t s) {
-  if (g_heads <= 1)
-    return launch_ring<HD, 1>(q, k, v, pos, part_m, part_l, part_acc,
-                              tickets, out, b, length, kv_heads, g_heads,
-                              chunk, nsplit, stages, s);
-  if (g_heads <= 2)
-    return launch_ring<HD, 2>(q, k, v, pos, part_m, part_l, part_acc,
-                              tickets, out, b, length, kv_heads, g_heads,
-                              chunk, nsplit, stages, s);
-  if (g_heads <= 4)
-    return launch_ring<HD, 4>(q, k, v, pos, part_m, part_l, part_acc,
-                              tickets, out, b, length, kv_heads, g_heads,
-                              chunk, nsplit, stages, s);
-  return launch_ring<HD, kMaxG>(q, k, v, pos, part_m, part_l, part_acc,
-                                tickets, out, b, length, kv_heads, g_heads,
-                                chunk, nsplit, stages, s);
+cudaError_t ring_group(const Call& c) {
+  if (c.g_heads <= 1) return launch_ring<HD, 1>(c);
+  if (c.g_heads <= 2) return launch_ring<HD, 2>(c);
+  if (c.g_heads <= 4) return launch_ring<HD, 4>(c);
+  return launch_ring<HD, kMaxG>(c);
 }
 
 }  // namespace
@@ -1087,20 +1107,23 @@ extern "C" int repro_flash_decode_ring_smem_bytes(int hd, int stages) {
   return static_cast<int>(ring_smem_bytes(hd, stages));
 }
 
-// dtype codes: 0 float32, 1 bfloat16 (q, k, v and out alike).  q (B, KV,
+// dtype codes: 0 float32, 1 bfloat16 (q, k, v and out alike, but out is
+// float32 under the partial contract).  q (B, KV,
 // G, hd), k and v (B, L, KV, hd) and out (B, KV, G, hd) contiguous, k and
-// v on 16-byte boundaries; pos one int32 on the device; part_m and part_l
-// (B, KV, nsplit, G) and part_acc (B, KV, nsplit, G, hd) float32 scratch,
-// with nsplit * chunk >= L.  hd is 64, 80, 112, 128 or 256 and G at most
-// 8.
+// v on 16-byte boundaries; pos one int32 on the device, read as
+// *pos - pos_offset; part_m and part_l (B, KV, nsplit, G) and part_acc
+// (B, KV, nsplit, G, hd) float32 scratch, with nsplit * chunk >= L.  hd
+// is 64, 80, 112, 128 or 256 and G at most 8.  `lse`, (B, KV, G)
+// float32 or null, asks for the partial contract (the header's).
 // bfloat16 also takes `tickets`, B * KV int32 that are 0 and are left 0,
 // and `stages` (1 to 4) of its ring; chunk is then a multiple of 64 and
 // nsplit at most 256.  float32 ignores both.  Returns a cudaError_t; the
 // kernels run on `stream` and the call does not synchronise.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  int dtype, const int* pos, float* part_m,
-                                  float* part_l, float* part_acc,
-                                  int* tickets, void* out, int b, int length,
+                                  int dtype, const int* pos, int pos_offset,
+                                  float* part_m, float* part_l,
+                                  float* part_acc, int* tickets, void* out,
+                                  float* lse, int b, int length,
                                   int kv_heads, int g_heads, int hd,
                                   int chunk, int nsplit, int stages,
                                   void* stream) {
@@ -1109,34 +1132,25 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
       static_cast<int64_t>(chunk) * nsplit < length ||
       static_cast<int64_t>(chunk) * (nsplit - 1) >= length)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(hd, q, k, v, pos, part_m, part_l, part_acc, out,
-                           b, length, kv_heads, g_heads, chunk, nsplit, s);
+  const Call c{q,       k,      v,        pos,      pos_offset, part_m,
+               part_l,  part_acc, tickets, out,     lse,        b,
+               length,  kv_heads, g_heads, chunk,   nsplit,     stages,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch<float>(hd, c);
   if (dtype != 1 || tickets == nullptr || stages < 1 ||
       stages > kMaxStages || nsplit > kMaxSplits || chunk % kRingTile)
     return cudaErrorInvalidValue;
   switch (hd) {
     case 64:
-      return ring_group<64>(q, k, v, pos, part_m, part_l, part_acc, tickets,
-                            out, b, length, kv_heads, g_heads, chunk, nsplit,
-                            stages, s);
+      return ring_group<64>(c);
     case 80:
-      return ring_group<80>(q, k, v, pos, part_m, part_l, part_acc, tickets,
-                            out, b, length, kv_heads, g_heads, chunk, nsplit,
-                            stages, s);
+      return ring_group<80>(c);
     case 112:
-      return ring_group<112>(q, k, v, pos, part_m, part_l, part_acc,
-                             tickets, out, b, length, kv_heads, g_heads,
-                             chunk, nsplit, stages, s);
+      return ring_group<112>(c);
     case 128:
-      return ring_group<128>(q, k, v, pos, part_m, part_l, part_acc,
-                             tickets, out, b, length, kv_heads, g_heads,
-                             chunk, nsplit, stages, s);
+      return ring_group<128>(c);
     case 256:
-      return ring_group<256>(q, k, v, pos, part_m, part_l, part_acc,
-                             tickets, out, b, length, kv_heads, g_heads,
-                             chunk, nsplit, stages, s);
+      return ring_group<256>(c);
     default:
       return cudaErrorInvalidValue;
   }

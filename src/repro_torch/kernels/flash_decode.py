@@ -18,6 +18,15 @@ of the kernel's shape and dtype and do no arithmetic.
 a call: bfloat16 combines the splits in the same launch, float32 in a
 second pass that is counted with it).
 
+:func:`flash_decode_partial` is the same kernel under the partial
+contract, for one data shard's slice of a KV sequence split over
+devices (``models.layers``' sequence-split decode): it also returns each
+row's float32 log-sum-exp, writes its output in float32 (unrounded, so
+that the slices' outputs combine and round once, as one call's), reads
+``pos - start`` as the slice's local position on the card, and gives a
+row with no position at or below it ``out = 0`` and ``lse = -inf``; its
+launches count in ``flash_decode.launches``.
+
 bfloat16 runs the ring of :func:`ring_plan` (stages of ``TILE`` positions
 filled by a producer warp, ``CONSUMER_WARPS`` warps scoring on the tensor
 cores); float32 runs the CUDA-core path of :func:`split_plan` with
@@ -32,7 +41,8 @@ import operator
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.ref import flash_decode_ref
+from repro_torch.kernels.ref import (flash_decode_partial_ref,
+                                     flash_decode_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 112, 128, 256)   # the head dims the kernel takes
@@ -51,7 +61,7 @@ MAX_SPLITS = 256             # partials the last block of a row weighs
 def _decode():
     lib = runtime.load_library("flash_decode")
     fn = lib.repro_flash_decode
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int] + [ctypes.c_void_p] * 6 + [
                    ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -194,43 +204,46 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"2**31: {tuple(q.shape)}, {tuple(k.shape)}")
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 pos: int | torch.Tensor) -> torch.Tensor:
-    """q (B, KV, G, hd), k and v (B, L, KV, hd), one dtype (float32 or
-    bfloat16); ``pos`` the last valid cache index, an int or a 0-d integer
-    tensor on q's device -> (B, KV, G, hd) in q's dtype, a new tensor.
-    Every position ``idx > pos`` is masked; the arithmetic is
-    :func:`flash_decode_ref`'s, summed in another order.
-
-    The kernel takes hd in ``HEAD_DIMS`` (64, 80, 112, 128, 256), G from
-    1 to ``MAX_GROUP`` (8), any L from 1 to 2**31 - 1 (a partial last tile
-    is masked), and contiguous tensors, k and v on 16-byte boundaries; the
-    wrapper refuses anything else on either device (the boundary on the
-    card only).  A ``pos`` tensor stays on the card: the kernel reads it
-    there, so a decode loop needs no host round trip."""
-    _check(q, k, v)
+def _pos(pos: int | torch.Tensor) -> int | torch.Tensor:
     if isinstance(pos, torch.Tensor):
         if pos.dim() != 0 or pos.dtype.is_floating_point or \
                 pos.dtype == torch.bool:
             raise TypeError(f"pos must be a 0-d integer tensor, got "
                             f"{pos.dtype} of shape {tuple(pos.shape)}")
-    else:
-        pos = operator.index(pos)
+        return pos
+    return operator.index(pos)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         pos: int | torch.Tensor, start: int, partial: bool):
+    """One call on one device: ``(out, lse)``, ``lse`` None unless
+    ``partial``."""
+    _check(q, k, v)
+    pos = _pos(pos)
+    start = operator.index(start)
+    if not -2**31 <= start < 2**31:
+        raise ValueError(f"start {start} is not an int32")
     on = {t.device for t in (q, k, v)}
     if isinstance(pos, torch.Tensor):
         on.add(pos.device)
+    b, kv, g, hd = q.shape
     if on == {torch.device("cpu")}:
-        return flash_decode_ref(q, k, v, pos)
+        if partial:
+            return flash_decode_partial_ref(q, k, v, pos, start)
+        return flash_decode_ref(q, k, v, pos), None
     if {d.type for d in on} == {"meta"}:
-        # shapes alone (the dry run's trace): the kernel's output, no
-        # arithmetic, as a registered fake kernel would give it
-        return torch.empty_like(q)
+        # shapes alone (the dry run's trace): the kernel's outputs, no
+        # arithmetic, as a registered fake kernel would give them
+        if not partial:
+            return torch.empty_like(q), None
+        return (torch.empty_like(q, dtype=torch.float32),
+                torch.empty((b, kv, g), dtype=torch.float32,
+                            device=q.device))
     if len(on) != 1 or q.device.type != "cuda":
         raise ValueError(f"q, k, v and a pos tensor must all lie on the CPU "
                          f"or on one CUDA device, got {sorted(map(str, on))}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    b, kv, g, hd = q.shape
     length = k.shape[1]
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k and v must start on a 16-byte boundary (the "
@@ -247,18 +260,57 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, kv, nsplit, g, hd), dtype=torch.float32,
                            device=dev)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if partial else q.dtype)
+    lse = (torch.empty((b, kv, g), dtype=torch.float32, device=dev)
+           if partial else None)
     with torch.cuda.device(dev):
         err = _decode()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           _DTYPE_CODE[q.dtype], pos_t.data_ptr(),
+                           _DTYPE_CODE[q.dtype], pos_t.data_ptr(), start,
                            part_m.data_ptr(), part_l.data_ptr(),
                            part_acc.data_ptr(),
                            None if tickets is None else tickets.data_ptr(),
-                           out.data_ptr(), b, length, kv, g, hd, chunk,
-                           nsplit, stages, stream)
+                           out.data_ptr(),
+                           None if lse is None else lse.data_ptr(), b,
+                           length, kv, g, hd, chunk, nsplit, stages, stream)
     runtime.check(err, "flash_decode kernel launch")
     flash_decode.launches += 1
-    return out
+    return out, lse
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: int | torch.Tensor) -> torch.Tensor:
+    """q (B, KV, G, hd), k and v (B, L, KV, hd), one dtype (float32 or
+    bfloat16); ``pos`` the last valid cache index, an int or a 0-d integer
+    tensor on q's device -> (B, KV, G, hd) in q's dtype, a new tensor.
+    Every position ``idx > pos`` is masked; the arithmetic is
+    :func:`flash_decode_ref`'s, summed in another order.
+
+    The kernel takes hd in ``HEAD_DIMS`` (64, 80, 112, 128, 256), G from
+    1 to ``MAX_GROUP`` (8), any L from 1 to 2**31 - 1 (a partial last tile
+    is masked), and contiguous tensors, k and v on 16-byte boundaries; the
+    wrapper refuses anything else on either device (the boundary on the
+    card only).  A ``pos`` tensor stays on the card: the kernel reads it
+    there, so a decode loop needs no host round trip."""
+    return _run(q, k, v, pos, 0, False)[0]
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: int | torch.Tensor, start: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_decode` of q over one slice k, v (B, L, KV, hd) of a
+    longer sequence whose first position is ``start``: ``pos`` is the last
+    valid index of the whole sequence, and the kernel reads ``pos -
+    start`` on the card (no host round trip, no branch on its sign).
+    Returns ``(out, lse)``, both float32: out (B, KV, G, hd), the row's
+    ``acc / l`` unrounded (a bfloat16 call too), and lse (B, KV, G), each
+    row's ``m + log(l)`` over its positions ``idx <= pos - start`` in the
+    scale of the scores (``(q . k) / sqrt(hd)``).  A row with no such
+    position gives ``out = 0`` and ``lse = -inf``, so that the slices'
+    partials combine as ``sum_s exp(lse_s - M) out_s / sum_s exp(lse_s -
+    M)`` and round once to q's dtype, as :func:`flash_decode`'s output
+    does.  The same checks, dispatch and launch count as
+    :func:`flash_decode`."""
+    return _run(q, k, v, pos, start, True)
 
 
 flash_decode.launches = 0

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad)
 from repro_torch.kernels.flash_decode import flash_decode as _flash_decode
+from repro_torch.kernels.flash_decode import \
+    flash_decode_partial as _flash_decode_partial
 from repro_torch.kernels.fused_adagrad import fused_adagrad
 from repro_torch.kernels.gba_aggregate import gba_aggregate
 from repro_torch.kernels.gba_apply import gba_apply
@@ -122,3 +124,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode step when the batch shares one position."""
     kernel_calls["flash_decode"] += 1
     return _flash_decode(q, k, v, pos)
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: int | torch.Tensor, start: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of q (B, KV, G, hd) over one slice k, v (B, L, KV,
+    hd) of a KV sequence that starts at global position ``start``, up to
+    the global position ``pos``, through the ``flash_decode`` kernel's
+    partial contract (counted under ``kernel_calls["flash_decode"]``):
+    each data shard's attention in the decode whose KV sequence the rules
+    split over ``data``."""
+    kernel_calls["flash_decode"] += 1
+    return _flash_decode_partial(q, k, v, pos, start)

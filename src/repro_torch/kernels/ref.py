@@ -284,24 +284,11 @@ FLASH_BLOCK_L = 512
 FLASH_MASK = -1e30
 
 
-def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: int | torch.Tensor) -> torch.Tensor:
-    """One-token GQA attention over a KV cache: q (B, KV, G, hd), k and v
-    (B, L, KV, hd), ``pos`` the last valid cache index (an int or a 0-d
-    integer tensor) -> (B, KV, G, hd) in q's dtype.
-
-    The TPU kernel's body (``repro/kernels/flash_decode.py:81-113``) block
-    by block, in float32: blocks of ``FLASH_BLOCK_L`` positions (one block
-    of L when L is smaller; a last partial block where L is not a multiple
-    of it, which the TPU kernel refuses), scores ``(q . k) / sqrt(hd)``
-    (a true division by ``sqrt(hd)`` rounded to float32), every position
-    ``idx > pos`` set to ``FLASH_MASK`` (-1e30, not -inf), and the online
-    softmax from ``m = FLASH_MASK``, ``l = 0``, ``acc = 0``: ``m' =
-    max(m, max(s))``, ``alpha = exp(m - m')``, ``p = exp(s - m')``, ``l =
-    l * alpha + sum(p)``, ``acc = acc * alpha + p @ v``.  The output is
-    ``acc / l``, cast once.  A ``pos`` below 0 masks every position: all
-    scores are equal and the output is the mean of v, as in the TPU
-    kernel."""
+def _flash_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  pos: int | torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The TPU kernel's body block by block (see :func:`flash_decode_ref`):
+    ``(acc / l, m + log(l))``, both float32."""
     b, kv, g, hd = q.shape
     length = k.shape[1]
     blk = min(FLASH_BLOCK_L, length)
@@ -326,4 +313,43 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         denom = denom * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bngl,blnh->bngh", p, vb)
         m = m_new
-    return (acc / denom[..., None]).to(q.dtype)
+    return acc / denom[..., None], m + torch.log(denom)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: int | torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over a KV cache: q (B, KV, G, hd), k and v
+    (B, L, KV, hd), ``pos`` the last valid cache index (an int or a 0-d
+    integer tensor) -> (B, KV, G, hd) in q's dtype.
+
+    The TPU kernel's body (``repro/kernels/flash_decode.py:81-113``) block
+    by block, in float32: blocks of ``FLASH_BLOCK_L`` positions (one block
+    of L when L is smaller; a last partial block where L is not a multiple
+    of it, which the TPU kernel refuses), scores ``(q . k) / sqrt(hd)``
+    (a true division by ``sqrt(hd)`` rounded to float32), every position
+    ``idx > pos`` set to ``FLASH_MASK`` (-1e30, not -inf), and the online
+    softmax from ``m = FLASH_MASK``, ``l = 0``, ``acc = 0``: ``m' =
+    max(m, max(s))``, ``alpha = exp(m - m')``, ``p = exp(s - m')``, ``l =
+    l * alpha + sum(p)``, ``acc = acc * alpha + p @ v``.  The output is
+    ``acc / l``, cast once.  A ``pos`` below 0 masks every position: all
+    scores are equal and the output is the mean of v, as in the TPU
+    kernel."""
+    return _flash_online(q, k, v, pos)[0].to(q.dtype)
+
+
+def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, pos: int | torch.Tensor,
+                             start: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_decode_ref` over one slice k, v of a longer sequence
+    whose first position is ``start``, at the slice's local position
+    ``pos - start``: ``(out, lse)``, both float32: out the unrounded
+    ``acc / l``, lse (B, KV, G) the ``m + log(l)`` of the online softmax.
+    A row with no position at or below the local position (it is
+    negative) gives ``out = 0`` and ``lse = -inf`` in place of the mean
+    of v, so that slices combine as ``sum_s exp(lse_s - M) out_s / sum_s
+    exp(lse_s - M)``."""
+    local = pos - start
+    out, lse = _flash_online(q, k, v, local)
+    empty = torch.as_tensor(local < 0, device=q.device)
+    return torch.where(empty, 0.0, out), torch.where(empty, -math.inf, lse)

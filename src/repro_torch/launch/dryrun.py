@@ -27,8 +27,13 @@ checkpoint's recompute included), ``collective_bytes`` by kind, and
 ``memory``: ``argument_bytes`` (the held blocks and inputs, exactly),
 ``output_bytes`` (the step's outputs, each tensor once) and
 ``temp_bytes`` (the peak bytes live during the step beyond the
-arguments, from :class:`LiveBytes`).  ``trace_s`` takes the place of
-``lower_s`` and ``compile_s``; there is no ``bytes_accessed`` (XLA's cost
+arguments, from :class:`LiveBytes`), and for a decode ``cache_bytes``,
+the cache's share of the arguments (the long-context decode holds its
+data shard's slice of each KV sequence the rules split over ``data``,
+and its attention's all-gathers over ``data``, of ``(o, lse)`` or of the
+softmax's max and sum and then the outputs, count under
+``all-gather``).  ``trace_s`` takes the place of ``lower_s`` and
+``compile_s``; there is no ``bytes_accessed`` (XLA's cost
 analysis has no counterpart), and the trace counts ``flash_decode``'s
 output, not its scratch.  The ``serve_tp`` budget is the card's memory,
 ``CARD_BYTES``, not the reference's TPU figure.  No ``--device``: it
@@ -194,7 +199,10 @@ def dryrun_step(cfg, shape, mesh, opts: dict | None = None) -> dict:
         state = dict(args[0])
         state["micro"] = fn.gba.buffer_size - 1
         args = (state, *args[1:])
-    return trace(fn, args, world)
+    rec = trace(fn, args, world)
+    if shape.kind == "decode":
+        rec["memory"]["cache_bytes"] = arg_bytes(args[2])
+    return rec
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool,

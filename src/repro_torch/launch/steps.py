@@ -20,7 +20,12 @@ part of the mesh and runs it:
   held model shard's decode cache a tensor of its own by ``cache_specs``,
   and ``flash_decode`` run by each model shard over its own KV heads;
 * the batch rows of its data shards (``batch_partition``), or every row
-  where the batch does not divide the data axes;
+  where the batch does not divide the data axes: then the rules split
+  each KV cache's sequence over ``data`` instead (the long-context
+  decode, ``long_500k`` at batch 1), the process holds its data shards'
+  slices of it, each attends its slice (``flash_decode_partial`` or the
+  masked partial) and the partial softmaxes are combined over ``data``
+  (``models.layers._split_attend``);
 * train: the pytree GBA step (``launch.programs.make_placed_train_step``)
   with the arch's optimizer (``ARCH_OPTIMIZER``, Adam at 1e-3 by
   default), its params, accumulator and optimizer leaves held as (data,
@@ -35,10 +40,13 @@ and ``place_cache`` turn whole trees into the held blocks on their
 device.  The reference's ``moe_ep`` constrains the MoE dispatch buffers
 to the model axis; over ``model`` each shard already dispatches to its
 own experts (``models.layers.moe_tp``), so it is taken and changes
-nothing.  A decode whose batch does not divide the data axes has its KV
-sequence split over ``data`` by the rules: that decode is not ported
-(``NotImplementedError``, ROADMAP.md queue 1).  The reference's
-deprecated shims over ``launch.programs`` are not ported.
+nothing.  The reference replicates the activations of a decode whose
+batch does not divide the data axes and lets GSPMD partition the cache
+write and the softmax over the split sequence; here every data shard
+runs the replicated batch, writes the new row where its slice holds the
+slot, and the softmax is combined in data-shard order, where GSPMD
+reduces in an order of its own.  The reference's deprecated shims over
+``launch.programs`` are not ported.
 """
 from __future__ import annotations
 
@@ -234,13 +242,18 @@ class PlacedStep:
         return {k: v[r].contiguous() for k, v in batch.items()}
 
     def place_cache(self, cache: Params) -> list:
-        """The held model shards' trees of a whole decode cache."""
-        return TP.place_cache(cache, self.cfg, self.mesh,
-                              self.shape.global_batch, self.tp.held,
-                              self.rows)
+        """The held model shards' trees of a whole decode cache (a k or v
+        split over the sequence, the held data shards' slices)."""
+        batch = self.shape.global_batch
+        return TP.place_cache(cache, self.cfg, self.mesh, batch,
+                              self.tp.held, self.rows,
+                              self.tp.seq_shards()
+                              if TP.seq_split(self.mesh, batch) else None)
 
     def gather_cache(self, caches: list) -> Params:
-        """The cache whole over ``model`` (every model shard held)."""
+        """The cache whole over ``model`` (every model shard held), and
+        over ``data`` where its sequence is split (every data shard
+        held)."""
         shape = self.shape
         return TP.gather_cache(caches, abstract_cache(
             self.cfg, shape.global_batch, shape.seq_len,
@@ -270,8 +283,9 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
     bytes (the card's memory by default); ``moe_ep`` changes nothing
     (see the module's docstring); ``cache_len`` (not the reference's)
     gives the prefill's cache more positions than the prompt, for a serve
-    loop's decode steps.  ``NotImplementedError`` for a decode whose KV
-    sequence the rules split over ``data``."""
+    loop's decode steps.  A decode whose batch does not divide the data
+    axes holds its data shards' slices of each KV sequence the rules
+    split over ``data`` (``place_cache``)."""
     del moe_ep
     gba = gba or GBAConfig(local_batch=shape.global_batch, buffer_size=8)
     tp = TP.model_axis(cfg, mesh, world)

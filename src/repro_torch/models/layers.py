@@ -27,6 +27,11 @@ in which position ``p`` sits at slot ``p % L``.  A Mamba2 mixer's cache is
 ``{"ssm" (B, H, P, N) float32, "conv" (B, CONV_W - 1, d_inner + 2N)}``:
 the recurrent state and the last pre-convolution inputs.
 :func:`attention_decode` and :func:`mamba_decode` write them in place.
+Where the rules split a KV sequence over ``data`` (a batch that does not
+divide the data axes: the long-context decode), a placed cache holds
+each k and v as the list of its held data shards' slices, and the decode
+attends them slice by slice and combines the partial softmaxes over
+``data`` (:func:`_split_attend`).
 """
 from __future__ import annotations
 
@@ -129,12 +134,10 @@ def attention_spec(cfg: ModelConfig) -> Params:
     }
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor | None, softcap: float) -> torch.Tensor:
-    """q: (B,S,Hkv,G,hd), k/v: (B,T,Hkv,hd), mask: (B,S,T) bool, or None
-    to attend to every key (cross-attention) -> (B,S,Hkv,G,hd) float32.  A
-    nonzero ``softcap`` c maps the scaled scores s to ``tanh(s / c) * c``
-    before the mask."""
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None,
+            softcap: float) -> torch.Tensor:
+    """The float32 scores (B,Hkv,S,G,T) of :func:`_sdpa`, softcapped and
+    masked."""
     hd = q.shape[-1]
     scores = torch.einsum("bsngh,btnh->bnsgt", q.float(), k.float())
     scores = scores / math.sqrt(hd)
@@ -143,7 +146,16 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # scores are (B,Hkv,S,G,T); the mask broadcasts as (B,1,S,1,T)
     if mask is not None:
         scores = torch.where(mask[:, None, :, None, :], scores, _MASK_VALUE)
-    probs = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor | None, softcap: float) -> torch.Tensor:
+    """q: (B,S,Hkv,G,hd), k/v: (B,T,Hkv,hd), mask: (B,S,T) bool, or None
+    to attend to every key (cross-attention) -> (B,S,Hkv,G,hd) float32.  A
+    nonzero ``softcap`` c maps the scaled scores s to ``tanh(s / c) * c``
+    before the mask."""
+    probs = torch.softmax(_scores(q, k, mask, softcap), dim=-1)
     return torch.einsum("bnsgt,btnh->bsngh", probs.to(v.dtype).float(),
                         v.float())
 
@@ -266,14 +278,15 @@ def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int,
 def _write_rows(cache: torch.Tensor, slots: torch.Tensor,
                 new: torch.Tensor) -> None:
     """``cache[b, slots[b]] = new[b]`` in place, for every row whose slot
-    is below L; a row at or past L is dropped, as the reference's
+    is in ``[0, L)``; a row at or past L is dropped, as the reference's
     ``.at[...].set(mode="drop")`` drops it (an engine slot that finished
-    can reach ``max_len``).  No host round trip: the dropped rows write
-    back what the cache held."""
+    can reach ``max_len``), and so is a row below 0 (a slot that another
+    data shard's slice of the sequence holds).  No host round trip: the
+    dropped rows write back what the cache held."""
     B, L = cache.shape[:2]
     rows = torch.arange(B, device=cache.device)
-    keep = (slots < L)[:, None, None]
-    slot = slots.clamp(max=L - 1)
+    keep = ((slots >= 0) & (slots < L))[:, None, None]
+    slot = slots.clamp(0, L - 1)
     cache[rows, slot] = torch.where(keep, new.to(cache.dtype),
                                     cache[rows, slot])
 
@@ -327,7 +340,8 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype,
 def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: Params, pos: torch.Tensor, *, window: int = 0,
                      kv_override: torch.Tensor | None = None,
-                     partial: bool = False) -> tuple[torch.Tensor, Params]:
+                     partial: bool = False, tp=None
+                     ) -> tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,D); ``pos`` a 0-d integer tensor (every
     sequence at one position, the fixed-batch loop) or a (B,) vector (one
     position a slot, the continuous-batching engine).  The new k and v are
@@ -356,7 +370,12 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     and ``cache`` is returned unwritten.
 
     With ``partial`` y is one model shard's float32 partial of the
-    row-parallel ``wo``, uncast (:func:`attention_decode_tp`)."""
+    row-parallel ``wo``, uncast (:func:`attention_decode_tp`).
+
+    Where ``cache``'s k and v are lists, the held data shards' slices of a
+    sequence split over ``data`` (``tp``, the model axis, says which),
+    the new row is written by the slice that holds its slot alone, and
+    the attention is :func:`_split_attend`'s, by the same route."""
     if kv_override is not None:
         return _cross_decode(p, cfg, x, kv_override, partial), cache
     B = x.shape[0]
@@ -370,11 +389,16 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  cfg.rope_theta)
     v_new = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
     k_cache, v_cache = cache["k"], cache["v"]
-    L = k_cache.shape[1]
+    L = _cache_len(k_cache, tp)
     slots = pos_vec % L if window else pos_vec
-    _write_rows(k_cache, slots, k_new[:, 0])
-    _write_rows(v_cache, slots, v_new[:, 0])
-    if pos.dim() == 0 and not window and not cfg.attn_softcap:
+    _write(k_cache, slots, k_new[:, 0], tp)
+    _write(v_cache, slots, v_new[:, 0], tp)
+    if isinstance(k_cache, list):
+        out, kernel = _split_attend(cfg, q, k_cache, v_cache, pos, window,
+                                    tp)
+        y = _out_proj(out, p["wo"] if kernel else p["wo"].float(), x.dtype,
+                      partial)
+    elif pos.dim() == 0 and not window and not cfg.attn_softcap:
         out = ops.flash_decode(q.reshape(B, KV, G, hd), k_cache, v_cache, pos)
         out = out.reshape(B, 1, cfg.num_heads, hd)
         y = _out_proj(out, p["wo"], x.dtype, partial)
@@ -390,6 +414,97 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = out.reshape(B, 1, cfg.num_heads, hd)
         y = _out_proj(out, p["wo"].float(), x.dtype, partial)
     return y, {"k": k_cache, "v": v_cache}
+
+
+def _cache_len(cache: torch.Tensor | list, tp) -> int:
+    """The whole sequence length of a cache leaf, or of the held data
+    shards' equal slices of one split over ``data``."""
+    if isinstance(cache, list):
+        return cache[0].shape[1] * tp.mesh.shape["data"]
+    return cache.shape[1]
+
+
+def _write(cache: torch.Tensor | list, slots: torch.Tensor,
+           new: torch.Tensor, tp) -> None:
+    """:func:`_write_rows` into a cache leaf, or into the held data
+    shards' slices of one split over ``data``: slice ``s`` holds the
+    global slots ``[s * Ls, (s + 1) * Ls)`` and writes a row whose slot
+    it holds, at ``slot - s * Ls``, and no other."""
+    if not isinstance(cache, list):
+        _write_rows(cache, slots, new)
+        return
+    n = cache[0].shape[1]
+    for c, s in zip(cache, tp.seq_shards(), strict=True):
+        _write_rows(c, slots - s * n, new)
+
+
+def _split_attend(cfg: ModelConfig, q: torch.Tensor, ks: list, vs: list,
+                  pos: torch.Tensor, window: int, tp
+                  ) -> tuple[torch.Tensor, bool]:
+    """The attention of q (B,1,H,hd) over a KV sequence of length L split
+    over the D data shards: ``ks`` and ``vs`` the held shards'
+    (B, L / D, KV, hd) slices, shard ``s`` holding the global slots
+    ``[s * L / D, (s + 1) * L / D)``, by the route the whole cache takes
+    in :func:`attention_decode`.  A global layer of a model without a
+    softcap at a scalar ``pos``: each held shard's
+    ``ops.flash_decode_partial`` (the kernel reads ``pos`` less the
+    slice's start on the card; float32 output and log-sum-exp), combined
+    over ``data`` (``tp.seq_combine``) and rounded once to q's dtype, as
+    ``flash_decode`` rounds its output.  Every other case: the masked
+    softmax of :func:`_split_softmax`, each slot's mask from its global
+    index (the ring's ``abs_pos`` rule in a local layer).  Returns ``(out
+    (B,1,H,hd), kernel)``: q's dtype through the kernel, else
+    float32."""
+    B, _, H, hd = q.shape
+    KV = ks[0].shape[2]
+    n = ks[0].shape[1]
+    L = n * tp.mesh.shape["data"]
+    held = tp.seq_shards()
+    if pos.dim() == 0 and not window and not cfg.attn_softcap:
+        qk = q.reshape(B, KV, H // KV, hd).contiguous()
+        out = tp.seq_combine([ops.flash_decode_partial(qk, kc, vc, pos,
+                                                       s * n)
+                              for s, kc, vc in zip(held, ks, vs,
+                                                   strict=True)])
+        return out.reshape(B, 1, H, hd).to(q.dtype), True
+    posb = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
+    scores = []
+    for s, kc in zip(held, ks, strict=True):
+        idx = s * n + torch.arange(n, device=q.device)[None, :]
+        if window:
+            abs_pos = posb - torch.remainder(posb - idx, L)
+            valid = (abs_pos >= 0) & (abs_pos <= posb)
+        else:
+            valid = idx <= posb
+        scores.append(_scores(q.reshape(B, 1, KV, H // KV, hd), kc,
+                              valid[:, None, :], cfg.attn_softcap))
+    return _split_softmax(scores, vs, tp).reshape(B, 1, H, hd), False
+
+
+def _split_softmax(scores: list, vs: list, tp) -> torch.Tensor:
+    """:func:`_sdpa`'s softmax and weighted values over the held data
+    shards' float32 scores (B,Hkv,S,G,T_s) (:func:`_scores`) and value
+    slices, as GSPMD partitions the reference's softmax: each shard's
+    largest score and its sum of ``exp(s - max)`` gathered over ``data``
+    (``tp.seq_gather``) into the whole's max M and sum, in shard order;
+    each probability ``exp(s - M) / sum`` cast to the value dtype, as the
+    whole softmax's are, before its shard's float32 ``p @ v``; the
+    shards' outputs summed in shard order (``tp.seq_sum``).  Returns
+    (B,S,Hkv,G,hd) float32.  A slice whose every slot is masked weighs
+    0."""
+    stats = []
+    for sc in scores:
+        m = sc.amax(dim=-1)
+        stats.append(torch.stack([m, torch.exp(sc - m[..., None]).sum(-1)]))
+    every = tp.seq_gather(stats)
+    top = every[:, 0].amax(dim=0)
+    total = torch.zeros_like(top)
+    for m, l in every:
+        total.add_(l * torch.exp(m - top))
+    return tp.seq_sum([torch.einsum(
+        "bnsgt,btnh->bsngh", (torch.exp(sc - top[..., None])
+                              / total[..., None]).to(vc.dtype).float(),
+        vc.float()) for sc, vc in zip(scores, vs, strict=True)])
 
 
 def mlp_spec(cfg: ModelConfig) -> Params:
@@ -671,16 +786,19 @@ def attention_decode_tp(ps: list, cfg: ModelConfig, x: torch.Tensor,
     hd) queries against its (B, L, KV / T, hd) cache; the float32
     partials of the row-parallel ``wo`` are model-summed in shard order,
     then cast.  In the rules' head_dim fallback: :func:`_decode_gathered`.
-    Returns y (B, 1, D)."""
+    Where the rules split the sequence over ``data`` each (data, model)
+    shard holds its KV heads of its positions, and each held model
+    shard's decode combines its data shards' partials
+    (:func:`_split_attend`).  Returns y (B, 1, D)."""
     if "attn" not in tp.split:
         return attention_decode(ps[0], cfg, x, caches[0], pos,
-                                window=window)[0]
+                                window=window, tp=tp)[0]
     if tp.attn[1] != "heads":
         return _decode_gathered(ps, cfg, x, caches, pos, tp, window)
     local = tp.local_attention(cfg)
     return tp.model_sum([
         attention_decode(p, local, xi, c, pos, window=window,
-                         partial=True)[0]
+                         partial=True, tp=tp)[0]
         for p, xi, c in zip(ps, tp.broadcast(x), caches)]).to(x.dtype)
 
 
@@ -695,7 +813,10 @@ def _decode_gathered(ps: list, cfg: ModelConfig, x: torch.Tensor,
     the dimension its weight splits; the attention run whole (through
     ``flash_decode`` where the unsplit decode does); and each held shard's
     chunk of the output, along that dimension, through its rows of
-    ``wo``, the float32 partials model-summed in shard order."""
+    ``wo``, the float32 partials model-summed in shard order.  Where the
+    rules split the sequence over ``data``, each held data shard's
+    slices are gathered along head_dim over ``model`` and the whole
+    heads attended by :func:`_split_attend`."""
     B = x.shape[0]
     hd, KV = cfg.resolved_head_dim, cfg.num_kv_heads
     G = cfg.num_heads // KV
@@ -707,18 +828,27 @@ def _decode_gathered(ps: list, cfg: ModelConfig, x: torch.Tensor,
     q = rope(q, posb, cfg.rope_theta)
     k_new = rope(_kv_tp(ps, x, "wk", tp), posb, cfg.rope_theta)[:, 0]
     v_new = _kv_tp(ps, x, "wv", tp)[:, 0]
-    L = caches[0]["k"].shape[1]
+    L = _cache_len(caches[0]["k"], tp)
     slots = pos_vec % L if window else pos_vec
     split = tp.attn[1] == "head_dim"
     for c, kn, vn in zip(caches, *((_held_chunks(k_new, tp),
                                     _held_chunks(v_new, tp)) if split
                                    else ([k_new], [v_new]))):
-        _write_rows(c["k"], slots, kn)
-        _write_rows(c["v"], slots, vn)
-    k, v = ((tp.gather([c["k"] for c in caches], dim=-1),
-             tp.gather([c["v"] for c in caches], dim=-1)) if split
-            else (caches[0]["k"], caches[0]["v"]))
-    if pos.dim() == 0 and not window and not cfg.attn_softcap:
+        _write(c["k"], slots, kn, tp)
+        _write(c["v"], slots, vn, tp)
+
+    def whole(name):
+        if not split:
+            return caches[0][name]
+        if isinstance(caches[0][name], list):
+            return [tp.gather(list(sl), dim=-1)
+                    for sl in zip(*(c[name] for c in caches))]
+        return tp.gather([c[name] for c in caches], dim=-1)
+
+    k, v = whole("k"), whole("v")
+    if isinstance(k, list):
+        out, _ = _split_attend(cfg, q.contiguous(), k, v, pos, window, tp)
+    elif pos.dim() == 0 and not window and not cfg.attn_softcap:
         out = ops.flash_decode(q.reshape(B, KV, G, hd).contiguous(), k, v,
                                pos).reshape(B, 1, cfg.num_heads, hd)
     else:

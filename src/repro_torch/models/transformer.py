@@ -815,8 +815,11 @@ def _decode_tp(params: Any, cfg: ModelConfig, token: torch.Tensor,
     """:func:`decode_step` under the model axis ``tp``: each layer split
     over ``model`` as in training, its cache slices written in place
     (``layers.attention_decode_tp``, ``mamba_decode_tp``); the logits
-    gathered whole over ``model``.  Returns (logits (B, 1, V), the held
-    shards' cache trees at ``pos + 1``)."""
+    gathered whole over ``model``.  Where the rules split a KV sequence
+    over ``data``, each layer's k and v are the held data shards' slices
+    (a list, the repeat's views of each), which the attention combines
+    over ``data``.  Returns (logits (B, 1, V), the held shards' cache
+    trees at ``pos + 1``)."""
     pos = caches[0]["pos"]
     memory = caches[0].get("memory")
     x = _embed(params, cfg, token, tp)

@@ -5,7 +5,9 @@ one device; the kinds of collective at (2, 2), whose argument bytes
 ``tests/test_torch_steps.py`` holds to the reference's compiled step;
 the flops of a reduced prefill against its matmuls counted by hand), two
 full-width granite-8b steps on the 16 x 16 production mesh,
-the skipped long context, the resume of ``--out``, and the two pieces of
+the skipped long context, the long-context decode of the four archs
+that take it (``--all``'s last 8 records: 70 ok, 10 skipped, 0 not
+ported), the resume of ``--out``, and the two pieces of
 the model code that the meta trace needs: ``flash_decode``'s meta branch
 and the MoE count that replaced ``torch.bincount``.
 """
@@ -95,6 +97,48 @@ def test_long_context_without_it_is_skipped():
     rec = dryrun.dryrun_one("granite-8b", "long_500k", False, verbose=False)
     assert rec["status"] == "skipped"
     assert "500k decode" in rec["reason"]
+
+
+LONG_ARCHS = ("gemma2-27b", "gemma3-12b", "starcoder2-3b", "zamba2-2.7b")
+
+
+def test_all_traces_the_long_context_decodes(tmp_path, capsys):
+    """``--all`` over a file that holds every other record: the 8
+    ``long_500k`` records of the archs that take it trace ``ok`` at 16 x
+    16 and 2 x 16 x 16, 70 ok, 10 skipped, 0 not ported; each device
+    holds the rules' share of the cache (its 1/16 of each KV sequence,
+    split over ``data``) and combines its partial softmaxes by an
+    all-gather."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import transformer as T
+    out = tmp_path / "records.json"
+    recs = []
+    for a in ARCH_IDS:
+        for s in INPUT_SHAPES:
+            for m in ("16x16", "2x16x16"):
+                if s == "long_500k" and a in LONG_ARCHS:
+                    continue
+                status = ("skipped" if s == "long_500k" and not
+                          get_config(a).supports_long_context else "ok")
+                recs.append({"arch": a, "shape": s, "mesh": m,
+                             "variant": "baseline", "status": status})
+    out.write_text(json.dumps(recs))
+    got = dryrun.main(["--all", "--out", str(out)])
+    assert len(got) == 80
+    assert "70 ok, 10 skipped, 0 not ported, 0 FAILED" in \
+        capsys.readouterr().out
+    shape = INPUT_SHAPES["long_500k"]
+    for rec in got:
+        if rec["shape"] != "long_500k" or rec["arch"] not in LONG_ARCHS:
+            continue
+        assert rec["status"] == "ok", rec
+        cfg = get_config(rec["arch"])
+        mesh = make_production_mesh(multi_pod=rec["mesh"] == "2x16x16")
+        cache = T.cache_shapes(cfg, 1, shape.seq_len)
+        assert rec["memory"]["cache_bytes"] == S.block_bytes(
+            cache, S.cache_specs(cache, cfg, mesh, 1), mesh)
+        assert rec["collective_bytes"]["all-gather"] > 0
 
 
 def test_out_resumes(tmp_path, capsys):

@@ -25,7 +25,11 @@ and to the streamed ``embedding_bag_grad``.  ``flash_decode`` splits the
 cache across blocks and sums in another order than its plain version's
 512-position blocks: bf16 outputs within one bf16 ulp (rtol 2**-7, atol
 1e-6), f32 outputs within rtol 1e-5, atol 1e-6, at every head dim it
-takes (64, 80, 112, 128, 256).
+takes (64, 80, 112, 128, 256); under the partial contract
+(``flash_decode_partial``) its float32 output and log-sum-exp within
+rtol 1e-5, atol 1e-6 and 1e-5 of the plain version's, and its output,
+rounded to the inputs' dtype, bit for bit the old contract's wherever
+the row holds a position.
 """
 import dataclasses
 
@@ -38,14 +42,17 @@ from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_grad,
                                                embedding_bag_grad_resident,
                                                resident_max_d)
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_partial)
 from repro_torch.kernels.fused_adagrad import fused_adagrad
 from repro_torch.kernels.gba_aggregate import gba_aggregate
 from repro_torch.kernels.gba_apply import gba_apply
 from repro_torch.kernels.quantize import (dequantize, quantize_minmax,
                                           quantize_sign)
 from repro_torch.kernels.ref import (dequantize_ref, embedding_bag_grad_ref,
-                                     embedding_bag_ref, flash_decode_ref,
+                                     embedding_bag_ref,
+                                     flash_decode_partial_ref,
+                                     flash_decode_ref,
                                      fused_adagrad_ref,
                                      gba_aggregate_ref, gba_apply_ref,
                                      quantize_minmax_ref, quantize_sign_ref)
@@ -1049,6 +1056,120 @@ def test_flash_decode_masks_everything_below_zero_as_the_tpu_kernel():
     _flash_close(got, flash_decode_ref(q, k, v, -1))
     mean = v.mean(dim=1)[:, :, None, :].expand_as(got)
     torch.testing.assert_close(got, mean, rtol=1e-5, atol=1e-6)
+
+
+# (B, L, KV, G, hd): one split and many on each path, at the head dims of
+# the sequence-split decode (zamba2-2.7b 80, granite-8b 128, gemma3-12b
+# 256; its (4, 1) slice of long_500k is 131,072 positions)
+PARTIAL_CASES = {
+    "hd 80, one split": (1, 160, 32, 1, 80),
+    "hd 80, many splits": (1, 32_768, 32, 1, 80),
+    "hd 128, one split": (2, 160, 8, 4, 128),
+    "hd 128, many splits": (2, 8192, 8, 4, 128),
+    "hd 256, one split": (1, 192, 8, 2, 256),
+    "hd 256, many splits": (1, 131_072, 8, 2, 256),
+}
+PARTIAL_START = 1000     # the slice's first position in the whole sequence
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("where", ["before", "inside", "past"])
+@pytest.mark.parametrize("case", list(PARTIAL_CASES))
+def test_flash_decode_partial_matches_plain_version(case, where, dtype):
+    """The partial contract at a position before the slice (every row
+    empty: out 0, lse -inf), inside it and past it: the float32 out and
+    lse within float32 rounding of the plain version's; out rounded to
+    the inputs' dtype bit for bit the old contract's output at the local
+    position wherever the row holds a position; one launch a call."""
+    _need_card()
+    b, length, kv, g, hd = PARTIAL_CASES[case]
+    q, k, v = _flash_inputs(b, length, kv, g, hd, dtype, seed=length + hd)
+    pos = {"before": PARTIAL_START - 5,
+           "inside": PARTIAL_START + length // 2,
+           "past": PARTIAL_START + length + 100}[where]
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    launches = flash_decode.launches
+    out, lse = flash_decode_partial(q, k, v, pos_t, PARTIAL_START)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == launches + 1
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == q.shape and lse.shape == (b, kv, g)
+    want_out, want_lse = flash_decode_partial_ref(q, k, v, pos,
+                                                  PARTIAL_START)
+    if where == "before":
+        assert not out.any() and bool((lse == -float("inf")).all())
+        return
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    old = flash_decode(q, k, v, torch.tensor(pos - PARTIAL_START,
+                                             dtype=torch.int32,
+                                             device="cuda"))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.to(dtype).view(bits), old.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_decode_partials_combine_to_the_whole_call(dtype):
+    """gemma3-12b's global layer cut in 4 slices (its (4, 1) decode), the
+    position in the third: the float32 partials weighed by their lse and
+    rounded once are the whole plain call within ``flash_decode``'s
+    tolerance."""
+    _need_card()
+    b, length, kv, g, hd = 1, 4 * 4096, 8, 2, 256
+    q, k, v = _flash_inputs(b, length, kv, g, hd, dtype, seed=9)
+    pos = torch.tensor(2 * 4096 + 77, dtype=torch.int32, device="cuda")
+    n = length // 4
+    parts = [flash_decode_partial(q, k[:, s * n:(s + 1) * n].contiguous(),
+                                  v[:, s * n:(s + 1) * n].contiguous(), pos,
+                                  s * n) for s in range(4)]
+    assert not parts[3][0].any()
+    lse = torch.stack([x for _, x in parts])
+    w = torch.exp(lse - lse.amax(dim=0))
+    got = sum(wi[..., None] * o for wi, (o, _) in zip(w, parts)) \
+        / w.sum(dim=0)[..., None]
+    _flash_close(got.to(dtype), flash_decode_ref(q, k, v, int(pos)))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "zamba2-2.7b"])
+def test_sequence_split_decode_card_vs_cpu(arch):
+    """``build_step``'s batch-1 decode over (2, 2), its KV sequences split
+    over ``data``, ``.reduced()`` in float32 on the card (each global
+    layer through ``flash_decode_partial``, one launch a (data, model)
+    shard) against the same on the CPU: next tokens equal, logits within
+    1e-5 of the largest."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 31),
+                         generator=torch.Generator().manual_seed(4))
+    _, cache = T.prefill(params, cfg, toks, cache_len=64)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        dec, _ = steps.build_step(cfg, InputShape("d1", 64, 1, "decode"),
+                                  Mesh(("data", "model"), (2, 2)))
+        caches = dec.place_cache(T._map(cache, lambda x: x.to(dev)))
+        held = dec.place_params(T._map(params, lambda x: x.to(dev)))
+        tok, out = toks[:, -1:].to(torch.int32).to(dev), []
+        launches = flash_decode.launches
+        for _ in range(3):
+            tok, logits, caches = dec(held, tok, caches)
+            out.append((tok.cpu(), logits.cpu()))
+        if dev == "cuda":
+            globals_ = sum(k == "global" for k in cfg.block_pattern) \
+                if arch == "gemma3-12b" else 1
+            assert flash_decode.launches - launches == 3 * 4 * globals_
+        runs[dev] = out
+    for (tc, lc), (tg, lg) in zip(runs["cpu"], runs["cuda"]):
+        assert torch.equal(tc, tg)
+        assert (lg - lc).abs().max() <= 1e-5 * lc.abs().max()
 
 
 def test_flash_decode_refuses_what_the_kernel_does_not_take():

@@ -9,9 +9,11 @@ file's first test and runs beside the others.  The port's step runs the
 same params and inputs on the same mesh in process.  Per case (granite-8b,
 mamba2-780m, llama-3.2-vision-11b and phi3.5-moe-42b-a6.6b ``.reduced()``
 in float32, train, prefill and decode at the shapes of
-``tests/test_sharding.py`` over (data 2, model 2); and starcoder2-3b,
+``tests/test_sharding.py`` over (data 2, model 2); starcoder2-3b,
 whose 2 KV heads do not divide a model axis of 4, over (1, 4), the
-head_dim fallback):
+head_dim fallback; and the decode of one sequence (``decode1``) of
+gemma2-27b, gemma3-12b, starcoder2-3b and zamba2-2.7b over (2, 2),
+whose KV sequence the rules split over ``data``):
 
 * device (0, 0)'s argument bytes (the dry run's world) equal the
   reference's ``memory_analysis().argument_size_in_bytes`` exactly;
@@ -23,7 +25,8 @@ head_dim fallback):
 Then, on the port alone: at a (1, 1) mesh the placed steps are the
 unplaced ones bit for bit, and over 4 gloo ranks as a 2 x 2 grid the
 placed prefill, decode and train steps give the bits of the same steps
-with both model shards in process over the same data ranks
+with both model shards in process over the same data ranks, and the
+sequence-split decode the bits of every shard in process
 (``distributed.selfcheck.run_steps``).
 """
 from __future__ import annotations
@@ -55,12 +58,16 @@ ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
        "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
 SHAPES = {"train": InputShape("t", 64, 8, "train"),
           "prefill": InputShape("p", 64, 4, "prefill"),
-          "decode": InputShape("d", 64, 8, "decode")}
+          "decode": InputShape("d", 64, 8, "decode"),
+          "decode1": InputShape("d1", 64, 1, "decode")}
 CASES = [(a, k, (2, 2)) for a in ("granite-8b", "mamba2-780m",
                                   "llama-3.2-vision-11b",
                                   "phi3.5-moe-42b-a6.6b")
          for k in ("train", "prefill", "decode")]
 CASES += [("starcoder2-3b", k, (1, 4)) for k in ("prefill", "decode")]
+# batch 1: the rules split each KV sequence (and local ring) over data
+CASES += [(a, "decode1", (2, 2)) for a in ("gemma2-27b", "gemma3-12b",
+                                          "starcoder2-3b", "zamba2-2.7b")]
 # decode: the reference's prefill of a 48-token prompt into a cache of 64
 PROMPT = 48
 # float32 tolerances: the loss as tests/test_torch_model_axis.py holds it,
@@ -87,7 +94,8 @@ from repro.optim import get_optimizer
 
 SHAPES = {"train": InputShape("t", 64, 8, "train"),
           "prefill": InputShape("p", 64, 4, "prefill"),
-          "decode": InputShape("d", 64, 8, "decode")}
+          "decode": InputShape("d", 64, 8, "decode"),
+          "decode1": InputShape("d1", 64, 1, "decode")}
 
 def flat(tree):
     leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
@@ -395,23 +403,15 @@ def test_build_programs_places_the_pytree_step_as_build_step(
             assert torch.equal(x, y), (part, p)
 
 
-def test_long_context_decode_that_splits_the_sequence_is_not_ported():
-    """A batch of one over 16 data shards: the rules split the KV sequence
-    over ``data``; ``build_step`` refuses it and names ROADMAP."""
-    mesh = Mesh(("data", "model"), (16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_step(get_config("gemma3-12b"),
-                         InputShape("long_500k", 524_288, 1, "decode"), mesh,
-                         world=dryrun.MetaWorld(mesh))
-
-
 def test_four_gloo_ranks_as_a_2x2_grid_give_the_in_process_bits():
     """4 gloo ranks as a (2, 2) grid: each rank's placed prefill (logits,
     its cache slices), decode (next token, logits, cache slices after two
     steps) and train step (losses, its params, accumulator and Adam blocks
     after a non-applying and an applying microstep) equal, bit for bit,
     the same steps with both model shards in process over the same data
-    ranks."""
+    ranks; and the decode of one sequence split over ``data`` (``long``:
+    next tokens, logits and this rank's cache slices after two steps)
+    equal, bit for bit, the same decode with every shard in process."""
     cfg = _cfg("granite-8b")
     params = T.init_model(cfg, generator=torch.Generator().manual_seed(5),
                           device="cpu")
@@ -423,7 +423,7 @@ def test_four_gloo_ranks_as_a_2x2_grid_give_the_in_process_bits():
     for r, runs in enumerate(saved):
         assert set(runs) == {"ranks", "process"}
         ranks, here = runs["ranks"], runs["process"]
-        assert set(ranks) == {"prefill", "decode", "train"}
+        assert set(ranks) == {"prefill", "decode", "train", "long"}
         for kind in ranks:
             assert ranks[kind].keys() == here[kind].keys(), (r, kind)
             for k, v in ranks[kind].items():
