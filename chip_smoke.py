@@ -411,7 +411,26 @@ Phases:
     argument bytes within 1 % of the allocation of (a)'s held state;
     the partial launch timed at (a)'s and (c)'s slices against its plain
     version, its bound and SDPA; within ``LONG_BUDGET_S``;
-25. one JSON line of the kernels, then the result line.
+25. the static auditor's card side (``repro_torch.analysis``, which runs
+    on the CPU and sees the kernels' plain versions only): (a) GBA-FLOW-002
+    on the CUDA kernels: ``gba_apply`` at one (data, model) block of
+    granite-8b depth 2 over 2 x 2, (4, 209,725,440) float32, the sharded
+    apply over W = 4 shards at that size, and ``gba_aggregate`` at (4,
+    201,326,592) bfloat16, each with one slot at token = step - iota - 1
+    filled once with 1e30 (a large finite bfloat16 for the aggregate) and
+    once with zeros: params, accumulator and aggregate bit-identical
+    between the two fills, and changed when a fresh slot changes; (b)
+    GBA-COLL-001/002: one global step of the layer-grouped fused psum step
+    at granite-8b full width, depth 2, W = 4, in process and over one
+    NCCL rank, under ``census.RecordingWorld``: the recorded schedule
+    equal to the layout's (one gather a layer group, in group order, one
+    (4, group_shard) route a group and worker, the scalar losses), the
+    two runs bit-identical; (c) GBA-COLL-003 and GBA-DTYPE-002: one
+    granite-8b decode step at full width and all 36 layers under
+    ``census.CensusMode``: no collective and no float64 operator (the
+    kernels are ``ctypes`` calls the mode does not see, so what it sees
+    is the port's own code); within ``AUDIT_BUDGET_S``;
+26. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -425,8 +444,8 @@ architecture's training run, each Mamba2 architecture's serve loop,
 zamba2's kernel route and its engine, each Mamba2 architecture's
 training run, each cross architecture's serve loop, kernel route and
 engine, each cross architecture's training run, and each run of the
-model axis, each placed serve loop of phase 23, and each decode of
-phase 24)
+model axis, each placed serve loop of phase 23, each decode of
+phase 24, and each part of phase 25)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -2701,16 +2720,18 @@ def pytree_timing(T: dict, cycles_per_ms: float) -> dict:
     return out
 
 
-def pytree_rows(pytree: dict, resident: dict, times: dict) -> list[dict]:
+def pytree_rows(pytree: dict, resident: dict, times: dict,
+                audited: dict) -> list[dict]:
     """The kernels line's rows of the three kernels of phase 12, timed at
     the path's largest launch (``at``), every timed shape under
-    ``shapes``."""
+    ``shapes``; ``gba_aggregate``'s launches also phase 25's."""
     tree_launches = pytree["tree_ops"]["launches"]
     rows = []
     for name, line, source, by_path, err, timed, note in (
             ("gba_aggregate", "src/repro/kernels/gba_aggregate.py:76",
              "gba_aggregate.cu",
-             {"pytree_tree_ops": tree_launches["gba_aggregate"]},
+             {"pytree_tree_ops": tree_launches["gba_aggregate"],
+              "audit_tombstone": audited["a"]["launches"]["gba_aggregate"]},
              pytree["tree_ops"]["max_abs_err"]["gba_aggregate"],
              times["gba_aggregate"], "a GEMV of the weights and the "
              "buffer: the same decayed mean, summed in another order"),
@@ -3180,12 +3201,12 @@ def serve_phase(T: dict, counters) -> dict:
 
 
 def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
-              placed: dict, long: dict) -> dict:
+              placed: dict, long: dict, audited: dict) -> dict:
     """The kernels line's row of ``flash_decode``, timed at decode_32k;
     its shapes also at the head dims of phase 17's architectures, of
     zamba2's shared attention (phase 19) and of the cross archs (phase
     20), and its partial launches at phase 24's slices; its launches also
-    on phase 23's placed decode and phase 24's decodes."""
+    on phase 23's placed decode, phase 24's decodes and phase 25's."""
     by_path = {
         "serve_fixed_batch": serve["fixed_batch"]["launches"]["flash_decode"],
         "serve_decode_32k": serve["decode_32k"]["launches"]["flash_decode"],
@@ -3216,6 +3237,7 @@ def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
         by_path[f"long_500k_{key}"] = long[key]["launches"]["flash_decode"]
     by_path["long_500k_b_nccl"] = \
         long["b"]["nccl"]["launches"]["flash_decode"]
+    by_path["audit_decode"] = audited["c"]["launches"]["flash_decode"]
     timed = (serve["flash_decode"]["timed"] + archs["flash_decode"]
              + ssm["flash_decode"] + cross["flash_decode"] + long["timed"])
     at = serve["flash_decode"]["timed"][-1]
@@ -7173,6 +7195,219 @@ def long_phase(T: dict, counters, cycles_per_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the static auditor's card side
+
+AUDIT_BUDGET_S = 60.0
+# one (data, model) block of granite-8b depth 2 over 2 x 2: gba_apply's N
+AUDIT_APPLY_N = 209_725_440
+AUDIT_AGG_D = 201_326_592          # the bf16 buffer of the pytree path
+AUDIT_STEP, AUDIT_IOTA = 9, 4
+AUDIT_TOKENS = (9, 4, 9, 9)        # slot 1 at token = step - iota - 1
+AUDIT_TOMB, AUDIT_FRESH = 1, 0
+AUDIT_TOMB_VALUE = 1.0e30          # the tombstone's fill: huge, finite
+AUDIT_SEQ = 32                     # (b)'s sequences: 4 rows of 32 tokens
+AUDIT_DECODE = (2, 64, 31)         # (c): batch, cache length, position
+
+
+def tombstone_fills(run, slot) -> dict:
+    """``run()``'s outputs with the tombstone slot ``slot`` (a view of the
+    buffer) filled with a huge finite value and with zeros, and after a
+    fresh slot changes (``run(fresh=True)``): the two fills must give the
+    same bits and the change another."""
+    big = torch.tensor(AUDIT_TOMB_VALUE, dtype=torch.float32).to(slot.dtype)
+    check(bool(torch.isfinite(big)), f"the tombstone fill {big.item()} is "
+                                     f"finite in {slot.dtype}")
+    slot.fill_(big)
+    huge = run()
+    slot.zero_()
+    zero = run()
+    moved = run(fresh=True)
+    same = all(_same_bits(a, b) for a, b in zip(huge, zero))
+    changed = all(not _same_bits(a, b) for a, b in zip(zero, moved))
+    return {"tombstone_fill": big.item(), "same_bits": same,
+            "fresh_changes": changed}
+
+
+
+def audit_kernels(T: dict, counters) -> dict:
+    """(a) GBA-FLOW-002 on the CUDA kernels."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    tokens = torch.tensor(AUDIT_TOKENS, dtype=torch.int32, device="cuda")
+    m, n = len(AUDIT_TOKENS), AUDIT_APPLY_N
+    out = {}
+    counters(reset=True)
+    buf = torch.randn((m, n), generator=gen, device="cuda")
+    p0 = torch.randn((n,), generator=gen, device="cuda")
+    a0 = torch.rand((n,), generator=gen, device="cuda") + 0.1
+
+    def apply(fresh=False):
+        if fresh:
+            buf[AUDIT_FRESH].mul_(2.0)
+        p, a = p0.clone(), a0.clone()
+        T["gba_apply"](p, a, buf, tokens, AUDIT_STEP, LM_LR,
+                       iota=AUDIT_IOTA)
+        return p, a
+
+    out["gba_apply"] = {"shape": [m, n], **tombstone_fills(
+        apply, buf[AUDIT_TOMB])}
+    del buf
+    layout = T["ShardedFlatLayout"].from_params(
+        {"w": torch.empty((n,), device="meta")}, SHARD_W)
+    ss = layout.shard_size
+    shards = torch.randn((SHARD_W, m, ss), generator=gen, device="cuda")
+    p0 = torch.randn((layout.padded_total,), generator=gen, device="cuda")
+    a0 = torch.rand((layout.padded_total,), generator=gen,
+                    device="cuda") + 0.1
+    apply_shards = T["make_sharded_apply"](layout, iota=AUDIT_IOTA)
+
+    def sharded(fresh=False):
+        if fresh:
+            shards[:, AUDIT_FRESH].mul_(2.0)
+        p, a = p0.clone(), a0.clone()
+        apply_shards(p, a, shards.unbind(0), tokens, AUDIT_STEP, LM_LR)
+        return p, a
+
+    out["sharded_apply"] = {"shape": [SHARD_W, m, ss], **tombstone_fills(
+        sharded, shards[:, AUDIT_TOMB])}
+    del shards, p0, a0
+    grads = torch.randn((m, AUDIT_AGG_D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+
+    def aggregate(fresh=False):
+        if fresh:
+            grads[AUDIT_FRESH].mul_(2.0)
+        return (T["gba_aggregate"](grads, tokens, AUDIT_STEP,
+                                   iota=AUDIT_IOTA),)
+
+    out["gba_aggregate"] = {"shape": [m, AUDIT_AGG_D], **tombstone_fills(
+        aggregate, grads[AUDIT_TOMB])}
+    del grads
+    torch.cuda.synchronize()
+    out["launches"] = counters()
+    for name, r in out.items():
+        if name != "launches":
+            check(r["same_bits"] and r["fresh_changes"],
+                  f"(a) {name}: the tombstone slot's fills give the same "
+                  f"bits, a fresh slot's change does not")
+    check(out["launches"]["gba_apply"] == 3 + 3 * SHARD_W
+          and out["launches"]["gba_aggregate"] == 3,
+          f"(a) launches {out['launches']}")
+    return out
+
+
+def audit_schedule(T: dict, counters) -> dict:
+    """(b) GBA-COLL-001/002 on the card, in process and over one NCCL
+    rank."""
+    CS = T["census"]
+    cfg = dataclasses.replace(T["get_config"]("granite-8b"),
+                              num_layers=LM_LAYERS)
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(25), device="cuda")
+    layout = T["ShardedFlatLayout"].from_params(
+        params, WIRE_W, group_by=T["param_group_key"])
+    batch = lm_batches(T, cfg.vocab_size, AUDIT_SEQ, WIRE_W, 1, "cuda")[0]
+    tokens = torch.tensor(AUDIT_TOKENS, dtype=torch.int32, device="cuda")
+    loss_fn = T["make_loss_fn"](cfg)
+
+    def run(world, site: str) -> dict:
+        rec = CS.RecordingWorld(world)
+        step = T["make_gba_fused_psum_step"](
+            WIRE_W, loss_fn, layout, iota=AUDIT_IOTA, lr=LM_LR, world=rec)
+        counters(reset=True)
+        pf = layout.ravel(params)
+        af = torch.full_like(pf, 0.1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf, af, loss = step(pf, af, batch, tokens, AUDIT_STEP)
+        torch.cuda.synchronize()
+        findings = CS.check_fused_psum_schedule(rec.calls, layout, WIRE_W,
+                                                site)
+        check(findings == [], f"(b) {site}: {[str(f) for f in findings]}")
+        return {"calls": [[c.call, list(c.in_shapes[0]) if c.in_shapes
+                           else []] for c in rec.calls],
+                "counts": CS.census_counts(rec.calls),
+                "step_s": time.perf_counter() - t0,
+                "launches": counters(), "loss": loss.item(),
+                "pf": pf, "af": af}
+
+    local = run(T["inprocess"], "granite-8b/fused_psum (card)")
+    pg = T["process_group"]
+    with tempfile.TemporaryDirectory() as tmp:
+        world, _ = pg.join(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                           "cuda", timeout=300.0)
+        try:
+            nccl = run(world, "granite-8b/fused_psum (card, one NCCL rank)")
+        finally:
+            pg.leave()
+    for name in ("pf", "af"):
+        check(_same_bits(local[name], nccl[name]),
+              f"(b) NCCL: {name} bit-identical to the in-process run")
+        del local[name], nccl[name]
+    check(local["loss"] == nccl["loss"] and local["calls"] == nccl["calls"],
+          "(b) NCCL: the in-process run's loss and schedule")
+    g = layout.num_groups
+    check(local["counts"] == {"all_gather": g, "all_to_all": WIRE_W * g,
+                              "psum": 1}, f"(b) counts {local['counts']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"num_groups": g, "group_keys": list(layout.group_keys),
+            "group_shard_sizes": list(layout.group_shard_sizes),
+            "in_process": local, "nccl": nccl}
+
+
+def audit_decode(T: dict, counters) -> dict:
+    """(c) GBA-COLL-003 and GBA-DTYPE-002 on the card."""
+    CS = T["census"]
+    tr = T["transformer"]
+    cfg = T["get_config"]("granite-8b")
+    params = T["init_model"](cfg, generator=torch.Generator(
+        device="cuda").manual_seed(25), device="cuda")
+    b, length, pos = AUDIT_DECODE
+    cache = tr.init_cache(cfg, b, length, "cuda")
+    cache["pos"] = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(26), dtype=torch.int32)
+    counters(reset=True)
+    with CS.CensusMode() as mode:
+        logits, _ = tr.decode_step(params, cfg, tok, cache)
+    torch.cuda.synchronize()
+    out = {"layers": cfg.num_layers, "collectives": len(mode.collectives),
+           "f64_ops": len(mode.f64), "launches": counters(),
+           "finite": bool(torch.isfinite(logits).all())}
+    check(out["collectives"] == 0 and out["f64_ops"] == 0,
+          f"(c) decode: collectives {mode.collectives[:4]}, float64 "
+          f"{mode.f64[:4]}")
+    check(out["finite"] and out["launches"]["flash_decode"] > 0,
+          f"(c) decode: finite logits through flash_decode ({out})")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def audit_phase(T: dict, counters) -> dict:
+    phase(25, "the static auditor's card side: (a) GBA-FLOW-002 on "
+              "gba_apply, the sharded apply and gba_aggregate, (b) "
+              "GBA-COLL-001/002 on the fused psum step at granite-8b full "
+              "width, depth 2, W = 4, in process and over one NCCL rank, "
+              "(c) GBA-COLL-003 and GBA-DTYPE-002 on granite-8b's decode")
+    t_phase = time.perf_counter()
+    out, rows = {}, {}
+    for key, fn in (("a", audit_kernels), ("b", audit_schedule),
+                    ("c", audit_decode)):
+        t0 = time.perf_counter()
+        out[key] = fn(T, counters)
+        rows[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["row_seconds"] = rows
+    print(f"  phase 25: {out['seconds']:.1f} s (budget {AUDIT_BUDGET_S} s); "
+          f"rows {json.dumps(rows)}; {json.dumps(out, default=str)}")
+    check(out["seconds"] <= AUDIT_BUDGET_S,
+          f"phase 25 within its budget of {AUDIT_BUDGET_S} s")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -7245,6 +7480,9 @@ def main() -> int:
     from repro_torch.launch import dryrun
     from repro_torch.launch import steps as launch_steps
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.analysis import census
+    from repro_torch.core.flat_sharded import make_sharded_apply
+    from repro_torch.core.gba_shard_map import make_gba_fused_psum_step
 
     t_start = time.perf_counter()
     kind = device_phase()
@@ -7314,6 +7552,8 @@ def main() -> int:
          "model_dims": model_dims, "fsdp": fsdp,
          "sharding": sharding_rules, "steps": launch_steps,
          "dryrun": dryrun, "Mesh": Mesh, "InputShape": InputShape,
+         "census": census, "make_sharded_apply": make_sharded_apply,
+         "make_gba_fused_psum_step": make_gba_fused_psum_step,
          "benches": {
              "tab52_qps": tab52_qps, "convergence": convergence,
              "multitask": multitask, "decay_ablation": decay_ablation,
@@ -7418,8 +7658,10 @@ def main() -> int:
     placed = steps_phase(T, counters)
     torch.cuda.empty_cache()
     long = long_phase(T, counters, sleep_cycles_per_ms())
+    torch.cuda.empty_cache()
+    audited = audit_phase(T, counters)
 
-    phase(25, "kernels")
+    phase(26, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"]}
@@ -7457,6 +7699,7 @@ def main() -> int:
         "lm_model_axis": model_axis,
         "lm_build_step": placed,
         "lm_long_context": long,
+        "audit": audited,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]
@@ -7476,7 +7719,11 @@ def main() -> int:
            for a in SSM_ARCHS},
         **{f"train_{a}": cross_train[a]["launches"]["gba_apply"]
            for a in CROSS_ARCHS},
-        **{f"model_axis_{k}": v for k, v in model_axis["launches"].items()}}
+        **{f"model_axis_{k}": v for k, v in model_axis["launches"].items()},
+        "audit_tombstone": audited["a"]["launches"]["gba_apply"],
+        "audit_schedule": audited["b"]["in_process"]["launches"]["gba_apply"],
+        "audit_schedule_nccl":
+        audited["b"]["nccl"]["launches"]["gba_apply"]}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -7576,8 +7823,8 @@ def main() -> int:
                    model_axis["granite"]["gba_apply"],
                    model_axis["granite"]["wide"]["gba_apply"]],
         "ok": True,
-    }, *wire_rows, *pytree_rows(pytree, resident, pytree_times),
-        serve_row(served, archs, ssm, cross, placed, long)]}))
+    }, *wire_rows, *pytree_rows(pytree, resident, pytree_times, audited),
+        serve_row(served, archs, ssm, cross, placed, long, audited)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -233,6 +233,48 @@ class ShardedFlatLayout:
                 rows[s, c0:c1].fill_(pad)
         return flat
 
+    def unravel_group(self, g: int, group_flat: torch.Tensor,
+                      dtype: torch.dtype | None = None) -> list:
+        """Group ``g``'s flat -> its leaves, in layout order, each in
+        storage of its own, cast to ``dtype`` or, by default, to its own
+        dtype (``dtype=torch.float32`` for an Adagrad accumulator of a
+        bfloat16 model).  ``group_flat`` is the contiguous
+        ``(group_sizes[g],)`` vector or its ``(num_shards,
+        group_shard_sizes[g])`` rows, row ``s`` shard ``s``'s sub-slice
+        (what a tiled ``all_gather`` of the shards' sub-slices holds),
+        which may be a strided view."""
+        lo, hi = self.group_shard_bounds(g)
+        rows = group_flat.reshape(self.num_shards, hi - lo)
+        out = []
+        for j in self.group_leaves(g):
+            o = self.offsets[j]
+            leaf = torch.empty(self.shapes[j], dtype=dtype or self.dtypes[j],
+                               device=group_flat.device)
+            dst = leaf.view(-1)
+            for s, c0, c1, a in self._runs(g, o, o + self.sizes[j]):
+                dst[a - o:a - o + c1 - c0].copy_(rows[s, c0 - lo:c1 - lo])
+            out.append(leaf)
+        return out
+
+    def unravel_groups(self, group_flats: Iterable[torch.Tensor],
+                       dtype: torch.dtype | None = None) -> Params:
+        """Every group's flat, in group order (see :meth:`unravel_group`)
+        -> the tree.  ``group_flats`` may be a generator: each group's
+        flat is released once its leaves are copied out."""
+        leaves: list = [None] * len(self.sizes)
+        for g, gflat in enumerate(group_flats):
+            for j, leaf in zip(self.group_leaves(g),
+                               self.unravel_group(g, gflat, dtype)):
+                leaves[j] = leaf
+            del gflat
+        return self.unflatten(leaves)
+
+    def group_rows(self, flat: torch.Tensor, g: int) -> torch.Tensor:
+        """Group ``g``'s ``(num_shards, group_shard_sizes[g])`` rows of a
+        shard-major ``(padded_total,)`` vector, as a view."""
+        lo, hi = self.group_shard_bounds(g)
+        return flat.view(self.num_shards, self.shard_size)[:, lo:hi]
+
     def unravel(self, flat: torch.Tensor,
                 dtype: torch.dtype | None = None) -> Params:
         """The tree of a shard-major ``(padded_total,)`` vector, each leaf
@@ -241,17 +283,9 @@ class ShardedFlatLayout:
         accumulator stays float32 for a bfloat16 model).  Each leaf is
         copied straight out of its shards' columns: what a tiled
         ``all_gather`` of the shards' slices holds."""
-        rows = flat.view(self.num_shards, self.shard_size)
-        leaves = []
-        for j, shape in enumerate(self.shapes):
-            g, o = self.leaf_group[j], self.offsets[j]
-            leaf = torch.empty(shape, dtype=dtype or self.dtypes[j],
-                               device=flat.device)
-            dst = leaf.view(-1)
-            for s, c0, c1, a in self._runs(g, o, o + self.sizes[j]):
-                dst[a - o:a - o + c1 - c0].copy_(rows[s, c0:c1])
-            leaves.append(leaf)
-        return self.unflatten(leaves)
+        return self.unravel_groups(
+            (self.group_rows(flat, g) for g in range(self.num_groups)),
+            dtype)
 
     def shard_bounds(self, s: int) -> tuple[int, int]:
         """[start, stop) of shard ``s``'s flat slice."""

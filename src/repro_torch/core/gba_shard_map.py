@@ -149,7 +149,9 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
 
     Per global step, with G = ``layout.num_groups`` layer groups:
 
-    1. gather the params (``world.all_gather``);
+    1. gather the params: per layer group, in group order, the tiled
+       gather of the shards' group sub-slices (``world.gather_group``,
+       one collective a group) and that group's leaves unraveled from it;
     2. one worker held here after another: the worker's loss and
        gradient on its batch chunk; each group's gradient is raveled into its
        ``(M, group_shard)`` block, row ``s`` bound for shard ``s``;
@@ -234,7 +236,9 @@ def make_gba_fused_psum_step(workers: int, loss_fn: Callable,
                              f"({k}, {layout.padded_total}) each")
         b = _split_batch(batch, k)
         dev = param_flat.device
-        leaves = layout.leaves(world.all_gather(layout, param_flat))
+        leaves = layout.leaves(layout.unravel_groups(
+            world.gather_group(layout, g, param_flat)
+            for g in range(layout.num_groups)))
         routed = torch.empty((k, m, ss), device=dev, dtype=(
             torch.int8 if quantized else torch.float32))
         sides = [torch.empty((k, m, ss // tile), dtype=torch.float32,

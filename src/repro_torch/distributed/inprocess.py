@@ -6,7 +6,7 @@ worker-parallel programs (``repro.core.gba_shard_map``'s steps and the
 sharded fused step of ``repro.launch.programs``) issue along the mesh's
 ``data`` axis.  With every worker and shard on one device, each is a
 copy or nothing: the flat parameter vector is shared, so the tiled
-``all_gather`` of the shards' slices is one unravel of it, the
+``all_gather`` of a layer group's sub-slices is a view of it, the
 ``all_to_all`` of a worker's gradient block is a strided copy into the
 shards' receive buffer, the reduce-scatter of the one gradient is that
 gradient, the ordered ``psum`` is a sum in worker order, and the
@@ -74,12 +74,24 @@ def gather_flat(run: torch.Tensor) -> torch.Tensor:
     return run
 
 
+def gather_group(layout: ShardedFlatLayout, g: int,
+                 param_flat: torch.Tensor) -> torch.Tensor:
+    """The tiled ``all_gather`` of layer group ``g``: every shard's
+    group-``g`` sub-slice of the shard-major ``param_flat``, as the
+    group's ``(num_shards, group_shard)`` rows, here a view of
+    ``param_flat``."""
+    return layout.group_rows(param_flat, g)
+
+
 def all_gather(layout: ShardedFlatLayout, param_flat: torch.Tensor):
     """Every worker's view of the whole parameter tree from the shards'
-    ``(shard_size,)`` slices of the shard-major ``param_flat``: the tree,
-    each leaf in its own dtype and storage.  One tree serves every
-    worker, since each worker's gather would give the same values."""
-    return layout.unravel(param_flat)
+    ``(shard_size,)`` slices of the shard-major ``param_flat``: one
+    :func:`gather_group` a layer group, in group order, each group's
+    leaves unraveled from it, each leaf in its own dtype and storage.
+    One tree serves every worker, since each worker's gather would give
+    the same values."""
+    return layout.unravel_groups(
+        gather_group(layout, g, param_flat) for g in range(layout.num_groups))
 
 
 def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:

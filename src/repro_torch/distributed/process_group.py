@@ -13,7 +13,10 @@ wire rows.  :class:`ProcessGroupBackend` offers the functions of
 ``repro_torch.distributed.inprocess``:
 
 * ``gather_flat``: one tiled all-gather of the ranks' runs into the
-  whole ``(padded_total,)`` vector; ``all_gather`` then unravels it;
+  whole ``(padded_total,)`` vector;
+* ``gather_group``: one tiled all-gather of the ranks' sub-slices of one
+  layer group into its ``(num_shards, group_shard)`` rows; ``all_gather``
+  issues one a group, in group order, and unravels each group's leaves;
 * ``reduce_scatter``: one ``dist.reduce_scatter_tensor`` of every rank's
   shard-major gradient, each rank keeping its shards' columns of the
   sum (the ranks' terms in an order of the library's own);
@@ -183,15 +186,37 @@ class ProcessGroupBackend:
                                     group=self.group)
         return whole
 
-    def all_gather(self, layout: ShardedFlatLayout,
-                   param_flat: torch.Tensor):
-        """The whole parameter tree from every rank's run of the
-        shard-major vector: each leaf in its own dtype and storage."""
+    def gather_group(self, layout: ShardedFlatLayout, g: int,
+                     param_flat: torch.Tensor) -> torch.Tensor:
+        """Layer group ``g``'s ``(num_shards, group_shard)`` rows, row
+        ``s`` shard ``s``'s sub-slice, from every rank's run of the
+        shard-major vector: one tiled all-gather of this rank's k shards'
+        group-``g`` sub-slices, in rank order."""
         self._check(param_flat)
         if param_flat.shape[0] * self.size != layout.padded_total:
             raise ValueError(f"{self.size} runs of {param_flat.shape[0]} "
                              f"elements do not make {layout.padded_total}")
-        return layout.unravel(self.gather_flat(param_flat))
+        k = param_flat.shape[0] // layout.shard_size
+        lo, hi = layout.group_shard_bounds(g)
+        mine = param_flat.view(k, layout.shard_size)[:, lo:hi].contiguous()
+        every = mine.new_empty((self.size * k, hi - lo))
+        dist.all_gather_into_tensor(every, mine, group=self.group)
+        return every
+
+    def all_gather(self, layout: ShardedFlatLayout,
+                   param_flat: torch.Tensor):
+        """The whole parameter tree from every rank's run of the
+        shard-major vector: one :meth:`gather_group` a layer group, in
+        group order, each group's leaves unraveled from it (one group's
+        gathered rows live at a time), each leaf in its own dtype and
+        storage."""
+        self._check(param_flat)
+        if param_flat.shape[0] * self.size != layout.padded_total:
+            raise ValueError(f"{self.size} runs of {param_flat.shape[0]} "
+                             f"elements do not make {layout.padded_total}")
+        return layout.unravel_groups(
+            self.gather_group(layout, g, param_flat)
+            for g in range(layout.num_groups))
 
     def data_gather(self, parts: list, dim: int) -> torch.Tensor:
         """A leaf whole over ``data`` from every rank's rows along

@@ -54,7 +54,8 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if table.dtype not in _DTYPE_CODE:
         raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
     if ids.device.type == "cpu" and table.device.type == "cpu":
-        return embedding_bag_ref(ids, table)
+        with runtime.plain_region("embedding_bag"):
+            return embedding_bag_ref(ids, table)
     if ids.device.type != "cuda" or ids.device != table.device:
         raise ValueError(f"ids and table must both lie on the CPU or on one "
                          f"CUDA device, got {ids.device} and {table.device}")
@@ -260,7 +261,8 @@ def embedding_bag_grad(ids: torch.Tensor, grad_out: torch.Tensor,
     if grad_out.shape[1] == 0:
         _check_counts(ids.numel())
     if ids.device.type == "cpu":
-        return embedding_bag_grad_ref(ids, grad_out, capacity)
+        with runtime.plain_region("embedding_bag_grad"):
+            return embedding_bag_grad_ref(ids, grad_out, capacity)
     if grad_out.shape[1] == 0:
         counts = embedding_bag_grad_counts(ids.contiguous(), capacity)
         return torch.empty((capacity, 0), dtype=torch.float32,
@@ -388,7 +390,8 @@ def embedding_bag_grad_resident(ids: torch.Tensor, grad_out: torch.Tensor,
     CPU call takes the plain version at any D."""
     _check_grad_args(ids, grad_out, capacity)
     if ids.device.type == "cpu":
-        return embedding_bag_grad_ref(ids, grad_out, capacity)
+        with runtime.plain_region("embedding_bag_grad"):
+            return embedding_bag_grad_ref(ids, grad_out, capacity)
     sorted_ids, perm = sort_ids(ids, capacity)
     return embedding_bag_grad_resident_sorted(
         sorted_ids, perm, grad_out.contiguous(), capacity, ids.shape[1])

@@ -228,9 +228,10 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         on.add(pos.device)
     b, kv, g, hd = q.shape
     if on == {torch.device("cpu")}:
-        if partial:
-            return flash_decode_partial_ref(q, k, v, pos, start)
-        return flash_decode_ref(q, k, v, pos), None
+        with runtime.plain_region("flash_decode"):
+            if partial:
+                return flash_decode_partial_ref(q, k, v, pos, start)
+            return flash_decode_ref(q, k, v, pos), None
     if {d.type for d in on} == {"meta"}:
         # shapes alone (the dry run's trace): the kernel's outputs, no
         # arithmetic, as a registered fake kernel would give them

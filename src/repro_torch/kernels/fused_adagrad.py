@@ -60,9 +60,10 @@ def fused_adagrad(param: torch.Tensor, grad: torch.Tensor,
     lr = float(lr)
     tensors = (param, grad, accum)
     if all(t.device.type == "cpu" for t in tensors):
-        new_p, new_a = fused_adagrad_ref(param, grad, accum, lr)
-        param.copy_(new_p)
-        accum.copy_(new_a)
+        with runtime.plain_region("fused_adagrad"):
+            new_p, new_a = fused_adagrad_ref(param, grad, accum, lr)
+            param.copy_(new_p)
+            accum.copy_(new_a)
         return param, accum
     if param.device.type != "cuda" or any(t.device != param.device
                                           for t in tensors):

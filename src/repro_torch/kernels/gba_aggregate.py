@@ -58,7 +58,8 @@ def gba_aggregate(grads: torch.Tensor, tokens: torch.Tensor, step: int, *,
                          f"{_MAX_SLOTS}")
     step, iota = operator.index(step), operator.index(iota)
     if grads.device.type == "cpu" and tokens.device.type == "cpu":
-        return gba_aggregate_ref(grads, tokens, step, iota=iota)
+        with runtime.plain_region("gba_aggregate"):
+            return gba_aggregate_ref(grads, tokens, step, iota=iota)
     if grads.device.type != "cuda" or tokens.device != grads.device:
         raise ValueError(f"grads and tokens must both lie on the CPU or on "
                          f"one CUDA device, got {grads.device} and "

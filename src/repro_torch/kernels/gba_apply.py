@@ -79,10 +79,11 @@ def gba_apply(param: torch.Tensor, accum: torch.Tensor,
     lr = float(lr)
     tensors = (param, accum, buffer, tokens)
     if all(t.device.type == "cpu" for t in tensors):
-        new_p, new_a = gba_apply_ref(param, accum, buffer, tokens, step, lr,
-                                     iota=iota)
-        param.copy_(new_p)
-        accum.copy_(new_a)
+        with runtime.plain_region("gba_apply"):
+            new_p, new_a = gba_apply_ref(param, accum, buffer, tokens, step,
+                                         lr, iota=iota)
+            param.copy_(new_p)
+            accum.copy_(new_a)
         return param, accum
     if param.device.type != "cuda" or any(t.device != param.device
                                           for t in tensors):

@@ -101,8 +101,9 @@ def _quantize_(x: torch.Tensor, tile: int, mode: str, ref, wrapper
     r, c = x.shape
     _rows(x, torch.float32, (r, c), "payload")
     if not _on_one_card([x]):
-        *out, res = ref(x, tile)
-        x.copy_(res)
+        with runtime.plain_region(f"quantize_{mode}"):
+            *out, res = ref(x, tile)
+            x.copy_(res)
         return tuple(out)
     q = torch.empty((r, c), dtype=torch.int8, device=x.device)
     sides = [torch.empty((r, n_tiles), dtype=torch.float32, device=x.device)
@@ -165,7 +166,8 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
             raise ValueError("scale and zero must share their leading "
                              "stride")
     if not _on_one_card([q, out, *sides]):
-        out.copy_(dequantize_ref(q, scale, zero, tile, mode))
+        with runtime.plain_region("dequantize"):
+            out.copy_(dequantize_ref(q, scale, zero, tile, mode))
         return out
     with torch.cuda.device(q.device):
         err = _dequantize()(q.data_ptr(), q.stride(0), scale.data_ptr(),

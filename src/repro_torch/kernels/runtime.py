@@ -17,6 +17,7 @@ loaded as it is.  Nothing is compiled at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +35,50 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+# the kernels whose plain versions run now, innermost last, while an audit
+# observes (:func:`observe`): ``repro_torch.analysis`` tells the plain
+# versions' operators from the port's own code by it
+regions: list[str] = []
+_observers: list = []
+_NO_REGION = contextlib.nullcontext()
+
+
+class _Region:
+    """The region of one plain-version call, named for its kernel."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        regions.append(self.name)
+        for obs in tuple(_observers):
+            obs.enter_region(self.name)
+
+    def __exit__(self, *exc) -> None:
+        for obs in tuple(_observers):
+            obs.exit_region(self.name)
+        regions.pop()
+
+
+def plain_region(name: str):
+    """The context a kernel wrapper runs its plain version in, on CPU
+    tensors: one shared no-op context unless an audit observes, then a
+    region named ``name`` that the observers are told of."""
+    return _Region(name) if _observers else _NO_REGION
+
+
+@contextlib.contextmanager
+def observe(observer):
+    """Tell ``observer`` (``enter_region(name)``, ``exit_region(name)``)
+    of every plain-version region entered inside the ``with``."""
+    _observers.append(observer)
+    try:
+        yield observer
+    finally:
+        _observers.remove(observer)
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -136,12 +136,13 @@ class MetaWorld:
 class LiveBytes(TorchDispatchMode):
     """The bytes of the storages that the operators of a region make,
     while they live, and their peak: each new storage an operator returns
-    is counted until it is freed (views count once)."""
+    is counted until it is freed (views count once).  ``largest`` is the
+    biggest of those storages."""
 
     def __init__(self):
         super().__init__()
         self._seen = WeakIdKeyDictionary()
-        self.now = self.peak = 0
+        self.now = self.peak = self.largest = 0
 
     def _drop(self, n: int) -> None:
         self.now -= n
@@ -164,6 +165,7 @@ class LiveBytes(TorchDispatchMode):
                     self.now += n
                     weakref.finalize(st, self._drop, n)
                     self.peak = max(self.peak, self.now)
+                    self.largest = max(self.largest, n)
         return out
 
 

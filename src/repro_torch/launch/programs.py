@@ -179,10 +179,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                    ) -> tuple[dict, torch.Tensor]:
         params = state["params"]
         loss, grads = loss_and_grads(cfg, params, batch)
-        w = threshold_decay(torch.tensor([token], dtype=torch.int32),
-                            state["gstep"], iota)[0]
-        tree_map(lambda a, g: a.add_(g.to(a.dtype)
-                                     * float((w / m).to(a.dtype))),
+        w = threshold_decay(torch.as_tensor(token, dtype=torch.int32)
+                            .reshape(1), state["gstep"], iota)[0]
+        tree_map(lambda a, g: a.add_(g.to(a.dtype) * (w / m).to(a.dtype)),
                  state["acc"], grads)
         del grads
         micro = state["micro"] + 1
@@ -253,8 +252,8 @@ def make_placed_train_step(cfg: ModelConfig, optimizer: Optimizer,
         loss = loss.detach()
         if world.size > 1:
             loss = _ranks_loss(world, loss)
-        w = threshold_decay(torch.tensor([token], dtype=torch.int32),
-                            state["gstep"], iota)[0]
+        w = threshold_decay(torch.as_tensor(token, dtype=torch.int32)
+                            .reshape(1), state["gstep"], iota)[0]
         summed: dict = {}
         for i, per in enumerate(state["acc"]):
             for di, block in enumerate(per):
@@ -267,7 +266,7 @@ def make_placed_train_step(cfg: ModelConfig, optimizer: Optimizer,
                         g = summed[key]
                     else:
                         g = fsdp.grad_rows(placement, step, i, j, di)
-                    a.add_(g.to(a.dtype) * float((w / m).to(a.dtype)))
+                    a.add_(g.to(a.dtype) * (w / m).to(a.dtype))
         del step, summed
         micro = state["micro"] + 1
         is_full = micro % m == 0

@@ -2066,3 +2066,131 @@ def test_placed_pytree_step_on_the_card_matches_the_cpu(tmp_path):
     assert got[0] == lc
     for a, b in zip(got[1], pc):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the static auditor's card side (repro_torch.analysis runs on the CPU and
+# sees the plain versions only)
+
+AUDIT_TOKENS = (9, 4, 9, 9)          # slot 1 at token = step - iota - 1
+
+
+def _fills(run, slot):
+    """``run()``'s outputs with the tombstone ``slot`` filled with a huge
+    finite value and with zeros, and with a fresh slot changed."""
+    slot.fill_(torch.tensor(1e30).to(slot.dtype))
+    huge = run()
+    slot.zero_()
+    zero = run()
+    moved = run(fresh=True)
+    return huge, zero, moved
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("kernel", ["gba_apply", "sharded_apply",
+                                    "gba_aggregate"])
+def test_flow_002_tombstone_weight_is_exactly_zero_on_the_card(kernel):
+    """GBA-FLOW-002 on the CUDA kernels: the tombstone slot's contents
+    never reach the outputs, a fresh slot's do."""
+    _need_card()
+    from repro_torch.core.flat_sharded import (ShardedFlatLayout,
+                                               make_sharded_apply)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    tokens = torch.tensor(AUDIT_TOKENS, dtype=torch.int32, device="cuda")
+    m, n = len(AUDIT_TOKENS), 3 * 8192 + 77
+    layout = ShardedFlatLayout.from_params(
+        {"w": torch.empty((n,), device="meta")}, 4)
+    ss = layout.shard_size
+    p0 = torch.randn((4 * ss,), generator=gen, device="cuda")
+    a0 = torch.rand((4 * ss,), generator=gen, device="cuda") + 0.1
+    shards = torch.randn((4, m, ss), generator=gen, device="cuda",
+                         dtype=(torch.bfloat16 if kernel == "gba_aggregate"
+                                else torch.float32))
+    apply_shards = make_sharded_apply(layout, iota=4)
+    # the slots of every shard (sharded apply), else of shard 0's block
+    slots = shards.transpose(0, 1) if kernel == "sharded_apply" \
+        else shards[0]
+
+    def run(fresh=False):
+        if fresh:
+            slots[0].mul_(2.0)
+        if kernel == "gba_aggregate":
+            return (gba_aggregate(shards[0], tokens, 9, iota=4),)
+        p, a = p0.clone(), a0.clone()
+        if kernel == "sharded_apply":
+            apply_shards(p, a, shards.unbind(0), tokens, 9, 1e-3)
+        else:
+            gba_apply(p[:ss], a[:ss], shards[0], tokens, 9, 1e-3, iota=4)
+        return p, a
+
+    huge, zero, moved = _fills(run, slots[1])
+    for a, b, c in zip(huge, zero, moved):
+        assert torch.equal(_bits(a), _bits(b))
+        assert not torch.equal(_bits(b), _bits(c))
+
+
+def test_coll_001_schedule_on_the_card_and_one_nccl_rank(tmp_path):
+    """GBA-COLL-001/002: the fused psum step's recorded schedule on the
+    card, in process and over one NCCL rank, is the layout's, and the
+    two runs are bit-identical."""
+    _need_card()
+    from repro_torch.analysis import audit as AU
+    from repro_torch.analysis import census as CS
+    from repro_torch.configs import get_config
+    from repro_torch.core.gba_shard_map import make_gba_fused_psum_step
+    from repro_torch.distributed import inprocess, process_group
+    from repro_torch.launch.programs import make_loss_fn
+    from repro_torch.models import transformer as T
+    cfg = get_config("granite-8b").reduced()
+    params = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cuda")
+    layout = AU.arch_layout(cfg, params, 4)
+    batch = {k: v.cuda() for k, v in
+             AU.train_batch(cfg, 4, torch.Generator().manual_seed(4)).items()}
+    tokens = torch.tensor(AUDIT_TOKENS, dtype=torch.int32, device="cuda")
+
+    def run(world):
+        rec = CS.RecordingWorld(world)
+        step = make_gba_fused_psum_step(4, make_loss_fn(cfg), layout,
+                                        iota=4, lr=1e-3, world=rec)
+        pf = layout.ravel(params)
+        out = step(pf, torch.full_like(pf, 0.1), batch, tokens, 9)
+        assert CS.check_fused_psum_schedule(rec.calls, layout, 4, "t") == []
+        return rec.calls, out
+
+    calls, want = run(inprocess)
+    world, _ = process_group.join(0, 1, f"file://{tmp_path / 'store'}",
+                                  "cuda", timeout=120.0)
+    try:
+        got_calls, got = run(world)
+    finally:
+        process_group.leave()
+    assert got_calls == calls
+    assert torch.equal(got[2], want[2])
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_coll_003_dtype_002_decode_on_the_card():
+    """GBA-COLL-003 and GBA-DTYPE-002: a decode step on the card issues no
+    collective and makes no float64 value outside the kernels."""
+    _need_card()
+    from repro_torch.analysis import census as CS
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("granite-8b").reduced()
+    params = T.init_model(cfg, generator=torch.Generator().manual_seed(3),
+                          device="cuda")
+    cache = T.init_cache(cfg, 2, 64, "cuda")
+    cache["pos"] = torch.tensor(31, dtype=torch.int32, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), dtype=torch.int32,
+                        device="cuda")
+    before = flash_decode.launches
+    with CS.CensusMode() as mode:
+        logits, _ = T.decode_step(params, cfg, tok, cache)
+    assert mode.collectives == [] and mode.f64 == []
+    assert flash_decode.launches > before
+    assert bool(torch.isfinite(logits).all())
