@@ -430,7 +430,20 @@ Phases:
     ``census.CensusMode``: no collective and no float64 operator (the
     kernels are ``ctypes`` calls the mode does not see, so what it sees
     is the port's own code); within ``AUDIT_BUDGET_S``;
-26. one JSON line of the kernels, then the result line.
+26. Tab. 5.2's online-learning serving rows and the trainer leftovers:
+    (a) ``benchmarks.tab52_qps.run_serving`` at V = 1,000,000 and 64
+    batches on the card and on the CPU, both rows printed beside the
+    card's name and power limit, every column but the latencies equal to
+    the other device's and to the JAX package's, one ``embedding_bag``
+    launch per lookup call (so the all-hit probe, which makes no call,
+    launches nothing); (b) DeepFM's replay state (params, Adam state,
+    ``last_update``) after 1, 2 and 3 of the quickstart's global steps on
+    the card through ``CheckpointManager(keep=2)``: steps 2 and 3 kept and
+    restored onto the card bit-identical; (c) 3 ``adam(weight_decay=)``
+    updates of DeepFM's params with a ``warmup_cosine`` ``lr_override``
+    (its step a tensor on the card) and ``clip_by_global_norm``, card
+    against CPU within rtol 1e-5 / atol 1e-7; within ``TAB52_BUDGET_S``;
+27. one JSON line of the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before each path (the
 serving phases 4-6, the quickstart's 4 days, the sparse smoke, the LM's 8
@@ -445,7 +458,8 @@ zamba2's kernel route and its engine, each Mamba2 architecture's
 training run, each cross architecture's serve loop, kernel route and
 engine, each cross architecture's training run, and each run of the
 model axis, each placed serve loop of phase 23, each decode of
-phase 24, and each part of phase 25)
+phase 24, each part of phase 25, and phase 26's serving run on the
+card)
 and read just after it, so
 ``launches`` counts those paths alone.  Any failure
 raises and the script exits non-zero without the result line.  It needs a
@@ -640,7 +654,7 @@ def hot_batch(rng: np.random.Generator, hot: np.ndarray) -> np.ndarray:
     return hot[np.minimum(ranks, hot.shape[0] - 1)]
 
 
-def device_phase() -> str:
+def device_phase() -> tuple[str, str]:
     phase(1, "device")
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -652,7 +666,7 @@ def device_phase() -> str:
           f"cuda {torch.version.cuda}")
     for line in smi.splitlines()[:1]:
         print(line)
-    return name
+    return name, smi.splitlines()[0] if smi else "nvidia-smi: no answer"
 
 
 def build_phase(runtime) -> None:
@@ -7409,6 +7423,201 @@ def audit_phase(T: dict, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: Tab. 5.2's online-learning serving rows and the trainer leftovers
+# ---------------------------------------------------------------------------
+
+TAB52_BUDGET_S = 60.0
+# the reference's run_serving() at its defaults (V = 1,000,000, 64 batches;
+# jax 0.9.0, numpy REF_NUMPY, on the CPU): every column but the latencies.
+# The port's rows must equal them on the card and on the CPU; the DRAWN
+# columns follow numpy's zipf and choice streams, which differ between
+# numpy versions, so under another numpy they are held card against CPU
+# alone (both draw on the host from the same numpy)
+REF_NUMPY = "2.0.2"
+TAB52_DRAWN = ("hit_rate", "invalidations")
+REF_TAB52_SERVING = {
+    "tab52.serving.hot_cache": {
+        "hit_rate": "0.8492", "vocab": "1000000", "cache_rows": "512",
+        "audit_cache_bytes": "1048576", "audit_hit_skips_kernel": "1",
+        "audit_race_findings": "0"},
+    "tab52.serving.live_sync": {
+        "hit_rate": "0.8079", "freshness_lag_steps": "2", "syncs": "8",
+        "coalesced": "8", "invalidations": "221", "versions": "9",
+        "audit_race_findings": "0"},
+}
+CKPT_KEEP, CKPT_SAVES = 2, 3       # (b): three saves, the newest two kept
+# (c): Adam with decoupled weight decay, a warmup_cosine lr_override and
+# the gradient clipped to CLIP_NORM (far below a N(0, 1) gradient's norm,
+# so the clip scales), card against CPU over OPT_STEPS updates
+OPT_LR, OPT_WD, OPT_WARMUP, OPT_TOTAL, CLIP_NORM = 1e-3, 0.01, 2, 10, 1.0
+OPT_STEPS = 3
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-7    # float32 sum orders of the norm
+
+
+def _columns(rows: list) -> dict:
+    """name -> {column: value} of each CSV row."""
+    return {name: dict(kv.split("=") for kv in derived.split(";"))
+            for name, _, derived in (r.split(",", 2) for r in rows)}
+
+
+def tab52_serving(T: dict, counters, card_power: str) -> dict:
+    """(a) ``tab52_qps.run_serving`` on the card and on the CPU."""
+    bench = T["benches"]["tab52_qps"]
+    counters(reset=True)
+    t0 = time.perf_counter()
+    rows = bench.run_serving(device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = counters()
+    t0 = time.perf_counter()
+    host_rows = bench.run_serving(device="cpu")
+    host_s = time.perf_counter() - t0
+    for r in rows:
+        print(f"  {r}  [{card_power}]")
+    print(f"  (a) run_serving: {card_s:.1f} s on the card, {host_s:.1f} s on "
+          f"the CPU; embedding_bag launches {launches['embedding_bag']}, "
+          f"pooled_lookup calls {launches['calls']}")
+    card, host = _columns(rows), _columns(host_rows)
+    check(list(card) == list(host) == list(REF_TAB52_SERVING),
+          "(a) the two serving rows")
+    same_numpy = np.__version__ == REF_NUMPY
+    for name, want in REF_TAB52_SERVING.items():
+        check(card[name].keys() == host[name].keys(), f"(a) {name} columns")
+        for col, value in want.items():
+            check(card[name][col] == host[name][col],
+                  f"(a) {name} {col}: card {card[name][col]}, CPU "
+                  f"{host[name][col]}")
+            if same_numpy or col not in TAB52_DRAWN:
+                check(card[name][col] == value,
+                      f"(a) {name} {col}: {card[name][col]}, the "
+                      f"reference's {value}")
+    print(f"  (a) numpy {np.__version__}: every column but the latencies "
+          f"equal card against CPU, and to the reference's (numpy "
+          f"{REF_NUMPY}) " + ("all of them" if same_numpy else
+                              f"but the drawn {', '.join(TAB52_DRAWN)}"))
+    check(launches["embedding_bag"] > 0,
+          "(a) the cache misses launched embedding_bag")
+    # every lookup call launched the CUDA kernel, so the all-hit probe's
+    # zero calls (audit_hit_skips_kernel=1) are zero launches
+    check(launches["embedding_bag"] == launches["calls"],
+          "(a) one embedding_bag launch per pooled_lookup call")
+    return {"rows": rows, "card_s": card_s, "host_s": host_s,
+            "launches": launches}
+
+
+def tab52_checkpoint(T: dict) -> dict:
+    """(b) DeepFM's replay state after 1, 2 and 3 of the quickstart's
+    global steps on the card, through ``CheckpointManager(keep=2)``."""
+    Q, cfg = T["quickstart"], T["CRITEO_DEEPFM"]
+    params = T["init_recsys"](cfg, generator=torch.Generator().manual_seed(0),
+                              device="cuda")
+    stream = T["make_clickstream"](cfg, seed=0,
+                                   batch_size=Q.SETUP.local_batch)
+    sched = T["schedule_for_day"](Q.SETUP, Q.SPEC, Q.NUM_BATCHES)
+    ckpt_dir = WORK / "ckpt_manager"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    saved = {}
+    try:
+        mgr = T["CheckpointManager"](str(ckpt_dir), keep=CKPT_KEEP)
+        for k in range(1, CKPT_SAVES + 1):
+            tr = Q.make_trainer(cfg)
+            head = T["Schedule"](sched.mode, sched.local_batch,
+                                 sched.steps[:k])
+            p, opt, last, _ = tr.replay(params, tr.optimizer.init(params),
+                                        head, stream, 0)
+            saved[k] = {"params": p, "opt": opt, "last_update": last}
+            mgr.save(k, saved[k])
+        kept = mgr.steps()
+        step, latest = mgr.restore_latest()
+        older = mgr.restore(kept[0])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(kept == list(range(CKPT_SAVES - CKPT_KEEP + 1, CKPT_SAVES + 1)),
+          f"(b) keep={CKPT_KEEP} over {CKPT_SAVES} saves keeps {kept}")
+    n = 0
+    for k, got in ((step, latest), (kept[0], older)):
+        want = T["leaves"](saved[k])
+        have = T["leaves"](got)
+        check(len(have) == len(want), f"(b) step {k}: every leaf restored")
+        for a, b in zip(have, want):
+            check(a.device.type == "cuda" and _same_bits(a, b),
+                  f"(b) step {k}: restored onto the card bit-identical")
+        n += len(have)
+    check(not _same_bits(T["leaves"](latest)[0], T["leaves"](older)[0]),
+          "(b) the kept states differ")
+    print(f"  (b) CheckpointManager(keep={CKPT_KEEP}) over {CKPT_SAVES} "
+          f"saves of DeepFM's replay state kept steps {kept}; both restored "
+          f"onto the card bit-identical ({n} leaves)")
+    return {"kept": kept, "leaves": n}
+
+
+def tab52_optimizer(T: dict) -> dict:
+    """(c) ``adam(weight_decay=)`` with a ``warmup_cosine`` override and
+    ``clip_by_global_norm``, card against CPU."""
+    sched = T["schedules"].warmup_cosine(OPT_LR, OPT_WARMUP, OPT_TOTAL)
+    clip = T["clip_by_global_norm"]
+    host = T["init_recsys"](T["CRITEO_DEEPFM"],
+                            generator=torch.Generator().manual_seed(3),
+                            device="cpu")
+    card = T["tree_to_device"](host, torch.device("cuda"))
+    opt = T["get_optimizer"]("adam", OPT_LR, weight_decay=OPT_WD)
+    states = {"cuda": (card, opt.init(card)), "cpu": (host, opt.init(host))}
+    gen = torch.Generator().manual_seed(4)
+    norms = {"cuda": [], "cpu": []}
+    for step in range(1, OPT_STEPS + 1):
+        grads = T["tree_map"](lambda p: torch.randn(p.shape, generator=gen),
+                              host)
+        for dev in ("cuda", "cpu"):
+            p, st = states[dev]
+            g = T["tree_to_device"](grads, torch.device(dev))
+            g, norm = clip(g, CLIP_NORM)
+            # the card's step stays on the card: the schedule needs no sync
+            lr = sched(torch.tensor(step, device=dev) if dev == "cuda"
+                       else step)
+            check(lr.device.type == dev, f"(c) the schedule on {dev}")
+            states[dev] = opt.update(p, g, st, lr_override=lr)
+            norms[dev].append(norm.item())
+    check(all(n > CLIP_NORM for n in norms["cpu"]), "(c) the clip scaled")
+    check(np.allclose(norms["cuda"], norms["cpu"], rtol=OPT_RTOL, atol=0),
+          f"(c) norms {norms['cuda']} vs {norms['cpu']}")
+    worst = 0.0
+    for a, b in zip(T["leaves"](states["cuda"]), T["leaves"](states["cpu"])):
+        check(torch.allclose(a.cpu().double(), b.double(), rtol=OPT_RTOL,
+                             atol=OPT_ATOL),
+              f"(c) params and Adam state within rtol {OPT_RTOL} atol "
+              f"{OPT_ATOL}")
+        worst = max(worst, (a.cpu().double() - b.double()).abs().max().item())
+    print(f"  (c) {OPT_STEPS} adam(weight_decay={OPT_WD}) updates, "
+          f"warmup_cosine lr, clip to {CLIP_NORM}: card vs CPU within rtol "
+          f"{OPT_RTOL} atol {OPT_ATOL}; largest difference {worst!r}; "
+          f"norms {norms['cuda']}")
+    return {"max_abs_diff": worst, "norms": norms["cuda"]}
+
+
+def tab52_phase(T: dict, counters, card_power: str) -> dict:
+    phase(26, "Tab. 5.2's online-learning serving rows (run_serving at V = "
+              "1,000,000) on the card and the CPU; CheckpointManager over "
+              "DeepFM's replay state; adam(weight_decay) with a schedule "
+              "and clip_by_global_norm")
+    t_phase = time.perf_counter()
+    out, rows = {}, {}
+    for key, fn in (("a", lambda: tab52_serving(T, counters, card_power)),
+                    ("b", lambda: tab52_checkpoint(T)),
+                    ("c", lambda: tab52_optimizer(T))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        rows[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["row_seconds"] = rows
+    print(f"  phase 26: {out['seconds']:.1f} s (budget {TAB52_BUDGET_S} s); "
+          f"rows {json.dumps(rows)}")
+    check(out["seconds"] <= TAB52_BUDGET_S,
+          f"phase 26 within its budget of {TAB52_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7456,7 +7665,9 @@ def main() -> int:
     from repro_torch.models.recsys import init_recsys
     from repro_torch.models import layers, transformer
     from repro_torch.models.transformer import init_model, param_count
-    from repro_torch.optim import get_optimizer, tree_map
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.optim import clip_by_global_norm, get_optimizer, tree_map
+    from repro_torch.optim import schedules
     from repro_torch.sim.cluster import ClusterSpec, Schedule, Slot
     from repro_torch.sim.faults import (FaultPlan, ScrapeDropout,
                                         StragglerWindow)
@@ -7485,7 +7696,7 @@ def main() -> int:
     from repro_torch.core.gba_shard_map import make_gba_fused_psum_step
 
     t_start = time.perf_counter()
-    kind = device_phase()
+    kind, card_power = device_phase()
     build_phase(runtime)
 
     # the quickstart's stream and day-0 schedule give the presence-count
@@ -7554,6 +7765,8 @@ def main() -> int:
          "dryrun": dryrun, "Mesh": Mesh, "InputShape": InputShape,
          "census": census, "make_sharded_apply": make_sharded_apply,
          "make_gba_fused_psum_step": make_gba_fused_psum_step,
+         "CheckpointManager": CheckpointManager, "schedules": schedules,
+         "clip_by_global_norm": clip_by_global_norm,
          "benches": {
              "tab52_qps": tab52_qps, "convergence": convergence,
              "multitask": multitask, "decay_ablation": decay_ablation,
@@ -7660,11 +7873,15 @@ def main() -> int:
     long = long_phase(T, counters, sleep_cycles_per_ms())
     torch.cuda.empty_cache()
     audited = audit_phase(T, counters)
+    torch.cuda.empty_cache()
+    tab52 = tab52_phase(T, counters, card_power)
 
-    phase(26, "kernels")
+    phase(27, "kernels")
     fwd_launches = {"serving": serving["embedding_bag"],
                     "replay": replay["launches"]["embedding_bag"],
-                    "sparse_smoke": smoke["launches"]["embedding_bag"]}
+                    "sparse_smoke": smoke["launches"]["embedding_bag"],
+                    "tab52_serving":
+                    tab52["a"]["launches"]["embedding_bag"]}
     bwd_launches = {"serving": serving["embedding_bag_grad"],
                     "replay": replay["launches"]["embedding_bag_grad"],
                     "sparse_smoke": smoke["launches"]["embedding_bag_grad"],
@@ -7700,6 +7917,7 @@ def main() -> int:
         "lm_build_step": placed,
         "lm_long_context": long,
         "audit": audited,
+        "tab52_serving": tab52,
         "launch_floor": floor,
         "seconds": time.perf_counter() - t_start}))
     main_shape, grad_main = timing["shapes"][0], grad_rows[0]

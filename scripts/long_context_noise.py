@@ -1,7 +1,7 @@
 """How far the placed long-context decode's bf16 logits sit from the
 unplaced decode's, mesh by mesh, on one CUDA card.
 
-    python3 scripts/long_context_noise.py
+    python3 scripts/long_context_noise.py [--dtype bfloat16|float32]
 
 For each (arch, depth) below, at full width in bfloat16 and at
 ``long_500k``'s 524,288 positions, batch 1: the weights drawn from a
@@ -16,10 +16,19 @@ the float32 sums of the model axis alone, a (D, 1) mesh those of the
 sequence split over ``data`` alone; "plain route" is the unplaced
 decode with ``flash_decode`` swapped for its plain version, which moves
 the sums of the global layers alone.  About a minute on an H100.
+
+``--dtype float32`` runs the same decodes in float32 for starcoder2-3b
+at full width and all 30 layers (its ring caches fit), over (1, 2),
+(1, 4), (2, 1) and (4, 1): there the placed decode must agree with the
+unplaced one to float32 rounding, so a deviation far above 1e-5 of the
+largest logit is a wrong sum, not rounding.  Each mesh's line ends with
+its largest deviation over the steps, unrounded.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -47,11 +56,14 @@ CASES = (("gemma3-12b", 12, ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1)),
          ("starcoder2-3b", 30, ((2, 1), (1, 2), (2, 2)), L // 2 - 2, 40,
           False),
          ("gemma2-27b", 4, ((2, 1), (1, 2), (2, 2)), L // 2 - 2, 41, False))
+F32_CASES = (("starcoder2-3b", 30, ((1, 2), (1, 4), (2, 1), (4, 1)),
+              L // 2 - 2, 40, False),)
 
 
 def deviation(arch: str, depth: int, meshes, pos: int, seed: int,
-              plain: bool) -> dict:
-    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+              plain: bool, dtype: str = "bfloat16") -> dict:
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                              dtype=dtype)
     params = T.init_model(cfg, generator=torch.Generator(
         device="cuda").manual_seed(seed), device="cuda")
     whole = cs.draw_cache(T.cache_shapes(cfg, 1, L), pos, seed + 1)
@@ -99,16 +111,28 @@ def deviation(arch: str, depth: int, meshes, pos: int, seed: int,
     return {"max_logit": scale, "by_mesh": res}
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("long_context_noise: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)}; {smi}; {args.dtype}")
     t0 = time.perf_counter()
-    for arch, depth, meshes, pos, seed, plain in CASES:
-        out = deviation(arch, depth, meshes, pos, seed, plain)
-        print(f"{arch} depth {depth} from pos {pos}, largest logit "
-              f"{out['max_logit']!r}: " + "; ".join(
-                  f"{k} {', '.join(f'{x:.5f}' for x in v)}"
-                  for k, v in out["by_mesh"].items()), flush=True)
+    f32 = args.dtype == "float32"
+    fmt = "{:.3e}" if f32 else "{:.5f}"
+    for arch, depth, meshes, pos, seed, plain in (F32_CASES if f32
+                                                  else CASES):
+        out = deviation(arch, depth, meshes, pos, seed, plain, args.dtype)
+        print(f"{arch} depth {depth} from pos {pos}, {args.dtype}, largest "
+              f"logit {out['max_logit']!r}: " + "; ".join(
+                  f"{k} {', '.join(fmt.format(x) for x in v)} "
+                  f"(max {max(v)!r})" for k, v in out["by_mesh"].items()),
+              flush=True)
     print(f"{time.perf_counter() - t0:.1f} s")
 
 

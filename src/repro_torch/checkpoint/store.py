@@ -85,7 +85,8 @@ def _rebuild(spec: Any, flat: dict[str, np.ndarray], prefix: str = "") -> Any:
         return tuple(seq) if t == "t" else seq
     if t == "n":
         return None
-    arr = torch.from_numpy(np.ascontiguousarray(flat[prefix]))
+    leaf = flat[prefix]      # ascontiguousarray alone makes a 0-d leaf (1,)
+    arr = torch.from_numpy(np.ascontiguousarray(leaf).reshape(leaf.shape))
     dt = spec.get("d")
     if dt and str(arr.dtype).removeprefix("torch.") != dt:
         arr = arr.to(getattr(torch, dt))

@@ -46,6 +46,11 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def all_configs() -> dict[str, ModelConfig]:
+    """Every architecture's config, in ``ARCH_IDS`` order."""
+    return {arch: get_config(arch) for arch in ARCH_IDS}
+
+
 __all__ = ["ALIMAMA_DIEN", "ARCH_IDS", "CRITEO_DEEPFM", "GBAConfig",
            "INPUT_SHAPES", "InputShape", "ModelConfig", "PRIVATE_YOUTUBEDNN", "RECSYS_CONFIGS",
-           "RecsysConfig", "get_config"]
+           "RecsysConfig", "all_configs", "get_config"]

@@ -157,7 +157,8 @@ def test_fig78_runs_the_reference_protocol(monkeypatch):
 
 
 @pytest.mark.parametrize("bench, argv", [
-    (convergence, []), (tab52_qps, ["--num-batches", "64"]),
+    (convergence, []),
+    (tab52_qps, ["--num-batches", "64", "--device", "cpu"]),
     (fig3_grad_distribution, ["--n-samples", "1", "--device", "cpu"])],
     ids=["convergence", "tab52_qps", "fig3"])
 def test_bench_cli_on_the_cpu(bench, argv, capsys):

@@ -2194,3 +2194,91 @@ def test_coll_003_dtype_002_decode_on_the_card():
     assert mode.collectives == [] and mode.f64 == []
     assert flash_decode.launches > before
     assert bool(torch.isfinite(logits).all())
+
+
+def _serving_columns(rows):
+    """name -> {column: value} of each row, the host latencies left out."""
+    out = {}
+    for row in rows:
+        name, _, derived = row.split(",", 2)
+        out[name] = {k: v for k, v in (kv.split("=")
+                                       for kv in derived.split(";"))
+                     if not k.startswith(("p50_", "p99_"))}
+    return out
+
+
+def test_tab52_serving_rows_on_the_card_match_the_cpu():
+    """``run_serving`` at V = 1M: every column but the latencies equal on
+    both devices; every lookup call launches the kernel, so the all-hit
+    probe (no call) launches nothing."""
+    _need_card()
+    from repro_torch.benchmarks import tab52_qps
+    calls, launches = ops.kernel_calls["pooled_lookup"], embedding_bag.launches
+    card = tab52_qps.run_serving(device="cuda")
+    calls = ops.kernel_calls["pooled_lookup"] - calls
+    launches = embedding_bag.launches - launches
+    assert launches > 0 and launches == calls
+    got = _serving_columns(card)
+    assert got == _serving_columns(tab52_qps.run_serving(device="cpu"))
+    assert got["tab52.serving.hot_cache"]["audit_hit_skips_kernel"] == "1"
+    assert got["tab52.serving.live_sync"]["versions"] == "9"
+
+
+def test_checkpoint_manager_restores_onto_the_card(tmp_path):
+    _need_card()
+    from repro_torch.checkpoint.manager import CheckpointManager
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    states = [{"params": {"w": torch.randn(64, 8, generator=gen,
+                                           device="cuda"),
+                          "h": torch.randn(5, 3, generator=gen, device="cuda"
+                                           ).to(torch.bfloat16)},
+               "opt": {"count": torch.tensor(k, dtype=torch.int32,
+                                             device="cuda")},
+               "last_update": torch.full((11,), k, dtype=torch.int32,
+                                         device="cuda")}
+              for k in range(3)]
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    for k, state in enumerate(states):
+        mgr.save(k, state)
+    assert mgr.steps() == [1, 2]
+    step, got = mgr.restore_latest()
+    assert step == 2
+    for a, b in zip(_flat(got), _flat(states[2])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree]
+
+
+def test_adam_schedule_and_clip_on_the_card_match_the_cpu():
+    """``adam(weight_decay=)`` with a ``warmup_cosine`` override whose step
+    is a tensor on the card, after ``clip_by_global_norm``: within rtol
+    1e-5, atol 1e-7 of the CPU (the norm's float32 sums in another
+    order)."""
+    _need_card()
+    from repro_torch.optim import clip_by_global_norm, get_optimizer
+    from repro_torch.optim import schedules
+    sched = schedules.warmup_cosine(1e-3, 2, 10)
+    gen = torch.Generator().manual_seed(5)
+    host = {"w": torch.randn(256, 64, generator=gen),
+            "b": torch.randn(64, generator=gen)}
+    card = {k: v.cuda() for k, v in host.items()}
+    opt = get_optimizer("adam", 1e-3, weight_decay=0.01)
+    hs, cs = opt.init(host), opt.init(card)
+    for step in range(1, 4):
+        g = {k: torch.randn(v.shape, generator=gen) for k, v in host.items()}
+        hg, hn = clip_by_global_norm(g, 1.0)
+        cg, cn = clip_by_global_norm({k: v.cuda() for k, v in g.items()},
+                                     1.0)
+        lr = sched(torch.tensor(step, device="cuda"))
+        assert lr.device.type == "cuda"
+        host, hs = opt.update(host, hg, hs, lr_override=sched(step))
+        card, cs = opt.update(card, cg, cs, lr_override=lr)
+        assert cn.item() == pytest.approx(hn.item(), rel=1e-5)
+    for a, b in zip(_flat({"p": card, "m": cs["m"], "v": cs["v"]}),
+                    _flat({"p": host, "m": hs["m"], "v": hs["v"]})):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)

@@ -47,6 +47,7 @@ def test_import_loads_no_jax():
             "repro_torch.convert, repro_torch.checkpoint, "
             "repro_torch.configs, repro_torch.data, repro_torch.sim, "
             "repro_torch.metrics, repro_torch.optim, repro_torch.models.recsys, "
+            "repro_torch.optim.schedules, repro_torch.checkpoint.manager, "
             "repro_torch.core, repro_torch.launch.quickstart, "
             "repro_torch.launch.train, repro_torch.launch.programs, "
             "repro_torch.models.transformer, repro_torch.core.gba, "
