@@ -429,7 +429,22 @@ Phases:
     granite-8b decode step at full width and all 36 layers under
     ``census.CensusMode``: no collective and no float64 operator (the
     kernels are ``ctypes`` calls the mode does not see, so what it sees
-    is the port's own code); within ``AUDIT_BUDGET_S``;
+    is the port's own code); (d) each kernel's launch meta against the
+    launch the card made: the card's limits (``launch_record.
+    device_limits``, and ``repro_flash_decode_smem``) equal to
+    ``launch_meta.HOPPER``; every meta of ``analysis.audit.kernel_metas()``,
+    row (f) at (4, 209,725,440) and a ``gba_apply`` on views one element
+    off their allocation (the scalar path) launched through its wrapper
+    under ``torch.profiler`` on inputs drawn from a seed, in a child
+    process (``chip_smoke.py --launch-row``: by phase 25 this process's
+    traces held none of the package's kernels), each recorded
+    launch's grid and block equal to the meta's, its shared memory the
+    meta's dynamic bytes plus the compiler's static bytes (``-Xptxas -v``),
+    registers x threads within an SM's, a cooperative grid within the
+    blocks the card holds at once, no ``launch_check`` finding under the
+    card's limits, and each output within phase 3's tolerance of its plain
+    version; each kernel's registers and spills in the phase's JSON line;
+    within ``AUDIT_BUDGET_S``;
 26. Tab. 5.2's online-learning serving rows and the trainer leftovers:
     (a) ``benchmarks.tab52_qps.run_serving`` at V = 1,000,000 and 64
     batches on the card and on the CPU, both rows printed beside the
@@ -2745,20 +2760,26 @@ def pytree_rows(pytree: dict, resident: dict, times: dict,
             ("gba_aggregate", "src/repro/kernels/gba_aggregate.py:76",
              "gba_aggregate.cu",
              {"pytree_tree_ops": tree_launches["gba_aggregate"],
-              "audit_tombstone": audited["a"]["launches"]["gba_aggregate"]},
+              "audit_tombstone": audited["a"]["launches"]["gba_aggregate"],
+              "audit_launch_meta":
+              audited["d"]["launches"]["gba_aggregate"]},
              pytree["tree_ops"]["max_abs_err"]["gba_aggregate"],
              times["gba_aggregate"], "a GEMV of the weights and the "
              "buffer: the same decayed mean, summed in another order"),
             ("fused_adagrad", "src/repro/kernels/fused_adagrad.py:75",
              "fused_adagrad.cu",
-             {"pytree_tree_ops": tree_launches["fused_adagrad"]},
+             {"pytree_tree_ops": tree_launches["fused_adagrad"],
+              "audit_launch_meta":
+              audited["d"]["launches"]["fused_adagrad"]},
              pytree["tree_ops"]["max_abs_err"]["fused_adagrad"],
              times["fused_adagrad"], None),
             ("embedding_bag_grad_resident",
              "src/repro/kernels/embedding_bag.py:553",
              "embedding_bag_grad_resident.cu",
              {"resident_oracle":
-              resident["launches"]["embedding_bag_grad_resident"]},
+              resident["launches"]["embedding_bag_grad_resident"],
+              "audit_launch_meta":
+              audited["d"]["launches"]["embedding_bag_grad_resident"]},
              resident["max_abs_err"], times["embedding_bag_grad_resident"],
              None)):
         at = timed[-1] if name != "embedding_bag_grad_resident" else \
@@ -3252,6 +3273,7 @@ def serve_row(serve: dict, archs: dict, ssm: dict, cross: dict,
     by_path["long_500k_b_nccl"] = \
         long["b"]["nccl"]["launches"]["flash_decode"]
     by_path["audit_decode"] = audited["c"]["launches"]["flash_decode"]
+    by_path["audit_launch_meta"] = audited["d"]["launches"]["flash_decode"]
     timed = (serve["flash_decode"]["timed"] + archs["flash_decode"]
              + ssm["flash_decode"] + cross["flash_decode"] + long["timed"])
     at = serve["flash_decode"]["timed"][-1]
@@ -7400,16 +7422,296 @@ def audit_decode(T: dict, counters) -> dict:
     return out
 
 
+# (d): the metas' shapes beyond ``analysis.audit.kernel_metas()``: row (f)
+# at the 2 x 2 run's (data, model) block of granite-8b depth 2, and one
+# apply on views one element off their allocation (the wire's (M, shard)
+# views at an offset), which take the scalar path
+LAUNCH_UNALIGNED_N = 1 << 20
+LAUNCH_POS = 32_000                # flash_decode's position at decode_32k
+LAUNCH_FLOAT_TOL = (1e-5, 1e-6)    # phase 3's float32 rtol, atol
+
+
+def launch_cases(limits, gen: torch.Generator) -> list:
+    """(d)'s cases: ``(label, metas, run, hold)`` for every shape of
+    ``analysis.audit.kernel_metas()``, row (f) and the unaligned apply;
+    ``run()`` launches through the wrappers, ``hold(out)`` compares the
+    output with the plain version on the same inputs as phase 3 does
+    (bits, or float tolerances where the kernel sums in another order)
+    and returns ``(ok, max |err|)``."""
+    from repro_torch.kernels import (embedding_bag as EB, flash_decode as FD,
+                                     fused_adagrad as FA, gba_aggregate as GG,
+                                     gba_apply as GA, quantize as Q, ref)
+    dev = "cuda"
+    cases = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ids(b, f, v):
+        x = torch.randint(0, v, (b, f), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x[0, ::5] = v                              # ids the kernels skip
+        return x
+
+    def same(pairs):
+        pairs = list(pairs)
+        return (all(_same_bits(a, b) for a, b in pairs),
+                max((_max_abs(a, b.to(a.device)) for a, b in pairs
+                     if a.numel()), default=0.0))
+
+    def close(a, b, rtol, atol):
+        return (torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol),
+                _max_abs(a, b))
+
+    tokens = torch.tensor([9, 9, 4, 9, 8, 9, 3, 9], dtype=torch.int32,
+                          device=dev)
+
+    # gba_apply: row (f), then the unaligned views
+    for n, aligned in ((AUDIT_APPLY_N, True), (LAUNCH_UNALIGNED_N, False)):
+        m = len(AUDIT_TOKENS)
+        off = 0 if aligned else 1
+        p_all, a_all = randn(n + off) * 0.02, randn(n + off).abs() + 0.1
+        p, a = p_all[off:], a_all[off:]
+        buf = randn(m, n) * 1e-3
+        tok = torch.tensor(AUDIT_TOKENS, dtype=torch.int32, device=dev)
+
+        def run(p=p, a=a, buf=buf, tok=tok):
+            return GA.gba_apply(p, a, buf, tok, AUDIT_STEP, LM_LR,
+                                iota=AUDIT_IOTA)
+
+        want = GA.gba_apply_ref(p, a, buf, tok, AUDIT_STEP, LM_LR,
+                                iota=AUDIT_IOTA)
+        cases.append(("gba_apply (f)" if aligned else "gba_apply unaligned",
+                      (GA.launch_meta(n, m, aligned=aligned, limits=limits),),
+                      run, lambda out, want=want: same(zip(out, want))))
+    n = 1 << 16
+    p, g, a = randn(n), randn(n), randn(n).abs() + 0.1
+    want = ref.fused_adagrad_ref(p, g, a, LM_LR)
+    cases.append(("fused_adagrad", (FA.launch_meta(n, limits=limits),),
+                  lambda p=p, g=g, a=a: FA.fused_adagrad(p, g, a, LM_LR),
+                  lambda out, want=want: same(zip(out, want))))
+    grads = randn(8, n)
+    want = ref.gba_aggregate_ref(grads, tokens, AUDIT_STEP, iota=AUDIT_IOTA)
+    cases.append(("gba_aggregate", (GG.launch_meta(n, 8, limits=limits),),
+                  lambda: GG.gba_aggregate(grads, tokens, AUDIT_STEP,
+                                           iota=AUDIT_IOTA),
+                  lambda out, want=want: same([(out, want)])))
+    # embedding_bag and its backward, at the reference's bench shapes
+    bag, table = ids(32, 26, 100_000), randn(100_000, 128) * 0.01
+    want = ref.embedding_bag_ref(bag, table)
+    cases.append(("embedding_bag", (EB.fwd_launch_meta(32, 26, 100_000,
+                                                       128),),
+                  lambda: EB.embedding_bag(bag, table),
+                  lambda out, want=want: close(out, want,
+                                               *LAUNCH_FLOAT_TOL)))
+    for d, kernel in ((128, EB.embedding_bag_grad),
+                      (64, EB.embedding_bag_grad_resident)):
+        rows = randn(32, d)
+        want = ref.embedding_bag_grad_ref(bag.cpu(), rows.cpu(), 100_000)
+        meta = (EB.bwd_launch_meta if d == 128 else
+                EB.resident_launch_meta)(32, 26, 100_000, d, limits=limits)
+        cases.append((meta.kernel, (meta,),
+                      lambda kernel=kernel, rows=rows: kernel(bag, rows,
+                                                              100_000),
+                      lambda out, want=want: same(zip(out, want))))
+    presence = ids(1, 53_248, 1_600_048)
+    want = ref.embedding_bag_grad_ref(presence.cpu(), torch.zeros((1, 0)),
+                                      1_600_048)[1]
+    cases.append(("embedding_bag_grad counts",
+                  (EB.bwd_launch_meta(1, 53_248, 1_600_048, 0,
+                                      limits=limits),),
+                  lambda: EB.embedding_bag_grad(
+                      presence, torch.zeros((1, 0), device=dev),
+                      1_600_048)[1],
+                  lambda out, want=want: same([(out, want)])))
+    # the wire's quantizers, at the reference's bench shape
+    r, c, tile = 8, 1 << 14, 2048
+    x = randn(r, c)
+    for mode, fn, plain in (("minmax", Q.quantize_minmax,
+                             ref.quantize_minmax_ref),
+                            ("sign", Q.quantize_sign, ref.quantize_sign_ref)):
+        want = plain(x, tile)
+
+        def run(fn=fn):
+            y = x.clone()
+            return (*fn(y, tile=tile), y)
+
+        cases.append((f"quantize_{mode}",
+                      (Q.quantize_launch_meta(r, c, tile, mode),), run,
+                      lambda out, want=want: same(zip(out, want))))
+        sides = want[1:-1]
+        zero = sides[1] if mode == "minmax" else None
+        back = ref.dequantize_ref(want[0], sides[0], zero, tile, mode)
+        cases.append((f"dequantize_{mode}",
+                      (Q.dequant_launch_meta(r, c, tile, mode),),
+                      lambda want=want, zero=zero, mode=mode: Q.dequantize(
+                          want[0], want[1], zero, tile=tile, mode=mode,
+                          out=torch.empty((r, c), device=dev)),
+                      lambda out, back=back: same([(out, back)])))
+    # flash_decode at decode_32k, every head dim, both dtypes, and partial
+    b, length, kv, g = 4, 32_768, 8, 4
+    shapes = [(hd, dt, False) for hd in FD.HEAD_DIMS
+              for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(128, dt, True) for dt in (torch.float32, torch.bfloat16)]
+    for hd, dt, partial in shapes:
+        q, k, v = randn(b, kv, g, hd, dtype=dt), randn(
+            b, length, kv, hd, dtype=dt), randn(b, length, kv, hd, dtype=dt)
+        tol = ((BF16_RTOL, BF16_ATOL) if dt == torch.bfloat16 and not partial
+               else LAUNCH_FLOAT_TOL)
+        meta = FD.launch_meta(b, length, kv, g, hd, dt, partial,
+                              limits=limits)
+        if partial:
+            want = ref.flash_decode_partial_ref(q, k, v, LAUNCH_POS, 0)
+
+            def run(q=q, k=k, v=v):
+                return FD.flash_decode_partial(q, k, v, LAUNCH_POS, 0)
+
+            def hold(out, want=want):
+                ok_o, err = close(out[0], want[0], *LAUNCH_FLOAT_TOL)
+                return ok_o and close(out[1], want[1], 0.0, 1e-5)[0], err
+        else:
+            want = ref.flash_decode_ref(q, k, v, LAUNCH_POS)
+
+            def run(q=q, k=k, v=v):
+                return FD.flash_decode(q, k, v, LAUNCH_POS)
+
+            def hold(out, want=want, tol=tol):
+                return close(out, want, *tol)
+        cases.append((f"flash_decode hd {hd} {str(dt)[6:]}"
+                      + (" partial" if partial else ""),
+                      meta if isinstance(meta, tuple) else (meta,), run,
+                      hold))
+    return cases
+
+
+def audit_launches(T: dict, counters) -> dict:
+    """(d) each kernel's launch meta against the launch the card made."""
+    from repro_torch.analysis import audit as AU
+    from repro_torch.kernels import launch_record as LR
+    from repro_torch.kernels.flash_decode import _device
+    from repro_torch.kernels.launch_meta import HOPPER
+    limits = LR.device_limits(0)
+    sms, smem = _device(0)
+    check(limits == HOPPER, f"(d) the card's limits {limits} are HOPPER's")
+    check((limits.sms, (limits.smem_per_block_optin, limits.smem_per_sm,
+                        limits.smem_reserved_per_block)) == (sms, smem),
+          f"(d) the runtime's limits agree with repro_flash_decode_smem "
+          f"{smem} and {sms} SMs")
+    compiled = LR.compiled_kernels(T["runtime"].build_log())
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    cases = launch_cases(limits, gen)
+    covered = {m.site for _, metas, _, _ in cases for m in metas}
+    missing = {m.site for m in AU.kernel_metas()} - covered
+    check(not missing, f"(d) every meta of kernel_metas() launched: "
+                       f"{sorted(missing)} missing")
+    rows, outputs = [], {}
+    counters(reset=True)
+    for label, metas, run, hold in cases:
+        out, events = LR.record_launches(run, compiled)
+        check(len(events) == len(metas),
+              f"(d) {label}: {len(events)} launches recorded for "
+              f"{len(metas)} metas ({[e['name'][:60] for e in events]})")
+        for meta, event in zip(metas, events):
+            row, problems = LR.hold(meta, event, compiled, limits)
+            check(not problems, f"(d) {label} {meta.site}: {problems}")
+            rows.append(row)
+        ok, err = hold(out)
+        check(ok, f"(d) {label}: the output within phase 3's tolerance of "
+                  f"the plain version (max |err| {err!r})")
+        outputs[label] = err
+        print(f"  (d) {label}: " + "; ".join(
+            f"{r['site']} grid {r['grid']} block {r['block']} smem "
+            f"{r['smem']} B ({r['dynamic_smem']} dynamic + "
+            f"{r['static_smem_compiled']} static), {r['registers']} "
+            f"registers, spills {r['spill_stores']}/{r['spill_loads']} B"
+            for r in rows[-len(metas):]) + f"; max |err| {err!r}")
+    torch.cuda.synchronize()
+    del cases
+    return {"limits": dataclasses.asdict(limits), "launches": counters(),
+            "metas": len(rows), "rows": rows, "max_abs_err": outputs}
+
+
+def parent_trace_kernels() -> int:
+    """Kernel events ``torch.profiler`` records in this process for one
+    PyTorch reduction on the card (a probe of the tracer, no wrapper)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones((1 << 20,), device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x.sum()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sum(e.get("cat") == "kernel" for e in events)
+
+
+def audit_launches_child(T: dict, counters) -> dict:
+    """(d) in a child process of its own (``chip_smoke.py --launch-row``):
+    in the whole script the profiler's traces of this process held none
+    of the package's kernels by phase 25 (PR 37's first final run), while
+    a fresh process records them; the child's counts are (d)'s
+    launches."""
+    traced = parent_trace_kernels()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--launch-row"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        if line.startswith("  (d)"):
+            print(line)
+    check(proc.returncode == 0, f"(d) the child exited {proc.returncode}: "
+                                f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    rows = [x for x in proc.stdout.splitlines() if x.startswith("ROW_D ")]
+    out = json.loads(rows[-1][len("ROW_D "):])
+    out["parent_trace_kernels"] = traced
+    return out
+
+
+def launch_row_main() -> int:
+    """``python3 chip_smoke.py --launch-row``: phase 25 (d) alone in this
+    process, its result as one JSON line after ``ROW_D``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import (flash_decode, fused_adagrad,
+                                     gba_aggregate, gba_apply, quantize,
+                                     runtime)
+    wrappers = {
+        "embedding_bag": eb.embedding_bag,
+        "embedding_bag_grad": eb.embedding_bag_grad,
+        "embedding_bag_grad_resident": eb.embedding_bag_grad_resident,
+        "gba_apply": gba_apply.gba_apply,
+        "gba_aggregate": gba_aggregate.gba_aggregate,
+        "fused_adagrad": fused_adagrad.fused_adagrad,
+        "quantize_minmax": quantize.quantize_minmax,
+        "quantize_sign": quantize.quantize_sign,
+        "dequantize": quantize.dequantize,
+        "flash_decode": flash_decode.flash_decode}
+
+    def counters(reset: bool = False) -> dict:
+        if reset:
+            for fn in wrappers.values():
+                fn.launches = 0
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    runtime.build()
+    out = audit_launches({"runtime": runtime}, counters)
+    print("ROW_D " + json.dumps(out))
+    return 0
+
+
 def audit_phase(T: dict, counters) -> dict:
     phase(25, "the static auditor's card side: (a) GBA-FLOW-002 on "
               "gba_apply, the sharded apply and gba_aggregate, (b) "
               "GBA-COLL-001/002 on the fused psum step at granite-8b full "
               "width, depth 2, W = 4, in process and over one NCCL rank, "
-              "(c) GBA-COLL-003 and GBA-DTYPE-002 on granite-8b's decode")
+              "(c) GBA-COLL-003 and GBA-DTYPE-002 on granite-8b's decode, "
+              "(d) each kernel's launch meta against the launch the card "
+              "made (GBA-TILE-001, GBA-VMEM-001/002, GBA-GRID-001)")
     t_phase = time.perf_counter()
     out, rows = {}, {}
     for key, fn in (("a", audit_kernels), ("b", audit_schedule),
-                    ("c", audit_decode)):
+                    ("c", audit_decode), ("d", audit_launches_child)):
         t0 = time.perf_counter()
         out[key] = fn(T, counters)
         rows[key] = time.perf_counter() - t0
@@ -7764,6 +8066,7 @@ def main() -> int:
          "sharding": sharding_rules, "steps": launch_steps,
          "dryrun": dryrun, "Mesh": Mesh, "InputShape": InputShape,
          "census": census, "make_sharded_apply": make_sharded_apply,
+         "runtime": runtime,
          "make_gba_fused_psum_step": make_gba_fused_psum_step,
          "CheckpointManager": CheckpointManager, "schedules": schedules,
          "clip_by_global_norm": clip_by_global_norm,
@@ -7881,7 +8184,9 @@ def main() -> int:
                     "replay": replay["launches"]["embedding_bag"],
                     "sparse_smoke": smoke["launches"]["embedding_bag"],
                     "tab52_serving":
-                    tab52["a"]["launches"]["embedding_bag"]}
+                    tab52["a"]["launches"]["embedding_bag"],
+                    "audit_launch_meta":
+                    audited["d"]["launches"]["embedding_bag"]}
     bwd_launches = {"serving": serving["embedding_bag_grad"],
                     "replay": replay["launches"]["embedding_bag_grad"],
                     "sparse_smoke": smoke["launches"]["embedding_bag_grad"],
@@ -7890,7 +8195,9 @@ def main() -> int:
                     **{f"tasks_{name}": r["launches"]["embedding_bag_grad"]
                        for name, r in tasks["replay"].items()},
                     "tasks_benches":
-                    tasks["benches"]["launches"]["embedding_bag_grad"]}
+                    tasks["benches"]["launches"]["embedding_bag_grad"],
+                    "audit_launch_meta":
+                    audited["d"]["launches"]["embedding_bag_grad"]}
     print(json.dumps({
         "serving": {"static": static["stats"], "live": live["stats"],
                     "live_syncs": live["syncs"],
@@ -7941,7 +8248,8 @@ def main() -> int:
         "audit_tombstone": audited["a"]["launches"]["gba_apply"],
         "audit_schedule": audited["b"]["in_process"]["launches"]["gba_apply"],
         "audit_schedule_nccl":
-        audited["b"]["nccl"]["launches"]["gba_apply"]}
+        audited["b"]["nccl"]["launches"]["gba_apply"],
+        "audit_launch_meta": audited["d"]["launches"]["gba_apply"]}
     wire_rows = []
     for name, line, runs in (
             ("quantize_minmax", 173, ("int8",)),
@@ -7950,6 +8258,7 @@ def main() -> int:
         row = wire["timing"][{"dequantize": "dequantize_minmax"}.get(
             name, name)]
         by_path = {f"wire_{k}": wire["launches"][k][name] for k in runs}
+        by_path["audit_launch_meta"] = audited["d"]["launches"][name]
         if name != "quantize_sign":
             by_path["switch_int8_reentry"] = \
                 switching["reentry"]["launches"][name]
@@ -8050,4 +8359,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(launch_row_main() if sys.argv[1:] == ["--launch-row"]
+             else main())

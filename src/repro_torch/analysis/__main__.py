@@ -99,13 +99,20 @@ def unused_baseline_entries(entries, reports):
                        for rep in reports for f in rep.suppressed)]
 
 
+MAX_INLINE_STATS = 16
+
+
 def render_text(reports, elapsed: float) -> str:
     lines = []
     for rep in reports:
         mark = "ok" if rep.ok else f"{len(rep.findings)} FINDINGS"
         stats = " ".join(f"{k}={v}" for k, v in rep.stats.items())
-        lines.append(f"[{mark:>11s}] {rep.name}" + (f"  ({stats})"
-                                                    if stats else ""))
+        if len(rep.stats) > MAX_INLINE_STATS:     # the kernels: one a line
+            lines.append(f"[{mark:>11s}] {rep.name}")
+            lines += [f"    {k} = {v}" for k, v in rep.stats.items()]
+        else:
+            lines.append(f"[{mark:>11s}] {rep.name}" + (f"  ({stats})"
+                                                        if stats else ""))
         for f in rep.findings:
             lines.append(f"    FAIL {f}")
         for f in rep.suppressed:

@@ -23,14 +23,18 @@ d. the single-host **fused train step**
 d2. the **pytree train step** (``launch.programs.make_train_step``, the
    arch's optimizer and accumulator dtype) -> GBA-FLOW-001/002;
 e. the **decode step** (``models.transformer.decode_step``) ->
-   GBA-COLL-003, GBA-DTYPE-002.
+   GBA-COLL-003, GBA-DTYPE-002;
+f. the arch's own **gba_apply launch** at its real sharded layout
+   (:func:`arch_apply_meta`) -> GBA-TILE-001, GBA-VMEM-001/002,
+   GBA-GRID-001 (``launch_check``).
+
+Beside the archs, :func:`audit_kernels` checks every other kernel's
+launch meta at its shapes (:func:`kernel_metas`) with the same rules.
 
 The steps run on the CPU by design, as ``launch/dryrun.py`` runs on no
 device: the audit never looks for a card and never launches a kernel (the
-wrappers take their plain versions on CPU tensors).  There is no
-``audit_kernels``: its rules (GBA-TILE, GBA-VMEM, GBA-GRID) read the TPU
-kernels' launch meta, which the Hopper kernels do not have
-(``rules.NOT_PORTED``), nor a retrace check (the port compiles nothing).
+wrappers take their plain versions on CPU tensors; the launch rules read
+static metas).  There is no retrace check (the port compiles nothing).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch.analysis import census as CS
 from repro_torch.analysis import dataflow as DFL
+from repro_torch.analysis import launch_check as LC
 from repro_torch.analysis import race_lint as RL
 from repro_torch.analysis.rules import Finding
 from repro_torch.configs import ARCH_IDS, get_config
@@ -51,6 +56,9 @@ from repro_torch.core.gba import tree_paths
 from repro_torch.core.gba_shard_map import (make_gba_fused_psum_step,
                                             make_gba_psum_step)
 from repro_torch.distributed import inprocess
+from repro_torch.kernels import (embedding_bag, flash_decode, fused_adagrad,
+                                 gba_aggregate, gba_apply, quantize)
+from repro_torch.kernels.launch_meta import HOPPER, DeviceLimits, LaunchMeta
 from repro_torch.launch.dryrun import LiveBytes
 from repro_torch.launch.programs import (ARCH_ACC_DTYPE, ARCH_OPTIMIZER,
                                          init_fused_train_state,
@@ -316,6 +324,57 @@ def audit_arch(arch: str, *, m: int = AUDIT_M,
     _, mode = census_run(T.decode_step, params, cfg, tok, cache)
     rep.findings += CS.check_no_collectives(mode.collectives, site)
     rep.findings += CS.check_no_f64(mode.f64, site)
+
+    # f. the arch's own gba_apply launch at its real shard geometry
+    meta = arch_apply_meta(cfg, m)
+    rep.findings += LC.check_launch(meta, f"{arch}/kernels/gba_apply")
+    rep.stats["apply_smem_bytes"] = meta.smem_bytes(meta.smem_counted)
+    return rep
+
+
+def arch_apply_meta(cfg, m: int = AUDIT_M) -> LaunchMeta:
+    """Row (f): the ``gba_apply`` launch of ``cfg``'s fused step over ``m``
+    PS shards of its layer-grouped layout with ``m`` buffer slots, each
+    shard's apply of ``layout.shard_size`` columns.  The layout is built
+    from meta-device params (``transformer.param_shapes``), so nothing is
+    allocated and no step runs, at any width."""
+    layout = arch_layout(cfg, T.param_shapes(cfg), m)
+    return gba_apply.launch_meta(layout.shard_size, m)
+
+
+def kernel_metas() -> tuple[LaunchMeta, ...]:
+    """Every kernel's launches at the reference's bench shapes
+    (``repro.analysis.audit.kernel_metas``), and the port's own variants:
+    ``flash_decode`` at decode_32k at every head dim it takes, in both
+    dtypes, and its partial form, the ``embedding_bag_grad`` "counts"
+    design at the replay's presence counts, and the resident oracle."""
+    bf16 = torch.bfloat16
+    launches = [
+        fused_adagrad.launch_meta(1 << 16),
+        gba_aggregate.launch_meta(1 << 16, 8),
+        embedding_bag.fwd_launch_meta(32, 26, 100_000, 128),
+        embedding_bag.bwd_launch_meta(32, 26, 100_000, 128),
+        embedding_bag.bwd_launch_meta(1, 53_248, 1_600_048, 0),
+        embedding_bag.resident_launch_meta(32, 26, 100_000, 64),
+        *(f(8, 1 << 14, 2048, mode) for mode in ("minmax", "sign")
+          for f in (quantize.quantize_launch_meta,
+                    quantize.dequant_launch_meta)),
+        *(flash_decode.launch_meta(4, 32_768, 8, 4, hd, dtype)
+          for hd in flash_decode.HEAD_DIMS for dtype in (torch.float32,
+                                                         bf16)),
+        *(flash_decode.launch_meta(4, 32_768, 8, 4, 128, dtype, partial=True)
+          for dtype in (torch.float32, bf16))]
+    return tuple(x for one in launches
+                 for x in (one if isinstance(one, tuple) else (one,)))
+
+
+def audit_kernels(limits: DeviceLimits = HOPPER) -> AuditReport:
+    """GBA-TILE-001, GBA-VMEM-001/002 and GBA-GRID-001 over every launch
+    of :func:`kernel_metas` against ``limits``."""
+    rep = AuditReport("kernels")
+    for meta in kernel_metas():
+        rep.findings += LC.check_launch(meta, f"kernels/{meta.site}", limits)
+        rep.stats[f"{meta.site}_smem_bytes"] = meta.smem_bytes()
     return rep
 
 
@@ -340,12 +399,14 @@ def audit_serving() -> AuditReport:
 
 def run_audit(archs=None, *, m: int = AUDIT_M,
               suppressions=()) -> list[AuditReport]:
-    """Audit every requested arch plus the dataflow sites and the serving
-    race lint, applying ``RULE`` / ``RULE@site`` suppressions."""
+    """Audit every requested arch plus the kernel launches, the dataflow
+    sites and the serving race lint, applying ``RULE`` / ``RULE@site``
+    suppressions."""
     from repro_torch.analysis.rules import (apply_suppressions,
                                             parse_suppressions)
     sup = parse_suppressions(suppressions)
     reports = [audit_arch(a, m=m) for a in (archs or ARCH_IDS)]
+    reports.append(audit_kernels())
     reports.append(audit_dataflow())
     reports.append(audit_serving())
     for rep in reports:

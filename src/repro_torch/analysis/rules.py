@@ -7,12 +7,15 @@ A violation is a :class:`Finding`; suppression is by rule ID, globally
 (``"GBA-COLL-001"``) or at one site (``"GBA-COLL-001@granite-8b/
 fused_psum"``).
 
-Two departures.  ``GBA-DON-001`` is restated for eager PyTorch, which
+Departures.  ``GBA-DON-001`` is restated for eager PyTorch, which
 donates nothing: the step must write the buffer and the accumulator in
-place and allocate no tensor of the buffer's size.  The rules in
-:data:`NOT_PORTED` check what the port does not have (TPU launch meta, a
-compiler); a finding, a suppression or a baseline entry naming one is
-refused with its reason, as an unknown ID is.
+place and allocate no tensor of the buffer's size.  GBA-TILE-001,
+GBA-VMEM-001/002 and GBA-GRID-001 are restated for Hopper's CUDA launches
+(``launch_check``): vectors and tensor maps for the TPU's tiles, shared
+memory for VMEM, CUDA's grid for the BlockSpec index maps.  The rule in
+:data:`NOT_PORTED` checks what the port does not have (a compiler's trace
+cache); a finding, a suppression or a baseline entry naming it is refused
+with its reason, as an unknown ID is.
 """
 from __future__ import annotations
 
@@ -50,6 +53,27 @@ RULES: dict[str, str] = {
         "Adagrad accumulator in place (the same storages come back) and "
         "allocates no tensor of the buffer's size during the step (no "
         "double allocation)"),
+    "GBA-TILE-001": (
+        "every vectorised access divides its operand's rows into whole "
+        "vectors of at most 16 bytes, every block is whole warps, and every "
+        "TMA tensor map is legal on Hopper: the inner box a multiple of 16 "
+        "bytes no wider than its swizzle span (128 B), each box dimension "
+        "<= 256, each global stride a multiple of 16 bytes"),
+    "GBA-VMEM-001": (
+        "the kernel's declared shared-memory formula (ring_smem_bytes-, "
+        "resident_smem_bytes-, apply_smem_bytes-style) equals the sum of "
+        "the named regions of its launch meta that it counts"),
+    "GBA-VMEM-002": (
+        "static plus dynamic shared memory fits what a block may use "
+        "(232,448 B on an H100, static alone 48 KB), and where the plan "
+        "counts on k blocks an SM, k x (shared memory + the 1,024 B "
+        "reserved a block) fits the SM's 233,472 B"),
+    "GBA-GRID-001": (
+        "the grid and block fit the device's limits, every index map keeps "
+        "every block's tile inside its operand over the whole grid (a "
+        "masked ragged edge allowed), every grid-stride walk covers its "
+        "rows, every element offset and int argument fits its width, and "
+        "a cooperative grid is resident at once"),
     "GBA-FLOW-001": (
         "no path from a raw per-token gradient to the optimizer update "
         "bypasses the Eq. (1) decay-weight multiply (taint pass over the "
@@ -91,15 +115,7 @@ RULES: dict[str, str] = {
         "with-lock region (deadlock/reentrancy escape of shared state)"),
 }
 
-_TPU_META = ("checks the TPU kernels' VMEM blocks and BlockSpec index maps "
-             "from repro.kernels.launch_meta; the Hopper kernels have no "
-             "such launch meta")
-
 NOT_PORTED: dict[str, str] = {
-    "GBA-TILE-001": _TPU_META,
-    "GBA-VMEM-001": _TPU_META,
-    "GBA-VMEM-002": _TPU_META,
-    "GBA-GRID-001": _TPU_META,
     "GBA-RETRACE-001": ("checks jax.jit's trace cache; the port runs "
                         "eagerly and compiles nothing"),
 }

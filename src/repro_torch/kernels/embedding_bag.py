@@ -25,11 +25,14 @@ import functools
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.launch_meta import (HOPPER, INT32_MAX, DeviceLimits,
+                                             LaunchMeta, OperandMeta,
+                                             SmemMeta, cdiv)
 from repro_torch.kernels.ref import (embedding_bag_grad_ref,
                                      embedding_bag_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_INT_MAX = 2**31 - 1
+_INT_MAX = INT32_MAX
 
 
 @functools.cache
@@ -79,6 +82,35 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 embedding_bag.launches = 0
+
+FWD_THREADS = 128              # threads a block of the forward
+
+
+def fwd_launch_meta(b: int, f: int, v: int, d: int, dtype=torch.float32, *,
+                    aligned: bool = True) -> LaunchMeta:
+    """The launch ``csrc/embedding_bag.cu`` makes: blocks of
+    ``(tx, FWD_THREADS / tx)`` threads, x across D (16-byte loads where D
+    is a whole number of them and the table and output are 16-byte
+    aligned, ``aligned``; else one value a thread), y across bags; the
+    grid tiles the bags in x and D in y.  The table's rows are gathered by
+    id, so it has no static tile; B, F, V and D are ``int`` arguments."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // itemsize if aligned and d % (16 // itemsize) == 0 else 1
+    cols = cdiv(d, vec)
+    tx = 1
+    while tx < cols and tx < FWD_THREADS:
+        tx *= 2
+    ty = FWD_THREADS // tx
+    return LaunchMeta(
+        "embedding_bag", f"({b}, {f}) x ({v}, {d}) {str(dtype)[6:]}"
+        f"{'' if aligned else ' unaligned'}",
+        (cdiv(b, ty), cdiv(cols, tx), 1), (tx, ty, 1), (
+            OperandMeta("ids", (b, f), torch.int32, (ty, f),
+                        lambda i, j, *_: (i, 0), ragged=(0,)),
+            OperandMeta("table", (v, d), dtype, vec=vec),
+            OperandMeta("out", (b, d), dtype, (ty, tx * vec),
+                        lambda i, j, *_: (i, j), ragged=(0, 1), vec=vec)),
+        int_args={"B": b, "F": f, "V": v, "D": d})
 
 
 SEGMENT_THREADS = 256          # threads a block of the D > 0 kernel
@@ -135,6 +167,46 @@ def grad_plan(capacity: int, d: int, sms: int
         tile = _round4(_cover(capacity, max(1, min(sms,
                                                    _cover(capacity, 4)))))
     return design, threads, tile, _cover(capacity, tile)
+
+
+SEGMENT_MAX_THREADS = 1024     # kMaxThreads: the run starts a chunk holds
+
+
+def bwd_launch_meta(b: int, f: int, v: int, d: int, *, aligned: bool = True,
+                    limits: DeviceLimits = HOPPER) -> LaunchMeta:
+    """The launch ``csrc/embedding_bag_grad.cu`` makes for ``b * f`` ids
+    over ``v`` rows of width ``d``, planned by :func:`grad_plan` on the
+    card's SMs.  D > 0, "segment": block ``i`` owns rows ``[i * tile_rows,
+    ...)`` of the table gradient and the counts, with static shared memory
+    for the run starts of a chunk of up to ``SEGMENT_MAX_THREADS`` entries,
+    32 warp totals and 4 scalars, 4 floats a lane where D is a
+    multiple of 4 and ``grad_out`` is 16-byte aligned.  D = 0, "counts":
+    a cooperative launch of one block an SM (all resident at once), each
+    zeroing its slice of the counts before the grid's barrier."""
+    design, threads, tile, blocks = grad_plan(v, d, limits.sms)
+    e = b * f
+    at = f"{e} ids over ({v}, {d}){'' if aligned else ' unaligned'}"
+    rows = OperandMeta("counts", (v,), torch.float32, (tile,),
+                       lambda i, *_: (i,), ragged=(0,))
+    args = {"E": e, "V": v, "threads": threads, "tile_rows": tile,
+            "blocks": blocks}
+    if design == "counts":
+        return LaunchMeta(
+            "embedding_bag_grad_counts", at, (blocks, 1, 1), (threads, 1, 1),
+            (OperandMeta("ids", (e,), torch.int32, walk=e), rows),
+            int_args=args, cooperative=True, blocks_per_sm=1)
+    vec = 4 if aligned and d % 4 == 0 else 1
+    return LaunchMeta(
+        "embedding_bag_grad_segment", at, (blocks, 1, 1), (threads, 1, 1), (
+            OperandMeta("sorted_ids", (e,), torch.int32),
+            OperandMeta("perm", (e,), torch.int64),
+            OperandMeta("grad_out", (b, d), torch.float32, vec=vec),
+            OperandMeta("gtable", (v, d), torch.float32, (tile, d),
+                        lambda i, *_: (i, 0), ragged=(0,), vec=vec),
+            rows),
+        static_smem=(SmemMeta("run", (SEGMENT_MAX_THREADS + 1) * 4),
+                     SmemMeta("wsum", 32 * 4), SmemMeta("scal", 4 * 4)),
+        int_args={**args, "F": f, "D": d})
 
 
 @functools.lru_cache(maxsize=256)
@@ -319,6 +391,41 @@ def resident_plan(capacity: int, d: int, smem_limit: int, sms: int
     room = (smem_limit - resident_smem_bytes(d, 0)) // 8 // 32 * 32
     chunk = min(threads, room)
     return threads, chunk, resident_smem_bytes(d, chunk)
+
+
+def resident_launch_meta(b: int, f: int, v: int, d: int, *,
+                         aligned: bool = True,
+                         limits: DeviceLimits = HOPPER) -> LaunchMeta:
+    """The launch ``csrc/embedding_bag_grad_resident.cu`` makes for ``b *
+    f`` ids over ``v`` rows of width ``d``, planned by
+    :func:`resident_plan` with the block's opt-in shared memory: one block
+    a ``RESIDENT_BLOCK_V`` row vocab block, its accumulator, counts and
+    chunk of entries in dynamic shared memory (the sum
+    :func:`resident_smem_bytes` declares), 4 floats a lane where D is a
+    multiple of 4 and the gradients are 16-byte aligned."""
+    threads, chunk, smem = resident_plan(v, d, limits.smem_per_block_optin,
+                                         limits.sms)
+    vec = 4 if aligned and d > 0 and d % 4 == 0 else 1
+    e = b * f
+    regions = (SmemMeta("acc", RESIDENT_BLOCK_V * d * 4),
+               SmemMeta("counts", RESIDENT_BLOCK_V * 4),
+               SmemMeta("entries", chunk * 8), SmemMeta("scalars", 36 * 4))
+    return LaunchMeta(
+        "embedding_bag_grad_resident",
+        f"{e} ids over ({v}, {d}){'' if aligned else ' unaligned'}",
+        (cdiv(v, RESIDENT_BLOCK_V), 1, 1), (threads, 1, 1), (
+            OperandMeta("sorted_ids", (e,), torch.int32),
+            OperandMeta("perm", (e,), torch.int64),
+            OperandMeta("grad_out", (b, d), torch.float32, vec=vec),
+            OperandMeta("gtable", (v, d), torch.float32,
+                        (RESIDENT_BLOCK_V, d), lambda i, *_: (i, 0),
+                        ragged=(0,), vec=vec),
+            OperandMeta("counts", (v,), torch.float32, (RESIDENT_BLOCK_V,),
+                        lambda i, *_: (i,), ragged=(0,))),
+        dynamic_smem=regions, declared_smem_bytes=smem,
+        smem_counted=tuple(r.name for r in regions),
+        int_args={"E": e, "F": f, "V": v, "D": d, "threads": threads,
+                  "chunk": chunk})
 
 
 @functools.cache

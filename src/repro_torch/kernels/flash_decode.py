@@ -41,6 +41,10 @@ import operator
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.launch_meta import (HOPPER, INT32_MAX,
+                                             DeviceLimits, LaunchMeta,
+                                             OperandMeta, SmemMeta,
+                                             TensorMapMeta)
 from repro_torch.kernels.ref import (flash_decode_partial_ref,
                                      flash_decode_ref)
 
@@ -48,6 +52,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 112, 128, 256)   # the head dims the kernel takes
 MAX_GROUP = 8                # query heads per KV head a block holds
 STAGE_BYTES = 16384          # of K (and of V) a float32 block stages per tile
+MAX_TILE = 128               # positions a float32 tile holds at most
 # float32 split blocks resident on an SM at once: 64 KB of stages each
 BLOCKS_PER_SM = 3
 # the bfloat16 ring: 4 consumer warps of 16 positions each a stage
@@ -162,23 +167,138 @@ def ring_plan(length: int, rows: int, sms: int, hd: int,
     return chunk, nsplit, stages, blocks_per_sm
 
 
-def launch_plan(q: torch.Tensor, k: torch.Tensor) -> dict:
-    """How a call on CUDA tensors of these shapes and dtype launches:
-    ``path`` ("ring" for bfloat16, "cuda cores" for float32), the
-    ``chunk`` of positions a block walks, ``nsplit`` blocks a (b, kv) row,
-    the ``stages`` a block keeps in flight and ``blocks_per_sm``."""
-    b, kv, _, hd = q.shape
-    length = k.shape[1]
-    sms, smem = _device(q.device.index)
-    if q.dtype == torch.bfloat16:
+def plan(b: int, length: int, kv: int, hd: int, dtype: torch.dtype,
+         sms: int, smem: tuple[int, int, int]) -> dict:
+    """How a call of these shapes and dtype launches on a card of ``sms``
+    SMs and ``smem`` (as :func:`ring_plan` takes it): ``path`` ("ring"
+    for bfloat16, "cuda cores" for float32), the ``chunk`` of positions a
+    block walks, ``nsplit`` blocks a (b, kv) row, the ``stages`` a block
+    keeps in flight and ``blocks_per_sm``."""
+    if dtype == torch.bfloat16:
         chunk, nsplit, stages, per_sm = ring_plan(length, b * kv, sms, hd,
                                                   smem)
         return {"path": "ring", "chunk": chunk, "nsplit": nsplit,
                 "stages": stages, "blocks_per_sm": per_sm}
-    chunk, nsplit = split_plan(length, b * kv, sms,
-                               STAGE_BYTES // (hd * q.element_size()))
+    chunk, nsplit = split_plan(length, b * kv, sms, STAGE_BYTES // (hd * 4))
     return {"path": "cuda cores", "chunk": chunk, "nsplit": nsplit,
             "stages": 2, "blocks_per_sm": BLOCKS_PER_SM}
+
+
+def launch_plan(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """:func:`plan` of a call on CUDA tensors of these shapes and dtype,
+    with the SMs and shared memory of their card."""
+    b, kv, _, hd = q.shape
+    sms, smem = _device(q.device.index)
+    return plan(b, k.shape[1], kv, hd, q.dtype, sms, smem)
+
+
+def split_threads(hd: int) -> int:
+    """Threads of a float32 split block (``csrc/flash_decode.cu``'s
+    ``split_threads``): hd rounded up to whole warps, and up again until
+    the warps' count divides hd (128 at hd 80 and 112)."""
+    t = -(-hd // 32) * 32
+    while hd % (t // 32):
+        t += 32
+    return t
+
+
+def launch_meta(b: int, l: int, kv: int, g: int, hd: int,
+                dtype=torch.float32, partial: bool = False, *,
+                limits: DeviceLimits = HOPPER
+                ) -> LaunchMeta | tuple[LaunchMeta, LaunchMeta]:
+    """The launches one call at q (b, kv, g, hd), k and v (b, l, kv, hd)
+    makes, planned by :func:`plan` with ``limits``' SMs and shared memory:
+    bfloat16 one ring launch (grid (nsplit, kv, b), a producer and
+    ``CONSUMER_WARPS`` consumer warps, the :func:`ring_smem_bytes` regions,
+    K and V through two tensor maps of (64, ``TILE``, 1) boxes under the
+    128-byte swizzle); float32 the split launch (two stages of K and of V
+    in dynamic shared memory, the p tile and the softmax state in static)
+    and the combine launch (one block of hd threads a (b, kv, g) row);
+    the split copies K and V in 16-byte pieces (``cp.async``).
+    ``partial`` writes float32 out and the log-sum-exp."""
+    smem = (limits.smem_per_block_optin, limits.smem_per_sm,
+            limits.smem_reserved_per_block)
+    p = plan(b, l, kv, hd, dtype, limits.sms, smem)
+    chunk, nsplit = p["chunk"], p["nsplit"]
+    at = f"({b}, {l}, {kv}, {g}, {hd}) {str(dtype)[6:]}" + (
+        " partial" if partial else "")
+    out_dtype = torch.float32 if partial else dtype
+
+    def row(*tail):
+        return lambda x, y, z: (z, y, *tail)
+
+    q = OperandMeta("q", (b, kv, g, hd), dtype, (1, 1, g, hd), row(0, 0))
+    out = OperandMeta("out", (b, kv, g, hd), out_dtype, (1, 1, g, hd),
+                      row(0, 0))
+    parts = (
+        OperandMeta("part_m", (b, kv, nsplit, g), torch.float32,
+                    (1, 1, 1, g), lambda x, y, z: (z, y, x, 0)),
+        OperandMeta("part_l", (b, kv, nsplit, g), torch.float32,
+                    (1, 1, 1, g), lambda x, y, z: (z, y, x, 0)),
+        OperandMeta("part_acc", (b, kv, nsplit, g, hd), torch.float32,
+                    (1, 1, 1, g, hd), lambda x, y, z: (z, y, x, 0, 0)))
+    lse = (OperandMeta("lse", (b, kv, g), torch.float32, (1, 1, g),
+                       row(0)),) if partial else ()
+    args = {"b": b, "length": l, "kv_heads": kv, "g_heads": g, "hd": hd,
+            "chunk": chunk, "nsplit": nsplit}
+    if p["path"] == "ring":
+        stages = p["stages"]
+        boxes = -(-hd // 64)
+        row_elems = kv * hd
+
+        def span(x, y, z):
+            start = x * chunk
+            tiles = -(-(min(start + chunk, l) - start) // TILE)
+            return ((y * hd, y * hd + boxes * 64),
+                    (start, start + tiles * TILE), (z, z + 1))
+
+        maps = tuple(TensorMapMeta(
+            name, (row_elems, l, b), (row_elems * 2, row_elems * 2 * l),
+            (64, TILE, 1), 2, 128, span) for name in ("k_map", "v_map"))
+        regions = (SmemMeta("align", 1024),
+                   SmemMeta("stages", stages * ring_stage_bytes(hd)),
+                   SmemMeta("barriers", stages * 16),
+                   SmemMeta("p_tiles", CONSUMER_WARPS * 16 * 8 * 4),
+                   SmemMeta("flag", 16))
+        return LaunchMeta(
+            "flash_decode_ring", at, (nsplit, kv, b),
+            ((CONSUMER_WARPS + 1) * 32, 1, 1),
+            (q, *parts, OperandMeta("tickets", (b * kv,), torch.int32,
+                                    (1,), lambda x, y, z: (z * kv + y,)),
+             out, *lse),
+            dynamic_smem=regions,
+            declared_smem_bytes=ring_smem_bytes(hd, stages),
+            smem_counted=tuple(r.name for r in regions), tensor_maps=maps,
+            int_args={**args, "stages": stages},
+            blocks_per_sm=p["blocks_per_sm"])
+    threads = split_threads(hd)
+    cache = tuple(OperandMeta(name, (b, l, kv, hd), dtype, (1, chunk, 1, hd),
+                              lambda x, y, z: (z, x, y, 0), ragged=(1,),
+                              vec=16 // 4)
+                  for name in ("k", "v"))
+    split = LaunchMeta(
+        "flash_decode_split", at, (nsplit, kv, b), (threads, 1, 1),
+        (q, *cache, *parts),
+        dynamic_smem=(SmemMeta("k_stages", 2 * STAGE_BYTES),
+                      SmemMeta("v_stages", 2 * STAGE_BYTES)),
+        static_smem=(SmemMeta("s_p", MAX_GROUP * MAX_TILE * 4),
+                     SmemMeta("softmax", 3 * MAX_GROUP * 4)),
+        int_args=args, blocks_per_sm=BLOCKS_PER_SM)
+    rows = b * kv * g
+
+    def flat(*tail):
+        return lambda r, *_: (r // (kv * g), r // g % kv, 0, r % g, *tail)
+
+    combine = LaunchMeta(
+        "flash_decode_combine", at, (rows, 1, 1), (hd, 1, 1), (
+            OperandMeta("part_acc", (b, kv, nsplit, g, hd), torch.float32,
+                        (1, 1, nsplit, 1, hd), flat(0)),
+            OperandMeta("out", (rows, hd), out_dtype, (1, hd),
+                        lambda r, *_: (r, 0)),
+            *(OperandMeta("lse", (rows,), torch.float32, (1,),
+                          lambda r, *_: (r,)) for _ in lse)),
+        int_args={"rows": rows, "g_heads": g, "nsplit": nsplit})
+    return split, combine
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -202,6 +322,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if b < 1 or kv < 1 or k.shape[1] >= 2**31:
         raise ValueError(f"empty batch or heads, or L = {k.shape[1]} >= "
                          f"2**31: {tuple(q.shape)}, {tuple(k.shape)}")
+    # the grid is (splits, KV, B), and float32 combines B * KV * G rows
+    _, max_y, max_z = HOPPER.max_grid
+    if kv > max_y or b > max_z or b * kv * g > INT32_MAX:
+        raise ValueError(f"B = {b}, KV = {kv}, G = {g}: the launch grid "
+                         f"takes B <= {max_z}, KV <= {max_y} and B * KV * G "
+                         f"<= {INT32_MAX}")
 
 
 def _pos(pos: int | torch.Tensor) -> int | torch.Tensor:

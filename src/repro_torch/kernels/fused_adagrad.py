@@ -22,6 +22,10 @@ import functools
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.gba_apply import VEC
+from repro_torch.kernels.launch_meta import (HOPPER, DeviceLimits,
+                                             LaunchMeta, OperandMeta,
+                                             grid_stride)
 from repro_torch.kernels.ref import EPS, fused_adagrad_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,3 +90,23 @@ def fused_adagrad(param: torch.Tensor, grad: torch.Tensor,
 
 
 fused_adagrad.launches = 0
+
+
+def launch_meta(n: int, param_dtype=torch.float32, grad_dtype=torch.float32,
+                *, aligned: bool = True,
+                limits: DeviceLimits = HOPPER) -> LaunchMeta:
+    """The launch ``csrc/fused_adagrad.cu`` makes for (N,) tensors:
+    ``gba_apply``'s grid-stride geometry with no shared memory, 4
+    elements an access where N is a multiple of 4 and every array is
+    aligned (``aligned``), else one.  Param and accumulator are updated in
+    place; N is a 64-bit argument."""
+    vec = VEC if aligned and n % VEC == 0 else 1
+    cols = dict(vec=vec, walk=n // vec * vec)
+    return grid_stride(
+        "fused_adagrad", f"({n},) {str(param_dtype)[6:]}/"
+        f"{str(grad_dtype)[6:]}{'' if aligned else ' unaligned'}",
+        n, vec, limits.sms, (
+            OperandMeta("param", (n,), param_dtype, **cols),
+            OperandMeta("grad", (n,), grad_dtype, **cols),
+            OperandMeta("accum", (n,), torch.float32, **cols)),
+        in_place=("param", "accum"))

@@ -22,6 +22,10 @@ import operator
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.gba_apply import VEC, apply_smem_bytes
+from repro_torch.kernels.launch_meta import (HOPPER, DeviceLimits,
+                                             LaunchMeta, OperandMeta,
+                                             SmemMeta, grid_stride)
 from repro_torch.kernels.ref import gba_aggregate_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,3 +85,23 @@ def gba_aggregate(grads: torch.Tensor, tokens: torch.Tensor, step: int, *,
 
 
 gba_aggregate.launches = 0
+
+
+def launch_meta(d: int, m: int, dtype=torch.float32, *, aligned: bool = True,
+                limits: DeviceLimits = HOPPER) -> LaunchMeta:
+    """The launch ``csrc/gba_aggregate.cu`` makes for an (M, D) buffer:
+    ``gba_apply``'s grid-stride geometry and M float32 weights of shared
+    memory, 4 columns an access where D is a multiple of 4 and the buffer
+    and output are 16-byte aligned (``aligned``), else one.  D is a
+    64-bit argument, ``m`` an ``int``."""
+    vec = VEC if aligned and d % VEC == 0 else 1
+    cols = dict(vec=vec, walk=d // vec * vec)
+    return grid_stride(
+        "gba_aggregate", f"({m}, {d}) {str(dtype)[6:]}"
+        f"{'' if aligned else ' unaligned'}", d, vec, limits.sms, (
+            OperandMeta("grads", (m, d), dtype, **cols),
+            OperandMeta("tokens", (m,), torch.int32),
+            OperandMeta("out", (d,), dtype, **cols)),
+        dynamic_smem=(SmemMeta("weights", apply_smem_bytes(m)),),
+        declared_smem_bytes=apply_smem_bytes(m), smem_counted=("weights",),
+        int_args={"m": m})

@@ -22,11 +22,14 @@ import operator
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.launch_meta import (HOPPER, INT32_MAX, DeviceLimits,
+                                             LaunchMeta, OperandMeta,
+                                             SmemMeta, grid_stride)
 from repro_torch.kernels.ref import EPS, gba_apply_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_INT_MAX = 2**31 - 1
 _MAX_SLOTS = 4096          # the weights live in shared memory, 4 B a slot
+VEC = 4                    # columns a thread moves an access where aligned
 
 
 @functools.cache
@@ -58,7 +61,7 @@ def _check(param, accum, buffer, tokens) -> None:
     if not 1 <= buffer.shape[0] <= _MAX_SLOTS:
         raise ValueError(f"M = {buffer.shape[0]} slots; the kernel takes 1 "
                          f"to {_MAX_SLOTS}")
-    if param.shape[0] > _INT_MAX:
+    if param.shape[0] > INT32_MAX:
         raise ValueError(f"N = {param.shape[0]} does not fit in int32")
 
 
@@ -107,3 +110,33 @@ def gba_apply(param: torch.Tensor, accum: torch.Tensor,
 
 
 gba_apply.launches = 0
+
+
+def apply_smem_bytes(m: int) -> int:
+    """The kernel's dynamic shared memory: the M decay weights, float32."""
+    return m * 4
+
+
+def launch_meta(n: int, m: int, param_dtype=torch.float32,
+                buffer_dtype=torch.float32, *, aligned: bool = True,
+                limits: DeviceLimits = HOPPER) -> LaunchMeta:
+    """The launch ``csrc/gba_apply.cu`` makes for an (N,) param and an
+    (M, N) buffer: 256 threads a block over a grid-stride loop, 4 columns
+    an access where N is a multiple of 4 and every row is 16-byte aligned
+    (``aligned``; PyTorch's own allocations are), else one.  Param and
+    accumulator are updated in place; ``n`` and ``m`` are ``int``
+    arguments."""
+    vec = VEC if aligned and n % VEC == 0 else 1
+    walk = n // vec * vec
+    cols = dict(vec=vec, walk=walk)
+    return grid_stride(
+        "gba_apply", f"({m}, {n}) {str(param_dtype)[6:]}/"
+        f"{str(buffer_dtype)[6:]}{'' if aligned else ' unaligned'}",
+        n, vec, limits.sms, (
+            OperandMeta("param", (n,), param_dtype, **cols),
+            OperandMeta("accum", (n,), torch.float32, **cols),
+            OperandMeta("buffer", (m, n), buffer_dtype, **cols),
+            OperandMeta("tokens", (m,), torch.int32)),
+        dynamic_smem=(SmemMeta("weights", apply_smem_bytes(m)),),
+        declared_smem_bytes=apply_smem_bytes(m), smem_counted=("weights",),
+        in_place=("param", "accum"), int_args={"m": m, "n": n})

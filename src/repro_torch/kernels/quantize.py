@@ -18,17 +18,19 @@ on nothing else: CPU tensors take the plain versions in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import operator
 
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.ref import (INV_255, dequantize_ref,
+from repro_torch.kernels.launch_meta import (INT32_MAX, LaunchMeta,
+                                             OperandMeta, SmemMeta)
+from repro_torch.kernels.ref import (INV_255, SIGN_LANES, dequantize_ref,
                                      quantize_minmax_ref, quantize_sign_ref)
 
 _MODE_CODE = {"minmax": 0, "sign": 1}
-_INT_MAX = 2**31 - 1
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
@@ -77,7 +79,7 @@ def _geometry(x: torch.Tensor, tile: int) -> int:
         raise ValueError(f"payload columns {c} not a multiple of tile "
                          f"{tile}: the routing stage only quantizes "
                          f"tile-aligned group slices")
-    if r * (c // tile) > _INT_MAX:
+    if r * (c // tile) > INT32_MAX:
         raise ValueError(f"{r} x {c // tile} tiles exceed the kernel's "
                          f"int32 grid")
     return c // tile
@@ -183,3 +185,53 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
 quantize_minmax.launches = 0
 quantize_sign.launches = 0
 dequantize.launches = 0
+
+
+def _slices(r: int, c: int, tile: int, mode: str) -> tuple[int, tuple]:
+    """``(n_tiles, operands)`` of a launch over the (r, c) payload: block
+    ``i`` owns the (row, tile) slice ``(i // n_tiles, i % n_tiles)`` of
+    each (r, c) operand and its word of each (r, n_tiles) sideband."""
+    if mode not in _MODE_CODE:
+        raise ValueError(f"unknown quantize mode {mode!r}")
+    if tile < 1 or c % tile:
+        raise ValueError(f"payload columns {c} not a multiple of tile {tile}")
+    n_tiles = c // tile
+
+    def slice_of(i, *_):
+        return (i // n_tiles, i % n_tiles)
+
+    sides = ("scale", "zero") if mode == "minmax" else ("scale",)
+    return n_tiles, {
+        "payload": OperandMeta("payload", (r, c), torch.float32, (1, tile),
+                               slice_of),
+        "qvals": OperandMeta("qvals", (r, c), torch.int8, (1, tile),
+                             slice_of),
+        **{name: OperandMeta(name, (r, n_tiles), torch.float32, (1, 1),
+                             slice_of) for name in sides}}
+
+
+def quantize_launch_meta(r: int, c: int, tile: int, mode: str) -> LaunchMeta:
+    """The launch ``csrc/quantize.cu``'s ``repro_quantize`` makes: ``r *
+    c / tile`` blocks of ``SIGN_LANES`` threads, one (row, tile) slice a
+    block, reduced in static shared memory (a float min and max a thread
+    for minmax, a float64 sum a thread for sign).  The payload becomes the
+    residual in place; ``tile`` is an ``int`` argument."""
+    n_tiles, ops = _slices(r, c, tile, mode)
+    static = ((SmemMeta("s_lo", SIGN_LANES * 4), SmemMeta("s_hi",
+                                                          SIGN_LANES * 4))
+              if mode == "minmax" else (SmemMeta("s_sum", SIGN_LANES * 8),))
+    return LaunchMeta(f"quantize_{mode}", f"({r}, {c}) tile {tile}",
+                      (r * n_tiles, 1, 1), (SIGN_LANES, 1, 1),
+                      tuple(ops.values()), static_smem=static,
+                      in_place=("payload",), int_args={"tile": tile})
+
+
+def dequant_launch_meta(r: int, c: int, tile: int, mode: str) -> LaunchMeta:
+    """The launch ``repro_dequantize`` makes: the quantize's grid and
+    block, no shared memory, the float32 output in place of the
+    payload."""
+    n_tiles, ops = _slices(r, c, tile, mode)
+    out = dataclasses.replace(ops.pop("payload"), name="out")
+    return LaunchMeta(f"dequantize_{mode}", f"({r}, {c}) tile {tile}",
+                      (r * n_tiles, 1, 1), (SIGN_LANES, 1, 1),
+                      (*ops.values(), out), int_args={"tile": tile})

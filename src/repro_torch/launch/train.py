@@ -132,6 +132,8 @@ from repro_torch.distributed import fsdp, inprocess, process_group
 from repro_torch.distributed import sharding as S
 from repro_torch.embeddings.table import (EmbeddingTable, hash_ids,
                                           init_table, pooled_lookup)
+from repro_torch.kernels.embedding_bag import (bwd_launch_meta,
+                                               fwd_launch_meta)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.distributed.tensor_parallel import model_axis
 from repro_torch.launch.mesh import parse_mesh
@@ -176,8 +178,12 @@ def run_embedding_smoke(vocab: int, *, steps: int = 20, embed_dim: int = 16,
     dev = resolve_device(device)
     tbl = init_table(vocab, embed_dim,
                      generator=torch.Generator().manual_seed(0), device=dev)
+    fwd = fwd_launch_meta(batch, NUM_FIELDS, vocab, embed_dim)
+    bwd = bwd_launch_meta(batch, NUM_FIELDS, vocab, embed_dim)
     log(f"embedding smoke: V={vocab:,} D={embed_dim} "
-        f"table={vocab * embed_dim * 4 / 1e6:.0f}MB on {dev}")
+        f"table={vocab * embed_dim * 4 / 1e6:.0f}MB on {dev}; kernel shared "
+        f"memory fwd={fwd.smem_bytes():,}B bwd={bwd.smem_bytes():,}B a block "
+        f"(V-independent)")
     table = tbl.table
     losses = []
     t0 = time.perf_counter()

@@ -74,15 +74,22 @@ def fused_record(dtype=torch.float32, m: int = M, compress=None,
 # rule registry + suppressions
 # ---------------------------------------------------------------------------
 
+RESTATED = {"GBA-DON-001",              # for eager PyTorch
+            "GBA-TILE-001", "GBA-VMEM-001", "GBA-VMEM-002",
+            "GBA-GRID-001"}              # for Hopper's CUDA launches
+
+
 def test_registry_is_the_references_minus_not_ported():
     assert set(R.RULES) == set(RR.RULES) - set(R.NOT_PORTED)
-    assert set(R.NOT_PORTED) == {"GBA-TILE-001", "GBA-VMEM-001",
-                                 "GBA-VMEM-002", "GBA-GRID-001",
-                                 "GBA-RETRACE-001"}
+    assert set(R.NOT_PORTED) == {"GBA-RETRACE-001"}
     for rule, text in R.RULES.items():
-        if rule != "GBA-DON-001":       # restated for eager PyTorch
+        if rule not in RESTATED:
             assert text == RR.RULES[rule], rule
     assert "in place" in R.RULES["GBA-DON-001"]
+    assert "TMA" in R.RULES["GBA-TILE-001"]
+    assert "shared-memory formula" in R.RULES["GBA-VMEM-001"]
+    assert "232,448 B" in R.RULES["GBA-VMEM-002"]
+    assert "grid and block" in R.RULES["GBA-GRID-001"]
 
 
 def test_finding_requires_known_ported_rule():
@@ -753,7 +760,7 @@ def test_baseline_requires_rule_reason_and_file(tmp_path):
 
 def test_baseline_naming_a_not_ported_rule_is_refused(tmp_path):
     p = tmp_path / "b.toml"
-    p.write_text('[[suppress]]\nrule = "GBA-TILE-001"\nreason = "x"\n')
+    p.write_text('[[suppress]]\nrule = "GBA-RETRACE-001"\nreason = "x"\n')
     with pytest.raises(SystemExit, match="not ported"):
         main(["--arch", "granite-8b", "--baseline", str(p)])
 
@@ -788,6 +795,15 @@ def test_granite_full_matrix_clean(granite):
     assert rep.stats["widening_converts"] == 2 * m * 9
 
 
+def test_run_audit_reports_as_the_reference():
+    reports = AU.run_audit(["granite-8b"])
+    assert [r.name for r in reports] == ["granite-8b", "kernels", "dataflow",
+                                         "serving"]
+    assert all(r.ok for r in reports), [str(f) for r in reports
+                                        for f in r.findings]
+    assert reports[0].stats["apply_smem_bytes"] == 4 * AU.AUDIT_M
+
+
 def test_shipped_dataflow_audit_clean():
     rep = AU.audit_dataflow()
     assert rep.ok, [str(f) for f in rep.findings]
@@ -797,6 +813,7 @@ def test_cli_check_granite(tmp_path, capsys):
     assert main(["--check", "--arch", "granite-8b"]) == 0
     out = capsys.readouterr().out
     assert "0 finding(s)" in out and "granite-8b" in out
+    assert "] kernels" in out and "flash_decode_ring[" in out
     p = tmp_path / "b.toml"
     p.write_text('[[suppress]]\nrule = "GBA-COLL-001"\n'
                  'site = "granite-8b/none"\nreason = "stale"\n')
@@ -806,3 +823,4 @@ def test_cli_check_granite(tmp_path, capsys):
     assert "unused baseline suppression GBA-COLL-001@granite-8b/none" \
         in cap.err
     assert "| granite-8b | ✅ clean | 4/16/1 |" in cap.out
+    assert "| kernels | ✅ clean | — |" in cap.out

@@ -2282,3 +2282,113 @@ def test_adam_schedule_and_clip_on_the_card_match_the_cpu():
     for a, b in zip(_flat({"p": card, "m": cs["m"], "v": cs["v"]}),
                     _flat({"p": host, "m": hs["m"], "v": hs["v"]})):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch metas against the launches the profiler records
+# (kernels/launch_record.py): grid, block and shared memory as the meta
+# says, registers within an SM's, no launch rule finding under the card's
+# limits; and the card's limits equal to launch_meta.HOPPER
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def compiled():
+    _need_card()
+    from repro_torch.kernels import launch_record, runtime
+    runtime.build()
+    return launch_record.compiled_kernels(runtime.build_log())
+
+
+def test_hopper_is_the_cards_limits():
+    _need_card()
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.launch_meta import HOPPER
+    from repro_torch.kernels.launch_record import device_limits
+    limits = device_limits(0)
+    assert limits == HOPPER
+    sms, smem = fd._device(0)
+    assert (sms, smem) == (HOPPER.sms, (HOPPER.smem_per_block_optin,
+                                        HOPPER.smem_per_sm,
+                                        HOPPER.smem_reserved_per_block))
+
+
+def _launch_case(name):
+    """(metas, run) of one small launch of kernel ``name``."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_adagrad as fa
+    from repro_torch.kernels import gba_aggregate as gg
+    from repro_torch.kernels import gba_apply as ga
+    from repro_torch.kernels import quantize as qz
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    ids, table = _inputs(8, 16, 1000, 64, torch.float32, seed=3, odd=True)
+    tokens = torch.tensor([9, 4, 9, 8], dtype=torch.int32, device="cuda")
+    x = randn(4, 4096)
+    if name == "embedding_bag":
+        return (eb.fwd_launch_meta(8, 16, 1000, 64),), lambda: embedding_bag(
+            ids, table)
+    if name == "embedding_bag_grad segment":
+        return (eb.bwd_launch_meta(8, 16, 1000, 16),), lambda: \
+            embedding_bag_grad(ids, randn(8, 16), 1000)
+    if name == "embedding_bag_grad counts":
+        return (eb.bwd_launch_meta(8, 16, 100_000, 0),), lambda: \
+            embedding_bag_grad(ids, randn(8, 0), 100_000)
+    if name == "embedding_bag_grad_resident":
+        return (eb.resident_launch_meta(8, 16, 1000, 16),), lambda: \
+            embedding_bag_grad_resident(ids, randn(8, 16), 1000)
+    if name == "gba_apply":              # N % 4 != 0: one column a thread
+        return (ga.launch_meta(4099, 4),), lambda: gba_apply(
+            randn(4099), randn(4099).abs(), randn(4, 4099), tokens, 9, 1e-3,
+            iota=4)
+    if name == "gba_aggregate":
+        return (gg.launch_meta(8192, 4, torch.bfloat16),), lambda: \
+            gba_aggregate(randn(4, 8192, dtype=torch.bfloat16), tokens, 9,
+                          iota=4)
+    if name == "fused_adagrad":
+        return (fa.launch_meta(10_001, torch.bfloat16),), lambda: \
+            fused_adagrad(randn(10_001, dtype=torch.bfloat16),
+                          randn(10_001), randn(10_001).abs(), 1e-3)
+    if name in ("quantize_minmax", "quantize_sign"):
+        mode = name.split("_")[1]
+        fn = quantize_minmax if mode == "minmax" else quantize_sign
+        return (qz.quantize_launch_meta(4, 4096, 512, mode),), lambda: fn(
+            x.clone(), tile=512)
+    if name == "dequantize":
+        q, scale, zero = quantize_minmax(x.clone(), tile=512)
+        return (qz.dequant_launch_meta(4, 4096, 512, "minmax"),), lambda: \
+            dequantize(q, scale, zero, tile=512, mode="minmax",
+                       out=torch.empty_like(x))
+    dtype = torch.bfloat16 if name == "flash_decode ring" else torch.float32
+    hd = 80 if dtype == torch.bfloat16 else 112
+    q = randn(2, 4, 2, hd, dtype=dtype)
+    k, v = randn(2, 1000, 4, hd, dtype=dtype), randn(2, 1000, 4, hd,
+                                                   dtype=dtype)
+    metas = fd.launch_meta(2, 1000, 4, 2, hd, dtype)
+    return (metas if isinstance(metas, tuple) else (metas,)), lambda: \
+        flash_decode(q, k, v, 900)
+
+
+@pytest.mark.parametrize("name", [
+    "embedding_bag", "embedding_bag_grad segment",
+    "embedding_bag_grad counts", "embedding_bag_grad_resident", "gba_apply",
+    "gba_aggregate", "fused_adagrad", "quantize_minmax", "quantize_sign",
+    "dequantize", "flash_decode ring", "flash_decode split"])
+def test_launch_meta_is_the_recorded_launch(name, compiled):
+    """One launch of the kernel at a small shape through its wrapper,
+    recorded by ``torch.profiler``: its grid, block and shared memory (the
+    meta's dynamic bytes plus the compiler's static bytes) as the meta
+    says, and no launch rule finding under the card's limits."""
+    _need_card()
+    from repro_torch.kernels.launch_record import (device_limits, hold,
+                                                   record_launches)
+    metas, run = _launch_case(name)
+    _, events = record_launches(run, compiled)
+    assert len(events) == len(metas), [e["name"] for e in events]
+    limits = device_limits(0)
+    for meta, event in zip(metas, events):
+        row, problems = hold(meta, event, compiled, limits)
+        assert not problems, (row, problems)

@@ -71,7 +71,8 @@ def test_import_loads_no_jax():
             "repro_torch.benchmarks.fig78_batch_ablation, "
             "repro_torch.benchmarks.convergence, "
             "repro_torch.benchmarks.tab52_qps, repro_torch.analysis, "
-            "repro_torch.analysis.__main__; "
+            "repro_torch.analysis.__main__, "
+            "repro_torch.kernels.launch_record; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
